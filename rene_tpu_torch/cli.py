@@ -1,0 +1,74 @@
+"""Command line of the port: a pbrt-v3 scene in, a PNG (and AOVs) out.
+
+    python -m rene_tpu_torch.cli scene.pbrt --spp N --seed S \
+        --output out.png [--aov-normal P] [--aov-albedo P] [--device cuda|cpu]
+
+Counterpart of rene_tpu/cli.py:101 `main` for the slice the port carries
+(path integrator, megakernel engine). The default device is `cuda`; the CPU
+runs the kernel's plain PyTorch version and must be asked for.
+"""
+from __future__ import annotations
+
+import argparse
+import logging
+import sys
+import time
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="rene-tpu-torch",
+        description="pbrt-v3 path tracer on an NVIDIA GPU (PyTorch + CUDA)")
+    p.add_argument("scene", help="pbrt scene file")
+    p.add_argument("--spp", type=int, default=None,
+                   help="samples per pixel (default: 5000, like rene_tpu)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--output", help="override the Film filename")
+    p.add_argument("--aov-normal", metavar="PATH",
+                   help="write the normal AOV image")
+    p.add_argument("--aov-albedo", metavar="PATH",
+                   help="write the albedo AOV image")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="cuda: the CUDA megakernel (default); cpu: its "
+                        "plain PyTorch version")
+    p.add_argument("-v", "--verbose", action="store_true")
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    logging.basicConfig(
+        level=logging.DEBUG if args.verbose else logging.INFO,
+        format="%(levelname)s [%(name)s] %(message)s")
+    log = logging.getLogger("rene_tpu_torch")
+
+    t0 = time.time()
+    from rene_tpu.pbrt import ParseError
+
+    from .scene import load_scene
+    try:
+        scene = load_scene(args.scene)
+    except ParseError as e:
+        print(e.render(args.scene), file=sys.stderr)
+        return 1
+    log.info("scene compiled in %.2fs", time.time() - t0)
+
+    from .render import DEFAULT_SPP, render
+    from .utils.film import save_png, to_aov8, to_aov_normal8, to_rgb8
+    spp = args.spp if args.spp is not None else DEFAULT_SPP
+    out = render(scene, spp=spp, seed=args.seed, device=args.device)
+    written = save_png(args.output or scene.film.filename,
+                       to_rgb8(out["color"]))
+    log.info("wrote %s (%.1f Mrays in %.1fs, %.1f Mrays/s, %d launches)",
+             written, out["total_rays"] / 1e6, out["wall_time"],
+             out["total_rays"] / max(out["wall_time"], 1e-9) / 1e6,
+             out["launches"])
+    if args.aov_normal:
+        save_png(args.aov_normal, to_aov_normal8(out["normal"]))
+    if args.aov_albedo:
+        save_png(args.aov_albedo, to_aov8(out["albedo"]))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,87 @@
+// Row layouts of the scene tables the path megakernel reads.
+// Written by rene_tpu_torch/scene/pack.py; tests/test_torch_frontend.py
+// holds every value here equal to its constant there.
+#pragma once
+
+// triangles: Plücker moments/edges, plane, shading normals, sampling data
+#define TRI_M0 0
+#define TRI_E0 3
+#define TRI_M1 6
+#define TRI_E1 9
+#define TRI_M2 12
+#define TRI_E2 15
+#define TRI_PN 18
+#define TRI_PK 21
+#define TRI_N0 22
+#define TRI_N1 25
+#define TRI_N2 28
+#define TRI_AREA 31
+#define TRI_GN 32
+#define TRI_PRIMS 35
+#define TRI_EMIT 36
+#define TRI_MAT 39
+#define TRI_V0 40
+#define TRI_V1 43
+#define TRI_V2 46
+#define TRI_W 49
+
+// spheres: 3x4 row-major world-to-object and object-to-world matrices
+#define SPH_W2O 0
+#define SPH_O2W 12
+#define SPH_EMIT 24
+#define SPH_MAT 27
+#define SPH_R2 28
+#define SPH_W 29
+
+// material records
+#define MAT_TYPE 0
+#define MAT_ALBEDO 1
+#define MAT_ETA 4
+#define MAT_K 7
+#define MAT_ALPHA 10
+#define MAT_IR 12
+#define MAT_OP 13
+#define MAT_KR2 16
+#define MAT_KT2 19
+#define MAT_FSCALE 22
+#define MAT_W 25
+
+// emit objects (light sampling records)
+#define EO_KIND 0
+#define EO_START 1
+#define EO_COUNT 2
+#define EO_CENTER 3
+#define EO_R2 6
+#define EO_W 7
+
+// distant lights
+#define LIGHT_DIR 0
+#define LIGHT_COLOR 3
+#define LIGHT_W 6
+
+// camera and film constants
+#define CAM_PINV 0
+#define CAM_C2W 12
+#define CAM_ORIGIN 24
+#define CAM_INV_W1 27
+#define CAM_INV_H1 28
+#define CAM_FILTER 29
+#define CAM_BG 30
+#define CAM_W 33
+
+// material types (rene_tpu/scene/types.py)
+#define MAT_NONE 0
+#define MAT_MATTE 1
+#define MAT_GLASS 2
+#define MAT_SUBSTRATE 3
+#define MAT_METAL 4
+#define MAT_MIRROR 5
+#define MAT_UBER 6
+#define MAT_PLASTIC 7
+
+// emit object kinds
+#define KIND_TRIANGLE 0
+#define KIND_SPHERE 1
+
+#define RR_START 12
+#define OUT_ROWS 10

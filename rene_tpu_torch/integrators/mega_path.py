@@ -1,0 +1,253 @@
+"""The path megakernel on the port's main path (slice K1a).
+
+Counterpart of rene_tpu/integrators/pallas_path.py `make_pallas_batch_fn`
+(:5819-6061) for scenes whose triangles fit the immediates budget: the
+TPU kernel `_build_kernel` -> `kernel` (:4266) running its path `body`
+(:4346-4570) over every pixel lane, then `finish` (:5974) mapping lanes
+to pixels.
+
+Each lane owns one pixel and streams `num_samples` paths back to back,
+regenerating a camera ray when a path ends: camera ray, closest hit,
+emitter hit, distant-light NEE, BSDF sampling, the 50/50 emitter/BSDF
+MIS, Russian roulette from depth 12. Per iteration a lane draws, in this
+order: u_coin, u1, u2, ul; coin, ue1..ue4 when the scene has emitters;
+rrv when Russian roulette is on; cj1, cj2 always.
+
+`path_lanes_ref` is the plain PyTorch version of the CUDA kernel in
+csrc/mega_path.cu: the same body over masked lane tensors, in the same
+draw order. `make_mega_batch_fn` returns the runner the render loop
+calls: on a CUDA device it launches the kernel, on the CPU it runs the
+plain version.
+"""
+from __future__ import annotations
+
+import os
+from typing import Dict
+
+import torch
+
+from .. import kernels
+from ..ops import rng
+from ..ops.bsdf import bsdf_eval, bsdf_sample, gather_material, is_diffuse
+from ..ops.intersect import TMIN, closest, emit_pdf
+from ..ops.vec3 import dot3, normalize3, onb_from_w, to_local, to_world
+from ..scene import pack as P
+from ..scene.device import to_torch
+from .camera import camera_ray
+from .common import distant_lights, sample_emit
+
+
+def device_tables(tables: P.SceneTables, device) -> Dict:
+    """The scene tables on `device`, plus the python constants the plain
+    version folds into its arithmetic."""
+    tabs = to_torch(tables.arrays(), device)
+    tabs["cam_f"] = [float(x) for x in tables.cam]
+    tabs["lights_f"] = [tuple(float(x) for x in row)
+                        for row in tables.lights]
+    tabs["has_tri_emitter"] = bool(
+        (tables.emit_objects[:, P.EO_KIND] == 0).any())
+    tabs["width"], tabs["height"] = tables.width, tables.height
+    tabs["max_depth"] = tables.max_depth
+    tabs["use_rr"] = tables.use_rr
+    tabs["n_emit"] = int(tables.emit_objects.shape[0])
+    return tabs
+
+
+def path_lanes_ref(tabs, seed: int, num_samples: int,
+                   beckmann: bool = False) -> torch.Tensor:
+    """Plain PyTorch path megakernel: (10, N) float32 per-lane sums of
+    radiance rgb, first-hit normal xyz, albedo rgb and the ray count; lane
+    i owns pixel i of the film."""
+    W = tabs["width"]
+    cam = tabs["cam_f"]
+    E = tabs["n_emit"]
+    MAXD = tabs["max_depth"]
+    pix = torch.arange(W * tabs["height"], device=tabs["tris"].device)
+    pxf = (pix % W).float()
+    pyf = (pix // W).float()
+    st = rng.seed_state(pix, seed)
+    ju0, st = rng.uniform(st)
+    jv0, st = rng.uniform(st)
+    dx, dy, dz = camera_ray(cam, pxf, pyf, ju0, jv0)
+    zero = torch.zeros_like(pxf)
+    izero = torch.zeros_like(pix)
+    co = cam[P.CAM_ORIGIN:P.CAM_ORIGIN + 3]
+    bg = cam[P.CAM_BG:P.CAM_BG + 3]
+    ray_inc = 1.0 + len(tabs["lights_f"]) + (1.0 if E > 0 else 0.0)
+    c = {"ox": zero + co[0], "oy": zero + co[1], "oz": zero + co[2],
+         "dx": dx, "dy": dy, "dz": dz,
+         "cr": zero + 1.0, "cg": zero + 1.0, "cb": zero + 1.0,
+         "depth": izero, "sample": izero,
+         "rr": zero, "rg": zero, "rb": zero,
+         "anx": zero, "any": zero, "anz": zero,
+         "aar": zero, "aag": zero, "aab": zero, "rays": zero, "st": st}
+
+    while bool((c["sample"] < num_samples).any()):
+        active = c["sample"] < num_samples
+        cr, cg, cb = c["cr"], c["cg"], c["cb"]
+        depth = c["depth"]
+        rays = c["rays"] + torch.where(active, 1.0, 0.0) * ray_inc
+
+        t, hit, anx_, any__, anz_, alr, alg, alb, mat_id = closest(
+            tabs, c["ox"], c["oy"], c["oz"], c["dx"], c["dy"], c["dz"], TMIN)
+        attr = gather_material(tabs["mats"], mat_id, hit)
+        miss = active & ~hit
+        rr_ = c["rr"] + torch.where(miss, cr * bg[0], 0.0)
+        rg_ = c["rg"] + torch.where(miss, cg * bg[1], 0.0)
+        rb_ = c["rb"] + torch.where(miss, cb * bg[2], 0.0)
+        alive = active & hit
+
+        hx = c["ox"] + t * c["dx"]
+        hy = c["oy"] + t * c["dy"]
+        hz = c["oz"] + t * c["dz"]
+        nx, ny, nz = normalize3(anx_, any__, anz_)
+        wox, woy, woz = -c["dx"], -c["dy"], -c["dz"]
+        ux, uy, uz, vx, vy, vz = onb_from_w(nx, ny, nz)
+
+        # emitter hit (one-sided)
+        al_on = alive & ((alr != 0.0) | (alg != 0.0) | (alb != 0.0)) \
+            & (dot3(wox, woy, woz, nx, ny, nz) > 0.0)
+        rr_ = rr_ + torch.where(al_on, cr * alr, 0.0)
+        rg_ = rg_ + torch.where(al_on, cg * alg, 0.0)
+        rb_ = rb_ + torch.where(al_on, cb * alb, 0.0)
+
+        # AOVs at depth 0
+        first = alive & (depth == 0)
+        anx = c["anx"] + torch.where(first, nx, 0.0)
+        any_ = c["any"] + torch.where(first, ny, 0.0)
+        anz = c["anz"] + torch.where(first, nz, 0.0)
+        aar = c["aar"] + torch.where(first, attr["abr"], 0.0)
+        aag = c["aag"] + torch.where(first, attr["abg"], 0.0)
+        aab = c["aab"] + torch.where(first, attr["abb"], 0.0)
+
+        frame = (ux, uy, uz, vx, vy, vz, nx, ny, nz)
+        lo = to_local(*frame, wox, woy, woz)
+        rr_, rg_, rb_ = distant_lights(
+            tabs, tabs["lights_f"], (rr_, rg_, rb_), hx, hy, hz, frame,
+            attr, lo, alive, cr, cg, cb, beckmann)
+
+        # scatter
+        u_coin, st = rng.uniform(c["st"])
+        u1, st = rng.uniform(st)
+        u2, st = rng.uniform(st)
+        ul, st = rng.uniform(st)
+        swx, swy, swz, sfr, sfg, sfb, spdf = bsdf_sample(
+            attr, *lo, u_coin, u1, u2, ul, beckmann)
+        swx, swy, swz = to_world(*frame, swx, swy, swz)
+
+        if E > 0:
+            coin, st = rng.uniform(st)
+            ue1, st = rng.uniform(st)
+            ue2, st = rng.uniform(st)
+            ue3, st = rng.uniform(st)
+            ue4, st = rng.uniform(st)
+            ls_wx, ls_wy, ls_wz = sample_emit(tabs, hx, hy, hz,
+                                              ue1, ue2, ue3, ue4)
+            diffuse = is_diffuse(attr)
+            take_light = (coin > 0.5) & diffuse
+            wx_ = torch.where(take_light, ls_wx, swx)
+            wy_ = torch.where(take_light, ls_wy, swy)
+            wz_ = torch.where(take_light, ls_wz, swz)
+            llx, lly, llz = to_local(*frame, ls_wx, ls_wy, ls_wz)
+            fe_r, fe_g, fe_b, fe_pdf = bsdf_eval(attr, *lo, llx, lly, llz,
+                                                 beckmann)
+            f_r = torch.where(take_light, fe_r, sfr)
+            f_g = torch.where(take_light, fe_g, sfg)
+            f_b = torch.where(take_light, fe_b, sfb)
+            pdf_b = torch.where(take_light, fe_pdf, spdf)
+            lpdf = emit_pdf(tabs, hx, hy, hz, wx_, wy_, wz_) \
+                / torch.full_like(hx, float(E))
+            pdf = torch.where(diffuse, 0.5 * pdf_b + 0.5 * lpdf, spdf)
+            f_r = torch.where(diffuse, f_r, sfr)
+            f_g = torch.where(diffuse, f_g, sfg)
+            f_b = torch.where(diffuse, f_b, sfb)
+            wx_ = torch.where(diffuse, wx_, swx)
+            wy_ = torch.where(diffuse, wy_, swy)
+            wz_ = torch.where(diffuse, wz_, swz)
+        else:
+            wx_, wy_, wz_, f_r, f_g, f_b, pdf = (swx, swy, swz, sfr, sfg,
+                                                 sfb, spdf)
+
+        alive = alive & (pdf >= 1e-5)
+        cosw = torch.abs(wx_ * nx + wy_ * ny + wz_ * nz)
+        scale = cosw / torch.clamp_min(pdf, 1e-20)
+        cr = cr * f_r * scale
+        cg = cg * f_g * scale
+        cb = cb * f_b * scale
+        alive = alive & ((cr != 0.0) | (cg != 0.0) | (cb != 0.0))
+
+        if tabs["use_rr"]:
+            rrv, st = rng.uniform(st)
+            p_cont = torch.clamp(torch.maximum(cr, torch.maximum(cg, cb)),
+                                 0.0, 1.0)
+            do_rr = depth > P.RR_START
+            alive = alive & (~do_rr | (rrv <= p_cont))
+            inv_p = 1.0 / torch.clamp_min(p_cont, 1e-20)
+            keep = do_rr & alive
+            cr = torch.where(keep, cr * inv_p, cr)
+            cg = torch.where(keep, cg * inv_p, cg)
+            cb = torch.where(keep, cb * inv_p, cb)
+
+        depth = depth + 1
+        alive = alive & (depth < MAXD)
+
+        # regeneration
+        finished = active & ~alive
+        sample = c["sample"] + finished.long()
+        regen = finished & (sample < num_samples)
+        cj1, st = rng.uniform(st)
+        cj2, st = rng.uniform(st)
+        cdx, cdy, cdz = camera_ray(cam, pxf, pyf, cj1, cj2)
+
+        def pick3(a1, a2, b2c):
+            return torch.where(regen, a1, torch.where(alive, a2, b2c))
+
+        c = {"ox": pick3(zero + co[0], hx, c["ox"]),
+             "oy": pick3(zero + co[1], hy, c["oy"]),
+             "oz": pick3(zero + co[2], hz, c["oz"]),
+             "dx": pick3(cdx, wx_, c["dx"]),
+             "dy": pick3(cdy, wy_, c["dy"]),
+             "dz": pick3(cdz, wz_, c["dz"]),
+             "cr": pick3(zero + 1.0, cr, c["cr"]),
+             "cg": pick3(zero + 1.0, cg, c["cg"]),
+             "cb": pick3(zero + 1.0, cb, c["cb"]),
+             "depth": torch.where(regen, 0, torch.where(alive, depth,
+                                                        c["depth"])),
+             "sample": sample,
+             "rr": rr_, "rg": rg_, "rb": rb_,
+             "anx": anx, "any": any_, "anz": anz,
+             "aar": aar, "aag": aag, "aab": aab,
+             "rays": rays, "st": st}
+
+    return torch.stack([c[k] for k in ("rr", "rg", "rb", "anx", "any", "anz",
+                                       "aar", "aag", "aab", "rays")])
+
+
+def finish(out: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """(10, N) lane sums -> per-pixel dict (lane i owns pixel i)."""
+    return {"radiance": out[0:3].T, "normal": out[3:6].T,
+            "albedo": out[6:9].T,
+            "rays": out[9].sum(dtype=torch.float64)}
+
+
+def make_mega_batch_fn(buffers_np, config, device):
+    """Runner for the chunk loop: `run(seed, num_samples)` returns per-pixel
+    (N, 3) radiance/normal/albedo SUMS over the chunk's samples and the
+    ray count. Raises NotImplementedError for scenes outside slice K1a.
+
+    On a CUDA device every call launches csrc/mega_path.cu once (counted
+    by `kernels.mega_path.launches`); on the CPU it runs `path_lanes_ref`.
+    There is no fallback between the two."""
+    device = torch.device(device)
+    tabs = device_tables(P.pack_tables(buffers_np, config), device)
+    # the RENE_MF_DIST=beckmann diagnostic (pallas_path.py:3563), read once
+    # per runner as the JAX kernel reads it once per build
+    beckmann = os.environ.get("RENE_MF_DIST", "") == "beckmann"
+
+    def run(seed: int, num_samples: int):
+        return finish(kernels.mega_path(tabs, int(seed), int(num_samples),
+                                        beckmann))
+
+    run.chunk_hint = 100
+    run.spp_mult = 1
+    return run

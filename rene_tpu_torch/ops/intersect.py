@@ -1,0 +1,235 @@
+"""Ray casts of the megakernel over the scene's triangles and spheres.
+
+Counterpart of pallas_path.py `trace_closest` (:2775-3116, its
+immediates part), `trace_any` (:3117-3217, in the constant-direction form
+that distant-light shadows take) and `trace_emit_pdf` (:3218-3279).
+
+The TPU kernel unrolls one test per primitive and keeps the closest hit
+with `t < t_best` selects. Here all primitives are tested at once as an
+(N, P) block; the winner is the first primitive with the smallest valid
+t, which is the same primitive the sequential strict-less chain keeps
+(triangles first, then spheres). Its attributes are then recomputed for
+that primitive alone, with the same arithmetic.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..scene import pack as P
+from .vec3 import normalize3
+
+BIG = 3e38
+TMIN = 1e-3
+TWO_PI = 2.0 * math.pi
+
+
+def _tri_sides(rows, ox, oy, oz, dx, dy, dz, wx, wy, wz):
+    """Plücker side values and plane distance of rays against triangles;
+    `rows` is (P, TRI_W) with lanes (N, 1), or (N, TRI_W) with lanes (N,)."""
+    def c(o):
+        return rows[..., o]
+
+    s0 = (dx * c(P.TRI_M0) + dy * c(P.TRI_M0 + 1) + dz * c(P.TRI_M0 + 2)) \
+        + (wx * c(P.TRI_E0) + wy * c(P.TRI_E0 + 1) + wz * c(P.TRI_E0 + 2))
+    s1 = (dx * c(P.TRI_M1) + dy * c(P.TRI_M1 + 1) + dz * c(P.TRI_M1 + 2)) \
+        + (wx * c(P.TRI_E1) + wy * c(P.TRI_E1 + 1) + wz * c(P.TRI_E1 + 2))
+    s2 = (dx * c(P.TRI_M2) + dy * c(P.TRI_M2 + 1) + dz * c(P.TRI_M2 + 2)) \
+        + (wx * c(P.TRI_E2) + wy * c(P.TRI_E2 + 1) + wz * c(P.TRI_E2 + 2))
+    dn = dx * c(P.TRI_PN) + dy * c(P.TRI_PN + 1) + dz * c(P.TRI_PN + 2)
+    t = (c(P.TRI_PK) - (ox * c(P.TRI_PN) + oy * c(P.TRI_PN + 1)
+                        + oz * c(P.TRI_PN + 2))) \
+        / torch.where(torch.abs(dn) > 1e-12, dn, 1e-12)
+    return s0, s1, s2, dn, t
+
+
+def _side_ok(s0, s1, s2, dn):
+    side = ((s0 >= 0) & (s1 >= 0) & (s2 >= 0)) | \
+        ((s0 <= 0) & (s1 <= 0) & (s2 <= 0))
+    return side & (torch.abs(dn) > 1e-12)
+
+
+def _sphere_local(rows, ox, oy, oz, dx, dy, dz):
+    """Ray in each sphere's object space (W2O applied)."""
+    def m(r, k):
+        return rows[..., P.SPH_W2O + 4 * r + k]
+
+    lox = m(0, 0) * ox + m(0, 1) * oy + m(0, 2) * oz + m(0, 3)
+    loy = m(1, 0) * ox + m(1, 1) * oy + m(1, 2) * oz + m(1, 3)
+    loz = m(2, 0) * ox + m(2, 1) * oy + m(2, 2) * oz + m(2, 3)
+    ldx = m(0, 0) * dx + m(0, 1) * dy + m(0, 2) * dz
+    ldy = m(1, 0) * dx + m(1, 1) * dy + m(1, 2) * dz
+    ldz = m(2, 0) * dx + m(2, 1) * dy + m(2, 2) * dz
+    return lox, loy, loz, ldx, ldy, ldz
+
+
+def _sphere_t(lox, loy, loz, ldx, ldy, ldz, tmin):
+    """Nearest root >= tmin of the unit sphere, BIG where none."""
+    a = ldx * ldx + ldy * ldy + ldz * ldz
+    half_b = lox * ldx + loy * ldy + loz * ldz
+    c = lox * lox + loy * loy + loz * loz - 1.0
+    disc = half_b * half_b - a * c
+    sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+    inv_a = 1.0 / torch.clamp_min(a, 1e-20)
+    r0 = (-half_b - sq) * inv_a
+    r1 = (-half_b + sq) * inv_a
+    okd = disc >= 0.0
+    return torch.where(okd & (r0 >= tmin), r0,
+                       torch.where(okd & (r1 >= tmin), r1, BIG))
+
+
+def _lanes(*xs):
+    return tuple(x[:, None] for x in xs)
+
+
+def closest(tabs, ox, oy, oz, dx, dy, dz, tmin=TMIN):
+    """(t, hit, nx, ny, nz, emit r, g, b, material id): t is BIG on a miss,
+    the normal is the interpolated shading normal (not normalized)."""
+    tris, sph = tabs["tris"], tabs["spheres"]
+    n_tri, n_sph = tris.shape[0], sph.shape[0]
+    wx = oy * dz - oz * dy
+    wy = oz * dx - ox * dz
+    wz = ox * dy - oy * dx
+    lanes = _lanes(ox, oy, oz, dx, dy, dz)
+    cand = []
+    if n_tri:
+        s0, s1, s2, dn, t = _tri_sides(tris, *lanes, *_lanes(wx, wy, wz))
+        ok = _side_ok(s0, s1, s2, dn) & (t >= tmin)
+        cand.append(torch.where(ok, t, math.inf))
+    if n_sph:
+        cand.append(_sphere_t(*_sphere_local(sph, *lanes), tmin))
+    zero = torch.zeros_like(ox)
+    if not cand:
+        return (zero + BIG, zero > 0, zero, zero, zero, zero, zero, zero,
+                zero.long())
+    t_best, idx = torch.cat(cand, dim=1).min(dim=1)
+    hit = t_best < BIG
+    t = torch.where(hit, t_best, BIG)
+
+    nx = ny = nz = er = eg = eb = zero
+    mat = torch.zeros_like(idx)
+    if n_tri:
+        is_tri = hit & (idx < n_tri)
+        rows = tris[idx.clamp(max=n_tri - 1)]
+        s0, s1, s2, _, _ = _tri_sides(rows, ox, oy, oz, dx, dy, dz,
+                                      wx, wy, wz)
+        denom = s0 + s1 + s2
+        denom = torch.where(torch.abs(denom) > 1e-30, denom, 1e-30)
+        bu = s2 / denom
+        bv = s0 / denom
+        w0 = 1.0 - bu - bv
+        tn = [w0 * rows[:, P.TRI_N0 + k] + bu * rows[:, P.TRI_N1 + k]
+              + bv * rows[:, P.TRI_N2 + k] for k in range(3)]
+        nx = torch.where(is_tri, tn[0], nx)
+        ny = torch.where(is_tri, tn[1], ny)
+        nz = torch.where(is_tri, tn[2], nz)
+        er = torch.where(is_tri, rows[:, P.TRI_EMIT], er)
+        eg = torch.where(is_tri, rows[:, P.TRI_EMIT + 1], eg)
+        eb = torch.where(is_tri, rows[:, P.TRI_EMIT + 2], eb)
+        mat = torch.where(is_tri, rows[:, P.TRI_MAT].long(), mat)
+    if n_sph:
+        is_sph = hit & (idx >= n_tri)
+        rows = sph[(idx - n_tri).clamp(0, n_sph - 1)]
+        lox, loy, loz, ldx, ldy, ldz = _sphere_local(rows, ox, oy, oz,
+                                                     dx, dy, dz)
+        px_ = lox + t * ldx
+        py_ = loy + t * ldy
+        pz_ = loz + t * ldz
+
+        def m(r, k):
+            return rows[:, P.SPH_W2O + 4 * r + k]
+
+        sn = [m(0, k) * px_ + m(1, k) * py_ + m(2, k) * pz_ for k in range(3)]
+        nx = torch.where(is_sph, sn[0], nx)
+        ny = torch.where(is_sph, sn[1], ny)
+        nz = torch.where(is_sph, sn[2], nz)
+        er = torch.where(is_sph, rows[:, P.SPH_EMIT], er)
+        eg = torch.where(is_sph, rows[:, P.SPH_EMIT + 1], eg)
+        eb = torch.where(is_sph, rows[:, P.SPH_EMIT + 2], eb)
+        mat = torch.where(is_sph, rows[:, P.SPH_MAT].long(), mat)
+    return t, hit, nx, ny, nz, er, eg, eb, mat
+
+
+def shadow_any(tabs, li, ox, oy, oz, dx, dy, dz, tmin, tmax):
+    """Any hit in [tmin, tmax] along distant light `li`'s direction d (the
+    same for every lane). The direction's dot products with each
+    triangle's Plücker moments and plane normal come precomputed from the
+    host (`light_dots`), as the JAX kernel folds them into constants."""
+    tris, sph = tabs["tris"], tabs["spheres"]
+    hit = torch.zeros_like(ox, dtype=torch.bool)
+    lanes = _lanes(ox, oy, oz, dx, dy, dz)
+    if tris.shape[0]:
+        dots = tabs["light_dots"][li]
+        wx = oy * dz - oz * dy
+        wy = oz * dx - ox * dz
+        wz = ox * dy - oy * dx
+        w = _lanes(wx, wy, wz)
+
+        def side(dcol, eoff):
+            return dots[:, dcol] + (w[0] * tris[:, eoff]
+                                    + w[1] * tris[:, eoff + 1]
+                                    + w[2] * tris[:, eoff + 2])
+
+        s0 = side(0, P.TRI_E0)
+        s1 = side(1, P.TRI_E1)
+        s2 = side(2, P.TRI_E2)
+        dn = dots[:, 3]
+        o = lanes[:3]
+        t = (tris[:, P.TRI_PK] - (o[0] * tris[:, P.TRI_PN]
+                                  + o[1] * tris[:, P.TRI_PN + 1]
+                                  + o[2] * tris[:, P.TRI_PN + 2])) \
+            / torch.where(torch.abs(dn) > 1e-12, dn, 1e-12)
+        ok = _side_ok(s0, s1, s2, dn) & (t >= tmin) & (t <= tmax)
+        hit = hit | ok.any(dim=1)
+    if sph.shape[0]:
+        t = _sphere_t(*_sphere_local(sph, *lanes), tmin)
+        hit = hit | (t <= tmax).any(dim=1)
+    return hit
+
+
+def emit_pdf(tabs, ox, oy, oz, dx, dy, dz):
+    """Solid-angle pdf of the emitter sampler for direction d: the closest
+    EMISSIVE primitive along the ray (occluders are ignored) decides it;
+    0 where the ray hits no emitter."""
+    tris, sph = tabs["tris"], tabs["spheres"]
+    et, es = tabs["emit_tris"].long(), tabs["emit_spheres"].long()
+    lanes = _lanes(ox, oy, oz, dx, dy, dz)
+    ndx, ndy, ndz = _lanes(*normalize3(dx, dy, dz))
+    ts, ps = [], []
+    if et.shape[0]:
+        rows = tris[et]
+        wx = oy * dz - oz * dy
+        wy = oz * dx - ox * dz
+        wz = ox * dy - oy * dx
+        s0, s1, s2, dn, t = _tri_sides(rows, *lanes, *_lanes(wx, wy, wz))
+        ok = _side_ok(s0, s1, s2, dn) & (t >= TMIN)
+        ldx, ldy, ldz = lanes[3:]
+        dist2 = t * t * (ldx * ldx + ldy * ldy + ldz * ldz)
+        gn = rows[:, P.TRI_GN:P.TRI_GN + 3]
+        cosine = torch.abs(ndx * gn[:, 0] + ndy * gn[:, 1] + ndz * gn[:, 2])
+        p = dist2 / torch.clamp_min(cosine * rows[:, P.TRI_AREA], 1e-20) \
+            / rows[:, P.TRI_PRIMS]
+        ts.append(torch.where(ok, t, math.inf))
+        ps.append(p)
+    if es.shape[0]:
+        rows = sph[es]
+        t = _sphere_t(*_sphere_local(rows, *lanes), TMIN)
+        o = lanes[:3]
+        ex = rows[:, P.SPH_O2W + 3] - o[0]
+        ey = rows[:, P.SPH_O2W + 7] - o[1]
+        ez = rows[:, P.SPH_O2W + 11] - o[2]
+        d2 = ex * ex + ey * ey + ez * ez
+        r2 = rows[:, P.SPH_R2]
+        cos_max = torch.sqrt(torch.clamp_min(
+            1.0 - r2 / torch.clamp_min(d2, 1e-20), 0.0))
+        p = torch.where(d2 <= r2, 1.0 / (2.0 * TWO_PI),
+                        1.0 / torch.clamp_min(TWO_PI * (1.0 - cos_max),
+                                              1e-20))
+        ts.append(t)
+        ps.append(p)
+    if not ts:
+        return torch.zeros_like(ox)
+    t_best, idx = torch.cat(ts, dim=1).min(dim=1)
+    pdf = torch.cat(ps, dim=1).gather(1, idx[:, None])[:, 0]
+    return torch.where(t_best < BIG, pdf, 0.0)

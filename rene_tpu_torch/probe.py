@@ -1,0 +1,119 @@
+"""Where a main-path render's time goes, on a CUDA card.
+
+    python -m rene_tpu_torch.probe [--out DIR] [--size 1024]
+
+Renders the inline Cornell box (rene_tpu_torch.scenes.cornell_box) at
+size x size and prints one JSON object per line:
+
+* the card (nvidia-smi name, power limit, SM clock and its maximum);
+* the creation of the CUDA context, then the host phases of one render:
+  scene load, `build_device_scene`, `pack_tables`, the tables' upload;
+* renders through `render()` at 64, 256 and 1024 spp after a warm-up
+  launch: rays, wall time, Mrays/s, launches;
+* the PNG encode of the last image;
+* the kernel's time per launch by chunk size (1, 4, 16, 64, 100 spp;
+  CUDA events over 5 launches each) and its Mrays/s;
+* a 64-spp render under torch.profiler: wall time and the operations
+  with the most device time; the Chrome trace goes to DIR.
+
+Needs a CUDA device and nvcc; it builds the kernel on first use.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+from . import kernels, scenes
+from .integrators import mega_path as M
+from .render import render
+from .scene import build_device_scene, load_scene
+from .scene import pack as P
+from .utils.film import save_png, to_rgb8
+
+
+def emit(**kw):
+    print(json.dumps(kw), flush=True)
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(prog="python -m rene_tpu_torch.probe")
+    p.add_argument("--out", default=os.path.join("chiprun_out", "probe"))
+    p.add_argument("--size", type=int, default=1024)
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("probe: no CUDA device", file=sys.stderr)
+        return 2
+    os.makedirs(args.out, exist_ok=True)
+    emit(card=subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip())
+    path = os.path.join(args.out, "cornell.pbrt")
+    with open(path, "w") as f:
+        f.write(scenes.cornell_box(args.size, args.size))
+    kernels.build()
+    dev = torch.device("cuda", 0)
+
+    def timed(fn):
+        t = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize(dev)
+        return r, time.perf_counter() - t
+
+    _, t_ctx = timed(lambda: torch.zeros(1, device=dev))
+    scene, t_load = timed(lambda: load_scene(path))
+    (bn, cfg), t_bds = timed(lambda: build_device_scene(scene))
+    tables, t_pack = timed(lambda: P.pack_tables(bn, cfg))
+    tabs, t_up = timed(lambda: M.device_tables(tables, dev))
+    emit(cuda_context_s=t_ctx, load_scene_s=t_load,
+         build_device_scene_s=t_bds, pack_tables_s=t_pack, upload_s=t_up)
+
+    timed(lambda: kernels.mega_path(tabs, 1, 1))   # warm-up
+    for spp in (64, 256, 1024):
+        out = render(scene, spp=spp, seed=3, device=dev)
+        emit(spp=spp, rays=out["total_rays"], wall_s=out["wall_time"],
+             mrays_s=out["total_rays"] / out["wall_time"] / 1e6,
+             launches=out["launches"], mean=float(out["color"].mean()))
+    _, t_png = timed(lambda: save_png(os.path.join(args.out, "cornell.png"),
+                                      to_rgb8(out["color"])))
+    emit(png_encode_s=t_png)
+
+    for spp in (1, 4, 16, 64, 100):
+        timed(lambda: kernels.mega_path(tabs, 5, spp))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for r in range(5):
+            o = kernels.mega_path(tabs, 7 + r, spp)
+        end.record()
+        torch.cuda.synchronize(dev)
+        ms = start.elapsed_time(end) / 5
+        rays = float(o[9].sum(dtype=torch.float64))
+        emit(chunk_spp=spp, kernel_ms=ms, rays=rays,
+             kernel_mrays_s=rays / ms / 1e3)
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall = timed(lambda: render(scene, spp=64, seed=9, device=dev))
+    rows = []
+    for k in prof.key_averages():
+        dt = getattr(k, "device_time_total", None)
+        if dt is None:
+            dt = getattr(k, "cuda_time_total", 0)
+        if dt:
+            rows.append({"op": k.key[:90], "device_us": dt, "n": k.count})
+    rows.sort(key=lambda r: -r["device_us"])
+    emit(profiled_spp=64, wall_s=wall, top=rows[:12])
+    prof.export_chrome_trace(os.path.join(args.out, "render64_trace.json"))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,182 @@
+"""The port's scene frontend: no jax, tables equal to the JAX packer's.
+
+Exact equality throughout: both packers compute the same float64
+expressions from the same float32 buffers, and the tables are their
+float32 casts.
+"""
+import re
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from rene_tpu.pbrt import parse_pbrt
+from rene_tpu.scene import create_scene
+from rene_tpu.scene.device import build_device_scene
+from rene_tpu_torch import scenes
+from rene_tpu_torch.scene import pack as P
+
+torch.set_num_threads(2)
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def _scene(src, base="/tmp"):
+    return build_device_scene(create_scene(parse_pbrt(src), base))
+
+
+def test_imports_and_renders_without_jax(tmp_path):
+    """With jax blocked, the port imports, packs a scene and renders it
+    on the CPU through its CLI."""
+    scene = tmp_path / "s.pbrt"
+    scene.write_text(scenes.cornell_box(16, 8))
+    code = textwrap.dedent(f"""
+        import sys
+        sys.modules["jax"] = None
+        import rene_tpu_torch, rene_tpu_torch.cli, rene_tpu_torch.kernels
+        import rene_tpu_torch.checks, rene_tpu_torch.probe
+        from rene_tpu_torch.scene import build_device_scene, load_scene
+        from rene_tpu_torch.scene.pack import pack_tables
+        bn, cfg = build_device_scene(load_scene({str(scene)!r}))
+        tables = pack_tables(bn, cfg)
+        assert tables.tris.shape == (32, {P.TRI_W})
+        rc = rene_tpu_torch.cli.main([{str(scene)!r}, "--device", "cpu",
+                                      "--spp", "1", "--output",
+                                      {str(tmp_path / "o.png")!r}])
+        assert rc == 0
+        assert not any(m == "jax" or m.startswith("jax.")
+                       for m, v in sys.modules.items() if v is not None)
+        print("OK")
+    """)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("OK")
+    assert (tmp_path / "o.png").exists()
+
+
+def test_mat_fetches_copy_matches_reference():
+    from rene_tpu.ops.bsdf import _MAT_FETCHES
+    assert P._MAT_FETCHES == _MAT_FETCHES
+
+
+def test_layout_header_matches_pack_constants():
+    """csrc/layout.cuh and scene/pack.py describe the same rows."""
+    text = (REPO / "rene_tpu_torch" / "csrc" / "layout.cuh").read_text()
+    defs = dict(re.findall(r"#define (\w+) (-?\d+)\s*$", text, re.M))
+    from rene_tpu.scene import types as T
+    names = [n for n in defs if hasattr(P, n) or hasattr(T, n)]
+    assert len(names) == len(defs)
+    for name in names:
+        want = getattr(P, name) if hasattr(P, name) else getattr(T, name)
+        assert int(defs[name]) == want, name
+
+
+@pytest.fixture(scope="module")
+def materials():
+    return _scene(scenes.materials_scene())
+
+
+def test_records_match_pack_scene(materials, monkeypatch):
+    monkeypatch.setenv("RENE_QUAD_FUSE", "0")
+    from rene_tpu.integrators.pallas_path import pack_scene
+    bn, cfg = materials
+    ps = pack_scene(bn, cfg)
+    tris, spheres, emit_objects, lights = P.pack_records(bn, cfg)
+    assert len(tris) == len(ps.tris) == 6
+    assert len(spheres) == len(ps.spheres) == 8
+    assert {r["mat_type"] for r in spheres} == set(range(8))
+    for mine, ref in zip(tris + spheres, ps.tris + ps.spheres):
+        for key, val in mine.items():
+            if key == "mat_id":
+                continue
+            assert np.array_equal(np.asarray(val), np.asarray(ref[key])), key
+    assert [e["kind"] for e in emit_objects] == \
+        [e["kind"] for e in ps.emit_objects]
+    for mine, ref in zip(emit_objects, ps.emit_objects):
+        if ref["kind"] == "sphere":
+            assert mine["o2w"] == ref["o2w"]
+        else:
+            prims = [tuple(tuple(v) for v in bn["tri_p"][i].astype(float))
+                     for i in range(mine["start"],
+                                    mine["start"] + mine["count"])]
+            assert prims == ref["prims"]
+    assert lights == ps.lights
+
+
+def test_tables_are_float32_casts_of_records(materials):
+    bn, cfg = materials
+    tb = P.pack_tables(bn, cfg)
+    tris, spheres, _, lights = P.pack_records(bn, cfg)
+    for i, r in enumerate(tris):
+        row = tb.tris[i]
+        for key, off in (("m0", P.TRI_M0), ("e2", P.TRI_E2), ("pn", P.TRI_PN),
+                         ("n1", P.TRI_N1), ("gn_unit", P.TRI_GN),
+                         ("v2", P.TRI_V2)):
+            np.testing.assert_array_equal(row[off:off + 3],
+                                          np.float32(r[key]))
+        assert row[P.TRI_PK] == np.float32(r["pk"])
+        assert row[P.TRI_MAT] == r["mat_id"]
+        emit = np.float32(r["emit"]) if r["emissive"] else np.zeros(3)
+        np.testing.assert_array_equal(row[P.TRI_EMIT:P.TRI_EMIT + 3], emit)
+    for s, r in enumerate(spheres):
+        np.testing.assert_array_equal(tb.spheres[s, :12],
+                                      np.float32(r["w2o"]).reshape(-1))
+        m = tb.mats[r["mat_id"]]
+        assert m[P.MAT_TYPE] == r["mat_type"]
+        np.testing.assert_array_equal(m[P.MAT_ALPHA:P.MAT_ALPHA + 2],
+                                      np.float32(r["alpha"]))
+    assert tb.emit_tris.tolist() == [4, 5]
+    assert tb.lights.shape == (1, P.LIGHT_W) and len(lights) == 1
+    assert tb.light_dots.shape == (1, 6, 4)
+    assert tb.max_depth == 16 and tb.use_rr
+    assert tb.cam[P.CAM_FILTER] == 1.0
+
+
+_QUAD = ('Shape "trianglemesh" "integer indices" [0 1 2 0 2 3] '
+         '"point P" [-1 -1 0 1 -1 0 1 1 0 -1 1 0]')
+
+
+def _grid(n):
+    """A mesh of 2 n^2 triangles."""
+    pts, idx = [], []
+    for j in range(n + 1):
+        for i in range(n + 1):
+            pts += [i / n, j / n, 0.0]
+    for j in range(n):
+        for i in range(n):
+            a = j * (n + 1) + i
+            idx += [a, a + 1, a + n + 2, a, a + n + 2, a + n + 1]
+    return ('Shape "trianglemesh" "integer indices" [{}] "point P" [{}]'
+            .format(" ".join(map(str, idx)), " ".join(map(str, pts))))
+
+
+_HEAD = 'Film "image" "integer xresolution" [8] "integer yresolution" [8]\n'
+
+
+@pytest.mark.parametrize("src,item", [
+    (_HEAD + 'WorldBegin\nTexture "c" "spectrum" "checkerboard"\n'
+     'Material "matte" "texture Kd" "c"\n' + _QUAD + "\nWorldEnd", "K1b"),
+    ('Integrator "volpath"\n' + _HEAD + "WorldBegin\n" + _QUAD
+     + "\nWorldEnd", "K1e"),
+    (_HEAD + "WorldBegin\n" + _grid(17) + "\nWorldEnd", "K1c"),
+    ('Sampler "sobol"\n' + _HEAD + "WorldBegin\n" + _QUAD + "\nWorldEnd",
+     "sobol"),
+    (_HEAD + "WorldBegin\n" + "\n".join(
+        f'AttributeBegin\nTranslate {i} 0 0\nShape "sphere" '
+        f'"float radius" 0.1\nAttributeEnd' for i in range(65))
+     + "\nWorldEnd", "K1d"),
+], ids=["textured", "volpath", "big_mesh", "sobol", "many_spheres"])
+def test_slice_supported_rejects(src, item):
+    bn, cfg = _scene(src)
+    with pytest.raises(NotImplementedError, match=item):
+        P.slice_supported(bn, cfg)
+
+
+def test_slice_supported_accepts_main_path_scenes():
+    for src in (scenes.cornell_box(8, 8), scenes.materials_scene(8, 8)):
+        P.slice_supported(*_scene(src))
