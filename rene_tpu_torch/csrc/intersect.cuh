@@ -1,9 +1,12 @@
-// Ray casts of the path megakernel: brute-force loops over the scene's
-// triangles and spheres in device memory. Mirrors
-// rene_tpu_torch/ops/intersect.py (pallas_path.py:2775-3279): the first
+// Ray casts of the path megakernel. Mirrors
+// rene_tpu_torch/ops/intersect.py (pallas_path.py:2775-3279): brute-force
+// loops over the immediate triangles and spheres, where the first
 // primitive with the smallest t wins (strict less), triangles before
-// spheres.
+// spheres; then, in the MESH variant, the world mesh and each shared-BLAS
+// instance (bvh.cuh) from the immediates' closest t, replacing their hit
+// only where closer, and the sphere table last.
 #pragma once
+#include "bvh.cuh"
 #include "layout.cuh"
 #include "math.cuh"
 
@@ -19,6 +22,13 @@ struct Scene {
   const float* __restrict__ cam;
   int n_tris, n_sph, n_eo, n_emit_tris, n_emit_sph, n_lights;
   int has_tri_emitter;
+  // acceleration tables (scene/accel.py), read by the MESH variant only
+  const float* __restrict__ nodes;
+  const float* __restrict__ mesh;
+  const float* __restrict__ insts;
+  const float* __restrict__ sph_tab;
+  const float* __restrict__ sph_box;
+  int world_root, n_inst, n_sph_blocks;
 };
 
 // Plücker side values of the ray (moment w = o x d) against triangle row r
@@ -81,6 +91,7 @@ struct Hit {
   int mat;
 };
 
+template <bool MESH>
 __device__ __forceinline__ Hit trace_closest(const Scene& s, V3 o, V3 d,
                                              float tmin) {
   V3 w = v3(o.y * d.z - o.z * d.y, o.z * d.x - o.x * d.z, o.x * d.y - o.y * d.x);
@@ -118,6 +129,62 @@ __device__ __forceinline__ Hit trace_closest(const Scene& s, V3 o, V3 d,
   h.n = v3(0.f, 0.f, 0.f);
   h.e[0] = h.e[1] = h.e[2] = 0.f;
   h.mat = 0;
+  if (MESH) {
+    // the mesh, from the immediates' t: world mesh, then each instance
+    MeshHit mh;
+    mh.t = t_best;
+    mh.u = mh.v = 0.f;
+    mh.prim = -1;
+    int inst = -1;
+    if (s.world_root >= 0)
+      bvh_march<false>(s.nodes, s.mesh, s.world_root, o, d, tmin, 0.f, mh);
+    for (int i = 0; i < s.n_inst; ++i) {
+      const float* m = s.insts + i * INST_W;
+      V3 lo, ld;
+      to_object(m, o, d, lo, ld);
+      float t0 = mh.t;
+      bvh_march<false>(s.nodes, s.mesh, (int)__ldg(m + INST_ROOT), lo, ld,
+                       tmin, 0.f, mh);
+      if (mh.t < t0) inst = i;
+    }
+    int slot = -1;
+    float t_sph = mh.t;
+    sphere_table<false>(s.sph_tab, s.sph_box, s.n_sph_blocks, o, d, tmin,
+                        0.f, t_sph, slot);
+    if (slot >= 0) {
+      // table spheres: normal (hit - c) / r, never emissive
+      float4 c = load4(s.sph_tab + slot * SPHT_W + SPHT_C);
+      float invr = 1.f / (c.w > 0.f ? c.w : 1.f);
+      h.t = t_sph;
+      h.n = v3(sub_rn(add_rn(o.x, mul_rn(t_sph, d.x)), c.x) * invr,
+               sub_rn(add_rn(o.y, mul_rn(t_sph, d.y)), c.y) * invr,
+               sub_rn(add_rn(o.z, mul_rn(t_sph, d.z)), c.z) * invr);
+      h.mat = (int)__ldg(s.sph_tab + slot * SPHT_W + SPHT_MAT);
+      return h;
+    }
+    if (mh.prim >= 0) {
+      // mesh triangles: normal n0 + u d1 + v d2, never emissive
+      const float* r = s.mesh + (size_t)mh.prim * MESH_W;
+      V3 n = v3(__ldg(r + MESH_N0) + mh.u * __ldg(r + MESH_D1)
+                    + mh.v * __ldg(r + MESH_D2),
+                __ldg(r + MESH_N0 + 1) + mh.u * __ldg(r + MESH_D1 + 1)
+                    + mh.v * __ldg(r + MESH_D2 + 1),
+                __ldg(r + MESH_N0 + 2) + mh.u * __ldg(r + MESH_D1 + 2)
+                    + mh.v * __ldg(r + MESH_D2 + 2));
+      h.t = mh.t;
+      h.mat = (int)__ldg(r + MESH_MAT);
+      if (inst >= 0) {
+        // to world space as W2O^T n
+        const float* m = s.insts + inst * INST_W;
+        n = v3(__ldg(m + 0) * n.x + __ldg(m + 4) * n.y + __ldg(m + 8) * n.z,
+               __ldg(m + 1) * n.x + __ldg(m + 5) * n.y + __ldg(m + 9) * n.z,
+               __ldg(m + 2) * n.x + __ldg(m + 6) * n.y + __ldg(m + 10) * n.z);
+        h.mat = (int)__ldg(m + INST_MAT);
+      }
+      h.n = n;
+      return h;
+    }
+  }
   if (best < 0) return h;
   if (best < s.n_tris) {
     const float* r = s.tris + best * TRI_W;
@@ -149,7 +216,9 @@ __device__ __forceinline__ Hit trace_closest(const Scene& s, V3 o, V3 d,
 }
 
 // any hit in [tmin, tmax] along distant light li; the light direction's
-// dots with each triangle's moments and plane normal come from the host
+// dots with each immediate triangle's moments and plane normal come from
+// the host
+template <bool MESH>
 __device__ __forceinline__ bool shadow_any(const Scene& s, int li, V3 o, V3 d,
                                            float tmin, float tmax) {
   V3 w = v3(o.y * d.z - o.z * d.y, o.z * d.x - o.x * d.z, o.x * d.y - o.y * d.x);
@@ -172,6 +241,25 @@ __device__ __forceinline__ bool shadow_any(const Scene& s, int li, V3 o, V3 d,
     V3 lo, ld;
     sphere_local(s.sph + k * SPH_W, o, d, lo, ld);
     if (sphere_t(lo, ld, tmin) <= tmax) return true;
+  }
+  if (MESH) {
+    MeshHit mh;
+    if (s.world_root >= 0 &&
+        bvh_march<true>(s.nodes, s.mesh, s.world_root, o, d, tmin, tmax, mh))
+      return true;
+    for (int i = 0; i < s.n_inst; ++i) {
+      const float* m = s.insts + i * INST_W;
+      V3 lo, ld;
+      to_object(m, o, d, lo, ld);
+      if (bvh_march<true>(s.nodes, s.mesh, (int)__ldg(m + INST_ROOT), lo, ld,
+                          tmin, tmax, mh))
+        return true;
+    }
+    float t_unused = 0.f;
+    int slot_unused = -1;
+    if (sphere_table<true>(s.sph_tab, s.sph_box, s.n_sph_blocks, o, d, tmin,
+                           tmax, t_unused, slot_unused))
+      return true;
   }
   return false;
 }

@@ -1,0 +1,38 @@
+// The C entry point of the path megakernel, shared by csrc/mega_path.cu
+// and the CPU build of the per-lane code in
+// tests/test_torch_kernel_source.py. The includer defines
+//   static int run_lanes(const Params& p, void* stream);
+// which runs trace_lane over the film's lanes. Argument order: see
+// rene_tpu_torch/kernels.py ARGTYPES.
+#pragma once
+#include <stdint.h>
+
+#include "path.cuh"
+
+extern "C" int mega_path_launch(
+    const float* tris, int n_tris, const float* sph, int n_sph,
+    const float* mats, const float* eo, int n_eo, const int* emit_tris,
+    int n_emit_tris, const int* emit_sph, int n_emit_sph, const float* lights,
+    const float* light_dots, int n_lights, const float* cam,
+    const float* nodes, const float* mesh, const float* insts, int n_inst,
+    const float* sph_tab, const float* sph_box, int n_sph_blocks,
+    int world_root, int has_tri_emitter, int width, int n_pix, int max_depth,
+    int use_rr, int beckmann, int has_accel, int block_seed, int seed,
+    int num_samples, float* out, void* stream) {
+  Params p;
+  p.s = Scene{tris, sph, mats, eo, emit_tris, emit_sph, lights, light_dots,
+              cam, n_tris, n_sph, n_eo, n_emit_tris, n_emit_sph, n_lights,
+              has_tri_emitter, nodes, mesh, insts, sph_tab, sph_box,
+              world_root, n_inst, n_sph_blocks};
+  p.width = width;
+  p.n_pix = n_pix;
+  p.max_depth = max_depth;
+  p.use_rr = use_rr;
+  p.beckmann = beckmann;
+  p.num_samples = num_samples;
+  p.has_accel = has_accel;
+  p.block_seed = block_seed;
+  p.seed = (uint32_t)seed;
+  p.out = out;
+  return run_lanes(p, stream);
+}

@@ -85,3 +85,39 @@
 
 #define RR_START 12
 #define OUT_ROWS 10
+
+// acceleration tables (rene_tpu_torch/scene/accel.py)
+// BVH node: (min xyz, left child or first triangle),
+//           (max xyz, right child, or minus the triangle count of a leaf)
+#define NODE_LO 0
+#define NODE_A 3
+#define NODE_HI 4
+#define NODE_B 7
+#define NODE_W 8
+// mesh triangle: v0, e1 = v1 - v0, e2 = v2 - v0, shading normal n0 and its
+// deltas d1 = n1 - n0, d2 = n2 - n0, material id
+#define MESH_V0 0
+#define MESH_E1 3
+#define MESH_E2 6
+#define MESH_N0 9
+#define MESH_D1 12
+#define MESH_D2 15
+#define MESH_MAT 18
+#define MESH_W 20
+// shared-BLAS instance: 3x4 row-major world-to-object affine, material,
+// root node of its BLAS
+#define INST_W2O 0
+#define INST_MAT 12
+#define INST_ROOT 13
+#define INST_W 16
+// table sphere: centre, radius (-1 in padding slots), material; and the
+// box of each SPH_BLOCK-slot block
+#define SPHT_C 0
+#define SPHT_R 3
+#define SPHT_MAT 4
+#define SPHT_W 8
+#define BOX_LO 0
+#define BOX_HI 4
+#define BOX_W 8
+#define SPH_BLOCK 128
+#define BVH_STACK 64

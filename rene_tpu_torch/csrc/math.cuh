@@ -27,6 +27,42 @@ __device__ __forceinline__ V3 load3(const float* __restrict__ p) {
   return v3(__ldg(p), __ldg(p + 1), __ldg(p + 2));
 }
 
+// a product, sum or difference rounded on its own, as torch's eager
+// operations round it: nvcc contracts a * b + c into one FMA otherwise.
+// For arithmetic that cancels badly (the sphere-table test), where one
+// rounding step flips an outcome.
+#ifdef __CUDACC__
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ float sub_rn(float a, float b) {
+  return __fsub_rn(a, b);
+}
+#else
+inline float mul_rn(float a, float b) { return a * b; }
+inline float add_rn(float a, float b) { return a + b; }
+inline float sub_rn(float a, float b) { return a - b; }
+#endif
+
+// four floats from a 16-byte aligned table row: one vector load on the
+// card, four scalar loads where the headers compile as plain C++
+#ifdef __CUDACC__
+__device__ __forceinline__ float4 load4(const float* __restrict__ p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+#else
+struct float4 {
+  float x, y, z, w;
+};
+inline float4 load4(const float* p) {
+  float4 r = {p[0], p[1], p[2], p[3]};
+  return r;
+}
+#endif
+
 // max/clamp that keep a NaN input, as torch.clamp and jnp.maximum do
 // (fmaxf would drop it)
 __device__ __forceinline__ float clamp_min(float x, float lo) {
@@ -76,9 +112,18 @@ __device__ __forceinline__ V3 to_world(const Frame& f, V3 a) {
 }
 
 // xorshift32 lane stream (rene_tpu_torch/ops/rng.py): seeded per pixel
-// and per 8192-lane TPU tile, drawn through the mantissa bitcast
-__device__ __forceinline__ uint32_t seed_state(uint32_t pix, uint32_t seed) {
-  uint32_t seed_u = seed + (pix / 8192u) * 65537u;
+// and per TPU grid step `tile` (rng.tile_of), drawn through the mantissa
+// bitcast
+__device__ __forceinline__ uint32_t tile_of(uint32_t pix, uint32_t width,
+                                            bool blocks) {
+  if (!blocks) return pix / 8192u;
+  uint32_t bw = (width + 31u) / 32u;
+  return (pix / width / 32u) * bw + (pix % width) / 32u;
+}
+
+__device__ __forceinline__ uint32_t seed_state(uint32_t pix, uint32_t seed,
+                                               uint32_t tile) {
+  uint32_t seed_u = seed + tile * 65537u;
   return ((pix * 2654435761u) ^ seed_u) | 1u;
 }
 

@@ -1,11 +1,21 @@
-// Path-tracing megakernel for NVIDIA Hopper (sm_90a), slice K1a.
+// Path-tracing megakernel for NVIDIA Hopper (sm_90a), slices K1a, K1c and
+// K1d.
 //
 // Replaces rene_tpu/integrators/pallas_path.py:_build_kernel.kernel (the
-// TPU megakernel, :4266) with its path `body` (:4349) for scenes whose
-// triangles fit the immediates budget: baked triangles and spheres, solid
-// materials and background, distant lights, the independent sampler, one
-// sample slot per lane (pack = 1). The plain PyTorch version is
-// rene_tpu_torch/integrators/mega_path.py:path_lanes_ref.
+// TPU megakernel, :4266) with its path `body` (:4349): baked triangles
+// and spheres, solid materials and background, distant lights (unrolled
+// or from the light table), the independent sampler, one sample slot per
+// lane (pack = 1); and, past the immediates budget, the big-mesh march
+// (`mesh_closest` :2255, `mesh_any` :2440) over the world mesh and
+// shared-BLAS instances and the sphere table (`sphere_closest` :2636,
+// `sphere_any` :2663), as a per-thread BVH walk (bvh.cuh). The plain
+// PyTorch version is rene_tpu_torch/integrators/mega_path.py:path_lanes_ref.
+//
+// Two variants, one template: mega_path_kernel<false> (K1a) reads the
+// immediates only; mega_path_kernel<true> adds the acceleration tables,
+// so the K1a variant keeps its registers and speed. Each build of this
+// file holds one of them, picked by -DMEGA_MESH=0 or 1
+// (rene_tpu_torch/kernels.py builds both at once).
 //
 // Design. One thread owns one pixel and streams `num_samples` paths back
 // to back, regenerating a camera ray when a path ends: camera ray,
@@ -18,12 +28,12 @@
 // writes its own ten per-lane sums to a (10, N) array, the layout of the
 // JAX kernel's ten output planes, so no atomics are needed.
 //
-// What bounds it. The tables are a few KB and stay in L1/L2; a bounce
-// costs ~25 flops per triangle per ray in the brute-force loops plus
-// divergent per-material control flow, so the kernel is bound by latency
-// and compute, not by bytes. Later work: tables in shared or constant
-// memory, a BVH for larger meshes, and path-state regrouping against
-// divergence.
+// What bounds it. The immediates tables are a few KB and stay in L1/L2; a
+// bounce costs ~25 flops per immediate triangle per ray plus divergent
+// per-material control flow. The mesh variant adds a tree walk per ray
+// cast: dependent node loads (latency) and divergence between the
+// threads of a warp, not bytes. Later work: tables in shared or constant
+// memory, a wider BVH, and path-state regrouping against divergence.
 //
 // Random numbers come from the per-lane xorshift32 stream of the JAX
 // kernel's interpret mode (math.cuh). Each iteration draws, whether or
@@ -34,34 +44,28 @@
 
 #include "path.cuh"
 
+#ifndef MEGA_MESH
+#define MEGA_MESH 0
+#endif
+
+template <bool MESH>
 __global__ void __launch_bounds__(128) mega_path_kernel(const Params p) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane < p.n_pix) trace_lane(p, lane);
+  if (lane < p.n_pix) trace_lane<MESH>(p, lane);
 }
 
-// Launch on `stream` (a cudaStream_t); returns cudaGetLastError().
-extern "C" int mega_path_launch(
-    const float* tris, int n_tris, const float* sph, int n_sph,
-    const float* mats, const float* eo, int n_eo, const int* emit_tris,
-    int n_emit_tris, const int* emit_sph, int n_emit_sph, const float* lights,
-    const float* light_dots, int n_lights, const float* cam,
-    int has_tri_emitter, int width, int n_pix, int max_depth, int use_rr,
-    int beckmann, int seed, int num_samples, float* out, void* stream) {
-  Params p;
-  p.s = Scene{tris, sph, mats, eo, emit_tris, emit_sph, lights, light_dots,
-              cam, n_tris, n_sph, n_eo, n_emit_tris, n_emit_sph, n_lights,
-              has_tri_emitter};
-  p.width = width;
-  p.n_pix = n_pix;
-  p.max_depth = max_depth;
-  p.use_rr = use_rr;
-  p.beckmann = beckmann;
-  p.num_samples = num_samples;
-  p.seed = (uint32_t)seed;
-  p.out = out;
+// Launch this build's variant on `stream` (a cudaStream_t); returns
+// cudaGetLastError(), or cudaErrorInvalidValue for scene tables of the
+// other variant.
+static int run_lanes(const Params& p, void* stream) {
+  if ((p.has_accel != 0) != (MEGA_MESH != 0))
+    return (int)cudaErrorInvalidValue;
   const int threads = 128;
-  const int blocks = (n_pix + threads - 1) / threads;
+  const int blocks = (p.n_pix + threads - 1) / threads;
   if (blocks > 0)
-    mega_path_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(p);
+    mega_path_kernel<MEGA_MESH != 0>
+        <<<blocks, threads, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
+
+#include "launch.cuh"

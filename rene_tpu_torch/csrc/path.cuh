@@ -93,12 +93,16 @@ __device__ __forceinline__ V3 sample_emit(const Scene& s, V3 p, float u_obj,
 struct Params {
   Scene s;
   int width, n_pix, max_depth, use_rr, beckmann, num_samples;
+  int has_accel;   // launch the MESH variant
+  int block_seed;  // seed streams per 32x32 pixel block (rng.tile_of)
   uint32_t seed;
   float* __restrict__ out;
 };
 
 // One lane's whole run: num_samples paths for pixel `lane`; writes the
-// ten per-lane sums to out[k * n_pix + lane].
+// ten per-lane sums to out[k * n_pix + lane]. MESH: the scene has
+// acceleration tables (mesh, instances or sphere table).
+template <bool MESH>
 __device__ __forceinline__ void trace_lane(const Params& p, int lane) {
   const Scene& s = p.s;
   const bool beck = p.beckmann != 0;
@@ -111,7 +115,9 @@ __device__ __forceinline__ void trace_lane(const Params& p, int lane) {
   const float bg[3] = {__ldg(s.cam + CAM_BG), __ldg(s.cam + CAM_BG + 1),
                        __ldg(s.cam + CAM_BG + 2)};
 
-  uint32_t st = seed_state((uint32_t)lane, p.seed);
+  uint32_t st = seed_state(
+      (uint32_t)lane, p.seed,
+      tile_of((uint32_t)lane, (uint32_t)p.width, p.block_seed != 0));
   float ju0 = uniform(st);
   float jv0 = uniform(st);
   V3 o = cam_o;
@@ -138,7 +144,7 @@ __device__ __forceinline__ void trace_lane(const Params& p, int lane) {
     if (p.use_rr) rrv = uniform(st);
     float cj1 = uniform(st), cj2 = uniform(st);
 
-    Hit h = trace_closest(s, o, d, TMIN);
+    Hit h = trace_closest<MESH>(s, o, d, TMIN);
     bool alive = h.t < BIG;
     V3 next_o = o, next_d = d;
     float nthr[3] = {thr[0], thr[1], thr[2]};
@@ -165,7 +171,7 @@ __device__ __forceinline__ void trace_lane(const Params& p, int lane) {
       for (int li = 0; li < s.n_lights; ++li) {
         const float* L = s.lights + li * LIGHT_W;
         V3 ld = load3(L + LIGHT_DIR);
-        if (shadow_any(s, li, hp, ld, TMIN, 1e5f)) continue;
+        if (shadow_any<MESH>(s, li, hp, ld, TMIN, 1e5f)) continue;
         BsdfVal fe = bsdf_eval(m, lo, to_local(f, ld), beck);
         float cosl = fabsf(ld.x * n.x + ld.y * n.y + ld.z * n.z);
         for (int c = 0; c < 3; ++c)

@@ -1,10 +1,13 @@
-"""The path megakernel on the port's main path (slice K1a).
+"""The path megakernel on the port's main path (slices K1a, K1c, K1d).
 
 Counterpart of rene_tpu/integrators/pallas_path.py `make_pallas_batch_fn`
-(:5819-6061) for scenes whose triangles fit the immediates budget: the
-TPU kernel `_build_kernel` -> `kernel` (:4266) running its path `body`
-(:4346-4570) over every pixel lane, then `finish` (:5974) mapping lanes
-to pixels.
+(:5819-6061) at pack = 1: the TPU kernel `_build_kernel` -> `kernel`
+(:4266) running its path `body` (:4346-4570) over every pixel lane, then
+`finish` (:5974) mapping lanes to pixels. Scenes past the immediates
+budget add the mesh BVHs, shared-BLAS instances and the sphere table
+(ops/bvh.py) to every ray cast and fold distant lights from a table; in
+the JAX kernel's cluster mode (a world mesh or instances) a lane's
+stream is seeded per 32x32 pixel block, the tile that mode gives it.
 
 Each lane owns one pixel and streams `num_samples` paths back to back,
 regenerating a camera ray when a path ends: camera ray, closest hit,
@@ -50,6 +53,10 @@ def device_tables(tables: P.SceneTables, device) -> Dict:
     tabs["max_depth"] = tables.max_depth
     tabs["use_rr"] = tables.use_rr
     tabs["n_emit"] = int(tables.emit_objects.shape[0])
+    tabs["insts_f"] = tables.insts.tolist()
+    for k in ("world_root", "bvh_depth", "max_leaf", "has_accel",
+              "block_seed"):
+        tabs[k] = getattr(tables, k)
     return tabs
 
 
@@ -65,7 +72,7 @@ def path_lanes_ref(tabs, seed: int, num_samples: int,
     pix = torch.arange(W * tabs["height"], device=tabs["tris"].device)
     pxf = (pix % W).float()
     pyf = (pix // W).float()
-    st = rng.seed_state(pix, seed)
+    st = rng.seed_state(pix, seed, rng.tile_of(pix, W, tabs["block_seed"]))
     ju0, st = rng.uniform(st)
     jv0, st = rng.uniform(st)
     dx, dy, dz = camera_ray(cam, pxf, pyf, ju0, jv0)
@@ -233,11 +240,15 @@ def finish(out: torch.Tensor) -> Dict[str, torch.Tensor]:
 def make_mega_batch_fn(buffers_np, config, device):
     """Runner for the chunk loop: `run(seed, num_samples)` returns per-pixel
     (N, 3) radiance/normal/albedo SUMS over the chunk's samples and the
-    ray count. Raises NotImplementedError for scenes outside slice K1a.
+    ray count. Raises NotImplementedError for scenes the port does not
+    carry (`pack.slice_supported`).
 
     On a CUDA device every call launches csrc/mega_path.cu once (counted
-    by `kernels.mega_path.launches`); on the CPU it runs `path_lanes_ref`.
-    There is no fallback between the two."""
+    in `kernels.launches` under its variant); on the CPU it runs
+    `path_lanes_ref`. There is no fallback between the two. Chunks stay
+    at 100 samples: the JAX runner's smaller `chunk_hint` for mesh scenes
+    (:6020-6032) keeps a TPU call under its watchdog and is not carried
+    over."""
     device = torch.device(device)
     tabs = device_tables(P.pack_tables(buffers_np, config), device)
     # the RENE_MF_DIST=beckmann diagnostic (pallas_path.py:3563), read once

@@ -1,0 +1,299 @@
+"""Ray casts against the mesh BVHs and the sphere table (K1c, K1d).
+
+Plain PyTorch version of csrc/bvh.cuh. Counterparts in
+rene_tpu/integrators/pallas_path.py: `mesh_closest` (:2255) and
+`mesh_any` (:2440) over the world mesh and every shared-BLAS instance
+(`trace_closest` :2973-3072, `trace_any` :3177-3209), and
+`sphere_closest` (:2636) / `sphere_any` (:2663) over the sphere table;
+their per-triangle test `_mt_test` (:2148-2164), box gate
+`_box_enter_row` (:2172) with `_inv_dir` (:2057), and sphere test
+`_sph_test` (:2620), each with the same operations in the same order.
+
+The CUDA kernel gives each thread its own stack and walks its tree near
+child first. Here all lanes take that walk in lock-step, as
+rene_tpu/ops/bvh.py:62-175 does: each step gathers the live lanes by
+index, tests a leaf's triangles one after another or both children's
+boxes, pushes the far child when both are entered, and pops when a lane
+is done with a subtree; lanes that finish drop out. Every lane visits
+its nodes in the kernel's order, so the two keep the same triangle on
+exact-t ties.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..scene import accel as A
+
+BIG = 3e38
+
+
+def inv_dir(dx, dy, dz):
+    """1 / d with |d| held above 1e-20, sign kept (`_inv_dir` :2057)."""
+    def inv(d):
+        return 1.0 / torch.where(d.abs() > 1e-20, d,
+                                 torch.where(d >= 0, 1e-20, -1e-20))
+    return inv(dx), inv(dy), inv(dz)
+
+
+def box_enter(box, ox, oy, oz, ix, iy, iz, tmin, tfar):
+    """Slab test of (K, 8) boxes (min at 0..2, max at 4..6): (t near,
+    whether the ray enters within [tmin, tfar])."""
+    t0x = (box[:, 0] - ox) * ix
+    t1x = (box[:, 4] - ox) * ix
+    t0y = (box[:, 1] - oy) * iy
+    t1y = (box[:, 5] - oy) * iy
+    t0z = (box[:, 2] - oz) * iz
+    t1z = (box[:, 6] - oz) * iz
+    tn = torch.maximum(torch.maximum(torch.minimum(t0x, t1x),
+                                     torch.minimum(t0y, t1y)),
+                       torch.minimum(t0z, t1z))
+    tf = torch.minimum(torch.minimum(torch.maximum(t0x, t1x),
+                                     torch.maximum(t0y, t1y)),
+                       torch.maximum(t0z, t1z))
+    return tn, tn.clamp_min(tmin) <= torch.minimum(tf, tfar)
+
+
+def mt_test(r, ox, oy, oz, dx, dy, dz):
+    """Möller-Trumbore of rays against (K, MESH_W) triangle rows: (t, u,
+    v, ok); the caller applies its t bounds."""
+    v0x, v0y, v0z = r[:, A.MESH_V0], r[:, A.MESH_V0 + 1], r[:, A.MESH_V0 + 2]
+    e1x, e1y, e1z = r[:, A.MESH_E1], r[:, A.MESH_E1 + 1], r[:, A.MESH_E1 + 2]
+    e2x, e2y, e2z = r[:, A.MESH_E2], r[:, A.MESH_E2 + 1], r[:, A.MESH_E2 + 2]
+    px_ = dy * e2z - dz * e2y
+    py_ = dz * e2x - dx * e2z
+    pz_ = dx * e2y - dy * e2x
+    det = e1x * px_ + e1y * py_ + e1z * pz_
+    invd = 1.0 / torch.where(det.abs() > 1e-12, det, 1e-12)
+    tx = ox - v0x
+    ty = oy - v0y
+    tz = oz - v0z
+    u = (tx * px_ + ty * py_ + tz * pz_) * invd
+    qx = ty * e1z - tz * e1y
+    qy = tz * e1x - tx * e1z
+    qz = tx * e1y - ty * e1x
+    v = (dx * qx + dy * qy + dz * qz) * invd
+    t = (e2x * qx + e2y * qy + e2z * qz) * invd
+    ok = (det.abs() > 1e-12) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+    return t, u, v, ok
+
+
+def march(tabs, root, ray, tmin, tmax, best, done):
+    """Walk the BVH at node `root` for every lane not `done`, for rays
+    `ray` = (ox, oy, oz, dx, dy, dz). Closest hit when `best` is a dict
+    of (N,) t, prim, u, v (updated in place: t is the running bound,
+    prim the mesh row of the closest triangle, (u, v) its barycentrics);
+    any hit in [tmin, tmax] otherwise, returned as an (N,) mask."""
+    nodes, mesh = tabs["nodes"], tabs["mesh"]
+    ox, oy, oz, dx, dy, dz = ray
+    ix, iy, iz = inv_dir(dx, dy, dz)
+    ray = (ox, oy, oz, dx, dy, dz, ix, iy, iz)
+    hit = torch.zeros_like(ox, dtype=torch.bool)
+
+    def tfar(ln):
+        return best["t"][ln] if best is not None \
+            else torch.full_like(ox[ln], tmax)
+
+    def at(ln):
+        return [x[ln] for x in ray]
+
+    lane = (~done).nonzero()[:, 0]
+    r0 = nodes[root].expand(lane.numel(), -1)
+    _, enter = box_enter(r0, *at(lane)[0:3], *at(lane)[6:9], tmin,
+                         tfar(lane))
+    lane = lane[enter]
+    k = lane.numel()
+    dev = ox.device
+    node = torch.full((k,), root, dtype=torch.int64, device=dev)
+    stack = torch.zeros((k, tabs["bvh_depth"] + 1), dtype=torch.int64,
+                        device=dev)
+    sp = torch.zeros(k, dtype=torch.int64, device=dev)
+    alive = torch.ones(k, dtype=torch.bool, device=dev)
+    while k:
+        rows = nodes[node]
+        is_leaf = rows[:, A.NODE_B] < 0
+        pop = alive & is_leaf
+
+        li = pop.nonzero()[:, 0]
+        start = rows[li, A.NODE_A].long()
+        count = (-rows[li, A.NODE_B]).long()
+        for j in range(tabs["max_leaf"]):
+            m = count > j
+            if not bool(m.any()):
+                break
+            sel = li[m]
+            ln = lane[sel]
+            o = at(ln)
+            t, u, v, ok = mt_test(mesh[start[m] + j], *o[0:6])
+            if best is None:
+                h = ok & (t >= tmin) & (t <= tmax)
+                hit[ln[h]] = True
+                alive[sel[h]] = False
+            else:
+                w = ok & (t >= tmin) & (t < best["t"][ln])
+                idx = ln[w]
+                best["t"][idx] = t[w]
+                best["prim"][idx] = (start[m] + j)[w]
+                best["u"][idx] = u[w]
+                best["v"][idx] = v[w]
+
+        ii = (alive & ~is_leaf).nonzero()[:, 0]
+        if ii.numel():
+            ln = lane[ii]
+            o = at(ln)
+            tf = tfar(ln)
+            lc = rows[ii, A.NODE_A].long()
+            rc = rows[ii, A.NODE_B].long()
+            tl, hl = box_enter(nodes[lc], *o[0:3], *o[6:9], tmin, tf)
+            tr, hr = box_enter(nodes[rc], *o[0:3], *o[6:9], tmin, tf)
+            both = hl & hr
+            lfirst = tl <= tr
+            nxt = torch.where(both, torch.where(lfirst, lc, rc),
+                              torch.where(hl, lc, rc))
+            far = torch.where(lfirst, rc, lc)
+            b = ii[both]
+            stack[b, sp[b]] = far[both]
+            sp[b] += 1
+            go = hl | hr
+            node[ii[go]] = nxt[go]
+            pop[ii[~go]] = True
+
+        pi = (pop & alive).nonzero()[:, 0]
+        can = sp[pi] > 0
+        pc = pi[can]
+        sp[pc] -= 1
+        node[pc] = stack[pc, sp[pc]]
+        alive[pi[~can]] = False
+
+        n_alive = int(alive.sum())
+        if n_alive < k // 2 or n_alive == 0:
+            keep = alive.nonzero()[:, 0]
+            lane, node, stack = lane[keep], node[keep], stack[keep]
+            sp, alive = sp[keep], alive[keep]
+            k = n_alive
+    return hit
+
+
+def _to_object(row, ox, oy, oz, dx, dy, dz):
+    """A ray in an instance's object space (its 3x4 w2o; d is not
+    renormalized, so t stays the world t)."""
+    m = row[A.INST_W2O:A.INST_W2O + 12]
+    return (m[0] * ox + m[1] * oy + m[2] * oz + m[3],
+            m[4] * ox + m[5] * oy + m[6] * oz + m[7],
+            m[8] * ox + m[9] * oy + m[10] * oz + m[11],
+            m[0] * dx + m[1] * dy + m[2] * dz,
+            m[4] * dx + m[5] * dy + m[6] * dz,
+            m[8] * dx + m[9] * dy + m[10] * dz)
+
+
+def mesh_closest(tabs, ox, oy, oz, dx, dy, dz, tmin, t):
+    """Closest mesh hit below `t`: the world mesh, then each instance.
+    Returns (t, nx, ny, nz, material id), t unchanged where no mesh
+    triangle is closer; the normal is the interpolated shading normal
+    n0 + u d1 + v d2 (not normalized), taken to world space as W2O^T n
+    for an instance hit."""
+    ray = (ox, oy, oz, dx, dy, dz)
+    best = {"t": t.clone(), "prim": torch.full_like(ox, -1, dtype=torch.long),
+            "u": torch.zeros_like(ox), "v": torch.zeros_like(ox)}
+    inst = torch.full_like(best["prim"], -1)
+    done = torch.zeros_like(ox, dtype=torch.bool)
+    if tabs["world_root"] >= 0:
+        march(tabs, tabs["world_root"], ray, tmin, None, best, done)
+    for i, row in enumerate(tabs["insts_f"]):
+        t0 = best["t"].clone()
+        march(tabs, int(row[A.INST_ROOT]), _to_object(row, *ray), tmin,
+               None, best, done)
+        inst = torch.where(best["t"] < t0, i, inst)
+
+    r = tabs["mesh"][best["prim"].clamp_min(0)]
+    u, v = best["u"], best["v"]
+    n = [r[:, A.MESH_N0 + c] + u * r[:, A.MESH_D1 + c]
+         + v * r[:, A.MESH_D2 + c] for c in range(3)]
+    mat = r[:, A.MESH_MAT]
+    if tabs["insts_f"]:
+        m = tabs["insts"][inst.clamp_min(0)]
+        on = inst >= 0
+        w = [m[:, c] * n[0] + m[:, 4 + c] * n[1] + m[:, 8 + c] * n[2]
+             for c in range(3)]
+        n = [torch.where(on, w[c], n[c]) for c in range(3)]
+        mat = torch.where(on, m[:, A.INST_MAT], mat)
+    return best["t"], n[0], n[1], n[2], mat.long()
+
+
+def mesh_any(tabs, ox, oy, oz, dx, dy, dz, tmin, tmax, done):
+    """Any mesh hit in [tmin, tmax] for the lanes not `done`."""
+    ray = (ox, oy, oz, dx, dy, dz)
+    hit = torch.zeros_like(done)
+    if tabs["world_root"] >= 0:
+        hit |= march(tabs, tabs["world_root"], ray, tmin, tmax, None,
+                      done | hit)
+    for row in tabs["insts_f"]:
+        hit |= march(tabs, int(row[A.INST_ROOT]), _to_object(row, *ray),
+                      tmin, tmax, None, done | hit)
+    return hit
+
+
+def _sph_test(rows, ox, oy, oz, dx, dy, dz, tmin):
+    """(t, ok) of lanes (K, 1) against table spheres (1, B): the centre/
+    radius test `_sph_test` (:2620); t is BIG where no root >= tmin."""
+    cx, cy, cz = rows[:, A.SPHT_C], rows[:, A.SPHT_C + 1], \
+        rows[:, A.SPHT_C + 2]
+    rr = rows[:, A.SPHT_R]
+    ocx = ox - cx
+    ocy = oy - cy
+    ocz = oz - cz
+    hb = ocx * dx + ocy * dy + ocz * dz
+    c2 = ocx * ocx + ocy * ocy + ocz * ocz - rr * rr
+    disc = hb * hb - c2
+    sq = torch.sqrt(disc.clamp_min(0.0))
+    r0 = -hb - sq
+    r1 = -hb + sq
+    t = torch.where(r0 >= tmin, r0, torch.where(r1 >= tmin, r1, BIG))
+    return t, (disc >= 0.0) & (rr > 0.0)
+
+
+def sphere_table_closest(tabs, ox, oy, oz, dx, dy, dz, tmin, t):
+    """Closest table sphere below `t`, block by block behind each block's
+    box: (t, nx, ny, nz, material id); the normal is (hit - c) / r."""
+    tab, box = tabs["sph_tab"], tabs["sph_box"]
+    ray = (ox, oy, oz, dx, dy, dz)
+    ix, iy, iz = inv_dir(dx, dy, dz)
+    t = t.clone()
+    best = torch.full_like(ox, -1, dtype=torch.long)
+    for b in range(box.shape[0]):
+        _, enter = box_enter(box[b:b + 1], ox, oy, oz, ix, iy, iz, tmin, t)
+        ln = enter.nonzero()[:, 0]
+        if not ln.numel():
+            continue
+        rows = tab[b * A.SPH_BLOCK:(b + 1) * A.SPH_BLOCK]
+        ts, ok = _sph_test(rows, *(x[ln, None] for x in ray), tmin)
+        tb, kb = torch.where(ok, ts, math.inf).min(dim=1)
+        w = tb < t[ln]
+        idx = ln[w]
+        t[idx] = tb[w]
+        best[idx] = b * A.SPH_BLOCK + kb[w]
+    r = tab[best.clamp_min(0)]
+    rr = r[:, A.SPHT_R]
+    invr = 1.0 / torch.where(rr > 0.0, rr, 1.0)
+    n = [(ray[c] + t * ray[3 + c] - r[:, A.SPHT_C + c]) * invr
+         for c in range(3)]
+    return t, n[0], n[1], n[2], r[:, A.SPHT_MAT].long()
+
+
+def sphere_table_any(tabs, ox, oy, oz, dx, dy, dz, tmin, tmax, done):
+    """Any table sphere hit in [tmin, tmax] for the lanes not `done`."""
+    tab, box = tabs["sph_tab"], tabs["sph_box"]
+    ray = (ox, oy, oz, dx, dy, dz)
+    ix, iy, iz = inv_dir(dx, dy, dz)
+    hit = torch.zeros_like(done)
+    far = torch.full_like(ox, tmax)
+    for b in range(box.shape[0]):
+        _, enter = box_enter(box[b:b + 1], ox, oy, oz, ix, iy, iz, tmin, far)
+        ln = (enter & ~done & ~hit).nonzero()[:, 0]
+        if not ln.numel():
+            continue
+        rows = tab[b * A.SPH_BLOCK:(b + 1) * A.SPH_BLOCK]
+        ts, ok = _sph_test(rows, *(x[ln, None] for x in ray), tmin)
+        hit[ln] = (ok & (ts <= tmax)).any(dim=1)
+    return hit

@@ -1,8 +1,13 @@
 """Ray casts of the megakernel over the scene's triangles and spheres.
 
-Counterpart of pallas_path.py `trace_closest` (:2775-3116, its
-immediates part), `trace_any` (:3117-3217, in the constant-direction form
-that distant-light shadows take) and `trace_emit_pdf` (:3218-3279).
+Counterpart of pallas_path.py `trace_closest` (:2775-3116), `trace_any`
+(:3117-3217, in the constant-direction form that distant-light shadows
+take) and `trace_emit_pdf` (:3218-3279). The immediates (triangles, then
+spheres) come first; the mesh (ops/bvh.py: world mesh, then each shared-
+BLAS instance) is marched from their closest t and replaces their hit
+only where it is closer; the sphere table comes last. Mesh triangles and
+table spheres are never emissive, and the emitter pdf sees the emissive
+immediates alone.
 
 The TPU kernel unrolls one test per primitive and keeps the closest hit
 with `t < t_best` selects. Here all primitives are tested at once as an
@@ -18,9 +23,10 @@ import math
 import torch
 
 from ..scene import pack as P
+from . import bvh
+from .bvh import BIG
 from .vec3 import normalize3
 
-BIG = 3e38
 TMIN = 1e-3
 TWO_PI = 2.0 * math.pi
 
@@ -100,9 +106,7 @@ def closest(tabs, ox, oy, oz, dx, dy, dz, tmin=TMIN):
     if n_sph:
         cand.append(_sphere_t(*_sphere_local(sph, *lanes), tmin))
     zero = torch.zeros_like(ox)
-    if not cand:
-        return (zero + BIG, zero > 0, zero, zero, zero, zero, zero, zero,
-                zero.long())
+    cand.append((zero + BIG)[:, None])
     t_best, idx = torch.cat(cand, dim=1).min(dim=1)
     hit = t_best < BIG
     t = torch.where(hit, t_best, BIG)
@@ -148,6 +152,22 @@ def closest(tabs, ox, oy, oz, dx, dy, dz, tmin=TMIN):
         eg = torch.where(is_sph, rows[:, P.SPH_EMIT + 1], eg)
         eb = torch.where(is_sph, rows[:, P.SPH_EMIT + 2], eb)
         mat = torch.where(is_sph, rows[:, P.SPH_MAT].long(), mat)
+    for part, n_rows in ((bvh.mesh_closest, tabs["nodes"].shape[0]),
+                         (bvh.sphere_table_closest,
+                          tabs["sph_tab"].shape[0])):
+        if not n_rows:
+            continue
+        tp, pnx, pny, pnz, pmat = part(tabs, ox, oy, oz, dx, dy, dz, tmin, t)
+        win = tp < t
+        t = torch.where(win, tp, t)
+        nx = torch.where(win, pnx, nx)
+        ny = torch.where(win, pny, ny)
+        nz = torch.where(win, pnz, nz)
+        er = torch.where(win, 0.0, er)
+        eg = torch.where(win, 0.0, eg)
+        eb = torch.where(win, 0.0, eb)
+        mat = torch.where(win, pmat, mat)
+        hit = t < BIG
     return t, hit, nx, ny, nz, er, eg, eb, mat
 
 
@@ -185,6 +205,12 @@ def shadow_any(tabs, li, ox, oy, oz, dx, dy, dz, tmin, tmax):
     if sph.shape[0]:
         t = _sphere_t(*_sphere_local(sph, *lanes), tmin)
         hit = hit | (t <= tmax).any(dim=1)
+    if tabs["nodes"].shape[0]:
+        hit = hit | bvh.mesh_any(tabs, ox, oy, oz, dx, dy, dz, tmin, tmax,
+                                 hit)
+    if tabs["sph_tab"].shape[0]:
+        hit = hit | bvh.sphere_table_any(tabs, ox, oy, oz, dx, dy, dz, tmin,
+                                         tmax, hit)
     return hit
 
 

@@ -1,7 +1,8 @@
 """The megakernel's per-lane xorshift32 stream.
 
 Counterpart of rene_tpu/integrators/pallas_path.py `uniform` (:1680-1688)
-in its interpret-mode form, seeded as at :4300-4327. On the TPU the
+in its interpret-mode form, seeded as at :4300-4327 with the tile
+layouts of `make_pallas_batch_fn` (:5892-5947). On the TPU the
 kernel drew from the hardware generator, which no other device can
 reproduce; the port adopts the interpret-mode stream on every device,
 so a lane's draws are the same in the JAX interpret run, the plain
@@ -16,14 +17,30 @@ import torch
 
 MASK = 0xFFFFFFFF
 TILE_LANES = 8192   # TILE_SUB * 128 lanes per TPU grid step (:76-77)
+BLOCK = 32          # cluster mode: one grid step per 32x32 pixel block
 
 
-def seed_state(pix: torch.Tensor, seed: int) -> torch.Tensor:
-    """Initial state of each lane: (pix * 2654435761 ^ (seed + tile *
-    65537)) | 1, with tile = pix // 8192 the TPU grid step the pixel fell
-    in. `pix` = px + py * W; returns int64 holding uint32 values."""
+def tile_of(pix: torch.Tensor, width: int, blocks: bool) -> torch.Tensor:
+    """The TPU grid step that pixel `pix` = px + py * width fell in: the
+    8192-lane step of its pixel index, or in cluster mode (`blocks`: a
+    scene with a world mesh or shared-BLAS instances) its 32x32 block,
+    blocks numbered row by row over ceil(width / 32) columns."""
     pix = pix.to(torch.int64)
-    seed_u = (int(seed) + (pix // TILE_LANES) * 65537) & MASK
+    if not blocks:
+        return pix // TILE_LANES
+    bw = -(-width // BLOCK)
+    return (pix // width // BLOCK) * bw + (pix % width) // BLOCK
+
+
+def seed_state(pix: torch.Tensor, seed: int, tile=None) -> torch.Tensor:
+    """Initial state of each lane: (pix * 2654435761 ^ (seed + tile *
+    65537)) | 1, with `tile` its grid step (`tile_of`; by default the
+    8192-lane step). `pix` = px + py * W; returns int64 holding uint32
+    values."""
+    pix = pix.to(torch.int64)
+    if tile is None:
+        tile = pix // TILE_LANES
+    seed_u = (int(seed) + tile * 65537) & MASK
     return (((pix * 2654435761) & MASK) ^ seed_u) | 1
 
 

@@ -1,22 +1,27 @@
 """Where a main-path render's time goes, on a CUDA card.
 
-    python -m rene_tpu_torch.probe [--out DIR] [--size 1024]
+    python -m rene_tpu_torch.probe [--scene cornell|big_mesh] [--out DIR]
 
-Renders the inline Cornell box (rene_tpu_torch.scenes.cornell_box) at
-size x size and prints one JSON object per line:
+Renders one of the main paths' inline scenes: the Cornell box
+(rene_tpu_torch.scenes.cornell_box, K1a variant, at 1024x1024) or the
+big mesh (scenes.big_mesh_scene, mesh variant, at 1280x720), and
+prints one JSON object per line:
 
 * the card (nvidia-smi name, power limit, SM clock and its maximum);
 * the creation of the CUDA context, then the host phases of one render:
-  scene load, `build_device_scene`, `pack_tables`, the tables' upload;
-* renders through `render()` at 64, 256 and 1024 spp after a warm-up
-  launch: rays, wall time, Mrays/s, launches;
+  scene load, `build_device_scene`, `pack_tables` (with the BVH builds),
+  the tables' upload;
+* renders through `render()` after a warm-up launch (64, 256 and 1024
+  spp for the Cornell box; 16, 64 and 256 for the big mesh): rays, wall
+  time, Mrays/s, launches;
 * the PNG encode of the last image;
-* the kernel's time per launch by chunk size (1, 4, 16, 64, 100 spp;
-  CUDA events over 5 launches each) and its Mrays/s;
-* a 64-spp render under torch.profiler: wall time and the operations
-  with the most device time; the Chrome trace goes to DIR.
+* the kernel's time per launch by chunk size (CUDA events over 5 launches
+  each) and its Mrays/s;
+* a render at the smallest of those spp under torch.profiler: wall time
+  and the operations with the most device time; the Chrome trace goes to
+  DIR.
 
-Needs a CUDA device and nvcc; it builds the kernel on first use.
+Needs a CUDA device and nvcc; it builds the kernels on first use.
 """
 from __future__ import annotations
 
@@ -37,15 +42,25 @@ from .scene import pack as P
 from .utils.film import save_png, to_rgb8
 
 
+# scene -> (pbrt text of (w, h), default film, render spp, chunk spp)
+SCENES = {
+    "cornell": (scenes.cornell_box, (1024, 1024), (64, 256, 1024),
+                (1, 4, 16, 64, 100)),
+    "big_mesh": (scenes.big_mesh_scene, (1280, 720), (16, 64, 256),
+                 (1, 4, 16, 64)),
+}
+
+
 def emit(**kw):
     print(json.dumps(kw), flush=True)
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="python -m rene_tpu_torch.probe")
+    p.add_argument("--scene", choices=sorted(SCENES), default="cornell")
     p.add_argument("--out", default=os.path.join("chiprun_out", "probe"))
-    p.add_argument("--size", type=int, default=1024)
     args = p.parse_args(argv)
+    make, (w, h), spps, chunks = SCENES[args.scene]
     if not torch.cuda.is_available():
         print("probe: no CUDA device", file=sys.stderr)
         return 2
@@ -54,9 +69,9 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,clocks.max.sm",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip())
-    path = os.path.join(args.out, "cornell.pbrt")
+    path = os.path.join(args.out, f"{args.scene}.pbrt")
     with open(path, "w") as f:
-        f.write(scenes.cornell_box(args.size, args.size))
+        f.write(make(w, h))
     kernels.build()
     dev = torch.device("cuda", 0)
 
@@ -75,16 +90,16 @@ def main(argv=None) -> int:
          build_device_scene_s=t_bds, pack_tables_s=t_pack, upload_s=t_up)
 
     timed(lambda: kernels.mega_path(tabs, 1, 1))   # warm-up
-    for spp in (64, 256, 1024):
+    for spp in spps:
         out = render(scene, spp=spp, seed=3, device=dev)
         emit(spp=spp, rays=out["total_rays"], wall_s=out["wall_time"],
              mrays_s=out["total_rays"] / out["wall_time"] / 1e6,
              launches=out["launches"], mean=float(out["color"].mean()))
-    _, t_png = timed(lambda: save_png(os.path.join(args.out, "cornell.png"),
-                                      to_rgb8(out["color"])))
+    _, t_png = timed(lambda: save_png(
+        os.path.join(args.out, f"{args.scene}.png"), to_rgb8(out["color"])))
     emit(png_encode_s=t_png)
 
-    for spp in (1, 4, 16, 64, 100):
+    for spp in chunks:
         timed(lambda: kernels.mega_path(tabs, 5, spp))
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -101,7 +116,8 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, wall = timed(lambda: render(scene, spp=64, seed=9, device=dev))
+        _, wall = timed(lambda: render(scene, spp=spps[0], seed=9,
+                                       device=dev))
     rows = []
     for k in prof.key_averages():
         dt = getattr(k, "device_time_total", None)
@@ -110,8 +126,9 @@ def main(argv=None) -> int:
         if dt:
             rows.append({"op": k.key[:90], "device_us": dt, "n": k.count})
     rows.sort(key=lambda r: -r["device_us"])
-    emit(profiled_spp=64, wall_s=wall, top=rows[:12])
-    prof.export_chrome_trace(os.path.join(args.out, "render64_trace.json"))
+    emit(profiled_spp=spps[0], wall_s=wall, top=rows[:12])
+    prof.export_chrome_trace(os.path.join(
+        args.out, f"{args.scene}_render{spps[0]}_trace.json"))
     return 0
 
 

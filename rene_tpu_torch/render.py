@@ -42,7 +42,7 @@ def render(scene, spp: int = DEFAULT_SPP, seed: int = 0, device="cuda"):
     accum = {k: torch.zeros((w * h, 3), dtype=torch.float32, device=device)
              for k in ("radiance", "normal", "albedo")}
     total_rays = 0.0
-    launches_before = kernels.mega_path.launches
+    launches_before = sum(kernels.launches.values())
     t_start = time.time()
     t_batch = time.time()
     done = 0
@@ -67,5 +67,5 @@ def render(scene, spp: int = DEFAULT_SPP, seed: int = 0, device="cuda"):
         "config": config,
         "total_rays": total_rays,
         "wall_time": time.time() - t_start,
-        "launches": kernels.mega_path.launches - launches_before,
+        "launches": sum(kernels.launches.values()) - launches_before,
     }

@@ -1,0 +1,254 @@
+"""Acceleration tables for scenes past the immediates budget (K1c, K1d).
+
+Counterpart of what rene_tpu/integrators/pallas_path.py packs for its
+big-mesh march and sphere table, with the TPU layout replaced:
+
+* the world mesh (`_pack_mesh` :805 -> `_pack_tris` :839): the JAX kernel
+  keeps the non-immediate triangles in Morton- or median-ordered 128-
+  triangle clusters behind super-group and octant box tables, because
+  Mosaic can only march all lanes of a tile in lock-step over slices of
+  a VMEM table. A CUDA thread walks its own tree, so the port keeps
+  them in the binned-SAH BVH that `rene_tpu.ops.bvh.build_bvh` builds
+  (numpy at import, native C++ builder at first use);
+* shared-BLAS instances (`_shared_split` :961, `_pack_inst_mesh` :1000):
+  one object-space BVH per shared BLAS, and one row per instance with
+  its world-to-object affine, material and BLAS root;
+* the sphere table (`_sph_uniform` :1189, `_pack_sphere_table` :1203):
+  centre, radius and material of each non-emissive uniform-scale sphere,
+  in the same Morton order and 128-slot blocks, each block behind one
+  box.
+
+Every triangle row is the JAX table's: v0, e1 = v1 - v0, e2 = v2 - v0,
+the shading normal n0 and its deltas d1 = n1 - n0, d2 = n2 - n0, all
+computed in float64 and cast to float32 (`_pack_tris` :861-868), then
+the material id. Row layouts are shared with csrc/layout.cuh.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import numpy as np
+
+from rene_tpu.ops.bvh import _tree_depth, build_bvh
+from rene_tpu.scene import types as T
+
+# -- row layouts (mirrored by csrc/layout.cuh) -------------------------------
+# BVH node: two float4, (min xyz, left child or first triangle) and
+# (max xyz, right child, or minus the triangle count for a leaf)
+NODE_LO, NODE_A, NODE_HI, NODE_B = 0, 3, 4, 7
+NODE_W = 8
+MESH_V0, MESH_E1, MESH_E2 = 0, 3, 6
+MESH_N0, MESH_D1, MESH_D2, MESH_MAT = 9, 12, 15, 18
+MESH_W = 20
+INST_W2O, INST_MAT, INST_ROOT = 0, 12, 13   # 3x4 row-major w2o affine
+INST_W = 16
+SPHT_C, SPHT_R, SPHT_MAT = 0, 3, 4
+SPHT_W = 8
+BOX_LO, BOX_HI = 0, 4
+BOX_W = 8
+SPH_BLOCK = 128     # pallas_path.py:66
+BVH_STACK = 64      # traversal stack entries of a CUDA thread
+
+INST_MIN_SAVING = 4096     # pallas_path.py:958
+HBM_MIN_TRIS = 1 << 17     # pallas_path.py:99: a shared BLAS's size cap
+
+
+def shared_split(buffers_np, mesh_idx: np.ndarray):
+    """`_shared_split` (pallas_path.py:961): split the non-immediate
+    triangles `mesh_idx` into shared-BLAS instance groups and the rest.
+    A BLAS is shared when at least two triangle instances reference it,
+    each non-emissive with all its triangles in `mesh_idx`, the BLAS has
+    at most HBM_MIN_TRIS triangles and sharing saves INST_MIN_SAVING
+    triangle slots. Returns (rest_idx, [(blas_id, [inst_ids]), ...])."""
+    if "inst_blas" not in buffers_np:
+        return mesh_idx, []
+    inst_of = buffers_np["tri_inst"][mesh_idx]
+    n_inst = buffers_np["inst_prim_count"].shape[0]
+    counts = np.bincount(inst_of, minlength=n_inst)
+    by_blas: Dict[int, List[int]] = {}
+    for i in np.nonzero(counts > 0)[0]:
+        b = int(buffers_np["inst_blas"][i])
+        if b < 0 or counts[i] != int(buffers_np["inst_prim_count"][i]):
+            continue
+        al = int(buffers_np["inst_area_light"][i])
+        if int(buffers_np["area_type"][al]) != T.AREA_NULL:
+            continue
+        by_blas.setdefault(b, []).append(int(i))
+    shared = []
+    for b, insts in sorted(by_blas.items()):
+        ntri_b = int(buffers_np["inst_prim_count"][insts[0]])
+        if len(insts) < 2 or ntri_b > HBM_MIN_TRIS:
+            continue
+        if ntri_b * (len(insts) - 1) < INST_MIN_SAVING:
+            continue
+        shared.append((b, insts))
+    if not shared:
+        return mesh_idx, []
+    keep = ~np.isin(inst_of, [i for _, insts in shared for i in insts])
+    return mesh_idx[keep], shared
+
+
+def sphere_uniform(o2w) -> Tuple[bool, np.ndarray, float]:
+    """`_sph_uniform` (pallas_path.py:1189): (ok, centre, radius) when the
+    3x4 sphere transform is rigid plus a uniform scale."""
+    m = np.asarray(o2w, np.float64)
+    a = m[:3, :3]
+    g = a.T @ a
+    s2 = float(np.trace(g)) / 3.0
+    if s2 <= 0 or not np.allclose(g, np.eye(3) * s2, rtol=1e-4,
+                                  atol=1e-6 * max(s2, 1e-12)):
+        return False, None, 0.0
+    return True, m[:3, 3].copy(), float(np.sqrt(s2))
+
+
+def _morton3(q: np.ndarray) -> np.ndarray:
+    """30-bit Morton codes of (N, 3) 10-bit grid coordinates
+    (pallas_path.py:749)."""
+    def part(v):
+        v = v.astype(np.uint64)
+        v = (v | (v << np.uint64(16))) & np.uint64(0x030000FF)
+        v = (v | (v << np.uint64(8))) & np.uint64(0x0300F00F)
+        v = (v | (v << np.uint64(4))) & np.uint64(0x030C30C3)
+        v = (v | (v << np.uint64(2))) & np.uint64(0x09249249)
+        return v
+    return (part(q[:, 0]) | (part(q[:, 1]) << np.uint64(1))
+            | (part(q[:, 2]) << np.uint64(2)))
+
+
+class _Builder:
+    """Appends BVHs over triangle sets to one node table and one
+    leaf-ordered triangle table; child and leaf indices are absolute."""
+
+    def __init__(self):
+        self.nodes: List[np.ndarray] = []
+        self.rows: List[np.ndarray] = []
+        self.n_nodes = self.n_rows = 0
+        self.depth = self.max_leaf = 0
+
+    def add(self, p: np.ndarray, n: np.ndarray, mat: np.ndarray) -> int:
+        """BVH over float64 (T, 3, 3) points p with (T, 3, 3) normals n and
+        (T,) material ids; returns its root node."""
+        bvh = build_bvh(p.astype(np.float32))
+        m = p.shape[0]
+        order = bvh.order[:m].astype(np.int64)
+        p, n, mat = p[order], n[order], mat[order]
+        rows = np.zeros((m, MESH_W), np.float64)
+        rows[:, MESH_V0:MESH_V0 + 3] = p[:, 0]
+        rows[:, MESH_E1:MESH_E1 + 3] = p[:, 1] - p[:, 0]
+        rows[:, MESH_E2:MESH_E2 + 3] = p[:, 2] - p[:, 0]
+        rows[:, MESH_N0:MESH_N0 + 3] = n[:, 0]
+        rows[:, MESH_D1:MESH_D1 + 3] = n[:, 1] - n[:, 0]
+        rows[:, MESH_D2:MESH_D2 + 3] = n[:, 2] - n[:, 0]
+        rows[:, MESH_MAT] = mat
+        k = bvh.num_nodes
+        leaf = np.asarray(bvh.is_leaf, bool)
+        count = bvh.right.astype(np.int64)
+        if leaf.any() and count[leaf].min() < 1:
+            raise ValueError("BVH leaf without triangles")
+        nodes = np.zeros((k, NODE_W), np.float64)
+        nodes[:, NODE_LO:NODE_LO + 3] = bvh.aabb_min
+        nodes[:, NODE_HI:NODE_HI + 3] = bvh.aabb_max
+        nodes[:, NODE_A] = np.where(leaf, bvh.left + self.n_rows,
+                                    bvh.left + self.n_nodes)
+        nodes[:, NODE_B] = np.where(leaf, -count, bvh.right + self.n_nodes)
+        depth = _tree_depth(bvh.left, bvh.right, leaf)
+        if depth >= BVH_STACK:
+            raise ValueError(f"BVH depth {depth} exceeds the traversal "
+                             f"stack ({BVH_STACK})")
+        root = self.n_nodes
+        self.nodes.append(nodes)
+        self.rows.append(rows)
+        self.n_nodes += k
+        self.n_rows += m
+        self.depth = max(self.depth, depth)
+        self.max_leaf = max(self.max_leaf, int(count[leaf].max()))
+        return root
+
+
+def _blas_tris(buffers_np, blas_id: int):
+    """Object-space float64 points and normals of one BLAS, with the
+    geometric-normal fallback for all-zero vertex normals
+    (`_pack_inst_mesh` :1011-1021)."""
+    starts = buffers_np["blas_idx_start"]
+    i0 = int(starts[blas_id])
+    i1 = (int(starts[blas_id + 1]) if blas_id + 1 < len(starts)
+          else buffers_np["blas_idx"].shape[0])
+    v0 = int(buffers_np["blas_vtx_start"][blas_id])
+    idx = buffers_np["blas_idx"][i0:i1].reshape(-1, 3).astype(np.int64) + v0
+    p = buffers_np["blas_vtx"][idx].astype(np.float64)
+    n = buffers_np["blas_nrm"][idx].astype(np.float64)
+    zero_n = np.abs(n).sum(axis=(1, 2)) == 0.0
+    if zero_n.any():
+        gn = np.cross(p[:, 1] - p[:, 0], p[:, 2] - p[:, 0])
+        n = np.where(zero_n[:, None, None],
+                     np.broadcast_to(gn[:, None, :], n.shape), n)
+    return p, n
+
+
+def _sphere_table(buffers_np, tbl_idx: np.ndarray):
+    """(sph_tab, sph_box): `_pack_sphere_table`'s centres, radii and
+    materials in its Morton order, in SPH_BLOCK-slot blocks (padding
+    slots have radius -1, which no test passes), and each block's box."""
+    if tbl_idx.size == 0:
+        return (np.zeros((0, SPHT_W), np.float32),
+                np.zeros((0, BOX_W), np.float32))
+    cs, rs = [], []
+    for s in tbl_idx:
+        _, c, r = sphere_uniform(buffers_np["sph_o2w"][s])
+        cs.append(c)
+        rs.append(r)
+    cs, rs = np.asarray(cs), np.asarray(rs)
+    mats = buffers_np["inst_material"][buffers_np["sph_inst"][tbl_idx]]
+    lo = cs.min(0)
+    ext = np.maximum(cs.max(0) - lo, 1e-9)
+    q = np.clip(((cs - lo) / ext * 1023.0).astype(np.int64), 0, 1023)
+    order = np.argsort(_morton3(q), kind="stable")
+    cs, rs, mats = cs[order], rs[order], mats[order]
+    n = cs.shape[0]
+    nb = (n + SPH_BLOCK - 1) // SPH_BLOCK
+    tab = np.zeros((nb * SPH_BLOCK, SPHT_W), np.float32)
+    tab[:, SPHT_R] = -1.0
+    tab[:n, SPHT_C:SPHT_C + 3] = cs
+    tab[:n, SPHT_R] = rs
+    tab[:n, SPHT_MAT] = mats
+    box = np.zeros((nb, BOX_W), np.float32)
+    for b in range(nb):
+        s0, s1 = b * SPH_BLOCK, min((b + 1) * SPH_BLOCK, n)
+        box[b, BOX_LO:BOX_LO + 3] = (cs[s0:s1] - rs[s0:s1, None]).min(0)
+        box[b, BOX_HI:BOX_HI + 3] = (cs[s0:s1] + rs[s0:s1, None]).max(0)
+    return tab, box
+
+
+def pack_accel(buffers_np, rest_idx: np.ndarray, shared, tbl_idx) -> Dict:
+    """The acceleration tables of SceneTables: the world mesh over the
+    scene triangles `rest_idx`, the shared BLASes `shared` (from
+    `shared_split`) and the table spheres `tbl_idx`."""
+    b = _Builder()
+    world_root = -1
+    if rest_idx.size:
+        p = buffers_np["tri_p"][rest_idx].astype(np.float64)
+        n = buffers_np["tri_n"][rest_idx].astype(np.float64)
+        mat = buffers_np["inst_material"][buffers_np["tri_inst"][rest_idx]]
+        world_root = b.add(p, n, mat)
+    insts = []
+    for blas_id, inst_ids in shared:
+        p, n = _blas_tris(buffers_np, blas_id)
+        root = b.add(p, n, np.zeros(p.shape[0]))
+        for i in inst_ids:
+            row = np.zeros(INST_W, np.float32)
+            row[INST_W2O:INST_W2O + 12] = \
+                buffers_np["inst_w2o"][i].reshape(-1)
+            row[INST_MAT] = buffers_np["inst_material"][i]
+            row[INST_ROOT] = root
+            insts.append(row[None])
+    sph_tab, sph_box = _sphere_table(buffers_np, np.asarray(tbl_idx))
+
+    def cat(parts, width):
+        return np.ascontiguousarray(
+            np.concatenate(parts) if parts else np.zeros((0, width)),
+            dtype=np.float32)
+
+    return {"nodes": cat(b.nodes, NODE_W), "mesh": cat(b.rows, MESH_W),
+            "insts": cat(insts, INST_W), "sph_tab": sph_tab,
+            "sph_box": sph_box, "world_root": world_root,
+            "bvh_depth": b.depth, "max_leaf": b.max_leaf}

@@ -1,12 +1,16 @@
-"""Flat scene tables for the path megakernel (slice K1a).
+"""Flat scene tables for the path megakernel (slices K1a, K1c, K1d).
 
-Counterpart of three functions of rene_tpu/integrators/pallas_path.py:
+Counterpart of these parts of rene_tpu/integrators/pallas_path.py:
 
-* `pack_scene`'s immediates branch (:1355-1440): per-triangle Plücker and
-  plane constants, shading normals, area and emission; per-sphere
-  transforms; emit objects; distant lights;
+* `pack_scene` (:1331-1453): which triangles and spheres stay immediates
+  (`_immediate_tri_mask` :573, `_shared_split` :961, `_pack_sphere_table`
+  :1203) and, for those, per-triangle Plücker and plane constants,
+  shading normals, area and emission; per-sphere transforms; emit
+  objects; distant lights. The rest (mesh triangles, shared-BLAS
+  instances, table spheres) goes to `scene/accel.py`;
 * `_mat_record` (:616-746) for solid textures: one record per material;
-* the K1a part of `pallas_eligible` (:504-570), as `slice_supported`.
+* `pallas_eligible` (:504-570) for what the port carries, as
+  `slice_supported`.
 
 The TPU kernel bakes these records into its program as immediates,
 because Mosaic has no per-lane gather. A CUDA thread can gather, so the
@@ -30,9 +34,14 @@ import numpy as np
 from rene_tpu.scene import types as T
 from rene_tpu.scene.device import RenderConfig
 
+from . import accel
+
 MAX_TRIS = 512       # pallas_path.py:53
 MAX_SPHERES = 64     # pallas_path.py:54
 MAX_LIGHTS = 16      # pallas_path.py:55
+SPH_TABLE_MAX = 1 << 15    # pallas_path.py:69
+LIGHT_TABLE_MAX = 1024     # pallas_path.py:75
+MESH_MAX_TRIS = 1 << 22    # pallas_path.py:92
 RR_START = 12        # pallas_path.py:79
 
 # texture payload slots each material reads (0..3 = u0.xyzw, 4..6 =
@@ -90,9 +99,46 @@ def _mat_tex_indices(buffers_np, mat_idx: int) -> List[int]:
             for s in _MAT_FETCHES.get(mt, ())]
 
 
+def _emissive(buffers_np, inst: np.ndarray) -> np.ndarray:
+    """Per instance id: does it carry an area light."""
+    al = buffers_np["inst_area_light"][inst]
+    return buffers_np["area_type"][al] != T.AREA_NULL
+
+
+def split_triangles(buffers_np, config: RenderConfig):
+    """(immediate ids, world-mesh ids, [(blas id, [instance ids])]) of the
+    scene's triangles. Up to MAX_TRIS triangles all stay immediates; past
+    it, the emissive ones do (`_immediate_tri_mask` :573 with no textured
+    material, which the port refuses) and the rest is the mesh, split
+    into shared-BLAS instances and the world mesh by `_shared_split`."""
+    ntri = config.num_triangles
+    if ntri <= MAX_TRIS:
+        return np.arange(ntri), np.zeros(0, np.int64), []
+    em = _emissive(buffers_np, buffers_np["tri_inst"][:ntri])
+    rest, shared = accel.shared_split(buffers_np, np.nonzero(~em)[0])
+    return np.nonzero(em)[0], rest, shared
+
+
+def split_spheres(buffers_np, config: RenderConfig):
+    """(immediate ids, table ids) of the scene's spheres: past MAX_SPHERES,
+    the non-emissive uniform-scale ones go to the sphere table
+    (`_pack_sphere_table` :1203). The JAX package names two tests for
+    "solid material" here (`_mat_solid_only` in `pallas_eligible`, no
+    `texs` in `_pack_sphere_table`); the port refuses every non-solid
+    material, so both hold for every sphere it packs."""
+    ns = config.num_spheres
+    if ns <= MAX_SPHERES:
+        return np.arange(ns), np.zeros(0, np.int64)
+    em = _emissive(buffers_np, buffers_np["sph_inst"][:ns])
+    tbl = np.array([not em[s] and accel.sphere_uniform(
+        buffers_np["sph_o2w"][s])[0] for s in range(ns)], bool)
+    return np.nonzero(~tbl)[0], np.nonzero(tbl)[0]
+
+
 def slice_supported(buffers_np, config: RenderConfig) -> None:
-    """Raise NotImplementedError for a scene outside slice K1a, naming the
-    ROADMAP item that will carry it."""
+    """Raise NotImplementedError for a scene outside what the port
+    carries (slices K1a, K1c, K1d), naming the ROADMAP item that will
+    carry it. The caps are `pallas_eligible`'s (:504-570)."""
     def no(what, item):
         raise NotImplementedError(
             f"{what} is not in the port yet (ROADMAP Queue 2 {item})")
@@ -101,15 +147,6 @@ def slice_supported(buffers_np, config: RenderConfig) -> None:
         no(f"integrator {config.integrator!r}", "K1e (volpath body)")
     if config.has_media:
         no("participating media", "K1e (volpath body)")
-    if config.num_triangles > MAX_TRIS:
-        no(f"{config.num_triangles} triangles (> {MAX_TRIS})",
-           "K1c (big-mesh closest/any hit)")
-    if config.num_spheres > MAX_SPHERES:
-        no(f"{config.num_spheres} spheres (> {MAX_SPHERES})",
-           "K1d (sphere and light tables)")
-    if config.num_lights > MAX_LIGHTS:
-        no(f"{config.num_lights} distant lights (> {MAX_LIGHTS})",
-           "K1d (sphere and light tables)")
     if getattr(config, "sampler", "independent") == "sobol":
         no("the Sobol sampler", "K1a-sobol (Queue 1: Sobol)")
     if int(buffers_np["tex_type"][int(buffers_np["background_texture"])]) \
@@ -120,6 +157,23 @@ def slice_supported(buffers_np, config: RenderConfig) -> None:
             if int(buffers_np["tex_type"][ti]) != T.TEX_SOLID:
                 no(f"material {m} with a non-solid texture slot",
                    "K1b (textures and background)")
+    imm, rest, _ = split_triangles(buffers_np, config)
+    if imm.size > MAX_TRIS:
+        no(f"{imm.size} emissive triangles (> {MAX_TRIS})",
+           "K1c (big-mesh closest/any hit)")
+    if rest.size > MESH_MAX_TRIS:
+        no(f"a {rest.size}-triangle mesh (> {MESH_MAX_TRIS})",
+           "K1c (big-mesh closest/any hit)")
+    imm_s, tbl_s = split_spheres(buffers_np, config)
+    if imm_s.size > MAX_SPHERES:
+        no(f"{imm_s.size} emissive or non-uniformly scaled spheres "
+           f"(> {MAX_SPHERES})", "K1d (sphere and light tables)")
+    if tbl_s.size > SPH_TABLE_MAX:
+        no(f"{tbl_s.size} table spheres (> {SPH_TABLE_MAX})",
+           "K1d (sphere and light tables)")
+    if config.num_lights > LIGHT_TABLE_MAX:
+        no(f"{config.num_lights} distant lights (> {LIGHT_TABLE_MAX})",
+           "K1d (sphere and light tables)")
 
 
 def _remap_rough(r: float) -> float:
@@ -193,11 +247,17 @@ def sphere_radius(m) -> float:
                for c in range(3)) / 3.0
 
 
-def pack_records(buffers_np, config: RenderConfig):
+def pack_records(buffers_np, config: RenderConfig, tri_ids=None,
+                 sph_ids=None):
     """(tris, spheres, emit_objects, lights) as python-float dicts, field
-    for field as pack_scene's immediates branch builds them."""
+    for field as pack_scene's immediates branch builds them, for the
+    immediate triangles `tri_ids` and spheres `sph_ids` (default: all)."""
+    if tri_ids is None:
+        tri_ids = range(config.num_triangles)
+    if sph_ids is None:
+        sph_ids = range(config.num_spheres)
     tris = []
-    for i in range(config.num_triangles):
+    for i in tri_ids:
         p = buffers_np["tri_p"][i].astype(np.float64)
         n = buffers_np["tri_n"][i].astype(np.float64)
         inst = int(buffers_np["tri_inst"][i])
@@ -222,7 +282,7 @@ def pack_records(buffers_np, config: RenderConfig):
         tris.append(rec)
 
     spheres = []
-    for s in range(config.num_spheres):
+    for s in sph_ids:
         inst = int(buffers_np["sph_inst"][s])
         al = int(buffers_np["inst_area_light"][inst])
         rec = {
@@ -268,23 +328,45 @@ def max_depth_for(config: RenderConfig) -> int:
 
 @dataclasses.dataclass
 class SceneTables:
-    """Everything the path kernel reads, as numpy float32/int32."""
-    tris: np.ndarray         # (T, TRI_W)
-    spheres: np.ndarray      # (S, SPH_W)
+    """Everything the path kernel reads, as numpy float32/int32. The
+    acceleration tables (scene/accel.py) are empty for a scene that fits
+    the immediates budget."""
+    tris: np.ndarray         # (T, TRI_W) immediate triangles
+    spheres: np.ndarray      # (S, SPH_W) immediate spheres
     mats: np.ndarray         # (M, MAT_W)
     emit_objects: np.ndarray  # (E, EO_W)
     emit_tris: np.ndarray    # int32 indices of emissive triangles
     emit_spheres: np.ndarray  # int32 indices of emissive spheres
     lights: np.ndarray       # (L, LIGHT_W)
-    light_dots: np.ndarray   # (L, T, 4): dir . (m0, m1, m2, pn), in f64
+    light_dots: np.ndarray   # (L, T, 4): dir . (m0, m1, m2, pn)
     cam: np.ndarray          # (CAM_W,)
+    nodes: np.ndarray        # (K, NODE_W) BVH nodes, world mesh and BLASes
+    mesh: np.ndarray         # (P, MESH_W) leaf-ordered mesh triangles
+    insts: np.ndarray        # (I, INST_W) shared-BLAS instances
+    sph_tab: np.ndarray      # (B * SPH_BLOCK, SPHT_W) table spheres
+    sph_box: np.ndarray      # (B, BOX_W) their 128-slot block boxes
     width: int
     height: int
     max_depth: int
+    world_root: int          # root node of the world mesh, -1 if none
+    bvh_depth: int           # deepest root-to-leaf path of any BVH
+    max_leaf: int            # most triangles in one BVH leaf
 
     @property
     def use_rr(self) -> bool:
         return self.max_depth > RR_START + 1
+
+    @property
+    def has_accel(self) -> bool:
+        """The scene needs the mesh variant of the kernel."""
+        return bool(self.nodes.shape[0] or self.sph_tab.shape[0])
+
+    @property
+    def block_seed(self) -> bool:
+        """Lane streams are seeded per 32x32 pixel block, as the JAX
+        kernel's cluster mode tiles the film (`make_pallas_batch_fn`
+        :5892-5938): a world mesh or shared-BLAS instances."""
+        return bool(self.world_root >= 0 or self.insts.shape[0])
 
     def arrays(self) -> Dict[str, np.ndarray]:
         return {f.name: getattr(self, f.name)
@@ -294,7 +376,10 @@ class SceneTables:
 
 def pack_tables(buffers_np, config: RenderConfig) -> SceneTables:
     slice_supported(buffers_np, config)
-    tris, spheres, emit_objects, lights = pack_records(buffers_np, config)
+    imm, rest, shared = split_triangles(buffers_np, config)
+    imm_s, tbl_s = split_spheres(buffers_np, config)
+    tris, spheres, emit_objects, lights = pack_records(buffers_np, config,
+                                                       imm, imm_s)
     n_mats = buffers_np["mat_type"].shape[0]
 
     mats = np.zeros((n_mats, MAT_W), np.float64)
@@ -336,12 +421,18 @@ def pack_tables(buffers_np, config: RenderConfig) -> SceneTables:
         radius = sphere_radius(r["o2w"])
         st[s, SPH_R2] = radius * radius
 
+    # an emit object's triangles are emissive, so immediates, and
+    # consecutive there as in the scene's triangle list: its start moves
+    # to its first triangle's row of the immediates table
+    row_of = np.full(max(config.num_triangles, 1), -1, np.int64)
+    row_of[imm] = np.arange(imm.size)
     eo = np.zeros((len(emit_objects), EO_W), np.float64)
     for e, r in enumerate(emit_objects):
         if r["kind"] == "tri":
             eo[e, EO_KIND] = T.KIND_TRIANGLE
-            eo[e, EO_START] = r["start"]
+            eo[e, EO_START] = row_of[r["start"]]
             eo[e, EO_COUNT] = r["count"]
+            assert row_of[r["start"]] >= 0
         else:
             m = r["o2w"]
             radius = sphere_radius(m)
@@ -351,17 +442,22 @@ def pack_tables(buffers_np, config: RenderConfig) -> SceneTables:
             eo[e, EO_R2] = radius * radius
 
     lt = np.zeros((len(lights), LIGHT_W), np.float64)
-    dots = np.zeros((len(lights), len(tris), 4), np.float64)
     for li, r in enumerate(lights):
         lt[li, LIGHT_DIR:LIGHT_DIR + 3] = r["dir"]
         lt[li, LIGHT_COLOR:LIGHT_COLOR + 3] = r["color"]
-        ds = r["dir"]
-        for i, tr in enumerate(tris):
-            # the const-direction shadow test folds d . c on the host in
-            # float64 (pallas_path.py:3125 ddot with dir_scalars)
-            for j, key in enumerate(("m0", "m1", "m2", "pn")):
-                c3 = tr[key]
-                dots[li, i, j] = ds[0] * c3[0] + ds[1] * c3[1] + ds[2] * c3[2]
+    # the const-direction shadow test's d . c per light and immediate
+    # triangle (pallas_path.py:3125 ddot with dir_scalars)
+    c = np.asarray([[tr[k] for k in ("m0", "m1", "m2", "pn")]
+                    for tr in tris], np.float64).reshape(len(tris), 4, 3)
+    d = lt[:, None, None, LIGHT_DIR:LIGHT_DIR + 3]
+    if len(lights) > MAX_LIGHTS:
+        # light table (`fold_lights` :2696): the kernel multiplies its
+        # float32 row reads by the constants rounded to float32, in
+        # float32; numpy float32 does the same operations in that order
+        d, c = d.astype(np.float32), c.astype(np.float32)
+    # else unrolled lights: python floats, folded in float64 on the host
+    dots = (d[..., 0] * c[None, ..., 0] + d[..., 1] * c[None, ..., 1]
+            + d[..., 2] * c[None, ..., 2])
 
     w, h = config.film.xresolution, config.film.yresolution
     pinv = np.asarray(buffers_np["camera_proj_inv"], np.float64)
@@ -386,4 +482,5 @@ def pack_tables(buffers_np, config: RenderConfig) -> SceneTables:
         emit_spheres=np.asarray(
             [s for s, r in enumerate(spheres) if r["emissive"]], np.int32),
         lights=f32(lt), light_dots=f32(dots), cam=f32(cam),
-        width=w, height=h, max_depth=max_depth_for(config))
+        width=w, height=h, max_depth=max_depth_for(config),
+        **accel.pack_accel(buffers_np, rest, shared, tbl_s))

@@ -13,6 +13,27 @@ built from numbers, so a checkout alone can render it.
   matte, glass, substrate, metal, mirror, uber, plastic), an emissive
   sphere, an emissive triangle quad, a distant light and the tent pixel
   filter, at `maxdepth 16` so Russian roulette runs.
+
+Scenes past the immediates budget (512 triangles, 64 spheres, 16 distant
+lights), for the mesh variant of the kernel:
+
+* `mesh_materials_scene(w, h, nu, nv)`: the eight materials on eight
+  smooth-shaded UV-sphere meshes (2 nu (nv - 1) triangles each, 2304 at
+  the defaults), a floor and back wall, an emissive quad and one distant
+  light, at `maxdepth 16`;
+* `instanced_scene(w, h, n_inst, nu, nv)`: one UV-sphere mesh without
+  normals (the geometric-normal fallback) replayed by `ObjectInstance`
+  under rotations and scales, so it is one shared object-space mesh;
+  an emissive quad, a distant light and a floor;
+* `sphere_light_scene(w, h, n_spheres, n_lights, maxdepth)`: matte and
+  plastic spheres on a grid (the sphere table past 64), one ellipsoid and
+  one emissive sphere (both stay immediates), and a ring of distant
+  lights (the light table past 16);
+* `big_mesh_scene(w, h)`: the mesh main path. A vase, one smooth
+  parametric surface of revolution on a 256 x 256 quad grid (131,072
+  triangles, plastic), eight `ObjectInstance`s of one 4,096-triangle metal
+  sphere, a glass sphere, a matte floor, an emissive quad and a distant
+  light, at `maxdepth 17` and 1280x720 by default.
 """
 from __future__ import annotations
 
@@ -25,6 +46,40 @@ def _quad(p):
     pts = " ".join(f"{v:.6f}" for v in np.asarray(p, np.float64).reshape(-1))
     return ('Shape "trianglemesh" "integer indices" [0 1 2 0 2 3] '
             f'"point P" [{pts}]')
+
+
+def _mesh(p, idx, n=None):
+    """A trianglemesh shape from (V, 3) points, flat indices and optional
+    (V, 3) normals."""
+    def nums(a):
+        return " ".join(f"{v:.5f}" for v in np.asarray(a).reshape(-1))
+    text = ('Shape "trianglemesh" "integer indices" ['
+            + " ".join(map(str, np.asarray(idx).reshape(-1)))
+            + f'] "point P" [{nums(p)}]')
+    if n is not None:
+        text += f' "normal N" [{nums(n)}]'
+    return text
+
+
+def uv_sphere(nu: int, nv: int):
+    """Unit UV sphere about the origin: (points, indices) with nv + 1
+    latitude rings of nu points and 2 nu (nv - 1) triangles, wound so
+    the geometric normal points out."""
+    th = np.pi * np.arange(nv + 1) / nv
+    ph = 2.0 * np.pi * np.arange(nu) / nu
+    p = np.stack([np.sin(th)[:, None] * np.cos(ph)[None, :],
+                  np.sin(th)[:, None] * np.sin(ph)[None, :],
+                  np.cos(th)[:, None] + 0.0 * ph[None, :]], -1).reshape(-1, 3)
+    idx = []
+    for j in range(nv):
+        for i in range(nu):
+            a, b = j * nu + i, j * nu + (i + 1) % nu
+            c, d = b + nu, a + nu
+            if j > 0:
+                idx += [a, d, b]
+            if j < nv - 1:
+                idx += [b, d, c]
+    return p, np.asarray(idx, np.int64)
 
 
 def _block(center, half, angle_deg):
@@ -145,6 +200,223 @@ AttributeBegin
   AreaLightSource "diffuse" "rgb L" [ 5 5 6 ]
   {_quad([[-1.0, 1.0, 3.0], [1.0, 1.0, 3.0], [1.0, -0.5, 3.0],
           [-1.0, -0.5, 3.0]])}
+AttributeEnd
+WorldEnd
+"""
+
+
+# the eight materials of materials_scene, as (pbrt material, sphere
+# centre x, y, z, radius)
+_MATS = [
+    ('"glass" "float index" [ 1.5 ]', -3.4, 0.0, 0.6, 0.6),
+    ('"substrate" "rgb Kd" [ .5 .2 .1 ] "rgb Ks" [ .3 .3 .3 ] '
+     '"float uroughness" [ .15 ] "float vroughness" [ .3 ]',
+     -2.1, 0.4, 0.6, 0.6),
+    ('"metal" "float roughness" [ .2 ]', -0.7, 0.2, 0.6, 0.6),
+    ('"mirror" "rgb Kd" [ .9 .9 .9 ]', 0.7, 0.4, 0.6, 0.6),
+    ('"uber" "rgb Kd" [ .2 .4 .6 ] "rgb Ks" [ .2 .2 .2 ] "rgb Kr" [ .1 .1 .1 ] '
+     '"rgb Kt" [ .1 .1 .1 ] "rgb opacity" [ .8 .8 .8 ] "float roughness" [ .1 ]',
+     2.1, 0.2, 0.6, 0.6),
+    ('"plastic" "rgb Kd" [ .1 .5 .2 ] "rgb Ks" [ .4 .4 .4 ] '
+     '"float roughness" [ .05 ]', 3.4, 0.4, 0.6, 0.6),
+    ('"none"', 1.4, -1.3, 0.3, 0.3),
+    ('"matte" "rgb Kd" [ .7 .3 .25 ]', -1.2, -1.6, 0.35, 0.35),
+]
+
+
+def mesh_materials_scene(width: int = 128, height: int = 64, nu: int = 16,
+                         nv: int = 10) -> str:
+    p, idx = uv_sphere(nu, nv)
+    balls = "\n".join(f"""AttributeBegin
+  Translate {x} {y} {z}
+  Scale {r} {r} {r}
+  Material {mat}
+  {_mesh(p, idx, p)}
+AttributeEnd""" for mat, x, y, z, r in _MATS)
+    return f"""
+LookAt 0 -7 2.2  0 0 0.6  0 0 1
+Camera "perspective" "float fov" [ 42 ]
+PixelFilter "triangle" "float xwidth" [ 1 ] "float ywidth" [ 1 ]
+Film "image" "integer xresolution" [ {width} ]
+  "integer yresolution" [ {height} ] "string filename" "mesh_materials.png"
+Integrator "path" "integer maxdepth" [ 16 ]
+WorldBegin
+LightSource "infinite" "rgb L" [ .08 .09 .12 ]
+LightSource "distant" "point from" [ -2 -3 5 ] "point to" [ 0 0 0 ]
+  "rgb L" [ 1.6 1.5 1.3 ]
+Material "matte" "rgb Kd" [ .6 .6 .55 ]
+{_quad([[-8, -8, 0], [8, -8, 0], [8, 8, 0], [-8, 8, 0]])}
+Material "matte" "rgb Kd" [ .3 .35 .5 ]
+{_quad([[-8, 4, 0], [8, 4, 0], [8, 4, 6], [-8, 4, 6]])}
+{balls}
+AttributeBegin
+  Material "matte" "rgb Kd" [ 0 0 0 ]
+  AreaLightSource "diffuse" "rgb L" [ 5 5 6 ]
+  {_quad([[-1.0, 1.0, 3.0], [1.0, 1.0, 3.0], [1.0, -0.5, 3.0],
+          [-1.0, -0.5, 3.0]])}
+AttributeEnd
+WorldEnd
+"""
+
+
+def instanced_scene(width: int = 128, height: int = 64, n_inst: int = 12,
+                    nu: int = 20, nv: int = 12) -> str:
+    p, idx = uv_sphere(nu, nv)
+    insts = "\n".join(f"""AttributeBegin
+  Translate {(k % 4) * 1.4 - 2.1:.2f} {(k // 4) * 1.4 - 1.4:.2f} 0.45
+  Rotate {30.0 * k:.1f} 0 0 1
+  Scale {0.36 + 0.04 * (k % 3):.2f} {0.36 + 0.04 * (k % 3):.2f} {0.36 + 0.04 * (k % 3):.2f}
+  ObjectInstance "ball"
+AttributeEnd""" for k in range(n_inst))
+    return f"""
+LookAt 0 -6 4  0 0 0  0 0 1
+Camera "perspective" "float fov" [ 48 ]
+Film "image" "integer xresolution" [ {width} ]
+  "integer yresolution" [ {height} ] "string filename" "instanced.png"
+Integrator "path" "integer maxdepth" [ 5 ]
+WorldBegin
+LightSource "distant" "point from" [ 2 -3 6 ] "point to" [ 0 0 0 ]
+  "rgb L" [ 1.2 1.1 1.0 ]
+AttributeBegin
+  AreaLightSource "diffuse" "rgb L" [ 10 9 8 ]
+  Material "matte" "rgb Kd" [ 0 0 0 ]
+  {_quad([[-0.8, -0.8, 4], [-0.8, 0.8, 4], [0.8, 0.8, 4], [0.8, -0.8, 4]])}
+AttributeEnd
+ObjectBegin "ball"
+  Material "plastic" "rgb Kd" [ .7 .3 .25 ] "rgb Ks" [ .3 .3 .3 ]
+    "float roughness" [ .1 ]
+  {_mesh(p, idx)}
+ObjectEnd
+{insts}
+Material "matte" "rgb Kd" [ .5 .5 .5 ]
+{_quad([[-8, -8, 0], [8, -8, 0], [8, 8, 0], [-8, 8, 0]])}
+WorldEnd
+"""
+
+
+def sphere_light_scene(width: int = 128, height: int = 64,
+                       n_spheres: int = 100, n_lights: int = 24,
+                       maxdepth: int = 5) -> str:
+    rng = np.random.default_rng(11)
+    side = int(math.ceil(math.sqrt(n_spheres)))
+    mats = ['"matte" "rgb Kd" [ .7 .3 .25 ]', '"matte" "rgb Kd" [ .25 .6 .3 ]',
+            '"plastic" "rgb Kd" [ .3 .3 .65 ] "rgb Ks" [ .2 .2 .2 ] '
+            '"float roughness" [ .1 ]']
+    parts = []
+    for i in range(n_spheres):
+        x = (i % side - side / 2) * 1.8 + rng.uniform(-0.1, 0.1)
+        y = (i // side - side / 2) * 1.8 + rng.uniform(-0.1, 0.1)
+        r = rng.uniform(0.5, 0.8)
+        parts.append(f"""AttributeBegin
+  Material {mats[i % 3]}
+  Translate {x:.3f} {y:.3f} {r:.3f}
+  Shape "sphere" "float radius" [ {r:.3f} ]
+AttributeEnd""")
+    for i in range(n_lights):
+        th = 2.0 * math.pi * i / n_lights
+        el = 0.4 + 0.5 * rng.random()
+        c = (0.12 + 0.1 * rng.random(3)) * 16.0 / max(n_lights, 16)
+        parts.append(
+            f'LightSource "distant" "rgb L" [ {c[0]:.4f} {c[1]:.4f} '
+            f'{c[2]:.4f} ] "point from" [ {6 * math.cos(th):.3f} '
+            f'{6 * math.sin(th):.3f} {6 * math.tan(el):.3f} ] '
+            '"point to" [ 0 0 0 ]')
+    body = "\n".join(parts)
+    return f"""
+LookAt 0 -6.5 2.6  0 1.5 0.4  0 0 1
+Camera "perspective" "float fov" [ 62 ]
+Film "image" "integer xresolution" [ {width} ]
+  "integer yresolution" [ {height} ] "string filename" "sphere_light.png"
+Integrator "path" "integer maxdepth" [ {maxdepth} ]
+WorldBegin
+LightSource "infinite" "rgb L" [ .25 .28 .33 ]
+Material "matte" "rgb Kd" [ .55 .5 .45 ]
+{_quad([[-12, -12, 0], [12, -12, 0], [12, 12, 0], [-12, 12, 0]])}
+{body}
+AttributeBegin
+  Material "metal" "float roughness" [ .15 ]
+  Translate 0.9 -3.2 0.5
+  Scale 1.2 0.5 0.5
+  Shape "sphere" "float radius" [ 1 ]
+AttributeEnd
+AttributeBegin
+  AreaLightSource "diffuse" "rgb L" [ 10 8 6 ]
+  Material "matte" "rgb Kd" [ 0 0 0 ]
+  Translate 0 0 6
+  Shape "sphere" "float radius" [ 0.8 ]
+AttributeEnd
+WorldEnd
+"""
+
+
+def _vase(n: int = 256):
+    """A surface of revolution about +z on an n x n quad grid (2 n^2
+    triangles; the seam wraps), with analytic per-vertex normals."""
+    v = np.linspace(0.0, 1.0, n + 1)
+    u = 2.0 * np.pi * np.arange(n) / n
+    rad = 0.35 + 0.45 * np.sin(np.pi * (0.15 + 0.85 * v)) ** 2 \
+        + 0.03 * np.sin(9.0 * np.pi * v)
+    drad = (0.45 * 2.0 * np.sin(np.pi * (0.15 + 0.85 * v))
+            * np.cos(np.pi * (0.15 + 0.85 * v)) * np.pi * 0.85
+            + 0.03 * 9.0 * np.pi * np.cos(9.0 * np.pi * v))
+    height = 2.4
+    cu, su = np.cos(u)[None, :], np.sin(u)[None, :]
+    p = np.stack([rad[:, None] * cu, rad[:, None] * su,
+                  height * v[:, None] + 0.0 * cu], -1).reshape(-1, 3)
+    # normal of (r(v) cos u, r(v) sin u, h v): (h cos u, h sin u, -r'(v))
+    nrm = np.stack([height * cu + 0.0 * drad[:, None],
+                    height * su + 0.0 * drad[:, None],
+                    -drad[:, None] + 0.0 * cu], -1).reshape(-1, 3)
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    j, i = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    a = j * n + i
+    b = j * n + (i + 1) % n
+    c, d = b + n, a + n
+    idx = np.stack([a, b, c, a, c, d], -1).reshape(-1)
+    return p, idx, nrm
+
+
+def big_mesh_scene(width: int = 1280, height: int = 720) -> str:
+    vp, vidx, vn = _vase(256)
+    sp, sidx = uv_sphere(64, 33)
+    insts = "\n".join(f"""AttributeBegin
+  Translate {2.2 * math.cos(a):.4f} {2.2 * math.sin(a):.4f} 0.35
+  Rotate {math.degrees(a):.2f} 0 0 1
+  Scale 0.35 0.35 0.35
+  ObjectInstance "ball"
+AttributeEnd""" for a in (2.0 * math.pi * k / 8 + 0.3 for k in range(8)))
+    return f"""
+LookAt 0.5 -6.5 3.2  0 0 1.0  0 0 1
+Camera "perspective" "float fov" [ 38 ]
+Film "image" "integer xresolution" [ {width} ]
+  "integer yresolution" [ {height} ] "string filename" "big_mesh.png"
+Integrator "path" "integer maxdepth" [ 17 ]
+WorldBegin
+LightSource "infinite" "rgb L" [ .1 .11 .14 ]
+LightSource "distant" "point from" [ -3 -2 6 ] "point to" [ 0 0 0 ]
+  "rgb L" [ 1.5 1.4 1.25 ]
+AttributeBegin
+  Material "matte" "rgb Kd" [ 0 0 0 ]
+  AreaLightSource "diffuse" "rgb L" [ 6 6 7 ]
+  {_quad([[-1.2, -1.0, 4.5], [-1.2, 1.0, 4.5], [1.2, 1.0, 4.5],
+          [1.2, -1.0, 4.5]])}
+AttributeEnd
+Material "matte" "rgb Kd" [ .6 .58 .55 ]
+{_quad([[-10, -10, 0], [10, -10, 0], [10, 10, 0], [-10, 10, 0]])}
+AttributeBegin
+  Material "plastic" "rgb Kd" [ .55 .25 .12 ] "rgb Ks" [ .35 .35 .35 ]
+    "float roughness" [ .08 ]
+  {_mesh(vp, vidx, vn)}
+AttributeEnd
+ObjectBegin "ball"
+  Material "metal" "float roughness" [ .12 ]
+  {_mesh(sp, sidx, sp)}
+ObjectEnd
+{insts}
+AttributeBegin
+  Material "glass" "float index" [ 1.5 ]
+  Translate 1.3 -1.6 0.5
+  Shape "sphere" "float radius" [ 0.5 ]
 AttributeEnd
 WorldEnd
 """

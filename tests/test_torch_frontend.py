@@ -69,11 +69,13 @@ def test_layout_header_matches_pack_constants():
     text = (REPO / "rene_tpu_torch" / "csrc" / "layout.cuh").read_text()
     defs = dict(re.findall(r"#define (\w+) (-?\d+)\s*$", text, re.M))
     from rene_tpu.scene import types as T
-    names = [n for n in defs if hasattr(P, n) or hasattr(T, n)]
-    assert len(names) == len(defs)
-    for name in names:
-        want = getattr(P, name) if hasattr(P, name) else getattr(T, name)
-        assert int(defs[name]) == want, name
+    from rene_tpu_torch.scene import accel as A
+    owner = {n: m for m in (T, A, P) for n in defs if hasattr(m, n)}
+    assert set(owner) == set(defs)
+    assert {n for n in defs if hasattr(A, n)} >= {"NODE_W", "MESH_W",
+                                                   "INST_W", "SPH_BLOCK"}
+    for name, module in owner.items():
+        assert int(defs[name]) == getattr(module, name), name
 
 
 @pytest.fixture(scope="module")
@@ -163,14 +165,19 @@ _HEAD = 'Film "image" "integer xresolution" [8] "integer yresolution" [8]\n'
      'Material "matte" "texture Kd" "c"\n' + _QUAD + "\nWorldEnd", "K1b"),
     ('Integrator "volpath"\n' + _HEAD + "WorldBegin\n" + _QUAD
      + "\nWorldEnd", "K1e"),
-    (_HEAD + "WorldBegin\n" + _grid(17) + "\nWorldEnd", "K1c"),
+    (_HEAD + "WorldBegin\n" + 'AreaLightSource "diffuse" "rgb L" [1 1 1]\n'
+     + _grid(17) + "\nWorldEnd", "K1c"),
     ('Sampler "sobol"\n' + _HEAD + "WorldBegin\n" + _QUAD + "\nWorldEnd",
      "sobol"),
     (_HEAD + "WorldBegin\n" + "\n".join(
-        f'AttributeBegin\nTranslate {i} 0 0\nShape "sphere" '
+        f'AttributeBegin\nTranslate {i} 0 0\nScale 1 2 1\nShape "sphere" '
         f'"float radius" 0.1\nAttributeEnd' for i in range(65))
      + "\nWorldEnd", "K1d"),
-], ids=["textured", "volpath", "big_mesh", "sobol", "many_spheres"])
+    (_HEAD + "WorldBegin\n" + "\n".join(
+        f'LightSource "distant" "point from" [1 0 {i + 2}]'
+        for i in range(1025)) + "\n" + _QUAD + "\nWorldEnd", "K1d"),
+], ids=["textured", "volpath", "big_mesh", "sobol", "many_spheres",
+        "many_lights"])
 def test_slice_supported_rejects(src, item):
     bn, cfg = _scene(src)
     with pytest.raises(NotImplementedError, match=item):
@@ -178,5 +185,15 @@ def test_slice_supported_rejects(src, item):
 
 
 def test_slice_supported_accepts_main_path_scenes():
-    for src in (scenes.cornell_box(8, 8), scenes.materials_scene(8, 8)):
-        P.slice_supported(*_scene(src))
+    """The K1a scenes, and scenes past 512 triangles (a world mesh and
+    shared-BLAS instances), 64 spheres and 16 distant lights that the JAX
+    package's `pallas_eligible` takes."""
+    from rene_tpu.integrators.pallas_path import pallas_eligible
+    for src in (scenes.cornell_box(8, 8), scenes.materials_scene(8, 8),
+                _HEAD + "WorldBegin\n" + _grid(17) + "\nWorldEnd",
+                scenes.mesh_materials_scene(8, 8),
+                scenes.instanced_scene(8, 8),
+                scenes.sphere_light_scene(8, 8, 100, 24)):
+        bn, cfg = _scene(src)
+        P.slice_supported(bn, cfg)
+        assert pallas_eligible(bn, cfg)

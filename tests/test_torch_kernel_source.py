@@ -21,6 +21,7 @@ from rene_tpu_torch import checks, kernels
 from rene_tpu_torch.integrators import mega_path as M
 from rene_tpu_torch.scene import pack as P
 from .test_torch_mega_path import _buffers
+from .test_torch_mesh import buffers as mesh_buffers
 
 torch.set_num_threads(2)
 
@@ -38,24 +39,15 @@ static inline float __uint_as_float(uint32_t u) {
   float f; memcpy(&f, &u, 4); return f;
 }
 #include "path.cuh"
-// mega_path_launch's signature; the lanes run one after another
-extern "C" int mega_path_launch(
-    const float* tris, int n_tris, const float* sph, int n_sph,
-    const float* mats, const float* eo, int n_eo, const int* emit_tris,
-    int n_emit_tris, const int* emit_sph, int n_emit_sph, const float* lights,
-    const float* light_dots, int n_lights, const float* cam,
-    int has_tri_emitter, int width, int n_pix, int max_depth, int use_rr,
-    int beckmann, int seed, int num_samples, float* out, void* stream) {
-  Params p;
-  p.s = Scene{tris, sph, mats, eo, emit_tris, emit_sph, lights, light_dots,
-              cam, n_tris, n_sph, n_eo, n_emit_tris, n_emit_sph, n_lights,
-              has_tri_emitter};
-  p.width = width; p.n_pix = n_pix; p.max_depth = max_depth;
-  p.use_rr = use_rr; p.beckmann = beckmann; p.num_samples = num_samples;
-  p.seed = (uint32_t)seed; p.out = out;
-  for (int lane = 0; lane < n_pix; ++lane) trace_lane(p, lane);
+// the lanes run one after another
+static int run_lanes(const Params& p, void*) {
+  for (int lane = 0; lane < p.n_pix; ++lane) {
+    if (p.has_accel) trace_lane<true>(p, lane);
+    else trace_lane<false>(p, lane);
+  }
   return 0;
 }
+#include "launch.cuh"
 """
 
 
@@ -98,6 +90,26 @@ def test_cuda_lane_code_matches_plain_version(host_lib, name, beckmann):
     assert out[9].sum() == ref[9].sum()
 
 
+@pytest.mark.parametrize("name", ["mesh_materials", "instanced",
+                                  "sphere_table"])
+def test_cuda_mesh_lane_code_matches_plain_version(host_lib, name):
+    """The mesh variant (trace_lane<true>: BVH walk, instances, sphere
+    table, 32x32-block seeds) against the plain version."""
+    tabs = M.device_tables(P.pack_tables(*mesh_buffers(name)), "cpu")
+    assert tabs["has_accel"]
+    seed, spp = 99, 4
+    out = torch.empty((P.OUT_ROWS, 128 * 64), dtype=torch.float32)
+    args = kernels.launch_args(tabs, seed, spp, False, out)
+    assert host_lib.mega_path_launch(*args, None) == 0
+    ref = M.path_lanes_ref(tabs, seed, spp).numpy()
+    out = out.numpy()
+    a = checks.agreement(out, ref)
+    assert a["rad_frac"] >= 0.995, a
+    assert a["aov_frac"] >= 0.995, a
+    assert a["mean_rel"] <= 1e-4, a
+    assert out[9].sum() == ref[9].sum()
+
+
 def test_launch_args_check_tables():
     bn, cfg = _buffers("cornell_box")
     tabs = M.device_tables(P.pack_tables(bn, cfg), "cpu")
@@ -114,10 +126,10 @@ def test_launch_args_check_tables():
     with pytest.raises(ValueError, match="out: shape"):
         kernels.launch_args(tabs, 0, 1, False, out[:, :10].contiguous())
     # CPU tables run the plain version and count no launch
-    before = kernels.mega_path.launches
+    before = dict(kernels.launches)
     torch.testing.assert_close(kernels.mega_path(tabs, 3, 1),
                                M.path_lanes_ref(tabs, 3, 1), rtol=0, atol=0)
-    assert kernels.mega_path.launches == before
+    assert kernels.launches == before
     meta = dict(tabs, tris=tabs["tris"].to("meta"))
     with pytest.raises(ValueError, match="needs CUDA or CPU tensors"):
         kernels.mega_path(meta, 0, 1)
