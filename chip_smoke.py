@@ -7,8 +7,8 @@ Needs one CUDA card and nvcc; exits nonzero without printing a result
 when either is missing or any check fails. Phases:
 
 1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
-2. the build of csrc/mega_path.cu with nvcc, both kernel variants at once
-   (timed, ptxas registers and spills shown);
+2. the build of csrc/mega_path.cu and csrc/wave.cu with nvcc, every
+   kernel variant at once (timed, ptxas registers and spills shown);
 3. the K1a variant vs its plain version on the card: an inline 128x64
    scene with all 8 material types, emissive sphere and quad, a distant
    light and the tent filter at maxdepth 16, 4 spp, the same seed for both;
@@ -26,16 +26,52 @@ when either is missing or any check fails. Phases:
    at 1280x720 x 16 spp with normal and albedo AOVs;
 8. that path's launch shape against the plain version: one 1-spp chunk
    at 1280x720 with the CLI's chunk seed; then timing of the kernel
-   (CUDA events) and the plain version at that shape.
+   (CUDA events) and the plain version at that shape;
+9. the wave kernels' registers and spills (ptxas, from the phase-2 build):
+   K2 in both variants, K3 and K4;
+10. whole waves of the wave kernels (K3, K2 and, sorted by `dma`, K4)
+    against the same waves of their plain versions on the card, 128x64
+    x spw 4: the materials, mesh-materials and instanced scenes; one K2
+    launch of the immediates variant against plain and timed;
+11. the wave main path through the CLI: `big_mesh_scene` at maxdepth 50
+    (a deep big-mesh scene, the reference's rule for its wave engine) at
+    1280x720 x 16 spp with `--engine wave`, then again at a second seed,
+    and with `--engine pallas` at both seeds: the Mrays/s, the image
+    means held to each other; and
+    the Cornell box of phase 4 at 16 spp with `--engine wave` (the K2
+    immediates variant);
+12. full-shape checks and timing on the deep scene: K3 at 1280x720 x spw
+    16 against plain; K4 on that state against plain and against
+    `index_select`; K2 at the main path's own launches, the first (k 1,
+    every lane alive) and the fifth (k 4, after four steps and sorts),
+    each run over the whole state, timed, and its output held against
+    the plain version on a strided sample of ~131k of the launch's alive
+    lanes; the same two launches on the Cornell box of phase 11 (1024x1024
+    x spw 16, the immediates variant); the 16-spp wave once more sorted by
+    `dma` (its own path: K3, K2, K4), its film against the `gather` film;
+    the wave's device time split into init, K2, sorts and finish; the
+    linear radiance means of the wave and the megakernel at two seeds
+    each; one K2 launch at 320x180 x spw 2 against plain.
 
 The per-pixel rule and the card's limits are rene_tpu_torch.checks'. Each
-main path (phases 4 and 7) runs with every launch count set to 0 just
-before it and read just after; comparison launches are not counted.
+path run (phases 4, 7, 11 and the `dma` wave of 12) starts with every
+launch count set to 0 and reads them just after; comparison launches are
+not counted. The plain versions run on the card, for the waves of phase
+10 through rene_tpu_torch.kernels' wrappers swapped for them.
+
+Each kernel's bound is the larger of its bytes over 3.35 TB/s (each input
+read once, each output written once) and its FP32 operations over 67
+TFLOP/s (the H100 SXM's non-tensor FP32 peak, NVIDIA's data sheet). The
+operations are the ray-cast tests this run's inputs need, counted by the
+plain walk (rene_tpu_torch.ops.bvh.tests) or from the rays and the
+immediates, at the costs in OPS below; shading is not counted, so the
+bound is a lower one.
 
 Outputs go to chiprun_out/smoke/ of the checkout. The line before the
 last is a JSON object describing each kernel; the last line is
 {"ok": true, "device": {...}}.
 """
+import contextlib
 import json
 import logging
 import os
@@ -47,6 +83,27 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out", "smoke")
 MAIN_SPP, MAIN_SEED = 64, 1
 MESH_SPP, MESH_W, MESH_H = 16, 1280, 720
+DEEP_DEPTH = 50
+HBM_BPS, FP32_OPS = 3.35e12, 67e12
+# FP32 operations of one ray-cast test, counted in the CUDA code: the
+# immediate triangle's plane test (intersect.cuh trace_closest; its three
+# side tests run only where that passes), an immediate sphere
+# (sphere_local + sphere_t), a BVH or sphere-table box (box test of
+# bvh.cuh), a mesh triangle (Moeller-Trumbore) and a table sphere
+OPS = {"imm_tri": 12, "imm_sph": 40, "box": 25, "tri": 50, "sph": 20}
+# the wave and megakernel renders of the deep scene: image means (8-bit
+# PNG, 0-255) within this relative difference. The engines draw other
+# samples; two seeds of the megakernel read 1.0e-5 apart, and the wave
+# engine on the JAX interpret-mode lane streams 4.3e-3 from it (PERF.md
+# section 6)
+MEAN_REL = 1e-3
+# lanes of a full-shape K2 launch held against the plain version: a
+# strided sample of the launch's alive lanes (a lane's result depends on
+# its own input row only)
+SAMPLE_LANES = 1 << 17
+# state rows a K2 launch moves per alive lane besides the alive row that
+# every lane of the launch reads: 26 read, 23 written (wave.cuh wave_lane)
+K2_ROWS = 49
 
 
 def log(msg):
@@ -68,23 +125,33 @@ def write_scene(name, src):
     return path
 
 
+def buffers_for(path):
+    from rene_tpu_torch.scene import build_device_scene, load_scene
+    return build_device_scene(load_scene(path))
+
+
 def tables_for(path, device):
     from rene_tpu_torch.integrators import mega_path as M
-    from rene_tpu_torch.scene import build_device_scene, load_scene
     from rene_tpu_torch.scene import pack as P
-    buffers_np, config = build_device_scene(load_scene(path))
-    return M.device_tables(P.pack_tables(buffers_np, config), device)
+    return M.device_tables(P.pack_tables(*buffers_for(path)), device)
 
 
-def cli_path(name, src, spp, size, what):
+def reset_launches():
+    from rene_tpu_torch import kernels
+    for k in kernels.launches:
+        kernels.launches[k] = 0
+
+
+def cli_path(name, src, spp, size, what, engine="auto", seed=MAIN_SEED):
     """Render `src` through cli.main on the card with every launch count
     set to 0 just before; check the PNG shapes and a non-black image.
-    Returns (scene path, launch counts, Mrays/s line values)."""
+    Returns (scene path, launch counts, {rate, mean})."""
     import torch
     from rene_tpu_torch import cli, kernels
     from rene_tpu_torch.utils.film import read_png
     scene_path = write_scene(name, src)
-    paths = [os.path.join(OUT_DIR, f"{name}{k}.png")
+    tag = f"{name}_{engine}_{seed}"
+    paths = [os.path.join(OUT_DIR, f"{tag}{k}.png")
              for k in ("", "_normal", "_albedo")]
     for p in paths:
         if os.path.exists(p):
@@ -97,12 +164,12 @@ def cli_path(name, src, spp, size, what):
 
     grab = Grab()
     logging.getLogger("rene_tpu_torch").addHandler(grab)
-    for k in kernels.launches:
-        kernels.launches[k] = 0
+    reset_launches()
     t0 = time.time()
-    rc = cli.main([scene_path, "--spp", str(spp), "--seed", str(MAIN_SEED),
+    rc = cli.main([scene_path, "--spp", str(spp), "--seed", str(seed),
                    "--output", paths[0], "--aov-normal", paths[1],
-                   "--aov-albedo", paths[2], "--device", "cuda"])
+                   "--aov-albedo", paths[2], "--device", "cuda",
+                   "--engine", engine])
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = dict(kernels.launches)
@@ -119,12 +186,109 @@ def cli_path(name, src, spp, size, what):
         if img.shape != (size[1], size[0], 3):
             raise RuntimeError(f"{p}: shape {img.shape}")
         means[os.path.basename(p)] = float(img.mean())
-    if not means[f"{name}.png"] > 0.0:
+    if not means[f"{tag}.png"] > 0.0:
         raise RuntimeError("the rendered image is black")
-    log(f"main path ({what}, {spp} spp): launches {json.dumps(launches)}, "
-        f"{mrays:.1f} Mrays, render {render_s:.3f} s, {rate:.1f} Mrays/s, "
-        f"cli wall {wall:.3f} s, png means {json.dumps(means)}")
-    return scene_path, launches
+    log(f"main path ({what}, {spp} spp, engine {engine}, seed {seed}): "
+        f"launches {json.dumps(launches)}, {mrays:.1f} Mrays, render "
+        f"{render_s:.3f} s, {rate:.1f} Mrays/s, cli wall {wall:.3f} s, "
+        f"png means {json.dumps(means)}")
+    return scene_path, launches, {"rate": rate, "mean": means[f"{tag}.png"]}
+
+
+def bound(n_bytes, ops):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    FP32 operations over the FP32 peak."""
+    t_b, t_o = n_bytes / HBM_BPS * 1e3, ops / FP32_OPS * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def table_bytes(tabs):
+    import torch
+    return sum(v.numel() * v.element_size() for v in tabs.values()
+               if isinstance(v, torch.Tensor))
+
+
+def cast_ops(tabs, rays, tests):
+    """FP32 operations of `rays` ray casts against the immediates, plus
+    the plain walk's box, triangle and table-sphere `tests`."""
+    imm = (tabs["tris"].shape[0] * OPS["imm_tri"]
+           + tabs["spheres"].shape[0] * OPS["imm_sph"])
+    return rays * imm + sum(OPS[k] * tests.get(k, 0)
+                            for k in ("box", "tri", "sph"))
+
+
+@contextlib.contextmanager
+def plain_wave_kernels():
+    """The wave runner's kernel wrappers swapped for the plain versions,
+    so that a runner on CUDA tensors runs them on the card."""
+    from rene_tpu_torch import kernels
+    from rene_tpu_torch.integrators import wave as WV
+    saved = (kernels.wave_genesis, kernels.wave_path, kernels.wave_permute)
+
+    def genesis(tabs, pxf, pyf, n_real, seed, base, rem, stream):
+        return WV.genesis_ref(tabs["cam_f"], pxf, pyf, tabs["width"],
+                              tabs["width"] * tabs["height"], n_real, seed,
+                              base, rem, stream)
+
+    kernels.wave_genesis, kernels.wave_path, kernels.wave_permute = (
+        genesis, WV.wave_step_ref, WV.permute_ref)
+    try:
+        yield
+    finally:
+        kernels.wave_genesis, kernels.wave_path, kernels.wave_permute = saved
+
+
+def lane_agreement(s_k, s_p):
+    """Shares of lanes of two wave states that agree on every row by the
+    per-pixel rule's radiance tolerance, and on the key row bit for
+    bit."""
+    import torch
+    from rene_tpu_torch import checks
+    from rene_tpu_torch.integrators import wave as WV
+    ok = ((s_k - s_p).abs() <= checks.RAD_ATOL
+          + checks.RAD_RTOL * s_p.abs()).all(0)
+    key = (s_k[WV.WROW_KEY].view(torch.int32)
+           == s_p[WV.WROW_KEY].view(torch.int32))
+    return float(ok.double().mean()), float(key.double().mean())
+
+
+def wave_at(run, seed, want, step):
+    """The state of a wave of `run` just before its K2 launch `step`, and
+    that launch's lane bound, driven as run_dev drives it: genesis, then
+    per step the sort over the bucketed prefix and the launch, with the
+    one-step-stale alive count."""
+    from rene_tpu_torch.integrators import wave as WV
+    state, pix = run.init_state(seed, want)
+    prefix, counts = run.n_real, []
+    for si in range(step + 1):
+        if si >= 1:
+            m = run.bucket(prefix)
+            state, pix = run.sort_prefix(state, pix, m)
+            last = counts[si - 2] if si >= 2 else run.n_real
+            nt = min(-(-last // WV.W_TILE), m // WV.W_TILE)
+            prefix = nt * WV.W_TILE
+        else:
+            nt = -(-prefix // WV.W_TILE)
+        if si == step:
+            return state, nt * WV.W_TILE
+        k = WV.SCHEDULE[min(si, len(WV.SCHEDULE) - 1)]
+        state, n_alive = run.kernel_step(k, state, seed, si, nt)
+        counts.append(int(n_alive))
+
+
+def film(out):
+    import numpy as np
+    return np.concatenate([np.asarray(out[k]).T
+                           for k in ("radiance", "normal", "albedo")])
+
+
+def film_rel(a, b):
+    """Largest difference of two films' per-pixel sums, relative to the
+    larger of 1 and the sum: two sorts of the same wave differ only in
+    the order of each pixel's sum."""
+    import numpy as np
+    fa, fb = film(a), film(b)
+    return float((np.abs(fa - fb) / np.maximum(np.abs(fb), 1.0)).max())
 
 
 def main() -> int:
@@ -135,9 +299,12 @@ def main() -> int:
         return 2
     from rene_tpu_torch import checks, kernels, scenes
     from rene_tpu_torch.integrators import mega_path as M
+    from rene_tpu_torch.integrators import wave as WV
+    from rene_tpu_torch.ops import bvh
 
     os.makedirs(OUT_DIR, exist_ok=True)
     dev = torch.device("cuda", 0)
+    t_smoke = time.time()
 
     # 1. the card
     card = card_line()
@@ -146,7 +313,7 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()}")
 
-    # 2. build, both variants at once
+    # 2. build, every variant at once
     t0 = time.time()
     sos = kernels.build(verbose=True)
     log(f"build: {time.time() - t0:.1f} s -> "
@@ -154,9 +321,12 @@ def main() -> int:
 
     def compare(tabs, seed, spp, what):
         """The kernel and its plain version on the same tables and seed,
-        held to the card's limits; returns the agreement."""
+        held to the card's limits; returns the agreement, with the plain
+        version's seconds and BVH tests."""
         out_k = kernels.mega_path(tabs, seed, spp)
         torch.cuda.synchronize()
+        for k in bvh.tests:
+            bvh.tests[k] = 0
         t = time.time()
         out_p = M.path_lanes_ref(tabs, seed, spp)
         torch.cuda.synchronize()
@@ -168,6 +338,7 @@ def main() -> int:
             + json.dumps(a))
         checks.check_card(a, what)
         a["plain_s"] = plain_s
+        a["tests"] = dict(bvh.tests)
         return a
 
     def time_ms(fn, reps):
@@ -182,10 +353,66 @@ def main() -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
 
-    def chunk_seed():
+    def chunk_seed(seed=MAIN_SEED):
         # the seed render.py draws for the first chunk
-        return int(np.random.default_rng(MAIN_SEED).integers(
+        return int(np.random.default_rng(seed).integers(
             0, 2 ** 31, dtype=np.int32))
+
+    def mega_bound(tabs, tests=None):
+        """Bound of one 1-spp megakernel launch over the film of `tabs`."""
+        rays = float(kernels.mega_path(tabs, 11, 1)[9].sum())
+        n_pix = tabs["width"] * tabs["height"]
+        return bound(table_bytes(tabs) + 10 * 4 * n_pix,
+                     cast_ops(tabs, rays, tests or {}))
+
+    def k2_launch(run, seed, step, what):
+        """K2 launch `step` of the main path's wave of `run` over the whole
+        state, timed (CUDA events, the state's copy taken off), held
+        against the plain version on a strided sample of the launch's
+        alive lanes; its max_abs_err is that of the radiance rows (a lane
+        one side parks holds DEAD_ORIGIN in its origin rows). The bound's
+        ray-cast tests are the plain walk's on the sample, scaled by the
+        rays of the whole launch."""
+        k = WV.SCHEDULE[min(step, len(WV.SCHEDULE) - 1)]
+        s0, n_run = wave_at(run, seed, run.samples_per_wave, step)
+        alive = torch.nonzero(s0[WV.WROW_ALIVE, :n_run] > 0.5).squeeze(1)
+        idx = alive[::max(1, alive.numel() // SAMPLE_LANES)]
+        s_k = kernels.wave_path(run.tabs, s0.clone(), seed, step, k, n_run,
+                                run.key_bounds)
+        sub = s0.index_select(1, idx)
+        torch.cuda.synchronize()
+        for key in bvh.tests:
+            bvh.tests[key] = 0
+        t = time.time()
+        s_p = WV.wave_step_ref(run.tabs, sub.clone(), seed, step, k,
+                               idx.numel(), run.key_bounds)
+        torch.cuda.synchronize()
+        plain_ms = (time.time() - t) * 1e3
+        tests = dict(bvh.tests)
+        s_ks = s_k.index_select(1, idx)
+        share, key_share = lane_agreement(s_ks, s_p)
+        err = float((s_ks - s_p)[WV.WROW_R:WV.WROW_R + 3].abs().max())
+        ms = time_ms(lambda r=0: kernels.wave_path(
+            run.tabs, s0.clone(), seed, step, k, n_run, run.key_bounds), 5) \
+            - time_ms(lambda r=0: s0.clone(), 5)
+        rays = float((s_k[WV.WROW_RAYS] - s0[WV.WROW_RAYS]).sum())
+        rays_s = float((s_p[WV.WROW_RAYS] - sub[WV.WROW_RAYS]).sum())
+        bnd = bound(table_bytes(run.tabs) + n_run * 4
+                    + alive.numel() * K2_ROWS * 4,
+                    cast_ops(run.tabs, rays, {key: v * rays / rays_s
+                                              for key, v in tests.items()}))
+        log(f"K2 launch {step} vs plain ({what}, k {k}, {n_run} lanes run, "
+            f"{alive.numel()} alive, {idx.numel()} sampled): lanes agree "
+            f"{share:.5f}, keys {key_share:.5f}, radiance max abs "
+            f"{err:.3g}; kernel "
+            f"{ms:.3f} ms over the whole state, plain {plain_ms:.1f} ms on "
+            f"the sample, bound {bnd[0]:.4f} ms ({bnd[1]}; {rays:.0f} rays, "
+            f"sample's plain walk tests {json.dumps(tests)}) [{card}]")
+        if min(share, key_share) < checks.CARD_FRAC:
+            raise RuntimeError(f"K2 launch {step} ({what}) disagrees with "
+                               f"its plain version")
+        return {"ms": ms, "plain_ms": plain_ms, "bound": bnd, "err": err,
+                "sampled": idx.numel(), "k": k}
 
     # 3. K1a kernel vs plain on the card
     tabs = tables_for(
@@ -193,9 +420,10 @@ def main() -> int:
     a_mat = compare(tabs, 1234567, 4, "materials 128x64 x 4 spp")
 
     # 4. the K1a main path through the CLI
-    scene_path, l_k1a = cli_path("cornell", scenes.cornell_box(1024, 1024),
-                                 MAIN_SPP, (1024, 1024), "cornell 1024x1024")
-    if l_k1a["mega_path"] <= 0 or l_k1a["mega_path_mesh"] != 0:
+    scene_path, l_k1a, _ = cli_path(
+        "cornell", scenes.cornell_box(1024, 1024), MAIN_SPP, (1024, 1024),
+        "cornell 1024x1024", engine="pallas")
+    if l_k1a["mega_path"] <= 0 or sum(l_k1a.values()) != l_k1a["mega_path"]:
         raise RuntimeError(f"the K1a main path launched {l_k1a}")
 
     # 5. that path's launch vs plain, then timing at a 1-spp chunk
@@ -204,8 +432,10 @@ def main() -> int:
                      f"cornell 1024x1024 x {MAIN_SPP} spp")
     k1a_ms = time_ms(lambda r=0: kernels.mega_path(tabs, 11 + r, 1), 20)
     k1a_plain_ms = time_ms(lambda r=0: M.path_lanes_ref(tabs, 11 + r, 1), 2)
+    k1a_bound = mega_bound(tabs)
     log(f"timing (cornell 1024x1024, 1 spp): kernel {k1a_ms:.3f} ms, "
-        f"plain {k1a_plain_ms:.1f} ms [{card}]")
+        f"plain {k1a_plain_ms:.1f} ms, bound {k1a_bound[0]:.4f} ms "
+        f"({k1a_bound[1]}) [{card}]")
     del tabs
 
     # 6. the mesh variant vs plain on the card
@@ -224,10 +454,11 @@ def main() -> int:
     src = scenes.big_mesh_scene(MESH_W, MESH_H)
     log(f"big_mesh_scene text: {len(src) / 1e6:.1f} MB in "
         f"{time.time() - t0:.2f} s")
-    scene_path, l_mesh = cli_path("big_mesh", src, MESH_SPP,
-                                  (MESH_W, MESH_H),
-                                  f"big mesh {MESH_W}x{MESH_H}")
-    if l_mesh["mega_path_mesh"] <= 0 or l_mesh["mega_path"] != 0:
+    scene_path, l_mesh, _ = cli_path(
+        "big_mesh", src, MESH_SPP, (MESH_W, MESH_H),
+        f"big mesh {MESH_W}x{MESH_H}", engine="pallas")
+    if l_mesh["mega_path_mesh"] <= 0 \
+            or sum(l_mesh.values()) != l_mesh["mega_path_mesh"]:
         raise RuntimeError(f"the mesh main path launched {l_mesh}")
 
     # 8. that path's launch shape vs plain, then timing
@@ -240,25 +471,246 @@ def main() -> int:
     a_big = compare(tabs, chunk_seed(), 1, f"big mesh {MESH_W}x{MESH_H} x 1 spp")
     mesh_ms = time_ms(lambda r=0: kernels.mega_path(tabs, 11 + r, 1), 10)
     mesh_plain_ms = a_big["plain_s"] * 1e3
+    mesh_bound = mega_bound(tabs, a_big["tests"])
     log(f"timing (big mesh {MESH_W}x{MESH_H}, 1 spp): kernel {mesh_ms:.3f} "
-        f"ms, plain {mesh_plain_ms:.1f} ms [{card}]")
+        f"ms, plain {mesh_plain_ms:.1f} ms, bound {mesh_bound[0]:.4f} ms "
+        f"({mesh_bound[1]}; plain walk tests {json.dumps(a_big['tests'])}) "
+        f"[{card}]")
+    del tabs
 
-    if "jax" in sys.modules:
-        raise RuntimeError("jax was imported")
+    # 9. the wave kernels' registers and spills
+    for name in ("wave_path", "wave_path_mesh"):
+        lines = [ln.strip() for ln in kernels.ptxas.get(name, "").splitlines()
+                 if "registers" in ln or "spill" in ln or "Compiling" in ln]
+        log(f"ptxas {name}: " + " | ".join(lines))
+
+    # 10. whole waves of the kernels vs their plain versions, 128x64 x spw 4
+    a_wave = {}
+    for name, src in (
+            ("materials", scenes.materials_scene(128, 64)),
+            ("mesh_materials", scenes.mesh_materials_scene(128, 64)),
+            ("instanced", scenes.instanced_scene(128, 64))):
+        bn, cfg = buffers_for(write_scene(name, src))
+        card_run = WV.make_wave_fn(bn, cfg, dev, samples_per_wave=4)
+        dma_run = WV.make_wave_fn(bn, cfg, dev, samples_per_wave=4,
+                                  sort_mode="dma")
+        with plain_wave_kernels():
+            plain_run = WV.make_wave_fn(bn, cfg, dev, samples_per_wave=4)
+            t = time.time()
+            ref = plain_run(1234567, 4)
+            plain_s = time.time() - t
+        out = card_run(1234567, 4)
+        out_dma = dma_run(1234567, 4)
+        a = checks.agreement(film(out), film(ref))
+        log(f"wave vs plain ({name} 128x64 x spw 4, plain {plain_s:.1f} s, "
+            f"rays {out['rays']:.0f} vs {ref['rays']:.0f}): {json.dumps(a)}")
+        checks.check_card(a, f"{name} 128x64 x spw 4 wave")
+        d = film_rel(out_dma, out)
+        log(f"  dma vs gather film: relative {d:.3g}, rays "
+            f"{out_dma['rays']:.0f} vs {out['rays']:.0f}")
+        if d > 1e-4 or out_dma["rays"] != out["rays"]:
+            raise RuntimeError(f"{name}: the dma wave differs from gather")
+        a_wave[name] = a
+        if name == "materials":
+            # one K2 launch of the immediates variant at this shape
+            k2_mat = k2_launch(card_run, 5, 0, "materials 128x64 x spw 4")
+
+    # 11. the wave main path through the CLI, then the megakernel on the
+    # same scene and the K2 immediates variant on the Cornell box
+    deep_src = scenes.big_mesh_scene(MESH_W, MESH_H, maxdepth=DEEP_DEPTH)
+    deep_path, l_wave, r_wave = cli_path(
+        "deep_mesh", deep_src, MESH_SPP, (MESH_W, MESH_H),
+        f"deep mesh {MESH_W}x{MESH_H}, maxdepth {DEEP_DEPTH}",
+        engine="wave")
+    if l_wave["wave_genesis"] < 1 or l_wave["wave_path_mesh"] < 1 \
+            or l_wave["mega_path"] or l_wave["mega_path_mesh"]:
+        raise RuntimeError(f"the wave main path launched {l_wave}")
+    r_wave2 = cli_path("deep_mesh", deep_src, MESH_SPP, (MESH_W, MESH_H),
+                       f"deep mesh {MESH_W}x{MESH_H}", engine="wave",
+                       seed=MAIN_SEED + 1)[2]
+    r_mega = [cli_path("deep_mesh", deep_src, MESH_SPP, (MESH_W, MESH_H),
+                       f"deep mesh {MESH_W}x{MESH_H}", engine="pallas",
+                       seed=s)[2] for s in (MAIN_SEED, MAIN_SEED + 1)]
+
+    def rel(a, b):
+        return abs(a["mean"] - b["mean"]) / b["mean"]
+
+    log(f"deep mesh image means: wave {r_wave['mean']:.4f} / "
+        f"{r_wave2['mean']:.4f}, megakernel {r_mega[0]['mean']:.4f} / "
+        f"{r_mega[1]['mean']:.4f} (seeds {MAIN_SEED} / {MAIN_SEED + 1}): "
+        f"wave vs megakernel {rel(r_wave, r_mega[0]):.2e} / "
+        f"{rel(r_wave2, r_mega[1]):.2e}, seed vs seed wave "
+        f"{rel(r_wave2, r_wave):.2e}, megakernel "
+        f"{rel(r_mega[1], r_mega[0]):.2e} (limit {MEAN_REL}); Mrays/s wave "
+        f"{r_wave['rate']:.1f} / {r_wave2['rate']:.1f}, megakernel "
+        f"{r_mega[0]['rate']:.1f} / {r_mega[1]['rate']:.1f} [{card}]")
+    if max(rel(r_wave, r_mega[0]), rel(r_wave2, r_mega[1])) > MEAN_REL:
+        raise RuntimeError("the wave and megakernel images differ")
+    _, l_cw, _ = cli_path("cornell", scenes.cornell_box(1024, 1024),
+                          MESH_SPP, (1024, 1024), "cornell 1024x1024",
+                          engine="wave")
+    if l_cw["wave_path"] < 1 or l_cw["wave_path_mesh"] \
+            or l_cw["mega_path"] or l_cw["mega_path_mesh"]:
+        raise RuntimeError(f"the Cornell wave path launched {l_cw}")
+
+    # 12. full-shape checks and timing on the deep scene (and K2 on the
+    # Cornell box)
+    bn, cfg = buffers_for(deep_path)
+    run = WV.make_wave_fn(bn, cfg, dev, spp_hint=MESH_SPP)
+    spw, n_pad, tabs = run.samples_per_wave, run.n_pad, run.tabs
+    ns = n_pad // WV.W_SLICE
+    npix = MESH_W * MESH_H
+    log(f"deep wave: spw {spw}, {n_pad} lanes, state "
+        f"{WV.W_NROWS * 4 * n_pad / 1e9:.2f} GB")
+    seed = chunk_seed()
+    s_k, _ = run.init_state(seed, spw)
+    s_p = WV.genesis_ref(tabs["cam_f"], run.pxf, run.pyf, MESH_W, npix,
+                         run.n_real, seed, 1, 0)
+    int_eq = (s_k[WV.WROW_ALIVE:WV.WROW_KEY] == s_p[WV.WROW_ALIVE:
+                                                    WV.WROW_KEY]).all()
+    k3_err = float((s_k[:WV.WROW_ALIVE] - s_p[:WV.WROW_ALIVE]).abs().max())
+    key_diff = int((s_k[WV.WROW_KEY].view(torch.int32)
+                    != s_p[WV.WROW_KEY].view(torch.int32)).sum())
+    log(f"K3 vs plain ({MESH_W}x{MESH_H} x spw {spw}): lane rows equal "
+        f"{bool(int_eq)}, ray rows max abs {k3_err:.3g}, keys differing "
+        f"{key_diff} of {n_pad}")
+    if not bool(int_eq) or k3_err > 1e-5 or key_diff > n_pad * 1e-4:
+        raise RuntimeError("K3 disagrees with its plain version")
+    del s_p
+    k3_ms = time_ms(lambda r=0: kernels.wave_genesis(
+        tabs, run.pxf, run.pyf, run.n_real, seed + r, 1, 0), 10)
+    k3_plain_ms = time_ms(lambda r=0: WV.genesis_ref(
+        tabs["cam_f"], run.pxf, run.pyf, MESH_W, npix, run.n_real, seed + r,
+        1, 0), 3)
+    k3_bound = bound(n_pad * (8 + WV.W_NROWS * 4), n_pad * 60)
+
+    perm = torch.randperm(ns, device=dev).to(torch.int32)
+    out_k = kernels.wave_permute(s_k, perm)
+    if not torch.equal(out_k, WV.permute_ref(s_k, perm)):
+        raise RuntimeError("K4 disagrees with its plain version")
+    del out_k
+    k4_ms = time_ms(lambda r=0: kernels.wave_permute(s_k, perm), 10)
+    k4_plain_ms = time_ms(lambda r=0: WV.permute_ref(s_k, perm), 5)
+    rows3 = s_k[:WV.W_SORT_PAD].view(WV.W_SORT_PAD, ns, WV.W_SLICE)
+    perm64 = perm.long()
+    k4_lib_ms = time_ms(lambda r=0: torch.index_select(rows3, 1, perm64), 5)
+    k4_bound = bound(2 * WV.W_NROWS * 4 * n_pad + 4 * ns, 0)
+    log(f"timing ({MESH_W}x{MESH_H} x spw {spw}): K3 {k3_ms:.3f} ms vs "
+        f"plain {k3_plain_ms:.3f}, bound {k3_bound[0]:.3f}; K4 "
+        f"{k4_ms:.3f} ms vs plain {k4_plain_ms:.3f}, index_select "
+        f"{k4_lib_ms:.3f}, bound {k4_bound[0]:.3f} [{card}]")
+    del s_k, rows3
+
+    # K2 at the main path's first and fifth launches, on the deep mesh
+    # (mesh variant) and the Cornell box (immediates variant)
+    k2_deep = [k2_launch(run, seed, step, f"deep mesh {MESH_W}x{MESH_H} x "
+                         f"spw {spw}") for step in (0, 4)]
+    bn_c, cfg_c = buffers_for(os.path.join(OUT_DIR, "cornell.pbrt"))
+    run_c = WV.make_wave_fn(bn_c, cfg_c, dev, spp_hint=MESH_SPP)
+    k2_corn = [k2_launch(run_c, seed, step, f"cornell 1024x1024 x spw "
+                         f"{run_c.samples_per_wave}") for step in (0, 4)]
+    del run_c
+
+    # the 16-spp wave sorted by `dma`, a path of its own, then `gather`
+    # with the device time split
+    dma_run = WV.make_wave_fn(bn, cfg, dev, spp_hint=MESH_SPP,
+                              sort_mode="dma")
+    reset_launches()
+    t = time.time()
+    out_dma = dma_run.read_back(dma_run.run_dev(seed, MESH_SPP))
+    dma_s = time.time() - t
+    l_dma = dict(kernels.launches)
+    if l_dma["wave_permute"] < 1 or l_dma["wave_genesis"] != 1 \
+            or l_dma["wave_path_mesh"] < 1:
+        raise RuntimeError(f"the dma wave launched {l_dma}")
+    split = {}
+    t = time.time()
+    out = run.read_back(run.run_dev(seed, MESH_SPP, split=split))
+    gather_s = time.time() - t
+    rel_d = film_rel(out_dma, out)
+    log(f"deep wave dma vs gather: launches {json.dumps(l_dma)}, relative "
+        f"{rel_d:.2e}, rays {out_dma['rays']:.0f} "
+        f"vs {out['rays']:.0f}; wall {dma_s:.3f} s vs {gather_s:.3f} s; "
+        f"gather split ms {json.dumps(split)} [{card}]")
+    if rel_d > 1e-4 or out_dma["rays"] != out["rays"]:
+        raise RuntimeError("the dma wave differs from the gather wave")
+    del dma_run
+
+    # linear radiance means of the two engines, two seeds each: their
+    # estimators differ only where a throughput leaves the normal float
+    # range (the wave ends such a path, the megakernel goes on)
+    seed2 = chunk_seed(MAIN_SEED + 1)
+    mega = M.make_mega_batch_fn(bn, cfg, dev)
+    lin = {"wave": [out, run(seed2, MESH_SPP)],
+           "megakernel": [mega(seed, MESH_SPP), mega(seed2, MESH_SPP)]}
+    lin = {e: [float(torch.as_tensor(o["radiance"]).double().mean())
+               / MESH_SPP for o in outs] for e, outs in lin.items()}
+    for e, m in lin.items():
+        if not all(np.isfinite(m)):
+            raise RuntimeError(f"{e}: the linear mean is not finite")
+    w_, m_ = lin["wave"], lin["megakernel"]
+    log(f"deep mesh linear radiance means (seeds {seed} / {seed2}): wave "
+        f"{w_[0]!r} / {w_[1]!r}, megakernel {m_[0]!r} / {m_[1]!r}; wave vs "
+        f"megakernel {(w_[0] - m_[0]) / m_[0]:.3e} / "
+        f"{(w_[1] - m_[1]) / m_[1]:.3e}, seed vs seed wave "
+        f"{(w_[1] - w_[0]) / w_[0]:.3e}, megakernel "
+        f"{(m_[1] - m_[0]) / m_[0]:.3e}")
+    del run, mega
+
+    # one K2 launch at 320x180 x spw 2 against plain
+    bn_s, cfg_s = buffers_for(write_scene(
+        "deep_mesh_320", scenes.big_mesh_scene(320, 180,
+                                               maxdepth=DEEP_DEPTH)))
+    small = WV.make_wave_fn(bn_s, cfg_s, dev, samples_per_wave=2)
+    k2_small = k2_launch(small, seed, 0, "deep mesh 320x180 x spw 2")
+
+    if any(m.split(".")[0] in ("jax", "rene_tpu") for m in sys.modules):
+        raise RuntimeError("jax or rene_tpu was imported")
+    log(f"smoke: {time.time() - t_smoke:.1f} s")
+
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bnd,
+              library_ms, shape):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bnd[0], "bound_by": bnd[1],
+                "library_ms": library_ms, "shape": shape}
+
+    pp_ = "rene_tpu/integrators/pallas_path.py"
+    pw_ = "rene_tpu/integrators/pallas_wave.py"
     log(json.dumps({"kernels": [
-        {"name": "mega_path", "route": "cuda",
-         "source": "rene_tpu_torch/csrc/mega_path.cu",
-         "replaces": "rene_tpu/integrators/pallas_path.py:4266",
-         "launches": l_k1a["mega_path"],
-         "max_abs_err": max(a_mat["max_abs"], a_main["max_abs"]),
-         "ms": k1a_ms, "plain_ms": k1a_plain_ms},
-        {"name": "mega_path_mesh", "route": "cuda",
-         "source": "rene_tpu_torch/csrc/mega_path.cu",
-         "replaces": "rene_tpu/integrators/pallas_path.py:2255 :2440 "
-                     ":2636 :2663",
-         "launches": l_mesh["mega_path_mesh"],
-         "max_abs_err": max(a["max_abs"] for a in a_mesh + [a_big]),
-         "ms": mesh_ms, "plain_ms": mesh_plain_ms}]}))
+        entry("mega_path", "rene_tpu_torch/csrc/mega_path.cu",
+              f"{pp_}:4266", l_k1a["mega_path"],
+              max(a_mat["max_abs"], a_main["max_abs"]), k1a_ms,
+              k1a_plain_ms, k1a_bound, None, "cornell 1024x1024 x 1 spp"),
+        entry("mega_path_mesh", "rene_tpu_torch/csrc/mega_path.cu",
+              f"{pp_}:2255 :2440 :2636 :2663", l_mesh["mega_path_mesh"],
+              max(a["max_abs"] for a in a_mesh + [a_big]), mesh_ms,
+              mesh_plain_ms, mesh_bound, None,
+              f"big mesh {MESH_W}x{MESH_H} x 1 spp"),
+        entry("wave_path", "rene_tpu_torch/csrc/wave.cu",
+              f"{pw_}:271 ({pp_}:5567)", l_cw["wave_path"],
+              max([a_wave["materials"]["max_abs"], k2_mat["err"]]
+                  + [c["err"] for c in k2_corn]), k2_corn[0]["ms"],
+              k2_corn[0]["plain_ms"], k2_corn[0]["bound"], None,
+              f"cornell 1024x1024 x spw 16, first launch (k 1); plain on "
+              f"{k2_corn[0]['sampled']} sampled lanes of it"),
+        entry("wave_path_mesh", "rene_tpu_torch/csrc/wave.cu",
+              f"{pw_}:271 ({pp_}:5567)", l_wave["wave_path_mesh"],
+              max([a_wave["mesh_materials"]["max_abs"],
+                   a_wave["instanced"]["max_abs"], k2_small["err"]]
+                  + [c["err"] for c in k2_deep]), k2_deep[0]["ms"],
+              k2_deep[0]["plain_ms"], k2_deep[0]["bound"], None,
+              f"deep mesh {MESH_W}x{MESH_H} x spw {spw}, first launch (k 1); "
+              f"plain on {k2_deep[0]['sampled']} sampled lanes of it"),
+        entry("wave_genesis", "rene_tpu_torch/csrc/wave.cu",
+              f"{pw_}:630 ({pp_}:4970)", l_wave["wave_genesis"], k3_err,
+              k3_ms, k3_plain_ms, k3_bound, None,
+              f"deep mesh {MESH_W}x{MESH_H} x spw {spw}"),
+        entry("wave_permute", "rene_tpu_torch/csrc/wave.cu", f"{pw_}:386",
+              l_dma["wave_permute"], 0.0, k4_ms, k4_plain_ms, k4_bound,
+              k4_lib_ms, f"deep mesh {MESH_W}x{MESH_H} x spw {spw} state"),
+    ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

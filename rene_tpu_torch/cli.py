@@ -2,10 +2,12 @@
 
     python -m rene_tpu_torch.cli scene.pbrt --spp N --seed S \
         --output out.png [--aov-normal P] [--aov-albedo P] [--device cuda|cpu]
+        [--engine auto|pallas|wave]
 
 Counterpart of rene_tpu/cli.py:101 `main` for the slice the port carries
-(path integrator, megakernel engine). The default device is `cuda`; the CPU
-runs the kernel's plain PyTorch version and must be asked for.
+(path integrator; the megakernel and wave engines). The default device is
+`cuda`; the CPU runs the kernels' plain PyTorch versions and must be
+asked for.
 """
 from __future__ import annotations
 
@@ -29,8 +31,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--aov-albedo", metavar="PATH",
                    help="write the albedo AOV image")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                   help="cuda: the CUDA megakernel (default); cpu: its "
-                        "plain PyTorch version")
+                   help="cuda: the CUDA kernels (default); cpu: their "
+                        "plain PyTorch versions")
+    p.add_argument("--engine", choices=["auto", "pallas", "wave", "xla"],
+                   default="auto",
+                   help="pallas: the path megakernel; wave: the wavefront "
+                        "engine; auto: the megakernel (xla is not ported)")
     p.add_argument("-v", "--verbose", action="store_true")
     return p
 
@@ -43,8 +49,7 @@ def main(argv=None) -> int:
     log = logging.getLogger("rene_tpu_torch")
 
     t0 = time.time()
-    from rene_tpu.pbrt import ParseError
-
+    from .pbrt import ParseError
     from .scene import load_scene
     try:
         scene = load_scene(args.scene)
@@ -56,13 +61,15 @@ def main(argv=None) -> int:
     from .render import DEFAULT_SPP, render
     from .utils.film import save_png, to_aov8, to_aov_normal8, to_rgb8
     spp = args.spp if args.spp is not None else DEFAULT_SPP
-    out = render(scene, spp=spp, seed=args.seed, device=args.device)
+    out = render(scene, spp=spp, seed=args.seed, device=args.device,
+                 engine=args.engine)
     written = save_png(args.output or scene.film.filename,
                        to_rgb8(out["color"]))
-    log.info("wrote %s (%.1f Mrays in %.1fs, %.1f Mrays/s, %d launches)",
-             written, out["total_rays"] / 1e6, out["wall_time"],
+    log.info("wrote %s (%.1f Mrays in %.1fs, %.1f Mrays/s, %d launches, "
+             "%s engine)", written, out["total_rays"] / 1e6,
+             out["wall_time"],
              out["total_rays"] / max(out["wall_time"], 1e-9) / 1e6,
-             out["launches"])
+             out["launches"], out["engine"])
     if args.aov_normal:
         save_png(args.aov_normal, to_aov_normal8(out["normal"]))
     if args.aov_albedo:

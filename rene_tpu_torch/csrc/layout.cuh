@@ -121,3 +121,30 @@
 #define BOX_W 8
 #define SPH_BLOCK 128
 #define BVH_STACK 64
+
+// the wave engine's state rows (rene_tpu_torch/integrators/wave.py): one
+// (W_NROWS, n_pad) float32 array, row r of lane l at r * n_pad + l
+#define WROW_O 0
+#define WROW_D 3
+#define WROW_C 6
+#define WROW_R 9
+#define WROW_ALIVE 12
+#define WROW_RAYS 13
+#define WROW_LANE 14
+#define WROW_PX 15
+#define WROW_PY 16
+#define WROW_SMP 17
+#define WROW_DEP 18
+#define WROW_WANT 19
+#define WROW_KEY 20
+#define W_SORT_ROWS 21
+#define W_SORT_PAD 24
+#define WROW_AN 24
+#define WROW_AA 27
+#define W_NROWS 32
+#define W_SLICE 128
+#define W_TILE 1024
+// sort keys: 0x3F000000 for a parked lane, 0x40000000 or'd into every key
+#define W_KEY_DEAD 1056964608
+#define W_KEY_BIT 1073741824
+#define DEAD_ORIGIN 1e30f

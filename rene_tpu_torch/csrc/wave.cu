@@ -1,0 +1,94 @@
+// The wavefront engine's kernels for NVIDIA Hopper (sm_90a): K2, K3, K4.
+//
+// Replaces, in rene_tpu/integrators/pallas_path.py and pallas_wave.py:
+//   wave_path_kernel     K2, `wave_kernel` (pallas_path.py:5567) with
+//                        `wave_bounce` (:5052), launched by `call_kernel`
+//                        (pallas_wave.py:271)
+//   wave_genesis_kernel  K3, `genesis_kernel` (pallas_path.py:4970),
+//                        launched by `_genesis_call` (pallas_wave.py:630)
+//   wave_permute_kernel  K4, `_dma_perm_kernel` (pallas_wave.py:370),
+//                        launched by `_dma_permute` (:386)
+// The plain PyTorch versions are in rene_tpu_torch/integrators/wave.py.
+//
+// The state of a wave is one (W_NROWS, n_pad) float32 array (layout.cuh
+// WROW_*); row r of lane l lies at r * n_pad + l, so the threads of a
+// warp, one lane each, read and write each row as one coalesced 128-byte
+// line.
+//
+// K2: one thread per lane of [0, n_run) advances its lane by k bounces in
+// place: the megakernel's path body (path.cuh, so K1 keeps its registers)
+// plus regeneration, parking and the next-launch key (wave.cuh). A parked
+// lane returns after one load. Two variants from one template, like the
+// megakernel: wave_path_kernel<false> reads the immediates only,
+// wave_path_kernel<true> adds the mesh BVHs, instances and sphere table;
+// each build of this file holds one, picked by -DMEGA_MESH=0 or 1. What
+// bounds it: the ray casts (operations, dependent loads and divergence
+// down the BVH), as in the megakernel; the state rows it moves, ~200
+// bytes per alive lane, are a small share. The TPU kernel ran whole
+// 1024-lane tiles in lock-step and skipped tiles past the alive prefix;
+// a CUDA thread skips its own lane.
+//
+// K3: one thread per lane writes all W_NROWS rows of a fresh wave from
+// its pixel coordinates: 8 bytes read and 128 written per lane, bound by
+// bytes. K4: one 128-thread block per 128-lane slice copies rows
+// [0, W_SORT_PAD) from slice perm[j] and the AOV rows in place: a
+// coalesced 512-byte row per load and store, bound by bytes. The TPU
+// version queued one DMA per slice.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "wave.cuh"
+
+#ifndef MEGA_MESH
+#define MEGA_MESH 0
+#endif
+
+template <bool MESH>
+__global__ void __launch_bounds__(128) wave_path_kernel(const WaveParams p) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane < p.n_run) wave_lane<MESH>(p, lane);
+}
+
+__global__ void __launch_bounds__(128)
+    wave_genesis_kernel(const GenesisParams g) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane < g.n_pad) genesis_lane(g, lane);
+}
+
+__global__ void __launch_bounds__(W_SLICE)
+    wave_permute_kernel(const float* __restrict__ in,
+                        const int* __restrict__ perm, int n_pad,
+                        float* __restrict__ out) {
+  permute_lane(in, perm, (size_t)n_pad, blockIdx.x, threadIdx.x, out);
+}
+
+// Launch this build's variant; cudaErrorInvalidValue for scene tables of
+// the other variant.
+static int run_wave(const WaveParams& p, void* stream) {
+  if ((p.has_accel != 0) != (MEGA_MESH != 0))
+    return (int)cudaErrorInvalidValue;
+  const int blocks = (p.n_run + 127) / 128;
+  if (blocks > 0 && p.k > 0)
+    wave_path_kernel<MEGA_MESH != 0>
+        <<<blocks, 128, 0, (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+static int run_genesis(const GenesisParams& g, void* stream) {
+  const int blocks = (g.n_pad + 127) / 128;
+  if (blocks > 0)
+    wave_genesis_kernel<<<blocks, 128, 0, (cudaStream_t)stream>>>(g);
+  return (int)cudaGetLastError();
+}
+
+static int run_permute(const float* in, const int* perm, int n_pad,
+                       float* out, void* stream) {
+  if (n_pad % W_SLICE) return (int)cudaErrorInvalidValue;
+  const int blocks = n_pad / W_SLICE;
+  if (blocks > 0)
+    wave_permute_kernel<<<blocks, W_SLICE, 0, (cudaStream_t)stream>>>(
+        in, perm, n_pad, out);
+  return (int)cudaGetLastError();
+}
+
+#include "wave_launch.cuh"

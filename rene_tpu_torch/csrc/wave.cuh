@@ -1,0 +1,310 @@
+// Per-lane code of the wavefront engine: the genesis of a wave (K3), k
+// bounces of one lane of a wave (K2) and the 128-lane slice copy of the
+// slice permutation (K4). Mirrors rene_tpu_torch/integrators/wave.py
+// (`genesis_ref`, `wave_bounce`, `wave_step_ref`, `permute_ref`), which
+// mirror pallas_path.py:4970-5048 (genesis_kernel), :5052-5275
+// (wave_bounce) and :5567-5706 (wave_kernel), and pallas_wave.py:370-383
+// (_dma_perm_kernel). Included by wave.cu; plain C++ apart from the CUDA
+// qualifiers and intrinsics, so tests/test_torch_kernel_source.py compiles
+// it with g++ too.
+#pragma once
+#include <stdint.h>
+
+#include "layout.cuh"
+#include "path.cuh"
+
+#define FLT_MIN_NORMAL 1.17549435e-38f  // the least normal float32
+
+struct WaveParams {
+  Scene s;
+  int width, max_depth, use_rr, beckmann, has_accel;
+  uint32_t seed;
+  int launch;      // step index of the wave: seeds the lane streams
+  int k;           // bounces of this launch
+  int n_run;       // lanes [0, n_run) are advanced
+  int n_pad;       // lanes of the state (its row stride)
+  float klo[3];    // key cells: lo xyz and 64 / ext xyz (float32)
+  float kscale[3];
+  float* __restrict__ state;
+};
+
+struct GenesisParams {
+  const float* __restrict__ cam;
+  const float* __restrict__ px;
+  const float* __restrict__ py;
+  int width, npix, n_real, n_pad;
+  uint32_t seed;
+  int base, rem;   // want = base * spw + rem samples per pixel
+  float* __restrict__ state;
+};
+
+// MurmurHash3's 32-bit finalizer (rng.fmix32)
+__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
+  h ^= h >> 16;
+  h *= 0x85EBCA6Bu;
+  h ^= h >> 13;
+  h *= 0xC2B2AE35u;
+  return h ^ (h >> 16);
+}
+
+// lane stream of launch `launch` (-1: genesis), tied to the lane id: the
+// "mixed" stream of rng.wave_state, the JAX interpret-mode seed hashed so
+// that a lane's launches draw unrelated streams. The JAX form itself
+// (stream "jax") exists only in the plain version, for the tests that
+// compare with the JAX engine.
+__device__ __forceinline__ uint32_t wave_state(uint32_t lane, uint32_t seed,
+                                               int launch) {
+  uint32_t seed_u = seed + (uint32_t)(launch + 1) * 7919u;
+  return fmix32((lane * 2654435761u) ^ fmix32(seed_u)) | 1u;
+}
+
+__device__ __forceinline__ uint32_t oct_of(V3 d) {
+  return (d.x < 0.f ? 4u : 0u) + (d.y < 0.f ? 2u : 0u) + (d.z < 0.f ? 1u : 0u);
+}
+
+// spread the 6 low bits to every third bit (`_mpart` :4906)
+__device__ __forceinline__ uint32_t mpart6(uint32_t v) {
+  v = (v | (v << 8)) & 0x0300F00Fu;
+  v = (v | (v << 4)) & 0x030C30C3u;
+  return (v | (v << 2)) & 0x09249249u;
+}
+
+__device__ __forceinline__ uint32_t q6(float v, float lo, float scale) {
+  float x = mul_rn(sub_rn(v, lo), scale);
+  return (uint32_t)fminf(fmaxf(x, 0.f), 63.f);
+}
+
+// key of a lane on a fresh camera ray: octant x 32x32 pixel block
+__device__ __forceinline__ uint32_t regen_key(float px, float py, V3 d,
+                                              int width) {
+  float bw = (float)((width + 31) / 32);
+  uint32_t bi = (uint32_t)(floorf(py * (1.f / 32.f)) * bw
+                           + floorf(px * (1.f / 32.f)));
+  return (oct_of(d) << 24) | (1u << 22) | (bi < 0x3FFFFFu ? bi : 0x3FFFFFu);
+}
+
+__device__ __forceinline__ float key_bits(uint32_t key) {
+  return __uint_as_float(key | (uint32_t)W_KEY_BIT);
+}
+
+// K3: the fresh-wave state of one lane, all W_NROWS rows
+__device__ __forceinline__ void genesis_lane(const GenesisParams& g,
+                                             int lane) {
+  const size_t N = (size_t)g.n_pad;
+  const float lane_f = (float)lane;
+  const float npix_f = (float)g.npix;
+  // sample slot q = lane // npix by a float division and its fixup, and
+  // the lane's share of the wave's samples
+  float q = floorf(mul_rn(lane_f, (float)(1.0 / (double)g.npix)));
+  float r = sub_rn(lane_f, mul_rn(q, npix_f));
+  q = q + (r >= npix_f ? 1.f : 0.f) - (r < 0.f ? 1.f : 0.f);
+  float want = lane_f < (float)g.n_real
+      ? (float)g.base + (q < (float)g.rem ? 1.f : 0.f) : 0.f;
+  bool alive = want > 0.f;
+  uint32_t st = wave_state((uint32_t)lane_f, g.seed, -1);
+  float ju = uniform(st);
+  float jv = uniform(st);
+  float px = g.px[lane], py = g.py[lane];
+  V3 d = camera_ray(g.cam, px, py, ju, jv);
+  float* S = g.state + lane;
+  for (int a = 0; a < 3; ++a) {
+    S[(WROW_O + a) * N] = alive ? __ldg(g.cam + CAM_ORIGIN + a) : DEAD_ORIGIN;
+    S[(WROW_C + a) * N] = 1.f;
+    S[(WROW_R + a) * N] = 0.f;
+  }
+  S[WROW_D * N] = d.x;
+  S[(WROW_D + 1) * N] = d.y;
+  S[(WROW_D + 2) * N] = d.z;
+  S[WROW_ALIVE * N] = alive ? 1.f : 0.f;
+  S[WROW_RAYS * N] = 0.f;
+  S[WROW_LANE * N] = lane_f;
+  S[WROW_PX * N] = px;
+  S[WROW_PY * N] = py;
+  S[WROW_SMP * N] = 0.f;
+  S[WROW_DEP * N] = 0.f;
+  S[WROW_WANT * N] = want;
+  S[WROW_KEY * N] = key_bits(alive ? regen_key(px, py, d, g.width)
+                                   : (uint32_t)W_KEY_DEAD);
+  for (int row = W_SORT_ROWS; row < W_NROWS; ++row) S[row * N] = 0.f;
+}
+
+// the rows K2 reads and writes for one lane
+struct WaveLane {
+  V3 o, d;
+  float c[3], r[3], an[3], aa[3];
+  float alive, rays, px, py, smp, dep, want, key;
+};
+
+// One bounce of an alive lane (`wave_bounce`): the megakernel's path
+// body (path.cuh trace_lane), then regeneration while smp < want,
+// parking at DEAD_ORIGIN and the next-launch key. The draws, in the
+// stream contract's order: u_coin, u1, u2, ul; coin, ue1..ue4 when the
+// scene has emitters; rrv when Russian roulette is on; cj1, cj2.
+template <bool MESH>
+__device__ __forceinline__ void wave_bounce(const WaveParams& p, WaveLane& L,
+                                            uint32_t& st) {
+  const Scene& s = p.s;
+  const bool beck = p.beckmann != 0;
+  const int E = s.n_eo;
+  L.rays = L.rays + (1.f + (float)s.n_lights + (E > 0 ? 1.f : 0.f));
+  float u_coin = uniform(st), u1 = uniform(st), u2 = uniform(st);
+  float ul = uniform(st);
+  float coin = 0.f, ue1 = 0.f, ue2 = 0.f, ue3 = 0.f, ue4 = 0.f, rrv = 0.f;
+  if (E > 0) {
+    coin = uniform(st);
+    ue1 = uniform(st);
+    ue2 = uniform(st);
+    ue3 = uniform(st);
+    ue4 = uniform(st);
+  }
+  if (p.use_rr) rrv = uniform(st);
+  float cj1 = uniform(st), cj2 = uniform(st);
+
+  Hit h = trace_closest<MESH>(s, L.o, L.d, TMIN);
+  bool alive = h.t < BIG;
+  V3 hp = L.o, w_ = L.d;
+  float nthr[3] = {L.c[0], L.c[1], L.c[2]};
+  if (!alive) {
+    for (int c = 0; c < 3; ++c)
+      L.r[c] = L.r[c] + L.c[c] * __ldg(s.cam + CAM_BG + c);
+  } else {
+    Mat m = load_mat(s.mats, h.mat);
+    hp = v3(L.o.x + h.t * L.d.x, L.o.y + h.t * L.d.y, L.o.z + h.t * L.d.z);
+    V3 n = normalize3(h.n);
+    V3 wo = neg(L.d);
+    Frame f = onb_from_w(n);
+    if ((h.e[0] != 0.f || h.e[1] != 0.f || h.e[2] != 0.f) && dot3(wo, n) > 0.f)
+      for (int c = 0; c < 3; ++c) L.r[c] = L.r[c] + L.c[c] * h.e[c];
+    if (L.dep == 0.f) {
+      L.an[0] = L.an[0] + n.x;
+      L.an[1] = L.an[1] + n.y;
+      L.an[2] = L.an[2] + n.z;
+      for (int c = 0; c < 3; ++c) L.aa[c] = L.aa[c] + m.ab[c];
+    }
+    V3 lo = to_local(f, wo);
+    for (int li = 0; li < s.n_lights; ++li) {
+      const float* Lt = s.lights + li * LIGHT_W;
+      V3 ld = load3(Lt + LIGHT_DIR);
+      if (shadow_any<MESH>(s, li, hp, ld, TMIN, 1e5f)) continue;
+      BsdfVal fe = bsdf_eval(m, lo, to_local(f, ld), beck);
+      float cosl = fabsf(ld.x * n.x + ld.y * n.y + ld.z * n.z);
+      for (int c = 0; c < 3; ++c)
+        L.r[c] = L.r[c] + L.c[c] * fe.f[c] * cosl * __ldg(Lt + LIGHT_COLOR + c);
+    }
+    BsdfSample bs = bsdf_sample(m, lo, u_coin, u1, u2, ul, beck);
+    w_ = to_world(f, bs.wi);
+    float fv[3] = {bs.f[0], bs.f[1], bs.f[2]};
+    float pdf = bs.pdf;
+    if (E > 0 && is_diffuse(m)) {
+      V3 ls = sample_emit(s, hp, ue1, ue2, ue3, ue4);
+      BsdfVal fe = bsdf_eval(m, lo, to_local(f, ls), beck);
+      float pdf_b = bs.pdf;
+      if (coin > 0.5f) {
+        w_ = ls;
+        for (int c = 0; c < 3; ++c) fv[c] = fe.f[c];
+        pdf_b = fe.pdf;
+      }
+      float lpdf = trace_emit_pdf(s, hp, w_) / (float)E;
+      pdf = 0.5f * pdf_b + 0.5f * lpdf;
+    }
+    alive = pdf >= 1e-5f;
+    float cosw = fabsf(w_.x * n.x + w_.y * n.y + w_.z * n.z);
+    float scale = cosw / clamp_min(pdf, 1e-20f);
+    for (int c = 0; c < 3; ++c) nthr[c] = L.c[c] * fv[c] * scale;
+    // a throughput below the normal range counts as zero, as under the
+    // flush-to-zero arithmetic of XLA and the TPU
+    alive = alive && maxn(nthr[0], maxn(nthr[1], nthr[2])) >= FLT_MIN_NORMAL;
+    if (p.use_rr) {
+      float p_cont = clampn(maxn(nthr[0], maxn(nthr[1], nthr[2])), 0.f, 1.f);
+      bool do_rr = L.dep > (float)RR_START;
+      alive = alive && (!do_rr || rrv <= p_cont);
+      if (do_rr && alive) {
+        float inv_p = 1.f / clamp_min(p_cont, 1e-20f);
+        for (int c = 0; c < 3; ++c) nthr[c] = nthr[c] * inv_p;
+      }
+    }
+  }
+  alive = alive && (L.dep + 1.f < (float)p.max_depth);
+  if (alive) {
+    uint32_t morton = mpart6(q6(hp.x, p.klo[0], p.kscale[0]))
+        | (mpart6(q6(hp.y, p.klo[1], p.kscale[1])) << 1)
+        | (mpart6(q6(hp.z, p.klo[2], p.kscale[2])) << 2);
+    L.key = key_bits((oct_of(w_) << 24) | (1u << 23) | morton);
+    L.o = hp;
+    L.d = w_;
+    for (int c = 0; c < 3; ++c) L.c[c] = nthr[c];
+    L.dep = L.dep + 1.f;
+    return;
+  }
+  L.smp = L.smp + 1.f;
+  if (L.smp < L.want) {  // regenerate a camera path of the lane's pixel
+    L.d = camera_ray(s.cam, L.px, L.py, cj1, cj2);
+    L.o = load3(s.cam + CAM_ORIGIN);
+    L.c[0] = L.c[1] = L.c[2] = 1.f;
+    L.dep = 0.f;
+    L.key = key_bits(regen_key(L.px, L.py, L.d, p.width));
+  } else {  // park
+    L.o = v3(DEAD_ORIGIN, DEAD_ORIGIN, DEAD_ORIGIN);
+    L.alive = 0.f;
+    L.key = key_bits((uint32_t)W_KEY_DEAD);
+  }
+}
+
+// K2 for one lane: k bounces in place. A parked lane returns at once:
+// its state, and its parked key, stay as they are.
+template <bool MESH>
+__device__ __forceinline__ void wave_lane(const WaveParams& p, int lane) {
+  const size_t N = (size_t)p.n_pad;
+  float* S = p.state + lane;
+  if (!(S[WROW_ALIVE * N] > 0.5f)) return;
+  WaveLane L;
+  L.o = v3(S[WROW_O * N], S[(WROW_O + 1) * N], S[(WROW_O + 2) * N]);
+  L.d = v3(S[WROW_D * N], S[(WROW_D + 1) * N], S[(WROW_D + 2) * N]);
+  for (int c = 0; c < 3; ++c) {
+    L.c[c] = S[(WROW_C + c) * N];
+    L.r[c] = S[(WROW_R + c) * N];
+    L.an[c] = S[(WROW_AN + c) * N];
+    L.aa[c] = S[(WROW_AA + c) * N];
+  }
+  L.alive = 1.f;
+  L.rays = S[WROW_RAYS * N];
+  L.px = S[WROW_PX * N];
+  L.py = S[WROW_PY * N];
+  L.smp = S[WROW_SMP * N];
+  L.dep = S[WROW_DEP * N];
+  L.want = S[WROW_WANT * N];
+  L.key = S[WROW_KEY * N];
+  uint32_t st = wave_state((uint32_t)(int)S[WROW_LANE * N], p.seed, p.launch);
+  for (int b = 0; b < p.k && L.alive > 0.5f; ++b) wave_bounce<MESH>(p, L, st);
+  S[WROW_O * N] = L.o.x;
+  S[(WROW_O + 1) * N] = L.o.y;
+  S[(WROW_O + 2) * N] = L.o.z;
+  S[WROW_D * N] = L.d.x;
+  S[(WROW_D + 1) * N] = L.d.y;
+  S[(WROW_D + 2) * N] = L.d.z;
+  for (int c = 0; c < 3; ++c) {
+    S[(WROW_C + c) * N] = L.c[c];
+    S[(WROW_R + c) * N] = L.r[c];
+    S[(WROW_AN + c) * N] = L.an[c];
+    S[(WROW_AA + c) * N] = L.aa[c];
+  }
+  S[WROW_ALIVE * N] = L.alive;
+  S[WROW_RAYS * N] = L.rays;
+  S[WROW_SMP * N] = L.smp;
+  S[WROW_DEP * N] = L.dep;
+  S[WROW_KEY * N] = L.key;
+}
+
+// K4 for lane t of slice j: rows [0, W_SORT_PAD) from slice perm[j], the
+// AOV rows from slice j
+__device__ __forceinline__ void permute_lane(const float* __restrict__ in,
+                                             const int* __restrict__ perm,
+                                             size_t n_pad, int j, int t,
+                                             float* __restrict__ out) {
+  const size_t dst = (size_t)j * W_SLICE + t;
+  const size_t src = (size_t)__ldg(perm + j) * W_SLICE + t;
+  for (int row = 0; row < W_SORT_PAD; ++row)
+    out[row * n_pad + dst] = __ldg(in + row * n_pad + src);
+  for (int row = W_SORT_PAD; row < W_NROWS; ++row)
+    out[row * n_pad + dst] = __ldg(in + row * n_pad + dst);
+}

@@ -9,12 +9,11 @@ from __future__ import annotations
 
 import torch
 
-from rene_tpu.scene import types as T
-
 from ..ops.bsdf import bsdf_eval
 from ..ops.intersect import TMIN, TWO_PI, shadow_any
 from ..ops.vec3 import normalize3, onb_from_w, to_local
 from ..scene import pack as P
+from ..scene import types as T
 
 
 def sample_emit(tabs, px_, py_, pz_, u_obj, u_prim, r, s):

@@ -39,6 +39,8 @@ from ..scene.device import to_torch
 from .camera import camera_ray
 from .common import distant_lights, sample_emit
 
+FLT_MIN_NORMAL = 1.17549435e-38   # the least normal float32
+
 
 def device_tables(tables: P.SceneTables, device) -> Dict:
     """The scene tables on `device`, plus the python constants the plain
@@ -60,6 +62,148 @@ def device_tables(tables: P.SceneTables, device) -> Dict:
     return tabs
 
 
+def bounce(tabs, c, active, beckmann: bool = False,
+           ftz: bool = False) -> Dict:
+    """One bounce of the path body for the lanes where `active`: closest
+    hit, background on a miss, the one-sided emitter hit, the AOVs at
+    depth 0, distant-light NEE, BSDF sampling with the 50/50 emitter MIS,
+    Russian roulette and the depth cut; then the two camera draws of a
+    regenerated path. `c` holds the ray (ox..dz), throughput (cr, cg,
+    cb), `depth`, the radiance and AOV sums (rr.., anx.., aar..) and the
+    lane streams `st`. Returns the updated sums, `alive` (the path goes
+    on), the hit point (hx, hy, hz), the next direction (wx, wy, wz), the
+    next throughput (cr, cg, cb), the advanced streams `st` and the
+    camera draws cj1, cj2. Lanes outside `active` still draw. `ftz`: a
+    throughput below float32's normal range counts as zero and ends the
+    path, as under the flush-to-zero arithmetic of XLA and the TPU."""
+    cam = tabs["cam_f"]
+    E = tabs["n_emit"]
+    bg = cam[P.CAM_BG:P.CAM_BG + 3]
+    cr, cg, cb = c["cr"], c["cg"], c["cb"]
+    depth = c["depth"]
+
+    t, hit, anx_, any__, anz_, alr, alg, alb, mat_id = closest(
+        tabs, c["ox"], c["oy"], c["oz"], c["dx"], c["dy"], c["dz"], TMIN)
+    attr = gather_material(tabs["mats"], mat_id, hit)
+    miss = active & ~hit
+    rr_ = c["rr"] + torch.where(miss, cr * bg[0], 0.0)
+    rg_ = c["rg"] + torch.where(miss, cg * bg[1], 0.0)
+    rb_ = c["rb"] + torch.where(miss, cb * bg[2], 0.0)
+    alive = active & hit
+
+    hx = c["ox"] + t * c["dx"]
+    hy = c["oy"] + t * c["dy"]
+    hz = c["oz"] + t * c["dz"]
+    nx, ny, nz = normalize3(anx_, any__, anz_)
+    wox, woy, woz = -c["dx"], -c["dy"], -c["dz"]
+    ux, uy, uz, vx, vy, vz = onb_from_w(nx, ny, nz)
+
+    # emitter hit (one-sided)
+    al_on = alive & ((alr != 0.0) | (alg != 0.0) | (alb != 0.0)) \
+        & (dot3(wox, woy, woz, nx, ny, nz) > 0.0)
+    rr_ = rr_ + torch.where(al_on, cr * alr, 0.0)
+    rg_ = rg_ + torch.where(al_on, cg * alg, 0.0)
+    rb_ = rb_ + torch.where(al_on, cb * alb, 0.0)
+
+    # AOVs at depth 0
+    first = alive & (depth == 0)
+    anx = c["anx"] + torch.where(first, nx, 0.0)
+    any_ = c["any"] + torch.where(first, ny, 0.0)
+    anz = c["anz"] + torch.where(first, nz, 0.0)
+    aar = c["aar"] + torch.where(first, attr["abr"], 0.0)
+    aag = c["aag"] + torch.where(first, attr["abg"], 0.0)
+    aab = c["aab"] + torch.where(first, attr["abb"], 0.0)
+
+    frame = (ux, uy, uz, vx, vy, vz, nx, ny, nz)
+    lo = to_local(*frame, wox, woy, woz)
+    rr_, rg_, rb_ = distant_lights(
+        tabs, tabs["lights_f"], (rr_, rg_, rb_), hx, hy, hz, frame,
+        attr, lo, alive, cr, cg, cb, beckmann)
+
+    # scatter
+    u_coin, st = rng.uniform(c["st"])
+    u1, st = rng.uniform(st)
+    u2, st = rng.uniform(st)
+    ul, st = rng.uniform(st)
+    swx, swy, swz, sfr, sfg, sfb, spdf = bsdf_sample(
+        attr, *lo, u_coin, u1, u2, ul, beckmann)
+    swx, swy, swz = to_world(*frame, swx, swy, swz)
+
+    if E > 0:
+        coin, st = rng.uniform(st)
+        ue1, st = rng.uniform(st)
+        ue2, st = rng.uniform(st)
+        ue3, st = rng.uniform(st)
+        ue4, st = rng.uniform(st)
+        ls_wx, ls_wy, ls_wz = sample_emit(tabs, hx, hy, hz,
+                                          ue1, ue2, ue3, ue4)
+        diffuse = is_diffuse(attr)
+        take_light = (coin > 0.5) & diffuse
+        wx_ = torch.where(take_light, ls_wx, swx)
+        wy_ = torch.where(take_light, ls_wy, swy)
+        wz_ = torch.where(take_light, ls_wz, swz)
+        llx, lly, llz = to_local(*frame, ls_wx, ls_wy, ls_wz)
+        fe_r, fe_g, fe_b, fe_pdf = bsdf_eval(attr, *lo, llx, lly, llz,
+                                             beckmann)
+        f_r = torch.where(take_light, fe_r, sfr)
+        f_g = torch.where(take_light, fe_g, sfg)
+        f_b = torch.where(take_light, fe_b, sfb)
+        pdf_b = torch.where(take_light, fe_pdf, spdf)
+        lpdf = emit_pdf(tabs, hx, hy, hz, wx_, wy_, wz_) \
+            / torch.full_like(hx, float(E))
+        pdf = torch.where(diffuse, 0.5 * pdf_b + 0.5 * lpdf, spdf)
+        f_r = torch.where(diffuse, f_r, sfr)
+        f_g = torch.where(diffuse, f_g, sfg)
+        f_b = torch.where(diffuse, f_b, sfb)
+        wx_ = torch.where(diffuse, wx_, swx)
+        wy_ = torch.where(diffuse, wy_, swy)
+        wz_ = torch.where(diffuse, wz_, swz)
+    else:
+        wx_, wy_, wz_, f_r, f_g, f_b, pdf = (swx, swy, swz, sfr, sfg,
+                                             sfb, spdf)
+
+    alive = alive & (pdf >= 1e-5)
+    cosw = torch.abs(wx_ * nx + wy_ * ny + wz_ * nz)
+    scale = cosw / torch.clamp_min(pdf, 1e-20)
+    cr = cr * f_r * scale
+    cg = cg * f_g * scale
+    cb = cb * f_b * scale
+    if ftz:
+        alive = alive & (torch.maximum(cr, torch.maximum(cg, cb))
+                         >= FLT_MIN_NORMAL)
+    else:
+        alive = alive & ((cr != 0.0) | (cg != 0.0) | (cb != 0.0))
+
+    if tabs["use_rr"]:
+        rrv, st = rng.uniform(st)
+        p_cont = torch.clamp(torch.maximum(cr, torch.maximum(cg, cb)),
+                             0.0, 1.0)
+        do_rr = depth > P.RR_START
+        alive = alive & (~do_rr | (rrv <= p_cont))
+        inv_p = 1.0 / torch.clamp_min(p_cont, 1e-20)
+        keep = do_rr & alive
+        cr = torch.where(keep, cr * inv_p, cr)
+        cg = torch.where(keep, cg * inv_p, cg)
+        cb = torch.where(keep, cb * inv_p, cb)
+
+    alive = alive & (depth + 1 < tabs["max_depth"])
+    cj1, st = rng.uniform(st)
+    cj2, st = rng.uniform(st)
+    return {"rr": rr_, "rg": rg_, "rb": rb_, "anx": anx, "any": any_,
+            "anz": anz, "aar": aar, "aag": aag, "aab": aab,
+            "alive": alive, "hx": hx, "hy": hy, "hz": hz,
+            "wx": wx_, "wy": wy_, "wz": wz_, "cr": cr, "cg": cg, "cb": cb,
+            "st": st, "cj1": cj1, "cj2": cj2}
+
+
+def ray_increment(tabs) -> float:
+    """Rays a bounce casts: the closest hit, one shadow ray per distant
+    light and the emitter-pdf ray of the MIS when the scene has
+    emitters."""
+    return 1.0 + len(tabs["lights_f"]) + (1.0 if tabs["n_emit"] > 0
+                                          else 0.0)
+
+
 def path_lanes_ref(tabs, seed: int, num_samples: int,
                    beckmann: bool = False) -> torch.Tensor:
     """Plain PyTorch path megakernel: (10, N) float32 per-lane sums of
@@ -67,8 +211,6 @@ def path_lanes_ref(tabs, seed: int, num_samples: int,
     i owns pixel i of the film."""
     W = tabs["width"]
     cam = tabs["cam_f"]
-    E = tabs["n_emit"]
-    MAXD = tabs["max_depth"]
     pix = torch.arange(W * tabs["height"], device=tabs["tris"].device)
     pxf = (pix % W).float()
     pyf = (pix // W).float()
@@ -79,8 +221,7 @@ def path_lanes_ref(tabs, seed: int, num_samples: int,
     zero = torch.zeros_like(pxf)
     izero = torch.zeros_like(pix)
     co = cam[P.CAM_ORIGIN:P.CAM_ORIGIN + 3]
-    bg = cam[P.CAM_BG:P.CAM_BG + 3]
-    ray_inc = 1.0 + len(tabs["lights_f"]) + (1.0 if E > 0 else 0.0)
+    ray_inc = ray_increment(tabs)
     c = {"ox": zero + co[0], "oy": zero + co[1], "oz": zero + co[2],
          "dx": dx, "dy": dy, "dz": dz,
          "cr": zero + 1.0, "cg": zero + 1.0, "cb": zero + 1.0,
@@ -91,140 +232,33 @@ def path_lanes_ref(tabs, seed: int, num_samples: int,
 
     while bool((c["sample"] < num_samples).any()):
         active = c["sample"] < num_samples
-        cr, cg, cb = c["cr"], c["cg"], c["cb"]
-        depth = c["depth"]
         rays = c["rays"] + torch.where(active, 1.0, 0.0) * ray_inc
-
-        t, hit, anx_, any__, anz_, alr, alg, alb, mat_id = closest(
-            tabs, c["ox"], c["oy"], c["oz"], c["dx"], c["dy"], c["dz"], TMIN)
-        attr = gather_material(tabs["mats"], mat_id, hit)
-        miss = active & ~hit
-        rr_ = c["rr"] + torch.where(miss, cr * bg[0], 0.0)
-        rg_ = c["rg"] + torch.where(miss, cg * bg[1], 0.0)
-        rb_ = c["rb"] + torch.where(miss, cb * bg[2], 0.0)
-        alive = active & hit
-
-        hx = c["ox"] + t * c["dx"]
-        hy = c["oy"] + t * c["dy"]
-        hz = c["oz"] + t * c["dz"]
-        nx, ny, nz = normalize3(anx_, any__, anz_)
-        wox, woy, woz = -c["dx"], -c["dy"], -c["dz"]
-        ux, uy, uz, vx, vy, vz = onb_from_w(nx, ny, nz)
-
-        # emitter hit (one-sided)
-        al_on = alive & ((alr != 0.0) | (alg != 0.0) | (alb != 0.0)) \
-            & (dot3(wox, woy, woz, nx, ny, nz) > 0.0)
-        rr_ = rr_ + torch.where(al_on, cr * alr, 0.0)
-        rg_ = rg_ + torch.where(al_on, cg * alg, 0.0)
-        rb_ = rb_ + torch.where(al_on, cb * alb, 0.0)
-
-        # AOVs at depth 0
-        first = alive & (depth == 0)
-        anx = c["anx"] + torch.where(first, nx, 0.0)
-        any_ = c["any"] + torch.where(first, ny, 0.0)
-        anz = c["anz"] + torch.where(first, nz, 0.0)
-        aar = c["aar"] + torch.where(first, attr["abr"], 0.0)
-        aag = c["aag"] + torch.where(first, attr["abg"], 0.0)
-        aab = c["aab"] + torch.where(first, attr["abb"], 0.0)
-
-        frame = (ux, uy, uz, vx, vy, vz, nx, ny, nz)
-        lo = to_local(*frame, wox, woy, woz)
-        rr_, rg_, rb_ = distant_lights(
-            tabs, tabs["lights_f"], (rr_, rg_, rb_), hx, hy, hz, frame,
-            attr, lo, alive, cr, cg, cb, beckmann)
-
-        # scatter
-        u_coin, st = rng.uniform(c["st"])
-        u1, st = rng.uniform(st)
-        u2, st = rng.uniform(st)
-        ul, st = rng.uniform(st)
-        swx, swy, swz, sfr, sfg, sfb, spdf = bsdf_sample(
-            attr, *lo, u_coin, u1, u2, ul, beckmann)
-        swx, swy, swz = to_world(*frame, swx, swy, swz)
-
-        if E > 0:
-            coin, st = rng.uniform(st)
-            ue1, st = rng.uniform(st)
-            ue2, st = rng.uniform(st)
-            ue3, st = rng.uniform(st)
-            ue4, st = rng.uniform(st)
-            ls_wx, ls_wy, ls_wz = sample_emit(tabs, hx, hy, hz,
-                                              ue1, ue2, ue3, ue4)
-            diffuse = is_diffuse(attr)
-            take_light = (coin > 0.5) & diffuse
-            wx_ = torch.where(take_light, ls_wx, swx)
-            wy_ = torch.where(take_light, ls_wy, swy)
-            wz_ = torch.where(take_light, ls_wz, swz)
-            llx, lly, llz = to_local(*frame, ls_wx, ls_wy, ls_wz)
-            fe_r, fe_g, fe_b, fe_pdf = bsdf_eval(attr, *lo, llx, lly, llz,
-                                                 beckmann)
-            f_r = torch.where(take_light, fe_r, sfr)
-            f_g = torch.where(take_light, fe_g, sfg)
-            f_b = torch.where(take_light, fe_b, sfb)
-            pdf_b = torch.where(take_light, fe_pdf, spdf)
-            lpdf = emit_pdf(tabs, hx, hy, hz, wx_, wy_, wz_) \
-                / torch.full_like(hx, float(E))
-            pdf = torch.where(diffuse, 0.5 * pdf_b + 0.5 * lpdf, spdf)
-            f_r = torch.where(diffuse, f_r, sfr)
-            f_g = torch.where(diffuse, f_g, sfg)
-            f_b = torch.where(diffuse, f_b, sfb)
-            wx_ = torch.where(diffuse, wx_, swx)
-            wy_ = torch.where(diffuse, wy_, swy)
-            wz_ = torch.where(diffuse, wz_, swz)
-        else:
-            wx_, wy_, wz_, f_r, f_g, f_b, pdf = (swx, swy, swz, sfr, sfg,
-                                                 sfb, spdf)
-
-        alive = alive & (pdf >= 1e-5)
-        cosw = torch.abs(wx_ * nx + wy_ * ny + wz_ * nz)
-        scale = cosw / torch.clamp_min(pdf, 1e-20)
-        cr = cr * f_r * scale
-        cg = cg * f_g * scale
-        cb = cb * f_b * scale
-        alive = alive & ((cr != 0.0) | (cg != 0.0) | (cb != 0.0))
-
-        if tabs["use_rr"]:
-            rrv, st = rng.uniform(st)
-            p_cont = torch.clamp(torch.maximum(cr, torch.maximum(cg, cb)),
-                                 0.0, 1.0)
-            do_rr = depth > P.RR_START
-            alive = alive & (~do_rr | (rrv <= p_cont))
-            inv_p = 1.0 / torch.clamp_min(p_cont, 1e-20)
-            keep = do_rr & alive
-            cr = torch.where(keep, cr * inv_p, cr)
-            cg = torch.where(keep, cg * inv_p, cg)
-            cb = torch.where(keep, cb * inv_p, cb)
-
-        depth = depth + 1
-        alive = alive & (depth < MAXD)
+        b = bounce(tabs, c, active, beckmann)
+        alive = b["alive"]
 
         # regeneration
         finished = active & ~alive
         sample = c["sample"] + finished.long()
         regen = finished & (sample < num_samples)
-        cj1, st = rng.uniform(st)
-        cj2, st = rng.uniform(st)
-        cdx, cdy, cdz = camera_ray(cam, pxf, pyf, cj1, cj2)
+        cdx, cdy, cdz = camera_ray(cam, pxf, pyf, b["cj1"], b["cj2"])
 
         def pick3(a1, a2, b2c):
             return torch.where(regen, a1, torch.where(alive, a2, b2c))
 
-        c = {"ox": pick3(zero + co[0], hx, c["ox"]),
-             "oy": pick3(zero + co[1], hy, c["oy"]),
-             "oz": pick3(zero + co[2], hz, c["oz"]),
-             "dx": pick3(cdx, wx_, c["dx"]),
-             "dy": pick3(cdy, wy_, c["dy"]),
-             "dz": pick3(cdz, wz_, c["dz"]),
-             "cr": pick3(zero + 1.0, cr, c["cr"]),
-             "cg": pick3(zero + 1.0, cg, c["cg"]),
-             "cb": pick3(zero + 1.0, cb, c["cb"]),
-             "depth": torch.where(regen, 0, torch.where(alive, depth,
-                                                        c["depth"])),
-             "sample": sample,
-             "rr": rr_, "rg": rg_, "rb": rb_,
-             "anx": anx, "any": any_, "anz": anz,
-             "aar": aar, "aag": aag, "aab": aab,
-             "rays": rays, "st": st}
+        c = {"ox": pick3(zero + co[0], b["hx"], c["ox"]),
+             "oy": pick3(zero + co[1], b["hy"], c["oy"]),
+             "oz": pick3(zero + co[2], b["hz"], c["oz"]),
+             "dx": pick3(cdx, b["wx"], c["dx"]),
+             "dy": pick3(cdy, b["wy"], c["dy"]),
+             "dz": pick3(cdz, b["wz"], c["dz"]),
+             "cr": pick3(zero + 1.0, b["cr"], c["cr"]),
+             "cg": pick3(zero + 1.0, b["cg"], c["cg"]),
+             "cb": pick3(zero + 1.0, b["cb"], c["cb"]),
+             "depth": torch.where(regen, 0, torch.where(
+                 alive, c["depth"] + 1, c["depth"])),
+             "sample": sample, "rays": rays, "st": b["st"],
+             **{k: b[k] for k in ("rr", "rg", "rb", "anx", "any", "anz",
+                                  "aar", "aag", "aab")}}
 
     return torch.stack([c[k] for k in ("rr", "rg", "rb", "anx", "any", "anz",
                                        "aar", "aag", "aab", "rays")])

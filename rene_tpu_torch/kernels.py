@@ -1,18 +1,24 @@
 """Build and binding of the port's CUDA kernels.
 
-csrc/mega_path.cu is compiled with nvcc once per kernel variant (the
-template parameter MESH, set by -DMEGA_MESH) into shared libraries with a
-plain C interface, at first use, into build/rene_tpu_torch/ of the
-checkout (named by a hash of the sources and flags, so an edit rebuilds),
-all nvcc runs started together, and loaded with ctypes. Nothing is
-compiled or imported at module import: the CPU-only tests import this
-module freely.
+Two sources, each compiled with nvcc once per variant (the template
+parameter MESH, set by -DMEGA_MESH) into a shared library with a plain C
+interface, at first use, into build/rene_tpu_torch/ of the checkout
+(named by a hash of the sources and flags, so an edit rebuilds), all
+nvcc runs started together, and loaded with ctypes:
+
+    csrc/mega_path.cu   the path megakernel (K1a; K1c, K1d)
+    csrc/wave.cu        the wave engine: K2 in both variants, with K3 and
+                        K4, which do not depend on the variant, taken from
+                        the immediates build
+
+Nothing is compiled or imported at module import: the CPU-only tests
+import this module freely.
 
 Each wrapper runs its kernel's plain PyTorch version when its tensors lie
 on the CPU. On a CUDA device it checks its tensors, allocates its outputs
 with torch.empty, launches on the current stream without synchronising,
-raises if the launch was refused, and adds one to the `launches` count of
-the variant it launched.
+raises if the launch was refused, and adds one to its kernel's count in
+`launches`.
 """
 from __future__ import annotations
 
@@ -35,18 +41,29 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "rene_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
-# the kernel's two variants, mega_path_kernel<MESH>: the immediates-only
-# path (K1a) and the path with the acceleration tables (K1c, K1d), each
-# with its -DMEGA_MESH flag; `launches` counts each variant's launches
-VARIANTS = {"mega_path": "-DMEGA_MESH=0", "mega_path_mesh": "-DMEGA_MESH=1"}
-launches = dict.fromkeys(VARIANTS, 0)
+# each library: its source and its -DMEGA_MESH flag. The two variants of
+# a kernel template are the immediates-only path (K1a; K2 on such
+# scenes) and the path with the acceleration tables (K1c, K1d; K2 on
+# such scenes)
+VARIANTS = {"mega_path": ("mega_path.cu", "-DMEGA_MESH=0"),
+            "mega_path_mesh": ("mega_path.cu", "-DMEGA_MESH=1"),
+            "wave_path": ("wave.cu", "-DMEGA_MESH=0"),
+            "wave_path_mesh": ("wave.cu", "-DMEGA_MESH=1")}
+# launches of each kernel; wave_genesis and wave_permute live in the
+# wave_path library
+launches = dict.fromkeys(list(VARIANTS) + ["wave_genesis", "wave_permute"],
+                         0)
 
 _libs: Dict[str, ctypes.CDLL] = {}
+# ptxas's register and spill report of each library built with
+# build(verbose=True)
+ptxas: Dict[str, str] = {}
 
 
-def variant(tabs) -> str:
-    """The kernel variant that runs the scene `tabs`."""
-    return "mega_path_mesh" if tabs["has_accel"] else "mega_path"
+def variant(tabs, kernel: str = "mega_path") -> str:
+    """The variant of `kernel` (mega_path or wave_path) that runs the
+    scene `tabs`."""
+    return kernel + "_mesh" if tabs["has_accel"] else kernel
 
 
 def _nvcc() -> str:
@@ -61,7 +78,7 @@ def _nvcc() -> str:
 def library_path(name: str) -> Path:
     """Where variant `name`'s library for the current sources lives
     (built or not)."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS + [VARIANTS[name]]).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + list(VARIANTS[name])).encode())
     for f in sorted(CSRC.glob("*.cu*")):
         h.update(f.name.encode())
         h.update(f.read_bytes())
@@ -80,8 +97,8 @@ def build(verbose: bool = False) -> Dict[str, Path]:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, VARIANTS[name], "-o", tmp,
-               str(CSRC / "mega_path.cu")]
+        source, flag = VARIANTS[name]
+        cmd = [_nvcc(), *NVCC_FLAGS, flag, "-o", tmp, str(CSRC / source)]
         if verbose:
             cmd.insert(1, "-Xptxas=-v")
         runs[name] = (tmp, subprocess.Popen(
@@ -94,6 +111,7 @@ def build(verbose: bool = False) -> Dict[str, Path]:
             failed.append(f"{name}: nvcc failed ({proc.returncode}):\n{err}")
             continue
         if verbose and err:
+            ptxas[name] = err
             print(f"{name}:\n{err}")
         os.replace(tmp, sos[name])
     if failed:
@@ -101,20 +119,39 @@ def build(verbose: bool = False) -> Dict[str, Path]:
     return sos
 
 
-# argument types of mega_path_launch (csrc/launch.cuh)
-_P, _I = ctypes.c_void_p, ctypes.c_int
-ARGTYPES = ([_P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _I, _P, _P, _I, _P]
-            + [_P, _P, _P, _I, _P, _P, _I]  # nodes .. n_sph_blocks
-            + [_I] * 11         # scalars, world_root .. num_samples
-            + [_P, _P])         # out, stream
+# argument types of the C entry points (csrc/launch.cuh,
+# csrc/wave_launch.cuh)
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SCENE_ARGTYPES = ([_P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _I, _P, _P, _I,
+                   _P]
+                  + [_P, _P, _P, _I, _P, _P, _I]  # nodes .. n_sph_blocks
+                  + [_I] * 9)   # scalars, world_root .. block_seed
+ARGTYPES = SCENE_ARGTYPES + [_I, _I, _P, _P]   # seed, num_samples, out,
+                                                # stream
+WAVE_ARGTYPES = (SCENE_ARGTYPES + [_I] * 5   # seed, launch, k, n_run,
+                                             # n_pad
+                 + [_F] * 6 + [_P, _P])      # key bounds, state, stream
+GENESIS_ARGTYPES = [_P, _P, _P] + [_I] * 7 + [_P, _P]
+PERMUTE_ARGTYPES = [_P, _P, _I, _P, _P]
+_ENTRY_POINTS = {
+    "mega_path.cu": {"mega_path_launch": ARGTYPES},
+    "wave.cu": {"wave_path_launch": WAVE_ARGTYPES,
+                "wave_genesis_launch": GENESIS_ARGTYPES,
+                "wave_permute_launch": PERMUTE_ARGTYPES}}
+
+
+def bind(lib: ctypes.CDLL, source: str) -> ctypes.CDLL:
+    """Set the argument and return types of `source`'s entry points."""
+    for fn, argtypes in _ENTRY_POINTS[source].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
 
 
 def _load(name: str) -> ctypes.CDLL:
     if name not in _libs:
-        lib = ctypes.CDLL(str(build()[name]))
-        lib.mega_path_launch.argtypes = ARGTYPES
-        lib.mega_path_launch.restype = ctypes.c_int
-        _libs[name] = lib
+        _libs[name] = bind(ctypes.CDLL(str(build()[name])),
+                           VARIANTS[name][0])
     return _libs[name]
 
 
@@ -130,10 +167,9 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
 
 
-def launch_args(tabs, seed: int, num_samples: int, beckmann: bool,
-                out: torch.Tensor) -> tuple:
-    """Checked C arguments of mega_path_launch, all but the stream. Every
-    table must lie on out's device."""
+def scene_args(tabs, beckmann: bool, device) -> tuple:
+    """Checked C arguments of the scene, the first of mega_path_launch's
+    and wave_path_launch's. Every table must lie on `device`."""
     f32, i32 = torch.float32, torch.int32
     n_tri = tabs["tris"].shape[0]
     n_light = tabs["lights"].shape[0]
@@ -154,8 +190,7 @@ def launch_args(tabs, seed: int, num_samples: int, beckmann: bool,
             ("insts", f32, (None, A.INST_W)),
             ("sph_tab", f32, (n_blocks * A.SPH_BLOCK, A.SPHT_W)),
             ("sph_box", f32, (None, A.BOX_W))):
-        _check(tabs[name], name, dtype, shape, out.device)
-    _check(out, "out", f32, (P.OUT_ROWS, n_pix), out.device)
+        _check(tabs[name], name, dtype, shape, device)
     if (tabs["world_root"] >= 0 or tabs["insts"].shape[0]) \
             and not tabs["nodes"].shape[0]:
         raise ValueError("nodes: empty, but the scene has a mesh")
@@ -172,8 +207,42 @@ def launch_args(tabs, seed: int, num_samples: int, beckmann: bool,
             ptr("sph_tab"), ptr("sph_box"), n_blocks,
             int(tabs["world_root"]), int(tabs["has_tri_emitter"]),
             tabs["width"], n_pix, tabs["max_depth"], int(tabs["use_rr"]),
-            int(beckmann), int(tabs["has_accel"]), int(tabs["block_seed"]),
-            int(seed), int(num_samples), out.data_ptr())
+            int(beckmann), int(tabs["has_accel"]), int(tabs["block_seed"]))
+
+
+def launch_args(tabs, seed: int, num_samples: int, beckmann: bool,
+                out: torch.Tensor) -> tuple:
+    """Checked C arguments of mega_path_launch, all but the stream. Every
+    table must lie on out's device."""
+    _check(out, "out", torch.float32,
+           (P.OUT_ROWS, tabs["width"] * tabs["height"]), out.device)
+    return scene_args(tabs, beckmann, out.device) + (
+        int(seed), int(num_samples), out.data_ptr())
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _launched(name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    launches[name] += 1
+
+
+def _card_stream(stream: str, what: str) -> None:
+    """The wave kernels draw the "mixed" lane streams only; the "jax"
+    streams (rng.wave_state) exist in the plain versions alone."""
+    if stream != "mixed":
+        raise ValueError(f"{what}: stream {stream!r}: the CUDA kernel draws "
+                         f"the 'mixed' lane streams only")
+
+
+def _cuda(device, what: str) -> bool:
+    """True for a CUDA device, False for the CPU; raises otherwise."""
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} needs CUDA or CPU tensors, got {device}")
+    return device.type == "cuda"
 
 
 def mega_path(tabs, seed: int, num_samples: int,
@@ -185,18 +254,87 @@ def mega_path(tabs, seed: int, num_samples: int,
     Tables on the CPU run the kernel's plain version, `path_lanes_ref`,
     and launch nothing."""
     device = tabs["tris"].device
-    if device.type == "cpu":
+    if not _cuda(device, "mega_path"):
         from .integrators.mega_path import path_lanes_ref
         return path_lanes_ref(tabs, seed, num_samples, beckmann)
-    if device.type != "cuda":
-        raise ValueError(f"mega_path needs CUDA or CPU tensors, got {device}")
     out = torch.empty((P.OUT_ROWS, tabs["width"] * tabs["height"]),
                       dtype=torch.float32, device=device)
     args = launch_args(tabs, seed, num_samples, beckmann, out)
     name = variant(tabs)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = _load(name).mega_path_launch(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
-    launches[name] += 1
+    _launched(name, _load(name).mega_path_launch(*args, _stream(device)))
+    return out
+
+
+def wave_path(tabs, state: torch.Tensor, seed: int, launch: int, k: int,
+              n_run: int, kb, beckmann: bool = False,
+              stream: str = "mixed") -> torch.Tensor:
+    """K2: advance every alive lane of the first `n_run` lanes of the wave
+    `state` by `k` bounces in place, with the lane streams `stream` of
+    launch `launch` of the wave (csrc/wave.cu, the scene's variant); `kb`
+    is wave.key_bounds. CPU tensors run `wave_step_ref`; CUDA tensors
+    take only the "mixed" streams. Returns `state`."""
+    from .integrators import wave as WV
+    device = state.device
+    if not _cuda(device, "wave_path"):
+        return WV.wave_step_ref(tabs, state, seed, launch, k, n_run, kb,
+                                beckmann, stream)
+    _card_stream(stream, "wave_path")
+    _check(state, "state", torch.float32, (WV.W_NROWS, None), device)
+    n_pad = state.shape[1]
+    if n_pad % WV.W_TILE or not 0 <= n_run <= n_pad or len(kb) != 6:
+        raise ValueError(f"wave_path: n_run {n_run}, n_pad {n_pad}, "
+                         f"{len(kb)} key bounds")
+    name = variant(tabs, "wave_path")
+    _launched(name, _load(name).wave_path_launch(
+        *scene_args(tabs, beckmann, device), int(seed), int(launch), int(k),
+        int(n_run), n_pad, *kb, state.data_ptr(), _stream(device)))
+    return state
+
+
+def wave_genesis(tabs, pxf: torch.Tensor, pyf: torch.Tensor, n_real: int,
+                 seed: int, base: int, rem: int,
+                 stream: str = "mixed") -> torch.Tensor:
+    """K3: the (W_NROWS, n_pad) state of a fresh wave of base * spw + rem
+    samples per pixel, over lanes whose pixel coordinates are `pxf` and
+    `pyf`, with the lane streams `stream` (csrc/wave.cu). CPU tensors run
+    `genesis_ref`; CUDA tensors take only the "mixed" streams."""
+    from .integrators import wave as WV
+    device = pxf.device
+    width, npix = tabs["width"], tabs["width"] * tabs["height"]
+    if not _cuda(device, "wave_genesis"):
+        return WV.genesis_ref(tabs["cam_f"], pxf, pyf, width, npix, n_real,
+                              seed, base, rem, stream)
+    _card_stream(stream, "wave_genesis")
+    n_pad = pxf.shape[0]
+    _check(tabs["cam"], "cam", torch.float32, (P.CAM_W,), device)
+    _check(pxf, "pxf", torch.float32, (None,), device)
+    _check(pyf, "pyf", torch.float32, (n_pad,), device)
+    if not 0 <= n_real <= n_pad:
+        raise ValueError(f"wave_genesis: n_real {n_real}, n_pad {n_pad}")
+    state = torch.empty((WV.W_NROWS, n_pad), dtype=torch.float32,
+                        device=device)
+    _launched("wave_genesis", _load("wave_path").wave_genesis_launch(
+        tabs["cam"].data_ptr(), pxf.data_ptr(), pyf.data_ptr(), width, npix,
+        int(n_real), n_pad, int(seed), int(base), int(rem), state.data_ptr(),
+        _stream(device)))
+    return state
+
+
+def wave_permute(state: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """K4: a new state whose 128-lane slice j holds rows [0, 24) of slice
+    perm[j] of `state` and its own AOV rows (csrc/wave.cu). `perm` is an
+    int32 permutation of the slices. CPU tensors run `permute_ref`."""
+    from .integrators import wave as WV
+    device = state.device
+    if not _cuda(device, "wave_permute"):
+        return WV.permute_ref(state, perm)
+    _check(state, "state", torch.float32, (WV.W_NROWS, None), device)
+    n_pad = state.shape[1]
+    if n_pad % WV.W_SLICE:
+        raise ValueError(f"wave_permute: n_pad {n_pad}")
+    _check(perm, "perm", torch.int32, (n_pad // WV.W_SLICE,), device)
+    out = torch.empty_like(state)
+    _launched("wave_permute", _load("wave_path").wave_permute_launch(
+        state.data_ptr(), perm.data_ptr(), n_pad, out.data_ptr(),
+        _stream(device)))
     return out

@@ -14,7 +14,7 @@ import math
 
 import torch
 
-from rene_tpu.scene import types as T
+from ..scene import types as T
 
 from ..scene import pack as P
 from .fresnel import fr_conductor_ch, fr_dielectric

@@ -17,16 +17,157 @@ boxes, pushes the far child when both are entered, and pops when a lane
 is done with a subtree; lanes that finish drop out. Every lane visits
 its nodes in the kernel's order, so the two keep the same triangle on
 exact-t ties.
+
+The builder below (`build_bvh` and its median-split fallback) is
+rene_tpu/ops/bvh.py's host-side build, copied without its JAX traversal:
+binned SAH through the native C++ builder (ops/native.py), median splits
+where that is missing or too deep.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from ..scene import accel as A
 
 BIG = 3e38
+# box, triangle and table-sphere tests of the walk's lanes so far (reset
+# by the caller): chip_smoke.py reads them for the kernels' operation
+# bounds
+tests = {"box": 0, "tri": 0, "sph": 0}
+
+# -- host-side build (rene_tpu/ops/bvh.py) ----------------------------------
+LEAF_SIZE = 4
+MAX_DEPTH_STACK = 40  # SAH depth over <=1M tris is ~2*log2(N/4)
+
+
+class BVH:
+    def __init__(self, aabb_min, aabb_max, left, right, is_leaf, order,
+                 tri_p_sorted):
+        self.aabb_min = aabb_min
+        self.aabb_max = aabb_max
+        self.left = left
+        self.right = right
+        self.is_leaf = is_leaf
+        self.order = order
+        self.tri_p_sorted = tri_p_sorted
+
+    @property
+    def num_nodes(self):
+        return self.left.shape[0]
+
+
+def _tree_depth(left, right, is_leaf) -> int:
+    """Max root-to-leaf depth (root = depth 0), iterative BFS."""
+    depth = 0
+    frontier = [0] if left.shape[0] else []
+    d = 0
+    while frontier:
+        depth = d
+        nxt = []
+        for node in frontier:
+            if not is_leaf[node]:
+                nxt.append(int(left[node]))
+                nxt.append(int(right[node]))
+        frontier = nxt
+        d += 1
+    return depth
+
+
+def build_bvh(tri_p: np.ndarray, use_native: bool = True) -> BVH:
+    """BVH build over (T,3,3) world-space triangles.
+
+    Prefers the native C++ binned-SAH builder (native/bvh_builder.cpp via
+    ctypes); falls back to the numpy median-split builder below. A native
+    tree deeper than the traversal stack (possible for pathological SAH
+    splits) would silently drop far children in `intersect`, so such trees
+    are rebuilt with median splits (depth <= ceil(log2(N/LEAF_SIZE)) + 1,
+    always well under MAX_DEPTH_STACK).
+    """
+    tri_p = np.asarray(tri_p, np.float32)
+    if use_native and tri_p.shape[0] > 0:
+        from .native import native_build_bvh
+        out = native_build_bvh(tri_p, LEAF_SIZE)
+        if out is not None:
+            aabb_min, aabb_max, left, right, is_leaf, order = out
+            # reserve one slot: traversal pushes at most depth-1 far children
+            if _tree_depth(left, right, is_leaf) < MAX_DEPTH_STACK:
+                return _finish(tri_p, aabb_min, aabb_max, left, right,
+                               is_leaf, order.astype(np.int64))
+            import logging
+            logging.getLogger("rene_tpu_torch.bvh").warning(
+                "native SAH tree exceeds the %d-entry traversal stack; "
+                "rebuilding with median splits", MAX_DEPTH_STACK)
+    return _build_median(tri_p)
+
+
+def _finish(tri_p, aabb_min, aabb_max, left, right, is_leaf, order):
+    ntri = tri_p.shape[0]
+    pad = (-ntri) % LEAF_SIZE  # allow fixed-width leaf loop to over-read
+    order32 = order.astype(np.int32)
+    tri_sorted = tri_p[order]
+    if pad:
+        tri_sorted = np.concatenate(
+            [tri_sorted, np.zeros((pad, 3, 3), np.float32)], axis=0)
+        order32 = np.concatenate([order32, np.zeros(pad, np.int32)], axis=0)
+    return BVH(aabb_min, aabb_max, left.astype(np.int32),
+               right.astype(np.int32), np.asarray(is_leaf, bool), order32,
+               tri_sorted)
+
+
+def _build_median(tri_p: np.ndarray) -> BVH:
+    """Numpy median-split fallback builder."""
+    ntri = tri_p.shape[0]
+    lo = tri_p.min(axis=1)  # (T,3)
+    hi = tri_p.max(axis=1)
+    centroid = 0.5 * (lo + hi)
+
+    order = np.arange(ntri, dtype=np.int64)
+
+    max_nodes = max(2 * ntri - 1, 1)
+    aabb_min = np.zeros((max_nodes, 3), np.float32)
+    aabb_max = np.zeros((max_nodes, 3), np.float32)
+    left = np.zeros(max_nodes, np.int32)
+    right = np.zeros(max_nodes, np.int32)
+    is_leaf = np.zeros(max_nodes, bool)
+    n_nodes = 1
+
+    # iterative build: (node_id, start, end)
+    stack = [(0, 0, ntri)]
+    while stack:
+        node, s, e = stack.pop()
+        ids = order[s:e]
+        aabb_min[node] = lo[ids].min(axis=0)
+        aabb_max[node] = hi[ids].max(axis=0)
+        count = e - s
+        if count <= LEAF_SIZE:
+            is_leaf[node] = True
+            left[node] = s
+            right[node] = count
+            continue
+        c = centroid[ids]
+        ext = c.max(axis=0) - c.min(axis=0)
+        axis = int(np.argmax(ext))
+        if ext[axis] <= 1e-12:
+            mid = count // 2  # degenerate: split in half by current order
+        else:
+            mid = count // 2
+            part = np.argpartition(c[:, axis], mid)
+            order[s:e] = ids[part]
+        lnode, rnode = n_nodes, n_nodes + 1
+        n_nodes += 2
+        left[node] = lnode
+        right[node] = rnode
+        stack.append((lnode, s, s + mid))
+        stack.append((rnode, s + mid, e))
+
+    return _finish(tri_p, aabb_min[:n_nodes], aabb_max[:n_nodes],
+                   left[:n_nodes], right[:n_nodes], is_leaf[:n_nodes], order)
+
+
+# -- lock-step walk -----------------------------------------------------------
 
 
 def inv_dir(dx, dy, dz):
@@ -99,6 +240,7 @@ def march(tabs, root, ray, tmin, tmax, best, done):
         return [x[ln] for x in ray]
 
     lane = (~done).nonzero()[:, 0]
+    tests["box"] += lane.numel()
     r0 = nodes[root].expand(lane.numel(), -1)
     _, enter = box_enter(r0, *at(lane)[0:3], *at(lane)[6:9], tmin,
                          tfar(lane))
@@ -124,6 +266,7 @@ def march(tabs, root, ray, tmin, tmax, best, done):
                 break
             sel = li[m]
             ln = lane[sel]
+            tests["tri"] += ln.numel()
             o = at(ln)
             t, u, v, ok = mt_test(mesh[start[m] + j], *o[0:6])
             if best is None:
@@ -141,6 +284,7 @@ def march(tabs, root, ray, tmin, tmax, best, done):
         ii = (alive & ~is_leaf).nonzero()[:, 0]
         if ii.numel():
             ln = lane[ii]
+            tests["box"] += 2 * ln.numel()
             o = at(ln)
             tf = tfar(ln)
             lc = rows[ii, A.NODE_A].long()
@@ -263,9 +407,11 @@ def sphere_table_closest(tabs, ox, oy, oz, dx, dy, dz, tmin, t):
     best = torch.full_like(ox, -1, dtype=torch.long)
     for b in range(box.shape[0]):
         _, enter = box_enter(box[b:b + 1], ox, oy, oz, ix, iy, iz, tmin, t)
+        tests["box"] += ox.numel()
         ln = enter.nonzero()[:, 0]
         if not ln.numel():
             continue
+        tests["sph"] += ln.numel() * A.SPH_BLOCK
         rows = tab[b * A.SPH_BLOCK:(b + 1) * A.SPH_BLOCK]
         ts, ok = _sph_test(rows, *(x[ln, None] for x in ray), tmin)
         tb, kb = torch.where(ok, ts, math.inf).min(dim=1)
@@ -291,8 +437,10 @@ def sphere_table_any(tabs, ox, oy, oz, dx, dy, dz, tmin, tmax, done):
     for b in range(box.shape[0]):
         _, enter = box_enter(box[b:b + 1], ox, oy, oz, ix, iy, iz, tmin, far)
         ln = (enter & ~done & ~hit).nonzero()[:, 0]
+        tests["box"] += ox.numel()
         if not ln.numel():
             continue
+        tests["sph"] += ln.numel() * A.SPH_BLOCK
         rows = tab[b * A.SPH_BLOCK:(b + 1) * A.SPH_BLOCK]
         ts, ok = _sph_test(rows, *(x[ln, None] for x in ray), tmin)
         hit[ln] = (ok & (ts <= tmax)).any(dim=1)

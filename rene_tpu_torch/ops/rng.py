@@ -44,6 +44,51 @@ def seed_state(pix: torch.Tensor, seed: int, tile=None) -> torch.Tensor:
     return (((pix * 2654435761) & MASK) ^ seed_u) | 1
 
 
+WAVE_STREAMS = ("mixed", "jax")
+
+
+def _mul32(h, c: int):
+    """h * c mod 2^32 for int64 tensors (or ints) holding uint32 values,
+    without an int64 overflow: c is split in 16-bit halves."""
+    return (h * (c & 0xFFFF) + (((h * (c >> 16)) & 0xFFFF) << 16)) & MASK
+
+
+def fmix32(h):
+    """MurmurHash3's 32-bit finalizer: a bijection whose output bits each
+    depend on every input bit, nonlinearly."""
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def wave_state(lane: torch.Tensor, seed: int, launch: int,
+               stream: str = "mixed") -> torch.Tensor:
+    """Initial state of each wave lane in launch `launch` of a wave (-1
+    for the genesis pass), tied to the lane's id, not to its position, so
+    sorting the wave between launches does not change any lane's path.
+
+    "jax": (lane * 2654435761 ^ (seed + (launch + 1) * 7919)) | 1, the
+    JAX wave kernel's interpret-mode stream (pallas_path.py:5604-5618,
+    :4980-4987). xorshift32 is linear over GF(2), so a lane's n-th draws
+    in two launches differ by a bit mask that is the same for every lane:
+    the draws of one path's bounces are tied to each other, and the
+    estimator is biased (PERF.md). Kept in the plain versions only, so
+    that tests compare with JAX per pixel; the CUDA kernels draw "mixed".
+
+    "mixed" (the default): fmix32(lane * 2654435761 ^ fmix32(seed +
+    (launch + 1) * 7919)) | 1, whose launches draw unrelated streams, as
+    the TPU kernel's hardware generator, reseeded per launch, does."""
+    if stream not in WAVE_STREAMS:
+        raise ValueError(f"stream {stream!r}: one of {WAVE_STREAMS}")
+    lane = lane.to(torch.int64)
+    seed_u = (int(seed) + (int(launch) + 1) * 7919) & MASK
+    if stream == "jax":
+        return (((lane * 2654435761) & MASK) ^ seed_u) | 1
+    return fmix32(((lane * 2654435761) & MASK) ^ fmix32(seed_u)) | 1
+
+
 def uniform(st: torch.Tensor):
     """(u in [0, 1), next state): xorshift32 then the mantissa bitcast."""
     st = st ^ ((st << 13) & MASK)

@@ -8,8 +8,9 @@ big-mesh march and sphere table, with the TPU layout replaced:
   triangle clusters behind super-group and octant box tables, because
   Mosaic can only march all lanes of a tile in lock-step over slices of
   a VMEM table. A CUDA thread walks its own tree, so the port keeps
-  them in the binned-SAH BVH that `rene_tpu.ops.bvh.build_bvh` builds
-  (numpy at import, native C++ builder at first use);
+  them in the binned-SAH BVH that `ops.bvh.build_bvh` builds (the
+  port's copy of rene_tpu/ops/bvh.py's builder: the native C++ builder,
+  compiled at first use, or numpy median splits);
 * shared-BLAS instances (`_shared_split` :961, `_pack_inst_mesh` :1000):
   one object-space BVH per shared BLAS, and one row per instance with
   its world-to-object affine, material and BLAS root;
@@ -29,8 +30,8 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
-from rene_tpu.ops.bvh import _tree_depth, build_bvh
-from rene_tpu.scene import types as T
+from ..ops import bvh as _bvh
+from . import types as T
 
 # -- row layouts (mirrored by csrc/layout.cuh) -------------------------------
 # BVH node: two float4, (min xyz, left child or first triangle) and
@@ -128,7 +129,7 @@ class _Builder:
     def add(self, p: np.ndarray, n: np.ndarray, mat: np.ndarray) -> int:
         """BVH over float64 (T, 3, 3) points p with (T, 3, 3) normals n and
         (T,) material ids; returns its root node."""
-        bvh = build_bvh(p.astype(np.float32))
+        bvh = _bvh.build_bvh(p.astype(np.float32))
         m = p.shape[0]
         order = bvh.order[:m].astype(np.int64)
         p, n, mat = p[order], n[order], mat[order]
@@ -151,7 +152,7 @@ class _Builder:
         nodes[:, NODE_A] = np.where(leaf, bvh.left + self.n_rows,
                                     bvh.left + self.n_nodes)
         nodes[:, NODE_B] = np.where(leaf, -count, bvh.right + self.n_nodes)
-        depth = _tree_depth(bvh.left, bvh.right, leaf)
+        depth = _bvh._tree_depth(bvh.left, bvh.right, leaf)
         if depth >= BVH_STACK:
             raise ValueError(f"BVH depth {depth} exceeds the traversal "
                              f"stack ({BVH_STACK})")

@@ -31,8 +31,8 @@ from typing import Dict, List
 
 import numpy as np
 
-from rene_tpu.scene import types as T
-from rene_tpu.scene.device import RenderConfig
+from . import types as T
+from .device import RenderConfig
 
 from . import accel
 

@@ -33,7 +33,9 @@ lights), for the mesh variant of the kernel:
   parametric surface of revolution on a 256 x 256 quad grid (131,072
   triangles, plastic), eight `ObjectInstance`s of one 4,096-triangle metal
   sphere, a glass sphere, a matte floor, an emissive quad and a distant
-  light, at `maxdepth 17` and 1280x720 by default.
+  light, at `maxdepth 17` and 1280x720 by default. At `maxdepth 50`
+  it is a deep scene by the reference's rule for its wave engine (more
+  than 512 triangles, maxdepth >= 32: rene_tpu/render.py:33).
 """
 from __future__ import annotations
 
@@ -376,7 +378,8 @@ def _vase(n: int = 256):
     return p, idx, nrm
 
 
-def big_mesh_scene(width: int = 1280, height: int = 720) -> str:
+def big_mesh_scene(width: int = 1280, height: int = 720,
+                   maxdepth: int = 17) -> str:
     vp, vidx, vn = _vase(256)
     sp, sidx = uv_sphere(64, 33)
     insts = "\n".join(f"""AttributeBegin
@@ -390,7 +393,7 @@ LookAt 0.5 -6.5 3.2  0 0 1.0  0 0 1
 Camera "perspective" "float fov" [ 38 ]
 Film "image" "integer xresolution" [ {width} ]
   "integer yresolution" [ {height} ] "string filename" "big_mesh.png"
-Integrator "path" "integer maxdepth" [ 17 ]
+Integrator "path" "integer maxdepth" [ {maxdepth} ]
 WorldBegin
 LightSource "infinite" "rgb L" [ .1 .11 .14 ]
 LightSource "distant" "point from" [ -3 -2 6 ] "point to" [ 0 0 0 ]

@@ -1,9 +1,11 @@
-"""Film output for the port: PNGs without PIL.
+"""Film output for the port: image layout, 8-bit encoders, PNGs without
+PIL.
 
-Counterpart of rene_tpu/utils/film.py: the image layout
-(`rays_to_image` :16) and 8-bit encoders are reused from there (numpy
-only); `save_png` (:36 there) writes the PNG with zlib and struct, so
-that rendering does not need PIL.
+Counterpart of rene_tpu/utils/film.py: `rays_to_image` and the encoders
+are copies of it (the reference's vertical flip, pbrt's 2.2 gamma
+through scene/assets/images.py, AOVs as 256 * clamp(v, 0, .999));
+`save_png` (:36 there) writes the PNG with zlib and struct, so that
+rendering does not need PIL.
 """
 from __future__ import annotations
 
@@ -12,11 +14,30 @@ import zlib
 
 import numpy as np
 
-from rene_tpu.utils.film import (rays_to_image, to_aov8, to_aov_normal8,
-                                 to_rgb8)
+from ..scene.assets.images import gamma_correct
 
 __all__ = ["rays_to_image", "to_rgb8", "to_aov8", "to_aov_normal8",
            "save_png", "read_png"]
+
+
+def rays_to_image(per_ray: np.ndarray, width: int, height: int) -> np.ndarray:
+    """(H*W, C) ray-order buffer -> (H, W, C) image with the reference's
+    vertical flip (add_image writes at launch_size.y - 1 - y)."""
+    img = np.asarray(per_ray).reshape(height, width, -1)
+    return img[::-1]
+
+
+def to_rgb8(linear: np.ndarray) -> np.ndarray:
+    v = gamma_correct(np.asarray(linear, np.float32))
+    return np.clip(np.round(255.0 * v), 0.0, 255.0).astype(np.uint8)
+
+
+def to_aov8(linear: np.ndarray) -> np.ndarray:
+    return (256.0 * np.clip(linear, 0.0, 0.999)).astype(np.uint8)
+
+
+def to_aov_normal8(linear: np.ndarray) -> np.ndarray:
+    return (256.0 * np.clip(linear * 0.5 + 0.5, 0.0, 0.999)).astype(np.uint8)
 
 
 def _chunk(tag: bytes, data: bytes) -> bytes:

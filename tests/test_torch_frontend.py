@@ -30,25 +30,32 @@ def _scene(src, base="/tmp"):
 
 
 def test_imports_and_renders_without_jax(tmp_path):
-    """With jax blocked, the port imports, packs a scene and renders it
-    on the CPU through its CLI."""
+    """With jax and rene_tpu blocked, every module of the port imports,
+    packs a scene and renders it on the CPU through its CLI, with both
+    engines."""
     scene = tmp_path / "s.pbrt"
     scene.write_text(scenes.cornell_box(16, 8))
     code = textwrap.dedent(f"""
-        import sys
+        import importlib, pkgutil, sys
         sys.modules["jax"] = None
-        import rene_tpu_torch, rene_tpu_torch.cli, rene_tpu_torch.kernels
-        import rene_tpu_torch.checks, rene_tpu_torch.probe
+        sys.modules["rene_tpu"] = None
+        import rene_tpu_torch
+        for m in pkgutil.walk_packages(rene_tpu_torch.__path__,
+                                       "rene_tpu_torch."):
+            importlib.import_module(m.name)
+        import rene_tpu_torch.cli
         from rene_tpu_torch.scene import build_device_scene, load_scene
         from rene_tpu_torch.scene.pack import pack_tables
         bn, cfg = build_device_scene(load_scene({str(scene)!r}))
         tables = pack_tables(bn, cfg)
         assert tables.tris.shape == (32, {P.TRI_W})
-        rc = rene_tpu_torch.cli.main([{str(scene)!r}, "--device", "cpu",
-                                      "--spp", "1", "--output",
-                                      {str(tmp_path / "o.png")!r}])
-        assert rc == 0
-        assert not any(m == "jax" or m.startswith("jax.")
+        for engine in ("pallas", "wave"):
+            rc = rene_tpu_torch.cli.main([{str(scene)!r}, "--device", "cpu",
+                                          "--spp", "1", "--engine", engine,
+                                          "--output",
+                                          {str(tmp_path / "o.png")!r}])
+            assert rc == 0
+        assert not any(m.split(".")[0] in ("jax", "rene_tpu")
                        for m, v in sys.modules.items() if v is not None)
         print("OK")
     """)
@@ -59,18 +66,87 @@ def test_imports_and_renders_without_jax(tmp_path):
     assert (tmp_path / "o.png").exists()
 
 
+def test_port_sources_import_no_jax_package():
+    """No module of the port, and not chip_smoke.py, imports jax or
+    rene_tpu: the port keeps its own copy of the frontend."""
+    pat = re.compile(r"^\s*(from|import)\s+(jax|rene_tpu)\b", re.M)
+    files = sorted((REPO / "rene_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py"]
+    assert len(files) > 30
+    for f in files:
+        assert not pat.search(f.read_text()), f
+
+
+# the frontend files the port copied from rene_tpu, with the lines that
+# may differ: docstrings naming the reference's sources, logger names,
+# relative imports, and to_torch in place of to_jax
+COPIED = ("pbrt/__init__.py", "pbrt/ast.py", "pbrt/include.py",
+          "pbrt/parser.py", "scene/types.py", "scene/intermediate.py",
+          "scene/flatten.py", "scene/overrides.py", "scene/assets/images.py",
+          "scene/assets/ply.py", "scene/assets/spectrum.py",
+          "scene/assets/subdivision.py", "ops/rgb9e5.py")
+
+
+def _wave_src():
+    from .test_wave import SRC
+    return SRC
+
+
+@pytest.mark.parametrize("name", [
+    "cornell_box", "materials_scene", "mesh_materials_scene",
+    "instanced_scene", "sphere_light_scene", "big_mesh_scene", "test_wave"])
+def test_frontend_copy_matches_reference(name):
+    """The port's copy of the frontend (pbrt parser, scene flattening,
+    build_device_scene) gives the reference's buffers and RenderConfig on
+    every inline scene: equal dtypes, shapes and values. The big mesh
+    runs at a 64x36 film (the film size does not touch the mesh)."""
+    from rene_tpu_torch.pbrt import parse_pbrt as parse_port
+    from rene_tpu_torch.scene import build_device_scene as build_port
+    from rene_tpu_torch.scene import create_scene as create_port
+    if name == "test_wave":
+        src = _wave_src()
+    elif name == "big_mesh_scene":
+        src = scenes.big_mesh_scene(64, 36)
+    else:
+        src = getattr(scenes, name)(64, 32)
+    bn_ref, cfg_ref = _scene(src)
+    bn, cfg = build_port(create_port(parse_port(src), "/tmp"))
+    assert sorted(bn) == sorted(bn_ref)
+    for k in bn_ref:
+        assert bn[k].dtype == bn_ref[k].dtype, k
+        assert np.array_equal(bn[k], bn_ref[k]), k
+    assert repr(cfg) == repr(cfg_ref)
+
+
+def test_copied_sources_match_reference():
+    """Each copied module equals its original up to at most three lines
+    that name the package or the reference's sources."""
+    for rel in COPIED:
+        mine = (REPO / "rene_tpu_torch" / rel).read_text().splitlines()
+        ref = (REPO / "rene_tpu" / rel).read_text().splitlines()
+        assert len(mine) == len(ref), rel
+        diff = [(a, b) for a, b in zip(mine, ref) if a != b]
+        assert len(diff) <= 3, (rel, diff)
+        for a, b in diff:
+            # a source path of the reference, made relative
+            b = re.sub(r"\(/[\w/]*?reference/", "(", b)
+            assert a == b or "rene" in a + b, (rel, a, b)
+
+
 def test_mat_fetches_copy_matches_reference():
     from rene_tpu.ops.bsdf import _MAT_FETCHES
     assert P._MAT_FETCHES == _MAT_FETCHES
 
 
 def test_layout_header_matches_pack_constants():
-    """csrc/layout.cuh and scene/pack.py describe the same rows."""
+    """csrc/layout.cuh, scene/pack.py, scene/accel.py and
+    integrators/wave.py describe the same rows."""
     text = (REPO / "rene_tpu_torch" / "csrc" / "layout.cuh").read_text()
     defs = dict(re.findall(r"#define (\w+) (-?\d+)\s*$", text, re.M))
-    from rene_tpu.scene import types as T
+    from rene_tpu_torch.integrators import wave as WV
     from rene_tpu_torch.scene import accel as A
-    owner = {n: m for m in (T, A, P) for n in defs if hasattr(m, n)}
+    from rene_tpu_torch.scene import types as T
+    owner = {n: m for m in (T, A, P, WV) for n in defs if hasattr(m, n)}
     assert set(owner) == set(defs)
     assert {n for n in defs if hasattr(A, n)} >= {"NODE_W", "MESH_W",
                                                    "INST_W", "SPH_BLOCK"}

@@ -14,6 +14,7 @@ import ctypes
 import shutil
 import subprocess
 
+import numpy as np
 import pytest
 import torch
 
@@ -108,6 +109,142 @@ def test_cuda_mesh_lane_code_matches_plain_version(host_lib, name):
     assert a["aov_frac"] >= 0.995, a
     assert a["mean_rel"] <= 1e-4, a
     assert out[9].sum() == ref[9].sum()
+
+
+WAVE_HARNESS = r"""
+#include <cmath>
+#include <cstring>
+#include <cstdint>
+#include <cstddef>
+#define __device__
+#define __forceinline__ inline
+#define __ldg(p) (*(p))
+static inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
+static inline float __uint_as_float(uint32_t u) {
+  float f; memcpy(&f, &u, 4); return f;
+}
+#include "wave.cuh"
+// the lanes, and the slices, run one after another
+static int run_wave(const WaveParams& p, void*) {
+  for (int lane = 0; lane < p.n_run; ++lane) {
+    if (p.has_accel) wave_lane<true>(p, lane);
+    else wave_lane<false>(p, lane);
+  }
+  return 0;
+}
+static int run_genesis(const GenesisParams& g, void*) {
+  for (int lane = 0; lane < g.n_pad; ++lane) genesis_lane(g, lane);
+  return 0;
+}
+static int run_permute(const float* in, const int* perm, int n_pad,
+                       float* out, void*) {
+  for (int j = 0; j < n_pad / W_SLICE; ++j)
+    for (int t = 0; t < W_SLICE; ++t)
+      permute_lane(in, perm, (size_t)n_pad, j, t, out);
+  return 0;
+}
+#include "wave_launch.cuh"
+"""
+
+
+@pytest.fixture(scope="module")
+def wave_lib(tmp_path_factory):
+    """csrc/wave.cuh's per-lane code behind csrc/wave_launch.cuh's entry
+    points, compiled with g++."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no g++ to compile the kernel's per-lane code for the CPU")
+    d = tmp_path_factory.mktemp("host_wave")
+    (d / "harness.cpp").write_text(WAVE_HARNESS)
+    so = d / "libwave.so"
+    res = subprocess.run(
+        [gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-Wall",
+         "-Wno-unknown-pragmas", "-Werror", f"-I{kernels.CSRC}", "-o",
+         str(so), str(d / "harness.cpp")], capture_output=True, text=True)
+    assert res.returncode == 0, res.stderr
+    return kernels.bind(ctypes.CDLL(str(so)), "wave.cu")
+
+
+def _host_wave_kernels(lib):
+    """kernels.wave_genesis, wave_path and wave_permute through the g++
+    build, on CPU tensors."""
+    from rene_tpu_torch.integrators import wave as WV
+
+    def genesis(tabs, pxf, pyf, n_real, seed, base, rem, stream="mixed"):
+        assert stream == "mixed"
+        state = torch.empty((WV.W_NROWS, pxf.shape[0]))
+        assert lib.wave_genesis_launch(
+            tabs["cam"].data_ptr(), pxf.data_ptr(), pyf.data_ptr(),
+            tabs["width"], tabs["width"] * tabs["height"], n_real,
+            pxf.shape[0], seed, base, rem, state.data_ptr(), None) == 0
+        return state
+
+    def path(tabs, state, seed, launch, k, n_run, kb, beckmann=False,
+             stream="mixed"):
+        assert stream == "mixed"
+        assert lib.wave_path_launch(
+            *kernels.scene_args(tabs, beckmann, state.device), seed, launch,
+            k, n_run, state.shape[1], *kb, state.data_ptr(), None) == 0
+        return state
+
+    def permute(state, perm):
+        out = torch.empty_like(state)
+        assert lib.wave_permute_launch(state.data_ptr(), perm.data_ptr(),
+                                       state.shape[1], out.data_ptr(),
+                                       None) == 0
+        return out
+    return genesis, path, permute
+
+
+@pytest.mark.parametrize("name", ["materials_scene", "mesh_materials",
+                                  "instanced"])
+def test_cuda_wave_code_matches_plain_version(wave_lib, monkeypatch, name):
+    """The wave kernels' per-lane code (csrc/wave.cuh) against the plain
+    versions in integrators/wave.py: K3 bit for bit on the lane rows and
+    within 1e-6 on the camera rays (libm against torch), K4 bit for bit,
+    one K2 launch lane by lane on the kernels' "mixed" lane streams
+    (>= 99.5% of lanes agree on every row, the key row bit for bit),
+    then whole 64x64 waves at spw 2, sorted by `gather` and by `dma`,
+    through the g++ kernels against the plain runner (the per-pixel
+    rule, equal ray totals)."""
+    from rene_tpu_torch.integrators import wave as WV
+    bn, cfg = (_buffers(name, 64) if name == "materials_scene"
+               else mesh_buffers(name, 64, 64))
+    genesis, path, permute = _host_wave_kernels(wave_lib)
+    plain = WV.make_wave_fn(bn, cfg, "cpu", samples_per_wave=2)
+    tabs, n_pad, kb = plain.tabs, plain.n_pad, plain.key_bounds
+    s_h = genesis(tabs, plain.pxf, plain.pyf, plain.n_real, 21, 1, 0)
+    s_p, _ = plain.init_state(21, 2)
+    assert torch.equal(s_h[WV.WROW_ALIVE:], s_p[WV.WROW_ALIVE:])
+    torch.testing.assert_close(s_h, s_p, rtol=0, atol=1e-6)
+    perm = torch.from_numpy(
+        np.random.default_rng(1).permutation(n_pad // WV.W_SLICE)
+        .astype(np.int32))
+    assert torch.equal(permute(s_p, perm), WV.permute_ref(s_p, perm))
+    o_h = path(tabs, s_p.clone(), 21, 1, 2, n_pad, kb)
+    o_p = WV.wave_step_ref(tabs, s_p.clone(), 21, 1, 2, n_pad, kb)
+    ok = ((o_h - o_p).abs() <= checks.RAD_ATOL
+          + checks.RAD_RTOL * o_p.abs()).all(0)
+    ok &= o_h[WV.WROW_KEY].view(torch.int32) == o_p[WV.WROW_KEY].view(
+        torch.int32)
+    assert ok.double().mean() >= 0.995, ok.double().mean()
+
+    ref = plain(21, 2)
+    for mode in ("gather", "dma"):
+        monkeypatch.setattr(kernels, "wave_genesis", genesis)
+        monkeypatch.setattr(kernels, "wave_path", path)
+        monkeypatch.setattr(kernels, "wave_permute", permute)
+        out = WV.make_wave_fn(bn, cfg, "cpu", samples_per_wave=2,
+                              sort_mode=mode)(21, 2)
+        monkeypatch.undo()
+        film = [np.concatenate([np.asarray(o[k]).T for k in
+                                ("radiance", "normal", "albedo")])
+                for o in (out, ref)]
+        a = checks.agreement(*film)
+        assert a["rad_frac"] >= 0.995, (mode, a)
+        assert a["aov_frac"] >= 0.995, (mode, a)
+        assert a["mean_rel"] <= 1e-4, (mode, a)
+        assert out["rays"] == ref["rays"], mode
 
 
 def test_launch_args_check_tables():

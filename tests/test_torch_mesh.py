@@ -261,13 +261,14 @@ def test_split_and_tables():
 
 
 def test_renders_mesh_scene_without_jax(tmp_path):
-    """With jax blocked, the port packs a mesh scene and renders it on
-    the CPU through its CLI."""
+    """With jax and rene_tpu blocked, the port packs a mesh scene and
+    renders it on the CPU through its CLI."""
     scene = tmp_path / "s.pbrt"
     scene.write_text(scenes.mesh_materials_scene(16, 8, 8, 6))
     code = textwrap.dedent(f"""
         import sys
         sys.modules["jax"] = None
+        sys.modules["rene_tpu"] = None
         import rene_tpu_torch.cli
         from rene_tpu_torch.scene import build_device_scene, load_scene
         from rene_tpu_torch.scene.pack import pack_tables
@@ -277,7 +278,7 @@ def test_renders_mesh_scene_without_jax(tmp_path):
                                       "--spp", "1", "--output",
                                       {str(tmp_path / "o.png")!r}])
         assert rc == 0
-        assert not any(m == "jax" or m.startswith("jax.")
+        assert not any(m.split(".")[0] in ("jax", "rene_tpu")
                        for m, v in sys.modules.items() if v is not None)
         print("OK")
     """)
