@@ -18,15 +18,16 @@ when either is missing or any check fails. Phases:
    over 1024x1024 (128 TPU-sized tiles of lanes) with the CLI's chunk
    seed, held to the same limits as phase 3; then timing of the kernel
    and the plain version at the main path's shape (a 1-spp chunk);
-6. the mesh variant vs its plain version on the card, 128x64 x 4 spp:
+6. the mesh variant vs its plain version on the card, 128x64 x 2 spp:
    the eight materials on a 2,310-triangle mesh, 12 shared-BLAS
    instances, and 100 table spheres with 24 table lights;
 7. the mesh main path through the CLI: `scenes.big_mesh_scene`, a
    131,072-triangle surface plus 8 instances of a 4,096-triangle sphere,
    at 1280x720 x 16 spp with normal and albedo AOVs;
 8. that path's launch shape against the plain version: one 1-spp chunk
-   at 1280x720 with the CLI's chunk seed; then timing of the kernel
-   (CUDA events) and the plain version at that shape;
+   at 1280x720 with the CLI's chunk seed, the plain version on a strided
+   sample of ~131k of its lanes, both sides at maxdepth 6; then timing of the kernel (CUDA events)
+   over the whole film;
 9. the wave kernels' registers and spills (ptxas, from the phase-2 build):
    K2 in both variants, K3 and K4;
 10. whole waves of the wave kernels (K3, K2 and, sorted by `dma`, K4)
@@ -51,10 +52,26 @@ when either is missing or any check fails. Phases:
     `dma` (its own path: K3, K2, K4), its film against the `gather` film;
     the wave's device time split into init, K2, sorts and finish; the
     linear radiance means of the wave and the megakernel at two seeds
-    each; one K2 launch at 320x180 x spw 2 against plain.
+    each; one K2 launch at 320x180 x spw 2 against plain;
+13. textures (K1b) in every kernel variant against the plain versions on
+    the card: `textured_scene` with a solid, checker, image and
+    scale-of-image background, `env_scene` without and with an emitter
+    and the small `textured_mesh_scene`, each at 128x64 x 4 spp
+    through the megakernel and as whole waves (spw 4, `gather`); the env
+    scenes once more with the env tables taken away, which must change
+    the image (the env-map light sampling is in use);
+14. the textured main path through the CLI: `textured_mesh_scene` (the
+    big mesh's geometry with uv, a 2048 x 2048 Kd map on the vase, 1024 x
+    1024 Kd and roughness maps on the instanced spheres, an opacity map, a
+    checker floor, a 2048 x 1024 HDR env map with env-map light sampling)
+    at 1280x720 x 16 spp with `--engine auto`, and at maxdepth 50 with
+    `--engine wave`, the launch counts set to 0 before each;
+15. that path's 1-spp megakernel launch and its first K2 launch over the
+    whole film or state, timed, each held against the plain version on a
+    strided sample of ~131k lanes.
 
 The per-pixel rule and the card's limits are rene_tpu_torch.checks'. Each
-path run (phases 4, 7, 11 and the `dma` wave of 12) starts with every
+path run (phases 4, 7, 11, 14 and the `dma` wave of 12) starts with every
 launch count set to 0 and reads them just after; comparison launches are
 not counted. The plain versions run on the card, for the waves of phase
 10 through rene_tpu_torch.kernels' wrappers swapped for them.
@@ -65,13 +82,24 @@ TFLOP/s (the H100 SXM's non-tensor FP32 peak, NVIDIA's data sheet). The
 operations are the ray-cast tests this run's inputs need, counted by the
 plain walk (rene_tpu_torch.ops.bvh.tests) or from the rays and the
 immediates, at the costs in OPS below; shading is not counted, so the
-bound is a lower one.
+bound is a lower one. A textured launch reads of the atlas the texels its
+hits and misses fetch (rene_tpu_torch.ops.texture.counts: four 4-byte
+words per textured slot) and never more than the whole atlas once: the
+repeated fetches of a texel come out of the caches.
 
-Outputs go to chiprun_out/smoke/ of the checkout. The line before the
+Earlier paths cut to keep the run short (the plain walk's time goes with
+its bounces, not with its lanes): phase 6's three small mesh scenes run
+at 2 spp, and phase 8 holds the big mesh's launch against the plain
+version at maxdepth 6, both sides, and times it at the scene's own 17.
+The seconds of every phase are logged.
+
+Outputs go to chiprun_out/smoke/ of the checkout, the textured scenes and
+their image files to build/smoke_scenes/. The line before the
 last is a JSON object describing each kernel; the last line is
 {"ok": true, "device": {...}}.
 """
 import contextlib
+import dataclasses
 import json
 import logging
 import os
@@ -81,6 +109,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out", "smoke")
+SCENE_DIR = os.path.join(ROOT, "build", "smoke_scenes")
 MAIN_SPP, MAIN_SEED = 64, 1
 MESH_SPP, MESH_W, MESH_H = 16, 1280, 720
 DEEP_DEPTH = 50
@@ -97,10 +126,14 @@ OPS = {"imm_tri": 12, "imm_sph": 40, "box": 25, "tri": 50, "sph": 20}
 # engine on the JAX interpret-mode lane streams 4.3e-3 from it (PERF.md
 # section 6)
 MEAN_REL = 1e-3
-# lanes of a full-shape K2 launch held against the plain version: a
-# strided sample of the launch's alive lanes (a lane's result depends on
-# its own input row only)
+# lanes of a full-shape launch held against the plain version: a strided
+# sample of a K2 launch's alive lanes or of a mesh megakernel launch's
+# pixels (a lane's result depends on its own input row or pixel only)
 SAMPLE_LANES = 1 << 17
+# samples per pixel of the small mesh scenes of phase 6, and the maxdepth
+# at which phase 8 compares the big mesh's launch
+SMALL_MESH_SPP = 2
+BIG_MESH_CHECK_DEPTH = 6
 # state rows a K2 launch moves per alive lane besides the alive row that
 # every lane of the launch reads: 26 read, 23 written (wave.cuh wave_lane)
 K2_ROWS = 49
@@ -118,8 +151,8 @@ def card_line():
     ).stdout.strip().splitlines()[0]
 
 
-def write_scene(name, src):
-    path = os.path.join(OUT_DIR, name + ".pbrt")
+def write_scene(name, src, directory=None):
+    path = os.path.join(directory or OUT_DIR, name + ".pbrt")
     with open(path, "w") as f:
         f.write(src)
     return path
@@ -142,14 +175,17 @@ def reset_launches():
         kernels.launches[k] = 0
 
 
-def cli_path(name, src, spp, size, what, engine="auto", seed=MAIN_SEED):
+def cli_path(name, src, spp, size, what, engine="auto", seed=MAIN_SEED,
+             directory=None):
     """Render `src` through cli.main on the card with every launch count
     set to 0 just before; check the PNG shapes and a non-black image.
-    Returns (scene path, launch counts, {rate, mean})."""
+    The scene file goes to `directory` (where its image files lie), by
+    default the output directory. Returns (scene path, launch counts,
+    {rate, mean})."""
     import torch
     from rene_tpu_torch import cli, kernels
     from rene_tpu_torch.utils.film import read_png
-    scene_path = write_scene(name, src)
+    scene_path = write_scene(name, src, directory)
     tag = f"{name}_{engine}_{seed}"
     paths = [os.path.join(OUT_DIR, f"{tag}{k}.png")
              for k in ("", "_normal", "_albedo")]
@@ -206,6 +242,27 @@ def table_bytes(tabs):
     import torch
     return sum(v.numel() * v.element_size() for v in tabs.values()
                if isinstance(v, torch.Tensor))
+
+
+def moved_bytes(tabs, tests):
+    """Bytes of the tables a launch must read: every table once, of the
+    atlas the texels `tests` counts, at most the whole atlas."""
+    atlas = tabs["atlas"].numel() * tabs["atlas"].element_size()
+    return (table_bytes(tabs) - atlas
+            + min(atlas, 4 * int(tests.get("texels", 0))))
+
+
+def reset_counts():
+    """Set the plain versions' ray-cast test and texel counts to 0."""
+    from rene_tpu_torch.ops import bvh, texture
+    for k in bvh.tests:
+        bvh.tests[k] = 0
+    texture.counts["texels"] = 0
+
+
+def plain_counts():
+    from rene_tpu_torch.ops import bvh, texture
+    return dict(bvh.tests, texels=texture.counts["texels"])
 
 
 def cast_ops(tabs, rays, tests):
@@ -300,11 +357,18 @@ def main() -> int:
     from rene_tpu_torch import checks, kernels, scenes
     from rene_tpu_torch.integrators import mega_path as M
     from rene_tpu_torch.integrators import wave as WV
-    from rene_tpu_torch.ops import bvh
+    from rene_tpu_torch.scene import pack as P
 
     os.makedirs(OUT_DIR, exist_ok=True)
+    os.makedirs(SCENE_DIR, exist_ok=True)
     dev = torch.device("cuda", 0)
     t_smoke = time.time()
+    t_phase = [t_smoke]
+
+    def phase_done(which):
+        now = time.time()
+        log(f"phase {which}: {now - t_phase[0]:.1f} s")
+        t_phase[0] = now
 
     # 1. the card
     card = card_line()
@@ -319,26 +383,30 @@ def main() -> int:
     log(f"build: {time.time() - t0:.1f} s -> "
         + ", ".join(os.path.relpath(so, ROOT) for so in sos.values()))
 
-    def compare(tabs, seed, spp, what):
+    def compare(tabs, seed, spp, what, pix=None):
         """The kernel and its plain version on the same tables and seed,
-        held to the card's limits; returns the agreement, with the plain
-        version's seconds and BVH tests."""
+        held to the card's limits; the plain version on the pixels `pix`
+        alone when given. Returns the agreement, with the plain version's
+        seconds and its ray-cast tests and texel fetches per ray."""
         out_k = kernels.mega_path(tabs, seed, spp)
         torch.cuda.synchronize()
-        for k in bvh.tests:
-            bvh.tests[k] = 0
+        reset_counts()
         t = time.time()
-        out_p = M.path_lanes_ref(tabs, seed, spp)
+        out_p = M.path_lanes_ref(tabs, seed, spp, pix=pix)
         torch.cuda.synchronize()
         plain_s = time.time() - t
         if not bool(torch.isfinite(out_k).all()):
             raise RuntimeError(f"{what}: kernel output is not finite")
+        if pix is not None:
+            out_k = out_k.index_select(1, pix)
         a = checks.agreement(out_k, out_p)
-        log(f"kernel vs plain ({what}, seed {seed}, plain {plain_s:.1f} s): "
-            + json.dumps(a))
+        log(f"kernel vs plain ({what}, seed {seed}, "
+            + (f"{pix.numel()} sampled lanes, " if pix is not None else "")
+            + f"plain {plain_s:.1f} s): " + json.dumps(a))
         checks.check_card(a, what)
         a["plain_s"] = plain_s
-        a["tests"] = dict(bvh.tests)
+        # the plain side's counts per ray of its own
+        a["tests"] = {k: v / a["rays_ref"] for k, v in plain_counts().items()}
         return a
 
     def time_ms(fn, reps):
@@ -358,12 +426,15 @@ def main() -> int:
         return int(np.random.default_rng(seed).integers(
             0, 2 ** 31, dtype=np.int32))
 
-    def mega_bound(tabs, tests=None):
-        """Bound of one 1-spp megakernel launch over the film of `tabs`."""
+    def mega_bound(tabs, per_ray=None):
+        """Bound of one 1-spp megakernel launch over the film of `tabs`;
+        `per_ray` are the plain walk's tests and texels per ray, scaled
+        here by the rays of the launch."""
         rays = float(kernels.mega_path(tabs, 11, 1)[9].sum())
+        tests = {k: v * rays for k, v in (per_ray or {}).items()}
         n_pix = tabs["width"] * tabs["height"]
-        return bound(table_bytes(tabs) + 10 * 4 * n_pix,
-                     cast_ops(tabs, rays, tests or {}))
+        return bound(moved_bytes(tabs, tests) + 10 * 4 * n_pix,
+                     cast_ops(tabs, rays, tests))
 
     def k2_launch(run, seed, step, what):
         """K2 launch `step` of the main path's wave of `run` over the whole
@@ -381,14 +452,13 @@ def main() -> int:
                                 run.key_bounds)
         sub = s0.index_select(1, idx)
         torch.cuda.synchronize()
-        for key in bvh.tests:
-            bvh.tests[key] = 0
+        reset_counts()
         t = time.time()
         s_p = WV.wave_step_ref(run.tabs, sub.clone(), seed, step, k,
                                idx.numel(), run.key_bounds)
         torch.cuda.synchronize()
         plain_ms = (time.time() - t) * 1e3
-        tests = dict(bvh.tests)
+        tests = plain_counts()
         s_ks = s_k.index_select(1, idx)
         share, key_share = lane_agreement(s_ks, s_p)
         err = float((s_ks - s_p)[WV.WROW_R:WV.WROW_R + 3].abs().max())
@@ -397,27 +467,31 @@ def main() -> int:
             - time_ms(lambda r=0: s0.clone(), 5)
         rays = float((s_k[WV.WROW_RAYS] - s0[WV.WROW_RAYS]).sum())
         rays_s = float((s_p[WV.WROW_RAYS] - sub[WV.WROW_RAYS]).sum())
-        bnd = bound(table_bytes(run.tabs) + n_run * 4
+        tests = {key: v * rays / rays_s for key, v in tests.items()}
+        bnd = bound(moved_bytes(run.tabs, tests) + n_run * 4
                     + alive.numel() * K2_ROWS * 4,
-                    cast_ops(run.tabs, rays, {key: v * rays / rays_s
-                                              for key, v in tests.items()}))
+                    cast_ops(run.tabs, rays, tests))
         log(f"K2 launch {step} vs plain ({what}, k {k}, {n_run} lanes run, "
             f"{alive.numel()} alive, {idx.numel()} sampled): lanes agree "
             f"{share:.5f}, keys {key_share:.5f}, radiance max abs "
             f"{err:.3g}; kernel "
             f"{ms:.3f} ms over the whole state, plain {plain_ms:.1f} ms on "
             f"the sample, bound {bnd[0]:.4f} ms ({bnd[1]}; {rays:.0f} rays, "
-            f"sample's plain walk tests {json.dumps(tests)}) [{card}]")
+            f"plain walk tests and texels {json.dumps(tests)}) [{card}]")
         if min(share, key_share) < checks.CARD_FRAC:
             raise RuntimeError(f"K2 launch {step} ({what}) disagrees with "
                                f"its plain version")
         return {"ms": ms, "plain_ms": plain_ms, "bound": bnd, "err": err,
                 "sampled": idx.numel(), "k": k}
 
+    phase_done("1-2")
+
     # 3. K1a kernel vs plain on the card
     tabs = tables_for(
         write_scene("materials", scenes.materials_scene(128, 64)), dev)
     a_mat = compare(tabs, 1234567, 4, "materials 128x64 x 4 spp")
+
+    phase_done(3)
 
     # 4. the K1a main path through the CLI
     scene_path, l_k1a, _ = cli_path(
@@ -425,6 +499,8 @@ def main() -> int:
         "cornell 1024x1024", engine="pallas")
     if l_k1a["mega_path"] <= 0 or sum(l_k1a.values()) != l_k1a["mega_path"]:
         raise RuntimeError(f"the K1a main path launched {l_k1a}")
+
+    phase_done(4)
 
     # 5. that path's launch vs plain, then timing at a 1-spp chunk
     tabs = tables_for(scene_path, dev)
@@ -437,6 +513,7 @@ def main() -> int:
         f"plain {k1a_plain_ms:.1f} ms, bound {k1a_bound[0]:.4f} ms "
         f"({k1a_bound[1]}) [{card}]")
     del tabs
+    phase_done(5)
 
     # 6. the mesh variant vs plain on the card
     a_mesh = []
@@ -447,19 +524,23 @@ def main() -> int:
         tabs = tables_for(write_scene(name, src), dev)
         if kernels.variant(tabs) != "mega_path_mesh":
             raise RuntimeError(f"{name}: not a mesh-variant scene")
-        a_mesh.append(compare(tabs, 1234567, 4, f"{name} 128x64 x 4 spp"))
+        a_mesh.append(compare(tabs, 1234567, SMALL_MESH_SPP,
+                              f"{name} 128x64 x {SMALL_MESH_SPP} spp"))
+    phase_done(6)
 
     # 7. the mesh main path through the CLI
     t0 = time.time()
     src = scenes.big_mesh_scene(MESH_W, MESH_H)
     log(f"big_mesh_scene text: {len(src) / 1e6:.1f} MB in "
         f"{time.time() - t0:.2f} s")
-    scene_path, l_mesh, _ = cli_path(
+    scene_path, l_mesh, r_big = cli_path(
         "big_mesh", src, MESH_SPP, (MESH_W, MESH_H),
         f"big mesh {MESH_W}x{MESH_H}", engine="pallas")
     if l_mesh["mega_path_mesh"] <= 0 \
             or sum(l_mesh.values()) != l_mesh["mega_path_mesh"]:
         raise RuntimeError(f"the mesh main path launched {l_mesh}")
+
+    phase_done(7)
 
     # 8. that path's launch shape vs plain, then timing
     t0 = time.time()
@@ -468,15 +549,22 @@ def main() -> int:
         f"{tabs['mesh'].shape[0]} mesh triangles, {tabs['nodes'].shape[0]} "
         f"nodes, {tabs['insts'].shape[0]} instances, BVH depth "
         f"{tabs['bvh_depth']}")
-    a_big = compare(tabs, chunk_seed(), 1, f"big mesh {MESH_W}x{MESH_H} x 1 spp")
+    n_pix = MESH_W * MESH_H
+    pix = torch.arange(0, n_pix, max(1, n_pix // SAMPLE_LANES), device=dev)
+    a_big = compare(dict(tabs, max_depth=BIG_MESH_CHECK_DEPTH),
+                    chunk_seed(), 1, f"big mesh {MESH_W}x{MESH_H} x 1 spp, "
+                    f"maxdepth {BIG_MESH_CHECK_DEPTH}", pix=pix)
     mesh_ms = time_ms(lambda r=0: kernels.mega_path(tabs, 11 + r, 1), 10)
     mesh_plain_ms = a_big["plain_s"] * 1e3
     mesh_bound = mega_bound(tabs, a_big["tests"])
     log(f"timing (big mesh {MESH_W}x{MESH_H}, 1 spp): kernel {mesh_ms:.3f} "
-        f"ms, plain {mesh_plain_ms:.1f} ms, bound {mesh_bound[0]:.4f} ms "
-        f"({mesh_bound[1]}; plain walk tests {json.dumps(a_big['tests'])}) "
+        f"ms, plain {mesh_plain_ms:.1f} ms on {pix.numel()} sampled lanes "
+        f"at maxdepth {BIG_MESH_CHECK_DEPTH}, bound {mesh_bound[0]:.4f} ms "
+        f"({mesh_bound[1]}; plain walk tests per ray "
+        f"{json.dumps(a_big['tests'])}) "
         f"[{card}]")
     del tabs
+    phase_done(8)
 
     # 9. the wave kernels' registers and spills
     for name in ("wave_path", "wave_path_mesh"):
@@ -515,6 +603,8 @@ def main() -> int:
             # one K2 launch of the immediates variant at this shape
             k2_mat = k2_launch(card_run, 5, 0, "materials 128x64 x spw 4")
 
+    phase_done("9-10")
+
     # 11. the wave main path through the CLI, then the megakernel on the
     # same scene and the K2 immediates variant on the Cornell box
     deep_src = scenes.big_mesh_scene(MESH_W, MESH_H, maxdepth=DEEP_DEPTH)
@@ -552,6 +642,8 @@ def main() -> int:
     if l_cw["wave_path"] < 1 or l_cw["wave_path_mesh"] \
             or l_cw["mega_path"] or l_cw["mega_path_mesh"]:
         raise RuntimeError(f"the Cornell wave path launched {l_cw}")
+
+    phase_done(11)
 
     # 12. full-shape checks and timing on the deep scene (and K2 on the
     # Cornell box)
@@ -664,6 +756,104 @@ def main() -> int:
     small = WV.make_wave_fn(bn_s, cfg_s, dev, samples_per_wave=2)
     k2_small = k2_launch(small, seed, 0, "deep mesh 320x180 x spw 2")
 
+    phase_done(12)
+
+    # 13. textures in every kernel variant vs the plain versions, every
+    # scene at 128x64
+    a_tex = {}
+    for name in scenes.TEXTURED:
+        bn, cfg = buffers_for(write_scene(
+            name, scenes.textured(name, SCENE_DIR, 128, 64), SCENE_DIR))
+        tabs = M.device_tables(P.pack_tables(bn, cfg), dev)
+        size = f"{tabs['width']}x{tabs['height']}"
+        a_m = compare(tabs, 1234567, 4, f"{name} {size} x 4 spp")
+        card_run = WV.make_wave_fn(bn, cfg, dev, samples_per_wave=4)
+        with plain_wave_kernels():
+            ref = WV.make_wave_fn(bn, cfg, dev, samples_per_wave=4)(1234567,
+                                                                    4)
+        out = card_run(1234567, 4)
+        a_w = checks.agreement(film(out), film(ref))
+        log(f"wave vs plain ({name} {size} x spw 4, rays {out['rays']:.0f} "
+            f"vs {ref['rays']:.0f}): {json.dumps(a_w)}")
+        checks.check_card(a_w, f"{name} {size} x spw 4 wave")
+        a_tex[name] = (tabs["has_accel"], a_m["max_abs"], a_w["max_abs"])
+        if tabs["has_env"] != (name in ("tex_image", "env", "env_emitter",
+                                        "textured_mesh")):
+            raise RuntimeError(f"{name}: has_env {tabs['has_env']}")
+        if name.startswith("env"):
+            # the env tables taken away: the light sampling falls back to
+            # the emitters (or to none), and the image must change
+            off = dict(tabs, has_env=False, **{
+                k: tabs[k][:0] for k in ("env_mcdf", "env_ccdf", "env_pdf")})
+            a_off = checks.agreement(kernels.mega_path(off, 1234567, 4),
+                                     kernels.mega_path(tabs, 1234567, 4))
+            log(f"env-map light sampling in use ({name}): has_env "
+                f"{tabs['has_env']}, pixels equal without the env tables "
+                f"{a_off['rad_frac']:.4f}")
+            if a_off["rad_frac"] > 0.9:
+                raise RuntimeError(f"{name}: the env tables change nothing")
+
+    phase_done(13)
+
+    # 14. the textured main path through the CLI, both engines
+    t0 = time.time()
+    tex_src = scenes.textured_mesh_scene(SCENE_DIR, MESH_W, MESH_H)
+    log(f"textured_mesh_scene text and images: {len(tex_src) / 1e6:.1f} MB "
+        f"of text in {time.time() - t0:.2f} s")
+    tex_path, l_tex, r_tex = cli_path(
+        "textured_mesh", tex_src, MESH_SPP, (MESH_W, MESH_H),
+        f"textured mesh {MESH_W}x{MESH_H}", engine="auto",
+        directory=SCENE_DIR)
+    if l_tex["mega_path_mesh"] <= 0 \
+            or sum(l_tex.values()) != l_tex["mega_path_mesh"]:
+        raise RuntimeError(f"the textured main path launched {l_tex}")
+    tex_deep_src = scenes.textured_mesh_scene(SCENE_DIR, MESH_W, MESH_H,
+                                              maxdepth=DEEP_DEPTH)
+    _, l_texw, r_texw = cli_path(
+        "textured_deep_mesh", tex_deep_src, MESH_SPP, (MESH_W, MESH_H),
+        f"textured mesh {MESH_W}x{MESH_H}, maxdepth {DEEP_DEPTH}",
+        engine="wave", directory=SCENE_DIR)
+    if l_texw["wave_genesis"] < 1 or l_texw["wave_path_mesh"] < 1 \
+            or l_texw["mega_path"] or l_texw["mega_path_mesh"]:
+        raise RuntimeError(f"the textured wave path launched {l_texw}")
+    log(f"textured main path Mrays/s: megakernel {r_tex['rate']:.1f} "
+        f"(untextured big mesh, phase 7: {r_big['rate']:.1f}), wave at "
+        f"maxdepth {DEEP_DEPTH} {r_texw['rate']:.1f} (untextured deep mesh, "
+        f"phase 11: {r_wave['rate']:.1f} / {r_wave2['rate']:.1f}) [{card}]")
+
+    phase_done(14)
+
+    # 15. that path's 1-spp megakernel launch and first K2 launch vs plain
+    # on sampled lanes, timed; the deep scene's tables are the same
+    # scene's at the other depth
+    t0 = time.time()
+    bn, cfg = buffers_for(tex_path)
+    tabs = M.device_tables(P.pack_tables(bn, cfg), dev)
+    log(f"textured mesh tables: {time.time() - t0:.2f} s, atlas "
+        f"{tabs['atlas'].numel()} texels ({tabs['atlas'].numel() * 4 / 1e6:.1f}"
+        f" MB), {tabs['mesh_uv'].shape[0]} uv rows, has_env "
+        f"{tabs['has_env']}")
+    a_texm = compare(tabs, chunk_seed(), 1,
+                     f"textured mesh {MESH_W}x{MESH_H} x 1 spp", pix=pix)
+    texm_ms = time_ms(lambda r=0: kernels.mega_path(tabs, 11 + r, 1), 10)
+    texm_bound = mega_bound(tabs, a_texm["tests"])
+    log(f"timing (textured mesh {MESH_W}x{MESH_H}, 1 spp): kernel "
+        f"{texm_ms:.3f} ms (untextured big mesh, phase 8: {mesh_ms:.3f}), "
+        f"plain {a_texm['plain_s'] * 1e3:.1f} ms on {pix.numel()} sampled "
+        f"lanes, bound {texm_bound[0]:.4f} ms ({texm_bound[1]}; plain walk "
+        f"tests and texels per ray {json.dumps(a_texm['tests'])}) [{card}]")
+    del tabs
+    run = WV.make_wave_fn(
+        bn, dataclasses.replace(cfg, max_depth_hint=DEEP_DEPTH), dev,
+        spp_hint=MESH_SPP)
+    k2_tex = k2_launch(run, chunk_seed(), 0,
+                       f"textured deep mesh {MESH_W}x{MESH_H} x spw "
+                       f"{run.samples_per_wave}")
+    log(f"K2 first launch: textured {k2_tex['ms']:.3f} ms (untextured deep "
+        f"mesh, phase 12: {k2_deep[0]['ms']:.3f}) [{card}]")
+    del run
+    phase_done(15)
+
     if any(m.split(".")[0] in ("jax", "rene_tpu") for m in sys.modules):
         raise RuntimeError("jax or rene_tpu was imported")
     log(f"smoke: {time.time() - t_smoke:.1f} s")
@@ -681,17 +871,21 @@ def main() -> int:
     log(json.dumps({"kernels": [
         entry("mega_path", "rene_tpu_torch/csrc/mega_path.cu",
               f"{pp_}:4266", l_k1a["mega_path"],
-              max(a_mat["max_abs"], a_main["max_abs"]), k1a_ms,
+              max([a_mat["max_abs"], a_main["max_abs"]]
+                  + [m for acc, m, _ in a_tex.values() if not acc]), k1a_ms,
               k1a_plain_ms, k1a_bound, None, "cornell 1024x1024 x 1 spp"),
         entry("mega_path_mesh", "rene_tpu_torch/csrc/mega_path.cu",
               f"{pp_}:2255 :2440 :2636 :2663", l_mesh["mega_path_mesh"],
               max(a["max_abs"] for a in a_mesh + [a_big]), mesh_ms,
               mesh_plain_ms, mesh_bound, None,
-              f"big mesh {MESH_W}x{MESH_H} x 1 spp"),
+              f"big mesh {MESH_W}x{MESH_H} x 1 spp; plain on {pix.numel()} "
+              f"sampled lanes of it at maxdepth {BIG_MESH_CHECK_DEPTH}"),
         entry("wave_path", "rene_tpu_torch/csrc/wave.cu",
               f"{pw_}:271 ({pp_}:5567)", l_cw["wave_path"],
               max([a_wave["materials"]["max_abs"], k2_mat["err"]]
-                  + [c["err"] for c in k2_corn]), k2_corn[0]["ms"],
+                  + [c["err"] for c in k2_corn]
+                  + [w for acc, _, w in a_tex.values() if not acc]),
+              k2_corn[0]["ms"],
               k2_corn[0]["plain_ms"], k2_corn[0]["bound"], None,
               f"cornell 1024x1024 x spw 16, first launch (k 1); plain on "
               f"{k2_corn[0]['sampled']} sampled lanes of it"),
@@ -703,6 +897,24 @@ def main() -> int:
               k2_deep[0]["plain_ms"], k2_deep[0]["bound"], None,
               f"deep mesh {MESH_W}x{MESH_H} x spw {spw}, first launch (k 1); "
               f"plain on {k2_deep[0]['sampled']} sampled lanes of it"),
+        entry("mega_path_mesh:textured",
+              "rene_tpu_torch/csrc/texture.cuh",
+              f"{pp_}:1797 :4171 :2713 :1938 :1967-2050 :4451-4506",
+              l_tex["mega_path_mesh"],
+              max([a_texm["max_abs"]] + [m for acc, m, _ in a_tex.values()
+                                         if acc]),
+              texm_ms, a_texm["plain_s"] * 1e3, texm_bound, None,
+              f"textured mesh {MESH_W}x{MESH_H} x 1 spp; plain on "
+              f"{pix.numel()} sampled lanes of it"),
+        entry("wave_path_mesh:textured",
+              "rene_tpu_torch/csrc/texture.cuh",
+              f"{pp_}:5140-5181 (wave_bounce) with :1797 :4171",
+              l_texw["wave_path_mesh"],
+              max([k2_tex["err"]] + [w for acc, _, w in a_tex.values()
+                                     if acc]), k2_tex["ms"],
+              k2_tex["plain_ms"], k2_tex["bound"], None,
+              f"textured deep mesh {MESH_W}x{MESH_H} x spw {spw}, first "
+              f"launch (k 1); plain on {k2_tex['sampled']} sampled lanes"),
         entry("wave_genesis", "rene_tpu_torch/csrc/wave.cu",
               f"{pw_}:630 ({pp_}:4970)", l_wave["wave_genesis"], k3_err,
               k3_ms, k3_plain_ms, k3_bound, None,

@@ -4,11 +4,17 @@
 // primitive with the smallest t wins (strict less), triangles before
 // spheres; then, in the MESH variant, the world mesh and each shared-BLAS
 // instance (bvh.cuh) from the immediates' closest t, replacing their hit
-// only where closer, and the sphere table last.
+// only where closer, and the sphere table last. Where the scene has a
+// textured material (Scene::has_tex) the closest hit also carries its
+// texture coordinates: interpolated from a triangle's vertices, spherical
+// on a sphere, none on a table sphere, whose material is solid.
 #pragma once
+#include <stdint.h>
+
 #include "bvh.cuh"
 #include "layout.cuh"
 #include "math.cuh"
+#include "texture.cuh"
 
 struct Scene {
   const float* __restrict__ tris;
@@ -29,6 +35,16 @@ struct Scene {
   const float* __restrict__ sph_tab;
   const float* __restrict__ sph_box;
   int world_root, n_inst, n_sph_blocks;
+  // textures (K1b): the uv rows of a textured mesh, the RGB9E5 atlas and
+  // the env-map sampling tables
+  const float* __restrict__ mesh_uv;
+  const uint32_t* __restrict__ atlas;
+  const float* __restrict__ env_mcdf;
+  const float* __restrict__ env_ccdf;
+  const float* __restrict__ env_pdf;
+  int n_mesh_uv;  // rows of mesh_uv: 0 for a mesh of solid materials
+  int has_tex;    // some material has a textured slot: hits carry uv
+  int has_env;    // the env map is a light-sampling strategy
 };
 
 // Plücker side values of the ray (moment w = o x d) against triangle row r
@@ -89,6 +105,7 @@ struct Hit {
   V3 n;        // interpolated shading normal, not normalized
   float e[3];  // emitted radiance (0 unless an emitter)
   int mat;
+  float u, v;  // texture coordinates, where Scene::has_tex
 };
 
 template <bool MESH>
@@ -129,6 +146,7 @@ __device__ __forceinline__ Hit trace_closest(const Scene& s, V3 o, V3 d,
   h.n = v3(0.f, 0.f, 0.f);
   h.e[0] = h.e[1] = h.e[2] = 0.f;
   h.mat = 0;
+  h.u = h.v = 0.f;
   if (MESH) {
     // the mesh, from the immediates' t: world mesh, then each instance
     MeshHit mh;
@@ -182,6 +200,11 @@ __device__ __forceinline__ Hit trace_closest(const Scene& s, V3 o, V3 d,
         h.mat = (int)__ldg(m + INST_MAT);
       }
       h.n = n;
+      if (s.has_tex && s.n_mesh_uv) {
+        const float* q = s.mesh_uv + (size_t)mh.prim * MESH_UV_W;
+        h.u = __ldg(q) + mh.u * __ldg(q + 2) + mh.v * __ldg(q + 4);
+        h.v = __ldg(q + 1) + mh.u * __ldg(q + 3) + mh.v * __ldg(q + 5);
+      }
       return h;
     }
   }
@@ -200,6 +223,12 @@ __device__ __forceinline__ Hit trace_closest(const Scene& s, V3 o, V3 d,
                  + bv * __ldg(r + TRI_N2 + 2));
     for (int c = 0; c < 3; ++c) h.e[c] = __ldg(r + TRI_EMIT + c);
     h.mat = (int)__ldg(r + TRI_MAT);
+    if (s.has_tex) {
+      h.u = w0 * __ldg(r + TRI_UV0) + bu * __ldg(r + TRI_UV1)
+          + bv * __ldg(r + TRI_UV2);
+      h.v = w0 * __ldg(r + TRI_UV0 + 1) + bu * __ldg(r + TRI_UV1 + 1)
+          + bv * __ldg(r + TRI_UV2 + 1);
+    }
   } else {
     const float* r = s.sph + (best - s.n_tris) * SPH_W;
     V3 lo, ld;
@@ -211,6 +240,7 @@ __device__ __forceinline__ Hit trace_closest(const Scene& s, V3 o, V3 d,
              w2o(r, 0, 2) * p.x + w2o(r, 1, 2) * p.y + w2o(r, 2, 2) * p.z);
     for (int c = 0; c < 3; ++c) h.e[c] = __ldg(r + SPH_EMIT + c);
     h.mat = (int)__ldg(r + SPH_MAT);
+    if (s.has_tex) sphere_uv_of(p, h.u, h.v);
   }
   return h;
 }

@@ -16,14 +16,19 @@ extern "C" int mega_path_launch(
     const float* light_dots, int n_lights, const float* cam,
     const float* nodes, const float* mesh, const float* insts, int n_inst,
     const float* sph_tab, const float* sph_box, int n_sph_blocks,
+    const float* mesh_uv, int n_mesh_uv, const int* atlas,
+    const float* env_mcdf, const float* env_ccdf, const float* env_pdf,
     int world_root, int has_tri_emitter, int width, int n_pix, int max_depth,
-    int use_rr, int beckmann, int has_accel, int block_seed, int seed,
+    int use_rr, int beckmann, int has_accel, int block_seed, int has_tex,
+    int has_env, int seed,
     int num_samples, float* out, void* stream) {
   Params p;
   p.s = Scene{tris, sph, mats, eo, emit_tris, emit_sph, lights, light_dots,
               cam, n_tris, n_sph, n_eo, n_emit_tris, n_emit_sph, n_lights,
               has_tri_emitter, nodes, mesh, insts, sph_tab, sph_box,
-              world_root, n_inst, n_sph_blocks};
+              world_root, n_inst, n_sph_blocks, mesh_uv,
+              (const uint32_t*)atlas, env_mcdf, env_ccdf, env_pdf, n_mesh_uv,
+              has_tex, has_env};
   p.width = width;
   p.n_pix = n_pix;
   p.max_depth = max_depth;

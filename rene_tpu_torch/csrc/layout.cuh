@@ -23,7 +23,10 @@
 #define TRI_V0 40
 #define TRI_V1 43
 #define TRI_V2 46
-#define TRI_W 49
+#define TRI_UV0 49
+#define TRI_UV1 51
+#define TRI_UV2 53
+#define TRI_W 55
 
 // spheres: 3x4 row-major world-to-object and object-to-world matrices
 #define SPH_W2O 0
@@ -44,7 +47,27 @@
 #define MAT_KR2 16
 #define MAT_KT2 19
 #define MAT_FSCALE 22
-#define MAT_W 25
+// textured slots: the count of classes that are not solid, the per-hit
+// roughness remap flag, then one TEXD_W-wide descriptor per class (kd, ks,
+// ru, rv, op, kr, kt): its kind and (uscale, vscale, even rgb, odd rgb) of
+// a checker or (texel offset, w, h) of an image
+#define MAT_NTEX 25
+#define MAT_RRM 26
+#define MAT_TEX 27
+#define TEXD_KIND 0
+#define TEXD_US 1
+#define TEXD_VS 2
+#define TEXD_EVEN 3
+#define TEXD_ODD 6
+#define TEXD_OFF 1
+#define TEXD_IW 2
+#define TEXD_IH 3
+#define TEXD_W 9
+#define TEXK_SOLID 0
+#define TEXK_CHECKER 1
+#define TEXK_IMAGE 2
+#define N_TEX_CLASSES 7
+#define MAT_W 90
 
 // emit objects (light sampling records)
 #define EO_KIND 0
@@ -67,7 +90,21 @@
 #define CAM_INV_H1 28
 #define CAM_FILTER 29
 #define CAM_BG 30
-#define CAM_W 33
+// the background: its kind, the env image (texel offset, w, h), the
+// checker (uscale, vscale, even rgb, odd rgb), the 3x3 background matrix
+// and its inverse, row-major
+#define CAM_BG_KIND 33
+#define CAM_BG_IMG 34
+#define CAM_BG_CHK 37
+#define CAM_BG_MAT 45
+#define CAM_BG_INV 54
+#define CAM_W 63
+#define BG_CONST 0
+#define BG_IMAGE 1
+#define BG_CHECKER 2
+// the env-map sampling grid (scene/device.py)
+#define ENV_GH 64
+#define ENV_GW 128
 
 // material types (rene_tpu/scene/types.py)
 #define MAT_NONE 0
@@ -104,6 +141,9 @@
 #define MESH_D2 15
 #define MESH_MAT 18
 #define MESH_W 20
+// uv of mesh row k, in row k of the side table mesh_uv: uv0, uv1 - uv0,
+// uv2 - uv0
+#define MESH_UV_W 6
 // shared-BLAS instance: 3x4 row-major world-to-object affine, material,
 // root node of its BLAS
 #define INST_W2O 0

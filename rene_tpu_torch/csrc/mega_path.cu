@@ -1,11 +1,13 @@
-// Path-tracing megakernel for NVIDIA Hopper (sm_90a), slices K1a, K1c and
-// K1d.
+// Path-tracing megakernel for NVIDIA Hopper (sm_90a), slices K1a, K1b,
+// K1c and K1d.
 //
 // Replaces rene_tpu/integrators/pallas_path.py:_build_kernel.kernel (the
 // TPU megakernel, :4266) with its path `body` (:4349): baked triangles
-// and spheres, solid materials and background, distant lights (unrolled
-// or from the light table), the independent sampler, one sample slot per
-// lane (pack = 1); and, past the immediates budget, the big-mesh march
+// and spheres, materials with solid, checker and imagemap slots, a
+// constant, checker or env-map background with env-map light sampling
+// (texture.cuh), distant lights (unrolled or from the light table), the
+// independent sampler, one sample slot per lane (pack = 1); and, past the
+// immediates budget, the big-mesh march
 // (`mesh_closest` :2255, `mesh_any` :2440) over the world mesh and
 // shared-BLAS instances and the sphere table (`sphere_closest` :2636,
 // `sphere_any` :2663), as a per-thread BVH walk (bvh.cuh). The plain
@@ -38,7 +40,11 @@
 // Random numbers come from the per-lane xorshift32 stream of the JAX
 // kernel's interpret mode (math.cuh). Each iteration draws, whether or
 // not a branch uses them: u_coin, u1, u2, ul; coin, ue1..ue4 when the
-// scene has emitters; rrv when Russian roulette is on; cj1, cj2.
+// scene has emitters or an env-map strategy, then upick when it has both;
+// rrv when Russian roulette is on; cj1, cj2. Which of these a scene draws
+// comes from flags in the parameter struct, the same for every thread of
+// a launch, as do the texture and background branches: a scene without
+// textures runs the code it ran before them.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -47,9 +53,15 @@
 #ifndef MEGA_MESH
 #define MEGA_MESH 0
 #endif
+// blocks of 128 threads that must fit an SM: five for the immediates
+// variant (at most 96 registers; its short table loops gain from the
+// occupancy), four for the mesh variant (128 registers; capped at 96 it
+// spills into its tree walk and gains nothing)
+#define PATH_MIN_BLOCKS (MEGA_MESH ? 4 : 5)
 
 template <bool MESH>
-__global__ void __launch_bounds__(128) mega_path_kernel(const Params p) {
+__global__ void __launch_bounds__(128, PATH_MIN_BLOCKS)
+mega_path_kernel(const Params p) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane < p.n_pix) trace_lane<MESH>(p, lane);
 }

@@ -10,6 +10,9 @@
 #include "intersect.cuh"
 #include "layout.cuh"
 #include "math.cuh"
+#include "texture.cuh"
+
+#define FLT_MIN_NORMAL 1.17549435e-38f  // the least normal float32
 
 __device__ __forceinline__ float fjit(float u, float radius) {
   if (radius == 0.f) return u;
@@ -90,6 +93,71 @@ __device__ __forceinline__ V3 sample_emit(const Scene& s, V3 p, float u_obj,
   return is_dir ? dir : td;
 }
 
+// the hit's material, its textured slots evaluated at the hit's uv
+__device__ __forceinline__ Mat hit_material(const Scene& s, const Hit& h) {
+  Mat m = load_mat(s.mats, h.mat);
+  if (s.has_tex) {
+    const float* r = s.mats + h.mat * MAT_W;
+    if (__ldg(r + MAT_NTEX) > 0.f) apply_textures(r, s.atlas, m, h.u, h.v);
+  }
+  return m;
+}
+
+// A bounce's draws, in the stream contract's order: u_coin, u1, u2, ul;
+// coin, ue1..ue4 when the scene has emitters or an env-map strategy, then
+// upick when it has both; rrv when Russian roulette is on; cj1, cj2. A
+// bounce draws them all exactly once, whether or not a branch uses them,
+// and before its ray casts: drawn after them (to free thirteen registers
+// during the tree walk) the chain of dependent xorshift steps no longer
+// overlaps the casts' memory latency, which measured 1.5-3% slower on an
+// NVIDIA H100 (700 W).
+struct Draws {
+  float u_coin, u1, u2, ul;
+  float coin, ue1, ue2, ue3, ue4, upick;
+  float rrv, cj1, cj2;
+};
+
+__device__ __forceinline__ Draws draw_bounce(const Scene& s, bool use_rr,
+                                             uint32_t& st) {
+  Draws u;
+  u.u_coin = uniform(st);
+  u.u1 = uniform(st);
+  u.u2 = uniform(st);
+  u.ul = uniform(st);
+  u.coin = u.ue1 = u.ue2 = u.ue3 = u.ue4 = u.upick = u.rrv = 0.f;
+  if (s.n_eo > 0 || s.has_env) {
+    u.coin = uniform(st);
+    u.ue1 = uniform(st);
+    u.ue2 = uniform(st);
+    u.ue3 = uniform(st);
+    u.ue4 = uniform(st);
+    if (s.n_eo > 0 && s.has_env) u.upick = uniform(st);
+  }
+  if (use_rr) u.rrv = uniform(st);
+  u.cj1 = uniform(st);
+  u.cj2 = uniform(st);
+  return u;
+}
+
+// direction of the light sampler: an emit object, or the env map, picked
+// with probability 1 / (E + 1) where the scene has both
+__device__ __forceinline__ V3 sample_light(const Scene& s, V3 p,
+                                           const Draws& u) {
+  const int E = s.n_eo;
+  if (s.has_env && (E == 0 || mul_rn(u.upick, (float)(E + 1)) < 1.f))
+    return env_strategy(s.cam, s.env_mcdf, s.env_ccdf, u.ue1, u.ue2, u.ue3,
+                        u.ue4);
+  return sample_emit(s, p, u.ue1, u.ue2, u.ue3, u.ue4);
+}
+
+// solid-angle pdf of sample_light for direction w
+__device__ __forceinline__ float light_pdf(const Scene& s, V3 p, V3 w) {
+  const int E = s.n_eo;
+  float lp = E > 0 ? trace_emit_pdf(s, p, w) : 0.f;
+  if (s.has_env) lp = lp + env_pdf_dir(s.cam, s.env_pdf, w);
+  return lp / (float)(E + (s.has_env ? 1 : 0));
+}
+
 struct Params {
   Scene s;
   int width, n_pix, max_depth, use_rr, beckmann, num_samples;
@@ -112,8 +180,8 @@ __device__ __forceinline__ void trace_lane(const Params& p, int lane) {
   const float pyf = (float)(lane / p.width);
   const V3 cam_o = v3(__ldg(s.cam + CAM_ORIGIN), __ldg(s.cam + CAM_ORIGIN + 1),
                       __ldg(s.cam + CAM_ORIGIN + 2));
-  const float bg[3] = {__ldg(s.cam + CAM_BG), __ldg(s.cam + CAM_BG + 1),
-                       __ldg(s.cam + CAM_BG + 2)};
+  const int bg_kind = (int)__ldg(s.cam + CAM_BG_KIND);
+  const bool nee = E > 0 || s.has_env;
 
   uint32_t st = seed_state(
       (uint32_t)lane, p.seed,
@@ -130,28 +198,17 @@ __device__ __forceinline__ void trace_lane(const Params& p, int lane) {
 
   while (sample < p.num_samples) {
     rays = rays + ray_inc;
-    // the iteration's draws, in the stream contract's order
-    float u_coin = uniform(st), u1 = uniform(st), u2 = uniform(st);
-    float ul = uniform(st);
-    float coin = 0.f, ue1 = 0.f, ue2 = 0.f, ue3 = 0.f, ue4 = 0.f, rrv = 0.f;
-    if (E > 0) {
-      coin = uniform(st);
-      ue1 = uniform(st);
-      ue2 = uniform(st);
-      ue3 = uniform(st);
-      ue4 = uniform(st);
-    }
-    if (p.use_rr) rrv = uniform(st);
-    float cj1 = uniform(st), cj2 = uniform(st);
-
+    const Draws u = draw_bounce(s, p.use_rr != 0, st);
     Hit h = trace_closest<MESH>(s, o, d, TMIN);
     bool alive = h.t < BIG;
     V3 next_o = o, next_d = d;
     float nthr[3] = {thr[0], thr[1], thr[2]};
     if (!alive) {
+      float bg[3];
+      background(s.cam, s.atlas, bg_kind, d, bg);
       for (int c = 0; c < 3; ++c) rad[c] = rad[c] + thr[c] * bg[c];
     } else {
-      Mat m = load_mat(s.mats, h.mat);
+      Mat m = hit_material(s, h);
       V3 hp = v3(o.x + h.t * d.x, o.y + h.t * d.y, o.z + h.t * d.z);
       V3 n = normalize3(h.n);
       V3 wo = neg(d);
@@ -178,34 +235,35 @@ __device__ __forceinline__ void trace_lane(const Params& p, int lane) {
           rad[c] = rad[c] + thr[c] * fe.f[c] * cosl * __ldg(L + LIGHT_COLOR + c);
       }
       // scatter
-      BsdfSample bs = bsdf_sample(m, lo, u_coin, u1, u2, ul, beck);
+      BsdfSample bs = bsdf_sample(m, lo, u.u_coin, u.u1, u.u2, u.ul, beck);
       V3 sw = to_world(f, bs.wi);
       V3 w_ = sw;
       float fv[3] = {bs.f[0], bs.f[1], bs.f[2]};
       float pdf = bs.pdf;
-      if (E > 0 && is_diffuse(m)) {
-        // one-sample MIS between the emitter and BSDF strategies
-        V3 ls = sample_emit(s, hp, ue1, ue2, ue3, ue4);
+      if (nee && is_diffuse(m)) {
+        // one-sample MIS between the light and BSDF strategies
+        V3 ls = sample_light(s, hp, u);
         BsdfVal fe = bsdf_eval(m, lo, to_local(f, ls), beck);
-        bool take_light = coin > 0.5f;
+        bool take_light = u.coin > 0.5f;
         float pdf_b = bs.pdf;
         if (take_light) {
           w_ = ls;
           for (int c = 0; c < 3; ++c) fv[c] = fe.f[c];
           pdf_b = fe.pdf;
         }
-        float lpdf = trace_emit_pdf(s, hp, w_) / (float)E;
-        pdf = 0.5f * pdf_b + 0.5f * lpdf;
+        pdf = 0.5f * pdf_b + 0.5f * light_pdf(s, hp, w_);
       }
       alive = pdf >= 1e-5f;
       float cosw = fabsf(w_.x * n.x + w_.y * n.y + w_.z * n.z);
       float scale = cosw / clamp_min(pdf, 1e-20f);
       for (int c = 0; c < 3; ++c) nthr[c] = thr[c] * fv[c] * scale;
-      alive = alive && (nthr[0] != 0.f || nthr[1] != 0.f || nthr[2] != 0.f);
+      // a throughput below the normal range counts as zero, as under the
+      // flush-to-zero arithmetic of XLA and the TPU
+      alive = alive && maxn(nthr[0], maxn(nthr[1], nthr[2])) >= FLT_MIN_NORMAL;
       if (p.use_rr) {
         float p_cont = clampn(maxn(nthr[0], maxn(nthr[1], nthr[2])), 0.f, 1.f);
         bool do_rr = depth > RR_START;
-        alive = alive && (!do_rr || rrv <= p_cont);
+        alive = alive && (!do_rr || u.rrv <= p_cont);
         if (do_rr && alive) {
           float inv_p = 1.f / clamp_min(p_cont, 1e-20f);
           for (int c = 0; c < 3; ++c) nthr[c] = nthr[c] * inv_p;
@@ -224,7 +282,7 @@ __device__ __forceinline__ void trace_lane(const Params& p, int lane) {
       sample = sample + 1;
       if (sample < p.num_samples) {  // regenerate a camera path
         o = cam_o;
-        d = camera_ray(s.cam, pxf, pyf, cj1, cj2);
+        d = camera_ray(s.cam, pxf, pyf, u.cj1, u.cj2);
         thr[0] = thr[1] = thr[2] = 1.f;
         depth = 0;
       }

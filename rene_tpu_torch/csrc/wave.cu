@@ -17,7 +17,9 @@
 //
 // K2: one thread per lane of [0, n_run) advances its lane by k bounces in
 // place: the megakernel's path body (path.cuh, so K1 keeps its registers)
-// plus regeneration, parking and the next-launch key (wave.cuh). A parked
+// with its textures, textured background and env-map light sampling
+// (texture.cuh), plus regeneration, parking and the next-launch key
+// (wave.cuh). A parked
 // lane returns after one load. Two variants from one template, like the
 // megakernel: wave_path_kernel<false> reads the immediates only,
 // wave_path_kernel<true> adds the mesh BVHs, instances and sphere table;
@@ -42,9 +44,15 @@
 #ifndef MEGA_MESH
 #define MEGA_MESH 0
 #endif
+// blocks of 128 threads that must fit an SM: five for the immediates
+// variant (at most 96 registers; its short table loops gain from the
+// occupancy), four for the mesh variant (128 registers; capped at 96 it
+// spills into its tree walk and gains nothing)
+#define PATH_MIN_BLOCKS (MEGA_MESH ? 4 : 5)
 
 template <bool MESH>
-__global__ void __launch_bounds__(128) wave_path_kernel(const WaveParams p) {
+__global__ void __launch_bounds__(128, PATH_MIN_BLOCKS)
+wave_path_kernel(const WaveParams p) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane < p.n_run) wave_lane<MESH>(p, lane);
 }

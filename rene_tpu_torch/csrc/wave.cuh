@@ -13,8 +13,6 @@
 #include "layout.cuh"
 #include "path.cuh"
 
-#define FLT_MIN_NORMAL 1.17549435e-38f  // the least normal float32
-
 struct WaveParams {
   Scene s;
   int width, max_depth, use_rr, beckmann, has_accel;
@@ -137,9 +135,8 @@ struct WaveLane {
 
 // One bounce of an alive lane (`wave_bounce`): the megakernel's path
 // body (path.cuh trace_lane), then regeneration while smp < want,
-// parking at DEAD_ORIGIN and the next-launch key. The draws, in the
-// stream contract's order: u_coin, u1, u2, ul; coin, ue1..ue4 when the
-// scene has emitters; rrv when Russian roulette is on; cj1, cj2.
+// parking at DEAD_ORIGIN and the next-launch key. The draws are the
+// megakernel's (draw_bounce).
 template <bool MESH>
 __device__ __forceinline__ void wave_bounce(const WaveParams& p, WaveLane& L,
                                             uint32_t& st) {
@@ -147,28 +144,17 @@ __device__ __forceinline__ void wave_bounce(const WaveParams& p, WaveLane& L,
   const bool beck = p.beckmann != 0;
   const int E = s.n_eo;
   L.rays = L.rays + (1.f + (float)s.n_lights + (E > 0 ? 1.f : 0.f));
-  float u_coin = uniform(st), u1 = uniform(st), u2 = uniform(st);
-  float ul = uniform(st);
-  float coin = 0.f, ue1 = 0.f, ue2 = 0.f, ue3 = 0.f, ue4 = 0.f, rrv = 0.f;
-  if (E > 0) {
-    coin = uniform(st);
-    ue1 = uniform(st);
-    ue2 = uniform(st);
-    ue3 = uniform(st);
-    ue4 = uniform(st);
-  }
-  if (p.use_rr) rrv = uniform(st);
-  float cj1 = uniform(st), cj2 = uniform(st);
-
+  const Draws u = draw_bounce(s, p.use_rr != 0, st);
   Hit h = trace_closest<MESH>(s, L.o, L.d, TMIN);
   bool alive = h.t < BIG;
   V3 hp = L.o, w_ = L.d;
   float nthr[3] = {L.c[0], L.c[1], L.c[2]};
   if (!alive) {
-    for (int c = 0; c < 3; ++c)
-      L.r[c] = L.r[c] + L.c[c] * __ldg(s.cam + CAM_BG + c);
+    float bg[3];
+    background(s.cam, s.atlas, (int)__ldg(s.cam + CAM_BG_KIND), L.d, bg);
+    for (int c = 0; c < 3; ++c) L.r[c] = L.r[c] + L.c[c] * bg[c];
   } else {
-    Mat m = load_mat(s.mats, h.mat);
+    Mat m = hit_material(s, h);
     hp = v3(L.o.x + h.t * L.d.x, L.o.y + h.t * L.d.y, L.o.z + h.t * L.d.z);
     V3 n = normalize3(h.n);
     V3 wo = neg(L.d);
@@ -191,21 +177,20 @@ __device__ __forceinline__ void wave_bounce(const WaveParams& p, WaveLane& L,
       for (int c = 0; c < 3; ++c)
         L.r[c] = L.r[c] + L.c[c] * fe.f[c] * cosl * __ldg(Lt + LIGHT_COLOR + c);
     }
-    BsdfSample bs = bsdf_sample(m, lo, u_coin, u1, u2, ul, beck);
+    BsdfSample bs = bsdf_sample(m, lo, u.u_coin, u.u1, u.u2, u.ul, beck);
     w_ = to_world(f, bs.wi);
     float fv[3] = {bs.f[0], bs.f[1], bs.f[2]};
     float pdf = bs.pdf;
-    if (E > 0 && is_diffuse(m)) {
-      V3 ls = sample_emit(s, hp, ue1, ue2, ue3, ue4);
+    if ((E > 0 || s.has_env) && is_diffuse(m)) {
+      V3 ls = sample_light(s, hp, u);
       BsdfVal fe = bsdf_eval(m, lo, to_local(f, ls), beck);
       float pdf_b = bs.pdf;
-      if (coin > 0.5f) {
+      if (u.coin > 0.5f) {
         w_ = ls;
         for (int c = 0; c < 3; ++c) fv[c] = fe.f[c];
         pdf_b = fe.pdf;
       }
-      float lpdf = trace_emit_pdf(s, hp, w_) / (float)E;
-      pdf = 0.5f * pdf_b + 0.5f * lpdf;
+      pdf = 0.5f * pdf_b + 0.5f * light_pdf(s, hp, w_);
     }
     alive = pdf >= 1e-5f;
     float cosw = fabsf(w_.x * n.x + w_.y * n.y + w_.z * n.z);
@@ -217,7 +202,7 @@ __device__ __forceinline__ void wave_bounce(const WaveParams& p, WaveLane& L,
     if (p.use_rr) {
       float p_cont = clampn(maxn(nthr[0], maxn(nthr[1], nthr[2])), 0.f, 1.f);
       bool do_rr = L.dep > (float)RR_START;
-      alive = alive && (!do_rr || rrv <= p_cont);
+      alive = alive && (!do_rr || u.rrv <= p_cont);
       if (do_rr && alive) {
         float inv_p = 1.f / clamp_min(p_cont, 1e-20f);
         for (int c = 0; c < 3; ++c) nthr[c] = nthr[c] * inv_p;
@@ -238,7 +223,7 @@ __device__ __forceinline__ void wave_bounce(const WaveParams& p, WaveLane& L,
   }
   L.smp = L.smp + 1.f;
   if (L.smp < L.want) {  // regenerate a camera path of the lane's pixel
-    L.d = camera_ray(s.cam, L.px, L.py, cj1, cj2);
+    L.d = camera_ray(s.cam, L.px, L.py, u.cj1, u.cj2);
     L.o = load3(s.cam + CAM_ORIGIN);
     L.c[0] = L.c[1] = L.c[2] = 1.f;
     L.dep = 0.f;

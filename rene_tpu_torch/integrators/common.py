@@ -82,7 +82,8 @@ def distant_lights(tabs, lights, rgb, hx, hy, hz, frame, attr, lo, alive,
     zf = hx * 0.0
     for li, (ldx, ldy, ldz, lcr, lcg, lcb) in enumerate(lights):
         bdx, bdy, bdz = zf + ldx, zf + ldy, zf + ldz
-        shadowed = shadow_any(tabs, li, hx, hy, hz, bdx, bdy, bdz, TMIN, 1e5)
+        shadowed = shadow_any(tabs, li, hx, hy, hz, bdx, bdy, bdz, TMIN, 1e5,
+                              skip=~alive)
         lwx, lwy, lwz = to_local(ux, uy, uz, vx, vy, vz, nx, ny, nz,
                                  bdx, bdy, bdz)
         fe_r, fe_g, fe_b, _ = bsdf_eval(attr, *lo, lwx, lwy, lwz, beckmann)

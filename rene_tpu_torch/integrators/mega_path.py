@@ -1,4 +1,4 @@
-"""The path megakernel on the port's main path (slices K1a, K1c, K1d).
+"""The path megakernel on the port's main path (slices K1a-K1d).
 
 Counterpart of rene_tpu/integrators/pallas_path.py `make_pallas_batch_fn`
 (:5819-6061) at pack = 1: the TPU kernel `_build_kernel` -> `kernel`
@@ -8,13 +8,18 @@ budget add the mesh BVHs, shared-BLAS instances and the sphere table
 (ops/bvh.py) to every ray cast and fold distant lights from a table; in
 the JAX kernel's cluster mode (a world mesh or instances) a lane's
 stream is seeded per 32x32 pixel block, the tile that mode gives it.
+Textured material slots are evaluated at the hit's uv, a textured
+background at the miss direction's spherical uv, and an env-map
+background joins the emitters as a light-sampling strategy (K1b,
+ops/texture.py).
 
 Each lane owns one pixel and streams `num_samples` paths back to back,
 regenerating a camera ray when a path ends: camera ray, closest hit,
 emitter hit, distant-light NEE, BSDF sampling, the 50/50 emitter/BSDF
 MIS, Russian roulette from depth 12. Per iteration a lane draws, in this
-order: u_coin, u1, u2, ul; coin, ue1..ue4 when the scene has emitters;
-rrv when Russian roulette is on; cj1, cj2 always.
+order: u_coin, u1, u2, ul; coin, ue1..ue4 when the scene has emitters or
+an env-map strategy, then upick when it has both; rrv when Russian
+roulette is on; cj1, cj2 always.
 
 `path_lanes_ref` is the plain PyTorch version of the CUDA kernel in
 csrc/mega_path.cu: the same body over masked lane tensors, in the same
@@ -27,12 +32,15 @@ from __future__ import annotations
 import os
 from typing import Dict
 
+import numpy as np
 import torch
 
 from .. import kernels
 from ..ops import rng
 from ..ops.bsdf import bsdf_eval, bsdf_sample, gather_material, is_diffuse
 from ..ops.intersect import TMIN, closest, emit_pdf
+from ..ops.texture import (apply_textures, background, env_pdf_dir,
+                           env_strategy)
 from ..ops.vec3 import dot3, normalize3, onb_from_w, to_local, to_world
 from ..scene import pack as P
 from ..scene.device import to_torch
@@ -45,7 +53,11 @@ FLT_MIN_NORMAL = 1.17549435e-38   # the least normal float32
 def device_tables(tables: P.SceneTables, device) -> Dict:
     """The scene tables on `device`, plus the python constants the plain
     version folds into its arithmetic."""
-    tabs = to_torch(tables.arrays(), device)
+    arrays = tables.arrays()
+    # torch's CPU uint32 has no indexing or shifts: the RGB9E5 words
+    # travel as int32 bit patterns
+    arrays["atlas"] = arrays["atlas"].view(np.int32)
+    tabs = to_torch(arrays, device)
     tabs["cam_f"] = [float(x) for x in tables.cam]
     tabs["lights_f"] = [tuple(float(x) for x in row)
                         for row in tables.lights]
@@ -57,13 +69,12 @@ def device_tables(tables: P.SceneTables, device) -> Dict:
     tabs["n_emit"] = int(tables.emit_objects.shape[0])
     tabs["insts_f"] = tables.insts.tolist()
     for k in ("world_root", "bvh_depth", "max_leaf", "has_accel",
-              "block_seed"):
+              "block_seed", "has_tex", "bg_kind", "has_env"):
         tabs[k] = getattr(tables, k)
     return tabs
 
 
-def bounce(tabs, c, active, beckmann: bool = False,
-           ftz: bool = False) -> Dict:
+def bounce(tabs, c, active, beckmann: bool = False) -> Dict:
     """One bounce of the path body for the lanes where `active`: closest
     hit, background on a miss, the one-sided emitter hit, the AOVs at
     depth 0, distant-light NEE, BSDF sampling with the 50/50 emitter MIS,
@@ -73,19 +84,22 @@ def bounce(tabs, c, active, beckmann: bool = False,
     lane streams `st`. Returns the updated sums, `alive` (the path goes
     on), the hit point (hx, hy, hz), the next direction (wx, wy, wz), the
     next throughput (cr, cg, cb), the advanced streams `st` and the
-    camera draws cj1, cj2. Lanes outside `active` still draw. `ftz`: a
+    camera draws cj1, cj2. Lanes outside `active` still draw. A
     throughput below float32's normal range counts as zero and ends the
     path, as under the flush-to-zero arithmetic of XLA and the TPU."""
-    cam = tabs["cam_f"]
     E = tabs["n_emit"]
-    bg = cam[P.CAM_BG:P.CAM_BG + 3]
+    has_env = tabs["has_env"]
     cr, cg, cb = c["cr"], c["cg"], c["cb"]
     depth = c["depth"]
 
-    t, hit, anx_, any__, anz_, alr, alg, alb, mat_id = closest(
-        tabs, c["ox"], c["oy"], c["oz"], c["dx"], c["dy"], c["dz"], TMIN)
+    t, hit, anx_, any__, anz_, alr, alg, alb, mat_id, tu, tv = closest(
+        tabs, c["ox"], c["oy"], c["oz"], c["dx"], c["dy"], c["dz"], TMIN,
+        skip=~active)
     attr = gather_material(tabs["mats"], mat_id, hit)
+    if tabs["has_tex"]:
+        attr = apply_textures(tabs, attr, mat_id, active & hit, tu, tv)
     miss = active & ~hit
+    bg = background(tabs, c["dx"], c["dy"], c["dz"], miss)
     rr_ = c["rr"] + torch.where(miss, cr * bg[0], 0.0)
     rg_ = c["rg"] + torch.where(miss, cg * bg[1], 0.0)
     rb_ = c["rb"] + torch.where(miss, cb * bg[2], 0.0)
@@ -129,14 +143,27 @@ def bounce(tabs, c, active, beckmann: bool = False,
         attr, *lo, u_coin, u1, u2, ul, beckmann)
     swx, swy, swz = to_world(*frame, swx, swy, swz)
 
-    if E > 0:
+    if E > 0 or has_env:
         coin, st = rng.uniform(st)
         ue1, st = rng.uniform(st)
         ue2, st = rng.uniform(st)
         ue3, st = rng.uniform(st)
         ue4, st = rng.uniform(st)
-        ls_wx, ls_wy, ls_wz = sample_emit(tabs, hx, hy, hz,
-                                          ue1, ue2, ue3, ue4)
+        # one light sampler per lane: an emit object or the env map, the
+        # pick an independent draw when the scene has both
+        if E > 0:
+            ls_wx, ls_wy, ls_wz = sample_emit(tabs, hx, hy, hz,
+                                              ue1, ue2, ue3, ue4)
+        if has_env:
+            ex_, ey_, ez_ = env_strategy(tabs, ue1, ue2, ue3, ue4)
+            if E > 0:
+                upick, st = rng.uniform(st)
+                tke = upick * float(E + 1) < 1.0
+                ls_wx = torch.where(tke, ex_, ls_wx)
+                ls_wy = torch.where(tke, ey_, ls_wy)
+                ls_wz = torch.where(tke, ez_, ls_wz)
+            else:
+                ls_wx, ls_wy, ls_wz = ex_, ey_, ez_
         diffuse = is_diffuse(attr)
         take_light = (coin > 0.5) & diffuse
         wx_ = torch.where(take_light, ls_wx, swx)
@@ -149,8 +176,11 @@ def bounce(tabs, c, active, beckmann: bool = False,
         f_g = torch.where(take_light, fe_g, sfg)
         f_b = torch.where(take_light, fe_b, sfb)
         pdf_b = torch.where(take_light, fe_pdf, spdf)
-        lpdf = emit_pdf(tabs, hx, hy, hz, wx_, wy_, wz_) \
-            / torch.full_like(hx, float(E))
+        lp_ = emit_pdf(tabs, hx, hy, hz, wx_, wy_, wz_) if E > 0 \
+            else torch.zeros_like(hx)
+        if has_env:
+            lp_ = lp_ + env_pdf_dir(tabs, wx_, wy_, wz_)
+        lpdf = lp_ / torch.full_like(hx, float(E + (1 if has_env else 0)))
         pdf = torch.where(diffuse, 0.5 * pdf_b + 0.5 * lpdf, spdf)
         f_r = torch.where(diffuse, f_r, sfr)
         f_g = torch.where(diffuse, f_g, sfg)
@@ -168,11 +198,8 @@ def bounce(tabs, c, active, beckmann: bool = False,
     cr = cr * f_r * scale
     cg = cg * f_g * scale
     cb = cb * f_b * scale
-    if ftz:
-        alive = alive & (torch.maximum(cr, torch.maximum(cg, cb))
-                         >= FLT_MIN_NORMAL)
-    else:
-        alive = alive & ((cr != 0.0) | (cg != 0.0) | (cb != 0.0))
+    alive = alive & (torch.maximum(cr, torch.maximum(cg, cb))
+                     >= FLT_MIN_NORMAL)
 
     if tabs["use_rr"]:
         rrv, st = rng.uniform(st)
@@ -205,13 +232,16 @@ def ray_increment(tabs) -> float:
 
 
 def path_lanes_ref(tabs, seed: int, num_samples: int,
-                   beckmann: bool = False) -> torch.Tensor:
+                   beckmann: bool = False, pix=None) -> torch.Tensor:
     """Plain PyTorch path megakernel: (10, N) float32 per-lane sums of
     radiance rgb, first-hit normal xyz, albedo rgb and the ray count; lane
-    i owns pixel i of the film."""
+    i owns pixel i of the film, or pixel `pix[i]` when the int64 tensor
+    `pix` names the pixels to trace (a lane's result depends on its own
+    pixel only)."""
     W = tabs["width"]
     cam = tabs["cam_f"]
-    pix = torch.arange(W * tabs["height"], device=tabs["tris"].device)
+    if pix is None:
+        pix = torch.arange(W * tabs["height"], device=tabs["tris"].device)
     pxf = (pix % W).float()
     pyf = (pix // W).float()
     st = rng.seed_state(pix, seed, rng.tile_of(pix, W, tabs["block_seed"]))

@@ -260,7 +260,7 @@ def wave_bounce(tabs, c, kb, beckmann: bool = False) -> Dict:
     co = cam[P.CAM_ORIGIN:P.CAM_ORIGIN + 3]
     was_alive = c["alive"] > 0.5
     rays = c["rays"] + torch.where(was_alive, 1.0, 0.0) * ray_increment(tabs)
-    b = bounce(tabs, c, was_alive, beckmann, ftz=True)
+    b = bounce(tabs, c, was_alive, beckmann)
     alive = b["alive"]
     finished = was_alive & ~alive
     smp = c["smp"] + torch.where(finished, 1.0, 0.0)

@@ -6,7 +6,7 @@ interface, at first use, into build/rene_tpu_torch/ of the checkout
 (named by a hash of the sources and flags, so an edit rebuilds), all
 nvcc runs started together, and loaded with ctypes:
 
-    csrc/mega_path.cu   the path megakernel (K1a; K1c, K1d)
+    csrc/mega_path.cu   the path megakernel (K1a-K1d)
     csrc/wave.cu        the wave engine: K2 in both variants, with K3 and
                         K4, which do not depend on the variant, taken from
                         the immediates build
@@ -35,6 +35,7 @@ import torch
 
 from .scene import accel as A
 from .scene import pack as P
+from .scene.device import ENV_GH, ENV_GW
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "rene_tpu_torch"
@@ -125,7 +126,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SCENE_ARGTYPES = ([_P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _I, _P, _P, _I,
                    _P]
                   + [_P, _P, _P, _I, _P, _P, _I]  # nodes .. n_sph_blocks
-                  + [_I] * 9)   # scalars, world_root .. block_seed
+                  + [_P, _I, _P, _P, _P, _P]      # mesh_uv .. env_pdf
+                  + [_I] * 11)  # scalars, world_root .. has_env
 ARGTYPES = SCENE_ARGTYPES + [_I, _I, _P, _P]   # seed, num_samples, out,
                                                 # stream
 WAVE_ARGTYPES = (SCENE_ARGTYPES + [_I] * 5   # seed, launch, k, n_run,
@@ -189,8 +191,23 @@ def scene_args(tabs, beckmann: bool, device) -> tuple:
             ("mesh", f32, (None, A.MESH_W)),
             ("insts", f32, (None, A.INST_W)),
             ("sph_tab", f32, (n_blocks * A.SPH_BLOCK, A.SPHT_W)),
-            ("sph_box", f32, (None, A.BOX_W))):
+            ("sph_box", f32, (None, A.BOX_W)),
+            ("mesh_uv", f32, (None, A.MESH_UV_W)),
+            ("atlas", i32, (None,)),
+            ("env_mcdf", f32, (None,)),
+            ("env_ccdf", f32, (None, ENV_GW)),
+            ("env_pdf", f32, (None, ENV_GW))):
         _check(tabs[name], name, dtype, shape, device)
+    n_uv = tabs["mesh_uv"].shape[0]
+    if n_uv not in (0, tabs["mesh"].shape[0]):
+        raise ValueError(f"mesh_uv: {n_uv} rows for "
+                         f"{tabs['mesh'].shape[0]} mesh triangles")
+    if not tabs["atlas"].shape[0]:
+        raise ValueError("atlas: empty")
+    n_env = ENV_GH if tabs["has_env"] else 0
+    if not (tabs["env_mcdf"].shape[0] == tabs["env_ccdf"].shape[0]
+            == tabs["env_pdf"].shape[0] == n_env):
+        raise ValueError(f"env tables: expected {n_env} rows")
     if (tabs["world_root"] >= 0 or tabs["insts"].shape[0]) \
             and not tabs["nodes"].shape[0]:
         raise ValueError("nodes: empty, but the scene has a mesh")
@@ -205,9 +222,12 @@ def scene_args(tabs, beckmann: bool, device) -> tuple:
             ptr("lights"), ptr("light_dots"), n_light, ptr("cam"),
             ptr("nodes"), ptr("mesh"), ptr("insts"), tabs["insts"].shape[0],
             ptr("sph_tab"), ptr("sph_box"), n_blocks,
+            ptr("mesh_uv"), n_uv, ptr("atlas"), ptr("env_mcdf"),
+            ptr("env_ccdf"), ptr("env_pdf"),
             int(tabs["world_root"]), int(tabs["has_tri_emitter"]),
             tabs["width"], n_pix, tabs["max_depth"], int(tabs["use_rr"]),
-            int(beckmann), int(tabs["has_accel"]), int(tabs["block_seed"]))
+            int(beckmann), int(tabs["has_accel"]), int(tabs["block_seed"]),
+            int(tabs["has_tex"]), int(tabs["has_env"]))
 
 
 def launch_args(tabs, seed: int, num_samples: int, beckmann: bool,

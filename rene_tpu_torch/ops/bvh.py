@@ -331,17 +331,20 @@ def _to_object(row, ox, oy, oz, dx, dy, dz):
             m[8] * dx + m[9] * dy + m[10] * dz)
 
 
-def mesh_closest(tabs, ox, oy, oz, dx, dy, dz, tmin, t):
-    """Closest mesh hit below `t`: the world mesh, then each instance.
-    Returns (t, nx, ny, nz, material id), t unchanged where no mesh
-    triangle is closer; the normal is the interpolated shading normal
-    n0 + u d1 + v d2 (not normalized), taken to world space as W2O^T n
-    for an instance hit."""
+def mesh_closest(tabs, ox, oy, oz, dx, dy, dz, tmin, t, done=None):
+    """Closest mesh hit below `t` for the lanes not `done` (all when
+    None): the world mesh, then each instance.
+    Returns (t, nx, ny, nz, material id, u, v), t unchanged where no
+    mesh triangle is closer; the normal is the interpolated shading
+    normal n0 + b1 d1 + b2 d2 (not normalized), taken to world space as
+    W2O^T n for an instance hit; (u, v) = uv0 + b1 duv1 + b2 duv2 from
+    the `mesh_uv` rows of a textured mesh, else zero."""
     ray = (ox, oy, oz, dx, dy, dz)
     best = {"t": t.clone(), "prim": torch.full_like(ox, -1, dtype=torch.long),
             "u": torch.zeros_like(ox), "v": torch.zeros_like(ox)}
     inst = torch.full_like(best["prim"], -1)
-    done = torch.zeros_like(ox, dtype=torch.bool)
+    if done is None:
+        done = torch.zeros_like(ox, dtype=torch.bool)
     if tabs["world_root"] >= 0:
         march(tabs, tabs["world_root"], ray, tmin, None, best, done)
     for i, row in enumerate(tabs["insts_f"]):
@@ -362,7 +365,12 @@ def mesh_closest(tabs, ox, oy, oz, dx, dy, dz, tmin, t):
              for c in range(3)]
         n = [torch.where(on, w[c], n[c]) for c in range(3)]
         mat = torch.where(on, m[:, A.INST_MAT], mat)
-    return best["t"], n[0], n[1], n[2], mat.long()
+    tu = tv = torch.zeros_like(u)
+    if tabs["mesh_uv"].shape[0]:
+        q = tabs["mesh_uv"][best["prim"].clamp_min(0)]
+        tu = q[:, 0] + u * q[:, 2] + v * q[:, 4]
+        tv = q[:, 1] + u * q[:, 3] + v * q[:, 5]
+    return best["t"], n[0], n[1], n[2], mat.long(), tu, tv
 
 
 def mesh_any(tabs, ox, oy, oz, dx, dy, dz, tmin, tmax, done):
@@ -397,18 +405,22 @@ def _sph_test(rows, ox, oy, oz, dx, dy, dz, tmin):
     return t, (disc >= 0.0) & (rr > 0.0)
 
 
-def sphere_table_closest(tabs, ox, oy, oz, dx, dy, dz, tmin, t):
-    """Closest table sphere below `t`, block by block behind each block's
-    box: (t, nx, ny, nz, material id); the normal is (hit - c) / r."""
+def sphere_table_closest(tabs, ox, oy, oz, dx, dy, dz, tmin, t, done=None):
+    """Closest table sphere below `t` for the lanes not `done` (all when
+    None), block by block behind each block's box: (t, nx, ny, nz,
+    material id, 0, 0); the normal is (hit - c) / r, and a table sphere's
+    material is solid, so it has no (u, v)."""
     tab, box = tabs["sph_tab"], tabs["sph_box"]
     ray = (ox, oy, oz, dx, dy, dz)
     ix, iy, iz = inv_dir(dx, dy, dz)
     t = t.clone()
     best = torch.full_like(ox, -1, dtype=torch.long)
+    todo = torch.ones_like(ox, dtype=torch.bool) if done is None else ~done
+    n_todo = int(todo.sum())
     for b in range(box.shape[0]):
         _, enter = box_enter(box[b:b + 1], ox, oy, oz, ix, iy, iz, tmin, t)
-        tests["box"] += ox.numel()
-        ln = enter.nonzero()[:, 0]
+        tests["box"] += n_todo
+        ln = (enter & todo).nonzero()[:, 0]
         if not ln.numel():
             continue
         tests["sph"] += ln.numel() * A.SPH_BLOCK
@@ -424,7 +436,8 @@ def sphere_table_closest(tabs, ox, oy, oz, dx, dy, dz, tmin, t):
     invr = 1.0 / torch.where(rr > 0.0, rr, 1.0)
     n = [(ray[c] + t * ray[3 + c] - r[:, A.SPHT_C + c]) * invr
          for c in range(3)]
-    return t, n[0], n[1], n[2], r[:, A.SPHT_MAT].long()
+    zero = torch.zeros_like(t)
+    return t, n[0], n[1], n[2], r[:, A.SPHT_MAT].long(), zero, zero
 
 
 def sphere_table_any(tabs, ox, oy, oz, dx, dy, dz, tmin, tmax, done):
@@ -436,8 +449,9 @@ def sphere_table_any(tabs, ox, oy, oz, dx, dy, dz, tmin, tmax, done):
     far = torch.full_like(ox, tmax)
     for b in range(box.shape[0]):
         _, enter = box_enter(box[b:b + 1], ox, oy, oz, ix, iy, iz, tmin, far)
-        ln = (enter & ~done & ~hit).nonzero()[:, 0]
-        tests["box"] += ox.numel()
+        todo = ~done & ~hit
+        ln = (enter & todo).nonzero()[:, 0]
+        tests["box"] += int(todo.sum())
         if not ln.numel():
             continue
         tests["sph"] += ln.numel() * A.SPH_BLOCK

@@ -25,6 +25,7 @@ import torch
 from ..scene import pack as P
 from . import bvh
 from .bvh import BIG
+from .texture import sphere_uv_of
 from .vec3 import normalize3
 
 TMIN = 1e-3
@@ -89,9 +90,15 @@ def _lanes(*xs):
     return tuple(x[:, None] for x in xs)
 
 
-def closest(tabs, ox, oy, oz, dx, dy, dz, tmin=TMIN):
-    """(t, hit, nx, ny, nz, emit r, g, b, material id): t is BIG on a miss,
-    the normal is the interpolated shading normal (not normalized)."""
+def closest(tabs, ox, oy, oz, dx, dy, dz, tmin=TMIN, skip=None):
+    """(t, hit, nx, ny, nz, emit r, g, b, material id, u, v): t is BIG on
+    a miss, the normal is the interpolated shading normal (not
+    normalized). (u, v) are the hit's texture coordinates where the scene
+    has a textured material (`tabs["has_tex"]`), else zero: interpolated
+    from the vertices of a triangle, spherical on a sphere
+    (`sphere_uv_of` of the object-space hit point), zero on a table
+    sphere, whose material is solid. Lanes where `skip` walk neither the
+    mesh nor the sphere table (their result is not used)."""
     tris, sph = tabs["tris"], tabs["spheres"]
     n_tri, n_sph = tris.shape[0], sph.shape[0]
     wx = oy * dz - oz * dy
@@ -111,7 +118,8 @@ def closest(tabs, ox, oy, oz, dx, dy, dz, tmin=TMIN):
     hit = t_best < BIG
     t = torch.where(hit, t_best, BIG)
 
-    nx = ny = nz = er = eg = eb = zero
+    nx = ny = nz = er = eg = eb = uu = vv = zero
+    want_uv = tabs["has_tex"]
     mat = torch.zeros_like(idx)
     if n_tri:
         is_tri = hit & (idx < n_tri)
@@ -132,6 +140,11 @@ def closest(tabs, ox, oy, oz, dx, dy, dz, tmin=TMIN):
         eg = torch.where(is_tri, rows[:, P.TRI_EMIT + 1], eg)
         eb = torch.where(is_tri, rows[:, P.TRI_EMIT + 2], eb)
         mat = torch.where(is_tri, rows[:, P.TRI_MAT].long(), mat)
+        if want_uv:
+            tuv = [w0 * rows[:, P.TRI_UV0 + k] + bu * rows[:, P.TRI_UV1 + k]
+                   + bv * rows[:, P.TRI_UV2 + k] for k in range(2)]
+            uu = torch.where(is_tri, tuv[0], uu)
+            vv = torch.where(is_tri, tuv[1], vv)
     if n_sph:
         is_sph = hit & (idx >= n_tri)
         rows = sph[(idx - n_tri).clamp(0, n_sph - 1)]
@@ -152,12 +165,17 @@ def closest(tabs, ox, oy, oz, dx, dy, dz, tmin=TMIN):
         eg = torch.where(is_sph, rows[:, P.SPH_EMIT + 1], eg)
         eb = torch.where(is_sph, rows[:, P.SPH_EMIT + 2], eb)
         mat = torch.where(is_sph, rows[:, P.SPH_MAT].long(), mat)
+        if want_uv:
+            su, sv = sphere_uv_of(px_, py_, pz_)
+            uu = torch.where(is_sph, su, uu)
+            vv = torch.where(is_sph, sv, vv)
     for part, n_rows in ((bvh.mesh_closest, tabs["nodes"].shape[0]),
                          (bvh.sphere_table_closest,
                           tabs["sph_tab"].shape[0])):
         if not n_rows:
             continue
-        tp, pnx, pny, pnz, pmat = part(tabs, ox, oy, oz, dx, dy, dz, tmin, t)
+        tp, pnx, pny, pnz, pmat, pu, pv = part(tabs, ox, oy, oz, dx, dy, dz,
+                                               tmin, t, skip)
         win = tp < t
         t = torch.where(win, tp, t)
         nx = torch.where(win, pnx, nx)
@@ -167,13 +185,16 @@ def closest(tabs, ox, oy, oz, dx, dy, dz, tmin=TMIN):
         eg = torch.where(win, 0.0, eg)
         eb = torch.where(win, 0.0, eb)
         mat = torch.where(win, pmat, mat)
+        uu = torch.where(win, pu, uu)
+        vv = torch.where(win, pv, vv)
         hit = t < BIG
-    return t, hit, nx, ny, nz, er, eg, eb, mat
+    return t, hit, nx, ny, nz, er, eg, eb, mat, uu, vv
 
 
-def shadow_any(tabs, li, ox, oy, oz, dx, dy, dz, tmin, tmax):
+def shadow_any(tabs, li, ox, oy, oz, dx, dy, dz, tmin, tmax, skip=None):
     """Any hit in [tmin, tmax] along distant light `li`'s direction d (the
-    same for every lane). The direction's dot products with each
+    same for every lane); lanes where `skip` walk neither the mesh nor
+    the sphere table. The direction's dot products with each
     triangle's Plücker moments and plane normal come precomputed from the
     host (`light_dots`), as the JAX kernel folds them into constants."""
     tris, sph = tabs["tris"], tabs["spheres"]
@@ -207,10 +228,11 @@ def shadow_any(tabs, li, ox, oy, oz, dx, dy, dz, tmin, tmax):
         hit = hit | (t <= tmax).any(dim=1)
     if tabs["nodes"].shape[0]:
         hit = hit | bvh.mesh_any(tabs, ox, oy, oz, dx, dy, dz, tmin, tmax,
-                                 hit)
+                                 hit if skip is None else hit | skip)
     if tabs["sph_tab"].shape[0]:
-        hit = hit | bvh.sphere_table_any(tabs, ox, oy, oz, dx, dy, dz, tmin,
-                                         tmax, hit)
+        hit = hit | bvh.sphere_table_any(
+            tabs, ox, oy, oz, dx, dy, dz, tmin, tmax,
+            hit if skip is None else hit | skip)
     return hit
 
 

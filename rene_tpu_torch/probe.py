@@ -1,11 +1,15 @@
 """Where a main-path render's time goes, on a CUDA card.
 
-    python -m rene_tpu_torch.probe [--scene cornell|big_mesh] [--out DIR]
+    python -m rene_tpu_torch.probe [--scene cornell|big_mesh|textured_mesh]
+                                   [--out DIR]
 
 Renders one of the main paths' inline scenes: the Cornell box
-(rene_tpu_torch.scenes.cornell_box, K1a variant, at 1024x1024) or the
-big mesh (scenes.big_mesh_scene, mesh variant, at 1280x720), and
-prints one JSON object per line:
+(rene_tpu_torch.scenes.cornell_box, K1a variant, at 1024x1024), the big
+mesh (scenes.big_mesh_scene, mesh variant, at 1280x720) or the textured
+mesh (scenes.textured_mesh_scene, the mesh variant with textures, an
+env-map background and env-map light sampling, at 1280x720; its scene
+and image files go to build/probe_scenes/), and prints one JSON object
+per line:
 
 * the card (nvidia-smi name, power limit, SM clock and its maximum);
 * the creation of the CUDA context, then the host phases of one render:
@@ -17,6 +21,11 @@ prints one JSON object per line:
 * the PNG encode of the last image;
 * the kernel's time per launch by chunk size (CUDA events over 5 launches
   each) and its Mrays/s;
+* for a textured scene, the 4-spp launch once more with one part of
+  slice K1b switched off at a time (the per-hit material textures, the
+  env-map light sampling, the background's fetch): what each part costs.
+  The switched-off launches trace other paths, so their rays are given
+  beside their times;
 * a render at the smallest of those spp under torch.profiler: wall time
   and the operations with the most device time; the Chrome trace goes to
   DIR.
@@ -42,13 +51,17 @@ from .scene import pack as P
 from .utils.film import save_png, to_rgb8
 
 
-# scene -> (pbrt text of (w, h), default film, render spp, chunk spp)
+# scene -> (pbrt text of (directory, w, h), default film, render spp,
+# chunk spp)
 SCENES = {
-    "cornell": (scenes.cornell_box, (1024, 1024), (64, 256, 1024),
-                (1, 4, 16, 64, 100)),
-    "big_mesh": (scenes.big_mesh_scene, (1280, 720), (16, 64, 256),
-                 (1, 4, 16, 64)),
+    "cornell": (lambda d, w, h: scenes.cornell_box(w, h), (1024, 1024),
+                (64, 256, 1024), (1, 4, 16, 64, 100)),
+    "big_mesh": (lambda d, w, h: scenes.big_mesh_scene(w, h), (1280, 720),
+                 (16, 64, 256), (1, 4, 16, 64)),
+    "textured_mesh": (scenes.textured_mesh_scene, (1280, 720), (16, 64, 256),
+                      (1, 4, 16, 64)),
 }
+SCENE_DIR = os.path.join("build", "probe_scenes")
 
 
 def emit(**kw):
@@ -69,9 +82,10 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,clocks.max.sm",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip())
-    path = os.path.join(args.out, f"{args.scene}.pbrt")
+    os.makedirs(SCENE_DIR, exist_ok=True)
+    path = os.path.join(SCENE_DIR, f"{args.scene}.pbrt")
     with open(path, "w") as f:
-        f.write(make(w, h))
+        f.write(make(SCENE_DIR, w, h))
     kernels.build()
     dev = torch.device("cuda", 0)
 
@@ -99,7 +113,7 @@ def main(argv=None) -> int:
         os.path.join(args.out, f"{args.scene}.png"), to_rgb8(out["color"])))
     emit(png_encode_s=t_png)
 
-    for spp in chunks:
+    def chunk(tabs, spp, **tag):
         timed(lambda: kernels.mega_path(tabs, 5, spp))
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -111,7 +125,21 @@ def main(argv=None) -> int:
         ms = start.elapsed_time(end) / 5
         rays = float(o[9].sum(dtype=torch.float64))
         emit(chunk_spp=spp, kernel_ms=ms, rays=rays,
-             kernel_mrays_s=rays / ms / 1e3)
+             kernel_mrays_s=rays / ms / 1e3, ns_per_ray=ms * 1e6 / rays,
+             **tag)
+
+    for spp in chunks:
+        chunk(tabs, spp)
+    if tabs["has_tex"] or tabs["bg_kind"] != P.BG_CONST:
+        no_env = dict(tabs, has_env=False, **{
+            k: tabs[k][:0] for k in ("env_mcdf", "env_ccdf", "env_pdf")})
+        cam = tabs["cam"].clone()
+        cam[P.CAM_BG_KIND] = P.BG_CONST
+        for off, t in (("material textures", dict(tabs, has_tex=False)),
+                       ("env-map light sampling", no_env),
+                       ("background fetch", dict(tabs, cam=cam)),
+                       ("all three", dict(no_env, has_tex=False, cam=cam))):
+            chunk(t, 4, without=off)
 
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,

@@ -22,7 +22,12 @@ big-mesh march and sphere table, with the TPU layout replaced:
 Every triangle row is the JAX table's: v0, e1 = v1 - v0, e2 = v2 - v0,
 the shading normal n0 and its deltas d1 = n1 - n0, d2 = n2 - n0, all
 computed in float64 and cast to float32 (`_pack_tris` :861-868), then
-the material id. Row layouts are shared with csrc/layout.cuh.
+the material id. Where a mesh material reads a texture (`_mesh_needs_uv`
+:591) the JAX table grows by six uv rows; here the uv of mesh row k (uv0
+and the deltas uv1 - uv0, uv2 - uv0, `_pack_tris` :869-872) go to row k of
+a side table `mesh_uv`, 24 bytes per triangle, which only a textured hit
+reads, so the rows the walk strides over stay 80 bytes. Row layouts are
+shared with csrc/layout.cuh.
 """
 from __future__ import annotations
 
@@ -41,6 +46,7 @@ NODE_W = 8
 MESH_V0, MESH_E1, MESH_E2 = 0, 3, 6
 MESH_N0, MESH_D1, MESH_D2, MESH_MAT = 9, 12, 15, 18
 MESH_W = 20
+MESH_UV_W = 6       # mesh_uv rows: uv0, uv1 - uv0, uv2 - uv0
 INST_W2O, INST_MAT, INST_ROOT = 0, 12, 13   # 3x4 row-major w2o affine
 INST_W = 16
 SPHT_C, SPHT_R, SPHT_MAT = 0, 3, 4
@@ -123,16 +129,23 @@ class _Builder:
     def __init__(self):
         self.nodes: List[np.ndarray] = []
         self.rows: List[np.ndarray] = []
+        self.uvs: List[np.ndarray] = []
         self.n_nodes = self.n_rows = 0
         self.depth = self.max_leaf = 0
 
-    def add(self, p: np.ndarray, n: np.ndarray, mat: np.ndarray) -> int:
-        """BVH over float64 (T, 3, 3) points p with (T, 3, 3) normals n and
-        (T,) material ids; returns its root node."""
+    def add(self, p: np.ndarray, n: np.ndarray, mat: np.ndarray,
+            uv: np.ndarray = None) -> int:
+        """BVH over float64 (T, 3, 3) points p with (T, 3, 3) normals n,
+        (T,) material ids and, for a textured mesh, (T, 3, 2) uv; returns
+        its root node."""
         bvh = _bvh.build_bvh(p.astype(np.float32))
         m = p.shape[0]
         order = bvh.order[:m].astype(np.int64)
         p, n, mat = p[order], n[order], mat[order]
+        if uv is not None:
+            uv = uv[order]
+            self.uvs.append(np.concatenate(
+                [uv[:, 0], uv[:, 1] - uv[:, 0], uv[:, 2] - uv[:, 0]], axis=1))
         rows = np.zeros((m, MESH_W), np.float64)
         rows[:, MESH_V0:MESH_V0 + 3] = p[:, 0]
         rows[:, MESH_E1:MESH_E1 + 3] = p[:, 1] - p[:, 0]
@@ -167,7 +180,7 @@ class _Builder:
 
 
 def _blas_tris(buffers_np, blas_id: int):
-    """Object-space float64 points and normals of one BLAS, with the
+    """Object-space float64 points, normals and uv of one BLAS, with the
     geometric-normal fallback for all-zero vertex normals
     (`_pack_inst_mesh` :1011-1021)."""
     starts = buffers_np["blas_idx_start"]
@@ -183,7 +196,7 @@ def _blas_tris(buffers_np, blas_id: int):
         gn = np.cross(p[:, 1] - p[:, 0], p[:, 2] - p[:, 0])
         n = np.where(zero_n[:, None, None],
                      np.broadcast_to(gn[:, None, :], n.shape), n)
-    return p, n
+    return p, n, buffers_np["blas_uv"][idx].astype(np.float64)
 
 
 def _sphere_table(buffers_np, tbl_idx: np.ndarray):
@@ -220,21 +233,24 @@ def _sphere_table(buffers_np, tbl_idx: np.ndarray):
     return tab, box
 
 
-def pack_accel(buffers_np, rest_idx: np.ndarray, shared, tbl_idx) -> Dict:
+def pack_accel(buffers_np, rest_idx: np.ndarray, shared, tbl_idx,
+               needs_uv: bool = False) -> Dict:
     """The acceleration tables of SceneTables: the world mesh over the
     scene triangles `rest_idx`, the shared BLASes `shared` (from
-    `shared_split`) and the table spheres `tbl_idx`."""
+    `shared_split`) and the table spheres `tbl_idx`; `needs_uv`: with the
+    `mesh_uv` rows."""
     b = _Builder()
     world_root = -1
     if rest_idx.size:
         p = buffers_np["tri_p"][rest_idx].astype(np.float64)
         n = buffers_np["tri_n"][rest_idx].astype(np.float64)
         mat = buffers_np["inst_material"][buffers_np["tri_inst"][rest_idx]]
-        world_root = b.add(p, n, mat)
+        world_root = b.add(p, n, mat, buffers_np["tri_uv"][rest_idx].astype(
+            np.float64) if needs_uv else None)
     insts = []
     for blas_id, inst_ids in shared:
-        p, n = _blas_tris(buffers_np, blas_id)
-        root = b.add(p, n, np.zeros(p.shape[0]))
+        p, n, uv = _blas_tris(buffers_np, blas_id)
+        root = b.add(p, n, np.zeros(p.shape[0]), uv if needs_uv else None)
         for i in inst_ids:
             row = np.zeros(INST_W, np.float32)
             row[INST_W2O:INST_W2O + 12] = \
@@ -250,6 +266,7 @@ def pack_accel(buffers_np, rest_idx: np.ndarray, shared, tbl_idx) -> Dict:
             dtype=np.float32)
 
     return {"nodes": cat(b.nodes, NODE_W), "mesh": cat(b.rows, MESH_W),
+            "mesh_uv": cat(b.uvs, MESH_UV_W),
             "insts": cat(insts, INST_W), "sph_tab": sph_tab,
             "sph_box": sph_box, "world_root": world_root,
             "bvh_depth": b.depth, "max_leaf": b.max_leaf}

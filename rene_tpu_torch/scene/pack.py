@@ -1,4 +1,4 @@
-"""Flat scene tables for the path megakernel (slices K1a, K1c, K1d).
+"""Flat scene tables for the path kernels (slices K1a, K1b, K1c, K1d).
 
 Counterpart of these parts of rene_tpu/integrators/pallas_path.py:
 
@@ -8,9 +8,22 @@ Counterpart of these parts of rene_tpu/integrators/pallas_path.py:
   shading normals, area and emission; per-sphere transforms; emit
   objects; distant lights. The rest (mesh triangles, shared-BLAS
   instances, table spheres) goes to `scene/accel.py`;
-* `_mat_record` (:616-746) for solid textures: one record per material;
+* `_mat_record` (:616-746): one record per material, with a descriptor
+  per textured slot class (`_tex_kernel_desc` :368, `_SLOT_CLASSES` :418,
+  `_mat_slot_descs` :431): a checker with solid subs, an imagemap, a
+  scale folded into its base;
+* the image atlas and the background of `pack_scene` (:1472-1571): the
+  images the kernel fetches (`_kernel_images` :453) back to back in one
+  flat array of RGB9E5 words, without the TPU's 128-lane rows and 8-row
+  pages; the background as a constant, an image or a checker; and the
+  env-map sampling tables as scene/device.py builds them (the reference
+  transposes them into a lane-gather layout, `env_tab`, which a CUDA
+  thread does not need);
 * `pallas_eligible` (:504-570) for what the port carries, as
-  `slice_supported`.
+  `slice_supported`. The reference's texel caps (`MAX_IMG_TEXELS`
+  :364-365) are the size of the TPU's VMEM and are not carried over: the
+  port's atlas lies in device memory and is capped at 2^24 texels, where
+  a texel offset stops being exact in a float32 table.
 
 The TPU kernel bakes these records into its program as immediates,
 because Mosaic has no per-lane gather. A CUDA thread can gather, so the
@@ -32,7 +45,7 @@ from typing import Dict, List
 import numpy as np
 
 from . import types as T
-from .device import RenderConfig
+from .device import ENV_GH, ENV_GW, RenderConfig
 
 from . import accel
 
@@ -65,7 +78,8 @@ TRI_N0, TRI_N1, TRI_N2 = 22, 25, 28
 TRI_AREA, TRI_GN, TRI_PRIMS = 31, 32, 35
 TRI_EMIT, TRI_MAT = 36, 39          # emitted rgb (0 unless emissive), mat id
 TRI_V0, TRI_V1, TRI_V2 = 40, 43, 46
-TRI_W = 49
+TRI_UV0, TRI_UV1, TRI_UV2 = 49, 51, 53   # per-vertex (u, v)
+TRI_W = 55
 
 SPH_W2O, SPH_O2W = 0, 12            # 3x4 row-major affine matrices
 SPH_EMIT, SPH_MAT, SPH_R2 = 24, 27, 28
@@ -74,7 +88,18 @@ SPH_W = 29
 MAT_TYPE, MAT_ALBEDO, MAT_ETA, MAT_K = 0, 1, 4, 7
 MAT_ALPHA, MAT_IR, MAT_OP, MAT_KR2 = 10, 12, 13, 16
 MAT_KT2, MAT_FSCALE = 19, 22
-MAT_W = 25
+# textured slots: MAT_NTEX counts the classes that are not solid,
+# MAT_RRM asks for the roughness remap of an imagemap roughness per hit,
+# then one TEXD_W-wide descriptor per class of IMG_CLASSES: its kind and
+# either (uscale, vscale, even rgb, odd rgb) or (texel offset, w, h)
+MAT_NTEX, MAT_RRM, MAT_TEX = 25, 26, 27
+TEXD_KIND = 0
+TEXD_US, TEXD_VS, TEXD_EVEN, TEXD_ODD = 1, 2, 3, 6
+TEXD_OFF, TEXD_IW, TEXD_IH = 1, 2, 3
+TEXD_W = 9
+TEXK_SOLID, TEXK_CHECKER, TEXK_IMAGE = 0, 1, 2
+N_TEX_CLASSES = 7
+MAT_W = MAT_TEX + N_TEX_CLASSES * TEXD_W    # 90
 
 EO_KIND, EO_START, EO_COUNT, EO_CENTER, EO_R2 = 0, 1, 2, 3, 6
 EO_W = 7
@@ -86,7 +111,16 @@ OUT_ROWS = 10   # kernel outputs: radiance rgb, normal xyz, albedo rgb, rays
 
 CAM_PINV, CAM_C2W, CAM_ORIGIN = 0, 12, 24
 CAM_INV_W1, CAM_INV_H1, CAM_FILTER, CAM_BG = 27, 28, 29, 30
-CAM_W = 33
+# the background: CAM_BG is the constant colour (background_color x a
+# solid texture or an image's scale base); a textured one multiplies it
+# by the env image (texel offset, w, h) or the checker (uscale, vscale,
+# even rgb, odd rgb) at the spherical uv of CAM_BG_MAT d; CAM_BG_INV, the
+# inverse 3x3, takes env-map samples back to world space
+CAM_BG_KIND, CAM_BG_IMG, CAM_BG_CHK = 33, 34, 37
+CAM_BG_MAT, CAM_BG_INV = 45, 54
+CAM_W = 63
+BG_CONST, BG_IMAGE, BG_CHECKER = 0, 1, 2
+MAX_ATLAS_TEXELS = 1 << 24
 
 
 def _mat_tex_indices(buffers_np, mat_idx: int) -> List[int]:
@@ -99,49 +133,181 @@ def _mat_tex_indices(buffers_np, mat_idx: int) -> List[int]:
             for s in _MAT_FETCHES.get(mt, ())]
 
 
+def tex_kernel_desc(buffers_np, ti: int):
+    """`_tex_kernel_desc` (pallas_path.py:368): the descriptor of texture
+    `ti` where the kernel can evaluate it: ("solid", rgb), ("checker",
+    us, vs, rgb_even, rgb_odd) with solid sub-textures, ("image",
+    img_idx, base_rgb) for an imagemap or a scale of an imagemap and a
+    solid (folded into base_rgb); None otherwise."""
+    tt = int(buffers_np["tex_type"][ti])
+
+    def srgb(s):
+        return tuple(float(x) for x in buffers_np["tex_v0"][s, :3])
+
+    if tt == T.TEX_SOLID:
+        return ("solid", srgb(ti))
+    if tt == T.TEX_IMAGEMAP:
+        return ("image", int(buffers_np["tex_u0"][ti, 0]), (1.0, 1.0, 1.0))
+    subs = [int(buffers_np["tex_u0"][ti, s]) for s in (0, 1)]
+    kinds = [int(buffers_np["tex_type"][s]) for s in subs]
+    if tt == T.TEX_CHECKER:
+        if all(k == T.TEX_SOLID for k in kinds):
+            tv = buffers_np["tex_v0"][ti]
+            return ("checker", float(tv[0]), float(tv[1]),
+                    srgb(subs[0]), srgb(subs[1]))
+        return None
+    if tt == T.TEX_SCALE:
+        imgs = [s for s, k in zip(subs, kinds) if k == T.TEX_IMAGEMAP]
+        solids = [s for s, k in zip(subs, kinds) if k == T.TEX_SOLID]
+        if len(imgs) + len(solids) != 2 or len(imgs) > 1:
+            return None
+        base = (1.0, 1.0, 1.0)
+        for s in solids:
+            c = srgb(s)
+            base = tuple(base[i] * c[i] for i in range(3))
+        if imgs:
+            return ("image", int(buffers_np["tex_u0"][imgs[0], 0]), base)
+        return ("solid", base)
+    return None
+
+
+# payload slot -> slot class per material (`_SLOT_CLASSES` :418): kd
+# feeds the albedo rows, ks the k rows, ru / rv the two alphas (rp is
+# plastic's one roughness, driving both), op uber's opacity with the
+# Kr / Kt products, kr / kt uber's Kr and Kt. Metal's eta and k stay
+# solid-only.
+SLOT_CLASSES = {
+    T.MAT_MATTE: {0: "kd"},
+    T.MAT_MIRROR: {0: "kd"},
+    T.MAT_SUBSTRATE: {0: "kd", 1: "ks", 2: "ru", 3: "rv"},
+    T.MAT_METAL: {2: "ru", 3: "rv"},
+    T.MAT_PLASTIC: {0: "kd", 1: "ks", 3: "rp"},
+    T.MAT_UBER: {0: "kd", 1: "ks", 2: "kr", 3: "kt", 4: "op",
+                 5: "ru", 6: "rv"},
+}
+# the classes a material row holds a descriptor for (rp expands to ru, rv)
+IMG_CLASSES = ("kd", "ks", "ru", "rv", "op", "kr", "kt")
+assert len(IMG_CLASSES) == N_TEX_CLASSES
+
+
+def mat_slot_descs(buffers_np, mat_idx: int):
+    """`_mat_slot_descs` (:431): {class: descriptor} of every non-solid
+    texture slot of a material, or None if the kernel cannot evaluate
+    one of them."""
+    mt = int(buffers_np["mat_type"][mat_idx])
+    cls_map = SLOT_CLASSES.get(mt, {})
+    out = {}
+    for slot, ti in enumerate(_mat_tex_indices(buffers_np, mat_idx)):
+        if int(buffers_np["tex_type"][ti]) == T.TEX_SOLID:
+            continue
+        cls = cls_map.get(slot)
+        if cls is None:
+            return None
+        desc = tex_kernel_desc(buffers_np, ti)
+        if desc is None:
+            return None
+        if cls == "op" and desc[0] == "image" \
+                and tuple(desc[2]) != (1.0, 1.0, 1.0):
+            return None  # op applies 1 - v; a scale base has no fold
+        out[cls] = desc
+    return out
+
+
+def mat_solid_only(buffers_np, mat_idx: int) -> bool:
+    return all(int(buffers_np["tex_type"][t]) == T.TEX_SOLID
+               for t in _mat_tex_indices(buffers_np, mat_idx))
+
+
+def kernel_images(buffers_np):
+    """`_kernel_images` (:453): ids of the images the kernel fetches, the
+    background's and every used material slot's, sorted."""
+    used = set()
+    bg = tex_kernel_desc(buffers_np, int(buffers_np["background_texture"]))
+    if bg is not None and bg[0] == "image":
+        used.add(bg[1])
+    for m in set(buffers_np["inst_material"].tolist()):
+        for desc in (mat_slot_descs(buffers_np, int(m)) or {}).values():
+            if desc[0] == "image":
+                used.add(desc[1])
+    return sorted(used)
+
+
 def _emissive(buffers_np, inst: np.ndarray) -> np.ndarray:
     """Per instance id: does it carry an area light."""
     al = buffers_np["inst_area_light"][inst]
     return buffers_np["area_type"][al] != T.AREA_NULL
 
 
+def immediate_tri_mask(buffers_np, config: RenderConfig) -> np.ndarray:
+    """`_immediate_tri_mask` (:573): the triangles that stay immediates
+    in a scene past MAX_TRIS. Emissive ones always do; those whose
+    material reads a texture do while both kinds together fit under
+    MAX_TRIS."""
+    ntri = config.num_triangles
+    inst = buffers_np["tri_inst"][:ntri]
+    em = _emissive(buffers_np, inst)
+    n_mats = buffers_np["mat_type"].shape[0]
+    solid = np.array([mat_solid_only(buffers_np, m) for m in range(n_mats)],
+                     bool)
+    with_tex = em | ~solid[buffers_np["inst_material"][inst]]
+    return with_tex if int(with_tex.sum()) <= MAX_TRIS else em
+
+
 def split_triangles(buffers_np, config: RenderConfig):
     """(immediate ids, world-mesh ids, [(blas id, [instance ids])]) of the
     scene's triangles. Up to MAX_TRIS triangles all stay immediates; past
-    it, the emissive ones do (`_immediate_tri_mask` :573 with no textured
-    material, which the port refuses) and the rest is the mesh, split
+    it, `immediate_tri_mask` picks them and the rest is the mesh, split
     into shared-BLAS instances and the world mesh by `_shared_split`."""
     ntri = config.num_triangles
     if ntri <= MAX_TRIS:
         return np.arange(ntri), np.zeros(0, np.int64), []
-    em = _emissive(buffers_np, buffers_np["tri_inst"][:ntri])
-    rest, shared = accel.shared_split(buffers_np, np.nonzero(~em)[0])
-    return np.nonzero(em)[0], rest, shared
+    imm = immediate_tri_mask(buffers_np, config)
+    rest, shared = accel.shared_split(buffers_np, np.nonzero(~imm)[0])
+    return np.nonzero(imm)[0], rest, shared
+
+
+def mesh_needs_uv(buffers_np, mesh_idx: np.ndarray) -> bool:
+    """`_mesh_needs_uv` (:591): some mesh triangle's material reads a
+    texture, so the mesh carries uv rows."""
+    mats = set(buffers_np["inst_material"][
+        buffers_np["tri_inst"][mesh_idx]].tolist())
+    return not all(mat_solid_only(buffers_np, int(m)) for m in mats)
 
 
 def split_spheres(buffers_np, config: RenderConfig):
     """(immediate ids, table ids) of the scene's spheres: past MAX_SPHERES,
     the non-emissive uniform-scale ones go to the sphere table
-    (`_pack_sphere_table` :1203). The JAX package names two tests for
-    "solid material" here (`_mat_solid_only` in `pallas_eligible`, no
-    `texs` in `_pack_sphere_table`); the port refuses every non-solid
-    material, so both hold for every sphere it packs."""
+    (`_pack_sphere_table` :1203) when every texture slot of their
+    material is solid. The JAX package names two tests for "solid
+    material" here (`_mat_solid_only` in `pallas_eligible`, no `texs` in
+    `_pack_sphere_table`); they agree on every scene `slice_supported`
+    takes, and the port uses the first."""
     ns = config.num_spheres
     if ns <= MAX_SPHERES:
         return np.arange(ns), np.zeros(0, np.int64)
     em = _emissive(buffers_np, buffers_np["sph_inst"][:ns])
+    mats = buffers_np["inst_material"][buffers_np["sph_inst"][:ns]]
     tbl = np.array([not em[s] and accel.sphere_uniform(
-        buffers_np["sph_o2w"][s])[0] for s in range(ns)], bool)
+        buffers_np["sph_o2w"][s])[0] and mat_solid_only(
+            buffers_np, int(mats[s])) for s in range(ns)], bool)
     return np.nonzero(~tbl)[0], np.nonzero(tbl)[0]
 
 
 def slice_supported(buffers_np, config: RenderConfig) -> None:
     """Raise NotImplementedError for a scene outside what the port
-    carries (slices K1a, K1c, K1d), naming the ROADMAP item that will
-    carry it. The caps are `pallas_eligible`'s (:504-570)."""
+    carries (slices K1a, K1b, K1c, K1d), naming the ROADMAP item that
+    will carry it, or that the reference's kernel does not take it
+    either. The tests are `pallas_eligible`'s (:504-570) without its
+    VMEM texel caps."""
     def no(what, item):
         raise NotImplementedError(
             f"{what} is not in the port yet (ROADMAP Queue 2 {item})")
+
+    def never(what):
+        raise NotImplementedError(
+            f"{what}: the path kernels do not evaluate it (the reference "
+            f"renders it through its XLA integrator, ROADMAP Queue 1 "
+            f"item 4)")
 
     if config.integrator != "path":
         no(f"integrator {config.integrator!r}", "K1e (volpath body)")
@@ -149,14 +315,20 @@ def slice_supported(buffers_np, config: RenderConfig) -> None:
         no("participating media", "K1e (volpath body)")
     if getattr(config, "sampler", "independent") == "sobol":
         no("the Sobol sampler", "K1a-sobol (Queue 1: Sobol)")
-    if int(buffers_np["tex_type"][int(buffers_np["background_texture"])]) \
-            != T.TEX_SOLID:
-        no("a textured background", "K1b (textures and background)")
+    if tex_kernel_desc(buffers_np,
+                       int(buffers_np["background_texture"])) is None:
+        never("a background texture that is no solid, imagemap, scale of "
+              "those or checker of solids (K1b)")
     for m in sorted(set(buffers_np["inst_material"].tolist())):
-        for ti in _mat_tex_indices(buffers_np, int(m)):
-            if int(buffers_np["tex_type"][ti]) != T.TEX_SOLID:
-                no(f"material {m} with a non-solid texture slot",
-                   "K1b (textures and background)")
+        if mat_slot_descs(buffers_np, int(m)) is None:
+            never(f"material {m} with a texture slot outside K1b's "
+                  f"classes (a checker of imagemaps, a metal eta or k "
+                  f"texture, a scaled opacity map)")
+    texels = sum(int(buffers_np["img_width"][i])
+                 * int(buffers_np["img_height"][i])
+                 for i in kernel_images(buffers_np))
+    if texels > MAX_ATLAS_TEXELS:
+        never(f"an image atlas of {texels} texels (> {MAX_ATLAS_TEXELS})")
     imm, rest, _ = split_triangles(buffers_np, config)
     if imm.size > MAX_TRIS:
         no(f"{imm.size} emissive triangles (> {MAX_TRIS})",
@@ -166,8 +338,8 @@ def slice_supported(buffers_np, config: RenderConfig) -> None:
            "K1c (big-mesh closest/any hit)")
     imm_s, tbl_s = split_spheres(buffers_np, config)
     if imm_s.size > MAX_SPHERES:
-        no(f"{imm_s.size} emissive or non-uniformly scaled spheres "
-           f"(> {MAX_SPHERES})", "K1d (sphere and light tables)")
+        no(f"{imm_s.size} emissive, textured or non-uniformly scaled "
+           f"spheres (> {MAX_SPHERES})", "K1d (sphere and light tables)")
     if tbl_s.size > SPH_TABLE_MAX:
         no(f"{tbl_s.size} table spheres (> {SPH_TABLE_MAX})",
            "K1d (sphere and light tables)")
@@ -185,59 +357,114 @@ def _remap_rough(r: float) -> float:
 
 
 def mat_record(buffers_np, mat_idx: int) -> dict:
-    """`_mat_record` (pallas_path.py:616) for a material whose texture
-    slots are all solid: plain python floats."""
+    """`_mat_record` (pallas_path.py:616): a material row and its
+    textures as plain python floats plus per-hit descriptors.
+    `rec["texs"]` maps a slot class (IMG_CLASSES) to ("checker", us, vs,
+    rgb_even, rgb_odd) or ("image", img_idx, base_rgb); the plain field
+    of that class then holds the base the fetched value multiplies
+    (image) or a placeholder the per-hit value replaces (checker).
+    `rec["rrm"]`: an imagemap roughness is remapped per hit."""
     mt = int(buffers_np["mat_type"][mat_idx])
     u0 = buffers_np["mat_u0"][mat_idx]
     u1 = buffers_np["mat_u1"][mat_idx]
     v0 = buffers_np["mat_v0"][mat_idx]
+    descs = mat_slot_descs(buffers_np, mat_idx) or {}
+    texs = {}
 
     def tex_rgb(ti):
         return tuple(float(x) for x in buffers_np["tex_v0"][int(ti), :3])
 
-    def rough(ti, remap):
-        r = tex_rgb(ti)[0]
-        return _remap_rough(r) if remap else r
-
     rec = {"mat_type": mt, "albedo": (0.0, 0.0, 0.0),
            "eta": (1.0, 1.0, 1.0), "k": (0.0, 0.0, 0.0),
-           "alpha": (0.0, 0.0), "ir": 1.5,
+           "alpha": (0.0, 0.0), "ir": 1.5, "texs": texs, "rrm": 0,
            "op": (0.0, 0.0, 0.0), "kr2": (0.0, 0.0, 0.0),
            "kt2": (0.0, 0.0, 0.0), "fscale": (1.0, 1.0, 1.0)}
+
+    def slot_rgb(ti, cls):
+        d = descs.get(cls)
+        if d is None:
+            return tex_rgb(ti)
+        texs[cls] = d
+        return d[3] if d[0] == "checker" else d[2]
+
+    def slot_rough(ti, cls, remap):
+        # checker values are remapped here; an image's remap waits for
+        # the hit (rec["rrm"])
+        d = descs.get(cls)
+        if d is None:
+            r = tex_rgb(ti)[0]
+            return _remap_rough(r) if remap else r
+        if d[0] == "checker":
+            if remap:
+                d = (d[0], d[1], d[2], (_remap_rough(d[3][0]),) * 3,
+                     (_remap_rough(d[4][0]),) * 3)
+            texs[cls] = d
+            return d[3][0]
+        texs[cls] = d
+        if remap:
+            rec["rrm"] = 1
+        return float(d[2][0])
+
     if mt in (T.MAT_MATTE, T.MAT_MIRROR):
-        rec["albedo"] = tex_rgb(u0[0])
+        rec["albedo"] = slot_rgb(u0[0], "kd")
     elif mt == T.MAT_GLASS:
         rec["ir"] = float(v0[0])
     elif mt == T.MAT_SUBSTRATE:
-        rec["albedo"] = tex_rgb(u0[0])
-        rec["k"] = tex_rgb(u0[1])
+        rec["albedo"] = slot_rgb(u0[0], "kd")
+        rec["k"] = slot_rgb(u0[1], "ks")
         remap = bool(int(u1[0]))
-        rec["alpha"] = (rough(u0[2], remap), rough(u0[3], remap))
+        rec["alpha"] = (slot_rough(u0[2], "ru", remap),
+                        slot_rough(u0[3], "rv", remap))
     elif mt == T.MAT_METAL:
         rec["eta"] = tex_rgb(u0[0])
         rec["k"] = tex_rgb(u0[1])
         rec["fscale"] = tuple(1.0 if float(v) == 0.0 else float(v)
                               for v in v0[:3])
         remap = bool(int(u1[0]))
-        rec["alpha"] = (rough(u0[2], remap), rough(u0[3], remap))
+        rec["alpha"] = (slot_rough(u0[2], "ru", remap),
+                        slot_rough(u0[3], "rv", remap))
         rec["albedo"] = rec["k"]
     elif mt == T.MAT_PLASTIC:
-        rec["albedo"] = tex_rgb(u0[0])
-        rec["k"] = tex_rgb(u0[1])
+        rec["albedo"] = slot_rgb(u0[0], "kd")
+        rec["k"] = slot_rgb(u0[1], "ks")
+        if "rp" in descs:
+            descs["ru"] = descs["rv"] = descs["rp"]
         remap = bool(int(u1[2]))
-        rec["alpha"] = (rough(u0[3], remap), rough(u0[3], remap))
+        rec["alpha"] = (slot_rough(u0[3], "ru", remap),
+                        slot_rough(u0[3], "rv", remap))
     elif mt == T.MAT_UBER:
-        rec["albedo"] = tex_rgb(u0[0])
-        rec["k"] = tex_rgb(u0[1])
-        kr = tex_rgb(u0[2])
-        kt = tex_rgb(u0[3])
-        op = tex_rgb(u1[0])
-        rec["op"] = tuple(1.0 - c for c in op)
-        rec["kr2"] = tuple(op[i] * kr[i] for i in range(3))
-        rec["kt2"] = tuple(op[i] * kt[i] for i in range(3))
+        rec["albedo"] = slot_rgb(u0[0], "kd")
+        rec["k"] = slot_rgb(u0[1], "ks")
+        kr = slot_rgb(u0[2], "kr")
+        kt = slot_rgb(u0[3], "kt")
+        op_desc = descs.get("op")
+        if op_desc is None:
+            op = tex_rgb(u1[0])
+            rec["op"] = tuple(1.0 - c for c in op)
+            rec["kr2"] = tuple(op[i] * kr[i] for i in range(3))
+            rec["kt2"] = tuple(op[i] * kt[i] for i in range(3))
+            # a solid opacity folds into textured Kr / Kt
+            for cls in ("kr", "kt"):
+                d = texs.get(cls)
+                if d is None:
+                    continue
+                if d[0] == "checker":
+                    texs[cls] = (d[0], d[1], d[2],
+                                 tuple(op[i] * d[3][i] for i in range(3)),
+                                 tuple(op[i] * d[4][i] for i in range(3)))
+                else:
+                    texs[cls] = (d[0], d[1],
+                                 tuple(op[i] * d[2][i] for i in range(3)))
+        else:
+            # textured opacity: kr2 / kt2 hold the products without it;
+            # the per-hit value multiplies them and sets op = 1 - v
+            texs["op"] = op_desc
+            rec["kr2"] = tuple(kr)
+            rec["kt2"] = tuple(kt)
         rec["ir"] = float(v0[0])
         remap = bool(int(u1[1]))
-        rec["alpha"] = (rough(u1[2], remap), rough(u1[3], remap))
+        rec["alpha"] = (slot_rough(u1[2], "ru", remap),
+                        slot_rough(u1[3], "rv", remap))
     return rec
 
 
@@ -276,6 +503,9 @@ def pack_records(buffers_np, config: RenderConfig, tri_ids=None,
             "emissive": int(buffers_np["area_type"][al]) != T.AREA_NULL,
             "emit": tuple(float(x) for x in buffers_np["area_color"][al]),
             "v0": tuple(v0), "v1": tuple(v1), "v2": tuple(v2),
+            "uv0": tuple(float(x) for x in buffers_np["tri_uv"][i][0]),
+            "uv1": tuple(float(x) for x in buffers_np["tri_uv"][i][1]),
+            "uv2": tuple(float(x) for x in buffers_np["tri_uv"][i][2]),
             "mat_id": int(buffers_np["inst_material"][inst]),
         }
         rec.update(mat_record(buffers_np, rec["mat_id"]))
@@ -312,11 +542,74 @@ def pack_records(buffers_np, config: RenderConfig, tri_ids=None,
     return tris, spheres, emit_objects, lights
 
 
-def _background(buffers_np) -> tuple:
-    """Solid miss radiance: texture rgb x background_color (:1552)."""
-    rgb = buffers_np["tex_v0"][int(buffers_np["background_texture"]), :3]
-    bg = buffers_np["background_color"]
-    return tuple(float(rgb[i]) * float(bg[i]) for i in range(3))
+def _background(buffers_np, offsets) -> dict:
+    """The miss radiance as `pack_scene` splits it (:1538-1553): `color`
+    the constant (background_color x a solid texture or an image's scale
+    base), `kind` BG_CONST / BG_IMAGE / BG_CHECKER with the image's
+    (texel offset, w, h) or the checker's (us, vs, even rgb, odd rgb).
+    `offsets` maps an image id to its first texel of the atlas."""
+    desc = tex_kernel_desc(buffers_np, int(buffers_np["background_texture"]))
+    color = tuple(float(x) for x in buffers_np["background_color"])
+    out = {"kind": BG_CONST, "img": (0, 0, 0), "chk": (0.0,) * 8}
+    if desc[0] == "image":
+        ii, base = desc[1], desc[2]
+        out.update(kind=BG_IMAGE, img=(
+            offsets[ii], int(buffers_np["img_width"][ii]),
+            int(buffers_np["img_height"][ii])))
+        color = tuple(color[i] * base[i] for i in range(3))
+    elif desc[0] == "checker":
+        out.update(kind=BG_CHECKER,
+                   chk=(desc[1], desc[2], *desc[3], *desc[4]))
+    else:
+        color = tuple(float(desc[1][i] * color[i]) for i in range(3))
+    out["color"] = color
+    return out
+
+
+def pack_atlas(buffers_np):
+    """(atlas, offsets): the images the kernel fetches, back to back as
+    RGB9E5 words (uint32, at least one word), and each image id's first
+    texel. scene/device.py has put the texels on the RGB9E5 grid, so the
+    encoding loses nothing."""
+    from ..ops.rgb9e5 import encode
+    parts, offsets, n = [], {}, 0
+    for ii in kernel_images(buffers_np):
+        cnt = int(buffers_np["img_width"][ii]) \
+            * int(buffers_np["img_height"][ii])
+        off = int(buffers_np["img_offset"][ii])
+        offsets[ii] = n
+        parts.append(encode(buffers_np["img_atlas"][off:off + cnt, :3]))
+        n += cnt
+    atlas = np.concatenate(parts) if parts else np.zeros(1, np.uint32)
+    return np.ascontiguousarray(atlas, dtype=np.uint32), offsets
+
+
+def mat_row(rec: dict, offsets, buffers_np) -> np.ndarray:
+    """A material record as its MAT_W-wide table row (float64)."""
+    row = np.zeros(MAT_W, np.float64)
+    row[MAT_TYPE] = rec["mat_type"]
+    for key, off in (("albedo", MAT_ALBEDO), ("eta", MAT_ETA), ("k", MAT_K),
+                     ("op", MAT_OP), ("kr2", MAT_KR2), ("kt2", MAT_KT2),
+                     ("fscale", MAT_FSCALE)):
+        row[off:off + 3] = rec[key]
+    row[MAT_ALPHA:MAT_ALPHA + 2] = rec["alpha"]
+    row[MAT_IR] = rec["ir"]
+    row[MAT_NTEX] = len(rec["texs"])
+    row[MAT_RRM] = rec["rrm"]
+    for cls, d in rec["texs"].items():
+        o = MAT_TEX + IMG_CLASSES.index(cls) * TEXD_W
+        if d[0] == "checker":
+            row[o + TEXD_KIND] = TEXK_CHECKER
+            row[o + TEXD_US], row[o + TEXD_VS] = d[1], d[2]
+            row[o + TEXD_EVEN:o + TEXD_EVEN + 3] = d[3]
+            row[o + TEXD_ODD:o + TEXD_ODD + 3] = d[4]
+        else:
+            ii = d[1]
+            row[o + TEXD_KIND] = TEXK_IMAGE
+            row[o + TEXD_OFF] = offsets[ii]
+            row[o + TEXD_IW] = int(buffers_np["img_width"][ii])
+            row[o + TEXD_IH] = int(buffers_np["img_height"][ii])
+    return row
 
 
 def max_depth_for(config: RenderConfig) -> int:
@@ -345,12 +638,31 @@ class SceneTables:
     insts: np.ndarray        # (I, INST_W) shared-BLAS instances
     sph_tab: np.ndarray      # (B * SPH_BLOCK, SPHT_W) table spheres
     sph_box: np.ndarray      # (B, BOX_W) their 128-slot block boxes
+    mesh_uv: np.ndarray      # (P, MESH_UV_W) uv of the mesh rows, or (0, 6)
+    atlas: np.ndarray        # uint32 RGB9E5 texels, the images back to back
+    env_mcdf: np.ndarray     # (ENV_GH,) env-map sampling tables, or empty
+    env_ccdf: np.ndarray     # (ENV_GH, ENV_GW)
+    env_pdf: np.ndarray      # (ENV_GH, ENV_GW)
     width: int
     height: int
     max_depth: int
     world_root: int          # root node of the world mesh, -1 if none
     bvh_depth: int           # deepest root-to-leaf path of any BVH
     max_leaf: int            # most triangles in one BVH leaf
+
+    @property
+    def has_tex(self) -> bool:
+        """Some material has a textured slot: hits need their uv."""
+        return bool((self.mats[:, MAT_NTEX] > 0).any())
+
+    @property
+    def bg_kind(self) -> int:
+        return int(self.cam[CAM_BG_KIND])
+
+    @property
+    def has_env(self) -> bool:
+        """The env map is one of the light-sampling strategies."""
+        return bool(self.env_mcdf.shape[0])
 
     @property
     def use_rr(self) -> bool:
@@ -377,24 +689,21 @@ class SceneTables:
 def pack_tables(buffers_np, config: RenderConfig) -> SceneTables:
     slice_supported(buffers_np, config)
     imm, rest, shared = split_triangles(buffers_np, config)
+    # the triangles that leave the immediates, as `_mesh_needs_uv` sees
+    # them
+    mesh_idx = np.setdiff1d(np.arange(config.num_triangles), imm)
     imm_s, tbl_s = split_spheres(buffers_np, config)
     tris, spheres, emit_objects, lights = pack_records(buffers_np, config,
                                                        imm, imm_s)
     n_mats = buffers_np["mat_type"].shape[0]
-
-    mats = np.zeros((n_mats, MAT_W), np.float64)
-    for m in range(n_mats):
-        r = mat_record(buffers_np, m)
-        mats[m, MAT_TYPE] = r["mat_type"]
-        mats[m, MAT_ALBEDO:MAT_ALBEDO + 3] = r["albedo"]
-        mats[m, MAT_ETA:MAT_ETA + 3] = r["eta"]
-        mats[m, MAT_K:MAT_K + 3] = r["k"]
-        mats[m, MAT_ALPHA:MAT_ALPHA + 2] = r["alpha"]
-        mats[m, MAT_IR] = r["ir"]
-        mats[m, MAT_OP:MAT_OP + 3] = r["op"]
-        mats[m, MAT_KR2:MAT_KR2 + 3] = r["kr2"]
-        mats[m, MAT_KT2:MAT_KT2 + 3] = r["kt2"]
-        mats[m, MAT_FSCALE:MAT_FSCALE + 3] = r["fscale"]
+    atlas, offsets = pack_atlas(buffers_np)
+    used = set(buffers_np["inst_material"].tolist())
+    # a material no instance uses may hold a slot the kernel cannot
+    # evaluate: it gets its plain fields and no descriptors
+    recs = [mat_record(buffers_np, m) for m in range(n_mats)]
+    mats = np.stack([mat_row(r if m in used else dict(r, texs={}, rrm=0),
+                             offsets, buffers_np)
+                     for m, r in enumerate(recs)])
 
     tt = np.zeros((len(tris), TRI_W), np.float64)
     for i, r in enumerate(tris):
@@ -404,6 +713,9 @@ def pack_tables(buffers_np, config: RenderConfig) -> SceneTables:
                          ("n2", TRI_N2), ("gn_unit", TRI_GN),
                          ("v0", TRI_V0), ("v1", TRI_V1), ("v2", TRI_V2)):
             tt[i, off:off + 3] = r[key]
+        for key, off in (("uv0", TRI_UV0), ("uv1", TRI_UV1),
+                         ("uv2", TRI_UV2)):
+            tt[i, off:off + 2] = r[key]
         tt[i, TRI_PK] = r["pk"]
         tt[i, TRI_AREA] = r["area"]
         tt[i, TRI_PRIMS] = r["prim_count"]
@@ -469,7 +781,17 @@ def pack_tables(buffers_np, config: RenderConfig) -> SceneTables:
     cam[CAM_INV_W1] = 1.0 / max(w - 1, 1)
     cam[CAM_INV_H1] = 1.0 / max(h - 1, 1)
     cam[CAM_FILTER] = float(getattr(config, "filter_radius", 0.0))
-    cam[CAM_BG:CAM_BG + 3] = _background(buffers_np)
+    bg = _background(buffers_np, offsets)
+    cam[CAM_BG:CAM_BG + 3] = bg["color"]
+    cam[CAM_BG_KIND] = bg["kind"]
+    cam[CAM_BG_IMG:CAM_BG_IMG + 3] = bg["img"]
+    cam[CAM_BG_CHK:CAM_BG_CHK + 8] = bg["chk"]
+    cam[CAM_BG_MAT:CAM_BG_MAT + 9] = np.asarray(
+        buffers_np["background_matrix"], np.float64)[:3, :3].reshape(-1)
+    cam[CAM_BG_INV:CAM_BG_INV + 9] = np.asarray(
+        buffers_np["background_matrix_inv"], np.float64)[:3, :3].reshape(-1)
+    env = bool(getattr(config, "env_nee", False)) and bg["kind"] == BG_IMAGE
+    assert not env or buffers_np["env_ccdf"].shape == (ENV_GH, ENV_GW)
 
     def f32(a):
         return np.ascontiguousarray(a, dtype=np.float32)
@@ -481,6 +803,12 @@ def pack_tables(buffers_np, config: RenderConfig) -> SceneTables:
                              np.int32),
         emit_spheres=np.asarray(
             [s for s, r in enumerate(spheres) if r["emissive"]], np.int32),
-        lights=f32(lt), light_dots=f32(dots), cam=f32(cam),
+        lights=f32(lt), light_dots=f32(dots), cam=f32(cam), atlas=atlas,
+        env_mcdf=f32(buffers_np["env_mcdf"] if env else np.zeros(0)),
+        env_ccdf=f32(buffers_np["env_ccdf"] if env
+                     else np.zeros((0, ENV_GW))),
+        env_pdf=f32(buffers_np["env_pdf"] if env else np.zeros((0, ENV_GW))),
         width=w, height=h, max_depth=max_depth_for(config),
-        **accel.pack_accel(buffers_np, rest, shared, tbl_s))
+        **accel.pack_accel(buffers_np, rest, shared, tbl_s,
+                           needs_uv=bool(rest.size or shared)
+                           and mesh_needs_uv(buffers_np, mesh_idx)))

@@ -36,6 +36,31 @@ lights), for the mesh variant of the kernel:
   light, at `maxdepth 17` and 1280x720 by default. At `maxdepth 50`
   it is a deep scene by the reference's rule for its wave engine (more
   than 512 triangles, maxdepth >= 32: rene_tpu/render.py:33).
+
+Textured scenes (slice K1b). Each takes a directory first, writes its
+images there as PFM files made with numpy from a seed, and returns pbrt
+text that names them, to be loaded with that directory as its base:
+
+* `textured_scene(dir, w, h, background)`: immediates only. A matte floor
+  with an imagemap Kd, a substrate wall with imagemap Kd, Ks and
+  roughness (`remaproughness`), a plastic sphere with imagemap Kd and Ks
+  (the reference's kernel refuses a textured plastic roughness), an uber
+  quad with an imagemap opacity and a checker Kr, a matte sphere whose Kd
+  is a `scale` of an imagemap and a colour, a sphere with a checker Kd
+  (spherical uv), an emissive quad and a distant light; the background a
+  colour ("solid"), a checker, an env image ("image") or a `scale` of an
+  env image ("scale");
+* `env_scene(dir, w, h, emitter)`: an `infinite` light with a `mapname`
+  whose dim map holds a small hot window, over a matte sphere and floor,
+  without emitters or with an emissive quad: the two forms of the
+  env-map light sampling;
+* `textured_mesh_scene(dir, w, h, maxdepth)`: the textured main path, at
+  the size of `big_mesh_scene`: its vase with uv from its own
+  parametrisation and a 2048 x 2048 Kd imagemap, a checker floor, the
+  eight instanced spheres sharing a substrate with 1024 x 1024 Kd and
+  roughness imagemaps, a sphere of uber with an opacity imagemap, the
+  emissive quad, and a 2048 x 1024 HDR env map with a sun a few texels
+  wide. `small=True` cuts the meshes and images to test size.
 """
 from __future__ import annotations
 
@@ -50,9 +75,9 @@ def _quad(p):
             f'"point P" [{pts}]')
 
 
-def _mesh(p, idx, n=None):
+def _mesh(p, idx, n=None, uv=None):
     """A trianglemesh shape from (V, 3) points, flat indices and optional
-    (V, 3) normals."""
+    (V, 3) normals and (V, 2) uv."""
     def nums(a):
         return " ".join(f"{v:.5f}" for v in np.asarray(a).reshape(-1))
     text = ('Shape "trianglemesh" "integer indices" ['
@@ -60,6 +85,8 @@ def _mesh(p, idx, n=None):
             + f'] "point P" [{nums(p)}]')
     if n is not None:
         text += f' "normal N" [{nums(n)}]'
+    if uv is not None:
+        text += f' "float uv" [{nums(uv)}]'
     return text
 
 
@@ -351,11 +378,15 @@ WorldEnd
 """
 
 
-def _vase(n: int = 256):
+def _vase(n: int = 256, with_uv: bool = False):
     """A surface of revolution about +z on an n x n quad grid (2 n^2
-    triangles; the seam wraps), with analytic per-vertex normals."""
+    triangles; the seam wraps), with analytic per-vertex normals. With
+    `with_uv` the seam's column of vertices is doubled, so that (u, v) =
+    (angle / 2 pi, height) runs 0..1 once around, and the uv come as a
+    fourth value."""
     v = np.linspace(0.0, 1.0, n + 1)
-    u = 2.0 * np.pi * np.arange(n) / n
+    m = n + 1 if with_uv else n     # vertices per ring
+    u = 2.0 * np.pi * np.arange(m) / n
     rad = 0.35 + 0.45 * np.sin(np.pi * (0.15 + 0.85 * v)) ** 2 \
         + 0.03 * np.sin(9.0 * np.pi * v)
     drad = (0.45 * 2.0 * np.sin(np.pi * (0.15 + 0.85 * v))
@@ -371,11 +402,15 @@ def _vase(n: int = 256):
                     -drad[:, None] + 0.0 * cu], -1).reshape(-1, 3)
     nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
     j, i = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
-    a = j * n + i
-    b = j * n + (i + 1) % n
-    c, d = b + n, a + n
+    a = j * m + i
+    b = j * m + (i + 1) % m
+    c, d = b + m, a + m
     idx = np.stack([a, b, c, a, c, d], -1).reshape(-1)
-    return p, idx, nrm
+    if not with_uv:
+        return p, idx, nrm
+    uv = np.stack([np.arange(m)[None, :] / n + 0.0 * v[:, None],
+                   v[:, None] + 0.0 * u[None, :]], -1).reshape(-1, 2)
+    return p, idx, nrm, uv
 
 
 def big_mesh_scene(width: int = 1280, height: int = 720,
@@ -423,3 +458,265 @@ AttributeBegin
 AttributeEnd
 WorldEnd
 """
+
+
+# -- textured scenes (K1b) ----------------------------------------------------
+def _image(rng, h, w, lo=0.05, hi=0.9, cell=4, mono=False):
+    """An (h, w, 3) float32 image: seeded random cells of `cell` texels
+    with a finer random grain, in [lo, hi]."""
+    ch = 1 if mono else 3
+    coarse = rng.uniform(lo, hi, (-(-h // cell), -(-w // cell), ch))
+    img = np.kron(coarse, np.ones((cell, cell, 1)))[:h, :w]
+    img = img * rng.uniform(0.85, 1.0, (h, w, ch))
+    return np.broadcast_to(img, (h, w, 3)).astype(np.float32)
+
+
+def _save(directory, name, img):
+    import os
+
+    from .scene.assets.images import save_pfm
+    save_pfm(os.path.join(str(directory), name), img)
+
+
+def _env_image(rng, h, w, sun=(0.22, 0.3), sun_px=3, sun_rgb=(900, 800, 600)):
+    """A dim sky with a gradient and a sun of `sun_px` x `sun_px` texels at
+    the fractional (row, column) `sun`."""
+    rows = np.linspace(0.35, 0.08, h)[:, None, None]
+    img = rows * np.array([0.7, 0.85, 1.0]) * rng.uniform(0.9, 1.0, (h, w, 1))
+    r0, c0 = int(sun[0] * h), int(sun[1] * w)
+    img[r0:r0 + sun_px, c0:c0 + sun_px] = sun_rgb
+    return img.astype(np.float32)
+
+
+BACKGROUNDS = ("solid", "checker", "image", "scale")
+
+
+def _background(directory, kind, rng):
+    if kind == "solid":
+        return 'LightSource "infinite" "rgb L" [ .3 .33 .4 ]'
+    if kind == "checker":
+        return ('Texture "sky" "spectrum" "checkerboard" "float uscale" [ 8 ] '
+                '"float vscale" [ 4 ] "rgb tex1" [ .7 .6 .3 ] '
+                '"rgb tex2" [ .1 .2 .5 ]\n'
+                'LightSource "infinite" "texture L" [ "sky" ]')
+    if kind not in BACKGROUNDS:
+        raise ValueError(f"background {kind!r}: one of {BACKGROUNDS}")
+    _save(directory, "t_env.pfm", _env_image(rng, 16, 32, sun_px=2,
+                                           sun_rgb=(20, 16, 10)))
+    if kind == "image":
+        return ('LightSource "infinite" "rgb L" [ 1 .9 .8 ] '
+                '"string mapname" "t_env.pfm"')
+    return ('Texture "envmap" "spectrum" "imagemap" "string filename" '
+            '"t_env.pfm"\n'
+            'Texture "sky" "spectrum" "scale" "texture tex1" "envmap" '
+            '"rgb tex2" [ .8 .7 1.1 ]\n'
+            'LightSource "infinite" "texture L" [ "sky" ]')
+
+
+def _uv_quad(p):
+    return _quad(p) + ' "float uv" [ 0 0  1 0  1 1  0 1 ]'
+
+
+def textured_scene(directory, width: int = 128, height: int = 64,
+                   background: str = "solid", seed: int = 5) -> str:
+    rng = np.random.default_rng(seed)
+    for name, (h, w), kw in (
+            ("t_floor.pfm", (16, 32), {}), ("t_wall_kd.pfm", (8, 16), {}),
+            ("t_wall_ks.pfm", (8, 8), {"lo": 0.05, "hi": 0.4}),
+            ("t_ball_kd.pfm", (16, 16), {}),
+            ("t_ball_ks.pfm", (8, 8), {"lo": 0.1, "hi": 0.5}),
+            ("t_rough.pfm", (8, 8), {"lo": 0.02, "hi": 0.6, "mono": True,
+                                   "cell": 2}),
+            ("t_opacity.pfm", (8, 8), {"lo": 0.2, "hi": 1.0, "mono": True,
+                                     "cell": 2}),
+            ("t_scaled.pfm", (8, 16), {})):
+        _save(directory, name, _image(rng, h, w, **kw))
+    return f"""
+LookAt 0 -7 2.6  0 0 0.7  0 0 1
+Camera "perspective" "float fov" [ 44 ]
+Film "image" "integer xresolution" [ {width} ]
+  "integer yresolution" [ {height} ] "string filename" "textured.png"
+Integrator "path" "integer maxdepth" [ 8 ]
+WorldBegin
+{_background(directory, background, rng)}
+LightSource "distant" "point from" [ -2 -3 5 ] "point to" [ 0 0 0 ]
+  "rgb L" [ 1.2 1.1 1.0 ]
+Texture "floor" "spectrum" "imagemap" "string filename" "t_floor.pfm"
+Texture "wall_kd" "spectrum" "imagemap" "string filename" "t_wall_kd.pfm"
+Texture "wall_ks" "spectrum" "imagemap" "string filename" "t_wall_ks.pfm"
+Texture "ball_kd" "spectrum" "imagemap" "string filename" "t_ball_kd.pfm"
+Texture "ball_ks" "spectrum" "imagemap" "string filename" "t_ball_ks.pfm"
+Texture "rough" "float" "imagemap" "string filename" "t_rough.pfm"
+Texture "opacity" "spectrum" "imagemap" "string filename" "t_opacity.pfm"
+Texture "img" "spectrum" "imagemap" "string filename" "t_scaled.pfm"
+Texture "scaled" "spectrum" "scale" "texture tex1" "img"
+  "rgb tex2" [ .9 .5 .4 ]
+Texture "krcheck" "spectrum" "checkerboard" "float uscale" [ 4 ]
+  "float vscale" [ 4 ] "rgb tex1" [ .5 .5 .5 ] "rgb tex2" [ .05 .05 .05 ]
+Texture "kdcheck" "spectrum" "checkerboard" "float uscale" [ 8 ]
+  "float vscale" [ 6 ] "rgb tex1" [ .1 .1 .1 ] "rgb tex2" [ .7 .6 .2 ]
+Material "matte" "texture Kd" "floor"
+{_uv_quad([[-6, -6, 0], [6, -6, 0], [6, 6, 0], [-6, 6, 0]])}
+Material "substrate" "texture Kd" "wall_kd" "texture Ks" "wall_ks"
+  "texture uroughness" "rough" "texture vroughness" "rough"
+  "bool remaproughness" [ "true" ]
+{_uv_quad([[-6, 3.5, 0], [6, 3.5, 0], [6, 3.5, 5], [-6, 3.5, 5]])}
+AttributeBegin
+  Translate -2.6 0.2 0.8
+  Material "plastic" "texture Kd" "ball_kd" "texture Ks" "ball_ks"
+    "float roughness" [ .15 ] "bool remaproughness" [ "false" ]
+  Shape "sphere" "float radius" [ 0.8 ]
+AttributeEnd
+AttributeBegin
+  Material "uber" "rgb Kd" [ .35 .3 .2 ] "rgb Ks" [ .15 .15 .15 ]
+    "texture Kr" "krcheck" "rgb Kt" [ .2 .2 .2 ]
+    "texture opacity" "opacity" "float roughness" [ .2 ]
+    "bool remaproughness" [ "false" ]
+  {_uv_quad([[-1.2, -0.6, 0.05], [0.4, -0.6, 0.05], [0.4, 0.2, 1.9],
+             [-1.2, 0.2, 1.9]])}
+AttributeEnd
+AttributeBegin
+  Translate 1.3 0.6 0.7
+  Material "matte" "texture Kd" "scaled"
+  Shape "sphere" "float radius" [ 0.7 ]
+AttributeEnd
+AttributeBegin
+  Translate 3.0 -0.3 0.6
+  Rotate 35 0 1 0
+  Material "matte" "texture Kd" "kdcheck"
+  Shape "sphere" "float radius" [ 0.6 ]
+AttributeEnd
+AttributeBegin
+  Material "matte" "rgb Kd" [ 0 0 0 ]
+  AreaLightSource "diffuse" "rgb L" [ 6 6 7 ]
+  {_quad([[-1.0, 1.0, 4.0], [1.0, 1.0, 4.0], [1.0, -0.5, 4.0],
+          [-1.0, -0.5, 4.0]])}
+AttributeEnd
+WorldEnd
+"""
+
+
+def env_scene(directory, width: int = 24, height: int = 16,
+              emitter: bool = False, seed: int = 6) -> str:
+    rng = np.random.default_rng(seed)
+    rgb = np.full((16, 32, 3), 0.3) * rng.uniform(0.9, 1.0, (16, 32, 1))
+    rgb[2:4, 4:7] = [25.0, 12.0, 5.0]
+    _save(directory, "e_env.pfm", rgb.astype(np.float32))
+    quad = f"""AttributeBegin
+  AreaLightSource "diffuse" "rgb L" [ 8 7 6 ]
+  {_quad([[-0.6, 2.2, -0.6], [0.6, 2.2, -0.6], [0.6, 2.2, 0.6],
+          [-0.6, 2.2, 0.6]])}
+AttributeEnd""" if emitter else ""
+    return f"""
+Integrator "path" "integer maxdepth" [ 5 ]
+LookAt 0 1.2 -3.2  0 0.6 0  0 1 0
+Camera "perspective" "float fov" [ 45 ]
+Film "image" "integer xresolution" [ {width} ]
+  "integer yresolution" [ {height} ] "string filename" "env.png"
+WorldBegin
+LightSource "infinite" "string mapname" [ "e_env.pfm" ]
+{quad}
+Material "matte" "rgb Kd" [ .6 .5 .4 ]
+AttributeBegin
+  Translate 0 0.6 0
+  Shape "sphere" "float radius" [ 0.6 ]
+AttributeEnd
+Material "matte" "rgb Kd" [ .5 .5 .5 ]
+{_quad([[-6, 0, -6], [6, 0, -6], [6, 0, 6], [-6, 0, 6]])}
+WorldEnd
+"""
+
+
+def textured_mesh_scene(directory, width: int = 1280, height: int = 720,
+                        maxdepth: int = 17, small: bool = False,
+                        seed: int = 7) -> str:
+    rng = np.random.default_rng(seed)
+    n_vase, (nu, nv) = (24, (20, 16)) if small else (256, (64, 33))
+    k = 32 if small else 1          # the images' cut
+    for name, (h, w), kw in (
+            ("m_vase_kd.pfm", (2048 // k, 2048 // k), {"cell": 64 // k}),
+            ("m_ball_kd.pfm", (1024 // k, 1024 // k), {"cell": 32 // k}),
+            ("m_ball_rough.pfm", (1024 // k, 1024 // k),
+             {"lo": 0.03, "hi": 0.5, "mono": True, "cell": 32 // k}),
+            ("m_opacity.pfm", (512 // k, 512 // k),
+             {"lo": 0.3, "hi": 1.0, "mono": True, "cell": 64 // k})):
+        _save(directory, name, _image(rng, h, w, **kw))
+    _save(directory, "m_env.pfm", _env_image(rng, 1024 // k, 2048 // k,
+                                           sun_px=3))
+    vp, vidx, vn, vuv = _vase(n_vase, with_uv=True)
+    sp, sidx = uv_sphere(nu, nv)
+    # the sphere's own parametrisation as its uv (the seam's triangles
+    # wrap back through the image)
+    suv = np.stack([(np.arange(sp.shape[0]) % nu) / nu,
+                    (np.arange(sp.shape[0]) // nu) / nv], -1)
+    insts = "\n".join(f"""AttributeBegin
+  Translate {2.2 * math.cos(a):.4f} {2.2 * math.sin(a):.4f} 0.35
+  Rotate {math.degrees(a):.2f} 0 0 1
+  Scale 0.35 0.35 0.35
+  ObjectInstance "ball"
+AttributeEnd""" for a in (2.0 * math.pi * k_ / 8 + 0.3 for k_ in range(8)))
+    return f"""
+LookAt 0.5 -6.5 3.2  0 0 1.0  0 0 1
+Camera "perspective" "float fov" [ 38 ]
+Film "image" "integer xresolution" [ {width} ]
+  "integer yresolution" [ {height} ] "string filename" "textured_mesh.png"
+Integrator "path" "integer maxdepth" [ {maxdepth} ]
+WorldBegin
+Rotate 90 1 0 0
+LightSource "infinite" "rgb L" [ 1 1 1 ] "string mapname" [ "m_env.pfm" ]
+Rotate -90 1 0 0
+Texture "vase_kd" "spectrum" "imagemap" "string filename" "m_vase_kd.pfm"
+Texture "ball_kd" "spectrum" "imagemap" "string filename" "m_ball_kd.pfm"
+Texture "ball_rough" "float" "imagemap" "string filename" "m_ball_rough.pfm"
+Texture "opacity" "spectrum" "imagemap" "string filename" "m_opacity.pfm"
+Texture "floor" "spectrum" "checkerboard" "float uscale" [ 24 ]
+  "float vscale" [ 24 ] "rgb tex1" [ .6 .58 .55 ] "rgb tex2" [ .2 .2 .22 ]
+AttributeBegin
+  Material "matte" "rgb Kd" [ 0 0 0 ]
+  AreaLightSource "diffuse" "rgb L" [ 6 6 7 ]
+  {_quad([[-1.2, -1.0, 4.5], [-1.2, 1.0, 4.5], [1.2, 1.0, 4.5],
+          [1.2, -1.0, 4.5]])}
+AttributeEnd
+Material "matte" "texture Kd" "floor"
+{_uv_quad([[-10, -10, 0], [10, -10, 0], [10, 10, 0], [-10, 10, 0]])}
+AttributeBegin
+  Material "plastic" "texture Kd" "vase_kd" "rgb Ks" [ .35 .35 .35 ]
+    "float roughness" [ .08 ]
+  {_mesh(vp, vidx, vn, vuv)}
+AttributeEnd
+ObjectBegin "ball"
+  Material "substrate" "texture Kd" "ball_kd" "rgb Ks" [ .3 .3 .3 ]
+    "texture uroughness" "ball_rough" "texture vroughness" "ball_rough"
+    "bool remaproughness" [ "true" ]
+  {_mesh(sp, sidx, sp, suv)}
+ObjectEnd
+{insts}
+AttributeBegin
+  Material "uber" "rgb Kd" [ .3 .4 .6 ] "rgb Ks" [ .2 .2 .2 ]
+    "rgb Kr" [ .1 .1 .1 ] "rgb Kt" [ .3 .3 .3 ] "texture opacity" "opacity"
+    "float roughness" [ .1 ]
+  Translate 1.3 -1.6 0.5
+  Shape "sphere" "float radius" [ 0.5 ]
+AttributeEnd
+WorldEnd
+"""
+
+
+# the textured scenes by name: (pbrt text writer taking (directory, width,
+# height), default film). The mesh scene's default is its test size.
+TEXTURED = {
+    **{f"tex_{b}": (lambda d, w, h, b=b: textured_scene(d, w, h, b),
+                    (128, 64)) for b in BACKGROUNDS},
+    "env": (lambda d, w, h: env_scene(d, w, h), (128, 64)),
+    "env_emitter": (lambda d, w, h: env_scene(d, w, h, emitter=True),
+                    (128, 64)),
+    "textured_mesh": (lambda d, w, h: textured_mesh_scene(
+        d, w, h, small=True), (64, 64)),
+}
+
+
+def textured(name: str, directory, width: int = 0, height: int = 0) -> str:
+    """pbrt text of TEXTURED[name] at its default film or the given one,
+    its images written to `directory`."""
+    write, (w, h) = TEXTURED[name]
+    return write(directory, width or w, height or h)

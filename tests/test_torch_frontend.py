@@ -26,7 +26,7 @@ REPO = Path(__file__).resolve().parent.parent
 
 
 def _scene(src, base="/tmp"):
-    return build_device_scene(create_scene(parse_pbrt(src), base))
+    return build_device_scene(create_scene(parse_pbrt(src), str(base)))
 
 
 def test_imports_and_renders_without_jax(tmp_path):
@@ -35,6 +35,8 @@ def test_imports_and_renders_without_jax(tmp_path):
     engines."""
     scene = tmp_path / "s.pbrt"
     scene.write_text(scenes.cornell_box(16, 8))
+    textured = tmp_path / "t.pbrt"
+    textured.write_text(scenes.textured("tex_image", tmp_path, 16, 8))
     code = textwrap.dedent(f"""
         import importlib, pkgutil, sys
         sys.modules["jax"] = None
@@ -55,6 +57,16 @@ def test_imports_and_renders_without_jax(tmp_path):
                                           "--output",
                                           {str(tmp_path / "o.png")!r}])
             assert rc == 0
+            # textured materials, an env-map background and its light
+            # sampling
+            rc = rene_tpu_torch.cli.main([{str(textured)!r}, "--device",
+                                          "cpu", "--spp", "1", "--engine",
+                                          engine, "--output",
+                                          {str(tmp_path / "t.png")!r}])
+            assert rc == 0
+        bn, cfg = build_device_scene(load_scene({str(textured)!r}))
+        tables = pack_tables(bn, cfg)
+        assert tables.has_tex and tables.has_env and tables.atlas.size > 512
         assert not any(m.split(".")[0] in ("jax", "rene_tpu")
                        for m, v in sys.modules.items() if v is not None)
         print("OK")
@@ -63,7 +75,7 @@ def test_imports_and_renders_without_jax(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("OK")
-    assert (tmp_path / "o.png").exists()
+    assert (tmp_path / "o.png").exists() and (tmp_path / "t.png").exists()
 
 
 def test_port_sources_import_no_jax_package():
@@ -94,12 +106,14 @@ def _wave_src():
 
 @pytest.mark.parametrize("name", [
     "cornell_box", "materials_scene", "mesh_materials_scene",
-    "instanced_scene", "sphere_light_scene", "big_mesh_scene", "test_wave"])
-def test_frontend_copy_matches_reference(name):
+    "instanced_scene", "sphere_light_scene", "big_mesh_scene", "test_wave"]
+    + list(scenes.TEXTURED))
+def test_frontend_copy_matches_reference(name, tmp_path):
     """The port's copy of the frontend (pbrt parser, scene flattening,
     build_device_scene) gives the reference's buffers and RenderConfig on
-    every inline scene: equal dtypes, shapes and values. The big mesh
-    runs at a 64x36 film (the film size does not touch the mesh)."""
+    every inline scene, the image atlas and the env-map sampling tables of
+    the textured ones included: equal dtypes, shapes and values. The big
+    mesh runs at a 64x36 film (the film size does not touch the mesh)."""
     from rene_tpu_torch.pbrt import parse_pbrt as parse_port
     from rene_tpu_torch.scene import build_device_scene as build_port
     from rene_tpu_torch.scene import create_scene as create_port
@@ -107,10 +121,16 @@ def test_frontend_copy_matches_reference(name):
         src = _wave_src()
     elif name == "big_mesh_scene":
         src = scenes.big_mesh_scene(64, 36)
+    elif name in scenes.TEXTURED:
+        src = scenes.textured(name, tmp_path, 64, 32)
     else:
         src = getattr(scenes, name)(64, 32)
-    bn_ref, cfg_ref = _scene(src)
-    bn, cfg = build_port(create_port(parse_port(src), "/tmp"))
+    bn_ref, cfg_ref = _scene(src, tmp_path)
+    bn, cfg = build_port(create_port(parse_port(src), str(tmp_path)))
+    if name in scenes.TEXTURED:
+        assert bn["img_atlas"].shape[0] >= 512
+        assert cfg.env_nee == (name in ("tex_image", "env", "env_emitter",
+                                        "textured_mesh"))
     assert sorted(bn) == sorted(bn_ref)
     for k in bn_ref:
         assert bn[k].dtype == bn_ref[k].dtype, k
@@ -238,7 +258,7 @@ _HEAD = 'Film "image" "integer xresolution" [8] "integer yresolution" [8]\n'
 
 @pytest.mark.parametrize("src,item", [
     (_HEAD + 'WorldBegin\nTexture "c" "spectrum" "checkerboard"\n'
-     'Material "matte" "texture Kd" "c"\n' + _QUAD + "\nWorldEnd", "K1b"),
+     'Material "metal" "texture eta" "c"\n' + _QUAD + "\nWorldEnd", "K1b"),
     ('Integrator "volpath"\n' + _HEAD + "WorldBegin\n" + _QUAD
      + "\nWorldEnd", "K1e"),
     (_HEAD + "WorldBegin\n" + 'AreaLightSource "diffuse" "rgb L" [1 1 1]\n'
@@ -273,3 +293,160 @@ def test_slice_supported_accepts_main_path_scenes():
         bn, cfg = _scene(src)
         P.slice_supported(bn, cfg)
         assert pallas_eligible(bn, cfg)
+
+
+# -- textures (K1b) ------------------------------------------------------------
+def _inline_scenes(directory):
+    """(name, pbrt text) of every inline scene of the port, the textured
+    ones with their images written to `directory`, and of scenes the
+    kernels refuse."""
+    out = [(n, getattr(scenes, n)(8, 8)) for n in (
+        "cornell_box", "materials_scene", "mesh_materials_scene",
+        "instanced_scene")]
+    out.append(("sphere_light_scene", scenes.sphere_light_scene(8, 8, 100,
+                                                                 24)))
+    out += [(n, scenes.textured(n, directory, 8, 8))
+            for n in scenes.TEXTURED]
+    (directory / "kd.pfm").write_bytes(
+        (directory / "t_floor.pfm").read_bytes())
+    tex = ('Texture "kdmap" "spectrum" "imagemap" "string filename" '
+           '"kd.pfm"\n')
+    refused = {
+        "checker_of_imagemap": tex + 'Texture "c" "spectrum" "checkerboard" '
+        '"texture tex1" "kdmap" "rgb tex2" [.7 .7 .7]\n'
+        'Material "matte" "texture Kd" "c"\n',
+        "metal_k_texture": tex + 'Material "metal" "texture k" "kdmap"\n',
+        "scaled_opacity": tex + 'Texture "s" "spectrum" "scale" '
+        '"texture tex1" "kdmap" "rgb tex2" [.5 .5 .5]\n'
+        'Material "uber" "texture opacity" "s"\n',
+        "plastic_roughness_texture": 'Texture "r" "float" "imagemap" '
+        '"string filename" "kd.pfm"\n'
+        'Material "plastic" "texture roughness" "r"\n',
+        "scale_of_two_imagemaps": tex + 'Texture "s" "spectrum" "scale" '
+        '"texture tex1" "kdmap" "texture tex2" "kdmap"\n'
+        'Material "matte" "texture Kd" "s"\n',
+    }
+    out += [(n, _HEAD + "WorldBegin\n" + body + _QUAD + "\nWorldEnd")
+            for n, body in refused.items()]
+    out.append(("checker_of_imagemap_background",
+                _HEAD + "WorldBegin\n" + tex
+                + 'Texture "c" "spectrum" "checkerboard" "texture tex1" '
+                '"kdmap"\nLightSource "infinite" "texture L" ["c"]\n'
+                + _QUAD + "\nWorldEnd"))
+    return out
+
+
+def test_slice_supported_agrees_with_pallas_eligible(tmp_path):
+    """`slice_supported` takes exactly the textured scenes the reference's
+    `pallas_eligible` takes (the port's volpath and Sobol refusals, and
+    the reference's VMEM texel caps, aside), and names K1b for the
+    others."""
+    from rene_tpu.integrators.pallas_path import pallas_eligible
+    verdicts = {}
+    for name, src in _inline_scenes(tmp_path):
+        bn, cfg = _scene(src, tmp_path)
+        try:
+            P.slice_supported(bn, cfg)
+            mine = True
+        except NotImplementedError as e:
+            assert "K1b" in str(e), (name, e)
+            mine = False
+        assert mine == pallas_eligible(bn, cfg), name
+        verdicts[name] = mine
+    assert sum(verdicts.values()) == 5 + len(scenes.TEXTURED)
+    assert not any(v for n, v in verdicts.items()
+                   if n not in scenes.TEXTURED and "_scene" not in n
+                   and n != "cornell_box")
+
+
+@pytest.mark.parametrize("name", ["tex_image", "tex_scale", "tex_checker",
+                                  "textured_mesh"])
+def test_atlas_and_descriptors_match_pack_scene(name, tmp_path, monkeypatch):
+    """The port's flat RGB9E5 atlas decodes, image by image, to the texels
+    of the JAX packer's paged `img_table`; each material's slot
+    descriptors are `_mat_slot_descs`'s and its table row holds them; the
+    background and the uv rows are `pack_scene`'s."""
+    monkeypatch.setenv("RENE_QUAD_FUSE", "0")
+    monkeypatch.delenv("RENE_IMG_PACK", raising=False)
+    from rene_tpu.integrators import pallas_path as pp
+    from rene_tpu.ops import rgb9e5
+    monkeypatch.setattr(pp, "CLUSTER", 16)
+    bn, cfg = _scene(scenes.textured(name, tmp_path, 16, 16), tmp_path)
+    ps = pp.pack_scene(bn, cfg)
+    tb = P.pack_tables(bn, cfg)
+    atlas, offsets = P.pack_atlas(bn)
+    assert np.array_equal(atlas, tb.atlas) and atlas.dtype == np.uint32
+    used = pp._kernel_images(bn, cfg)
+    assert P.kernel_images(bn) == used and len(used) >= 1
+    table = np.asarray(ps.img_table).view(np.uint32).reshape(-1)
+    row = 0
+    for ii in used:
+        n = int(bn["img_width"][ii]) * int(bn["img_height"][ii])
+        mine = rgb9e5.decode(atlas[offsets[ii]:offsets[ii] + n])
+        ref = rgb9e5.decode(table[row * 128:row * 128 + n])
+        np.testing.assert_array_equal(mine, ref)
+        np.testing.assert_array_equal(
+            mine, bn["img_atlas"][int(bn["img_offset"][ii]):][:n, :3])
+        row += (n + 127) // 128
+    n_tex = 0
+    for m in sorted(set(bn["inst_material"].tolist())):
+        descs = pp._mat_slot_descs(bn, m)
+        assert P.mat_slot_descs(bn, m) == descs
+        ref = pp._mat_record(bn, m)
+        rec = P.mat_record(bn, m)
+        assert rec["texs"] == ref["texs"] and rec["rrm"] == ref["rrm"]
+        for key in ("albedo", "k", "alpha", "op", "kr2", "kt2"):
+            assert tuple(rec[key]) == tuple(ref[key]), (m, key)
+        r = tb.mats[m]
+        assert r[P.MAT_NTEX] == len(rec["texs"])
+        for cls, d in rec["texs"].items():
+            o = P.MAT_TEX + P.IMG_CLASSES.index(cls) * P.TEXD_W
+            if d[0] == "checker":
+                assert r[o] == P.TEXK_CHECKER
+                np.testing.assert_array_equal(
+                    r[o + 1:o + 9], np.float32([d[1], d[2], *d[3], *d[4]]))
+            else:
+                ii = d[1]
+                assert tuple(r[o:o + 4]) == (
+                    P.TEXK_IMAGE, offsets[ii], bn["img_width"][ii],
+                    bn["img_height"][ii])
+            n_tex += 1
+    assert n_tex >= 2
+    # the background: constant, image or checker, and its matrices
+    np.testing.assert_array_equal(tb.cam[P.CAM_BG:P.CAM_BG + 3],
+                                  np.float32(ps.background))
+    if ps.bg_img is not None:
+        ii = pp._tex_kernel_desc(bn, int(bn["background_texture"]))[1]
+        assert tb.bg_kind == P.BG_IMAGE
+        assert tuple(tb.cam[P.CAM_BG_IMG:P.CAM_BG_IMG + 3]) == (
+            offsets[ii], ps.bg_img[1], ps.bg_img[2])
+    elif ps.bg_checker is not None:
+        us, vs, ev, od = ps.bg_checker
+        assert tb.bg_kind == P.BG_CHECKER
+        np.testing.assert_array_equal(tb.cam[P.CAM_BG_CHK:P.CAM_BG_CHK + 8],
+                                      np.float32([us, vs, *ev, *od]))
+    np.testing.assert_array_equal(
+        tb.cam[P.CAM_BG_MAT:P.CAM_BG_MAT + 9].reshape(3, 3),
+        np.float32(ps.bg_matrix[:3, :3]))
+    np.testing.assert_array_equal(
+        tb.cam[P.CAM_BG_INV:P.CAM_BG_INV + 9].reshape(3, 3),
+        np.float32(ps.bg_matrix_inv[:3, :3]))
+    assert tb.has_env == (ps.env_tab is not None)
+    if tb.has_env:
+        np.testing.assert_array_equal(tb.env_ccdf.T, ps.env_tab[:128, :64])
+        np.testing.assert_array_equal(tb.env_pdf, ps.env_tab[128:192])
+        np.testing.assert_array_equal(tb.env_mcdf, ps.env_tab[192, :64])
+    # uv: the immediates' per vertex, the mesh's as uv0 and two deltas
+    for mine, ref in zip(tb.tris, ps.tris):
+        np.testing.assert_array_equal(
+            mine[P.TRI_UV0:P.TRI_UV0 + 6],
+            np.float32([*ref["uv0"], *ref["uv1"], *ref["uv2"]]))
+    if name == "textured_mesh":
+        imm, rest, shared = P.split_triangles(bn, cfg)
+        assert np.array_equal(np.nonzero(pp._immediate_tri_mask(bn)[
+            :cfg.num_triangles])[0], imm)
+        assert tb.mesh_uv.shape == (tb.mesh.shape[0], 6) and shared
+        assert tb.mesh_uv.min() >= -1.0 and tb.mesh_uv.max() <= 1.0
+        assert tb.mesh_uv.std() > 0.01
+    else:
+        assert tb.mesh_uv.shape == (0, 6)

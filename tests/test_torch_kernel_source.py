@@ -23,6 +23,7 @@ from rene_tpu_torch.integrators import mega_path as M
 from rene_tpu_torch.scene import pack as P
 from .test_torch_mega_path import _buffers
 from .test_torch_mesh import buffers as mesh_buffers
+from .test_torch_texture import TEXTURED, textured_buffers
 
 torch.set_num_threads(2)
 
@@ -100,6 +101,29 @@ def test_cuda_mesh_lane_code_matches_plain_version(host_lib, name):
     assert tabs["has_accel"]
     seed, spp = 99, 4
     out = torch.empty((P.OUT_ROWS, 128 * 64), dtype=torch.float32)
+    args = kernels.launch_args(tabs, seed, spp, False, out)
+    assert host_lib.mega_path_launch(*args, None) == 0
+    ref = M.path_lanes_ref(tabs, seed, spp).numpy()
+    out = out.numpy()
+    a = checks.agreement(out, ref)
+    assert a["rad_frac"] >= 0.995, a
+    assert a["aov_frac"] >= 0.995, a
+    assert a["mean_rel"] <= 1e-4, a
+    assert out[9].sum() == ref[9].sum()
+
+
+@pytest.mark.parametrize("name", list(TEXTURED))
+def test_cuda_textured_lane_code_matches_plain_version(host_lib, tmp_path,
+                                                       name):
+    """csrc/texture.cuh and the textured bounce (per-hit checker and image
+    slots, spherical and mesh uv, the image, scale and checker
+    backgrounds, env-map light sampling with and without emitters)
+    against the plain version."""
+    bn, cfg = textured_buffers(name, tmp_path)
+    tabs = M.device_tables(P.pack_tables(bn, cfg), "cpu")
+    w, h = TEXTURED[name][1]
+    seed, spp = 99, 4
+    out = torch.empty((P.OUT_ROWS, w * h), dtype=torch.float32)
     args = kernels.launch_args(tabs, seed, spp, False, out)
     assert host_lib.mega_path_launch(*args, None) == 0
     ref = M.path_lanes_ref(tabs, seed, spp).numpy()
@@ -197,8 +221,10 @@ def _host_wave_kernels(lib):
 
 
 @pytest.mark.parametrize("name", ["materials_scene", "mesh_materials",
-                                  "instanced"])
-def test_cuda_wave_code_matches_plain_version(wave_lib, monkeypatch, name):
+                                  "instanced", "tex_image", "env",
+                                  "textured_mesh"])
+def test_cuda_wave_code_matches_plain_version(wave_lib, monkeypatch, name,
+                                              tmp_path):
     """The wave kernels' per-lane code (csrc/wave.cuh) against the plain
     versions in integrators/wave.py: K3 bit for bit on the lane rows and
     within 1e-6 on the camera rays (libm against torch), K4 bit for bit,
@@ -206,10 +232,14 @@ def test_cuda_wave_code_matches_plain_version(wave_lib, monkeypatch, name):
     (>= 99.5% of lanes agree on every row, the key row bit for bit),
     then whole 64x64 waves at spw 2, sorted by `gather` and by `dma`,
     through the g++ kernels against the plain runner (the per-pixel
-    rule, equal ray totals)."""
+    rule, equal ray totals). The textured scenes run the wave bounce's
+    textures, textured background and env-map light sampling."""
     from rene_tpu_torch.integrators import wave as WV
-    bn, cfg = (_buffers(name, 64) if name == "materials_scene"
-               else mesh_buffers(name, 64, 64))
+    if name in TEXTURED:
+        bn, cfg = textured_buffers(name, tmp_path, 64, 64)
+    else:
+        bn, cfg = (_buffers(name, 64) if name == "materials_scene"
+                   else mesh_buffers(name, 64, 64))
     genesis, path, permute = _host_wave_kernels(wave_lib)
     plain = WV.make_wave_fn(bn, cfg, "cpu", samples_per_wave=2)
     tabs, n_pad, kb = plain.tabs, plain.n_pad, plain.key_bounds

@@ -205,7 +205,8 @@ def test_sphere_table_matches_brute_force():
     ray = tuple(torch.from_numpy(np.ascontiguousarray(a, np.float32))
                 for a in (*o.T, *d.T))
     big = torch.full((n,), bvh.BIG)
-    t, nx, ny, nz, mat = bvh.sphere_table_closest(tabs, *ray, 1e-3, big)
+    t, nx, ny, nz, mat, _, _ = bvh.sphere_table_closest(tabs, *ray, 1e-3,
+                                                         big)
     ts, ok = bvh._sph_test(tab, *(x[:, None] for x in ray), 1e-3)
     t_ref, k = torch.where(ok, ts, np.inf).min(dim=1)
     hit = t_ref < bvh.BIG

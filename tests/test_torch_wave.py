@@ -28,8 +28,9 @@ rene_tpu_torch.checks' per-pixel rule:
 
 A path whose throughput falls below float32's normal range ends in
 both: XLA and the TPU flush such values to zero, so the port's wave
-bounce tests against the least normal float (`bounce(..., ftz=True)`);
-without that, the port traced ~0.06% more rays on the materials scene.
+shared bounce (the megakernel's too) tests against the least normal
+float; without that, the port traced ~0.06% more rays on the materials
+scene.
 
 The JAX side runs its default schedule (1, 1, 1, 2, 4) on the 24x16
 scene and (1, 2) on the larger ones: every distinct k is one more
