@@ -68,10 +68,29 @@ when either is missing or any check fails. Phases:
     `--engine wave`, the launch counts set to 0 before each;
 15. that path's 1-spp megakernel launch and its first K2 launch over the
     whole film or state, timed, each held against the plain version on a
-    strided sample of ~131k lanes.
+    strided sample of ~131k lanes;
+16. the volpath body (K1e) in its four variants against the plain
+    versions on the card: `fog_scene`, `fog_env_scene` and the small
+    `fog_mesh_scene` (cut to maxdepth 8) at 128x64 x 4 spp through the
+    megakernel (the small mesh at 2 spp) and as whole waves (spw 4,
+    `gather`; the small mesh also sorted by `dma`); then
+    `fog_scene` with its media table zeroed, which must change the image
+    (the medium is in use);
+17. the volpath main path through the CLI: `fog_mesh_scene` (the big
+    mesh's geometry in a fog box, maxdepth 64) at 1280x720 x 16 spp with
+    `--engine auto` and `--engine wave`, and `fog_scene` at the same film
+    with both engines (the immediates variants), the launch counts set to
+    0 before each; the two engines' linear radiance means on the fog mesh
+    held to each other at two seeds;
+18. that path's 1-spp megakernel launch and its first volpath K2 launch,
+    and the same two of `fog_scene`, over the whole film or state, timed
+    at their scenes' depth and held against the plain version on a
+    strided sample of ~131k lanes, both sides cut to maxdepth 8; the real
+    ray casts per nominal ray of the main path, counted by the plain
+    version on that sample.
 
 The per-pixel rule and the card's limits are rene_tpu_torch.checks'. Each
-path run (phases 4, 7, 11, 14 and the `dma` wave of 12) starts with every
+path run (phases 4, 7, 11, 14, 17 and the `dma` wave of 12) starts with every
 launch count set to 0 and reads them just after; comparison launches are
 not counted. The plain versions run on the card, for the waves of phase
 10 through rene_tpu_torch.kernels' wrappers swapped for them.
@@ -82,15 +101,24 @@ TFLOP/s (the H100 SXM's non-tensor FP32 peak, NVIDIA's data sheet). The
 operations are the ray-cast tests this run's inputs need, counted by the
 plain walk (rene_tpu_torch.ops.bvh.tests) or from the rays and the
 immediates, at the costs in OPS below; shading is not counted, so the
-bound is a lower one. A textured launch reads of the atlas the texels its
-hits and misses fetch (rene_tpu_torch.ops.texture.counts: four 4-byte
-words per textured slot) and never more than the whole atlas once: the
-repeated fetches of a texel come out of the caches.
+bound is a lower one. A volpath bounce casts other rays than its
+nominal count (a march of closest hits per light): its immediates are
+tested once per cast the plain version counts
+(rene_tpu_torch.ops.intersect.casts). A textured launch reads of the
+atlas the texels its hits and misses fetch
+(rene_tpu_torch.ops.texture.counts: four 4-byte words per textured slot)
+and never more than the whole atlas once: the repeated fetches of a
+texel come out of the caches.
 
 Earlier paths cut to keep the run short (the plain walk's time goes with
 its bounces, not with its lanes): phase 6's three small mesh scenes run
 at 2 spp, and phase 8 holds the big mesh's launch against the plain
-version at maxdepth 6, both sides, and times it at the scene's own 17.
+version at maxdepth 6, both sides, and times it at the scene's own 17;
+phase 16 runs the small fog mesh at maxdepth 8 (through the megakernel
+at 2 spp), and phase 18 compares the fog mesh's launch at maxdepth 8,
+both sides, and times it at 64: the volpath bounces past depth 8 are
+held to the reference only by the CPU tests against the JAX kernels
+and, on the card, by the two engines' means of phase 17.
 The seconds of every phase are logged.
 
 Outputs go to chiprun_out/smoke/ of the checkout, the textured scenes and
@@ -135,8 +163,16 @@ SAMPLE_LANES = 1 << 17
 SMALL_MESH_SPP = 2
 BIG_MESH_CHECK_DEPTH = 6
 # state rows a K2 launch moves per alive lane besides the alive row that
-# every lane of the launch reads: 26 read, 23 written (wave.cuh wave_lane)
+# every lane of the launch reads: 26 read, 23 written (wave.cuh wave_lane),
+# and the medium row read and written in a volpath wave
 K2_ROWS = 49
+K2_VOL_ROWS = K2_ROWS + 2
+# the volpath main path: maxdepth of its plain comparisons (phases 16 and
+# 18), spp of the small volpath scenes (phase 16) and of the small fog
+# mesh's megakernel comparison, whose plain walk took 96.5 s at 4 spp
+VOL_CHECK_DEPTH = 8
+VOL_SPP = 4
+VOL_MESH_SPP = 2
 
 
 def log(msg):
@@ -253,25 +289,43 @@ def moved_bytes(tabs, tests):
 
 
 def reset_counts():
-    """Set the plain versions' ray-cast test and texel counts to 0."""
-    from rene_tpu_torch.ops import bvh, texture
+    """Set the plain versions' ray-cast test, texel and volpath cast
+    counts to 0."""
+    from rene_tpu_torch.ops import bvh, intersect, texture
     for k in bvh.tests:
         bvh.tests[k] = 0
+    for k in intersect.casts:
+        intersect.casts[k] = 0
     texture.counts["texels"] = 0
 
 
 def plain_counts():
-    from rene_tpu_torch.ops import bvh, texture
-    return dict(bvh.tests, texels=texture.counts["texels"])
+    """The plain versions' counts since reset_counts; the volpath casts
+    by kind where the volpath body ran."""
+    from rene_tpu_torch.ops import bvh, intersect, texture
+    out = dict(bvh.tests, texels=texture.counts["texels"])
+    if any(intersect.casts.values()):
+        out.update(intersect.casts)
+    return out
 
 
 def cast_ops(tabs, rays, tests):
     """FP32 operations of `rays` ray casts against the immediates, plus
-    the plain walk's box, triangle and table-sphere `tests`."""
+    the plain walk's box, triangle and table-sphere `tests`. Where `tests`
+    holds the volpath casts, those replace `rays`: each closest hit and
+    march step tests every immediate, each emitter-pdf cast the emissive
+    ones."""
     imm = (tabs["tris"].shape[0] * OPS["imm_tri"]
            + tabs["spheres"].shape[0] * OPS["imm_sph"])
-    return rays * imm + sum(OPS[k] * tests.get(k, 0)
-                            for k in ("box", "tri", "sph"))
+    if "closest" in tests:
+        emit = (tabs["emit_tris"].shape[0] * OPS["imm_tri"]
+                + tabs["emit_spheres"].shape[0] * OPS["imm_sph"])
+        casts = ((tests["closest"] + tests["march"]) * imm
+                 + tests["emit_pdf"] * emit)
+    else:
+        casts = rays * imm
+    return casts + sum(OPS[k] * tests.get(k, 0)
+                       for k in ("box", "tri", "sph"))
 
 
 @contextlib.contextmanager
@@ -468,8 +522,9 @@ def main() -> int:
         rays = float((s_k[WV.WROW_RAYS] - s0[WV.WROW_RAYS]).sum())
         rays_s = float((s_p[WV.WROW_RAYS] - sub[WV.WROW_RAYS]).sum())
         tests = {key: v * rays / rays_s for key, v in tests.items()}
+        rows = K2_VOL_ROWS if run.tabs["volpath"] else K2_ROWS
         bnd = bound(moved_bytes(run.tabs, tests) + n_run * 4
-                    + alive.numel() * K2_ROWS * 4,
+                    + alive.numel() * rows * 4,
                     cast_ops(run.tabs, rays, tests))
         log(f"K2 launch {step} vs plain ({what}, k {k}, {n_run} lanes run, "
             f"{alive.numel()} alive, {idx.numel()} sampled): lanes agree "
@@ -854,6 +909,157 @@ def main() -> int:
     del run
     phase_done(15)
 
+    # 16. the volpath body in its four variants vs the plain versions,
+    # every scene at 128x64
+    a_vol = {}
+    for name, src, directory in (
+            ("fog", scenes.fog_scene(128, 64), None),
+            ("fog_env", scenes.fog_env_scene(SCENE_DIR, 128, 64), SCENE_DIR),
+            ("fog_mesh_small", scenes.fog_mesh_scene(
+                128, 64, maxdepth=VOL_CHECK_DEPTH, small=True), None)):
+        bn, cfg = buffers_for(write_scene(name, src, directory))
+        tabs = M.device_tables(P.pack_tables(bn, cfg), dev)
+        want = "mega_volpath_mesh" if "mesh" in name else "mega_volpath"
+        if kernels.variant(tabs) != want:
+            raise RuntimeError(f"{name}: runs {kernels.variant(tabs)}")
+        spp = VOL_MESH_SPP if tabs["has_accel"] else VOL_SPP
+        a_m = compare(tabs, 1234567, spp, f"{name} 128x64 x {spp} spp")
+        card_run = WV.make_wave_fn(bn, cfg, dev, samples_per_wave=VOL_SPP)
+        with plain_wave_kernels():
+            t = time.time()
+            ref = WV.make_wave_fn(bn, cfg, dev, samples_per_wave=VOL_SPP)(
+                1234567, VOL_SPP)
+            plain_s = time.time() - t
+        out = card_run(1234567, VOL_SPP)
+        a_w = checks.agreement(film(out), film(ref))
+        log(f"wave vs plain ({name} 128x64 x spw {VOL_SPP}, plain "
+            f"{plain_s:.1f} s, rays {out['rays']:.0f} vs {ref['rays']:.0f}): "
+            f"{json.dumps(a_w)}")
+        checks.check_card(a_w, f"{name} 128x64 x spw {VOL_SPP} wave")
+        if "mesh" in name:
+            out_dma = WV.make_wave_fn(bn, cfg, dev, samples_per_wave=VOL_SPP,
+                                      sort_mode="dma")(1234567, VOL_SPP)
+            d = film_rel(out_dma, out)
+            log(f"  dma vs gather film: relative {d:.3g}, rays "
+                f"{out_dma['rays']:.0f} vs {out['rays']:.0f}")
+            if d > 1e-4 or out_dma["rays"] != out["rays"]:
+                raise RuntimeError(f"{name}: the dma wave differs from "
+                                   f"gather")
+        a_vol[name] = (tabs["has_accel"], a_m["max_abs"], a_w["max_abs"])
+        if name == "fog":
+            # the media table zeroed: sigma_t 0 everywhere, no scattering
+            # and no attenuation, and the image must change
+            off = dict(tabs, media=torch.zeros_like(tabs["media"]))
+            a_off = checks.agreement(kernels.mega_path(off, 1234567, VOL_SPP),
+                                     kernels.mega_path(tabs, 1234567,
+                                                       VOL_SPP))
+            log(f"the medium in use ({name}): pixels equal with the media "
+                f"zeroed {a_off['rad_frac']:.4f}, image mean "
+                f"{a_off['mean_out']:.4f} against {a_off['mean_ref']:.4f}")
+            if a_off["rad_frac"] > 0.9:
+                raise RuntimeError(f"{name}: the media change nothing")
+        del tabs
+
+    phase_done(16)
+
+    # 17. the volpath main path through the CLI, both engines; the
+    # immediates variants on fog_scene at the same film
+    fog_src = scenes.fog_mesh_scene(MESH_W, MESH_H)
+    fog_path, l_fog, r_fog = cli_path(
+        "fog_mesh", fog_src, MESH_SPP, (MESH_W, MESH_H),
+        f"fog mesh {MESH_W}x{MESH_H}, volpath maxdepth 64", engine="auto")
+    if l_fog["mega_volpath_mesh"] <= 0 \
+            or sum(l_fog.values()) != l_fog["mega_volpath_mesh"]:
+        raise RuntimeError(f"the volpath main path launched {l_fog}")
+    _, l_fogw, r_fogw = cli_path(
+        "fog_mesh", fog_src, MESH_SPP, (MESH_W, MESH_H),
+        f"fog mesh {MESH_W}x{MESH_H}, volpath maxdepth 64", engine="wave")
+    if l_fogw["wave_genesis"] < 1 or l_fogw["wave_volpath_mesh"] < 1 \
+            or sum(l_fogw.values()) != (l_fogw["wave_genesis"]
+                                        + l_fogw["wave_volpath_mesh"]):
+        raise RuntimeError(f"the volpath wave path launched {l_fogw}")
+    fs_path, l_fs, r_fs = cli_path(
+        "fog", scenes.fog_scene(MESH_W, MESH_H), MESH_SPP, (MESH_W, MESH_H),
+        f"fog {MESH_W}x{MESH_H}", engine="auto")
+    if l_fs["mega_volpath"] <= 0 or sum(l_fs.values()) != l_fs["mega_volpath"]:
+        raise RuntimeError(f"the fog scene launched {l_fs}")
+    _, l_fsw, r_fsw = cli_path(
+        "fog", scenes.fog_scene(MESH_W, MESH_H), MESH_SPP, (MESH_W, MESH_H),
+        f"fog {MESH_W}x{MESH_H}", engine="wave")
+    if l_fsw["wave_genesis"] < 1 or l_fsw["wave_volpath"] < 1 \
+            or sum(l_fsw.values()) != (l_fsw["wave_genesis"]
+                                       + l_fsw["wave_volpath"]):
+        raise RuntimeError(f"the fog scene's wave launched {l_fsw}")
+    log(f"volpath main path Mrays/s (nominal rays): fog mesh megakernel "
+        f"{r_fog['rate']:.1f}, wave {r_fogw['rate']:.1f}; fog scene "
+        f"megakernel {r_fs['rate']:.1f}, wave {r_fsw['rate']:.1f} [{card}]")
+
+    # the two engines' linear radiance means on the fog mesh, two seeds
+    bn, cfg = buffers_for(fog_path)
+    seeds = (chunk_seed(), chunk_seed(MAIN_SEED + 1))
+    mega = M.make_mega_batch_fn(bn, cfg, dev)
+    run = WV.make_wave_fn(bn, cfg, dev, spp_hint=MESH_SPP)
+    lin = {"wave": [run(s, MESH_SPP) for s in seeds],
+           "megakernel": [mega(s, MESH_SPP) for s in seeds]}
+    lin = {e: [float(torch.as_tensor(o["radiance"]).double().mean())
+               / MESH_SPP for o in outs] for e, outs in lin.items()}
+    w_, m_ = lin["wave"], lin["megakernel"]
+    d_eng = [abs(w_[i] - m_[i]) / m_[i] for i in range(2)]
+    log(f"fog mesh linear radiance means (seeds {seeds[0]} / {seeds[1]}): "
+        f"wave {w_[0]!r} / {w_[1]!r}, megakernel {m_[0]!r} / {m_[1]!r}; "
+        f"wave vs megakernel {d_eng[0]:.3e} / {d_eng[1]:.3e}, seed vs seed "
+        f"wave {abs(w_[1] - w_[0]) / w_[0]:.3e}, megakernel "
+        f"{abs(m_[1] - m_[0]) / m_[0]:.3e} (limit {MEAN_REL})")
+    if not all(np.isfinite(w_ + m_)) or max(d_eng) > MEAN_REL:
+        raise RuntimeError("the volpath wave and megakernel means differ")
+    del mega
+
+    phase_done(17)
+
+    # 18. the 1-spp megakernel launch and the first K2 launch of the fog
+    # mesh and of the fog scene vs plain on sampled lanes, timed
+    def vol_launch(path, what):
+        tabs = tables_for(path, dev)
+        a = compare(dict(tabs, max_depth=VOL_CHECK_DEPTH), chunk_seed(), 1,
+                    f"{what} {MESH_W}x{MESH_H} x 1 spp, maxdepth "
+                    f"{VOL_CHECK_DEPTH}", pix=pix)
+        ms = time_ms(lambda r=0: kernels.mega_path(tabs, 11 + r, 1), 10)
+        rays = float(kernels.mega_path(tabs, 11, 1)[9].sum())
+        bnd = mega_bound(tabs, a["tests"])
+        casts = sum(a["tests"].get(k, 0.0)
+                    for k in ("closest", "march", "emit_pdf"))
+        log(f"timing ({what} {MESH_W}x{MESH_H}, 1 spp, maxdepth "
+            f"{tabs['max_depth']}): kernel {ms:.3f} ms, {rays:.0f} nominal "
+            f"rays, {ms * 1e6 / rays:.3f} ns per nominal ray; plain "
+            f"{a['plain_s'] * 1e3:.1f} ms on {pix.numel()} sampled lanes at "
+            f"maxdepth {VOL_CHECK_DEPTH}: real casts per nominal ray "
+            f"{casts:.3f} ({json.dumps(a['tests'])}); bound {bnd[0]:.4f} ms "
+            f"({bnd[1]}) [{card}]")
+        return {"ms": ms, "plain_ms": a["plain_s"] * 1e3, "bound": bnd,
+                "err": a["max_abs"], "casts": casts}
+
+    v_fog = vol_launch(fog_path, "fog mesh")
+    k2_fog = k2_launch(run, chunk_seed(), 0, f"fog mesh {MESH_W}x{MESH_H} "
+                       f"x spw {run.samples_per_wave}")
+    del run
+    v_fs = vol_launch(fs_path, "fog")
+    bn_f, cfg_f = buffers_for(fs_path)
+    run = WV.make_wave_fn(bn_f, cfg_f, dev, spp_hint=MESH_SPP)
+    k2_fs = k2_launch(run, chunk_seed(), 0, f"fog {MESH_W}x{MESH_H} x spw "
+                      f"{run.samples_per_wave}")
+    del run
+    log(f"volpath main path: {r_fog['rate']:.1f} Mrays/s megakernel, "
+        f"{r_fogw['rate']:.1f} wave (wave / megakernel "
+        f"{r_fogw['rate'] / r_fog['rate']:.3f}); {v_fog['casts']:.3f} real "
+        f"casts per nominal ray; 1-spp launch {v_fog['ms']:.3f} ms, first "
+        f"K2 launch {k2_fog['ms']:.3f} ms [{card}]")
+    for name in ("mega_volpath", "mega_volpath_mesh", "wave_volpath",
+                 "wave_volpath_mesh"):
+        lines = [ln.strip() for ln in kernels.ptxas.get(name, "").splitlines()
+                 if "registers" in ln or "spill" in ln]
+        log(f"ptxas {name}: " + " | ".join(lines))
+    phase_done(18)
+
     if any(m.split(".")[0] in ("jax", "rene_tpu") for m in sys.modules):
         raise RuntimeError("jax or rene_tpu was imported")
     log(f"smoke: {time.time() - t_smoke:.1f} s")
@@ -915,6 +1121,37 @@ def main() -> int:
               k2_tex["plain_ms"], k2_tex["bound"], None,
               f"textured deep mesh {MESH_W}x{MESH_H} x spw {spw}, first "
               f"launch (k 1); plain on {k2_tex['sampled']} sampled lanes"),
+        entry("mega_volpath", "rene_tpu_torch/csrc/volpath.cuh",
+              f"{pp_}:4572 (body_vol, with :3287-3430)", l_fs["mega_volpath"],
+              max([v_fs["err"]] + [m for acc, m, _ in a_vol.values()
+                                   if not acc]), v_fs["ms"],
+              v_fs["plain_ms"], v_fs["bound"], None,
+              f"fog {MESH_W}x{MESH_H} x 1 spp; plain on {pix.numel()} "
+              f"sampled lanes of it at maxdepth {VOL_CHECK_DEPTH}"),
+        entry("mega_volpath_mesh", "rene_tpu_torch/csrc/volpath.cuh",
+              f"{pp_}:4572 (body_vol, with :3287-3430)",
+              l_fog["mega_volpath_mesh"],
+              max([v_fog["err"]] + [m for acc, m, _ in a_vol.values()
+                                    if acc]), v_fog["ms"],
+              v_fog["plain_ms"], v_fog["bound"], None,
+              f"fog mesh {MESH_W}x{MESH_H} x 1 spp, maxdepth 64; plain on "
+              f"{pix.numel()} sampled lanes of it at maxdepth "
+              f"{VOL_CHECK_DEPTH}"),
+        entry("wave_volpath", "rene_tpu_torch/csrc/wave.cuh",
+              f"{pw_}:271 ({pp_}:5277 wave_bounce_vol)", l_fsw["wave_volpath"],
+              max([k2_fs["err"]] + [w for acc, _, w in a_vol.values()
+                                    if not acc]), k2_fs["ms"],
+              k2_fs["plain_ms"], k2_fs["bound"], None,
+              f"fog {MESH_W}x{MESH_H} x spw 16, first launch (k 1); plain "
+              f"on {k2_fs['sampled']} sampled lanes of it"),
+        entry("wave_volpath_mesh", "rene_tpu_torch/csrc/wave.cuh",
+              f"{pw_}:271 ({pp_}:5277 wave_bounce_vol)",
+              l_fogw["wave_volpath_mesh"],
+              max([k2_fog["err"]] + [w for acc, _, w in a_vol.values()
+                                     if acc]), k2_fog["ms"],
+              k2_fog["plain_ms"], k2_fog["bound"], None,
+              f"fog mesh {MESH_W}x{MESH_H} x spw 16, first launch (k 1); "
+              f"plain on {k2_fog['sampled']} sampled lanes of it"),
         entry("wave_genesis", "rene_tpu_torch/csrc/wave.cu",
               f"{pw_}:630 ({pp_}:4970)", l_wave["wave_genesis"], k3_err,
               k3_ms, k3_plain_ms, k3_bound, None,

@@ -8,7 +8,9 @@ that runs on the accelerator:
     pbrt scene -> scene.build_device_scene (numpy buffers)
       -> scene.pack: flat float32 tables for the kernels
       -> engine "pallas": integrators.mega_path, one CUDA megakernel
-         launch per chunk (csrc/mega_path.cu)
+         launch per chunk (csrc/mega_path.cu), whose path body or volpath
+         body (integrators.volpath: homogeneous media, transmittance
+         marching, medium interfaces) the scene's integrator picks
          engine "wave": integrators.wave, waves of lanes advanced a few
          bounces per launch and regrouped between launches (csrc/wave.cu)
          (on the CPU, the kernels' plain PyTorch versions)

@@ -5,9 +5,9 @@
         [--engine auto|pallas|wave]
 
 Counterpart of rene_tpu/cli.py:101 `main` for the slice the port carries
-(path integrator; the megakernel and wave engines). The default device is
-`cuda`; the CPU runs the kernels' plain PyTorch versions and must be
-asked for.
+(the path and volpath integrators; the megakernel and wave engines). The
+default device is `cuda`; the CPU runs the kernels' plain PyTorch
+versions and must be asked for.
 """
 from __future__ import annotations
 
@@ -35,7 +35,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "plain PyTorch versions")
     p.add_argument("--engine", choices=["auto", "pallas", "wave", "xla"],
                    default="auto",
-                   help="pallas: the path megakernel; wave: the wavefront "
+                   help="pallas: the megakernel; wave: the wavefront "
                         "engine; auto: the megakernel (xla is not ported)")
     p.add_argument("-v", "--verbose", action="store_true")
     return p

@@ -1,13 +1,13 @@
-// The C entry point of the path megakernel, shared by csrc/mega_path.cu
-// and the CPU build of the per-lane code in
+// The C entry point of the megakernel, shared by csrc/mega_path.cu (its
+// path and volpath builds) and the CPU builds of the per-lane code in
 // tests/test_torch_kernel_source.py. The includer defines
 //   static int run_lanes(const Params& p, void* stream);
-// which runs trace_lane over the film's lanes. Argument order: see
-// rene_tpu_torch/kernels.py ARGTYPES.
+// which runs trace_lane over the film's lanes.
+// Argument order: see rene_tpu_torch/kernels.py ARGTYPES.
 #pragma once
 #include <stdint.h>
 
-#include "path.cuh"
+#include "mega_lane.cuh"
 
 extern "C" int mega_path_launch(
     const float* tris, int n_tris, const float* sph, int n_sph,
@@ -20,7 +20,7 @@ extern "C" int mega_path_launch(
     const float* env_mcdf, const float* env_ccdf, const float* env_pdf,
     int world_root, int has_tri_emitter, int width, int n_pix, int max_depth,
     int use_rr, int beckmann, int has_accel, int block_seed, int has_tex,
-    int has_env, int seed,
+    int has_env, const float* media, int n_media, int seed,
     int num_samples, float* out, void* stream) {
   Params p;
   p.s = Scene{tris, sph, mats, eo, emit_tris, emit_sph, lights, light_dots,
@@ -39,5 +39,7 @@ extern "C" int mega_path_launch(
   p.block_seed = block_seed;
   p.seed = (uint32_t)seed;
   p.out = out;
+  p.media = media;
+  p.n_media = n_media;
   return run_lanes(p, stream);
 }

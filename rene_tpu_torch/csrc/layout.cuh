@@ -67,7 +67,19 @@
 #define TEXK_CHECKER 1
 #define TEXK_IMAGE 2
 #define N_TEX_CLASSES 7
-#define MAT_W 90
+// a row is a material slot: the material and the media on its two sides
+// (interior, exterior; 0 is vacuum), read by the volpath body only
+#define MAT_IMED 90
+#define MAT_EMED 91
+#define MAT_W 92
+
+// homogeneous media: sigma_t rgb, sigma_s rgb, Henyey-Greenstein g, 1 for
+// vacuum; row 0 is vacuum
+#define MED_ST 0
+#define MED_SS 3
+#define MED_G 6
+#define MED_VAC 7
+#define MED_W 8
 
 // emit objects (light sampling records)
 #define EO_KIND 0
@@ -132,7 +144,7 @@
 #define NODE_B 7
 #define NODE_W 8
 // mesh triangle: v0, e1 = v1 - v0, e2 = v2 - v0, shading normal n0 and its
-// deltas d1 = n1 - n0, d2 = n2 - n0, material id
+// deltas d1 = n1 - n0, d2 = n2 - n0, material slot
 #define MESH_V0 0
 #define MESH_E1 3
 #define MESH_E2 6
@@ -144,14 +156,14 @@
 // uv of mesh row k, in row k of the side table mesh_uv: uv0, uv1 - uv0,
 // uv2 - uv0
 #define MESH_UV_W 6
-// shared-BLAS instance: 3x4 row-major world-to-object affine, material,
-// root node of its BLAS
+// shared-BLAS instance: 3x4 row-major world-to-object affine, material
+// slot, root node of its BLAS
 #define INST_W2O 0
 #define INST_MAT 12
 #define INST_ROOT 13
 #define INST_W 16
-// table sphere: centre, radius (-1 in padding slots), material; and the
-// box of each SPH_BLOCK-slot block
+// table sphere: centre, radius (-1 in padding slots), material slot; and
+// the box of each SPH_BLOCK-slot block
 #define SPHT_C 0
 #define SPHT_R 3
 #define SPHT_MAT 4
@@ -178,6 +190,9 @@
 #define WROW_WANT 19
 #define WROW_KEY 20
 #define W_SORT_ROWS 21
+// volpath waves: the lane's medium, moved by every sort with the rows
+// before it
+#define WROW_MED 21
 #define W_SORT_PAD 24
 #define WROW_AN 24
 #define WROW_AA 27

@@ -1,0 +1,158 @@
+// The megakernel's lane loop: one thread streams a pixel's paths back to
+// back through the path body (K1a-K1d, pallas_path.py `body` :4349) or,
+// where VOL, the volpath body (K1e, volpath.cuh vol_bounce, `body_vol`
+// :4572). Mirrors rene_tpu_torch/integrators/mega_path.py
+// `path_lanes_ref` (and volpath.py `vol_lanes_ref`). Included by
+// mega_path.cu; plain C++ apart from the CUDA qualifiers and intrinsics.
+#pragma once
+#include <stdint.h>
+
+#include "path.cuh"
+#include "volpath.cuh"
+
+struct Params {
+  Scene s;
+  int width, n_pix, max_depth, use_rr, beckmann, num_samples;
+  int has_accel;   // launch the MESH variant
+  int block_seed;  // seed streams per 32x32 pixel block (rng.tile_of)
+  uint32_t seed;
+  float* __restrict__ out;
+  const float* __restrict__ media;  // (n_media, MED_W), read by volpath
+  int n_media;
+};
+
+// One lane's whole run: num_samples paths for pixel `lane`; writes the
+// ten per-lane sums to out[k * n_pix + lane]. MESH: the scene has
+// acceleration tables (mesh, instances or sphere table). VOL: each path
+// runs the volpath bounce and starts in vacuum.
+template <bool MESH, bool VOL>
+__device__ __forceinline__ void trace_lane(const Params& p, int lane) {
+  const Scene& s = p.s;
+  const bool beck = p.beckmann != 0;
+  const int E = s.n_eo;
+  const float ray_inc = 1.f + (float)s.n_lights + (E > 0 ? 1.f : 0.f);
+  const float pxf = (float)(lane % p.width);
+  const float pyf = (float)(lane / p.width);
+  const V3 cam_o = v3(__ldg(s.cam + CAM_ORIGIN), __ldg(s.cam + CAM_ORIGIN + 1),
+                      __ldg(s.cam + CAM_ORIGIN + 2));
+  const int bg_kind = (int)__ldg(s.cam + CAM_BG_KIND);
+
+  uint32_t st = seed_state(
+      (uint32_t)lane, p.seed,
+      tile_of((uint32_t)lane, (uint32_t)p.width, p.block_seed != 0));
+  float ju0 = uniform(st);
+  float jv0 = uniform(st);
+  V3 o = cam_o;
+  V3 d = camera_ray(s.cam, pxf, pyf, ju0, jv0);
+  float thr[3] = {1.f, 1.f, 1.f};
+  float rad[3] = {0.f, 0.f, 0.f}, aov_n[3] = {0.f, 0.f, 0.f};
+  float aov_a[3] = {0.f, 0.f, 0.f};
+  float rays = 0.f, med = 0.f;
+  int depth = 0, sample = 0;
+
+  while (sample < p.num_samples) {
+    rays = rays + ray_inc;
+    bool alive;
+    V3 next_o = o, next_d = d;
+    float nthr[3] = {thr[0], thr[1], thr[2]};
+    float next_med = med, cj1, cj2;
+    if constexpr (VOL) {
+      const VolStep b = vol_bounce<MESH>(s, Media{p.media, p.n_media}, beck,
+                                         o, d, thr, med, depth == 0, rad,
+                                         aov_n, aov_a, st);
+      alive = b.alive;
+      next_o = b.o;
+      next_d = b.d;
+      for (int c = 0; c < 3; ++c) nthr[c] = b.c[c];
+      next_med = b.med;
+      cj1 = b.cj1;
+      cj2 = b.cj2;
+    } else {
+      const Draws u = draw_bounce(s, p.use_rr != 0, st);
+      cj1 = u.cj1;
+      cj2 = u.cj2;
+      Hit h = trace_closest<MESH>(s, o, d, TMIN);
+      alive = h.t < BIG;
+      if (!alive) {
+        float bg[3];
+        background(s.cam, s.atlas, bg_kind, d, bg);
+        for (int c = 0; c < 3; ++c) rad[c] = rad[c] + thr[c] * bg[c];
+      } else {
+        Mat m = hit_material(s, h);
+        V3 hp = v3(o.x + h.t * d.x, o.y + h.t * d.y, o.z + h.t * d.z);
+        V3 n = normalize3(h.n);
+        V3 wo = neg(d);
+        Frame f = onb_from_w(n);
+        // emitter hit (one-sided)
+        if ((h.e[0] != 0.f || h.e[1] != 0.f || h.e[2] != 0.f)
+            && dot3(wo, n) > 0.f)
+          for (int c = 0; c < 3; ++c) rad[c] = rad[c] + thr[c] * h.e[c];
+        // AOVs at depth 0
+        if (depth == 0) {
+          aov_n[0] = aov_n[0] + n.x;
+          aov_n[1] = aov_n[1] + n.y;
+          aov_n[2] = aov_n[2] + n.z;
+          for (int c = 0; c < 3; ++c) aov_a[c] = aov_a[c] + m.ab[c];
+        }
+        V3 lo = to_local(f, wo);
+        // distant lights: NEE with a shadow ray each
+        for (int li = 0; li < s.n_lights; ++li) {
+          const float* L = s.lights + li * LIGHT_W;
+          V3 ld = load3(L + LIGHT_DIR);
+          if (shadow_any<MESH>(s, li, hp, ld, TMIN, 1e5f)) continue;
+          BsdfVal fe = bsdf_eval(m, lo, to_local(f, ld), beck);
+          float cosl = fabsf(ld.x * n.x + ld.y * n.y + ld.z * n.z);
+          for (int c = 0; c < 3; ++c)
+            rad[c] = rad[c]
+                + thr[c] * fe.f[c] * cosl * __ldg(L + LIGHT_COLOR + c);
+        }
+        alive = bsdf_step(s, m, f, n, lo, hp, u, beck, thr, next_d, nthr);
+        // a throughput below the normal range counts as zero, as under
+        // the flush-to-zero arithmetic of XLA and the TPU
+        alive = alive
+            && maxn(nthr[0], maxn(nthr[1], nthr[2])) >= FLT_MIN_NORMAL;
+        if (p.use_rr) {
+          float p_cont = clampn(maxn(nthr[0], maxn(nthr[1], nthr[2])), 0.f,
+                                1.f);
+          bool do_rr = depth > RR_START;
+          alive = alive && (!do_rr || u.rrv <= p_cont);
+          if (do_rr && alive) {
+            float inv_p = 1.f / clamp_min(p_cont, 1e-20f);
+            for (int c = 0; c < 3; ++c) nthr[c] = nthr[c] * inv_p;
+          }
+        }
+        next_o = hp;
+      }
+    }
+    alive = alive && (depth + 1 < p.max_depth);
+    if (alive) {
+      o = next_o;
+      d = next_d;
+      for (int c = 0; c < 3; ++c) thr[c] = nthr[c];
+      med = next_med;
+      depth = depth + 1;
+    } else {
+      sample = sample + 1;
+      if (sample < p.num_samples) {  // regenerate a camera path
+        o = cam_o;
+        d = camera_ray(s.cam, pxf, pyf, cj1, cj2);
+        thr[0] = thr[1] = thr[2] = 1.f;
+        med = 0.f;
+        depth = 0;
+      }
+    }
+  }
+
+  const size_t N = (size_t)p.n_pix;
+  float* out = p.out + lane;
+  out[0 * N] = rad[0];
+  out[1 * N] = rad[1];
+  out[2 * N] = rad[2];
+  out[3 * N] = aov_n[0];
+  out[4 * N] = aov_n[1];
+  out[5 * N] = aov_n[2];
+  out[6 * N] = aov_a[0];
+  out[7 * N] = aov_a[1];
+  out[8 * N] = aov_a[2];
+  out[9 * N] = rays;
+}

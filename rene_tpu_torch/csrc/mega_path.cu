@@ -1,5 +1,5 @@
 // Path-tracing megakernel for NVIDIA Hopper (sm_90a), slices K1a, K1b,
-// K1c and K1d.
+// K1c and K1d, and its volpath body, slice K1e.
 //
 // Replaces rene_tpu/integrators/pallas_path.py:_build_kernel.kernel (the
 // TPU megakernel, :4266) with its path `body` (:4349): baked triangles
@@ -17,7 +17,19 @@
 // immediates only; mega_path_kernel<true> adds the acceleration tables,
 // so the K1a variant keeps its registers and speed. Each build of this
 // file holds one of them, picked by -DMEGA_MESH=0 or 1
-// (rene_tpu_torch/kernels.py builds both at once).
+// (rene_tpu_torch/kernels.py builds all variants at once).
+//
+// -DMEGA_VOL=1 builds the volpath megakernel instead (K1e, replacing
+// `body_vol` :4572-4841 with `med_*` :3287-3361 and `tr_march`
+// :3363-3430; plain version integrators/volpath.py): the same lane
+// loop and light sampling over csrc/volpath.cuh's bounce, with each
+// lane's medium, distance sampling, Henyey-Greenstein NEE and the
+// transmittance march (csrc/medium.cuh), a real call that walks up to
+// 32 closest hits through None surfaces. A separate build, not a
+// runtime branch, so the path variants compile from the code they had.
+// What bounds it: the casts, as in the path body, now with a march per
+// light at every scatter point and surface, and no Russian roulette, so
+// the lanes of a warp end their paths far apart.
 //
 // Design. One thread owns one pixel and streams `num_samples` paths back
 // to back, regenerating a camera ray when a path ends: camera ray,
@@ -48,23 +60,38 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "path.cuh"
+#include "mega_lane.cuh"
 
 #ifndef MEGA_MESH
 #define MEGA_MESH 0
 #endif
+#ifndef MEGA_VOL
+#define MEGA_VOL 0
+#endif
 // blocks of 128 threads that must fit an SM: five for the immediates
 // variant (at most 96 registers; its short table loops gain from the
 // occupancy), four for the mesh variant (128 registers; capped at 96 it
-// spills into its tree walk and gains nothing)
+// spills into its tree walk and gains nothing); the volpath variants
+// keep them
 #define PATH_MIN_BLOCKS (MEGA_MESH ? 4 : 5)
 
+#if MEGA_VOL
+// the parameters stay in the constant bank: the march, a real call,
+// takes the scene by reference
+template <bool MESH>
+__global__ void __launch_bounds__(128, PATH_MIN_BLOCKS)
+mega_volpath_kernel(const __grid_constant__ Params p) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane < p.n_pix) trace_lane<MESH, true>(p, lane);
+}
+#else
 template <bool MESH>
 __global__ void __launch_bounds__(128, PATH_MIN_BLOCKS)
 mega_path_kernel(const Params p) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane < p.n_pix) trace_lane<MESH>(p, lane);
+  if (lane < p.n_pix) trace_lane<MESH, false>(p, lane);
 }
+#endif
 
 // Launch this build's variant on `stream` (a cudaStream_t); returns
 // cudaGetLastError(), or cudaErrorInvalidValue for scene tables of the
@@ -74,9 +101,15 @@ static int run_lanes(const Params& p, void* stream) {
     return (int)cudaErrorInvalidValue;
   const int threads = 128;
   const int blocks = (p.n_pix + threads - 1) / threads;
+#if MEGA_VOL
+  if (blocks > 0)
+    mega_volpath_kernel<MEGA_MESH != 0>
+        <<<blocks, threads, 0, (cudaStream_t)stream>>>(p);
+#else
   if (blocks > 0)
     mega_path_kernel<MEGA_MESH != 0>
         <<<blocks, threads, 0, (cudaStream_t)stream>>>(p);
+#endif
   return (int)cudaGetLastError();
 }
 

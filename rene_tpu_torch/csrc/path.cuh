@@ -1,8 +1,10 @@
-// Per-lane body of the path megakernel: camera, light sampling and the
-// path loop of one pixel lane. Mirrors
+// Per-lane pieces of the path kernels: camera, a bounce's draws, light
+// sampling and the BSDF step with its MIS, shared by the megakernel's
+// lane loop (mega_lane.cuh), the wave kernel (wave.cuh) and the volpath
+// bounce (volpath.cuh). Mirrors
 // rene_tpu_torch/integrators/{camera,common,mega_path}.py
-// (pallas_path.py:3439-3493, :4140-4161, :4266-4570). Included by
-// mega_path.cu; plain C++ apart from the CUDA qualifiers and intrinsics.
+// (pallas_path.py:3439-3493, :4140-4161, :4266-4570). Plain C++ apart
+// from the CUDA qualifiers and intrinsics.
 #pragma once
 #include <stdint.h>
 
@@ -158,147 +160,33 @@ __device__ __forceinline__ float light_pdf(const Scene& s, V3 p, V3 w) {
   return lp / (float)(E + (s.has_env ? 1 : 0));
 }
 
-struct Params {
-  Scene s;
-  int width, n_pix, max_depth, use_rr, beckmann, num_samples;
-  int has_accel;   // launch the MESH variant
-  int block_seed;  // seed streams per 32x32 pixel block (rng.tile_of)
-  uint32_t seed;
-  float* __restrict__ out;
-};
-
-// One lane's whole run: num_samples paths for pixel `lane`; writes the
-// ten per-lane sums to out[k * n_pix + lane]. MESH: the scene has
-// acceleration tables (mesh, instances or sphere table).
-template <bool MESH>
-__device__ __forceinline__ void trace_lane(const Params& p, int lane) {
-  const Scene& s = p.s;
-  const bool beck = p.beckmann != 0;
-  const int E = s.n_eo;
-  const float ray_inc = 1.f + (float)s.n_lights + (E > 0 ? 1.f : 0.f);
-  const float pxf = (float)(lane % p.width);
-  const float pyf = (float)(lane / p.width);
-  const V3 cam_o = v3(__ldg(s.cam + CAM_ORIGIN), __ldg(s.cam + CAM_ORIGIN + 1),
-                      __ldg(s.cam + CAM_ORIGIN + 2));
-  const int bg_kind = (int)__ldg(s.cam + CAM_BG_KIND);
-  const bool nee = E > 0 || s.has_env;
-
-  uint32_t st = seed_state(
-      (uint32_t)lane, p.seed,
-      tile_of((uint32_t)lane, (uint32_t)p.width, p.block_seed != 0));
-  float ju0 = uniform(st);
-  float jv0 = uniform(st);
-  V3 o = cam_o;
-  V3 d = camera_ray(s.cam, pxf, pyf, ju0, jv0);
-  float thr[3] = {1.f, 1.f, 1.f};
-  float rad[3] = {0.f, 0.f, 0.f}, aov_n[3] = {0.f, 0.f, 0.f};
-  float aov_a[3] = {0.f, 0.f, 0.f};
-  float rays = 0.f;
-  int depth = 0, sample = 0;
-
-  while (sample < p.num_samples) {
-    rays = rays + ray_inc;
-    const Draws u = draw_bounce(s, p.use_rr != 0, st);
-    Hit h = trace_closest<MESH>(s, o, d, TMIN);
-    bool alive = h.t < BIG;
-    V3 next_o = o, next_d = d;
-    float nthr[3] = {thr[0], thr[1], thr[2]};
-    if (!alive) {
-      float bg[3];
-      background(s.cam, s.atlas, bg_kind, d, bg);
-      for (int c = 0; c < 3; ++c) rad[c] = rad[c] + thr[c] * bg[c];
-    } else {
-      Mat m = hit_material(s, h);
-      V3 hp = v3(o.x + h.t * d.x, o.y + h.t * d.y, o.z + h.t * d.z);
-      V3 n = normalize3(h.n);
-      V3 wo = neg(d);
-      Frame f = onb_from_w(n);
-      // emitter hit (one-sided)
-      if ((h.e[0] != 0.f || h.e[1] != 0.f || h.e[2] != 0.f) && dot3(wo, n) > 0.f)
-        for (int c = 0; c < 3; ++c) rad[c] = rad[c] + thr[c] * h.e[c];
-      // AOVs at depth 0
-      if (depth == 0) {
-        aov_n[0] = aov_n[0] + n.x;
-        aov_n[1] = aov_n[1] + n.y;
-        aov_n[2] = aov_n[2] + n.z;
-        for (int c = 0; c < 3; ++c) aov_a[c] = aov_a[c] + m.ab[c];
-      }
-      V3 lo = to_local(f, wo);
-      // distant lights: NEE with a shadow ray each
-      for (int li = 0; li < s.n_lights; ++li) {
-        const float* L = s.lights + li * LIGHT_W;
-        V3 ld = load3(L + LIGHT_DIR);
-        if (shadow_any<MESH>(s, li, hp, ld, TMIN, 1e5f)) continue;
-        BsdfVal fe = bsdf_eval(m, lo, to_local(f, ld), beck);
-        float cosl = fabsf(ld.x * n.x + ld.y * n.y + ld.z * n.z);
-        for (int c = 0; c < 3; ++c)
-          rad[c] = rad[c] + thr[c] * fe.f[c] * cosl * __ldg(L + LIGHT_COLOR + c);
-      }
-      // scatter
-      BsdfSample bs = bsdf_sample(m, lo, u.u_coin, u.u1, u.u2, u.ul, beck);
-      V3 sw = to_world(f, bs.wi);
-      V3 w_ = sw;
-      float fv[3] = {bs.f[0], bs.f[1], bs.f[2]};
-      float pdf = bs.pdf;
-      if (nee && is_diffuse(m)) {
-        // one-sample MIS between the light and BSDF strategies
-        V3 ls = sample_light(s, hp, u);
-        BsdfVal fe = bsdf_eval(m, lo, to_local(f, ls), beck);
-        bool take_light = u.coin > 0.5f;
-        float pdf_b = bs.pdf;
-        if (take_light) {
-          w_ = ls;
-          for (int c = 0; c < 3; ++c) fv[c] = fe.f[c];
-          pdf_b = fe.pdf;
-        }
-        pdf = 0.5f * pdf_b + 0.5f * light_pdf(s, hp, w_);
-      }
-      alive = pdf >= 1e-5f;
-      float cosw = fabsf(w_.x * n.x + w_.y * n.y + w_.z * n.z);
-      float scale = cosw / clamp_min(pdf, 1e-20f);
-      for (int c = 0; c < 3; ++c) nthr[c] = thr[c] * fv[c] * scale;
-      // a throughput below the normal range counts as zero, as under the
-      // flush-to-zero arithmetic of XLA and the TPU
-      alive = alive && maxn(nthr[0], maxn(nthr[1], nthr[2])) >= FLT_MIN_NORMAL;
-      if (p.use_rr) {
-        float p_cont = clampn(maxn(nthr[0], maxn(nthr[1], nthr[2])), 0.f, 1.f);
-        bool do_rr = depth > RR_START;
-        alive = alive && (!do_rr || u.rrv <= p_cont);
-        if (do_rr && alive) {
-          float inv_p = 1.f / clamp_min(p_cont, 1e-20f);
-          for (int c = 0; c < 3; ++c) nthr[c] = nthr[c] * inv_p;
-        }
-      }
-      next_o = hp;
-      next_d = w_;
+// The BSDF step at a surface: the BSDF-sampled direction or, with
+// emitters or an env map at a diffuse surface, one-sample MIS between
+// the light and BSDF strategies. Writes the next direction to w and
+// thr * f * |w . n| / pdf to nthr (which may be thr); returns whether
+// pdf >= 1e-5.
+__device__ __forceinline__ bool bsdf_step(const Scene& s, const Mat& m,
+                                          const Frame& f, V3 n, V3 lo, V3 hp,
+                                          const Draws& u, bool beck,
+                                          const float* thr, V3& w,
+                                          float* nthr) {
+  const BsdfSample bs = bsdf_sample(m, lo, u.u_coin, u.u1, u.u2, u.ul, beck);
+  w = to_world(f, bs.wi);
+  float fv[3] = {bs.f[0], bs.f[1], bs.f[2]};
+  float pdf = bs.pdf;
+  if ((s.n_eo > 0 || s.has_env) && is_diffuse(m)) {
+    const V3 ls = sample_light(s, hp, u);
+    const BsdfVal fe = bsdf_eval(m, lo, to_local(f, ls), beck);
+    float pdf_b = bs.pdf;
+    if (u.coin > 0.5f) {
+      w = ls;
+      for (int c = 0; c < 3; ++c) fv[c] = fe.f[c];
+      pdf_b = fe.pdf;
     }
-    alive = alive && (depth + 1 < p.max_depth);
-    if (alive) {
-      o = next_o;
-      d = next_d;
-      for (int c = 0; c < 3; ++c) thr[c] = nthr[c];
-      depth = depth + 1;
-    } else {
-      sample = sample + 1;
-      if (sample < p.num_samples) {  // regenerate a camera path
-        o = cam_o;
-        d = camera_ray(s.cam, pxf, pyf, u.cj1, u.cj2);
-        thr[0] = thr[1] = thr[2] = 1.f;
-        depth = 0;
-      }
-    }
+    pdf = 0.5f * pdf_b + 0.5f * light_pdf(s, hp, w);
   }
-
-  const size_t N = (size_t)p.n_pix;
-  float* out = p.out + lane;
-  out[0 * N] = rad[0];
-  out[1 * N] = rad[1];
-  out[2 * N] = rad[2];
-  out[3 * N] = aov_n[0];
-  out[4 * N] = aov_n[1];
-  out[5 * N] = aov_n[2];
-  out[6 * N] = aov_a[0];
-  out[7 * N] = aov_a[1];
-  out[8 * N] = aov_a[2];
-  out[9 * N] = rays;
+  const float cosw = fabsf(w.x * n.x + w.y * n.y + w.z * n.z);
+  const float scale = cosw / clamp_min(pdf, 1e-20f);
+  for (int c = 0; c < 3; ++c) nthr[c] = thr[c] * fv[c] * scale;
+  return pdf >= 1e-5f;
 }

@@ -30,6 +30,11 @@
 // 1024-lane tiles in lock-step and skipped tiles past the alive prefix;
 // a CUDA thread skips its own lane.
 //
+// -DMEGA_VOL=1 builds K2 with the volpath bounce instead (`wave_bounce_vol`
+// :5277-5565; csrc/volpath.cuh, csrc/medium.cuh), the variants
+// wave_volpath and wave_volpath_mesh, which also read and write the
+// lane's medium row WROW_MED.
+//
 // K3: one thread per lane writes all W_NROWS rows of a fresh wave from
 // its pixel coordinates: 8 bytes read and 128 written per lane, bound by
 // bytes. K4: one 128-thread block per 128-lane slice copies rows
@@ -44,18 +49,32 @@
 #ifndef MEGA_MESH
 #define MEGA_MESH 0
 #endif
+#ifndef MEGA_VOL
+#define MEGA_VOL 0
+#endif
 // blocks of 128 threads that must fit an SM: five for the immediates
 // variant (at most 96 registers; its short table loops gain from the
 // occupancy), four for the mesh variant (128 registers; capped at 96 it
 // spills into its tree walk and gains nothing)
 #define PATH_MIN_BLOCKS (MEGA_MESH ? 4 : 5)
 
+#if MEGA_VOL
+// the parameters stay in the constant bank: the march, a real call,
+// takes the scene by reference
+template <bool MESH>
+__global__ void __launch_bounds__(128, PATH_MIN_BLOCKS)
+wave_volpath_kernel(const __grid_constant__ WaveParams p) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane < p.n_run) wave_lane<MESH, true>(p, lane);
+}
+#else
 template <bool MESH>
 __global__ void __launch_bounds__(128, PATH_MIN_BLOCKS)
 wave_path_kernel(const WaveParams p) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane < p.n_run) wave_lane<MESH>(p, lane);
+  if (lane < p.n_run) wave_lane<MESH, false>(p, lane);
 }
+#endif
 
 __global__ void __launch_bounds__(128)
     wave_genesis_kernel(const GenesisParams g) {
@@ -76,9 +95,15 @@ static int run_wave(const WaveParams& p, void* stream) {
   if ((p.has_accel != 0) != (MEGA_MESH != 0))
     return (int)cudaErrorInvalidValue;
   const int blocks = (p.n_run + 127) / 128;
+#if MEGA_VOL
+  if (blocks > 0 && p.k > 0)
+    wave_volpath_kernel<MEGA_MESH != 0>
+        <<<blocks, 128, 0, (cudaStream_t)stream>>>(p);
+#else
   if (blocks > 0 && p.k > 0)
     wave_path_kernel<MEGA_MESH != 0>
         <<<blocks, 128, 0, (cudaStream_t)stream>>>(p);
+#endif
   return (int)cudaGetLastError();
 }
 

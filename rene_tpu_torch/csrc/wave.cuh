@@ -1,17 +1,19 @@
 // Per-lane code of the wavefront engine: the genesis of a wave (K3), k
-// bounces of one lane of a wave (K2) and the 128-lane slice copy of the
-// slice permutation (K4). Mirrors rene_tpu_torch/integrators/wave.py
-// (`genesis_ref`, `wave_bounce`, `wave_step_ref`, `permute_ref`), which
-// mirror pallas_path.py:4970-5048 (genesis_kernel), :5052-5275
-// (wave_bounce) and :5567-5706 (wave_kernel), and pallas_wave.py:370-383
-// (_dma_perm_kernel). Included by wave.cu; plain C++ apart from the CUDA
-// qualifiers and intrinsics, so tests/test_torch_kernel_source.py compiles
-// it with g++ too.
+// bounces of one lane of a wave (K2), path or volpath, and the 128-lane
+// slice copy of the slice permutation (K4). Mirrors
+// rene_tpu_torch/integrators/wave.py (`genesis_ref`, `wave_bounce`,
+// `wave_step_ref`, `permute_ref`), which mirror pallas_path.py:4970-5048
+// (genesis_kernel), :5052-5275 (wave_bounce), :5277-5565
+// (wave_bounce_vol) and :5567-5706 (wave_kernel), and
+// pallas_wave.py:370-383 (_dma_perm_kernel). Included by wave.cu; plain
+// C++ apart from the CUDA qualifiers and intrinsics, so
+// tests/test_torch_kernel_source.py compiles it with g++ too.
 #pragma once
 #include <stdint.h>
 
 #include "layout.cuh"
 #include "path.cuh"
+#include "volpath.cuh"
 
 struct WaveParams {
   Scene s;
@@ -24,6 +26,8 @@ struct WaveParams {
   float klo[3];    // key cells: lo xyz and 64 / ext xyz (float32)
   float kscale[3];
   float* __restrict__ state;
+  const float* __restrict__ media;  // (n_media, MED_W), read by volpath
+  int n_media;
 };
 
 struct GenesisParams {
@@ -123,6 +127,8 @@ __device__ __forceinline__ void genesis_lane(const GenesisParams& g,
   S[WROW_WANT * N] = want;
   S[WROW_KEY * N] = key_bits(alive ? regen_key(px, py, d, g.width)
                                    : (uint32_t)W_KEY_DEAD);
+  // the rest, the medium row WROW_MED (vacuum) and the AOV sums among
+  // them, start at zero
   for (int row = W_SORT_ROWS; row < W_NROWS; ++row) S[row * N] = 0.f;
 }
 
@@ -133,79 +139,85 @@ struct WaveLane {
   float alive, rays, px, py, smp, dep, want, key;
 };
 
-// One bounce of an alive lane (`wave_bounce`): the megakernel's path
-// body (path.cuh trace_lane), then regeneration while smp < want,
-// parking at DEAD_ORIGIN and the next-launch key. The draws are the
-// megakernel's (draw_bounce).
-template <bool MESH>
+// One bounce of an alive lane (`wave_bounce`, or `wave_bounce_vol` where
+// VOL): the megakernel's bounce (mega_lane.cuh trace_lane's path body,
+// or volpath.cuh's vol_bounce in the lane's medium `med`), then
+// regeneration while smp < want (in vacuum), parking at DEAD_ORIGIN and
+// the next-launch key, 1<<23 | morton18 of the next origin (the surface
+// hit or the scatter point) under the new direction's octant. The draws
+// are the megakernel's.
+template <bool MESH, bool VOL>
 __device__ __forceinline__ void wave_bounce(const WaveParams& p, WaveLane& L,
-                                            uint32_t& st) {
+                                            float& med, uint32_t& st) {
   const Scene& s = p.s;
   const bool beck = p.beckmann != 0;
   const int E = s.n_eo;
   L.rays = L.rays + (1.f + (float)s.n_lights + (E > 0 ? 1.f : 0.f));
-  const Draws u = draw_bounce(s, p.use_rr != 0, st);
-  Hit h = trace_closest<MESH>(s, L.o, L.d, TMIN);
-  bool alive = h.t < BIG;
+  bool alive;
   V3 hp = L.o, w_ = L.d;
   float nthr[3] = {L.c[0], L.c[1], L.c[2]};
-  if (!alive) {
-    float bg[3];
-    background(s.cam, s.atlas, (int)__ldg(s.cam + CAM_BG_KIND), L.d, bg);
-    for (int c = 0; c < 3; ++c) L.r[c] = L.r[c] + L.c[c] * bg[c];
+  float next_med = med, cj1, cj2;
+  if constexpr (VOL) {
+    const VolStep b = vol_bounce<MESH>(s, Media{p.media, p.n_media}, beck,
+                                       L.o, L.d, L.c, med, L.dep == 0.f, L.r,
+                                       L.an, L.aa, st);
+    alive = b.alive;
+    hp = b.o;
+    w_ = b.d;
+    for (int c = 0; c < 3; ++c) nthr[c] = b.c[c];
+    next_med = b.med;
+    cj1 = b.cj1;
+    cj2 = b.cj2;
   } else {
-    Mat m = hit_material(s, h);
-    hp = v3(L.o.x + h.t * L.d.x, L.o.y + h.t * L.d.y, L.o.z + h.t * L.d.z);
-    V3 n = normalize3(h.n);
-    V3 wo = neg(L.d);
-    Frame f = onb_from_w(n);
-    if ((h.e[0] != 0.f || h.e[1] != 0.f || h.e[2] != 0.f) && dot3(wo, n) > 0.f)
-      for (int c = 0; c < 3; ++c) L.r[c] = L.r[c] + L.c[c] * h.e[c];
-    if (L.dep == 0.f) {
-      L.an[0] = L.an[0] + n.x;
-      L.an[1] = L.an[1] + n.y;
-      L.an[2] = L.an[2] + n.z;
-      for (int c = 0; c < 3; ++c) L.aa[c] = L.aa[c] + m.ab[c];
-    }
-    V3 lo = to_local(f, wo);
-    for (int li = 0; li < s.n_lights; ++li) {
-      const float* Lt = s.lights + li * LIGHT_W;
-      V3 ld = load3(Lt + LIGHT_DIR);
-      if (shadow_any<MESH>(s, li, hp, ld, TMIN, 1e5f)) continue;
-      BsdfVal fe = bsdf_eval(m, lo, to_local(f, ld), beck);
-      float cosl = fabsf(ld.x * n.x + ld.y * n.y + ld.z * n.z);
-      for (int c = 0; c < 3; ++c)
-        L.r[c] = L.r[c] + L.c[c] * fe.f[c] * cosl * __ldg(Lt + LIGHT_COLOR + c);
-    }
-    BsdfSample bs = bsdf_sample(m, lo, u.u_coin, u.u1, u.u2, u.ul, beck);
-    w_ = to_world(f, bs.wi);
-    float fv[3] = {bs.f[0], bs.f[1], bs.f[2]};
-    float pdf = bs.pdf;
-    if ((E > 0 || s.has_env) && is_diffuse(m)) {
-      V3 ls = sample_light(s, hp, u);
-      BsdfVal fe = bsdf_eval(m, lo, to_local(f, ls), beck);
-      float pdf_b = bs.pdf;
-      if (u.coin > 0.5f) {
-        w_ = ls;
-        for (int c = 0; c < 3; ++c) fv[c] = fe.f[c];
-        pdf_b = fe.pdf;
+    const Draws u = draw_bounce(s, p.use_rr != 0, st);
+    cj1 = u.cj1;
+    cj2 = u.cj2;
+    Hit h = trace_closest<MESH>(s, L.o, L.d, TMIN);
+    alive = h.t < BIG;
+    if (!alive) {
+      float bg[3];
+      background(s.cam, s.atlas, (int)__ldg(s.cam + CAM_BG_KIND), L.d, bg);
+      for (int c = 0; c < 3; ++c) L.r[c] = L.r[c] + L.c[c] * bg[c];
+    } else {
+      Mat m = hit_material(s, h);
+      hp = v3(L.o.x + h.t * L.d.x, L.o.y + h.t * L.d.y, L.o.z + h.t * L.d.z);
+      V3 n = normalize3(h.n);
+      V3 wo = neg(L.d);
+      Frame f = onb_from_w(n);
+      if ((h.e[0] != 0.f || h.e[1] != 0.f || h.e[2] != 0.f)
+          && dot3(wo, n) > 0.f)
+        for (int c = 0; c < 3; ++c) L.r[c] = L.r[c] + L.c[c] * h.e[c];
+      if (L.dep == 0.f) {
+        L.an[0] = L.an[0] + n.x;
+        L.an[1] = L.an[1] + n.y;
+        L.an[2] = L.an[2] + n.z;
+        for (int c = 0; c < 3; ++c) L.aa[c] = L.aa[c] + m.ab[c];
       }
-      pdf = 0.5f * pdf_b + 0.5f * light_pdf(s, hp, w_);
-    }
-    alive = pdf >= 1e-5f;
-    float cosw = fabsf(w_.x * n.x + w_.y * n.y + w_.z * n.z);
-    float scale = cosw / clamp_min(pdf, 1e-20f);
-    for (int c = 0; c < 3; ++c) nthr[c] = L.c[c] * fv[c] * scale;
-    // a throughput below the normal range counts as zero, as under the
-    // flush-to-zero arithmetic of XLA and the TPU
-    alive = alive && maxn(nthr[0], maxn(nthr[1], nthr[2])) >= FLT_MIN_NORMAL;
-    if (p.use_rr) {
-      float p_cont = clampn(maxn(nthr[0], maxn(nthr[1], nthr[2])), 0.f, 1.f);
-      bool do_rr = L.dep > (float)RR_START;
-      alive = alive && (!do_rr || u.rrv <= p_cont);
-      if (do_rr && alive) {
-        float inv_p = 1.f / clamp_min(p_cont, 1e-20f);
-        for (int c = 0; c < 3; ++c) nthr[c] = nthr[c] * inv_p;
+      V3 lo = to_local(f, wo);
+      for (int li = 0; li < s.n_lights; ++li) {
+        const float* Lt = s.lights + li * LIGHT_W;
+        V3 ld = load3(Lt + LIGHT_DIR);
+        if (shadow_any<MESH>(s, li, hp, ld, TMIN, 1e5f)) continue;
+        BsdfVal fe = bsdf_eval(m, lo, to_local(f, ld), beck);
+        float cosl = fabsf(ld.x * n.x + ld.y * n.y + ld.z * n.z);
+        for (int c = 0; c < 3; ++c)
+          L.r[c] = L.r[c]
+              + L.c[c] * fe.f[c] * cosl * __ldg(Lt + LIGHT_COLOR + c);
+      }
+      alive = bsdf_step(s, m, f, n, lo, hp, u, beck, L.c, w_, nthr);
+      // a throughput below the normal range counts as zero, as under the
+      // flush-to-zero arithmetic of XLA and the TPU
+      alive = alive
+          && maxn(nthr[0], maxn(nthr[1], nthr[2])) >= FLT_MIN_NORMAL;
+      if (p.use_rr) {
+        float p_cont = clampn(maxn(nthr[0], maxn(nthr[1], nthr[2])), 0.f,
+                              1.f);
+        bool do_rr = L.dep > (float)RR_START;
+        alive = alive && (!do_rr || u.rrv <= p_cont);
+        if (do_rr && alive) {
+          float inv_p = 1.f / clamp_min(p_cont, 1e-20f);
+          for (int c = 0; c < 3; ++c) nthr[c] = nthr[c] * inv_p;
+        }
       }
     }
   }
@@ -218,15 +230,17 @@ __device__ __forceinline__ void wave_bounce(const WaveParams& p, WaveLane& L,
     L.o = hp;
     L.d = w_;
     for (int c = 0; c < 3; ++c) L.c[c] = nthr[c];
+    med = next_med;
     L.dep = L.dep + 1.f;
     return;
   }
   L.smp = L.smp + 1.f;
   if (L.smp < L.want) {  // regenerate a camera path of the lane's pixel
-    L.d = camera_ray(s.cam, L.px, L.py, u.cj1, u.cj2);
+    L.d = camera_ray(s.cam, L.px, L.py, cj1, cj2);
     L.o = load3(s.cam + CAM_ORIGIN);
     L.c[0] = L.c[1] = L.c[2] = 1.f;
     L.dep = 0.f;
+    med = 0.f;
     L.key = key_bits(regen_key(L.px, L.py, L.d, p.width));
   } else {  // park
     L.o = v3(DEAD_ORIGIN, DEAD_ORIGIN, DEAD_ORIGIN);
@@ -235,9 +249,10 @@ __device__ __forceinline__ void wave_bounce(const WaveParams& p, WaveLane& L,
   }
 }
 
-// K2 for one lane: k bounces in place. A parked lane returns at once:
-// its state, and its parked key, stay as they are.
-template <bool MESH>
+// K2 for one lane: k bounces in place, of the path body or, where VOL,
+// of the volpath body with the lane's medium row. A parked lane returns
+// at once: its state, and its parked key, stay as they are.
+template <bool MESH, bool VOL>
 __device__ __forceinline__ void wave_lane(const WaveParams& p, int lane) {
   const size_t N = (size_t)p.n_pad;
   float* S = p.state + lane;
@@ -260,7 +275,11 @@ __device__ __forceinline__ void wave_lane(const WaveParams& p, int lane) {
   L.want = S[WROW_WANT * N];
   L.key = S[WROW_KEY * N];
   uint32_t st = wave_state((uint32_t)(int)S[WROW_LANE * N], p.seed, p.launch);
-  for (int b = 0; b < p.k && L.alive > 0.5f; ++b) wave_bounce<MESH>(p, L, st);
+  float med = 0.f;
+  if constexpr (VOL) med = S[WROW_MED * N];
+  for (int b = 0; b < p.k && L.alive > 0.5f; ++b)
+    wave_bounce<MESH, VOL>(p, L, med, st);
+  if constexpr (VOL) S[WROW_MED * N] = med;
   S[WROW_O * N] = L.o.x;
   S[(WROW_O + 1) * N] = L.o.y;
   S[(WROW_O + 2) * N] = L.o.z;

@@ -23,7 +23,7 @@ extern "C" int wave_path_launch(
     const float* env_mcdf, const float* env_ccdf, const float* env_pdf,
     int world_root, int has_tri_emitter, int width, int n_pix, int max_depth,
     int use_rr, int beckmann, int has_accel, int block_seed, int has_tex,
-    int has_env, int seed,
+    int has_env, const float* media, int n_media, int seed,
     int launch, int k, int n_run, int n_pad, float lo_x, float lo_y,
     float lo_z, float scale_x, float scale_y, float scale_z, float* state,
     void* stream) {
@@ -53,6 +53,8 @@ extern "C" int wave_path_launch(
   p.kscale[1] = scale_y;
   p.kscale[2] = scale_z;
   p.state = state;
+  p.media = media;
+  p.n_media = n_media;
   return run_wave(p, stream);
 }
 

@@ -66,6 +66,7 @@ def device_tables(tables: P.SceneTables, device) -> Dict:
     tabs["width"], tabs["height"] = tables.width, tables.height
     tabs["max_depth"] = tables.max_depth
     tabs["use_rr"] = tables.use_rr
+    tabs["volpath"] = tables.volpath
     tabs["n_emit"] = int(tables.emit_objects.shape[0])
     tabs["insts_f"] = tables.insts.tolist()
     for k in ("world_root", "bvh_depth", "max_leaf", "has_accel",
@@ -87,8 +88,6 @@ def bounce(tabs, c, active, beckmann: bool = False) -> Dict:
     camera draws cj1, cj2. Lanes outside `active` still draw. A
     throughput below float32's normal range counts as zero and ends the
     path, as under the flush-to-zero arithmetic of XLA and the TPU."""
-    E = tabs["n_emit"]
-    has_env = tabs["has_env"]
     cr, cg, cb = c["cr"], c["cg"], c["cb"]
     depth = c["depth"]
 
@@ -134,63 +133,8 @@ def bounce(tabs, c, active, beckmann: bool = False) -> Dict:
         tabs, tabs["lights_f"], (rr_, rg_, rb_), hx, hy, hz, frame,
         attr, lo, alive, cr, cg, cb, beckmann)
 
-    # scatter
-    u_coin, st = rng.uniform(c["st"])
-    u1, st = rng.uniform(st)
-    u2, st = rng.uniform(st)
-    ul, st = rng.uniform(st)
-    swx, swy, swz, sfr, sfg, sfb, spdf = bsdf_sample(
-        attr, *lo, u_coin, u1, u2, ul, beckmann)
-    swx, swy, swz = to_world(*frame, swx, swy, swz)
-
-    if E > 0 or has_env:
-        coin, st = rng.uniform(st)
-        ue1, st = rng.uniform(st)
-        ue2, st = rng.uniform(st)
-        ue3, st = rng.uniform(st)
-        ue4, st = rng.uniform(st)
-        # one light sampler per lane: an emit object or the env map, the
-        # pick an independent draw when the scene has both
-        if E > 0:
-            ls_wx, ls_wy, ls_wz = sample_emit(tabs, hx, hy, hz,
-                                              ue1, ue2, ue3, ue4)
-        if has_env:
-            ex_, ey_, ez_ = env_strategy(tabs, ue1, ue2, ue3, ue4)
-            if E > 0:
-                upick, st = rng.uniform(st)
-                tke = upick * float(E + 1) < 1.0
-                ls_wx = torch.where(tke, ex_, ls_wx)
-                ls_wy = torch.where(tke, ey_, ls_wy)
-                ls_wz = torch.where(tke, ez_, ls_wz)
-            else:
-                ls_wx, ls_wy, ls_wz = ex_, ey_, ez_
-        diffuse = is_diffuse(attr)
-        take_light = (coin > 0.5) & diffuse
-        wx_ = torch.where(take_light, ls_wx, swx)
-        wy_ = torch.where(take_light, ls_wy, swy)
-        wz_ = torch.where(take_light, ls_wz, swz)
-        llx, lly, llz = to_local(*frame, ls_wx, ls_wy, ls_wz)
-        fe_r, fe_g, fe_b, fe_pdf = bsdf_eval(attr, *lo, llx, lly, llz,
-                                             beckmann)
-        f_r = torch.where(take_light, fe_r, sfr)
-        f_g = torch.where(take_light, fe_g, sfg)
-        f_b = torch.where(take_light, fe_b, sfb)
-        pdf_b = torch.where(take_light, fe_pdf, spdf)
-        lp_ = emit_pdf(tabs, hx, hy, hz, wx_, wy_, wz_) if E > 0 \
-            else torch.zeros_like(hx)
-        if has_env:
-            lp_ = lp_ + env_pdf_dir(tabs, wx_, wy_, wz_)
-        lpdf = lp_ / torch.full_like(hx, float(E + (1 if has_env else 0)))
-        pdf = torch.where(diffuse, 0.5 * pdf_b + 0.5 * lpdf, spdf)
-        f_r = torch.where(diffuse, f_r, sfr)
-        f_g = torch.where(diffuse, f_g, sfg)
-        f_b = torch.where(diffuse, f_b, sfb)
-        wx_ = torch.where(diffuse, wx_, swx)
-        wy_ = torch.where(diffuse, wy_, swy)
-        wz_ = torch.where(diffuse, wz_, swz)
-    else:
-        wx_, wy_, wz_, f_r, f_g, f_b, pdf = (swx, swy, swz, sfr, sfg,
-                                             sfb, spdf)
+    wx_, wy_, wz_, f_r, f_g, f_b, pdf, _, st = scatter(
+        tabs, attr, frame, lo, hx, hy, hz, c["st"], beckmann)
 
     alive = alive & (pdf >= 1e-5)
     cosw = torch.abs(wx_ * nx + wy_ * ny + wz_ * nz)
@@ -223,6 +167,66 @@ def bounce(tabs, c, active, beckmann: bool = False) -> Dict:
             "st": st, "cj1": cj1, "cj2": cj2}
 
 
+def scatter(tabs, attr, frame, lo, hx, hy, hz, st, beckmann: bool = False):
+    """The path body's next direction at a surface: BSDF sampling, and on
+    diffuse surfaces of a scene with emitters or an env-map strategy the
+    one-sample 50/50 MIS between the BSDF and one light sampler per lane
+    (an emit object or the env map, picked by an independent draw when
+    the scene has both). Draws u_coin, u1, u2, ul, then coin, ue1..ue4
+    (and upick) where the scene has such lights. Returns (wx, wy, wz,
+    f_r, f_g, f_b, pdf, diffuse, advanced streams)."""
+    E = tabs["n_emit"]
+    has_env = tabs["has_env"]
+    u_coin, st = rng.uniform(st)
+    u1, st = rng.uniform(st)
+    u2, st = rng.uniform(st)
+    ul, st = rng.uniform(st)
+    swx, swy, swz, sfr, sfg, sfb, spdf = bsdf_sample(
+        attr, *lo, u_coin, u1, u2, ul, beckmann)
+    swx, swy, swz = to_world(*frame, swx, swy, swz)
+    diffuse = is_diffuse(attr)
+    if not (E > 0 or has_env):
+        return swx, swy, swz, sfr, sfg, sfb, spdf, diffuse, st
+    coin, st = rng.uniform(st)
+    ue1, st = rng.uniform(st)
+    ue2, st = rng.uniform(st)
+    ue3, st = rng.uniform(st)
+    ue4, st = rng.uniform(st)
+    if E > 0:
+        ls_wx, ls_wy, ls_wz = sample_emit(tabs, hx, hy, hz,
+                                          ue1, ue2, ue3, ue4)
+    if has_env:
+        ex_, ey_, ez_ = env_strategy(tabs, ue1, ue2, ue3, ue4)
+        if E > 0:
+            upick, st = rng.uniform(st)
+            tke = upick * float(E + 1) < 1.0
+            ls_wx = torch.where(tke, ex_, ls_wx)
+            ls_wy = torch.where(tke, ey_, ls_wy)
+            ls_wz = torch.where(tke, ez_, ls_wz)
+        else:
+            ls_wx, ls_wy, ls_wz = ex_, ey_, ez_
+    take_light = (coin > 0.5) & diffuse
+    wx_ = torch.where(take_light, ls_wx, swx)
+    wy_ = torch.where(take_light, ls_wy, swy)
+    wz_ = torch.where(take_light, ls_wz, swz)
+    llx, lly, llz = to_local(*frame, ls_wx, ls_wy, ls_wz)
+    fe_r, fe_g, fe_b, fe_pdf = bsdf_eval(attr, *lo, llx, lly, llz, beckmann)
+    f_r = torch.where(take_light, fe_r, sfr)
+    f_g = torch.where(take_light, fe_g, sfg)
+    f_b = torch.where(take_light, fe_b, sfb)
+    pdf_b = torch.where(take_light, fe_pdf, spdf)
+    lp_ = emit_pdf(tabs, hx, hy, hz, wx_, wy_, wz_) if E > 0 \
+        else torch.zeros_like(hx)
+    if has_env:
+        lp_ = lp_ + env_pdf_dir(tabs, wx_, wy_, wz_)
+    lpdf = lp_ / torch.full_like(hx, float(E + (1 if has_env else 0)))
+    pdf = torch.where(diffuse, 0.5 * pdf_b + 0.5 * lpdf, spdf)
+    return (torch.where(diffuse, wx_, swx), torch.where(diffuse, wy_, swy),
+            torch.where(diffuse, wz_, swz), torch.where(diffuse, f_r, sfr),
+            torch.where(diffuse, f_g, sfg), torch.where(diffuse, f_b, sfb),
+            pdf, diffuse, st)
+
+
 def ray_increment(tabs) -> float:
     """Rays a bounce casts: the closest hit, one shadow ray per distant
     light and the emitter-pdf ray of the MIS when the scene has
@@ -237,7 +241,11 @@ def path_lanes_ref(tabs, seed: int, num_samples: int,
     radiance rgb, first-hit normal xyz, albedo rgb and the ray count; lane
     i owns pixel i of the film, or pixel `pix[i]` when the int64 tensor
     `pix` names the pixels to trace (a lane's result depends on its own
-    pixel only)."""
+    pixel only). Volpath tables run the volpath bounce
+    (integrators/volpath.py), each lane carrying its medium."""
+    from .volpath import bounce_vol
+    vol = tabs["volpath"]
+    step = bounce_vol if vol else bounce
     W = tabs["width"]
     cam = tabs["cam_f"]
     if pix is None:
@@ -259,11 +267,13 @@ def path_lanes_ref(tabs, seed: int, num_samples: int,
          "rr": zero, "rg": zero, "rb": zero,
          "anx": zero, "any": zero, "anz": zero,
          "aar": zero, "aag": zero, "aab": zero, "rays": zero, "st": st}
+    if vol:
+        c["med"] = zero
 
     while bool((c["sample"] < num_samples).any()):
         active = c["sample"] < num_samples
         rays = c["rays"] + torch.where(active, 1.0, 0.0) * ray_inc
-        b = bounce(tabs, c, active, beckmann)
+        b = step(tabs, c, active, beckmann)
         alive = b["alive"]
 
         # regeneration
@@ -275,6 +285,7 @@ def path_lanes_ref(tabs, seed: int, num_samples: int,
         def pick3(a1, a2, b2c):
             return torch.where(regen, a1, torch.where(alive, a2, b2c))
 
+        med = pick3(zero, b["med"], c["med"]) if vol else None
         c = {"ox": pick3(zero + co[0], b["hx"], c["ox"]),
              "oy": pick3(zero + co[1], b["hy"], c["oy"]),
              "oz": pick3(zero + co[2], b["hz"], c["oz"]),
@@ -289,6 +300,8 @@ def path_lanes_ref(tabs, seed: int, num_samples: int,
              "sample": sample, "rays": rays, "st": b["st"],
              **{k: b[k] for k in ("rr", "rg", "rb", "anx", "any", "anz",
                                   "aar", "aag", "aab")}}
+        if vol:
+            c["med"] = med
 
     return torch.stack([c[k] for k in ("rr", "rg", "rb", "anx", "any", "anz",
                                        "aar", "aag", "aab", "rays")])
@@ -308,8 +321,9 @@ def make_mega_batch_fn(buffers_np, config, device):
     carry (`pack.slice_supported`).
 
     On a CUDA device every call launches csrc/mega_path.cu once (counted
-    in `kernels.launches` under its variant); on the CPU it runs
-    `path_lanes_ref`. There is no fallback between the two. Chunks stay
+    in `kernels.launches` under its variant: mega_volpath[_mesh] for
+    `Integrator "volpath"`); on the CPU it runs `path_lanes_ref`, or
+    volpath.vol_lanes_ref. There is no fallback between the two. Chunks stay
     at 100 samples: the JAX runner's smaller `chunk_hint` for mesh scenes
     (:6020-6032) keeps a TPU call under its watchdog and is not carried
     over."""

@@ -15,7 +15,7 @@ launches so that neighbouring lanes trace neighbouring rays:
                                          a stable sort, a gather of rows
                                          [0, 21); `dma`: slice keys, an
                                          argsort, K4 (`wave_permute`)
-      K2 (`wave_path[_mesh]`)            k bounces of every alive lane of
+      K2 (`wave_[vol]path[_mesh]`)       k bounces of every alive lane of
                                          the first nt tiles, in place
     finish                               group by pixel, sum each pixel's
                                          spw lanes
@@ -35,11 +35,16 @@ What is not carried over, all tuned for the TPU: the XLA init (its
 jitter comes from jax.random's threefry, so the port always starts a
 wave with K3), `dir_bits = 6`, `oct_major = False`, `dir_sub`,
 `key_mode = "kernel"`, `sort_gran` other than 1 and 128, `sub_tris`,
-`sub_gate`, `check_every`, the RENE_WAVE* switches, the multichip
-`mesh`, and volpath waves (with K1e). The next-launch key of a mesh hit
-carries `1<<23 | morton18(hit)` where the JAX kernel carries its
-128-triangle cluster id: the port has no clusters. That changes the
-order of the lanes in `dma` sorts, never a lane's result.
+`sub_gate`, `check_every`, the RENE_WAVE* switches and the multichip
+`mesh`. The next-launch key of a mesh hit carries `1<<23 | morton18(hit)`
+where the JAX kernel carries its 128-triangle cluster id: the port has
+no clusters. That changes the order of the lanes in `dma` sorts, never a
+lane's result.
+
+Volpath waves (slice K1e) run the volpath bounce (integrators/volpath.py)
+in K2 (`wave_volpath[_mesh]`) and carry each lane's medium in row
+WROW_MED = 21, which K3 starts at vacuum and every sort moves with the
+rows before it, as JAX's volpath waves do.
 """
 from __future__ import annotations
 
@@ -55,6 +60,7 @@ from ..ops import rng
 from ..scene import pack as P
 from .camera import camera_ray
 from .mega_path import bounce, device_tables, ray_increment
+from .volpath import bounce_vol
 
 # -- the state rows (pallas_path.py:148-181) ---------------------------------
 WROW_O, WROW_D, WROW_C, WROW_R = 0, 3, 6, 9   # origin, dir, throughput,
@@ -63,8 +69,10 @@ WROW_ALIVE, WROW_RAYS, WROW_LANE = 12, 13, 14
 WROW_PX, WROW_PY, WROW_SMP, WROW_DEP = 15, 16, 17, 18
 WROW_WANT = 19      # the lane's sample target
 WROW_KEY = 20       # next-launch sort key: int32 bits in a float32 row
-W_SORT_ROWS = 21    # rows a `gather` sort moves
-W_SORT_PAD = 24     # rows K4 moves; rows 21-23 are zero
+W_SORT_ROWS = 21    # rows a `gather` sort moves in a path wave
+WROW_MED = 21       # volpath waves: the lane's medium, which a `gather`
+                    # sort moves too (W_SORT_ROWS + 1 rows, as JAX's)
+W_SORT_PAD = 24     # rows K4 moves; rows 21-23 are zero in path waves
 WROW_AN, WROW_AA = 24, 27   # AOV normal / albedo sums
 W_NROWS = 32
 DEAD_ORIGIN = 1e30  # origin of a parked lane
@@ -252,15 +260,20 @@ _STATE_KEYS = (("ox", WROW_O), ("oy", WROW_O + 1), ("oz", WROW_O + 2),
 
 def wave_bounce(tabs, c, kb, beckmann: bool = False) -> Dict:
     """One bounce of every lane of `c` (`wave_bounce`
-    pallas_path.py:5052-5275): the megakernel's path body (`bounce`),
-    then regeneration while smp < want, parking at DEAD_ORIGIN and the
-    next-launch key. Dead lanes keep their state; their key is the
-    parked key they already hold."""
+    pallas_path.py:5052-5275, or `wave_bounce_vol` :5277-5565 for
+    volpath tables): the megakernel's path body (`bounce`, or
+    volpath.bounce_vol), then regeneration while smp < want, parking at
+    DEAD_ORIGIN and the next-launch key, `1<<23 | morton18` of the next
+    origin (the surface hit, or the scatter point in a medium) under the
+    new direction's octant. Dead lanes keep their state; their key is
+    the parked key they already hold. A regenerated lane starts in
+    vacuum."""
     cam = tabs["cam_f"]
     co = cam[P.CAM_ORIGIN:P.CAM_ORIGIN + 3]
     was_alive = c["alive"] > 0.5
     rays = c["rays"] + torch.where(was_alive, 1.0, 0.0) * ray_increment(tabs)
-    b = bounce(tabs, c, was_alive, beckmann)
+    b = (bounce_vol if tabs["volpath"] else bounce)(tabs, c, was_alive,
+                                                    beckmann)
     alive = b["alive"]
     finished = was_alive & ~alive
     smp = c["smp"] + torch.where(finished, 1.0, 0.0)
@@ -294,6 +307,8 @@ def wave_bounce(tabs, c, kb, beckmann: bool = False) -> Dict:
         alive, c["depth"] + 1.0, c["depth"]))
     out["key"] = key
     out["st"] = b["st"]
+    if tabs["volpath"]:
+        out["med"] = pick3(0.0, b["med"], c["med"])
     return out
 
 
@@ -308,11 +323,12 @@ def wave_step_ref(tabs, state: torch.Tensor, seed: int, launch: int, k: int,
     if not idx.numel():
         return state
     rows = state.index_select(1, idx)
-    c = {name: rows[r] for name, r in _STATE_KEYS}
+    keys = _STATE_KEYS + ((("med", WROW_MED),) if tabs["volpath"] else ())
+    c = {name: rows[r] for name, r in keys}
     c["st"] = rng.wave_state(rows[WROW_LANE].long(), seed, launch, stream)
     for _ in range(k):
         c = wave_bounce(tabs, c, kb, beckmann)
-    for name, r in _STATE_KEYS:
+    for name, r in keys:
         rows[r] = c[name]
     state.index_copy_(1, idx, rows)
     return state
@@ -330,6 +346,12 @@ def permute_ref(state: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
             1, perm.long()).view(W_SORT_PAD, n_pad)
     out[W_SORT_PAD:] = state[W_SORT_PAD:]
     return out
+
+
+def unsort_lanes(rows: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """`rows` with column j moved back to column src[j], the lane it
+    started as: the inverse of the `gather` sorts' permutation."""
+    return torch.empty_like(rows).index_copy_(1, src, rows)
 
 
 # -- the runner --------------------------------------------------------------
@@ -367,25 +389,23 @@ def make_wave_fn(buffers_np, config, device, samples_per_wave: int = 0,
     kb = key_bounds(lo, ext)
     schedule = tuple(k_schedule) if k_schedule else SCHEDULE
     maxd = tables.max_depth
+    n_sort = W_SORT_ROWS + (1 if tables.volpath else 0)
     pxf = torch.from_numpy(lay["pxf"]).to(device)
     pyf = torch.from_numpy(lay["pyf"]).to(device)
-    pix0 = torch.from_numpy(lay["pix"]).to(device)
-    # the AOV rows are written at bounce 0 only, in step 0, which runs on
-    # the initial lane order; no sort moves them, so the finish groups
-    # them through this fixed permutation
-    aperm = torch.argsort(pix0, stable=True)[:n_real]
     inv_order = torch.from_numpy(np.argsort(lay["order"])).to(device)
     cuda = device.type == "cuda"
     pinned = torch.empty((), dtype=torch.int64, pin_memory=cuda)
 
     def init_state(seed: int, want: int):
-        """A fresh wave of `want` samples per pixel, and the lanes' pixel
-        ids (`gather`) or the slice permutation so far (`dma`)."""
+        """A fresh wave of `want` samples per pixel, and where its lanes
+        came from: `src[j]` is the lane (`gather`) or 128-lane slice
+        (`dma`) that started at column or slice j; the sorts permute it
+        with the state. Int64 and exact at any wave size, where the float
+        WROW_LANE row is not past 2**24 lanes."""
         state = kernels.wave_genesis(tabs, pxf, pyf, n_real, int(seed),
                                      want // spw, want % spw, stream)
-        if sort_mode == "dma":
-            return state, torch.arange(ns_all, device=device)
-        return state, pix0.clone()
+        return state, torch.arange(ns_all if sort_mode == "dma" else n_pad,
+                                   device=device)
 
     def kernel_step(k: int, state, seed: int, launch: int, nt: int):
         """One K2 launch over the first nt tiles; returns the state and
@@ -400,19 +420,20 @@ def make_wave_fn(buffers_np, config, device, samples_per_wave: int = 0,
             n_alive = alive.sum()
         return state, n_alive
 
-    def sort_prefix(state, pix, m: int):
+    def sort_prefix(state, src, m: int):
         """Regroup the lanes: `gather` sorts the first m lanes by
-        `bin_key` (stable) and moves rows [0, 21); `dma` sorts all
-        slices by their least key and moves them with K4."""
+        `bin_key` (stable) and moves rows [0, 21), and the medium row of
+        a volpath wave; `dma` sorts all slices by their least key and
+        moves them with K4. `src` (init_state) moves with them."""
         if sort_mode == "dma":
             skey = state[WROW_KEY].view(ns_all, W_SLICE).min(1).values
             perm = torch.argsort(skey, stable=True).to(torch.int32)
-            return kernels.wave_permute(state, perm), pix[perm.long()]
-        sub = state[:W_SORT_ROWS, :m]
+            return kernels.wave_permute(state, perm), src[perm.long()]
+        sub = state[:n_sort, :m]
         perm = torch.argsort(bin_key(sub, lo, ext), stable=True)
-        state[:W_SORT_ROWS, :m] = sub.index_select(1, perm)
-        pix[:m] = pix[:m][perm]
-        return state, pix
+        state[:n_sort, :m] = sub.index_select(1, perm)
+        src[:m] = src[:m][perm]
+        return state, src
 
     def bucket(n_lanes: int) -> int:
         """Smallest power-of-4 tile count covering n_lanes lanes."""
@@ -421,24 +442,25 @@ def make_wave_fn(buffers_np, config, device, samples_per_wave: int = 0,
             m *= 4
         return min(m, n_pad)
 
-    def finish_wave(state, pix):
+    def finish_wave(state, src):
         """(9, npix) per-pixel sums of radiance, normal and albedo over
-        the wave's lanes, and the ray total (float64)."""
+        the wave's lanes, and the ray total (float64). The radiance rows
+        go back to the initial lane order first, by `src` (`dma`: K4 with
+        the inverse slice permutation; `gather`: a scatter), so every
+        pixel sums its lanes in one order wherever the sorts put them. The
+        AOV rows, written in step 0 and moved by no sort, are in it
+        already."""
         rays = state[WROW_RAYS].sum(dtype=torch.float64)
         if sort_mode == "dma":
-            inv = torch.argsort(pix, stable=True).to(torch.int32)
-            state = kernels.wave_permute(state, inv)
-            sums = torch.cat([
-                state[WROW_R:WROW_R + 3, :n_real].view(3, spw, npix).sum(1),
-                state[WROW_AN:WROW_AN + 6, :n_real].view(6, spw, npix)
-                .sum(1)])
-            return sums.index_select(1, inv_order), rays
-        order_d = torch.argsort(pix, stable=True)[:n_real]
-        return torch.cat([
-            state[WROW_R:WROW_R + 3].index_select(1, order_d)
-            .view(3, npix, spw).sum(2),
-            state[WROW_AN:WROW_AN + 6].index_select(1, aperm)
-            .view(6, npix, spw).sum(2)]), rays
+            inv = torch.argsort(src, stable=True).to(torch.int32)
+            rad = kernels.wave_permute(state, inv)[WROW_R:WROW_R + 3]
+        else:
+            rad = unsort_lanes(state[WROW_R:WROW_R + 3], src)
+        sums = torch.cat([
+            rad[:, :n_real].reshape(3, spw, npix).sum(1),
+            state[WROW_AN:WROW_AN + 6, :n_real].reshape(6, spw, npix)
+            .sum(1)])
+        return sums.index_select(1, inv_order), rays
 
     def run_dev(seed: int, num_samples: int, accum=None, split=None):
         """One wave of min(num_samples, spw) samples; returns the device
@@ -455,7 +477,7 @@ def make_wave_fn(buffers_np, config, device, samples_per_wave: int = 0,
 
         mark("start")
         want = min(int(num_samples), spw)
-        state, pix = init_state(seed, want)
+        state, src = init_state(seed, want)
         mark("init")
         prefix = last_alive = n_real
         per_lane = -(-want // spw)
@@ -465,7 +487,7 @@ def make_wave_fn(buffers_np, config, device, samples_per_wave: int = 0,
             k = schedule[min(si, len(schedule) - 1)]
             if sort_rays and si >= 1:
                 m = n_pad if sort_mode == "dma" else bucket(prefix)
-                state, pix = sort_prefix(state, pix, m)
+                state, src = sort_prefix(state, src, m)
                 nt = min(-(-last_alive // W_TILE), m // W_TILE)
                 prefix = nt * W_TILE
                 mark("sort")
@@ -488,9 +510,9 @@ def make_wave_fn(buffers_np, config, device, samples_per_wave: int = 0,
                 pending.record()
             else:
                 pending = True
-        sums, rays = finish_wave(state, pix)
+        sums, rays = finish_wave(state, src)
         mark("finish")
-        del state, pix
+        del state, src
         if accum is not None:
             sums, rays = accum[0] + sums, accum[1] + rays
         if marks:

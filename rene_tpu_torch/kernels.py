@@ -1,15 +1,17 @@
 """Build and binding of the port's CUDA kernels.
 
 Two sources, each compiled with nvcc once per variant (the template
-parameter MESH, set by -DMEGA_MESH) into a shared library with a plain C
-interface, at first use, into build/rene_tpu_torch/ of the checkout
-(named by a hash of the sources and flags, so an edit rebuilds), all
-nvcc runs started together, and loaded with ctypes:
+parameter MESH, set by -DMEGA_MESH, and the integrator, set by
+-DMEGA_VOL) into a shared library with a plain C interface, at first
+use, into build/rene_tpu_torch/ of the checkout (named by a hash of the
+sources and flags, so an edit rebuilds), all eight nvcc runs started
+together, and loaded with ctypes:
 
-    csrc/mega_path.cu   the path megakernel (K1a-K1d)
-    csrc/wave.cu        the wave engine: K2 in both variants, with K3 and
-                        K4, which do not depend on the variant, taken from
-                        the immediates build
+    csrc/mega_path.cu   the megakernel: the path body (K1a-K1d) and the
+                        volpath body (K1e)
+    csrc/wave.cu        the wave engine: K2 in the four variants, with K3
+                        and K4, which do not depend on the variant, taken
+                        from the path immediates build
 
 Nothing is compiled or imported at module import: the CPU-only tests
 import this module freely.
@@ -42,14 +44,23 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "rene_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
-# each library: its source and its -DMEGA_MESH flag. The two variants of
-# a kernel template are the immediates-only path (K1a; K2 on such
-# scenes) and the path with the acceleration tables (K1c, K1d; K2 on
-# such scenes)
-VARIANTS = {"mega_path": ("mega_path.cu", "-DMEGA_MESH=0"),
-            "mega_path_mesh": ("mega_path.cu", "-DMEGA_MESH=1"),
-            "wave_path": ("wave.cu", "-DMEGA_MESH=0"),
-            "wave_path_mesh": ("wave.cu", "-DMEGA_MESH=1")}
+# each library: its source and its flags. The variants of a kernel
+# template are the immediates-only path (K1a; K2 on such scenes), the
+# path with the acceleration tables (K1c, K1d; K2 on such scenes), and
+# the same two with the volpath body (K1e); a separate build keeps the
+# path variants' code as it was
+VARIANTS = {"mega_path": ("mega_path.cu", "-DMEGA_MESH=0", "-DMEGA_VOL=0"),
+            "mega_path_mesh": ("mega_path.cu", "-DMEGA_MESH=1",
+                               "-DMEGA_VOL=0"),
+            "wave_path": ("wave.cu", "-DMEGA_MESH=0", "-DMEGA_VOL=0"),
+            "wave_path_mesh": ("wave.cu", "-DMEGA_MESH=1", "-DMEGA_VOL=0"),
+            "mega_volpath": ("mega_path.cu", "-DMEGA_MESH=0",
+                             "-DMEGA_VOL=1"),
+            "mega_volpath_mesh": ("mega_path.cu", "-DMEGA_MESH=1",
+                                  "-DMEGA_VOL=1"),
+            "wave_volpath": ("wave.cu", "-DMEGA_MESH=0", "-DMEGA_VOL=1"),
+            "wave_volpath_mesh": ("wave.cu", "-DMEGA_MESH=1",
+                                  "-DMEGA_VOL=1")}
 # launches of each kernel; wave_genesis and wave_permute live in the
 # wave_path library
 launches = dict.fromkeys(list(VARIANTS) + ["wave_genesis", "wave_permute"],
@@ -63,7 +74,10 @@ ptxas: Dict[str, str] = {}
 
 def variant(tabs, kernel: str = "mega_path") -> str:
     """The variant of `kernel` (mega_path or wave_path) that runs the
-    scene `tabs`."""
+    scene `tabs`: its volpath form for a volpath scene, its mesh form for
+    a scene with acceleration tables."""
+    if tabs["volpath"]:
+        kernel = kernel.replace("path", "volpath")
     return kernel + "_mesh" if tabs["has_accel"] else kernel
 
 
@@ -98,8 +112,8 @@ def build(verbose: bool = False) -> Dict[str, Path]:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        source, flag = VARIANTS[name]
-        cmd = [_nvcc(), *NVCC_FLAGS, flag, "-o", tmp, str(CSRC / source)]
+        source, *flags = VARIANTS[name]
+        cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-o", tmp, str(CSRC / source)]
         if verbose:
             cmd.insert(1, "-Xptxas=-v")
         runs[name] = (tmp, subprocess.Popen(
@@ -127,7 +141,8 @@ SCENE_ARGTYPES = ([_P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _I, _P, _P, _I,
                    _P]
                   + [_P, _P, _P, _I, _P, _P, _I]  # nodes .. n_sph_blocks
                   + [_P, _I, _P, _P, _P, _P]      # mesh_uv .. env_pdf
-                  + [_I] * 11)  # scalars, world_root .. has_env
+                  + [_I] * 11   # scalars, world_root .. has_env
+                  + [_P, _I])   # media, n_media
 ARGTYPES = SCENE_ARGTYPES + [_I, _I, _P, _P]   # seed, num_samples, out,
                                                 # stream
 WAVE_ARGTYPES = (SCENE_ARGTYPES + [_I] * 5   # seed, launch, k, n_run,
@@ -196,7 +211,8 @@ def scene_args(tabs, beckmann: bool, device) -> tuple:
             ("atlas", i32, (None,)),
             ("env_mcdf", f32, (None,)),
             ("env_ccdf", f32, (None, ENV_GW)),
-            ("env_pdf", f32, (None, ENV_GW))):
+            ("env_pdf", f32, (None, ENV_GW)),
+            ("media", f32, (None, P.MED_W))):
         _check(tabs[name], name, dtype, shape, device)
     n_uv = tabs["mesh_uv"].shape[0]
     if n_uv not in (0, tabs["mesh"].shape[0]):
@@ -227,7 +243,8 @@ def scene_args(tabs, beckmann: bool, device) -> tuple:
             int(tabs["world_root"]), int(tabs["has_tri_emitter"]),
             tabs["width"], n_pix, tabs["max_depth"], int(tabs["use_rr"]),
             int(beckmann), int(tabs["has_accel"]), int(tabs["block_seed"]),
-            int(tabs["has_tex"]), int(tabs["has_env"]))
+            int(tabs["has_tex"]), int(tabs["has_env"]),
+            ptr("media"), tabs["media"].shape[0])
 
 
 def launch_args(tabs, seed: int, num_samples: int, beckmann: bool,
@@ -267,16 +284,19 @@ def _cuda(device, what: str) -> bool:
 
 def mega_path(tabs, seed: int, num_samples: int,
               beckmann: bool = False) -> torch.Tensor:
-    """Launch the path megakernel (csrc/mega_path.cu) over every pixel of
-    the film, in the variant the scene needs (`variant`); returns the
-    (10, N) float32 per-lane sums (radiance rgb, first-hit normal xyz,
-    albedo rgb, rays). `tabs` is integrators.mega_path.device_tables.
-    Tables on the CPU run the kernel's plain version, `path_lanes_ref`,
-    and launch nothing."""
+    """Launch the megakernel (csrc/mega_path.cu) over every pixel of the
+    film, in the variant the scene needs (`variant`: the path or the
+    volpath body); returns the (10, N) float32 per-lane sums (radiance
+    rgb, first-hit normal xyz, albedo rgb, rays). `tabs` is
+    integrators.mega_path.device_tables. Tables on the CPU run the
+    kernel's plain version, `path_lanes_ref` (for volpath tables the
+    volpath bounce, `vol_lanes_ref`), and launch nothing."""
     device = tabs["tris"].device
     if not _cuda(device, "mega_path"):
         from .integrators.mega_path import path_lanes_ref
-        return path_lanes_ref(tabs, seed, num_samples, beckmann)
+        from .integrators.volpath import vol_lanes_ref
+        return (vol_lanes_ref if tabs["volpath"] else path_lanes_ref)(
+            tabs, seed, num_samples, beckmann)
     out = torch.empty((P.OUT_ROWS, tabs["width"] * tabs["height"]),
                       dtype=torch.float32, device=device)
     args = launch_args(tabs, seed, num_samples, beckmann, out)
@@ -290,7 +310,8 @@ def wave_path(tabs, state: torch.Tensor, seed: int, launch: int, k: int,
               stream: str = "mixed") -> torch.Tensor:
     """K2: advance every alive lane of the first `n_run` lanes of the wave
     `state` by `k` bounces in place, with the lane streams `stream` of
-    launch `launch` of the wave (csrc/wave.cu, the scene's variant); `kb`
+    launch `launch` of the wave (csrc/wave.cu, the scene's variant: the
+    path or the volpath bounce); `kb`
     is wave.key_bounds. CPU tensors run `wave_step_ref`; CUDA tensors
     take only the "mixed" streams. Returns `state`."""
     from .integrators import wave as WV

@@ -2,7 +2,8 @@
 
 Counterpart of pallas_path.py `trace_closest` (:2775-3116), `trace_any`
 (:3117-3217, in the constant-direction form that distant-light shadows
-take) and `trace_emit_pdf` (:3218-3279). The immediates (triangles, then
+take), `trace_emit_pdf` (:3218-3279) and the volpath body's transmittance
+march `tr_march` (:3363-3430). The immediates (triangles, then
 spheres) come first; the mesh (ops/bvh.py: world mesh, then each shared-
 BLAS instance) is marched from their closest t and replaces their hit
 only where it is closer; the sphere table comes last. Mesh triangles and
@@ -23,6 +24,7 @@ import math
 import torch
 
 from ..scene import pack as P
+from ..scene import types as T
 from . import bvh
 from .bvh import BIG
 from .texture import sphere_uv_of
@@ -30,6 +32,12 @@ from .vec3 import normalize3
 
 TMIN = 1e-3
 TWO_PI = 2.0 * math.pi
+MAX_TR_MARCH = 32   # pallas_path.py:3363
+# ray casts of the volpath body so far, by kind (reset by the caller):
+# closest hits of its bounces, steps of its transmittance marches (each a
+# closest hit) and emitter-pdf casts; a lane counts where it needs the
+# cast, as a CUDA thread casts it
+casts = {"closest": 0, "march": 0, "emit_pdf": 0}
 
 
 def _tri_sides(rows, ox, oy, oz, dx, dy, dz, wx, wy, wz):
@@ -281,3 +289,64 @@ def emit_pdf(tabs, ox, oy, oz, dx, dy, dz):
     t_best, idx = torch.cat(ts, dim=1).min(dim=1)
     pdf = torch.cat(ps, dim=1).gather(1, idx[:, None])[:, 0]
     return torch.where(t_best < BIG, pdf, 0.0)
+
+
+def tr_march(tabs, ox, oy, oz, dx, dy, dz, med, want_emit: bool,
+             skip=None):
+    """Transmittance rgb from o along d (`tr_march` :3365-3430; lib.rs
+    tr / tr_emit): up to MAX_TR_MARCH closest hits per lane, passing
+    through `Material "none"` surfaces and switching to the surface's
+    exterior medium where d leaves it (d . n > 0), else its interior.
+    Without `want_emit` a miss gives the transmittance so far and any
+    other surface 0; with it, a front-facing emitter gives the
+    transmittance times its radiance, and the march stops at any
+    emitter. `med` holds each lane's medium; lanes where `skip` march
+    nowhere and give 0. Only the live lanes are cast, and counted in
+    `casts["march"]`."""
+    from .medium import med_tr
+    mats, media = tabs["mats"], tabs["media"]
+    zero = torch.zeros_like(ox)
+    out = [zero, zero, zero]
+    live = torch.ones_like(ox, dtype=torch.bool) if skip is None else ~skip
+    idx = torch.nonzero(live).squeeze(1)
+    o = [ox[idx], oy[idx], oz[idx]]
+    d = [dx[idx], dy[idx], dz[idx]]
+    m = med[idx]
+    tr = [torch.ones_like(o[0]) for _ in range(3)]
+    acc = [torch.zeros_like(o[0]) for _ in range(3)]
+    for _ in range(MAX_TR_MARCH):
+        if not idx.numel():
+            break
+        casts["march"] += int(idx.numel())
+        t, hit, nx, ny, nz, er, eg, eb, mat, _, _ = closest(
+            tabs, *o, *d, TMIN)
+        rows = mats[mat]
+        mat_none = rows[:, P.MAT_TYPE] == float(T.MAT_NONE)
+        if want_emit:
+            emissive = (er != 0.0) | (eg != 0.0) | (eb != 0.0)
+            unx, uny, unz = normalize3(nx, ny, nz)
+            front = (-(d[0] * unx + d[1] * uny + d[2] * unz)) > 0.0
+            take = hit & emissive & front
+            for c, e in enumerate((er, eg, eb)):
+                acc[c] = acc[c] + torch.where(take, tr[c] * e, 0.0)
+            stop = ~hit | emissive | ~mat_none
+        else:
+            for c in range(3):
+                acc[c] = acc[c] + torch.where(~hit, tr[c], 0.0)
+            stop = ~hit | ~mat_none
+        seg = med_tr(media, m, torch.clamp_max(t, 1e20))
+        cont = ~stop
+        tr = [torch.where(cont, tr[c] * seg[c], tr[c]) for c in range(3)]
+        out_ = (d[0] * nx + d[1] * ny + d[2] * nz) > 0.0
+        m = torch.where(cont, torch.where(out_, rows[:, P.MAT_EMED],
+                                          rows[:, P.MAT_IMED]), m)
+        o = [torch.where(cont, o[c] + t * d[c], o[c]) for c in range(3)]
+        # lanes that stopped hand their sums back; the rest march on
+        for c in range(3):
+            out[c] = out[c].index_put((idx[~cont],), acc[c][~cont])
+        keep = torch.nonzero(cont).squeeze(1)
+        idx = idx[keep]
+        o, d = [a[keep] for a in o], [a[keep] for a in d]
+        tr, acc = [a[keep] for a in tr], [a[keep] for a in acc]
+        m = m[keep]
+    return tuple(out)

@@ -1,15 +1,17 @@
 """Where a main-path render's time goes, on a CUDA card.
 
-    python -m rene_tpu_torch.probe [--scene cornell|big_mesh|textured_mesh]
-                                   [--out DIR]
+    python -m rene_tpu_torch.probe [--scene cornell|big_mesh|textured_mesh|
+                                            fog_mesh] [--out DIR]
+    python -m rene_tpu_torch.probe --scene fog_mesh --scatter-share
 
 Renders one of the main paths' inline scenes: the Cornell box
 (rene_tpu_torch.scenes.cornell_box, K1a variant, at 1024x1024), the big
-mesh (scenes.big_mesh_scene, mesh variant, at 1280x720) or the textured
+mesh (scenes.big_mesh_scene, mesh variant, at 1280x720), the textured
 mesh (scenes.textured_mesh_scene, the mesh variant with textures, an
 env-map background and env-map light sampling, at 1280x720; its scene
-and image files go to build/probe_scenes/), and prints one JSON object
-per line:
+and image files go to build/probe_scenes/) or the fog mesh
+(scenes.fog_mesh_scene, the volpath mesh variant, maxdepth 64, at
+1280x720), and prints one JSON object per line:
 
 * the card (nvidia-smi name, power limit, SM clock and its maximum);
 * the creation of the CUDA context, then the host phases of one render:
@@ -26,11 +28,18 @@ per line:
   env-map light sampling, the background's fetch): what each part costs.
   The switched-off launches trace other paths, so their rays are given
   beside their times;
+* for a volpath scene, a wave of the wave engine at the smallest render
+  spp, its device time split into init (K3), K2 launches, sorts and
+  finish;
 * a render at the smallest of those spp under torch.profiler: wall time
   and the operations with the most device time; the Chrome trace goes to
   DIR.
 
 Needs a CUDA device and nvcc; it builds the kernels on first use.
+
+`--scatter-share` needs neither: it counts, with the plain volpath
+megakernel on the CPU at 1 spp and a 128x72 film of the scene, the share
+of camera paths that scatter in a medium at least once.
 """
 from __future__ import annotations
 
@@ -60,7 +69,10 @@ SCENES = {
                  (16, 64, 256), (1, 4, 16, 64)),
     "textured_mesh": (scenes.textured_mesh_scene, (1280, 720), (16, 64, 256),
                       (1, 4, 16, 64)),
+    "fog_mesh": (lambda d, w, h: scenes.fog_mesh_scene(w, h), (1280, 720),
+                 (16, 64, 256), (1, 4, 16)),
 }
+SHARE_FILM = (128, 72)
 SCENE_DIR = os.path.join("build", "probe_scenes")
 
 
@@ -68,12 +80,45 @@ def emit(**kw):
     print(json.dumps(kw), flush=True)
 
 
+def scatter_share(path: str, seed: int = 1) -> float:
+    """Share of the camera paths of the volpath scene at `path` that
+    scatter in a medium at least once: one path per pixel through the
+    plain volpath megakernel on the CPU."""
+    from .integrators import volpath as V
+    tabs = M.device_tables(P.pack_tables(*build_device_scene(
+        load_scene(path))), "cpu")
+    ever = torch.zeros(tabs["width"] * tabs["height"], dtype=torch.bool)
+    bounce = V.bounce_vol
+
+    def counting(*a, **kw):
+        b = bounce(*a, **kw)
+        ever.logical_or_(b["scattered"])
+        return b
+    V.bounce_vol = counting
+    try:
+        V.vol_lanes_ref(tabs, seed, 1)
+    finally:
+        V.bounce_vol = bounce
+    return float(ever.double().mean())
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="python -m rene_tpu_torch.probe")
     p.add_argument("--scene", choices=sorted(SCENES), default="cornell")
     p.add_argument("--out", default=os.path.join("chiprun_out", "probe"))
+    p.add_argument("--scatter-share", action="store_true")
     args = p.parse_args(argv)
     make, (w, h), spps, chunks = SCENES[args.scene]
+    if args.scatter_share:
+        os.makedirs(SCENE_DIR, exist_ok=True)
+        path = os.path.join(SCENE_DIR, f"{args.scene}_share.pbrt")
+        with open(path, "w") as f:
+            f.write(make(SCENE_DIR, *SHARE_FILM))
+        t = time.perf_counter()
+        share = scatter_share(path)
+        emit(scene=args.scene, film=SHARE_FILM, spp=1, scatter_share=share,
+             plain_cpu_s=time.perf_counter() - t)
+        return 0
     if not torch.cuda.is_available():
         print("probe: no CUDA device", file=sys.stderr)
         return 2
@@ -140,6 +185,17 @@ def main(argv=None) -> int:
                        ("background fetch", dict(tabs, cam=cam)),
                        ("all three", dict(no_env, has_tex=False, cam=cam))):
             chunk(t, 4, without=off)
+
+    if tabs["volpath"]:
+        from .integrators.wave import make_wave_fn
+        run = make_wave_fn(bn, cfg, dev, spp_hint=spps[0])
+        run.read_back(run.run_dev(3, spps[0]))   # warm-up
+        split = {}
+        t = time.perf_counter()
+        out = run.read_back(run.run_dev(5, spps[0], split=split))
+        emit(wave_spp=spps[0], samples_per_wave=run.samples_per_wave,
+             wall_s=time.perf_counter() - t, rays=out["rays"],
+             device_ms=split)
 
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,

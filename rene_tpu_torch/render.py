@@ -3,21 +3,24 @@
 Counterpart of rene_tpu/render.py `render` (:131) with `_render_pallas`
 (:316-408), for two engines under JAX's names:
 
-* "pallas" (and "auto"): the path megakernel (integrators/mega_path.py).
+* "pallas" (and "auto"): the megakernel (integrators/mega_path.py), its
+  path body or, for `Integrator "volpath"`, its volpath body
+  (integrators/volpath.py).
   Chunk seeds come from the same `np.random.default_rng(seed).integers(
   0, 2**31, dtype=np.int32)` sequence with the same chunk sizes, so a
   render here is draw for draw the JAX `render(engine="pallas")` run with
   the megakernel's interpret-mode stream.
-* "wave": the wavefront engine (integrators/wave.py), one wave of spw
-  samples per chunk, the film summed on the device across waves and read
-  back once, as the JAX wave runner's `run_dev` does.
+* "wave": the wavefront engine (integrators/wave.py), path or volpath,
+  one wave of spw samples per chunk, the film summed on the device across
+  waves and read back once, as the JAX wave runner's `run_dev` does.
 
-"auto" stays on the megakernel: the reference's policy (`_wave_default`
-:33, deep scenes past 512 triangles to the wave engine) rests on TPU
-timings (ROADMAP). A failed wave render raises; the JAX fallback from
-the wave engine to the megakernel (:193-208) is not carried over. "xla"
-(the JAX package's XLA integrator) is not ported. Checkpoint/resume,
-`want_var`, denoising and multi-device runs are not in the port yet.
+"auto" stays on the megakernel, for volpath too: the reference's policy
+(`_wave_default` :33, deep scenes past 512 triangles to the wave engine)
+rests on TPU timings (ROADMAP). A failed wave render raises; the JAX
+fallback from the wave engine to the megakernel (:193-208) is not
+carried over. "xla" (the JAX package's XLA integrator) is not ported.
+Checkpoint/resume, `want_var`, denoising and multi-device runs are not
+in the port yet.
 """
 from __future__ import annotations
 

@@ -13,16 +13,19 @@ big-mesh march and sphere table, with the TPU layout replaced:
   compiled at first use, or numpy median splits);
 * shared-BLAS instances (`_shared_split` :961, `_pack_inst_mesh` :1000):
   one object-space BVH per shared BLAS, and one row per instance with
-  its world-to-object affine, material and BLAS root;
+  its world-to-object affine, material slot and BLAS root;
 * the sphere table (`_sph_uniform` :1189, `_pack_sphere_table` :1203):
-  centre, radius and material of each non-emissive uniform-scale sphere,
+  centre, radius and material slot of each non-emissive uniform-scale
+  sphere,
   in the same Morton order and 128-slot blocks, each block behind one
   box.
 
 Every triangle row is the JAX table's: v0, e1 = v1 - v0, e2 = v2 - v0,
 the shading normal n0 and its deltas d1 = n1 - n0, d2 = n2 - n0, all
 computed in float64 and cast to float32 (`_pack_tris` :861-868), then
-the material id. Where a mesh material reads a texture (`_mesh_needs_uv`
+the material slot (scene/pack.py `material_slots`: the material with the
+media on its two sides, as the JAX packer's `(material, imed, emed)`
+records). Where a mesh material reads a texture (`_mesh_needs_uv`
 :591) the JAX table grows by six uv rows; here the uv of mesh row k (uv0
 and the deltas uv1 - uv0, uv2 - uv0, `_pack_tris` :869-872) go to row k of
 a side table `mesh_uv`, 24 bytes per triangle, which only a textured hit
@@ -199,9 +202,9 @@ def _blas_tris(buffers_np, blas_id: int):
     return p, n, buffers_np["blas_uv"][idx].astype(np.float64)
 
 
-def _sphere_table(buffers_np, tbl_idx: np.ndarray):
+def _sphere_table(buffers_np, tbl_idx: np.ndarray, inst_slot: np.ndarray):
     """(sph_tab, sph_box): `_pack_sphere_table`'s centres, radii and
-    materials in its Morton order, in SPH_BLOCK-slot blocks (padding
+    material slots in its Morton order, in SPH_BLOCK-slot blocks (padding
     slots have radius -1, which no test passes), and each block's box."""
     if tbl_idx.size == 0:
         return (np.zeros((0, SPHT_W), np.float32),
@@ -212,7 +215,7 @@ def _sphere_table(buffers_np, tbl_idx: np.ndarray):
         cs.append(c)
         rs.append(r)
     cs, rs = np.asarray(cs), np.asarray(rs)
-    mats = buffers_np["inst_material"][buffers_np["sph_inst"][tbl_idx]]
+    mats = inst_slot[buffers_np["sph_inst"][tbl_idx]]
     lo = cs.min(0)
     ext = np.maximum(cs.max(0) - lo, 1e-9)
     q = np.clip(((cs - lo) / ext * 1023.0).astype(np.int64), 0, 1023)
@@ -234,17 +237,18 @@ def _sphere_table(buffers_np, tbl_idx: np.ndarray):
 
 
 def pack_accel(buffers_np, rest_idx: np.ndarray, shared, tbl_idx,
-               needs_uv: bool = False) -> Dict:
+               inst_slot: np.ndarray, needs_uv: bool = False) -> Dict:
     """The acceleration tables of SceneTables: the world mesh over the
     scene triangles `rest_idx`, the shared BLASes `shared` (from
-    `shared_split`) and the table spheres `tbl_idx`; `needs_uv`: with the
-    `mesh_uv` rows."""
+    `shared_split`) and the table spheres `tbl_idx`, each primitive with
+    the material slot of its instance (`inst_slot`, pack.material_slots);
+    `needs_uv`: with the `mesh_uv` rows."""
     b = _Builder()
     world_root = -1
     if rest_idx.size:
         p = buffers_np["tri_p"][rest_idx].astype(np.float64)
         n = buffers_np["tri_n"][rest_idx].astype(np.float64)
-        mat = buffers_np["inst_material"][buffers_np["tri_inst"][rest_idx]]
+        mat = inst_slot[buffers_np["tri_inst"][rest_idx]]
         world_root = b.add(p, n, mat, buffers_np["tri_uv"][rest_idx].astype(
             np.float64) if needs_uv else None)
     insts = []
@@ -255,10 +259,11 @@ def pack_accel(buffers_np, rest_idx: np.ndarray, shared, tbl_idx,
             row = np.zeros(INST_W, np.float32)
             row[INST_W2O:INST_W2O + 12] = \
                 buffers_np["inst_w2o"][i].reshape(-1)
-            row[INST_MAT] = buffers_np["inst_material"][i]
+            row[INST_MAT] = inst_slot[i]
             row[INST_ROOT] = root
             insts.append(row[None])
-    sph_tab, sph_box = _sphere_table(buffers_np, np.asarray(tbl_idx))
+    sph_tab, sph_box = _sphere_table(buffers_np, np.asarray(tbl_idx),
+                                     inst_slot)
 
     def cat(parts, width):
         return np.ascontiguousarray(

@@ -1,4 +1,4 @@
-"""Flat scene tables for the path kernels (slices K1a, K1b, K1c, K1d).
+"""Flat scene tables for the path kernels (slices K1a-K1e).
 
 Counterpart of these parts of rene_tpu/integrators/pallas_path.py:
 
@@ -99,7 +99,17 @@ TEXD_OFF, TEXD_IW, TEXD_IH = 1, 2, 3
 TEXD_W = 9
 TEXK_SOLID, TEXK_CHECKER, TEXK_IMAGE = 0, 1, 2
 N_TEX_CLASSES = 7
-MAT_W = MAT_TEX + N_TEX_CLASSES * TEXD_W    # 90
+# a row of the material table is a material slot: the material's row and
+# the interior and exterior medium of the surfaces that carry it
+MAT_IMED = MAT_TEX + N_TEX_CLASSES * TEXD_W    # 90
+MAT_EMED = MAT_IMED + 1
+MAT_W = MAT_EMED + 1                          # 92
+
+# homogeneous media (`media` of pack_scene :1460): sigma_t = sigma_a +
+# sigma_s rgb, sigma_s rgb, the Henyey-Greenstein g, 1 for vacuum; row 0
+# is vacuum
+MED_ST, MED_SS, MED_G, MED_VAC = 0, 3, 6, 7
+MED_W = 8
 
 EO_KIND, EO_START, EO_COUNT, EO_CENTER, EO_R2 = 0, 1, 2, 3, 6
 EO_W = 7
@@ -295,10 +305,11 @@ def split_spheres(buffers_np, config: RenderConfig):
 
 def slice_supported(buffers_np, config: RenderConfig) -> None:
     """Raise NotImplementedError for a scene outside what the port
-    carries (slices K1a, K1b, K1c, K1d), naming the ROADMAP item that
-    will carry it, or that the reference's kernel does not take it
-    either. The tests are `pallas_eligible`'s (:504-570) without its
-    VMEM texel caps."""
+    carries (slices K1a-K1e), naming the ROADMAP item that will carry
+    it, or that the reference's kernel does not take it either. The
+    tests are `pallas_eligible`'s (:504-570) without its VMEM texel caps:
+    path and volpath scenes, with or without media (the path body
+    ignores them)."""
     def no(what, item):
         raise NotImplementedError(
             f"{what} is not in the port yet (ROADMAP Queue 2 {item})")
@@ -309,10 +320,8 @@ def slice_supported(buffers_np, config: RenderConfig) -> None:
             f"renders it through its XLA integrator, ROADMAP Queue 1 "
             f"item 4)")
 
-    if config.integrator != "path":
-        no(f"integrator {config.integrator!r}", "K1e (volpath body)")
-    if config.has_media:
-        no("participating media", "K1e (volpath body)")
+    if config.integrator not in ("path", "volpath"):
+        never(f"integrator {config.integrator!r}")
     if getattr(config, "sampler", "independent") == "sobol":
         no("the Sobol sampler", "K1a-sobol (Queue 1: Sobol)")
     if tex_kernel_desc(buffers_np,
@@ -613,10 +622,47 @@ def mat_row(rec: dict, offsets, buffers_np) -> np.ndarray:
 
 
 def max_depth_for(config: RenderConfig) -> int:
-    """rene_tpu/integrators/path.py:52."""
+    """rene_tpu/integrators/path.py:52 and volpath.py:39: the scene's
+    maxdepth, else 50 for path and 80 for volpath."""
     if config.max_depth_hint is not None:
         return max(int(config.max_depth_hint), 1)
-    return 50
+    return 80 if config.integrator == "volpath" else 50
+
+
+def material_slots(buffers_np):
+    """(slots, inst_slot): the material slots as (material, interior
+    medium, exterior medium) triples and the slot of each instance. Slot
+    m is material m between vacuum on both sides, then come the other
+    triples the instances carry, sorted, as the JAX packer gives every
+    unique triple its own record (:819-831, :1033, :1386, :1414). A
+    scene without media interfaces keeps one slot per material, so its
+    tables are those of a scene packed without slots."""
+    n_mats = buffers_np["mat_type"].shape[0]
+    tri = np.stack([buffers_np["inst_material"], buffers_np["inst_interior"],
+                    buffers_np["inst_exterior"]], axis=1).astype(np.int64)
+    iface = (tri[:, 1] != 0) | (tri[:, 2] != 0)
+    extra = [tuple(int(v) for v in r) for r in np.unique(tri[iface], axis=0)]
+    slot_of = {r: n_mats + k for k, r in enumerate(extra)}
+    inst_slot = tri[:, 0].copy()
+    for i in np.nonzero(iface)[0]:
+        inst_slot[i] = slot_of[tuple(int(v) for v in tri[i])]
+    return [(m, 0, 0) for m in range(n_mats)] + extra, inst_slot
+
+
+def media_table(buffers_np) -> np.ndarray:
+    """(K, MED_W) float64 rows of the scene's media (row 0 vacuum):
+    sigma_t as the JAX kernel bakes it (`med_consts` :3287, the float64
+    sum of the float32 sigma_a and sigma_s), sigma_s, g and the vacuum
+    flag."""
+    n = buffers_np["med_type"].shape[0]
+    med = np.zeros((n, MED_W), np.float64)
+    sa = buffers_np["med_sigma_a"].astype(np.float64)
+    ss = buffers_np["med_sigma_s"].astype(np.float64)
+    med[:, MED_ST:MED_ST + 3] = sa + ss
+    med[:, MED_SS:MED_SS + 3] = ss
+    med[:, MED_G] = buffers_np["med_g"].astype(np.float64)
+    med[:, MED_VAC] = buffers_np["med_type"] == T.MEDIUM_VACUUM
+    return med
 
 
 @dataclasses.dataclass
@@ -626,7 +672,8 @@ class SceneTables:
     the immediates budget."""
     tris: np.ndarray         # (T, TRI_W) immediate triangles
     spheres: np.ndarray      # (S, SPH_W) immediate spheres
-    mats: np.ndarray         # (M, MAT_W)
+    mats: np.ndarray         # (M, MAT_W) material slots (material_slots)
+    media: np.ndarray        # (K, MED_W) homogeneous media, row 0 vacuum
     emit_objects: np.ndarray  # (E, EO_W)
     emit_tris: np.ndarray    # int32 indices of emissive triangles
     emit_spheres: np.ndarray  # int32 indices of emissive spheres
@@ -646,6 +693,7 @@ class SceneTables:
     width: int
     height: int
     max_depth: int
+    volpath: bool            # the volpath integrator
     world_root: int          # root node of the world mesh, -1 if none
     bvh_depth: int           # deepest root-to-leaf path of any BVH
     max_leaf: int            # most triangles in one BVH leaf
@@ -666,7 +714,9 @@ class SceneTables:
 
     @property
     def use_rr(self) -> bool:
-        return self.max_depth > RR_START + 1
+        """Russian roulette from depth RR_START; never in volpath
+        (pallas_path.py:1656-1658)."""
+        return self.max_depth > RR_START + 1 and not self.volpath
 
     @property
     def has_accel(self) -> bool:
@@ -701,9 +751,12 @@ def pack_tables(buffers_np, config: RenderConfig) -> SceneTables:
     # a material no instance uses may hold a slot the kernel cannot
     # evaluate: it gets its plain fields and no descriptors
     recs = [mat_record(buffers_np, m) for m in range(n_mats)]
-    mats = np.stack([mat_row(r if m in used else dict(r, texs={}, rrm=0),
-                             offsets, buffers_np)
-                     for m, r in enumerate(recs)])
+    rows = [mat_row(r if m in used else dict(r, texs={}, rrm=0), offsets,
+                    buffers_np) for m, r in enumerate(recs)]
+    slots, inst_slot = material_slots(buffers_np)
+    mats = np.stack([rows[m] for m, _, _ in slots])
+    mats[:, MAT_IMED] = [i for _, i, _ in slots]
+    mats[:, MAT_EMED] = [e for _, _, e in slots]
 
     tt = np.zeros((len(tris), TRI_W), np.float64)
     for i, r in enumerate(tris):
@@ -721,7 +774,7 @@ def pack_tables(buffers_np, config: RenderConfig) -> SceneTables:
         tt[i, TRI_PRIMS] = r["prim_count"]
         if r["emissive"]:
             tt[i, TRI_EMIT:TRI_EMIT + 3] = r["emit"]
-        tt[i, TRI_MAT] = r["mat_id"]
+        tt[i, TRI_MAT] = inst_slot[buffers_np["tri_inst"][imm[i]]]
 
     st = np.zeros((len(spheres), SPH_W), np.float64)
     for s, r in enumerate(spheres):
@@ -729,7 +782,7 @@ def pack_tables(buffers_np, config: RenderConfig) -> SceneTables:
         st[s, SPH_O2W:SPH_O2W + 12] = np.asarray(r["o2w"]).reshape(-1)
         if r["emissive"]:
             st[s, SPH_EMIT:SPH_EMIT + 3] = r["emit"]
-        st[s, SPH_MAT] = r["mat_id"]
+        st[s, SPH_MAT] = inst_slot[buffers_np["sph_inst"][imm_s[s]]]
         radius = sphere_radius(r["o2w"])
         st[s, SPH_R2] = radius * radius
 
@@ -798,6 +851,7 @@ def pack_tables(buffers_np, config: RenderConfig) -> SceneTables:
 
     return SceneTables(
         tris=f32(tt), spheres=f32(st), mats=f32(mats),
+        media=f32(media_table(buffers_np)),
         emit_objects=f32(eo),
         emit_tris=np.asarray([i for i, r in enumerate(tris) if r["emissive"]],
                              np.int32),
@@ -809,6 +863,7 @@ def pack_tables(buffers_np, config: RenderConfig) -> SceneTables:
                      else np.zeros((0, ENV_GW))),
         env_pdf=f32(buffers_np["env_pdf"] if env else np.zeros((0, ENV_GW))),
         width=w, height=h, max_depth=max_depth_for(config),
-        **accel.pack_accel(buffers_np, rest, shared, tbl_s,
+        volpath=config.integrator == "volpath",
+        **accel.pack_accel(buffers_np, rest, shared, tbl_s, inst_slot,
                            needs_uv=bool(rest.size or shared)
                            and mesh_needs_uv(buffers_np, mesh_idx)))

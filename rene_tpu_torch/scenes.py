@@ -61,6 +61,27 @@ text that names them, to be loaded with that directory as its base:
   roughness imagemaps, a sphere of uber with an opacity imagemap, the
   emissive quad, and a 2048 x 1024 HDR env map with a sun a few texels
   wide. `small=True` cuts the meshes and images to test size.
+
+Volpath scenes (slice K1e), each with a homogeneous medium "fog" (`FOG`)
+inside a closed boundary of `Material "none"` with `MediumInterface
+"fog" ""`, the camera outside it, and every shape inside it between fog
+on both sides:
+
+* `fog_scene(w, h)`: immediates only. The eight materials of
+  `materials_scene` (the glass sphere and the None sphere among them)
+  inside a fog sphere, an emissive sphere and quad, a distant light, a
+  constant infinite light, at `maxdepth 8`;
+* `fog_env_scene(dir, w, h)`: a matte sphere in a fog sphere under the
+  HDR env map of `env_scene` (written to `dir`), with env-map light
+  sampling and one emissive quad, so the volpath body picks between the
+  two light samplers;
+* `fog_mesh_scene(w, h, maxdepth, small)`: the volpath main path. The
+  geometry and lights of `big_mesh_scene` with the vase, the ring of
+  instanced balls and the glass sphere inside a 12-triangle fog box
+  (x, y in [-3.2, 3.2], z in [0.001, 3.6]); the camera, the emissive quad
+  and the floor stay outside. `maxdepth 64` by default, the deep
+  volumetric setting of the reference's TPU runs; `small=True` cuts the
+  vase to 1,152 and the ball to 600 triangles for the CPU tests.
 """
 from __future__ import annotations
 
@@ -695,6 +716,169 @@ AttributeBegin
   Material "uber" "rgb Kd" [ .3 .4 .6 ] "rgb Ks" [ .2 .2 .2 ]
     "rgb Kr" [ .1 .1 .1 ] "rgb Kt" [ .3 .3 .3 ] "texture opacity" "opacity"
     "float roughness" [ .1 ]
+  Translate 1.3 -1.6 0.5
+  Shape "sphere" "float radius" [ 0.5 ]
+AttributeEnd
+WorldEnd
+"""
+
+
+# -- volpath scenes (K1e) -----------------------------------------------------
+FOG = ('MakeNamedMedium "fog" "string type" "homogeneous" '
+       '"rgb sigma_a" [ .02 .025 .03 ] "rgb sigma_s" [ .16 .14 .12 ] '
+       '"float g" [ 0.3 ]')
+
+
+def _box(lo, hi):
+    """The 12 triangles of an axis-aligned box, wound so that every face's
+    normal points out."""
+    (x0, y0, z0), (x1, y1, z1) = lo, hi
+    faces = [[(x0, y0, z0), (x0, y1, z0), (x1, y1, z0), (x1, y0, z0)],  # -z
+             [(x0, y0, z1), (x1, y0, z1), (x1, y1, z1), (x0, y1, z1)],  # +z
+             [(x0, y0, z0), (x1, y0, z0), (x1, y0, z1), (x0, y0, z1)],  # -y
+             [(x0, y1, z0), (x0, y1, z1), (x1, y1, z1), (x1, y1, z0)],  # +y
+             [(x0, y0, z0), (x0, y0, z1), (x0, y1, z1), (x0, y1, z0)],  # -x
+             [(x1, y0, z0), (x1, y1, z0), (x1, y1, z1), (x1, y0, z1)]]  # +x
+    p = np.asarray(faces, np.float64).reshape(-1, 3)
+    idx = np.concatenate([np.array([0, 1, 2, 0, 2, 3]) + 4 * f
+                          for f in range(6)])
+    return _mesh(p, idx)
+
+
+def fog_scene(width: int = 128, height: int = 64) -> str:
+    balls = "\n".join(f"""AttributeBegin
+  Translate {x} {y} {z}
+  Material {mat}
+  Shape "sphere" "float radius" [ {r} ]
+AttributeEnd""" for mat, x, y, z, r in _MATS)
+    return f"""
+LookAt 0 -7 2.2  0 0 0.6  0 0 1
+Camera "perspective" "float fov" [ 42 ]
+Film "image" "integer xresolution" [ {width} ]
+  "integer yresolution" [ {height} ] "string filename" "fog.png"
+Integrator "volpath" "integer maxdepth" [ 8 ]
+WorldBegin
+LightSource "infinite" "rgb L" [ .08 .09 .12 ]
+LightSource "distant" "point from" [ -2 -3 5 ] "point to" [ 0 0 0 ]
+  "rgb L" [ 1.6 1.5 1.3 ]
+{FOG}
+Material "matte" "rgb Kd" [ .6 .6 .55 ]
+{_quad([[-8, -8, 0], [8, -8, 0], [8, 8, 0], [-8, 8, 0]])}
+Material "matte" "rgb Kd" [ .3 .35 .5 ]
+{_quad([[-8, 4, 0], [8, 4, 0], [8, 4, 6], [-8, 4, 6]])}
+AttributeBegin
+  MediumInterface "fog" ""
+  Material "none"
+  Translate 0 0.2 0.6
+  Shape "sphere" "float radius" [ 4.3 ]
+AttributeEnd
+AttributeBegin
+MediumInterface "fog" "fog"
+{balls}
+AttributeBegin
+  Translate -1.2 -1.6 0.35
+  Material "matte" "rgb Kd" [ 0 0 0 ]
+  AreaLightSource "diffuse" "rgb L" [ 6 5 4 ]
+  Shape "sphere" "float radius" [ 0.25 ]
+AttributeEnd
+AttributeBegin
+  Material "matte" "rgb Kd" [ 0 0 0 ]
+  AreaLightSource "diffuse" "rgb L" [ 5 5 6 ]
+  {_quad([[-1.0, 1.0, 3.0], [1.0, 1.0, 3.0], [1.0, -0.5, 3.0],
+          [-1.0, -0.5, 3.0]])}
+AttributeEnd
+AttributeEnd
+WorldEnd
+"""
+
+
+def fog_env_scene(directory, width: int = 24, height: int = 16,
+                  seed: int = 6) -> str:
+    rng = np.random.default_rng(seed)
+    rgb = np.full((16, 32, 3), 0.3) * rng.uniform(0.9, 1.0, (16, 32, 1))
+    rgb[2:4, 4:7] = [25.0, 12.0, 5.0]
+    _save(directory, "f_env.pfm", rgb.astype(np.float32))
+    return f"""
+Integrator "volpath" "integer maxdepth" [ 5 ]
+LookAt 0 1.2 -3.2  0 0.6 0  0 1 0
+Camera "perspective" "float fov" [ 45 ]
+Film "image" "integer xresolution" [ {width} ]
+  "integer yresolution" [ {height} ] "string filename" "fog_env.png"
+WorldBegin
+LightSource "infinite" "string mapname" [ "f_env.pfm" ]
+{FOG.replace(".16 .14 .12", ".5 .45 .4")}
+AttributeBegin
+  AreaLightSource "diffuse" "rgb L" [ 8 7 6 ]
+  {_quad([[-0.6, 2.2, -0.6], [0.6, 2.2, -0.6], [0.6, 2.2, 0.6],
+          [-0.6, 2.2, 0.6]])}
+AttributeEnd
+AttributeBegin
+  MediumInterface "fog" ""
+  Material "none"
+  Translate 0 0.6 0
+  Shape "sphere" "float radius" [ 1.4 ]
+AttributeEnd
+AttributeBegin
+  MediumInterface "fog" "fog"
+  Material "matte" "rgb Kd" [ .6 .5 .4 ]
+  Translate 0 0.6 0
+  Shape "sphere" "float radius" [ 0.6 ]
+AttributeEnd
+Material "matte" "rgb Kd" [ .5 .5 .5 ]
+{_quad([[-6, 0, -6], [6, 0, -6], [6, 0, 6], [-6, 0, 6]])}
+WorldEnd
+"""
+
+
+def fog_mesh_scene(width: int = 1280, height: int = 720, maxdepth: int = 64,
+                   small: bool = False) -> str:
+    vp, vidx, vn = _vase(24 if small else 256)
+    sp, sidx = uv_sphere(*((20, 16) if small else (64, 33)))
+    insts = "\n".join(f"""AttributeBegin
+  Translate {2.2 * math.cos(a):.4f} {2.2 * math.sin(a):.4f} 0.35
+  Rotate {math.degrees(a):.2f} 0 0 1
+  Scale 0.35 0.35 0.35
+  ObjectInstance "ball"
+AttributeEnd""" for a in (2.0 * math.pi * k / 8 + 0.3 for k in range(8)))
+    return f"""
+LookAt 0.5 -6.5 3.2  0 0 1.0  0 0 1
+Camera "perspective" "float fov" [ 38 ]
+Film "image" "integer xresolution" [ {width} ]
+  "integer yresolution" [ {height} ] "string filename" "fog_mesh.png"
+Integrator "volpath" "integer maxdepth" [ {maxdepth} ]
+WorldBegin
+LightSource "infinite" "rgb L" [ .1 .11 .14 ]
+LightSource "distant" "point from" [ -3 -2 6 ] "point to" [ 0 0 0 ]
+  "rgb L" [ 1.5 1.4 1.25 ]
+{FOG}
+AttributeBegin
+  Material "matte" "rgb Kd" [ 0 0 0 ]
+  AreaLightSource "diffuse" "rgb L" [ 6 6 7 ]
+  {_quad([[-1.2, -1.0, 4.5], [-1.2, 1.0, 4.5], [1.2, 1.0, 4.5],
+          [1.2, -1.0, 4.5]])}
+AttributeEnd
+Material "matte" "rgb Kd" [ .6 .58 .55 ]
+{_quad([[-10, -10, 0], [10, -10, 0], [10, 10, 0], [-10, 10, 0]])}
+AttributeBegin
+  MediumInterface "fog" ""
+  Material "none"
+  {_box((-3.2, -3.2, 0.001), (3.2, 3.2, 3.6))}
+AttributeEnd
+AttributeBegin
+  MediumInterface "fog" "fog"
+  Material "plastic" "rgb Kd" [ .55 .25 .12 ] "rgb Ks" [ .35 .35 .35 ]
+    "float roughness" [ .08 ]
+  {_mesh(vp, vidx, vn)}
+AttributeEnd
+ObjectBegin "ball"
+  MediumInterface "fog" "fog"
+  Material "metal" "float roughness" [ .12 ]
+  {_mesh(sp, sidx, sp)}
+ObjectEnd
+{insts}
+AttributeBegin
+  MediumInterface "fog" "fog"
+  Material "glass" "float index" [ 1.5 ]
   Translate 1.3 -1.6 0.5
   Shape "sphere" "float radius" [ 0.5 ]
 AttributeEnd

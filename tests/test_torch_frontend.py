@@ -32,11 +32,14 @@ def _scene(src, base="/tmp"):
 def test_imports_and_renders_without_jax(tmp_path):
     """With jax and rene_tpu blocked, every module of the port imports,
     packs a scene and renders it on the CPU through its CLI, with both
-    engines."""
+    engines: the Cornell box, a textured scene and a volpath fog
+    scene."""
     scene = tmp_path / "s.pbrt"
     scene.write_text(scenes.cornell_box(16, 8))
     textured = tmp_path / "t.pbrt"
     textured.write_text(scenes.textured("tex_image", tmp_path, 16, 8))
+    fog = tmp_path / "f.pbrt"
+    fog.write_text(scenes.fog_scene(16, 8))
     code = textwrap.dedent(f"""
         import importlib, pkgutil, sys
         sys.modules["jax"] = None
@@ -64,6 +67,12 @@ def test_imports_and_renders_without_jax(tmp_path):
                                           engine, "--output",
                                           {str(tmp_path / "t.png")!r}])
             assert rc == 0
+            # the volpath body: a medium, its interfaces, the march
+            rc = rene_tpu_torch.cli.main([{str(fog)!r}, "--device", "cpu",
+                                          "--spp", "1", "--engine", engine,
+                                          "--output",
+                                          {str(tmp_path / "f.png")!r}])
+            assert rc == 0
         bn, cfg = build_device_scene(load_scene({str(textured)!r}))
         tables = pack_tables(bn, cfg)
         assert tables.has_tex and tables.has_env and tables.atlas.size > 512
@@ -75,7 +84,7 @@ def test_imports_and_renders_without_jax(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("OK")
-    assert (tmp_path / "o.png").exists() and (tmp_path / "t.png").exists()
+    assert all((tmp_path / f).exists() for f in ("o.png", "t.png", "f.png"))
 
 
 def test_port_sources_import_no_jax_package():
@@ -106,14 +115,16 @@ def _wave_src():
 
 @pytest.mark.parametrize("name", [
     "cornell_box", "materials_scene", "mesh_materials_scene",
-    "instanced_scene", "sphere_light_scene", "big_mesh_scene", "test_wave"]
+    "instanced_scene", "sphere_light_scene", "big_mesh_scene", "test_wave",
+    "fog_scene", "fog_env_scene", "fog_mesh_scene"]
     + list(scenes.TEXTURED))
 def test_frontend_copy_matches_reference(name, tmp_path):
     """The port's copy of the frontend (pbrt parser, scene flattening,
     build_device_scene) gives the reference's buffers and RenderConfig on
     every inline scene, the image atlas and the env-map sampling tables of
-    the textured ones included: equal dtypes, shapes and values. The big
-    mesh runs at a 64x36 film (the film size does not touch the mesh)."""
+    the textured ones included, and the media and medium interfaces of
+    the fog scenes: equal dtypes, shapes and values. The big mesh runs at
+    a 64x36 film (the film size does not touch the mesh)."""
     from rene_tpu_torch.pbrt import parse_pbrt as parse_port
     from rene_tpu_torch.scene import build_device_scene as build_port
     from rene_tpu_torch.scene import create_scene as create_port
@@ -123,10 +134,17 @@ def test_frontend_copy_matches_reference(name, tmp_path):
         src = scenes.big_mesh_scene(64, 36)
     elif name in scenes.TEXTURED:
         src = scenes.textured(name, tmp_path, 64, 32)
+    elif name == "fog_env_scene":
+        src = scenes.fog_env_scene(tmp_path, 64, 32)
+    elif name == "fog_mesh_scene":
+        src = scenes.fog_mesh_scene(64, 32, small=True)
     else:
         src = getattr(scenes, name)(64, 32)
     bn_ref, cfg_ref = _scene(src, tmp_path)
     bn, cfg = build_port(create_port(parse_port(src), str(tmp_path)))
+    if name.startswith("fog"):
+        assert cfg.integrator == "volpath" and cfg.has_media
+        assert (bn["inst_interior"] != 0).any()
     if name in scenes.TEXTURED:
         assert bn["img_atlas"].shape[0] >= 512
         assert cfg.env_nee == (name in ("tex_image", "env", "env_emitter",
@@ -170,6 +188,9 @@ def test_layout_header_matches_pack_constants():
     assert set(owner) == set(defs)
     assert {n for n in defs if hasattr(A, n)} >= {"NODE_W", "MESH_W",
                                                    "INST_W", "SPH_BLOCK"}
+    # the volpath body's: material slots, the media rows, the medium row
+    assert {"MAT_IMED", "MAT_EMED", "MED_ST", "MED_SS", "MED_G", "MED_VAC",
+            "MED_W", "WROW_MED"} <= set(owner)
     for name, module in owner.items():
         assert int(defs[name]) == getattr(module, name), name
 
@@ -259,8 +280,8 @@ _HEAD = 'Film "image" "integer xresolution" [8] "integer yresolution" [8]\n'
 @pytest.mark.parametrize("src,item", [
     (_HEAD + 'WorldBegin\nTexture "c" "spectrum" "checkerboard"\n'
      'Material "metal" "texture eta" "c"\n' + _QUAD + "\nWorldEnd", "K1b"),
-    ('Integrator "volpath"\n' + _HEAD + "WorldBegin\n" + _QUAD
-     + "\nWorldEnd", "K1e"),
+    ('Integrator "volpath"\nSampler "sobol"\n' + _HEAD + "WorldBegin\n"
+     + _QUAD + "\nWorldEnd", "sobol"),
     (_HEAD + "WorldBegin\n" + 'AreaLightSource "diffuse" "rgb L" [1 1 1]\n'
      + _grid(17) + "\nWorldEnd", "K1c"),
     ('Sampler "sobol"\n' + _HEAD + "WorldBegin\n" + _QUAD + "\nWorldEnd",
@@ -333,12 +354,22 @@ def _inline_scenes(directory):
                 + 'Texture "c" "spectrum" "checkerboard" "texture tex1" '
                 '"kdmap"\nLightSource "infinite" "texture L" ["c"]\n'
                 + _QUAD + "\nWorldEnd"))
+    # the volpath scenes, and a path scene with a medium (whose path body
+    # ignores it)
+    out += [("fog_scene", scenes.fog_scene(8, 8)),
+            ("fog_env_scene", scenes.fog_env_scene(directory, 8, 8)),
+            ("fog_mesh_scene", scenes.fog_mesh_scene(8, 8, small=True)),
+            ("path_scene_with_medium", _HEAD + "WorldBegin\n" + scenes.FOG
+             + '\nAttributeBegin\nMediumInterface "fog" ""\n'
+             'Material "none"\nShape "sphere" "float radius" 2\n'
+             "AttributeEnd\n" + _QUAD + "\nWorldEnd")]
     return out
 
 
 def test_slice_supported_agrees_with_pallas_eligible(tmp_path):
-    """`slice_supported` takes exactly the textured scenes the reference's
-    `pallas_eligible` takes (the port's volpath and Sobol refusals, and
+    """`slice_supported` takes exactly the scenes the reference's
+    `pallas_eligible` takes among the textured ones, the volpath fog
+    scenes and a path scene with a medium (the port's Sobol refusal, and
     the reference's VMEM texel caps, aside), and names K1b for the
     others."""
     from rene_tpu.integrators.pallas_path import pallas_eligible
@@ -353,10 +384,11 @@ def test_slice_supported_agrees_with_pallas_eligible(tmp_path):
             mine = False
         assert mine == pallas_eligible(bn, cfg), name
         verdicts[name] = mine
-    assert sum(verdicts.values()) == 5 + len(scenes.TEXTURED)
+    assert sum(verdicts.values()) == 9 + len(scenes.TEXTURED)
     assert not any(v for n, v in verdicts.items()
                    if n not in scenes.TEXTURED and "_scene" not in n
                    and n != "cornell_box")
+    assert verdicts["path_scene_with_medium"] and verdicts["fog_mesh_scene"]
 
 
 @pytest.mark.parametrize("name", ["tex_image", "tex_scale", "tex_checker",

@@ -18,7 +18,10 @@ import numpy as np
 import pytest
 import torch
 
-from rene_tpu_torch import checks, kernels
+from rene_tpu.pbrt import parse_pbrt
+from rene_tpu.scene import create_scene
+from rene_tpu.scene.device import build_device_scene
+from rene_tpu_torch import checks, kernels, scenes
 from rene_tpu_torch.integrators import mega_path as M
 from rene_tpu_torch.scene import pack as P
 from .test_torch_mega_path import _buffers
@@ -40,12 +43,16 @@ static inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
 static inline float __uint_as_float(uint32_t u) {
   float f; memcpy(&f, &u, 4); return f;
 }
-#include "path.cuh"
-// the lanes run one after another
+#include "mega_lane.cuh"
+// the lanes run one after another, the path body or, where the includer
+// defines LANE_VOL true, the volpath body
+#ifndef LANE_VOL
+#define LANE_VOL false
+#endif
 static int run_lanes(const Params& p, void*) {
   for (int lane = 0; lane < p.n_pix; ++lane) {
-    if (p.has_accel) trace_lane<true>(p, lane);
-    else trace_lane<false>(p, lane);
+    if (p.has_accel) trace_lane<true, LANE_VOL>(p, lane);
+    else trace_lane<false, LANE_VOL>(p, lane);
   }
   return 0;
 }
@@ -53,20 +60,25 @@ static int run_lanes(const Params& p, void*) {
 """
 
 
-@pytest.fixture(scope="module")
-def host_lib(tmp_path_factory):
+def _gxx(tmp_path_factory, name, harness) -> ctypes.CDLL:
+    """`harness` compiled with g++ against csrc/ into a shared library."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no g++ to compile the kernel's per-lane code for the CPU")
-    d = tmp_path_factory.mktemp("host_kernel")
-    (d / "harness.cpp").write_text(HARNESS)
+    d = tmp_path_factory.mktemp(name)
+    (d / "harness.cpp").write_text(harness)
     so = d / "libhost.so"
     res = subprocess.run(
         [gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-Wall",
          "-Wno-unknown-pragmas", "-Werror", f"-I{kernels.CSRC}", "-o",
          str(so), str(d / "harness.cpp")], capture_output=True, text=True)
     assert res.returncode == 0, res.stderr
-    lib = ctypes.CDLL(str(so))
+    return ctypes.CDLL(str(so))
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    lib = _gxx(tmp_path_factory, "host_kernel", HARNESS)
     lib.mega_path_launch.argtypes = kernels.ARGTYPES
     lib.mega_path_launch.restype = ctypes.c_int
     return lib
@@ -135,6 +147,136 @@ def test_cuda_textured_lane_code_matches_plain_version(host_lib, tmp_path,
     assert out[9].sum() == ref[9].sum()
 
 
+
+# -- the volpath body (K1e) ----------------------------------------------------
+MED_HARNESS = r"""
+#include <cmath>
+#include <cstring>
+#include <cstdint>
+#include <cstddef>
+#define __device__
+#define __forceinline__ inline
+#define __ldg(p) (*(p))
+static inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
+static inline float __uint_as_float(uint32_t u) {
+  float f; memcpy(&f, &u, 4); return f;
+}
+// the textures' entry points, which only a bounce calls
+#pragma GCC diagnostic ignored "-Wunused-function"
+#include "medium.cuh"
+// lane by lane: out rows sampled, t, weight rgb, transmittance rgb along
+// t_max, the phase value at cos, the scattered direction
+extern "C" void med_lanes(const float* tab, int n_med, const float* med,
+                          const float* t_max, const float* u, const float* wo,
+                          const float* cos, int n, float* out) {
+  const Media md = {tab, n_med};
+  for (int i = 0; i < n; ++i) {
+    const Med m = med_consts(md, med[i]);
+    const MedSample s = med_sample(m, t_max[i], u[i], u[n + i]);
+    const V3 tr = med_tr(m, t_max[i]);
+    const V3 d = med_sample_p(m, v3(wo[i], wo[n + i], wo[2 * n + i]),
+                              u[2 * n + i], u[3 * n + i]);
+    const float row[12] = {s.sampled ? 1.f : 0.f, s.t, s.w[0], s.w[1],
+                           s.w[2], tr.x, tr.y, tr.z, med_phase(m, cos[i]),
+                           d.x, d.y, d.z};
+    for (int r = 0; r < 12; ++r) out[r * n + i] = row[r];
+  }
+}
+"""
+
+VOL_HARNESS = "#define LANE_VOL true\n" + HARNESS
+
+
+def _fog_buffers(name, directory, w, h):
+    from .test_torch_volpath import buffers as vol_buffers
+    if name == "fog_mesh":
+        # the small mesh scene, its paths cut to maxdepth 8
+        src = scenes.fog_mesh_scene(w, h, maxdepth=8, small=True)
+        return build_device_scene(create_scene(parse_pbrt(src),
+                                               str(directory)))
+    return vol_buffers(name, directory, w, h)
+
+
+def test_cuda_medium_code_matches_plain_version(tmp_path_factory):
+    """csrc/medium.cuh with g++ against ops/medium.py on the same draws:
+    the media of tests/test_torch_medium.py, lanes in every medium and
+    an index the table does not hold (vacuum), segments from 1e-3 to 50
+    and unbounded. The branch (sampled or not) agrees on >= 99.9% of the
+    lanes, and there the values within 1e-5 relative (libm against
+    torch); the scattered direction within 1e-4 everywhere."""
+    from rene_tpu_torch.ops import medium as MD
+    from rene_tpu_torch.ops import rng
+    from .test_torch_medium import _media_buffers
+    lib = _gxx(tmp_path_factory, "host_medium", MED_HARNESS)
+    tab = torch.from_numpy(np.float32(P.media_table(_media_buffers())))
+    n = 4096
+    r = np.random.default_rng(12)
+    med = torch.from_numpy(r.integers(0, tab.shape[0] + 1, n)).float()
+    t_max = torch.from_numpy(np.float32(
+        np.exp(r.uniform(np.log(1e-3), np.log(50.0), n))))
+    t_max[:64] = 1e30
+    wo = torch.from_numpy(np.float32(r.normal(size=(3, n))))
+    wo = (wo / wo.norm(dim=0)).contiguous()
+    cos = torch.from_numpy(np.float32(r.uniform(-1.0, 1.0, n)))
+    st0 = torch.from_numpy(r.integers(1, 2 ** 32, n, dtype=np.uint64)
+                           .astype(np.int64))
+    u, st = [], st0
+    for _ in range(4):
+        ui, st = rng.uniform(st)
+        u.append(ui)
+    u = torch.stack(u).contiguous()
+    out = torch.empty((12, n))
+    f = ctypes.c_void_p
+    lib.med_lanes.argtypes = [f, ctypes.c_int, f, f, f, f, f, ctypes.c_int, f]
+    lib.med_lanes(tab.data_ptr(), tab.shape[0], med.data_ptr(),
+                  t_max.data_ptr(), u.data_ptr(), wo.data_ptr(),
+                  cos.data_ptr(), n, out.data_ptr())
+    sampled, t, w, st1 = MD.med_sample(tab, med, t_max, st0)
+    d = MD.med_sample_p(tab, med, *wo, st1)[:3]
+    ref = torch.stack([sampled.float(), t, *w, *MD.med_tr(tab, med, t_max),
+                       MD.med_phase(tab, med, cos), *d])
+    ok = out[0] == ref[0]
+    assert ok.double().mean() >= 0.999
+    torch.testing.assert_close(out[1:9, ok], ref[1:9, ok], rtol=1e-5,
+                               atol=1e-30)
+    torch.testing.assert_close(out[9:], ref[9:], rtol=0, atol=1e-4)
+    assert (out[0] > 0).double().mean() > 0.1
+    assert (out[8] == 0).double().mean() > 0.1   # vacuum lanes
+
+
+@pytest.fixture(scope="module")
+def vol_lib(tmp_path_factory):
+    lib = _gxx(tmp_path_factory, "host_volpath", VOL_HARNESS)
+    lib.mega_path_launch.argtypes = kernels.ARGTYPES
+    lib.mega_path_launch.restype = ctypes.c_int
+    return lib
+
+
+@pytest.mark.parametrize("name", ["fog", "fog_env", "fog_mesh"])
+def test_cuda_volpath_lane_code_matches_plain_version(vol_lib, tmp_path,
+                                                      name):
+    """csrc/mega_lane.cuh's trace_lane<MESH, true> (csrc/volpath.cuh:
+    media, Henyey-Greenstein NEE, the transmittance march through None
+    faces, the interface switch, no Russian roulette) and
+    csrc/medium.cuh against vol_lanes_ref at
+    64x32 x 4 spp: immediates, env-map light sampling with an emitter, and
+    the small fog mesh at maxdepth 8."""
+    from rene_tpu_torch.integrators import volpath as V
+    bn, cfg = _fog_buffers(name, tmp_path, 64, 32)
+    tabs = M.device_tables(P.pack_tables(bn, cfg), "cpu")
+    assert tabs["volpath"] and tabs["has_accel"] == (name == "fog_mesh")
+    seed, spp = 99, 4
+    out = torch.empty((P.OUT_ROWS, 64 * 32), dtype=torch.float32)
+    args = kernels.launch_args(tabs, seed, spp, False, out)
+    assert vol_lib.mega_path_launch(*args, None) == 0
+    ref = V.vol_lanes_ref(tabs, seed, spp).numpy()
+    out = out.numpy()
+    a = checks.agreement(out, ref)
+    assert a["rad_frac"] >= 0.995, a
+    assert a["aov_frac"] >= 0.995, a
+    assert a["mean_rel"] <= 1e-4, a
+    assert out[9].sum() == ref[9].sum()
+
 WAVE_HARNESS = r"""
 #include <cmath>
 #include <cstring>
@@ -149,10 +291,15 @@ static inline float __uint_as_float(uint32_t u) {
 }
 #include "wave.cuh"
 // the lanes, and the slices, run one after another
+// the path bounce, or the volpath bounce where the includer defines
+// WAVE_VOL true
+#ifndef WAVE_VOL
+#define WAVE_VOL false
+#endif
 static int run_wave(const WaveParams& p, void*) {
   for (int lane = 0; lane < p.n_run; ++lane) {
-    if (p.has_accel) wave_lane<true>(p, lane);
-    else wave_lane<false>(p, lane);
+    if (p.has_accel) wave_lane<true, WAVE_VOL>(p, lane);
+    else wave_lane<false, WAVE_VOL>(p, lane);
   }
   return 0;
 }
@@ -175,18 +322,8 @@ static int run_permute(const float* in, const int* perm, int n_pad,
 def wave_lib(tmp_path_factory):
     """csrc/wave.cuh's per-lane code behind csrc/wave_launch.cuh's entry
     points, compiled with g++."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("no g++ to compile the kernel's per-lane code for the CPU")
-    d = tmp_path_factory.mktemp("host_wave")
-    (d / "harness.cpp").write_text(WAVE_HARNESS)
-    so = d / "libwave.so"
-    res = subprocess.run(
-        [gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-Wall",
-         "-Wno-unknown-pragmas", "-Werror", f"-I{kernels.CSRC}", "-o",
-         str(so), str(d / "harness.cpp")], capture_output=True, text=True)
-    assert res.returncode == 0, res.stderr
-    return kernels.bind(ctypes.CDLL(str(so)), "wave.cu")
+    return kernels.bind(_gxx(tmp_path_factory, "host_wave", WAVE_HARNESS),
+                        "wave.cu")
 
 
 def _host_wave_kernels(lib):
@@ -276,6 +413,61 @@ def test_cuda_wave_code_matches_plain_version(wave_lib, monkeypatch, name,
         assert a["mean_rel"] <= 1e-4, (mode, a)
         assert out["rays"] == ref["rays"], mode
 
+
+
+@pytest.fixture(scope="module")
+def wave_vol_lib(tmp_path_factory):
+    """The wave kernels with the volpath bounce (wave_lane<MESH, true>),
+    compiled with g++."""
+    return kernels.bind(_gxx(tmp_path_factory, "host_wave_vol",
+                             "#define WAVE_VOL true\n" + WAVE_HARNESS),
+                        "wave.cu")
+
+
+@pytest.mark.parametrize("name", ["fog", "fog_env", "fog_mesh"])
+def test_cuda_volpath_wave_code_matches_plain_version(wave_vol_lib,
+                                                      monkeypatch, name,
+                                                      tmp_path):
+    """K2's volpath bounce (csrc/wave.cuh wave_bounce<MESH, true>) against
+    wave_step_ref on volpath tables: K3 leaves the medium row at vacuum;
+    one K2 launch lane by lane (>= 99.5% of lanes on every row, the
+    medium row among them, the key row bit for bit); whole 32x32 waves at
+    spw 2 sorted by `gather` and by `dma` through the g++ kernels against
+    the plain runner (the per-pixel rule, equal ray totals)."""
+    from rene_tpu_torch.integrators import wave as WV
+    bn, cfg = _fog_buffers(name, tmp_path, 32, 32)
+    genesis, path, permute = _host_wave_kernels(wave_vol_lib)
+    plain = WV.make_wave_fn(bn, cfg, "cpu", samples_per_wave=2)
+    tabs, n_pad, kb = plain.tabs, plain.n_pad, plain.key_bounds
+    assert tabs["volpath"]
+    s_h = genesis(tabs, plain.pxf, plain.pyf, plain.n_real, 21, 1, 0)
+    s_p, _ = plain.init_state(21, 2)
+    assert torch.equal(s_h[WV.WROW_ALIVE:], s_p[WV.WROW_ALIVE:])
+    assert not s_h[WV.WROW_MED].any()
+    o_h = path(tabs, s_p.clone(), 21, 1, 2, n_pad, kb)
+    o_p = WV.wave_step_ref(tabs, s_p.clone(), 21, 1, 2, n_pad, kb)
+    assert o_p[WV.WROW_MED].any()
+    ok = ((o_h - o_p).abs() <= checks.RAD_ATOL
+          + checks.RAD_RTOL * o_p.abs()).all(0)
+    ok &= o_h[WV.WROW_KEY].view(torch.int32) == o_p[WV.WROW_KEY].view(
+        torch.int32)
+    assert ok.double().mean() >= 0.995, ok.double().mean()
+
+    ref = plain(21, 2)
+    for mode in ("gather", "dma"):
+        monkeypatch.setattr(kernels, "wave_genesis", genesis)
+        monkeypatch.setattr(kernels, "wave_path", path)
+        monkeypatch.setattr(kernels, "wave_permute", permute)
+        out = WV.make_wave_fn(bn, cfg, "cpu", samples_per_wave=2,
+                              sort_mode=mode)(21, 2)
+        monkeypatch.undo()
+        a = checks.agreement(*[np.concatenate(
+            [np.asarray(o[k]).T for k in ("radiance", "normal", "albedo")])
+            for o in (out, ref)])
+        assert a["rad_frac"] >= 0.995, (mode, a)
+        assert a["aov_frac"] >= 0.995, (mode, a)
+        assert a["mean_rel"] <= 1e-4, (mode, a)
+        assert out["rays"] == ref["rays"], mode
 
 def test_launch_args_check_tables():
     bn, cfg = _buffers("cornell_box")

@@ -1,0 +1,180 @@
+"""The volpath megakernel (slice K1e) against the JAX megakernel.
+
+`vol_lanes_ref` (rene_tpu_torch/integrators/volpath.py through
+mega_path.path_lanes_ref) against rene_tpu's megakernel running its
+volpath body in interpret mode (`make_pallas_batch_fn(...,
+interpret=True)`), per pixel, on the three fog scenes: `fog_scene`
+(immediates, 32x16), `fog_env_scene` (an env map with env-map light
+sampling and one emitter, 32x32) and the small `fog_mesh_scene` (a world
+mesh with three material slots, shared-BLAS instances, a fog box of
+None faces, 32x32), at 2 spp, with the JAX packer's cluster width cut to
+16 as in test_torch_mesh.py. Both draw the same xorshift32 stream in the
+volpath body's order (med_sample, med_sample_p, the scatter point's
+emitter draws, the path body's draws without rrv, the camera's), so
+every lane traces the same path. Limits as in test_torch_mesh.py:
+>= 99.5% of pixels' radiance and >= 99% of their normal and albedo sums
+agree (rene_tpu_torch.checks), image means within 1e-3 relative, ray
+totals within 0.1%, counted over the JAX runner's own lanes (its padding
+lanes repeat pixels, and the port's lane of a pixel traces what they
+trace). Measured: radiance >= 99.90%, AOV 100%, means within 5.3e-4,
+ray totals within 0.033%.
+
+The render loop (`render(device="cpu")`) against `rene_tpu.render.
+render(engine="pallas")` on the fog scene, image for image.
+"""
+import numpy as np
+import pytest
+import torch
+
+from rene_tpu.pbrt import parse_pbrt
+from rene_tpu.scene import create_scene
+from rene_tpu.scene.device import build_device_scene
+from rene_tpu_torch import checks, kernels, scenes
+from rene_tpu_torch.integrators import mega_path as M
+from rene_tpu_torch.integrators import volpath as V
+from rene_tpu_torch.ops import intersect as X
+from rene_tpu_torch.scene import pack as P
+
+torch.set_num_threads(2)
+
+SPP = 2
+# the JAX kernel's switches, pinned to their defaults
+JAX_ENV_OFF = ("RENE_MF_DIST", "RENE_MEGA_PACK", "RENE_MESH_TEST",
+               "RENE_CONST_DIR", "RENE_SPH_ANY", "RENE_SUB_TRIS",
+               "RENE_SUB_GATE", "RENE_CLUSTER_ORDER", "RENE_ENV_NEE")
+# (width, height, directory) -> pbrt text; a directory for the images
+SCENES = {
+    "fog": ((32, 16), lambda w, h, d: scenes.fog_scene(w, h)),
+    "fog_env": ((32, 32), lambda w, h, d: scenes.fog_env_scene(d, w, h)),
+    "fog_mesh": ((32, 32), lambda w, h, d: scenes.fog_mesh_scene(
+        w, h, small=True)),
+}
+
+
+def buffers(name, directory, width=0, height=0):
+    (w, h), make = SCENES[name]
+    src = make(width or w, height or h, directory)
+    return build_device_scene(create_scene(parse_pbrt(src), str(directory)))
+
+
+def _jax_env(mp):
+    from rene_tpu.integrators import pallas_path as pp
+    mp.setattr(pp, "CLUSTER", 16)
+    mp.setattr(pp, "SPH_BLOCK", 16)
+    mp.setenv("RENE_QUAD_FUSE", "0")
+    for k in JAX_ENV_OFF:
+        mp.delenv(k, raising=False)
+    return pp
+
+
+@pytest.fixture(scope="module")
+def scene_dir(tmp_path_factory):
+    return tmp_path_factory.mktemp("fog_scenes")
+
+
+@pytest.mark.parametrize("name,seed", [("fog", 7), ("fog_env", 7),
+                                       ("fog_mesh", 7)])
+def test_plain_version_matches_interpret_megakernel(scene_dir, name, seed):
+    with pytest.MonkeyPatch.context() as mp:
+        pp = _jax_env(mp)
+        bn, cfg = buffers(name, scene_dir)
+        assert cfg.integrator == "volpath" and cfg.has_media
+        run = pp.make_pallas_batch_fn(bn, cfg, interpret=True)
+        res = run(seed, SPP)
+    tabs = M.device_tables(P.pack_tables(bn, cfg), "cpu")
+    assert tabs["volpath"] and not tabs["use_rr"]
+    assert tabs["has_accel"] == (name == "fog_mesh")
+    assert tabs["has_env"] == (name == "fog_env")
+    for k in X.casts:
+        X.casts[k] = 0
+    out = V.vol_lanes_ref(tabs, seed, SPP).numpy()
+    assert np.isfinite(out).all()
+    # every kind of cast ran: closest hits, marches, emitter pdfs
+    assert min(X.casts.values()) > 0, X.casts
+    ref = np.concatenate([np.array(res[k]).T for k in
+                          ("radiance", "normal", "albedo")])
+    a = checks.agreement(out[:9], ref)
+    assert a["rad_frac"] >= 0.995, a
+    assert a["aov_frac"] >= 0.99, a
+    assert a["mean_rel"] <= 1e-3, a
+    # the JAX lanes' pixels, its padding and edge-block lanes included
+    w = cfg.film.xresolution
+    lane_pix = (run.py_host.astype(np.int64) * w
+                + run.px_host.astype(np.int64)).reshape(-1)
+    rays = float(out[9][lane_pix].sum())
+    jax_rays = float(res["rays"])
+    assert abs(rays - jax_rays) <= 1e-3 * jax_rays, (rays, jax_rays)
+
+
+def test_kernel_wrapper_runs_vol_lanes_ref_on_cpu(scene_dir):
+    """CPU tables run the plain volpath megakernel and count no launch;
+    the variant names the volpath build."""
+    tabs = M.device_tables(P.pack_tables(*buffers("fog", scene_dir, 8, 8)),
+                           "cpu")
+    assert kernels.variant(tabs) == "mega_volpath"
+    assert kernels.variant(tabs, "wave_path") == "wave_volpath"
+    before = dict(kernels.launches)
+    torch.testing.assert_close(kernels.mega_path(tabs, 3, 1),
+                               V.vol_lanes_ref(tabs, 3, 1), rtol=0, atol=0)
+    assert kernels.launches == before
+    with pytest.raises(ValueError, match="integrator is path"):
+        V.vol_lanes_ref(dict(tabs, volpath=False), 3, 1)
+
+
+def test_render_matches_jax_pallas_engine(scene_dir, monkeypatch):
+    """render(device="cpu") against the JAX render loop's volpath
+    megakernel: the same chunk seeds, image for image (the rule of
+    test_torch_render.py)."""
+    _jax_env(monkeypatch)
+    from rene_tpu.render import render as jax_render
+    from rene_tpu_torch.render import render
+    src = scenes.fog_scene(32, 16)
+    ref = jax_render(create_scene(parse_pbrt(src), "/tmp"), spp=SPP, seed=5,
+                     engine="pallas")
+    out = render(create_scene(parse_pbrt(src), "/tmp"), spp=SPP, seed=5,
+                 device="cpu")
+    assert out["engine"] == "pallas" and out["launches"] == 0
+    c, rc = out["color"], ref["color"]
+    assert c.shape == rc.shape == (16, 32, 3)
+    assert np.isclose(c, rc, rtol=1e-3, atol=1e-5).all(-1).mean() >= 0.97
+    assert abs(c.mean() - rc.mean()) <= 1e-3 * abs(rc.mean())
+    for k in ("normal", "albedo"):
+        assert (np.abs(out[k] - ref[k]) <= 1e-4).all(-1).mean() >= 0.99, k
+
+
+def test_media_and_slots_change_the_image(scene_dir):
+    """The medium is in use: with sigma_t zeroed the fog scene's image
+    changes, with the slots' interfaces zeroed too (every path stays in
+    vacuum)."""
+    tabs = M.device_tables(P.pack_tables(*buffers("fog", scene_dir, 16, 8)),
+                           "cpu")
+    ref = V.vol_lanes_ref(tabs, 5, 2)
+    clear = dict(tabs, media=torch.zeros_like(tabs["media"]))
+    mats = tabs["mats"].clone()
+    mats[:, P.MAT_IMED] = 0.0
+    mats[:, P.MAT_EMED] = 0.0
+    vacuum = dict(tabs, mats=mats)
+    for other in (clear, vacuum):
+        a = checks.agreement(V.vol_lanes_ref(other, 5, 2), ref)
+        assert a["rad_frac"] < 0.5, a
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(SCENES))
+def test_kernel_on_card_matches_plain_version(tmp_path, name):
+    """On a CUDA card: the volpath variant against its plain version at
+    128x64 x 4 spp, at the card's limits (chip_smoke.py phase 16 runs the
+    same check)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    tabs = M.device_tables(P.pack_tables(*buffers(name, tmp_path, 128, 64)),
+                           "cuda")
+    before = dict(kernels.launches)
+    out = kernels.mega_path(tabs, 1234567, 4)
+    ref = V.vol_lanes_ref(dict(tabs), 1234567, 4)
+    torch.cuda.synchronize()
+    variant = kernels.variant(tabs)
+    assert variant.startswith("mega_volpath")
+    assert kernels.launches[variant] == before[variant] + 1
+    checks.check_card(checks.agreement(out.cpu(), ref.cpu()),
+                      f"{name} 128x64 x 4 spp")

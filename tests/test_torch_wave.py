@@ -182,7 +182,7 @@ def test_genesis_matches_jax(jax_wave, monkeypatch, name, spw, want):
     assert ((key != key_ref) & ~near0).sum() == 0
     assert (key_ref[~alive] == (WV.W_KEY_DEAD | WV.W_KEY_BIT)).all()
     assert not state[WV.W_SORT_ROWS:].any()
-    assert pix.tolist() == port.layout["pix"].tolist()
+    assert pix.tolist() == list(range(port.n_pad))
 
 
 @pytest.mark.parametrize("name", ["immediates", "materials"])
@@ -289,6 +289,20 @@ def test_partial_wave_and_run_dev():
     assert two["rays"] == one["rays"] + four["rays"]
     # albedo sums count one first hit per sample at most
     assert (one["albedo"] <= 3 + 1e-5).all()
+
+
+def test_gather_finish_order_is_exact_past_2_24_lanes():
+    """The `gather` finish puts each column back at the int64 lane
+    position the sorts carried with it (`unsort_lanes`), exact at any
+    wave size: past 2**24 lanes, where `auto_spw` can reach at 1280x720
+    and 19 spp, the float32 lane-id row rounds neighbouring ids to one
+    value and could not say where a lane started."""
+    n = (1 << 24) + 4 * WV.W_TILE
+    src = torch.randperm(n, generator=torch.Generator().manual_seed(5))
+    assert torch.unique(src.float()).numel() < n
+    rows = torch.stack([src.int(), -src.int()])
+    back = torch.arange(n, dtype=torch.int32)
+    assert torch.equal(WV.unsort_lanes(rows, src), torch.stack([back, -back]))
 
 
 def test_permute_ref_moves_slices():
