@@ -87,13 +87,43 @@ when either is missing or any check fails. Phases:
     at their scenes' depth and held against the plain version on a
     strided sample of ~131k lanes, both sides cut to maxdepth 8; the real
     ray casts per nominal ray of the main path, counted by the plain
-    version on that sample.
+    version on that sample;
+19. the Sobol probe (P-r3ac, `sobol_probe`): one launch on 2^22 int32
+    inputs, its path, then bit for bit against its plain version, timed;
+20. the Sobol instances (`Sampler "sobol"`) against their plain versions on
+    the card, megakernel and whole waves (`gather`; the mesh also `dma`):
+    `materials_scene` and `fog_scene` at 128x64 x 4 spp, `mesh_materials_
+    scene` at 2 spp, `fog_env_scene`, and the small fog mesh at 64x32 x 1
+    spp (spw 2) and maxdepth 8; the independent instance on the same
+    tables must trace other paths;
+21. the Sobol main paths through the CLI, each with the launch counts set
+    to 0 just before: the Cornell box with `Sampler "sobol"` at 1024x1024 x
+    64 spp, and with `--sampler sobol` at 16 spp through `--engine wave`;
+    `big_mesh_scene`, `fog_mesh_scene` and `fog_scene` at 1280x720 x 16
+    spp through `auto` and `wave` (and the big mesh's independent wave);
+    Mrays/s beside the independent runs;
+22. full-shape launches: the 1-spp Sobol Cornell launch held against its
+    plain version on ~131k sampled lanes, and the first Sobol K2 launch of
+    each of the four wave main paths through `k2_launch`; each timed
+    against its independent instance on the same input, in turns, as are
+    the Sobol 1-spp launches of the big mesh, fog and fog mesh;
+23. the sampler's worth: the reference's Sobol test scene at 256x256,
+    Sobol at 32 spp against independent at 32 spp, mean absolute pixel
+    error against a 4096-spp independent render (err_s < 0.85 err_i, the
+    reference's factor); the Sobol and independent Cornell linear means at
+    64 spp within 1e-3;
+24. lanes past 2^24: K3 over the 25.2 M lanes of a 1024x1024 x spw 24 wave,
+    independent and Sobol; lanes 2^24 .. 2^24 + 4096 read back: the lane
+    row equal to each lane's index, the initial streams pairwise distinct,
+    the other integer rows (`want` among them) and the camera rays (which
+    follow the Sobol sample index) equal to the plain version's.
 
 The per-pixel rule and the card's limits are rene_tpu_torch.checks'. Each
-path run (phases 4, 7, 11, 14, 17 and the `dma` wave of 12) starts with every
-launch count set to 0 and reads them just after; comparison launches are
-not counted. The plain versions run on the card, for the waves of phase
-10 through rene_tpu_torch.kernels' wrappers swapped for them.
+path run (phases 4, 7, 11, 14, 17, 19, 21 and the `dma` wave of 12) starts
+with every launch count set to 0 and reads them just after; comparison
+launches are not counted. The plain versions run on the card, for the
+waves of phases 10, 13, 16 and 20 through rene_tpu_torch.kernels'
+wrappers swapped for them.
 
 Each kernel's bound is the larger of its bytes over 3.35 TB/s (each input
 read once, each output written once) and its FP32 operations over 67
@@ -173,6 +203,19 @@ K2_VOL_ROWS = K2_ROWS + 2
 VOL_CHECK_DEPTH = 8
 VOL_SPP = 4
 VOL_MESH_SPP = 2
+# the Sobol sampler: the probe's inputs and its integer operations per
+# input (counted in csrc/wave.cuh probe_lane, at the FP32 rate of OPS);
+# the reference's own test of the sampler (tests/test_pallas.py:615-667)
+# at 256x256: spp of the two renders and of the independent reference,
+# and the factor Sobol's mean pixel error must stay under
+PROBE_N = 1 << 22
+PROBE_OPS = 200
+SOBOL_TEST_SIZE, SOBOL_TEST_SPP, SOBOL_REF_SPP = 256, 32, 4096
+SOBOL_ERR_FACTOR = 0.85
+# the wave whose lanes pass 2^24: 1024x1024 at auto_spw's 24 lanes per
+# pixel (5000 spp), and the lanes read back
+LANES24_SPW = 24
+LANES24 = ((1 << 24), (1 << 24) + 4096)
 
 
 def log(msg):
@@ -212,17 +255,20 @@ def reset_launches():
 
 
 def cli_path(name, src, spp, size, what, engine="auto", seed=MAIN_SEED,
-             directory=None):
+             directory=None, sampler="auto"):
     """Render `src` through cli.main on the card with every launch count
     set to 0 just before; check the PNG shapes and a non-black image.
     The scene file goes to `directory` (where its image files lie), by
-    default the output directory. Returns (scene path, launch counts,
-    {rate, mean})."""
+    default the output directory; `src` None renders the file written
+    there before. `sampler`: the CLI's --sampler. Returns (scene path,
+    launch counts, {rate, mean})."""
     import torch
     from rene_tpu_torch import cli, kernels
     from rene_tpu_torch.utils.film import read_png
-    scene_path = write_scene(name, src, directory)
-    tag = f"{name}_{engine}_{seed}"
+    scene_path = (write_scene(name, src, directory) if src is not None
+                  else os.path.join(directory or OUT_DIR, name + ".pbrt"))
+    tag = f"{name}_{engine}_{seed}" + ("" if sampler == "auto"
+                                       else "_" + sampler)
     paths = [os.path.join(OUT_DIR, f"{tag}{k}.png")
              for k in ("", "_normal", "_albedo")]
     for p in paths:
@@ -241,7 +287,7 @@ def cli_path(name, src, spp, size, what, engine="auto", seed=MAIN_SEED,
     rc = cli.main([scene_path, "--spp", str(spp), "--seed", str(seed),
                    "--output", paths[0], "--aov-normal", paths[1],
                    "--aov-albedo", paths[2], "--device", "cuda",
-                   "--engine", engine])
+                   "--engine", engine, "--sampler", sampler])
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = dict(kernels.launches)
@@ -260,7 +306,8 @@ def cli_path(name, src, spp, size, what, engine="auto", seed=MAIN_SEED,
         means[os.path.basename(p)] = float(img.mean())
     if not means[f"{tag}.png"] > 0.0:
         raise RuntimeError("the rendered image is black")
-    log(f"main path ({what}, {spp} spp, engine {engine}, seed {seed}): "
+    log(f"main path ({what}, {spp} spp, engine {engine}, seed {seed}, "
+        f"sampler {sampler}): "
         f"launches {json.dumps(launches)}, {mrays:.1f} Mrays, render "
         f"{render_s:.3f} s, {rate:.1f} Mrays/s, cli wall {wall:.3f} s, "
         f"png means {json.dumps(means)}")
@@ -339,7 +386,7 @@ def plain_wave_kernels():
     def genesis(tabs, pxf, pyf, n_real, seed, base, rem, stream):
         return WV.genesis_ref(tabs["cam_f"], pxf, pyf, tabs["width"],
                               tabs["width"] * tabs["height"], n_real, seed,
-                              base, rem, stream)
+                              base, rem, stream, tabs["sobol"])
 
     kernels.wave_genesis, kernels.wave_path, kernels.wave_permute = (
         genesis, WV.wave_step_ref, WV.permute_ref)
@@ -369,12 +416,12 @@ def wave_at(run, seed, want, step):
     per step the sort over the bucketed prefix and the launch, with the
     one-step-stale alive count."""
     from rene_tpu_torch.integrators import wave as WV
-    state, pix = run.init_state(seed, want)
+    state = run.init_state(seed, want)
     prefix, counts = run.n_real, []
     for si in range(step + 1):
         if si >= 1:
             m = run.bucket(prefix)
-            state, pix = run.sort_prefix(state, pix, m)
+            state = run.sort_prefix(state, m)
             last = counts[si - 2] if si >= 2 else run.n_real
             nt = min(-(-last // WV.W_TILE), m // WV.W_TILE)
             prefix = nt * WV.W_TILE
@@ -383,7 +430,7 @@ def wave_at(run, seed, want, step):
         if si == step:
             return state, nt * WV.W_TILE
         k = WV.SCHEDULE[min(si, len(WV.SCHEDULE) - 1)]
-        state, n_alive = run.kernel_step(k, state, seed, si, nt)
+        state, n_alive = run.kernel_step(k, state, seed, si, nt, want)
         counts.append(int(n_alive))
 
 
@@ -503,13 +550,13 @@ def main() -> int:
         alive = torch.nonzero(s0[WV.WROW_ALIVE, :n_run] > 0.5).squeeze(1)
         idx = alive[::max(1, alive.numel() // SAMPLE_LANES)]
         s_k = kernels.wave_path(run.tabs, s0.clone(), seed, step, k, n_run,
-                                run.key_bounds)
+                                run.key_bounds, 1, 0)
         sub = s0.index_select(1, idx)
         torch.cuda.synchronize()
         reset_counts()
         t = time.time()
         s_p = WV.wave_step_ref(run.tabs, sub.clone(), seed, step, k,
-                               idx.numel(), run.key_bounds)
+                               idx.numel(), run.key_bounds, 1, 0)
         torch.cuda.synchronize()
         plain_ms = (time.time() - t) * 1e3
         tests = plain_counts()
@@ -517,7 +564,8 @@ def main() -> int:
         share, key_share = lane_agreement(s_ks, s_p)
         err = float((s_ks - s_p)[WV.WROW_R:WV.WROW_R + 3].abs().max())
         ms = time_ms(lambda r=0: kernels.wave_path(
-            run.tabs, s0.clone(), seed, step, k, n_run, run.key_bounds), 5) \
+            run.tabs, s0.clone(), seed, step, k, n_run, run.key_bounds, 1,
+            0), 5) \
             - time_ms(lambda r=0: s0.clone(), 5)
         rays = float((s_k[WV.WROW_RAYS] - s0[WV.WROW_RAYS]).sum())
         rays_s = float((s_p[WV.WROW_RAYS] - sub[WV.WROW_RAYS]).sum())
@@ -549,7 +597,7 @@ def main() -> int:
     phase_done(3)
 
     # 4. the K1a main path through the CLI
-    scene_path, l_k1a, _ = cli_path(
+    scene_path, l_k1a, r_k1a = cli_path(
         "cornell", scenes.cornell_box(1024, 1024), MAIN_SPP, (1024, 1024),
         "cornell 1024x1024", engine="pallas")
     if l_k1a["mega_path"] <= 0 or sum(l_k1a.values()) != l_k1a["mega_path"]:
@@ -691,7 +739,7 @@ def main() -> int:
         f"{r_mega[0]['rate']:.1f} / {r_mega[1]['rate']:.1f} [{card}]")
     if max(rel(r_wave, r_mega[0]), rel(r_wave2, r_mega[1])) > MEAN_REL:
         raise RuntimeError("the wave and megakernel images differ")
-    _, l_cw, _ = cli_path("cornell", scenes.cornell_box(1024, 1024),
+    _, l_cw, r_cw = cli_path("cornell", scenes.cornell_box(1024, 1024),
                           MESH_SPP, (1024, 1024), "cornell 1024x1024",
                           engine="wave")
     if l_cw["wave_path"] < 1 or l_cw["wave_path_mesh"] \
@@ -710,7 +758,7 @@ def main() -> int:
     log(f"deep wave: spw {spw}, {n_pad} lanes, state "
         f"{WV.W_NROWS * 4 * n_pad / 1e9:.2f} GB")
     seed = chunk_seed()
-    s_k, _ = run.init_state(seed, spw)
+    s_k = run.init_state(seed, spw)
     s_p = WV.genesis_ref(tabs["cam_f"], run.pxf, run.pyf, MESH_W, npix,
                          run.n_real, seed, 1, 0)
     int_eq = (s_k[WV.WROW_ALIVE:WV.WROW_KEY] == s_p[WV.WROW_ALIVE:
@@ -1036,7 +1084,7 @@ def main() -> int:
             f"{casts:.3f} ({json.dumps(a['tests'])}); bound {bnd[0]:.4f} ms "
             f"({bnd[1]}) [{card}]")
         return {"ms": ms, "plain_ms": a["plain_s"] * 1e3, "bound": bnd,
-                "err": a["max_abs"], "casts": casts}
+                "err": a["max_abs"], "casts": casts, "tests": a["tests"]}
 
     v_fog = vol_launch(fog_path, "fog mesh")
     k2_fog = k2_launch(run, chunk_seed(), 0, f"fog mesh {MESH_W}x{MESH_H} "
@@ -1060,6 +1108,299 @@ def main() -> int:
         log(f"ptxas {name}: " + " | ".join(lines))
     phase_done(18)
 
+    # 19. the Sobol probe (P-r3ac): its path is one launch on 2^22 int32
+    # inputs; then bit for bit against its plain version, timed
+    from rene_tpu_torch.ops import rng as RNG
+    from rene_tpu_torch.ops import sobol as SB
+    xs = torch.randint(-2 ** 31, 2 ** 31 - 1, (PROBE_N,), dtype=torch.int32,
+                       device=dev,
+                       generator=torch.Generator(dev).manual_seed(3))
+    reset_launches()
+    out_k = kernels.sobol_probe(xs)
+    torch.cuda.synchronize()
+    l_probe = dict(kernels.launches)
+    if l_probe["sobol_probe"] != 1 or sum(l_probe.values()) != 1:
+        raise RuntimeError(f"the probe's path launched {l_probe}")
+    if not torch.equal(out_k, SB.probe_ref(xs)):
+        raise RuntimeError("sobol_probe disagrees with its plain version")
+    probe_ms = time_ms(lambda r=0: kernels.sobol_probe(xs), 20)
+    probe_plain_ms = time_ms(lambda r=0: SB.probe_ref(xs), 3)
+    probe_bound = bound(PROBE_N * 4 * 8, PROBE_N * PROBE_OPS)
+    log(f"sobol_probe ({PROBE_N} inputs, 7 words each): bit for bit equal; "
+        f"kernel {probe_ms:.4f} ms, plain {probe_plain_ms:.3f} ms, bound "
+        f"{probe_bound[0]:.4f} ms ({probe_bound[1]}) [{card}]")
+    del xs, out_k
+    phase_done(19)
+
+    # 20. the Sobol instances against their plain versions on the card:
+    # the megakernel and whole waves (`gather`; `dma` on the mesh) of the
+    # scenes with Sampler "sobol"; the small fog mesh cut to 64x32 x 1 spp
+    # at maxdepth VOL_CHECK_DEPTH (its plain walk is the slowest)
+    for name, src, directory, spp, s_spw in (
+            ("sobol_materials", scenes.materials_scene(128, 64), None, 4, 4),
+            ("sobol_mesh_materials", scenes.mesh_materials_scene(128, 64),
+             None, SMALL_MESH_SPP, 4),
+            ("sobol_fog", scenes.fog_scene(128, 64), None, VOL_SPP, 4),
+            ("sobol_fog_env", scenes.fog_env_scene(SCENE_DIR, 128, 64),
+             SCENE_DIR, VOL_SPP, 4),
+            ("sobol_fog_mesh_small", scenes.fog_mesh_scene(
+                64, 32, maxdepth=VOL_CHECK_DEPTH, small=True), None, 1, 2)):
+        bn, cfg = buffers_for(write_scene(name, scenes.with_sampler(src),
+                                          directory))
+        tabs = M.device_tables(P.pack_tables(bn, cfg), dev)
+        inst = kernels.variant(tabs)
+        if not inst.endswith(kernels.SOBOL):
+            raise RuntimeError(f"{name}: runs {inst}")
+        size = f"{tabs['width']}x{tabs['height']}"
+        compare(tabs, 1234567, spp, f"{name} {size} x {spp} spp")
+        a_i = checks.agreement(
+            kernels.mega_path(dict(tabs, sobol=False), 1234567, spp),
+            kernels.mega_path(tabs, 1234567, spp))
+        if a_i["rad_frac"] > 0.9:
+            raise RuntimeError(f"{name}: the Sobol instance traces the "
+                               f"independent paths")
+        card_run = WV.make_wave_fn(bn, cfg, dev, samples_per_wave=s_spw)
+        with plain_wave_kernels():
+            ref = WV.make_wave_fn(bn, cfg, dev, samples_per_wave=s_spw)(
+                1234567, s_spw)
+        out = card_run(1234567, s_spw)
+        a_w = checks.agreement(film(out), film(ref))
+        log(f"sobol wave vs plain ({name} {size} x spw {s_spw}, rays "
+            f"{out['rays']:.0f} vs {ref['rays']:.0f}): {json.dumps(a_w)}; "
+            f"pixels equal to the independent instance "
+            f"{a_i['rad_frac']:.4f}")
+        checks.check_card(a_w, f"{name} {size} x spw {s_spw} wave")
+        if "mesh_materials" in name:
+            out_dma = WV.make_wave_fn(bn, cfg, dev, samples_per_wave=s_spw,
+                                      sort_mode="dma")(1234567, s_spw)
+            d = film_rel(out_dma, out)
+            log(f"  dma vs gather film: relative {d:.3g}, rays "
+                f"{out_dma['rays']:.0f} vs {out['rays']:.0f}")
+            if d > 1e-4 or out_dma["rays"] != out["rays"]:
+                raise RuntimeError(f"{name}: the dma wave differs")
+        del tabs
+    phase_done(20)
+
+    # 21. the Sobol main paths through the CLI at full width (the scenes
+    # of phases 4-17 with --sampler sobol, the Cornell box with Sampler
+    # "sobol" in its text), each with the launch counts set to 0 just
+    # before; Mrays/s beside the independent runs of the same scenes
+    def sob_cli(name, src, spp, size, what, engine, expect):
+        path, l, r = cli_path(name, src, spp, size, what, engine=engine,
+                              sampler="auto" if src else "sobol")
+        if any(l[k] < 1 for k in expect) or sum(l.values()) != sum(
+                l[k] for k in expect):
+            raise RuntimeError(f"the Sobol path {what} ({engine}) launched "
+                               f"{l}")
+        return path, l, r
+
+    S_ = kernels.SOBOL
+    corn_s, l_s_corn, r_s_corn = sob_cli(
+        "cornell_sobol", scenes.with_sampler(scenes.cornell_box(1024, 1024)),
+        MAIN_SPP, (1024, 1024), "sobol cornell 1024x1024", "auto",
+        ["mega_path" + S_])
+    _, l_s_cw, r_s_cw = sob_cli(
+        "cornell", None, MESH_SPP, (1024, 1024), "sobol cornell 1024x1024",
+        "wave", ["wave_genesis" + S_, "wave_path" + S_])
+    film720 = (MESH_W, MESH_H)
+    _, l_s_big, r_s_big = sob_cli(
+        "big_mesh", None, MESH_SPP, film720, "sobol big mesh", "auto",
+        ["mega_path_mesh" + S_])
+    _, l_s_bigw, r_s_bigw = sob_cli(
+        "big_mesh", None, MESH_SPP, film720, "sobol big mesh", "wave",
+        ["wave_genesis" + S_, "wave_path_mesh" + S_])
+    r_bigw = cli_path("big_mesh", None, MESH_SPP, film720, "big mesh",
+                      engine="wave")[2]
+    _, l_s_fog, r_s_fog = sob_cli(
+        "fog_mesh", None, MESH_SPP, film720, "sobol fog mesh", "auto",
+        ["mega_volpath_mesh" + S_])
+    _, l_s_fogw, r_s_fogw = sob_cli(
+        "fog_mesh", None, MESH_SPP, film720, "sobol fog mesh", "wave",
+        ["wave_genesis" + S_, "wave_volpath_mesh" + S_])
+    _, l_s_fs, r_s_fs = sob_cli(
+        "fog", None, MESH_SPP, film720, "sobol fog", "auto",
+        ["mega_volpath" + S_])
+    _, l_s_fsw, r_s_fsw = sob_cli(
+        "fog", None, MESH_SPP, film720, "sobol fog", "wave",
+        ["wave_genesis" + S_, "wave_volpath" + S_])
+    log("Sobol main paths, Mrays/s sobol / independent: "
+        + ", ".join(f"{w} {a['rate']:.1f} / {b['rate']:.1f}" for w, a, b in (
+            ("cornell auto 64 spp", r_s_corn, r_k1a),
+            ("cornell wave 16 spp", r_s_cw, r_cw),
+            ("big mesh auto", r_s_big, r_big), ("big mesh wave", r_s_bigw,
+                                                r_bigw),
+            ("fog mesh auto", r_s_fog, r_fog), ("fog mesh wave", r_s_fogw,
+                                                r_fogw),
+            ("fog auto", r_s_fs, r_fs), ("fog wave", r_s_fsw, r_fsw)))
+        + f" [{card}]")
+    phase_done(21)
+
+    # 22. full-shape launches: the 1-spp Sobol megakernel launch of the
+    # Cornell box, the big mesh, the fog and the fog mesh, and the first
+    # Sobol K2 launch of each wave main path, held against the plain
+    # versions on ~131k sampled lanes (the mesh and volpath megakernel
+    # launches at the maxdepth of phases 8 and 18) and timed against their
+    # independent forms on the same inputs, in turns (independent, Sobol,
+    # Sobol, independent)
+    def turns(fn_ind, fn_sob, reps):
+        t = [time_ms(f, reps) for f in (fn_ind, fn_sob, fn_sob, fn_ind)]
+        return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+
+    tabs_c = tables_for(os.path.join(OUT_DIR, "cornell.pbrt"), dev)
+    tabs_cs = dict(tabs_c, sobol=True)
+    n_c = 1024 * 1024
+    pix_c = torch.arange(0, n_c, max(1, n_c // SAMPLE_LANES), device=dev)
+    a_cs = compare(tabs_cs, chunk_seed(), 1, "sobol cornell 1024x1024 x 1 "
+                   "spp", pix=pix_c)
+    s_ms, i_ms = turns(lambda r=0: kernels.mega_path(tabs_c, 11 + r, 1),
+                       lambda r=0: kernels.mega_path(tabs_cs, 11 + r, 1), 20)
+    cs_plain_ms = time_ms(lambda r=0: M.path_lanes_ref(tabs_cs, 11 + r, 1), 2)
+    cs_bound = mega_bound(tabs_cs)
+    mega_s = {"mega_path" + S_: {"ms": s_ms, "ind_ms": i_ms,
+                                 "plain_ms": cs_plain_ms, "bound": cs_bound,
+                                 "err": a_cs["max_abs"],
+                                 "shape": "cornell 1024x1024 x 1 spp",
+                                 "plain_at": "the same launch"}}
+    log(f"timing (sobol cornell 1024x1024, 1 spp): kernel {s_ms:.3f} ms, "
+        f"independent {i_ms:.3f} ms (x{s_ms / i_ms:.3f}), plain "
+        f"{cs_plain_ms:.1f} ms, bound {cs_bound[0]:.4f} ms ({cs_bound[1]}) "
+        f"[{card}]")
+
+    def k2_turns(run, seed, what):
+        """k2_launch on the Sobol wave `run`, and its first launch timed
+        against the independent instance on the same state."""
+        a = k2_launch(run, seed, 0, what)
+        s0, n_run = wave_at(run, seed, run.samples_per_wave, 0)
+        tabs_i = dict(run.tabs, sobol=False)
+        clone = time_ms(lambda r=0: s0.clone(), 5)
+        s_t, i_t = turns(
+            lambda r=0: kernels.wave_path(tabs_i, s0.clone(), seed, 0, 1,
+                                          n_run, run.key_bounds, 1, 0),
+            lambda r=0: kernels.wave_path(run.tabs, s0.clone(), seed, 0, 1,
+                                          n_run, run.key_bounds, 1, 0), 5)
+        a.update(ms=s_t - clone, ind_ms=i_t - clone, what=what)
+        log(f"  K2 first launch ({what}): sobol {a['ms']:.3f} ms, "
+            f"independent {a['ind_ms']:.3f} ms (x{a['ms'] / a['ind_ms']:.3f})"
+            f" [{card}]")
+        return a
+
+    seed = chunk_seed()
+    k2_s = {}
+    for name, inst, mega in (("cornell", "wave_path", False),
+                             ("big_mesh", "wave_path_mesh", True),
+                             ("fog", "wave_volpath", True),
+                             ("fog_mesh", "wave_volpath_mesh", True)):
+        bn, cfg = buffers_for(os.path.join(OUT_DIR, name + ".pbrt"))
+        run = WV.make_wave_fn(bn, dataclasses.replace(cfg, sampler="sobol"),
+                              dev, spp_hint=MESH_SPP)
+        k2_s[inst + S_] = k2_turns(run, seed, f"sobol {name} "
+                                   f"{run.tabs['width']}x"
+                                   f"{run.tabs['height']} x spw "
+                                   f"{run.samples_per_wave}")
+        if mega:
+            # the megakernel's 1-spp launch of the same tables
+            tabs = run.tabs
+            tabs_i = dict(tabs, sobol=False)
+            depth = (VOL_CHECK_DEPTH if tabs["volpath"]
+                     else BIG_MESH_CHECK_DEPTH)
+            a_m = compare(dict(tabs, max_depth=depth), chunk_seed(), 1,
+                          f"sobol {name} {MESH_W}x{MESH_H} x 1 spp, maxdepth "
+                          f"{depth}", pix=pix)
+            reps = 5 if tabs["volpath"] and tabs["has_accel"] else 10
+            s_t, i_t = turns(
+                lambda r=0: kernels.mega_path(tabs_i, 11 + r, 1),
+                lambda r=0: kernels.mega_path(tabs, 11 + r, 1), reps)
+            minst = kernels.variant(tabs)
+            mega_s[minst] = {"ms": s_t, "ind_ms": i_t,
+                             "plain_ms": a_m["plain_s"] * 1e3,
+                             "err": a_m["max_abs"],
+                             "bound": mega_bound(tabs, a_m["tests"]),
+                             "shape": f"{name} {MESH_W}x{MESH_H} x 1 spp",
+                             "plain_at": f"{pix.numel()} sampled lanes at "
+                                         f"maxdepth {depth}"}
+            log(f"  1-spp megakernel launch ({minst}): {s_t:.3f} ms, "
+                f"independent {i_t:.3f} ms (x{s_t / i_t:.3f}) [{card}]")
+        del run
+    phase_done(22)
+
+    # 23. the sampler's worth on the card: the reference's Sobol test scene
+    # at 256x256, Sobol and independent at 32 spp against a 4096-spp
+    # independent render (err_s < 0.85 err_i, the reference's factor);
+    # the Sobol and independent Cornell linear means at 64 spp
+    tabs_t = tables_for(write_scene("sobol_test", scenes.sobol_test_scene(
+        SOBOL_TEST_SIZE, SOBOL_TEST_SIZE)), dev)
+    ind_t = dict(tabs_t, sobol=False)
+    ref_t = kernels.mega_path(ind_t, 11, SOBOL_REF_SPP)[0:3] / SOBOL_REF_SPP
+    err = {k: float((kernels.mega_path(t_, 5, SOBOL_TEST_SPP)[0:3]
+                     / SOBOL_TEST_SPP - ref_t).abs().mean())
+           for k, t_ in (("sobol", tabs_t), ("independent", ind_t))}
+    m_cs = float(kernels.mega_path(tabs_cs, seed, MAIN_SPP)[0:3].double()
+                 .mean()) / MAIN_SPP
+    m_ci = float(kernels.mega_path(tabs_c, seed, MAIN_SPP)[0:3].double()
+                 .mean()) / MAIN_SPP
+    log(f"sobol test scene {SOBOL_TEST_SIZE}x{SOBOL_TEST_SIZE}: mean abs "
+        f"error at {SOBOL_TEST_SPP} spp against {SOBOL_REF_SPP} spp: sobol "
+        f"{err['sobol']!r}, independent {err['independent']!r} (ratio "
+        f"{err['sobol'] / err['independent']:.3f}, limit "
+        f"{SOBOL_ERR_FACTOR}); cornell linear means at {MAIN_SPP} spp: "
+        f"sobol {m_cs!r}, independent {m_ci!r}, relative "
+        f"{abs(m_cs - m_ci) / m_ci:.3e} (limit {MEAN_REL})")
+    if not err["sobol"] < SOBOL_ERR_FACTOR * err["independent"]:
+        raise RuntimeError("the Sobol render is not closer to the reference")
+    if not np.isfinite(m_cs) or abs(m_cs - m_ci) > MEAN_REL * m_ci:
+        raise RuntimeError("the Sobol and independent means differ")
+    del tabs_t, ind_t, ref_t, tabs_c, tabs_cs
+    phase_done(23)
+
+    # 24. lanes past 2^24: K3 over a 1024x1024 x spw 24 wave (25.2 M
+    # lanes), independent and Sobol; lanes 2^24 .. 2^24 + 4096 read back:
+    # the lane row equal to each lane's index, their initial streams
+    # pairwise distinct, `want` and (through the camera rays) the Sobol
+    # sample index equal to the plain version's
+    bn, cfg = buffers_for(os.path.join(OUT_DIR, "cornell.pbrt"))
+    lanes = torch.arange(*LANES24, device=dev)
+    k3_s = {}
+    for sampler in ("independent", "sobol"):
+        run = WV.make_wave_fn(bn, dataclasses.replace(cfg, sampler=sampler),
+                              dev, samples_per_wave=LANES24_SPW)
+        state = run.init_state(seed, LANES24_SPW)
+        sub = state.index_select(1, lanes)
+        ids = WV.lane_ids(sub)
+        st = RNG.wave_state(ids, seed, -1)
+        ref = WV.genesis_ref(run.tabs["cam_f"], run.pxf[lanes],
+                             run.pyf[lanes], 1024, 1024 * 1024, run.n_real,
+                             seed, 1, 0, sobol=sampler == "sobol",
+                             lanes=lanes)
+        ids_ok = bool(torch.equal(ids, lanes))
+        n_st = int(torch.unique(st).numel())
+        rows_ok = bool(torch.equal(sub[WV.WROW_ALIVE:WV.WROW_KEY],
+                                   ref[WV.WROW_ALIVE:WV.WROW_KEY]))
+        ray_err = float((sub[:WV.WROW_ALIVE] - ref[:WV.WROW_ALIVE]).abs()
+                        .max())
+        ms = time_ms(lambda r=0: kernels.wave_genesis(
+            run.tabs, run.pxf, run.pyf, run.n_real, seed + r, 1, 0), 5)
+        k3_s[sampler] = {"ms": ms, "err": ray_err, "n_pad": run.n_pad,
+                         "plain_ms": None}
+        log(f"K3 past 2^24 ({sampler}, 1024x1024 x spw {LANES24_SPW}, "
+            f"{run.n_pad} lanes, lanes {LANES24[0]}..{LANES24[1]}): ids "
+            f"exact {ids_ok}, distinct streams {n_st} of {lanes.numel()}, "
+            f"rows 12-19 equal {rows_ok}, ray rows max abs {ray_err:.3g}; "
+            f"K3 {ms:.3f} ms [{card}]")
+        if not (ids_ok and rows_ok and n_st == lanes.numel()
+                and ray_err <= 1e-5):
+            raise RuntimeError(f"K3 lanes past 2^24 ({sampler}) are wrong")
+        if sampler == "sobol":
+            k3_s[sampler]["plain_ms"] = time_ms(lambda r=0: WV.genesis_ref(
+                run.tabs["cam_f"], run.pxf, run.pyf, 1024, 1024 * 1024,
+                run.n_real, seed + r, 1, 0, sobol=True), 1)
+            k3_s[sampler]["bound"] = bound(
+                run.n_pad * (8 + WV.W_NROWS * 4), run.n_pad * PROBE_OPS)
+        del state, sub, run
+    log(f"K3 at {LANES24_SPW * 1024 * 1024} lanes: sobol "
+        f"{k3_s['sobol']['ms']:.3f} ms, independent "
+        f"{k3_s['independent']['ms']:.3f} ms [{card}]")
+    phase_done(24)
+
     if any(m.split(".")[0] in ("jax", "rene_tpu") for m in sys.modules):
         raise RuntimeError("jax or rene_tpu was imported")
     log(f"smoke: {time.time() - t_smoke:.1f} s")
@@ -1074,6 +1415,55 @@ def main() -> int:
 
     pp_ = "rene_tpu/integrators/pallas_path.py"
     pw_ = "rene_tpu/integrators/pallas_wave.py"
+
+    sob_launch = {**l_s_corn, **{k: v for k, v in l_s_big.items() if v},
+                  **{k: v for k, v in l_s_fs.items() if v},
+                  **{k: v for k, v in l_s_fog.items() if v}}
+    sob_wave_launch = {"wave_path" + S_: l_s_cw,
+                       "wave_path_mesh" + S_: l_s_bigw,
+                       "wave_volpath" + S_: l_s_fsw,
+                       "wave_volpath_mesh" + S_: l_s_fogw}
+    sob_src = {"mega": "rene_tpu_torch/csrc/mega_lane.cuh",
+               "wave": "rene_tpu_torch/csrc/wave.cuh"}
+    sob_rep = {"mega_path": f"{pp_}:1708 :1718 (ld2, sob_pixkey) in kernel "
+                            f":4328-4341, body :4437-4542",
+               "mega_volpath": f"{pp_}:1708 :1718 in kernel :4328-4341, "
+                               f"body_vol :4704-4812",
+               "wave_path": f"{pw_}:271 ({pp_}:5643-5660 wave_kernel, "
+                            f":5125-5228 wave_bounce)",
+               "wave_volpath": f"{pw_}:271 ({pp_}:5643-5660 wave_kernel, "
+                               f":5407-5512 wave_bounce_vol)"}
+    sobol_entries = []
+    for inst, m in mega_s.items():
+        base = inst[:-len(S_)]
+        sobol_entries.append(entry(
+            inst, sob_src["mega"], sob_rep[base.replace("_mesh", "")],
+            sob_launch[inst], m["err"], m["ms"], m["plain_ms"], m["bound"],
+            None, f"{m['shape']}; independent instance {m['ind_ms']:.3f} ms "
+            f"in turns; plain and max_abs_err on {m['plain_at']}"))
+    for inst, k in k2_s.items():
+        base = inst[:-len(S_)]
+        sobol_entries.append(entry(
+            inst, sob_src["wave"], sob_rep[base.replace("_mesh", "")],
+            sob_wave_launch[inst][inst], k["err"], k["ms"], k["plain_ms"],
+            k["bound"], None,
+            f"{k['what']}, first launch (k 1); independent "
+            f"instance {k['ind_ms']:.3f} ms in turns; plain on "
+            f"{k['sampled']} sampled lanes of it"))
+    k3 = k3_s["sobol"]
+    sobol_entries.append(entry(
+        "wave_genesis" + S_, sob_src["wave"], f"{pw_}:630 ({pp_}:4999-5009)",
+        l_s_cw["wave_genesis" + S_], k3["err"], k3["ms"], k3["plain_ms"],
+        k3["bound"], None,
+        f"cornell 1024x1024 x spw {LANES24_SPW} ({k3['n_pad']} lanes); "
+        f"independent instance {k3_s['independent']['ms']:.3f} ms; "
+        f"max_abs_err on lanes {LANES24[0]}..{LANES24[1]}"))
+    sobol_entries.append(entry(
+        "sobol_probe", "rene_tpu_torch/csrc/wave.cuh",
+        "scripts/tpu_session_r3ac.py:53 (k_xorshift :70, k_addmul :81, "
+        "k_rev :91, k_lk :106, k_sobol16 :117)", l_probe["sobol_probe"], 0.0,
+        probe_ms, probe_plain_ms, probe_bound, None,
+        f"{PROBE_N} int32 inputs, 7 words out each"))
     log(json.dumps({"kernels": [
         entry("mega_path", "rene_tpu_torch/csrc/mega_path.cu",
               f"{pp_}:4266", l_k1a["mega_path"],
@@ -1159,7 +1549,7 @@ def main() -> int:
         entry("wave_permute", "rene_tpu_torch/csrc/wave.cu", f"{pw_}:386",
               l_dma["wave_permute"], 0.0, k4_ms, k4_plain_ms, k4_bound,
               k4_lib_ms, f"deep mesh {MESH_W}x{MESH_H} x spw {spw} state"),
-    ]}))
+    ] + sobol_entries}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

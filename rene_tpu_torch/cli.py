@@ -2,10 +2,11 @@
 
     python -m rene_tpu_torch.cli scene.pbrt --spp N --seed S \
         --output out.png [--aov-normal P] [--aov-albedo P] [--device cuda|cpu]
-        [--engine auto|pallas|wave]
+        [--engine auto|pallas|wave] [--sampler auto|sobol|independent]
 
 Counterpart of rene_tpu/cli.py:101 `main` for the slice the port carries
-(the path and volpath integrators; the megakernel and wave engines). The
+(the path and volpath integrators under the independent or the Sobol
+sampler; the megakernel and wave engines). The
 default device is `cuda`; the CPU runs the kernels' plain PyTorch
 versions and must be asked for.
 """
@@ -37,6 +38,11 @@ def build_parser() -> argparse.ArgumentParser:
                    default="auto",
                    help="pallas: the megakernel; wave: the wavefront "
                         "engine; auto: the megakernel (xla is not ported)")
+    p.add_argument("--sampler", choices=["auto", "sobol", "independent"],
+                   default="auto",
+                   help="override the scene's Sampler directive (auto "
+                        "honors it; sobol = padded Owen-scrambled "
+                        "(0,2)-sequence draws in both engines)")
     p.add_argument("-v", "--verbose", action="store_true")
     return p
 
@@ -56,6 +62,8 @@ def main(argv=None) -> int:
     except ParseError as e:
         print(e.render(args.scene), file=sys.stderr)
         return 1
+    if args.sampler != "auto":
+        scene.sampler = args.sampler
     log.info("scene compiled in %.2fs", time.time() - t0)
 
     from .render import DEFAULT_SPP, render

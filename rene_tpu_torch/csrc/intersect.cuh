@@ -86,12 +86,18 @@ __device__ __forceinline__ void sphere_local(const float* __restrict__ r,
           w2o(r, 2, 0) * d.x + w2o(r, 2, 1) * d.y + w2o(r, 2, 2) * d.z);
 }
 
-// nearest root >= tmin of the unit sphere, BIG where none
+// nearest root >= tmin of the unit sphere, BIG where none; the
+// discriminant's sums rounded step by step (mul_rn), as in the sphere
+// table's test: it cancels near a silhouette, where an FMA moves the root
+// and the first-hit normal by ~1e-4
 __device__ __forceinline__ float sphere_t(V3 lo, V3 ld, float tmin) {
-  float a = ld.x * ld.x + ld.y * ld.y + ld.z * ld.z;
-  float half_b = lo.x * ld.x + lo.y * ld.y + lo.z * ld.z;
-  float c = lo.x * lo.x + lo.y * lo.y + lo.z * lo.z - 1.f;
-  float disc = half_b * half_b - a * c;
+  float a = add_rn(add_rn(mul_rn(ld.x, ld.x), mul_rn(ld.y, ld.y)),
+                   mul_rn(ld.z, ld.z));
+  float half_b = add_rn(add_rn(mul_rn(lo.x, ld.x), mul_rn(lo.y, ld.y)),
+                        mul_rn(lo.z, ld.z));
+  float c = sub_rn(add_rn(add_rn(mul_rn(lo.x, lo.x), mul_rn(lo.y, lo.y)),
+                          mul_rn(lo.z, lo.z)), 1.f);
+  float disc = sub_rn(mul_rn(half_b, half_b), mul_rn(a, c));
   float sq = sqrtf(clamp_min(disc, 0.f));
   float inv_a = 1.f / clamp_min(a, 1e-20f);
   float r0 = (-half_b - sq) * inv_a;

@@ -20,7 +20,7 @@ extern "C" int mega_path_launch(
     const float* env_mcdf, const float* env_ccdf, const float* env_pdf,
     int world_root, int has_tri_emitter, int width, int n_pix, int max_depth,
     int use_rr, int beckmann, int has_accel, int block_seed, int has_tex,
-    int has_env, const float* media, int n_media, int seed,
+    int has_env, int sobol, const float* media, int n_media, int seed,
     int num_samples, float* out, void* stream) {
   Params p;
   p.s = Scene{tris, sph, mats, eo, emit_tris, emit_sph, lights, light_dots,
@@ -37,6 +37,7 @@ extern "C" int mega_path_launch(
   p.num_samples = num_samples;
   p.has_accel = has_accel;
   p.block_seed = block_seed;
+  p.sobol = sobol;
   p.seed = (uint32_t)seed;
   p.out = out;
   p.media = media;

@@ -29,8 +29,8 @@ __device__ __forceinline__ V3 load3(const float* __restrict__ p) {
 
 // a product, sum or difference rounded on its own, as torch's eager
 // operations round it: nvcc contracts a * b + c into one FMA otherwise.
-// For arithmetic that cancels badly (the sphere-table test), where one
-// rounding step flips an outcome.
+// For arithmetic that cancels badly (the sphere tests), where one
+// rounding step flips an outcome or moves a hit.
 #ifdef __CUDACC__
 __device__ __forceinline__ float mul_rn(float a, float b) {
   return __fmul_rn(a, b);

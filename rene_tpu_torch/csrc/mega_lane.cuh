@@ -4,6 +4,9 @@
 // :4572). Mirrors rene_tpu_torch/integrators/mega_path.py
 // `path_lanes_ref` (and volpath.py `vol_lanes_ref`). Included by
 // mega_path.cu; plain C++ apart from the CUDA qualifiers and intrinsics.
+// SOBOL: the instance of `Sampler "sobol"` (K-sobol, csrc/sobol.cuh),
+// whose bounce draws are Sobol pairs of the lane's sample index and depth
+// under its pixel's key (pallas_path.py:4328-4341, :4437-4542).
 #pragma once
 #include <stdint.h>
 
@@ -15,6 +18,7 @@ struct Params {
   int width, n_pix, max_depth, use_rr, beckmann, num_samples;
   int has_accel;   // launch the MESH variant
   int block_seed;  // seed streams per 32x32 pixel block (rng.tile_of)
+  int sobol;       // launch the SOBOL instance
   uint32_t seed;
   float* __restrict__ out;
   const float* __restrict__ media;  // (n_media, MED_W), read by volpath
@@ -24,8 +28,10 @@ struct Params {
 // One lane's whole run: num_samples paths for pixel `lane`; writes the
 // ten per-lane sums to out[k * n_pix + lane]. MESH: the scene has
 // acceleration tables (mesh, instances or sphere table). VOL: each path
-// runs the volpath bounce and starts in vacuum.
-template <bool MESH, bool VOL>
+// runs the volpath bounce and starts in vacuum. SOBOL: the draws of the
+// path body and the camera are Sobol pairs keyed by the pixel and the
+// grid-step seed; a volpath bounce keeps its medium draws on the stream.
+template <bool MESH, bool VOL, bool SOBOL>
 __device__ __forceinline__ void trace_lane(const Params& p, int lane) {
   const Scene& s = p.s;
   const bool beck = p.beckmann != 0;
@@ -37,11 +43,18 @@ __device__ __forceinline__ void trace_lane(const Params& p, int lane) {
                       __ldg(s.cam + CAM_ORIGIN + 2));
   const int bg_kind = (int)__ldg(s.cam + CAM_BG_KIND);
 
-  uint32_t st = seed_state(
-      (uint32_t)lane, p.seed,
-      tile_of((uint32_t)lane, (uint32_t)p.width, p.block_seed != 0));
-  float ju0 = uniform(st);
-  float jv0 = uniform(st);
+  const uint32_t tile =
+      tile_of((uint32_t)lane, (uint32_t)p.width, p.block_seed != 0);
+  uint32_t st = seed_state((uint32_t)lane, p.seed, tile);
+  float ju0, jv0;
+  uint32_t pixkey = 0u;
+  if constexpr (SOBOL) {
+    pixkey = sob_pixkey((uint32_t)lane, p.seed + tile * 65537u);
+    ld2(0u, pixkey, 0u, SLOT_CAM, ju0, jv0);
+  } else {
+    ju0 = uniform(st);
+    jv0 = uniform(st);
+  }
   V3 o = cam_o;
   V3 d = camera_ray(s.cam, pxf, pyf, ju0, jv0);
   float thr[3] = {1.f, 1.f, 1.f};
@@ -56,10 +69,11 @@ __device__ __forceinline__ void trace_lane(const Params& p, int lane) {
     V3 next_o = o, next_d = d;
     float nthr[3] = {thr[0], thr[1], thr[2]};
     float next_med = med, cj1, cj2;
+    const SobolAt at = {(uint32_t)sample, pixkey, (uint32_t)depth};
     if constexpr (VOL) {
-      const VolStep b = vol_bounce<MESH>(s, Media{p.media, p.n_media}, beck,
-                                         o, d, thr, med, depth == 0, rad,
-                                         aov_n, aov_a, st);
+      const VolStep b = vol_bounce<MESH, SOBOL>(
+          s, Media{p.media, p.n_media}, beck, o, d, thr, med, depth == 0, rad,
+          aov_n, aov_a, st, at);
       alive = b.alive;
       next_o = b.o;
       next_d = b.d;
@@ -68,7 +82,7 @@ __device__ __forceinline__ void trace_lane(const Params& p, int lane) {
       cj1 = b.cj1;
       cj2 = b.cj2;
     } else {
-      const Draws u = draw_bounce(s, p.use_rr != 0, st);
+      const Draws u = draw_bounce_as<SOBOL>(s, p.use_rr != 0, st, at);
       cj1 = u.cj1;
       cj2 = u.cj2;
       Hit h = trace_closest<MESH>(s, o, d, TMIN);
@@ -134,6 +148,8 @@ __device__ __forceinline__ void trace_lane(const Params& p, int lane) {
     } else {
       sample = sample + 1;
       if (sample < p.num_samples) {  // regenerate a camera path
+        if constexpr (SOBOL)
+          ld2((uint32_t)sample, pixkey, 0u, SLOT_CAM, cj1, cj2);
         o = cam_o;
         d = camera_ray(s.cam, pxf, pyf, cj1, cj2);
         thr[0] = thr[1] = thr[2] = 1.f;

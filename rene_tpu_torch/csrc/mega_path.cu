@@ -49,6 +49,15 @@
 // threads of a warp, not bytes. Later work: tables in shared or constant
 // memory, a wider BVH, and path-state regrouping against divergence.
 //
+// `Sampler "sobol"` (K-sobol): every build holds a second instance of its
+// kernel, template parameter SOBOL, launched where the parameters ask for
+// it: the bounce's and the camera's draws are Sobol pairs (csrc/sobol.cuh;
+// `ld2` and `sob_pixkey`, pallas_path.py:1697-1720, draws at :4328-4341,
+// :4437-4542, :4704-4812), and a volpath bounce keeps its medium, phase
+// and scatter-point emitter draws on the stream. A separate instance, not
+// a runtime branch, so the independent instances keep the code they had.
+// A Sobol pair costs ~100 integer operations and no memory access.
+//
 // Random numbers come from the per-lane xorshift32 stream of the JAX
 // kernel's interpret mode (math.cuh). Each iteration draws, whether or
 // not a branch uses them: u_coin, u1, u2, ul; coin, ue1..ue4 when the
@@ -78,18 +87,18 @@
 #if MEGA_VOL
 // the parameters stay in the constant bank: the march, a real call,
 // takes the scene by reference
-template <bool MESH>
+template <bool MESH, bool SOBOL>
 __global__ void __launch_bounds__(128, PATH_MIN_BLOCKS)
 mega_volpath_kernel(const __grid_constant__ Params p) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane < p.n_pix) trace_lane<MESH, true>(p, lane);
+  if (lane < p.n_pix) trace_lane<MESH, true, SOBOL>(p, lane);
 }
 #else
-template <bool MESH>
+template <bool MESH, bool SOBOL>
 __global__ void __launch_bounds__(128, PATH_MIN_BLOCKS)
 mega_path_kernel(const Params p) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane < p.n_pix) trace_lane<MESH, false>(p, lane);
+  if (lane < p.n_pix) trace_lane<MESH, false, SOBOL>(p, lane);
 }
 #endif
 
@@ -101,15 +110,22 @@ static int run_lanes(const Params& p, void* stream) {
     return (int)cudaErrorInvalidValue;
   const int threads = 128;
   const int blocks = (p.n_pix + threads - 1) / threads;
+  if (blocks > 0) {
+    cudaStream_t st = (cudaStream_t)stream;
 #if MEGA_VOL
-  if (blocks > 0)
-    mega_volpath_kernel<MEGA_MESH != 0>
-        <<<blocks, threads, 0, (cudaStream_t)stream>>>(p);
+    if (p.sobol)
+      mega_volpath_kernel<MEGA_MESH != 0, true>
+          <<<blocks, threads, 0, st>>>(p);
+    else
+      mega_volpath_kernel<MEGA_MESH != 0, false>
+          <<<blocks, threads, 0, st>>>(p);
 #else
-  if (blocks > 0)
-    mega_path_kernel<MEGA_MESH != 0>
-        <<<blocks, threads, 0, (cudaStream_t)stream>>>(p);
+    if (p.sobol)
+      mega_path_kernel<MEGA_MESH != 0, true><<<blocks, threads, 0, st>>>(p);
+    else
+      mega_path_kernel<MEGA_MESH != 0, false><<<blocks, threads, 0, st>>>(p);
 #endif
+  }
   return (int)cudaGetLastError();
 }
 

@@ -12,6 +12,7 @@
 #include "intersect.cuh"
 #include "layout.cuh"
 #include "math.cuh"
+#include "sobol.cuh"
 #include "texture.cuh"
 
 #define FLT_MIN_NORMAL 1.17549435e-38f  // the least normal float32
@@ -139,6 +140,42 @@ __device__ __forceinline__ Draws draw_bounce(const Scene& s, bool use_rr,
   u.cj1 = uniform(st);
   u.cj2 = uniform(st);
   return u;
+}
+
+// The Sobol form of draw_bounce (`Sampler "sobol"`, pallas_path.py
+// :4437-4523): the same draws, a pair per slot of decision `at`'s depth,
+// (u1, u2) BSDF, (u_coin, ul) COIN; (ue1, ue2) NEE1, (ue3, ue4) NEE2 and
+// (coin, upick) MISC when the scene has emitters or an env-map strategy;
+// rrv RR. Nothing comes from the lane stream. The camera pair of a
+// regenerated path is drawn by the caller, with the sample index after
+// the finished path is counted.
+__device__ __forceinline__ Draws draw_bounce_sobol(const Scene& s,
+                                                   bool use_rr,
+                                                   const SobolAt& at) {
+  Draws u;
+  ld2(at, SLOT_BSDF, u.u1, u.u2);
+  ld2(at, SLOT_COIN, u.u_coin, u.ul);
+  u.coin = u.ue1 = u.ue2 = u.ue3 = u.ue4 = u.upick = u.rrv = 0.f;
+  if (s.n_eo > 0 || s.has_env) {
+    ld2(at, SLOT_NEE1, u.ue1, u.ue2);
+    ld2(at, SLOT_NEE2, u.ue3, u.ue4);
+    ld2(at, SLOT_MISC, u.coin, u.upick);
+  }
+  if (use_rr) {
+    float unused;
+    ld2(at, SLOT_RR, u.rrv, unused);
+  }
+  u.cj1 = u.cj2 = 0.f;
+  return u;
+}
+
+// a bounce's draws in the sampler of the kernel instance
+template <bool SOBOL>
+__device__ __forceinline__ Draws draw_bounce_as(const Scene& s, bool use_rr,
+                                                uint32_t& st,
+                                                const SobolAt& at) {
+  if constexpr (SOBOL) return draw_bounce_sobol(s, use_rr, at);
+  else return draw_bounce(s, use_rr, st);
 }
 
 // direction of the light sampler: an emit object, or the env map, picked

@@ -22,15 +22,20 @@
 // A volpath bounce's draws, in the stream contract's order: med_sample's
 // two, med_sample_p's two, ue1..ue4 of the scatter point's emitter NEE
 // when the scene has emitters, then the path body's draws without rrv.
-// All of them on every bounce, before the ray casts (see Draws).
+// All of them on every bounce, before the ray casts (see Draws). Under
+// Sobol the path body's draws are Sobol pairs at `at` (draw_bounce_sobol)
+// and the stream keeps the others, in the same order (pallas_path.py
+// :3315-3316, :3346-3347, :4635-4638).
 struct VolDraws {
   float u_ch, u_d, up0, up1;
   float me1, me2, me3, me4;
   Draws u;
 };
 
+template <bool SOBOL>
 __device__ __forceinline__ VolDraws draw_bounce_vol(const Scene& s,
-                                                    uint32_t& st) {
+                                                    uint32_t& st,
+                                                    const SobolAt& at) {
   VolDraws v;
   v.u_ch = uniform(st);
   v.u_d = uniform(st);
@@ -43,7 +48,7 @@ __device__ __forceinline__ VolDraws draw_bounce_vol(const Scene& s,
     v.me3 = uniform(st);
     v.me4 = uniform(st);
   }
-  v.u = draw_bounce(s, false, st);
+  v.u = draw_bounce_as<SOBOL>(s, false, st, at);
   return v;
 }
 
@@ -60,16 +65,17 @@ struct VolStep {
 
 // One volpath bounce of the ray (o, d) with throughput thr in medium
 // med; adds to the radiance sums rad and, where `first` (depth 0), to
-// the AOV sums.
-template <bool MESH>
+// the AOV sums. SOBOL: the path body's draws are Sobol pairs at `at`.
+template <bool MESH, bool SOBOL>
 __device__ __forceinline__ VolStep vol_bounce(const Scene& s,
                                               const Media& md, bool beck,
                                               V3 o, V3 d, const float* thr,
                                               float med, bool first,
                                               float* rad, float* an,
-                                              float* aa, uint32_t& st) {
+                                              float* aa, uint32_t& st,
+                                              const SobolAt& at) {
   const int E = s.n_eo;
-  const VolDraws v = draw_bounce_vol(s, st);
+  const VolDraws v = draw_bounce_vol<SOBOL>(s, st, at);
   VolStep r;
   r.cj1 = v.u.cj1;
   r.cj2 = v.u.cj2;

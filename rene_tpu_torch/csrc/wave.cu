@@ -41,6 +41,16 @@
 // [0, W_SORT_PAD) from slice perm[j] and the AOV rows in place: a
 // coalesced 512-byte row per load and store, bound by bytes. The TPU
 // version queued one DMA per slice.
+//
+// `Sampler "sobol"` (K-sobol): K2 and K3 each have a second instance,
+// template parameter SOBOL, in every build, launched where the
+// parameters ask for it: its draws are Sobol pairs (csrc/sobol.cuh), so
+// the independent instances keep the code they had. A Sobol pair costs
+// ~100 integer operations and no memory access beside a bounce's casts.
+// sobol_probe_kernel is the counterpart of the Mosaic probe of the
+// sampler's integer operations (scripts/tpu_session_r3ac.py:53, kernels
+// k_xorshift :70, k_addmul :81, k_rev :91, k_lk :106, k_sobol16 :117),
+// one thread per int32 input writing seven words: bound by bytes.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -61,25 +71,33 @@
 #if MEGA_VOL
 // the parameters stay in the constant bank: the march, a real call,
 // takes the scene by reference
-template <bool MESH>
+template <bool MESH, bool SOBOL>
 __global__ void __launch_bounds__(128, PATH_MIN_BLOCKS)
 wave_volpath_kernel(const __grid_constant__ WaveParams p) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane < p.n_run) wave_lane<MESH, true>(p, lane);
+  if (lane < p.n_run) wave_lane<MESH, true, SOBOL>(p, lane);
 }
 #else
-template <bool MESH>
+template <bool MESH, bool SOBOL>
 __global__ void __launch_bounds__(128, PATH_MIN_BLOCKS)
 wave_path_kernel(const WaveParams p) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane < p.n_run) wave_lane<MESH, false>(p, lane);
+  if (lane < p.n_run) wave_lane<MESH, false, SOBOL>(p, lane);
 }
 #endif
 
+template <bool SOBOL>
 __global__ void __launch_bounds__(128)
     wave_genesis_kernel(const GenesisParams g) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane < g.n_pad) genesis_lane(g, lane);
+  if (lane < g.n_pad) genesis_lane<SOBOL>(g, lane);
+}
+
+__global__ void __launch_bounds__(128)
+    sobol_probe_kernel(const int* __restrict__ in, int n,
+                       int* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) probe_lane(in, n, i, out);
 }
 
 __global__ void __launch_bounds__(W_SLICE)
@@ -95,22 +113,40 @@ static int run_wave(const WaveParams& p, void* stream) {
   if ((p.has_accel != 0) != (MEGA_MESH != 0))
     return (int)cudaErrorInvalidValue;
   const int blocks = (p.n_run + 127) / 128;
+  if (blocks > 0 && p.k > 0) {
+    cudaStream_t st = (cudaStream_t)stream;
 #if MEGA_VOL
-  if (blocks > 0 && p.k > 0)
-    wave_volpath_kernel<MEGA_MESH != 0>
-        <<<blocks, 128, 0, (cudaStream_t)stream>>>(p);
+    if (p.sobol)
+      wave_volpath_kernel<MEGA_MESH != 0, true><<<blocks, 128, 0, st>>>(p);
+    else
+      wave_volpath_kernel<MEGA_MESH != 0, false><<<blocks, 128, 0, st>>>(p);
 #else
-  if (blocks > 0 && p.k > 0)
-    wave_path_kernel<MEGA_MESH != 0>
-        <<<blocks, 128, 0, (cudaStream_t)stream>>>(p);
+    if (p.sobol)
+      wave_path_kernel<MEGA_MESH != 0, true><<<blocks, 128, 0, st>>>(p);
+    else
+      wave_path_kernel<MEGA_MESH != 0, false><<<blocks, 128, 0, st>>>(p);
 #endif
+  }
   return (int)cudaGetLastError();
 }
 
 static int run_genesis(const GenesisParams& g, void* stream) {
   const int blocks = (g.n_pad + 127) / 128;
+  if (blocks > 0) {
+    if (g.sobol)
+      wave_genesis_kernel<true>
+          <<<blocks, 128, 0, (cudaStream_t)stream>>>(g);
+    else
+      wave_genesis_kernel<false>
+          <<<blocks, 128, 0, (cudaStream_t)stream>>>(g);
+  }
+  return (int)cudaGetLastError();
+}
+
+static int run_probe(const int* in, int n, int* out, void* stream) {
+  const int blocks = (n + 127) / 128;
   if (blocks > 0)
-    wave_genesis_kernel<<<blocks, 128, 0, (cudaStream_t)stream>>>(g);
+    sobol_probe_kernel<<<blocks, 128, 0, (cudaStream_t)stream>>>(in, n, out);
   return (int)cudaGetLastError();
 }
 

@@ -5,9 +5,18 @@
 // `wave_step_ref`, `permute_ref`), which mirror pallas_path.py:4970-5048
 // (genesis_kernel), :5052-5275 (wave_bounce), :5277-5565
 // (wave_bounce_vol) and :5567-5706 (wave_kernel), and
-// pallas_wave.py:370-383 (_dma_perm_kernel). Included by wave.cu; plain
+// pallas_wave.py:370-383 (_dma_perm_kernel); and the Sobol probe
+// (`probe_lane`, scripts/tpu_session_r3ac.py). Included by wave.cu; plain
 // C++ apart from the CUDA qualifiers and intrinsics, so
 // tests/test_torch_kernel_source.py compiles it with g++ too.
+//
+// A lane's id lies in row WROW_LANE as its int32 bits, so that it is
+// exact at any wave size; a lane's slot q = lane / npix, its `want` and
+// (under Sobol) its first sample index scum = q * base + min(q, rem) are
+// integers. SOBOL: the instance of `Sampler "sobol"`, whose draws are
+// Sobol pairs (csrc/sobol.cuh) at the pixel-global sample index
+// scum + smp, keyed by the pixel and the wave seed
+// (pallas_path.py:4999-5009, :5125-5228, :5407-5512, :5643-5660).
 #pragma once
 #include <stdint.h>
 
@@ -17,7 +26,9 @@
 
 struct WaveParams {
   Scene s;
-  int width, max_depth, use_rr, beckmann, has_accel;
+  int width, npix, max_depth, use_rr, beckmann, has_accel;
+  int sobol;       // launch the SOBOL instance
+  int base, rem;   // want = base * spw + rem samples per pixel (Sobol)
   uint32_t seed;
   int launch;      // step index of the wave: seeds the lane streams
   int k;           // bounces of this launch
@@ -37,8 +48,23 @@ struct GenesisParams {
   int width, npix, n_real, n_pad;
   uint32_t seed;
   int base, rem;   // want = base * spw + rem samples per pixel
+  int sobol;       // launch the SOBOL instance
   float* __restrict__ state;
 };
+
+// the first pixel-global sample index of slot q's lane of a pixel: the
+// samples of its lanes of lower slot, the first `rem` of which take
+// base + 1
+__device__ __forceinline__ uint32_t sample_base(uint32_t q, int base,
+                                                int rem) {
+  return q * (uint32_t)base + (q < (uint32_t)rem ? q : (uint32_t)rem);
+}
+
+// the Sobol key of the pixel at (px, py) of a wave with seed `seed`
+__device__ __forceinline__ uint32_t wave_pixkey(float px, float py, int width,
+                                                uint32_t seed) {
+  return sob_pixkey((uint32_t)px + (uint32_t)py * (uint32_t)width, seed);
+}
 
 // MurmurHash3's 32-bit finalizer (rng.fmix32)
 __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
@@ -89,24 +115,40 @@ __device__ __forceinline__ float key_bits(uint32_t key) {
   return __uint_as_float(key | (uint32_t)W_KEY_BIT);
 }
 
+// K3's integer lane math: a lane's sample slot q = lane / npix, its
+// share `want` of the wave's samples and its initial stream
+struct LaneStart {
+  uint32_t q;
+  int want;
+  uint32_t st;
+};
+
+__device__ __forceinline__ LaneStart lane_start(const GenesisParams& g,
+                                                uint32_t lane) {
+  LaneStart r;
+  r.q = lane / (uint32_t)g.npix;
+  r.want = lane < (uint32_t)g.n_real
+      ? g.base + (r.q < (uint32_t)g.rem ? 1 : 0) : 0;
+  r.st = wave_state(lane, g.seed, -1);
+  return r;
+}
+
 // K3: the fresh-wave state of one lane, all W_NROWS rows
+template <bool SOBOL>
 __device__ __forceinline__ void genesis_lane(const GenesisParams& g,
                                              int lane) {
   const size_t N = (size_t)g.n_pad;
-  const float lane_f = (float)lane;
-  const float npix_f = (float)g.npix;
-  // sample slot q = lane // npix by a float division and its fixup, and
-  // the lane's share of the wave's samples
-  float q = floorf(mul_rn(lane_f, (float)(1.0 / (double)g.npix)));
-  float r = sub_rn(lane_f, mul_rn(q, npix_f));
-  q = q + (r >= npix_f ? 1.f : 0.f) - (r < 0.f ? 1.f : 0.f);
-  float want = lane_f < (float)g.n_real
-      ? (float)g.base + (q < (float)g.rem ? 1.f : 0.f) : 0.f;
-  bool alive = want > 0.f;
-  uint32_t st = wave_state((uint32_t)lane_f, g.seed, -1);
-  float ju = uniform(st);
-  float jv = uniform(st);
+  LaneStart ls = lane_start(g, (uint32_t)lane);
+  const bool alive = ls.want > 0;
   float px = g.px[lane], py = g.py[lane];
+  float ju, jv;
+  if constexpr (SOBOL) {
+    ld2(sample_base(ls.q, g.base, g.rem),
+        wave_pixkey(px, py, g.width, g.seed), 0u, SLOT_CAM, ju, jv);
+  } else {
+    ju = uniform(ls.st);
+    jv = uniform(ls.st);
+  }
   V3 d = camera_ray(g.cam, px, py, ju, jv);
   float* S = g.state + lane;
   for (int a = 0; a < 3; ++a) {
@@ -119,12 +161,12 @@ __device__ __forceinline__ void genesis_lane(const GenesisParams& g,
   S[(WROW_D + 2) * N] = d.z;
   S[WROW_ALIVE * N] = alive ? 1.f : 0.f;
   S[WROW_RAYS * N] = 0.f;
-  S[WROW_LANE * N] = lane_f;
+  S[WROW_LANE * N] = __uint_as_float((uint32_t)lane);
   S[WROW_PX * N] = px;
   S[WROW_PY * N] = py;
   S[WROW_SMP * N] = 0.f;
   S[WROW_DEP * N] = 0.f;
-  S[WROW_WANT * N] = want;
+  S[WROW_WANT * N] = (float)ls.want;
   S[WROW_KEY * N] = key_bits(alive ? regen_key(px, py, d, g.width)
                                    : (uint32_t)W_KEY_DEAD);
   // the rest, the medium row WROW_MED (vacuum) and the AOV sums among
@@ -145,10 +187,13 @@ struct WaveLane {
 // regeneration while smp < want (in vacuum), parking at DEAD_ORIGIN and
 // the next-launch key, 1<<23 | morton18 of the next origin (the surface
 // hit or the scatter point) under the new direction's octant. The draws
-// are the megakernel's.
-template <bool MESH, bool VOL>
+// are the megakernel's; under SOBOL at sample index scum + smp of the
+// pixel keyed by `pixkey`, the camera's at the index after the finished
+// path is counted.
+template <bool MESH, bool VOL, bool SOBOL>
 __device__ __forceinline__ void wave_bounce(const WaveParams& p, WaveLane& L,
-                                            float& med, uint32_t& st) {
+                                            float& med, uint32_t& st,
+                                            uint32_t scum, uint32_t pixkey) {
   const Scene& s = p.s;
   const bool beck = p.beckmann != 0;
   const int E = s.n_eo;
@@ -157,10 +202,11 @@ __device__ __forceinline__ void wave_bounce(const WaveParams& p, WaveLane& L,
   V3 hp = L.o, w_ = L.d;
   float nthr[3] = {L.c[0], L.c[1], L.c[2]};
   float next_med = med, cj1, cj2;
+  const SobolAt at = {scum + (uint32_t)L.smp, pixkey, (uint32_t)L.dep};
   if constexpr (VOL) {
-    const VolStep b = vol_bounce<MESH>(s, Media{p.media, p.n_media}, beck,
-                                       L.o, L.d, L.c, med, L.dep == 0.f, L.r,
-                                       L.an, L.aa, st);
+    const VolStep b = vol_bounce<MESH, SOBOL>(
+        s, Media{p.media, p.n_media}, beck, L.o, L.d, L.c, med, L.dep == 0.f,
+        L.r, L.an, L.aa, st, at);
     alive = b.alive;
     hp = b.o;
     w_ = b.d;
@@ -169,7 +215,7 @@ __device__ __forceinline__ void wave_bounce(const WaveParams& p, WaveLane& L,
     cj1 = b.cj1;
     cj2 = b.cj2;
   } else {
-    const Draws u = draw_bounce(s, p.use_rr != 0, st);
+    const Draws u = draw_bounce_as<SOBOL>(s, p.use_rr != 0, st, at);
     cj1 = u.cj1;
     cj2 = u.cj2;
     Hit h = trace_closest<MESH>(s, L.o, L.d, TMIN);
@@ -236,6 +282,8 @@ __device__ __forceinline__ void wave_bounce(const WaveParams& p, WaveLane& L,
   }
   L.smp = L.smp + 1.f;
   if (L.smp < L.want) {  // regenerate a camera path of the lane's pixel
+    if constexpr (SOBOL)
+      ld2(scum + (uint32_t)L.smp, pixkey, 0u, SLOT_CAM, cj1, cj2);
     L.d = camera_ray(s.cam, L.px, L.py, cj1, cj2);
     L.o = load3(s.cam + CAM_ORIGIN);
     L.c[0] = L.c[1] = L.c[2] = 1.f;
@@ -252,7 +300,7 @@ __device__ __forceinline__ void wave_bounce(const WaveParams& p, WaveLane& L,
 // K2 for one lane: k bounces in place, of the path body or, where VOL,
 // of the volpath body with the lane's medium row. A parked lane returns
 // at once: its state, and its parked key, stay as they are.
-template <bool MESH, bool VOL>
+template <bool MESH, bool VOL, bool SOBOL>
 __device__ __forceinline__ void wave_lane(const WaveParams& p, int lane) {
   const size_t N = (size_t)p.n_pad;
   float* S = p.state + lane;
@@ -274,11 +322,17 @@ __device__ __forceinline__ void wave_lane(const WaveParams& p, int lane) {
   L.dep = S[WROW_DEP * N];
   L.want = S[WROW_WANT * N];
   L.key = S[WROW_KEY * N];
-  uint32_t st = wave_state((uint32_t)(int)S[WROW_LANE * N], p.seed, p.launch);
+  const uint32_t id = __float_as_uint(S[WROW_LANE * N]);
+  uint32_t st = wave_state(id, p.seed, p.launch);
+  uint32_t scum = 0u, pixkey = 0u;
+  if constexpr (SOBOL) {
+    scum = sample_base(id / (uint32_t)p.npix, p.base, p.rem);
+    pixkey = wave_pixkey(L.px, L.py, p.width, p.seed);
+  }
   float med = 0.f;
   if constexpr (VOL) med = S[WROW_MED * N];
   for (int b = 0; b < p.k && L.alive > 0.5f; ++b)
-    wave_bounce<MESH, VOL>(p, L, med, st);
+    wave_bounce<MESH, VOL, SOBOL>(p, L, med, st, scum, pixkey);
   if constexpr (VOL) S[WROW_MED * N] = med;
   S[WROW_O * N] = L.o.x;
   S[(WROW_O + 1) * N] = L.o.y;
@@ -311,4 +365,22 @@ __device__ __forceinline__ void permute_lane(const float* __restrict__ in,
     out[row * n_pad + dst] = __ldg(in + row * n_pad + src);
   for (int row = W_SORT_PAD; row < W_NROWS; ++row)
     out[row * n_pad + dst] = __ldg(in + row * n_pad + dst);
+}
+
+// The Sobol probe for lane i of n (the P-r3ac counterpart,
+// scripts/tpu_session_r3ac.py:70-117): seven int32 rows of the input x,
+// out[r * n + i]: the xor-shift pair, the add-multiply, the bit reversal,
+// the Laine-Karras hash with seed 0x51633e2d, the dimension-2 Sobol value
+// of x & 0xFFFF, and the two words of ld2_bits(x & 0xFFFF, key x).
+__device__ __forceinline__ void probe_lane(const int* __restrict__ in, int n,
+                                           int i, int* __restrict__ out) {
+  const uint32_t x = (uint32_t)in[i];
+  uint32_t w = x ^ (x << 13);
+  w ^= w >> 7;
+  uint32_t u, v;
+  ld2_bits(x & 0xFFFFu, x, u, v);
+  const uint32_t row[7] = {w, (x + 0x9E3779B9u) * 0x85EBCA6Bu, reverse32(x),
+                           laine_karras(x, 0x51633E2Du),
+                           sobol2_16(x & 0xFFFFu), u, v};
+  for (int r = 0; r < 7; ++r) out[(size_t)r * n + i] = (int)row[r];
 }

@@ -5,8 +5,9 @@
 //   static int run_genesis(const GenesisParams& g, void* stream);
 //   static int run_permute(const float* in, const int* perm, int n_pad,
 //                          float* out, void* stream);
+//   static int run_probe(const int* in, int n, int* out, void* stream);
 // Argument order: see rene_tpu_torch/kernels.py WAVE_ARGTYPES,
-// GENESIS_ARGTYPES and PERMUTE_ARGTYPES.
+// GENESIS_ARGTYPES, PERMUTE_ARGTYPES and PROBE_ARGTYPES.
 #pragma once
 #include <stdint.h>
 
@@ -23,11 +24,10 @@ extern "C" int wave_path_launch(
     const float* env_mcdf, const float* env_ccdf, const float* env_pdf,
     int world_root, int has_tri_emitter, int width, int n_pix, int max_depth,
     int use_rr, int beckmann, int has_accel, int block_seed, int has_tex,
-    int has_env, const float* media, int n_media, int seed,
-    int launch, int k, int n_run, int n_pad, float lo_x, float lo_y,
-    float lo_z, float scale_x, float scale_y, float scale_z, float* state,
-    void* stream) {
-  (void)n_pix;
+    int has_env, int sobol, const float* media, int n_media, int seed,
+    int launch, int k, int n_run, int n_pad, int base, int rem, float lo_x,
+    float lo_y, float lo_z, float scale_x, float scale_y, float scale_z,
+    float* state, void* stream) {
   (void)block_seed;
   WaveParams p;
   p.s = Scene{tris, sph, mats, eo, emit_tris, emit_sph, lights, light_dots,
@@ -37,10 +37,14 @@ extern "C" int wave_path_launch(
               (const uint32_t*)atlas, env_mcdf, env_ccdf, env_pdf, n_mesh_uv,
               has_tex, has_env};
   p.width = width;
+  p.npix = n_pix;
   p.max_depth = max_depth;
   p.use_rr = use_rr;
   p.beckmann = beckmann;
   p.has_accel = has_accel;
+  p.sobol = sobol;
+  p.base = base;
+  p.rem = rem;
   p.seed = (uint32_t)seed;
   p.launch = launch;
   p.k = k;
@@ -61,7 +65,8 @@ extern "C" int wave_path_launch(
 extern "C" int wave_genesis_launch(const float* cam, const float* px,
                                    const float* py, int width, int npix,
                                    int n_real, int n_pad, int seed, int base,
-                                   int rem, float* state, void* stream) {
+                                   int rem, int sobol, float* state,
+                                   void* stream) {
   GenesisParams g;
   g.cam = cam;
   g.px = px;
@@ -73,6 +78,7 @@ extern "C" int wave_genesis_launch(const float* cam, const float* px,
   g.seed = (uint32_t)seed;
   g.base = base;
   g.rem = rem;
+  g.sobol = sobol;
   g.state = state;
   return run_genesis(g, stream);
 }
@@ -80,4 +86,9 @@ extern "C" int wave_genesis_launch(const float* cam, const float* px,
 extern "C" int wave_permute_launch(const float* in, const int* perm,
                                    int n_pad, float* out, void* stream) {
   return run_permute(in, perm, n_pad, out, stream);
+}
+
+extern "C" int sobol_probe_launch(const int* in, int n, int* out,
+                                  void* stream) {
+  return run_probe(in, n, out, stream);
 }

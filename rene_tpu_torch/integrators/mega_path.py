@@ -21,6 +21,16 @@ order: u_coin, u1, u2, ul; coin, ue1..ue4 when the scene has emitters or
 an env-map strategy, then upick when it has both; rrv when Russian
 roulette is on; cj1, cj2 always.
 
+Under `Sampler "sobol"` (tables' `sobol`) the same draws come in pairs
+from ops/sobol.py's Owen-scrambled (0,2)-sequence instead
+(pallas_path.py:4328-4341, :4437-4542), keyed by the pixel and the lane's
+grid-step seed (ops/sobol.py `pixkey`), indexed by the lane's sample
+number and its depth, one slot per pair: (u1, u2) SLOT_BSDF, (u_coin, ul)
+SLOT_COIN, (ue1, ue2) SLOT_NEE1, (ue3, ue4) SLOT_NEE2, (coin, upick)
+SLOT_MISC, rrv SLOT_RR, and the camera's (cj1, cj2) SLOT_CAM at depth 0
+with the sample index after the finished path is counted. The path body
+then draws nothing from the lane stream.
+
 `path_lanes_ref` is the plain PyTorch version of the CUDA kernel in
 csrc/mega_path.cu: the same body over masked lane tensors, in the same
 draw order. `make_mega_batch_fn` returns the runner the render loop
@@ -37,6 +47,7 @@ import torch
 
 from .. import kernels
 from ..ops import rng
+from ..ops import sobol as SB
 from ..ops.bsdf import bsdf_eval, bsdf_sample, gather_material, is_diffuse
 from ..ops.intersect import TMIN, closest, emit_pdf
 from ..ops.texture import (apply_textures, background, env_pdf_dir,
@@ -70,7 +81,7 @@ def device_tables(tables: P.SceneTables, device) -> Dict:
     tabs["n_emit"] = int(tables.emit_objects.shape[0])
     tabs["insts_f"] = tables.insts.tolist()
     for k in ("world_root", "bvh_depth", "max_leaf", "has_accel",
-              "block_seed", "has_tex", "bg_kind", "has_env"):
+              "block_seed", "has_tex", "bg_kind", "has_env", "sobol"):
         tabs[k] = getattr(tables, k)
     return tabs
 
@@ -82,12 +93,14 @@ def bounce(tabs, c, active, beckmann: bool = False) -> Dict:
     Russian roulette and the depth cut; then the two camera draws of a
     regenerated path. `c` holds the ray (ox..dz), throughput (cr, cg,
     cb), `depth`, the radiance and AOV sums (rr.., anx.., aar..) and the
-    lane streams `st`. Returns the updated sums, `alive` (the path goes
-    on), the hit point (hx, hy, hz), the next direction (wx, wy, wz), the
-    next throughput (cr, cg, cb), the advanced streams `st` and the
-    camera draws cj1, cj2. Lanes outside `active` still draw. A
-    throughput below float32's normal range counts as zero and ends the
-    path, as under the flush-to-zero arithmetic of XLA and the TPU."""
+    lane streams `st`, and under Sobol `sob` (`sobol_draws`). Returns the
+    updated sums, `alive` (the path goes on), the hit point (hx, hy, hz),
+    the next direction (wx, wy, wz), the next throughput (cr, cg, cb), the
+    advanced streams `st` and the camera draws cj1, cj2 (None under
+    Sobol: the caller draws them with the sample index after the path is
+    counted). Lanes outside `active` still draw. A throughput below
+    float32's normal range counts as zero and ends the path, as under
+    the flush-to-zero arithmetic of XLA and the TPU."""
     cr, cg, cb = c["cr"], c["cg"], c["cb"]
     depth = c["depth"]
 
@@ -133,8 +146,9 @@ def bounce(tabs, c, active, beckmann: bool = False) -> Dict:
         tabs, tabs["lights_f"], (rr_, rg_, rb_), hx, hy, hz, frame,
         attr, lo, alive, cr, cg, cb, beckmann)
 
+    sob = c.get("sob")
     wx_, wy_, wz_, f_r, f_g, f_b, pdf, _, st = scatter(
-        tabs, attr, frame, lo, hx, hy, hz, c["st"], beckmann)
+        tabs, attr, frame, lo, hx, hy, hz, c["st"], beckmann, sob)
 
     alive = alive & (pdf >= 1e-5)
     cosw = torch.abs(wx_ * nx + wy_ * ny + wz_ * nz)
@@ -146,7 +160,10 @@ def bounce(tabs, c, active, beckmann: bool = False) -> Dict:
                      >= FLT_MIN_NORMAL)
 
     if tabs["use_rr"]:
-        rrv, st = rng.uniform(st)
+        if sob is not None:
+            rrv, _ = SB.ld2(*sob, SB.SLOT_RR)
+        else:
+            rrv, st = rng.uniform(st)
         p_cont = torch.clamp(torch.maximum(cr, torch.maximum(cg, cb)),
                              0.0, 1.0)
         do_rr = depth > P.RR_START
@@ -158,8 +175,7 @@ def bounce(tabs, c, active, beckmann: bool = False) -> Dict:
         cb = torch.where(keep, cb * inv_p, cb)
 
     alive = alive & (depth + 1 < tabs["max_depth"])
-    cj1, st = rng.uniform(st)
-    cj2, st = rng.uniform(st)
+    cj1, cj2, st = camera_draws(st, sob)
     return {"rr": rr_, "rg": rg_, "rb": rb_, "anx": anx, "any": any_,
             "anz": anz, "aar": aar, "aag": aag, "aab": aab,
             "alive": alive, "hx": hx, "hy": hy, "hz": hz,
@@ -167,38 +183,67 @@ def bounce(tabs, c, active, beckmann: bool = False) -> Dict:
             "st": st, "cj1": cj1, "cj2": cj2}
 
 
-def scatter(tabs, attr, frame, lo, hx, hy, hz, st, beckmann: bool = False):
+def camera_draws(st, sob):
+    """The stream's two camera draws of a regenerated path, the last of
+    a bounce; none under Sobol (`sob` given), whose camera pair the
+    caller draws once the path's sample is counted."""
+    if sob is not None:
+        return None, None, st
+    cj1, st = rng.uniform(st)
+    cj2, st = rng.uniform(st)
+    return cj1, cj2, st
+
+
+def sobol_draws(idx, pixkey, depth):
+    """`sob`: the (sample index, pixel key, depth) triple every Sobol pair
+    of a bounce is drawn from (ops/sobol.py ld2), as int64."""
+    return (idx.to(torch.int64), pixkey, depth.to(torch.int64))
+
+
+def scatter(tabs, attr, frame, lo, hx, hy, hz, st, beckmann: bool = False,
+            sob=None):
     """The path body's next direction at a surface: BSDF sampling, and on
     diffuse surfaces of a scene with emitters or an env-map strategy the
     one-sample 50/50 MIS between the BSDF and one light sampler per lane
     (an emit object or the env map, picked by an independent draw when
     the scene has both). Draws u_coin, u1, u2, ul, then coin, ue1..ue4
-    (and upick) where the scene has such lights. Returns (wx, wy, wz,
-    f_r, f_g, f_b, pdf, diffuse, advanced streams)."""
+    (and upick) where the scene has such lights: from the stream `st`,
+    or under Sobol from the pairs of `sob` (`sobol_draws`). Returns (wx,
+    wy, wz, f_r, f_g, f_b, pdf, diffuse, advanced streams)."""
     E = tabs["n_emit"]
     has_env = tabs["has_env"]
-    u_coin, st = rng.uniform(st)
-    u1, st = rng.uniform(st)
-    u2, st = rng.uniform(st)
-    ul, st = rng.uniform(st)
+    if sob is not None:
+        u1, u2 = SB.ld2(*sob, SB.SLOT_BSDF)
+        u_coin, ul = SB.ld2(*sob, SB.SLOT_COIN)
+    else:
+        u_coin, st = rng.uniform(st)
+        u1, st = rng.uniform(st)
+        u2, st = rng.uniform(st)
+        ul, st = rng.uniform(st)
     swx, swy, swz, sfr, sfg, sfb, spdf = bsdf_sample(
         attr, *lo, u_coin, u1, u2, ul, beckmann)
     swx, swy, swz = to_world(*frame, swx, swy, swz)
     diffuse = is_diffuse(attr)
     if not (E > 0 or has_env):
         return swx, swy, swz, sfr, sfg, sfb, spdf, diffuse, st
-    coin, st = rng.uniform(st)
-    ue1, st = rng.uniform(st)
-    ue2, st = rng.uniform(st)
-    ue3, st = rng.uniform(st)
-    ue4, st = rng.uniform(st)
+    if sob is not None:
+        ue1, ue2 = SB.ld2(*sob, SB.SLOT_NEE1)
+        ue3, ue4 = SB.ld2(*sob, SB.SLOT_NEE2)
+        coin, upick = SB.ld2(*sob, SB.SLOT_MISC)
+    else:
+        coin, st = rng.uniform(st)
+        ue1, st = rng.uniform(st)
+        ue2, st = rng.uniform(st)
+        ue3, st = rng.uniform(st)
+        ue4, st = rng.uniform(st)
     if E > 0:
         ls_wx, ls_wy, ls_wz = sample_emit(tabs, hx, hy, hz,
                                           ue1, ue2, ue3, ue4)
     if has_env:
         ex_, ey_, ez_ = env_strategy(tabs, ue1, ue2, ue3, ue4)
         if E > 0:
-            upick, st = rng.uniform(st)
+            if sob is None:
+                upick, st = rng.uniform(st)
             tke = upick * float(E + 1) < 1.0
             ls_wx = torch.where(tke, ex_, ls_wx)
             ls_wy = torch.where(tke, ey_, ls_wy)
@@ -242,7 +287,9 @@ def path_lanes_ref(tabs, seed: int, num_samples: int,
     i owns pixel i of the film, or pixel `pix[i]` when the int64 tensor
     `pix` names the pixels to trace (a lane's result depends on its own
     pixel only). Volpath tables run the volpath bounce
-    (integrators/volpath.py), each lane carrying its medium."""
+    (integrators/volpath.py), each lane carrying its medium. Under Sobol
+    each pixel's key is ops/sobol.py `pixkey` of its grid-step seed (the
+    stream's `seed + tile * 65537`)."""
     from .volpath import bounce_vol
     vol = tabs["volpath"]
     step = bounce_vol if vol else bounce
@@ -252,12 +299,17 @@ def path_lanes_ref(tabs, seed: int, num_samples: int,
         pix = torch.arange(W * tabs["height"], device=tabs["tris"].device)
     pxf = (pix % W).float()
     pyf = (pix // W).float()
-    st = rng.seed_state(pix, seed, rng.tile_of(pix, W, tabs["block_seed"]))
-    ju0, st = rng.uniform(st)
-    jv0, st = rng.uniform(st)
+    tile = rng.tile_of(pix, W, tabs["block_seed"])
+    st = rng.seed_state(pix, seed, tile)
+    izero = torch.zeros_like(pix)
+    if tabs["sobol"]:
+        pixkey = SB.pixkey(pix, (int(seed) + tile * 65537) & rng.MASK)
+        ju0, jv0 = SB.ld2(izero, pixkey, izero, SB.SLOT_CAM)
+    else:
+        ju0, st = rng.uniform(st)
+        jv0, st = rng.uniform(st)
     dx, dy, dz = camera_ray(cam, pxf, pyf, ju0, jv0)
     zero = torch.zeros_like(pxf)
-    izero = torch.zeros_like(pix)
     co = cam[P.CAM_ORIGIN:P.CAM_ORIGIN + 3]
     ray_inc = ray_increment(tabs)
     c = {"ox": zero + co[0], "oy": zero + co[1], "oz": zero + co[2],
@@ -273,6 +325,8 @@ def path_lanes_ref(tabs, seed: int, num_samples: int,
     while bool((c["sample"] < num_samples).any()):
         active = c["sample"] < num_samples
         rays = c["rays"] + torch.where(active, 1.0, 0.0) * ray_inc
+        if tabs["sobol"]:
+            c["sob"] = sobol_draws(c["sample"], pixkey, c["depth"])
         b = step(tabs, c, active, beckmann)
         alive = b["alive"]
 
@@ -280,7 +334,9 @@ def path_lanes_ref(tabs, seed: int, num_samples: int,
         finished = active & ~alive
         sample = c["sample"] + finished.long()
         regen = finished & (sample < num_samples)
-        cdx, cdy, cdz = camera_ray(cam, pxf, pyf, b["cj1"], b["cj2"])
+        cj1, cj2 = (SB.ld2(sample, pixkey, izero, SB.SLOT_CAM)
+                    if tabs["sobol"] else (b["cj1"], b["cj2"]))
+        cdx, cdy, cdz = camera_ray(cam, pxf, pyf, cj1, cj2)
 
         def pick3(a1, a2, b2c):
             return torch.where(regen, a1, torch.where(alive, a2, b2c))

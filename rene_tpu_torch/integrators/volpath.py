@@ -25,8 +25,13 @@ A bounce draws, in this order and on every lane: med_sample (2),
 med_sample_p (2), ue1..ue4 of the medium's emitter NEE when the scene has
 emitters, u_coin, u1, u2, ul, then coin, ue1..ue4 (and upick with both
 emitters and an env map) when the scene has emitters or an env-map
-strategy, then cj1, cj2. Its nominal ray count is the path body's, 1 +
-lights + (E > 0); `ops.intersect.casts` counts the casts it makes.
+strategy, then cj1, cj2. Under `Sampler "sobol"` the draws of the
+surface's BSDF step and the camera come from ops/sobol.py's pairs, as
+in the path body (pallas_path.py:4704-4731, :4811-4812), and the stream
+keeps the medium's two, the phase function's two and the scatter point's
+emitter draws (:3315-3316, :3346-3347, :4635-4638). Its nominal ray count
+is the path body's, 1 + lights + (E > 0); `ops.intersect.casts` counts
+the casts it makes.
 
 `bounce_vol` is the plain PyTorch version of csrc/volpath.cuh's
 `vol_bounce`; mega_path.path_lanes_ref runs it for volpath tables
@@ -47,7 +52,8 @@ from ..ops.vec3 import dot3, normalize3, onb_from_w, to_local
 from ..scene import pack as P
 from ..scene import types as T
 from .common import sample_emit
-from .mega_path import FLT_MIN_NORMAL, path_lanes_ref, scatter
+from .mega_path import (FLT_MIN_NORMAL, camera_draws, path_lanes_ref,
+                        scatter)
 
 
 def bounce_vol(tabs, c, active, beckmann: bool = False) -> Dict:
@@ -56,7 +62,8 @@ def bounce_vol(tabs, c, active, beckmann: bool = False) -> Dict:
     the updated sums, `alive`, the next origin (hx, hy, hz: the scatter
     point, or the surface hit), direction (wx, wy, wz), throughput (cr,
     cg, cb) and medium (med), `scattered` (the lane scattered in its
-    medium), the advanced streams `st` and the camera draws cj1, cj2."""
+    medium), the advanced streams `st` and the camera draws cj1, cj2
+    (None under Sobol, as in mega_path.bounce)."""
     E = tabs["n_emit"]
     media = tabs["media"]
     cr, cg, cb = c["cr"], c["cg"], c["cb"]
@@ -162,8 +169,9 @@ def bounce_vol(tabs, c, active, beckmann: bool = False) -> Dict:
                                 cb * trv[2] * fe_b * cosl * lcb, 0.0)
 
     # BSDF sampling with the emitter/env MIS of the path body
+    sob = c.get("sob")
     wx_, wy_, wz_, f_r, f_g, f_b, pdf, diffuse, st = scatter(
-        tabs, attr, frame, lo, hx, hy, hz, st, beckmann)
+        tabs, attr, frame, lo, hx, hy, hz, st, beckmann, sob)
     if E > 0:
         X.casts["emit_pdf"] += int((surf_scatter & diffuse).sum())
 
@@ -188,8 +196,7 @@ def bounce_vol(tabs, c, active, beckmann: bool = False) -> Dict:
     alive = alive & (torch.maximum(cr, torch.maximum(cg, cb))
                      >= FLT_MIN_NORMAL)
     alive = alive & (depth + 1 < tabs["max_depth"])
-    cj1, st = rng.uniform(st)
-    cj2, st = rng.uniform(st)
+    cj1, cj2, st = camera_draws(st, sob)
     return {"rr": rr_, "rg": rg_, "rb": rb_, "anx": anx, "any": any_,
             "anz": anz, "aar": aar, "aag": aag, "aab": aab,
             "alive": alive, "hx": new_o[0], "hy": new_o[1], "hz": new_o[2],

@@ -41,6 +41,16 @@ where the JAX kernel carries its 128-triangle cluster id: the port has
 no clusters. That changes the order of the lanes in `dma` sorts, never a
 lane's result.
 
+Under `Sampler "sobol"` a lane draws the Sobol pairs of the megakernel
+(mega_path.py) keyed by its pixel and the wave seed, at the pixel-global
+sample index scum + smp: scum = q * base + min(q, rem) counts the
+samples of the pixel's lanes of lower slot q = lane // npix, where the
+wave's `want` samples per pixel split into base * spw + rem
+(pallas_path.py:4999-5009, :5125-5228, :5407-5512, :5643-5660). A Sobol
+path lane draws nothing from its stream; a volpath lane draws its
+medium, phase and scatter-point emitter draws there. Sorts move lanes,
+never a lane's draws.
+
 Volpath waves (slice K1e) run the volpath bounce (integrators/volpath.py)
 in K2 (`wave_volpath[_mesh]`) and carry each lane's medium in row
 WROW_MED = 21, which K3 starts at vacuum and every sort moves with the
@@ -59,13 +69,16 @@ from .. import kernels
 from ..ops import rng
 from ..scene import pack as P
 from .camera import camera_ray
-from .mega_path import bounce, device_tables, ray_increment
+from ..ops import sobol as SB
+from .mega_path import bounce, device_tables, ray_increment, sobol_draws
 from .volpath import bounce_vol
 
 # -- the state rows (pallas_path.py:148-181) ---------------------------------
 WROW_O, WROW_D, WROW_C, WROW_R = 0, 3, 6, 9   # origin, dir, throughput,
                                               # radiance sums
-WROW_ALIVE, WROW_RAYS, WROW_LANE = 12, 13, 14
+WROW_ALIVE, WROW_RAYS = 12, 13
+WROW_LANE = 14      # the lane id: int32 bits in a float32 row, exact at
+                    # any wave size (`lane_ids`)
 WROW_PX, WROW_PY, WROW_SMP, WROW_DEP = 15, 16, 17, 18
 WROW_WANT = 19      # the lane's sample target
 WROW_KEY = 20       # next-launch sort key: int32 bits in a float32 row
@@ -206,28 +219,55 @@ def bin_key(state: torch.Tensor, lo, ext) -> torch.Tensor:
 
 
 # -- K3: genesis -------------------------------------------------------------
+def lane_ids(state: torch.Tensor) -> torch.Tensor:
+    """The int64 lane ids of a wave state's columns (row WROW_LANE)."""
+    return state[WROW_LANE].view(torch.int32).long()
+
+
+def sample_base(lane: torch.Tensor, npix: int, base: int,
+                rem: int) -> torch.Tensor:
+    """scum: the samples of a lane's pixel that its lanes of lower slot
+    q = lane // npix take, in a wave of base * spw + rem samples per
+    pixel (the first `rem` slots take base + 1)."""
+    q = lane // npix
+    return q * base + torch.clamp_max(q, rem)
+
+
+def lane_start(lane: torch.Tensor, npix: int, n_real: int, base: int,
+               rem: int):
+    """K3's integer lane math: each lane's sample slot q = lane // npix
+    and its share `want` of a wave of base * spw + rem samples per pixel
+    (0 for the pad lanes), exact at any wave size (the JAX kernel
+    computes them in float32, exact below 2^23 lanes)."""
+    q = lane // npix
+    return q, torch.where(lane < n_real, base + (q < rem).long(), 0)
+
+
 def genesis_ref(cam, pxf, pyf, width: int, npix: int, n_real: int,
-                seed: int, base: int, rem: int,
-                stream: str = "mixed") -> torch.Tensor:
+                seed: int, base: int, rem: int, stream: str = "mixed",
+                sobol: bool = False, lanes=None) -> torch.Tensor:
     """Plain PyTorch genesis kernel (`genesis_kernel`
     pallas_path.py:4970-5048): the (W_NROWS, n_pad) state of a fresh wave
     whose lanes share want = base * spw + rem samples per pixel. `cam`
     is the camera row as python floats, `pxf`/`pyf` the lanes' pixel
-    coordinates, `stream` the lane streams (rng.wave_state)."""
+    coordinates, `stream` the lane streams (rng.wave_state). `sobol`:
+    the camera jitter is the Sobol pair of the lane's first sample
+    (`sample_base`) under the wave seed's pixel key. `lanes`: the int64
+    ids of the lanes whose columns to compute, by default all, lane j in
+    column j (pxf and pyf then hold those lanes' coordinates)."""
     n_pad = pxf.shape[0]
-    lane_f = torch.arange(n_pad, device=pxf.device).float()
-    npix_f = float(npix)
-    q = torch.floor(lane_f * _f32(1.0 / npix_f))
-    r = lane_f - q * npix_f
-    q = q + torch.where(r >= npix_f, 1.0, 0.0) \
-        - torch.where(r < 0.0, 1.0, 0.0)
-    real = lane_f < _f32(n_real)
-    want = torch.where(real, float(base) + torch.where(q < float(rem), 1.0,
-                                                       0.0), 0.0)
-    alive = want > 0.0
-    st = rng.wave_state(lane_f.long(), seed, -1, stream)
-    ju, st = rng.uniform(st)
-    jv, st = rng.uniform(st)
+    lane = (torch.arange(n_pad, device=pxf.device) if lanes is None
+            else lanes.to(torch.int64))
+    _, want = lane_start(lane, npix, n_real, base, rem)
+    alive = want > 0
+    st = rng.wave_state(lane, seed, -1, stream)
+    if sobol:
+        pixkey = SB.pixkey(pxf.long() + pyf.long() * width, int(seed))
+        ju, jv = SB.ld2(sample_base(lane, npix, base, rem), pixkey, 0,
+                        SB.SLOT_CAM)
+    else:
+        ju, st = rng.uniform(st)
+        jv, st = rng.uniform(st)
     dx, dy, dz = camera_ray(cam, pxf, pyf, ju, jv)
     key = pack_key(alive, alive & False, regen_key(pxf, pyf, dx, dy, dz,
                                                    width), 0)
@@ -239,9 +279,9 @@ def genesis_ref(cam, pxf, pyf, width: int, npix: int, n_real: int,
     state[WROW_D], state[WROW_D + 1], state[WROW_D + 2] = dx, dy, dz
     state[WROW_C:WROW_C + 3] = 1.0
     state[WROW_ALIVE] = alive.float()
-    state[WROW_LANE] = lane_f
+    state[WROW_LANE] = lane.to(torch.int32).view(torch.float32)
     state[WROW_PX], state[WROW_PY] = pxf, pyf
-    state[WROW_WANT] = want
+    state[WROW_WANT] = want.float()
     state[WROW_KEY] = key
     return state
 
@@ -267,18 +307,28 @@ def wave_bounce(tabs, c, kb, beckmann: bool = False) -> Dict:
     origin (the surface hit, or the scatter point in a medium) under the
     new direction's octant. Dead lanes keep their state; their key is
     the parked key they already hold. A regenerated lane starts in
-    vacuum."""
+    vacuum. Under Sobol `c` holds each lane's `scum` and `pixkey`; its
+    draws take the sample index scum + smp, the camera's that after the
+    finished path is counted."""
     cam = tabs["cam_f"]
     co = cam[P.CAM_ORIGIN:P.CAM_ORIGIN + 3]
     was_alive = c["alive"] > 0.5
     rays = c["rays"] + torch.where(was_alive, 1.0, 0.0) * ray_increment(tabs)
+    if tabs["sobol"]:
+        c = dict(c, sob=sobol_draws(c["scum"] + c["smp"].long(),
+                                    c["pixkey"], c["depth"].long()))
     b = (bounce_vol if tabs["volpath"] else bounce)(tabs, c, was_alive,
                                                     beckmann)
     alive = b["alive"]
     finished = was_alive & ~alive
     smp = c["smp"] + torch.where(finished, 1.0, 0.0)
     regen = finished & (smp < c["want"])
-    cdx, cdy, cdz = camera_ray(cam, c["px"], c["py"], b["cj1"], b["cj2"])
+    if tabs["sobol"]:
+        cj1, cj2 = SB.ld2(c["scum"] + smp.long(), c["pixkey"], 0,
+                          SB.SLOT_CAM)
+    else:
+        cj1, cj2 = b["cj1"], b["cj2"]
+    cdx, cdy, cdz = camera_ray(cam, c["px"], c["py"], cj1, cj2)
     park = finished & ~regen
     k_al = (oct_of(b["wx"], b["wy"], b["wz"]) << 24) | (1 << 23) \
         | morton18(b["hx"], b["hy"], b["hz"], kb)
@@ -307,25 +357,35 @@ def wave_bounce(tabs, c, kb, beckmann: bool = False) -> Dict:
         alive, c["depth"] + 1.0, c["depth"]))
     out["key"] = key
     out["st"] = b["st"]
+    out.pop("sob", None)
     if tabs["volpath"]:
         out["med"] = pick3(0.0, b["med"], c["med"])
     return out
 
 
 def wave_step_ref(tabs, state: torch.Tensor, seed: int, launch: int, k: int,
-                  n_run: int, kb, beckmann: bool = False,
+                  n_run: int, kb, base: int, rem: int,
+                  beckmann: bool = False,
                   stream: str = "mixed") -> torch.Tensor:
     """Plain PyTorch wave kernel (`wave_kernel` pallas_path.py:5567-5706):
     advance every alive lane of the first `n_run` lanes of `state` by `k`
     bounces, in place, with the lane streams `stream` of launch `launch`
-    (rng.wave_state); `kb` is `key_bounds`. Returns `state`."""
+    (rng.wave_state); `kb` is `key_bounds`. Under Sobol the wave's
+    base * spw + rem samples per pixel place each lane's sample indices
+    (`sample_base`). Returns `state`."""
     idx = torch.nonzero(state[WROW_ALIVE, :n_run] > 0.5).squeeze(1)
     if not idx.numel():
         return state
     rows = state.index_select(1, idx)
     keys = _STATE_KEYS + ((("med", WROW_MED),) if tabs["volpath"] else ())
     c = {name: rows[r] for name, r in keys}
-    c["st"] = rng.wave_state(rows[WROW_LANE].long(), seed, launch, stream)
+    lane = lane_ids(rows)
+    c["st"] = rng.wave_state(lane, seed, launch, stream)
+    if tabs["sobol"]:
+        npix = tabs["width"] * tabs["height"]
+        c["scum"] = sample_base(lane, npix, base, rem)
+        c["pixkey"] = SB.pixkey(c["px"].long() + c["py"].long()
+                                * tabs["width"], int(seed))
     for _ in range(k):
         c = wave_bounce(tabs, c, kb, beckmann)
     for name, r in keys:
@@ -348,10 +408,11 @@ def permute_ref(state: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def unsort_lanes(rows: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
-    """`rows` with column j moved back to column src[j], the lane it
-    started as: the inverse of the `gather` sorts' permutation."""
-    return torch.empty_like(rows).index_copy_(1, src, rows)
+def unsort_lanes(rows: torch.Tensor, lane: torch.Tensor) -> torch.Tensor:
+    """`rows` with column j moved back to column lane[j], the lane it
+    started as (`lane_ids`): the inverse of the `gather` sorts'
+    permutation."""
+    return torch.empty_like(rows).index_copy_(1, lane, rows)
 
 
 # -- the runner --------------------------------------------------------------
@@ -397,22 +458,19 @@ def make_wave_fn(buffers_np, config, device, samples_per_wave: int = 0,
     pinned = torch.empty((), dtype=torch.int64, pin_memory=cuda)
 
     def init_state(seed: int, want: int):
-        """A fresh wave of `want` samples per pixel, and where its lanes
-        came from: `src[j]` is the lane (`gather`) or 128-lane slice
-        (`dma`) that started at column or slice j; the sorts permute it
-        with the state. Int64 and exact at any wave size, where the float
-        WROW_LANE row is not past 2**24 lanes."""
-        state = kernels.wave_genesis(tabs, pxf, pyf, n_real, int(seed),
-                                     want // spw, want % spw, stream)
-        return state, torch.arange(ns_all if sort_mode == "dma" else n_pad,
-                                   device=device)
+        """A fresh wave of `want` samples per pixel; lane j starts in
+        column j (row WROW_LANE), and the sorts move the row with it."""
+        return kernels.wave_genesis(tabs, pxf, pyf, n_real, int(seed),
+                                    want // spw, want % spw, stream)
 
-    def kernel_step(k: int, state, seed: int, launch: int, nt: int):
-        """One K2 launch over the first nt tiles; returns the state and
-        the count of lanes that bounds the alive prefix (whole slices
-        for `dma`)."""
+    def kernel_step(k: int, state, seed: int, launch: int, nt: int,
+                    want: int):
+        """One K2 launch over the first nt tiles of a wave of `want`
+        samples per pixel; returns the state and the count of lanes that
+        bounds the alive prefix (whole slices for `dma`)."""
         kernels.wave_path(tabs, state, int(seed), int(launch), k,
-                          nt * W_TILE, kb, beckmann, stream)
+                          nt * W_TILE, kb, want // spw, want % spw,
+                          beckmann, stream)
         alive = state[WROW_ALIVE] > 0.5
         if sort_mode == "dma":
             n_alive = alive.view(ns_all, W_SLICE).any(1).sum() * W_SLICE
@@ -420,20 +478,19 @@ def make_wave_fn(buffers_np, config, device, samples_per_wave: int = 0,
             n_alive = alive.sum()
         return state, n_alive
 
-    def sort_prefix(state, src, m: int):
+    def sort_prefix(state, m: int):
         """Regroup the lanes: `gather` sorts the first m lanes by
         `bin_key` (stable) and moves rows [0, 21), and the medium row of
         a volpath wave; `dma` sorts all slices by their least key and
-        moves them with K4. `src` (init_state) moves with them."""
+        moves them with K4."""
         if sort_mode == "dma":
             skey = state[WROW_KEY].view(ns_all, W_SLICE).min(1).values
             perm = torch.argsort(skey, stable=True).to(torch.int32)
-            return kernels.wave_permute(state, perm), src[perm.long()]
+            return kernels.wave_permute(state, perm)
         sub = state[:n_sort, :m]
         perm = torch.argsort(bin_key(sub, lo, ext), stable=True)
         state[:n_sort, :m] = sub.index_select(1, perm)
-        src[:m] = src[:m][perm]
-        return state, src
+        return state
 
     def bucket(n_lanes: int) -> int:
         """Smallest power-of-4 tile count covering n_lanes lanes."""
@@ -442,20 +499,22 @@ def make_wave_fn(buffers_np, config, device, samples_per_wave: int = 0,
             m *= 4
         return min(m, n_pad)
 
-    def finish_wave(state, src):
+    def finish_wave(state):
         """(9, npix) per-pixel sums of radiance, normal and albedo over
         the wave's lanes, and the ray total (float64). The radiance rows
-        go back to the initial lane order first, by `src` (`dma`: K4 with
-        the inverse slice permutation; `gather`: a scatter), so every
-        pixel sums its lanes in one order wherever the sorts put them. The
-        AOV rows, written in step 0 and moved by no sort, are in it
+        go back to the initial lane order first, by the lane ids
+        (`lane_ids`; `dma`: K4 with the inverse of the slice order that
+        each slice's first id gives; `gather`: a scatter), so every pixel
+        sums its lanes in one order wherever the sorts put them. The AOV
+        rows, written in step 0 and moved by no sort, are in it
         already."""
         rays = state[WROW_RAYS].sum(dtype=torch.float64)
+        lane = lane_ids(state)
         if sort_mode == "dma":
-            inv = torch.argsort(src, stable=True).to(torch.int32)
+            inv = torch.argsort(lane[::W_SLICE], stable=True).to(torch.int32)
             rad = kernels.wave_permute(state, inv)[WROW_R:WROW_R + 3]
         else:
-            rad = unsort_lanes(state[WROW_R:WROW_R + 3], src)
+            rad = unsort_lanes(state[WROW_R:WROW_R + 3], lane)
         sums = torch.cat([
             rad[:, :n_real].reshape(3, spw, npix).sum(1),
             state[WROW_AN:WROW_AN + 6, :n_real].reshape(6, spw, npix)
@@ -477,7 +536,7 @@ def make_wave_fn(buffers_np, config, device, samples_per_wave: int = 0,
 
         mark("start")
         want = min(int(num_samples), spw)
-        state, src = init_state(seed, want)
+        state = init_state(seed, want)
         mark("init")
         prefix = last_alive = n_real
         per_lane = -(-want // spw)
@@ -487,13 +546,13 @@ def make_wave_fn(buffers_np, config, device, samples_per_wave: int = 0,
             k = schedule[min(si, len(schedule) - 1)]
             if sort_rays and si >= 1:
                 m = n_pad if sort_mode == "dma" else bucket(prefix)
-                state, src = sort_prefix(state, src, m)
+                state = sort_prefix(state, m)
                 nt = min(-(-last_alive // W_TILE), m // W_TILE)
                 prefix = nt * W_TILE
                 mark("sort")
             else:
                 nt = -(-prefix // W_TILE)
-            state, n_alive = kernel_step(k, state, seed, si, nt)
+            state, n_alive = kernel_step(k, state, seed, si, nt, want)
             mark("K2")
             # the early exit reads the previous step's count while this
             # step runs: counts never rise, so a one-step-stale count
@@ -510,9 +569,9 @@ def make_wave_fn(buffers_np, config, device, samples_per_wave: int = 0,
                 pending.record()
             else:
                 pending = True
-        sums, rays = finish_wave(state, src)
+        sums, rays = finish_wave(state)
         mark("finish")
-        del state, src
+        del state
         if accum is not None:
             sums, rays = accum[0] + sums, accum[1] + rays
         if marks:

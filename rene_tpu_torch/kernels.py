@@ -9,9 +9,15 @@ together, and loaded with ctypes:
 
     csrc/mega_path.cu   the megakernel: the path body (K1a-K1d) and the
                         volpath body (K1e)
-    csrc/wave.cu        the wave engine: K2 in the four variants, with K3
-                        and K4, which do not depend on the variant, taken
-                        from the path immediates build
+    csrc/wave.cu        the wave engine: K2 in the four variants, with K3,
+                        K4 and the Sobol probe, which do not depend on the
+                        variant, taken from the path immediates build
+
+Every build of K1 and K2, and K3, holds two instances of its kernel, the
+independent sampler's and `Sampler "sobol"`'s (template parameter SOBOL,
+csrc/sobol.cuh), picked at launch by the scene's sampler: no more nvcc
+runs. Each instance has its own count in `launches`, the Sobol one under
+its variant's name plus "_sobol".
 
 Nothing is compiled or imported at module import: the CPU-only tests
 import this module freely.
@@ -61,10 +67,13 @@ VARIANTS = {"mega_path": ("mega_path.cu", "-DMEGA_MESH=0", "-DMEGA_VOL=0"),
             "wave_volpath": ("wave.cu", "-DMEGA_MESH=0", "-DMEGA_VOL=1"),
             "wave_volpath_mesh": ("wave.cu", "-DMEGA_MESH=1",
                                   "-DMEGA_VOL=1")}
-# launches of each kernel; wave_genesis and wave_permute live in the
-# wave_path library
-launches = dict.fromkeys(list(VARIANTS) + ["wave_genesis", "wave_permute"],
-                         0)
+SOBOL = "_sobol"    # suffix of a Sobol instance's name
+# launches of each kernel instance; wave_genesis, wave_permute and
+# sobol_probe live in the wave_path library
+launches = dict.fromkeys(
+    [v + s for v in VARIANTS for s in ("", SOBOL)]
+    + ["wave_genesis", "wave_genesis" + SOBOL, "wave_permute",
+       "sobol_probe"], 0)
 
 _libs: Dict[str, ctypes.CDLL] = {}
 # ptxas's register and spill report of each library built with
@@ -73,12 +82,21 @@ ptxas: Dict[str, str] = {}
 
 
 def variant(tabs, kernel: str = "mega_path") -> str:
-    """The variant of `kernel` (mega_path or wave_path) that runs the
-    scene `tabs`: its volpath form for a volpath scene, its mesh form for
-    a scene with acceleration tables."""
+    """The kernel instance of `kernel` (mega_path or wave_path) that runs
+    the scene `tabs`: its volpath form for a volpath scene, its mesh form
+    for a scene with acceleration tables, its Sobol instance (name +
+    "_sobol") under `Sampler "sobol"`. The library that holds it is
+    `library(name)`."""
     if tabs["volpath"]:
         kernel = kernel.replace("path", "volpath")
-    return kernel + "_mesh" if tabs["has_accel"] else kernel
+    if tabs["has_accel"]:
+        kernel += "_mesh"
+    return kernel + SOBOL if tabs["sobol"] else kernel
+
+
+def library(name: str) -> str:
+    """The library (VARIANTS) that holds kernel instance `name`."""
+    return name.removesuffix(SOBOL)
 
 
 def _nvcc() -> str:
@@ -141,20 +159,22 @@ SCENE_ARGTYPES = ([_P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _I, _P, _P, _I,
                    _P]
                   + [_P, _P, _P, _I, _P, _P, _I]  # nodes .. n_sph_blocks
                   + [_P, _I, _P, _P, _P, _P]      # mesh_uv .. env_pdf
-                  + [_I] * 11   # scalars, world_root .. has_env
+                  + [_I] * 12   # scalars, world_root .. sobol
                   + [_P, _I])   # media, n_media
 ARGTYPES = SCENE_ARGTYPES + [_I, _I, _P, _P]   # seed, num_samples, out,
                                                 # stream
-WAVE_ARGTYPES = (SCENE_ARGTYPES + [_I] * 5   # seed, launch, k, n_run,
-                                             # n_pad
+WAVE_ARGTYPES = (SCENE_ARGTYPES + [_I] * 7   # seed, launch, k, n_run,
+                                             # n_pad, base, rem
                  + [_F] * 6 + [_P, _P])      # key bounds, state, stream
-GENESIS_ARGTYPES = [_P, _P, _P] + [_I] * 7 + [_P, _P]
+GENESIS_ARGTYPES = [_P, _P, _P] + [_I] * 8 + [_P, _P]
 PERMUTE_ARGTYPES = [_P, _P, _I, _P, _P]
+PROBE_ARGTYPES = [_P, _I, _P, _P]
 _ENTRY_POINTS = {
     "mega_path.cu": {"mega_path_launch": ARGTYPES},
     "wave.cu": {"wave_path_launch": WAVE_ARGTYPES,
                 "wave_genesis_launch": GENESIS_ARGTYPES,
-                "wave_permute_launch": PERMUTE_ARGTYPES}}
+                "wave_permute_launch": PERMUTE_ARGTYPES,
+                "sobol_probe_launch": PROBE_ARGTYPES}}
 
 
 def bind(lib: ctypes.CDLL, source: str) -> ctypes.CDLL:
@@ -243,7 +263,7 @@ def scene_args(tabs, beckmann: bool, device) -> tuple:
             int(tabs["world_root"]), int(tabs["has_tri_emitter"]),
             tabs["width"], n_pix, tabs["max_depth"], int(tabs["use_rr"]),
             int(beckmann), int(tabs["has_accel"]), int(tabs["block_seed"]),
-            int(tabs["has_tex"]), int(tabs["has_env"]),
+            int(tabs["has_tex"]), int(tabs["has_env"]), int(tabs["sobol"]),
             ptr("media"), tabs["media"].shape[0])
 
 
@@ -301,34 +321,39 @@ def mega_path(tabs, seed: int, num_samples: int,
                       dtype=torch.float32, device=device)
     args = launch_args(tabs, seed, num_samples, beckmann, out)
     name = variant(tabs)
-    _launched(name, _load(name).mega_path_launch(*args, _stream(device)))
+    _launched(name, _load(library(name)).mega_path_launch(
+        *args, _stream(device)))
     return out
 
 
 def wave_path(tabs, state: torch.Tensor, seed: int, launch: int, k: int,
-              n_run: int, kb, beckmann: bool = False,
+              n_run: int, kb, base: int, rem: int, beckmann: bool = False,
               stream: str = "mixed") -> torch.Tensor:
     """K2: advance every alive lane of the first `n_run` lanes of the wave
     `state` by `k` bounces in place, with the lane streams `stream` of
     launch `launch` of the wave (csrc/wave.cu, the scene's variant: the
-    path or the volpath bounce); `kb`
-    is wave.key_bounds. CPU tensors run `wave_step_ref`; CUDA tensors
-    take only the "mixed" streams. Returns `state`."""
+    path or the volpath bounce, and its Sobol instance under Sobol, whose
+    sample indices follow from the wave's base * spw + rem samples per
+    pixel); `kb` is wave.key_bounds. CPU tensors run `wave_step_ref`;
+    CUDA tensors take only the "mixed" streams. Returns `state`."""
     from .integrators import wave as WV
     device = state.device
     if not _cuda(device, "wave_path"):
         return WV.wave_step_ref(tabs, state, seed, launch, k, n_run, kb,
-                                beckmann, stream)
+                                base, rem, beckmann, stream)
     _card_stream(stream, "wave_path")
     _check(state, "state", torch.float32, (WV.W_NROWS, None), device)
     n_pad = state.shape[1]
     if n_pad % WV.W_TILE or not 0 <= n_run <= n_pad or len(kb) != 6:
         raise ValueError(f"wave_path: n_run {n_run}, n_pad {n_pad}, "
                          f"{len(kb)} key bounds")
+    if base < 0 or rem < 0:
+        raise ValueError(f"wave_path: base {base}, rem {rem}")
     name = variant(tabs, "wave_path")
-    _launched(name, _load(name).wave_path_launch(
+    _launched(name, _load(library(name)).wave_path_launch(
         *scene_args(tabs, beckmann, device), int(seed), int(launch), int(k),
-        int(n_run), n_pad, *kb, state.data_ptr(), _stream(device)))
+        int(n_run), n_pad, int(base), int(rem), *kb, state.data_ptr(),
+        _stream(device)))
     return state
 
 
@@ -337,14 +362,15 @@ def wave_genesis(tabs, pxf: torch.Tensor, pyf: torch.Tensor, n_real: int,
                  stream: str = "mixed") -> torch.Tensor:
     """K3: the (W_NROWS, n_pad) state of a fresh wave of base * spw + rem
     samples per pixel, over lanes whose pixel coordinates are `pxf` and
-    `pyf`, with the lane streams `stream` (csrc/wave.cu). CPU tensors run
-    `genesis_ref`; CUDA tensors take only the "mixed" streams."""
+    `pyf`, with the lane streams `stream` (csrc/wave.cu; its Sobol
+    instance under Sobol). CPU tensors run `genesis_ref`; CUDA tensors
+    take only the "mixed" streams."""
     from .integrators import wave as WV
     device = pxf.device
     width, npix = tabs["width"], tabs["width"] * tabs["height"]
     if not _cuda(device, "wave_genesis"):
         return WV.genesis_ref(tabs["cam_f"], pxf, pyf, width, npix, n_real,
-                              seed, base, rem, stream)
+                              seed, base, rem, stream, tabs["sobol"])
     _card_stream(stream, "wave_genesis")
     n_pad = pxf.shape[0]
     _check(tabs["cam"], "cam", torch.float32, (P.CAM_W,), device)
@@ -354,10 +380,11 @@ def wave_genesis(tabs, pxf: torch.Tensor, pyf: torch.Tensor, n_real: int,
         raise ValueError(f"wave_genesis: n_real {n_real}, n_pad {n_pad}")
     state = torch.empty((WV.W_NROWS, n_pad), dtype=torch.float32,
                         device=device)
-    _launched("wave_genesis", _load("wave_path").wave_genesis_launch(
+    name = "wave_genesis" + (SOBOL if tabs["sobol"] else "")
+    _launched(name, _load("wave_path").wave_genesis_launch(
         tabs["cam"].data_ptr(), pxf.data_ptr(), pyf.data_ptr(), width, npix,
-        int(n_real), n_pad, int(seed), int(base), int(rem), state.data_ptr(),
-        _stream(device)))
+        int(n_real), n_pad, int(seed), int(base), int(rem),
+        int(tabs["sobol"]), state.data_ptr(), _stream(device)))
     return state
 
 
@@ -378,4 +405,19 @@ def wave_permute(state: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
     _launched("wave_permute", _load("wave_path").wave_permute_launch(
         state.data_ptr(), perm.data_ptr(), n_pad, out.data_ptr(),
         _stream(device)))
+    return out
+
+
+def sobol_probe(x: torch.Tensor) -> torch.Tensor:
+    """The Sobol probe (csrc/wave.cu sobol_probe_kernel, the counterpart
+    of scripts/tpu_session_r3ac.py's Mosaic probes): the (7, n) int32
+    rows of ops/sobol.py `probe_ref` for the int32 inputs `x`. A CPU
+    tensor runs `probe_ref`."""
+    from .ops.sobol import probe_ref
+    if not _cuda(x.device, "sobol_probe"):
+        return probe_ref(x)
+    _check(x, "x", torch.int32, (None,), x.device)
+    out = torch.empty((7, x.shape[0]), dtype=torch.int32, device=x.device)
+    _launched("sobol_probe", _load("wave_path").sobol_probe_launch(
+        x.data_ptr(), x.shape[0], out.data_ptr(), _stream(x.device)))
     return out

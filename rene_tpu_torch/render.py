@@ -3,6 +3,9 @@
 Counterpart of rene_tpu/render.py `render` (:131) with `_render_pallas`
 (:316-408), for two engines under JAX's names:
 
+Both engines take the scene's sampler, `Sampler "sobol"` (the kernels'
+Sobol draws) or the independent one.
+
 * "pallas" (and "auto"): the megakernel (integrators/mega_path.py), its
   path body or, for `Integrator "volpath"`, its volpath body
   (integrators/volpath.py).
@@ -54,8 +57,8 @@ def render(scene, spp: int = DEFAULT_SPP, seed: int = 0, device="cuda",
         raise ValueError(f"engine {engine!r}: one of {ENGINES}")
     if engine == "xla":
         raise NotImplementedError(
-            "the XLA integrator is not in the port (ROADMAP Queue 3: the "
-            "XLA engine)")
+            "the XLA integrator is not in the port (ROADMAP Queue 1 item "
+            "4: the XLA engine)")
     device = torch.device(device)
     buffers_np, config = build_device_scene(scene)
     if engine == "wave":

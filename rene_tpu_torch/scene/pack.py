@@ -20,8 +20,9 @@ Counterpart of these parts of rene_tpu/integrators/pallas_path.py:
   transposes them into a lane-gather layout, `env_tab`, which a CUDA
   thread does not need);
 * `pallas_eligible` (:504-570) for what the port carries, as
-  `slice_supported`. The reference's texel caps (`MAX_IMG_TEXELS`
-  :364-365) are the size of the TPU's VMEM and are not carried over: the
+  `slice_supported`, under the independent and the Sobol sampler. The
+  reference's texel caps (`MAX_IMG_TEXELS` :364-365) are the size of the
+  TPU's VMEM and are not carried over: the
   port's atlas lies in device memory and is capped at 2^24 texels, where
   a texel offset stops being exact in a float32 table.
 
@@ -304,26 +305,21 @@ def split_spheres(buffers_np, config: RenderConfig):
 
 
 def slice_supported(buffers_np, config: RenderConfig) -> None:
-    """Raise NotImplementedError for a scene outside what the port
-    carries (slices K1a-K1e), naming the ROADMAP item that will carry
-    it, or that the reference's kernel does not take it either. The
-    tests are `pallas_eligible`'s (:504-570) without its VMEM texel caps:
-    path and volpath scenes, with or without media (the path body
-    ignores them)."""
-    def no(what, item):
-        raise NotImplementedError(
-            f"{what} is not in the port yet (ROADMAP Queue 2 {item})")
-
+    """Raise NotImplementedError for a scene outside what the port's
+    kernels carry (slices K1a-K1e and the Sobol sampler): the tests are
+    `pallas_eligible`'s (:504-570) without its VMEM texel caps: path and
+    volpath scenes, with or without media (the path body ignores them),
+    under either sampler. The reference renders what its kernels refuse
+    through its XLA integrator, which the port has not yet (ROADMAP
+    Queue 1 item 4)."""
     def never(what):
         raise NotImplementedError(
-            f"{what}: the path kernels do not evaluate it (the reference "
+            f"{what}: the path kernels do not take it (the reference "
             f"renders it through its XLA integrator, ROADMAP Queue 1 "
             f"item 4)")
 
     if config.integrator not in ("path", "volpath"):
         never(f"integrator {config.integrator!r}")
-    if getattr(config, "sampler", "independent") == "sobol":
-        no("the Sobol sampler", "K1a-sobol (Queue 1: Sobol)")
     if tex_kernel_desc(buffers_np,
                        int(buffers_np["background_texture"])) is None:
         never("a background texture that is no solid, imagemap, scale of "
@@ -340,21 +336,20 @@ def slice_supported(buffers_np, config: RenderConfig) -> None:
         never(f"an image atlas of {texels} texels (> {MAX_ATLAS_TEXELS})")
     imm, rest, _ = split_triangles(buffers_np, config)
     if imm.size > MAX_TRIS:
-        no(f"{imm.size} emissive triangles (> {MAX_TRIS})",
-           "K1c (big-mesh closest/any hit)")
+        never(f"{imm.size} emissive triangles (> {MAX_TRIS}, the cap of "
+              f"K1c's immediates)")
     if rest.size > MESH_MAX_TRIS:
-        no(f"a {rest.size}-triangle mesh (> {MESH_MAX_TRIS})",
-           "K1c (big-mesh closest/any hit)")
+        never(f"a {rest.size}-triangle mesh (> {MESH_MAX_TRIS}, K1c's cap)")
     imm_s, tbl_s = split_spheres(buffers_np, config)
     if imm_s.size > MAX_SPHERES:
-        no(f"{imm_s.size} emissive, textured or non-uniformly scaled "
-           f"spheres (> {MAX_SPHERES})", "K1d (sphere and light tables)")
+        never(f"{imm_s.size} emissive, textured or non-uniformly scaled "
+              f"spheres (> {MAX_SPHERES}, the cap of K1d's immediates)")
     if tbl_s.size > SPH_TABLE_MAX:
-        no(f"{tbl_s.size} table spheres (> {SPH_TABLE_MAX})",
-           "K1d (sphere and light tables)")
+        never(f"{tbl_s.size} table spheres (> {SPH_TABLE_MAX}, K1d's "
+              f"cap)")
     if config.num_lights > LIGHT_TABLE_MAX:
-        no(f"{config.num_lights} distant lights (> {LIGHT_TABLE_MAX})",
-           "K1d (sphere and light tables)")
+        never(f"{config.num_lights} distant lights (> {LIGHT_TABLE_MAX}, "
+              f"K1d's cap)")
 
 
 def _remap_rough(r: float) -> float:
@@ -694,6 +689,7 @@ class SceneTables:
     height: int
     max_depth: int
     volpath: bool            # the volpath integrator
+    sobol: bool              # `Sampler "sobol"`: the kernels' Sobol draws
     world_root: int          # root node of the world mesh, -1 if none
     bvh_depth: int           # deepest root-to-leaf path of any BVH
     max_leaf: int            # most triangles in one BVH leaf
@@ -864,6 +860,7 @@ def pack_tables(buffers_np, config: RenderConfig) -> SceneTables:
         env_pdf=f32(buffers_np["env_pdf"] if env else np.zeros((0, ENV_GW))),
         width=w, height=h, max_depth=max_depth_for(config),
         volpath=config.integrator == "volpath",
+        sobol=config.sampler == "sobol",
         **accel.pack_accel(buffers_np, rest, shared, tbl_s, inst_slot,
                            needs_uv=bool(rest.size or shared)
                            and mesh_needs_uv(buffers_np, mesh_idx)))

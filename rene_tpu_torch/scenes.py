@@ -82,6 +82,13 @@ on both sides:
   and the floor stay outside. `maxdepth 64` by default, the deep
   volumetric setting of the reference's TPU runs; `small=True` cuts the
   vase to 1,152 and the ball to 600 triangles for the CPU tests.
+
+The Sobol sampler: `with_sampler(src, sampler)` puts a `Sampler`
+directive (by default "sobol") at the head of any of these texts, in
+place of one it has; `sobol_test_scene(w, h)` is the reference's own
+Sobol test scene (tests/test_pallas.py:620-639: a matte sphere on a
+floor under an emissive sphere and a constant infinite light, maxdepth
+4, `Sampler "sobol"`), 16x16 there.
 """
 from __future__ import annotations
 
@@ -904,3 +911,35 @@ def textured(name: str, directory, width: int = 0, height: int = 0) -> str:
     its images written to `directory`."""
     write, (w, h) = TEXTURED[name]
     return write(directory, width or w, height or h)
+
+
+def with_sampler(src: str, sampler: str = "sobol") -> str:
+    """`src` with `Sampler "<sampler>"` at its head, in place of any
+    Sampler directive it has."""
+    lines = [ln for ln in src.splitlines()
+             if not ln.lstrip().startswith("Sampler ")]
+    return f'Sampler "{sampler}"\n' + "\n".join(lines) + "\n"
+
+
+def sobol_test_scene(width: int = 16, height: int = 16) -> str:
+    """The reference's Sobol test scene (tests/test_pallas.py:620-639)."""
+    return f"""
+LookAt 0 -4 1  0 0 0.5  0 0 1
+Camera "perspective" "float fov" 55
+Film "image" "integer xresolution" [{width}] "integer yresolution" [{height}]
+Sampler "sobol" "integer pixelsamples" [64]
+Integrator "path" "integer maxdepth" 4
+WorldBegin
+LightSource "infinite" "rgb L" [.5 .5 .55]
+AttributeBegin
+  AreaLightSource "diffuse" "rgb L" [10 8 6]
+  Material "matte" "rgb Kd" [0 0 0]
+  Translate 0 0 3
+  Shape "sphere" "float radius" 0.4
+AttributeEnd
+Material "matte" "rgb Kd" [.6 .45 .3]
+Shape "sphere" "float radius" 1
+Material "matte" "rgb Kd" [.5 .5 .5]
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+  "point P" [-6 6 -1.2  -6 -6 -1.2  6 -6 -1.2  6 6 -1.2]
+WorldEnd"""

@@ -280,12 +280,8 @@ _HEAD = 'Film "image" "integer xresolution" [8] "integer yresolution" [8]\n'
 @pytest.mark.parametrize("src,item", [
     (_HEAD + 'WorldBegin\nTexture "c" "spectrum" "checkerboard"\n'
      'Material "metal" "texture eta" "c"\n' + _QUAD + "\nWorldEnd", "K1b"),
-    ('Integrator "volpath"\nSampler "sobol"\n' + _HEAD + "WorldBegin\n"
-     + _QUAD + "\nWorldEnd", "sobol"),
     (_HEAD + "WorldBegin\n" + 'AreaLightSource "diffuse" "rgb L" [1 1 1]\n'
      + _grid(17) + "\nWorldEnd", "K1c"),
-    ('Sampler "sobol"\n' + _HEAD + "WorldBegin\n" + _QUAD + "\nWorldEnd",
-     "sobol"),
     (_HEAD + "WorldBegin\n" + "\n".join(
         f'AttributeBegin\nTranslate {i} 0 0\nScale 1 2 1\nShape "sphere" '
         f'"float radius" 0.1\nAttributeEnd' for i in range(65))
@@ -293,12 +289,28 @@ _HEAD = 'Film "image" "integer xresolution" [8] "integer yresolution" [8]\n'
     (_HEAD + "WorldBegin\n" + "\n".join(
         f'LightSource "distant" "point from" [1 0 {i + 2}]'
         for i in range(1025)) + "\n" + _QUAD + "\nWorldEnd", "K1d"),
-], ids=["textured", "volpath", "big_mesh", "sobol", "many_spheres",
-        "many_lights"])
+], ids=["textured", "big_mesh", "many_spheres", "many_lights"])
 def test_slice_supported_rejects(src, item):
     bn, cfg = _scene(src)
     with pytest.raises(NotImplementedError, match=item):
         P.slice_supported(bn, cfg)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        P.slice_supported(bn, cfg)
+
+
+@pytest.mark.parametrize("integrator", ["path", "volpath"])
+def test_slice_supported_accepts_sobol(integrator):
+    """`Sampler "sobol"` scenes, path and volpath, are taken, as the JAX
+    package's `pallas_eligible` takes them, and their tables carry the
+    sampler."""
+    from rene_tpu.integrators.pallas_path import pallas_eligible
+    src = (f'Integrator "{integrator}"\nSampler "sobol"\n' + _HEAD
+           + "WorldBegin\n" + _QUAD + "\nWorldEnd")
+    bn, cfg = _scene(src)
+    assert cfg.sampler == "sobol" and cfg.integrator == integrator
+    P.slice_supported(bn, cfg)
+    assert pallas_eligible(bn, cfg)
+    assert P.pack_tables(bn, cfg).sobol
 
 
 def test_slice_supported_accepts_main_path_scenes():

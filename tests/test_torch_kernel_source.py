@@ -43,17 +43,26 @@ static inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
 static inline float __uint_as_float(uint32_t u) {
   float f; memcpy(&f, &u, 4); return f;
 }
+static inline uint32_t __float_as_uint(float f) {
+  uint32_t u; memcpy(&u, &f, 4); return u;
+}
 #include "mega_lane.cuh"
 // the lanes run one after another, the path body or, where the includer
-// defines LANE_VOL true, the volpath body
+// defines LANE_VOL true, the volpath body; the Sobol instance where the
+// parameters ask for it
 #ifndef LANE_VOL
 #define LANE_VOL false
 #endif
-static int run_lanes(const Params& p, void*) {
+template <bool SOBOL>
+static void run_all(const Params& p) {
   for (int lane = 0; lane < p.n_pix; ++lane) {
-    if (p.has_accel) trace_lane<true, LANE_VOL>(p, lane);
-    else trace_lane<false, LANE_VOL>(p, lane);
+    if (p.has_accel) trace_lane<true, LANE_VOL, SOBOL>(p, lane);
+    else trace_lane<false, LANE_VOL, SOBOL>(p, lane);
   }
+}
+static int run_lanes(const Params& p, void*) {
+  if (p.sobol) run_all<true>(p);
+  else run_all<false>(p);
   return 0;
 }
 #include "launch.cuh"
@@ -289,22 +298,37 @@ static inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
 static inline float __uint_as_float(uint32_t u) {
   float f; memcpy(&f, &u, 4); return f;
 }
+static inline uint32_t __float_as_uint(float f) {
+  uint32_t u; memcpy(&u, &f, 4); return u;
+}
 #include "wave.cuh"
 // the lanes, and the slices, run one after another
 // the path bounce, or the volpath bounce where the includer defines
-// WAVE_VOL true
+// WAVE_VOL true; the Sobol instances where the parameters ask for them
 #ifndef WAVE_VOL
 #define WAVE_VOL false
 #endif
-static int run_wave(const WaveParams& p, void*) {
+template <bool SOBOL>
+static void run_all(const WaveParams& p) {
   for (int lane = 0; lane < p.n_run; ++lane) {
-    if (p.has_accel) wave_lane<true, WAVE_VOL>(p, lane);
-    else wave_lane<false, WAVE_VOL>(p, lane);
+    if (p.has_accel) wave_lane<true, WAVE_VOL, SOBOL>(p, lane);
+    else wave_lane<false, WAVE_VOL, SOBOL>(p, lane);
   }
+}
+static int run_wave(const WaveParams& p, void*) {
+  if (p.sobol) run_all<true>(p);
+  else run_all<false>(p);
   return 0;
 }
 static int run_genesis(const GenesisParams& g, void*) {
-  for (int lane = 0; lane < g.n_pad; ++lane) genesis_lane(g, lane);
+  for (int lane = 0; lane < g.n_pad; ++lane) {
+    if (g.sobol) genesis_lane<true>(g, lane);
+    else genesis_lane<false>(g, lane);
+  }
+  return 0;
+}
+static int run_probe(const int* in, int n, int* out, void*) {
+  for (int i = 0; i < n; ++i) probe_lane(in, n, i, out);
   return 0;
 }
 static int run_permute(const float* in, const int* perm, int n_pad,
@@ -337,15 +361,17 @@ def _host_wave_kernels(lib):
         assert lib.wave_genesis_launch(
             tabs["cam"].data_ptr(), pxf.data_ptr(), pyf.data_ptr(),
             tabs["width"], tabs["width"] * tabs["height"], n_real,
-            pxf.shape[0], seed, base, rem, state.data_ptr(), None) == 0
+            pxf.shape[0], seed, base, rem, int(tabs["sobol"]),
+            state.data_ptr(), None) == 0
         return state
 
-    def path(tabs, state, seed, launch, k, n_run, kb, beckmann=False,
-             stream="mixed"):
+    def path(tabs, state, seed, launch, k, n_run, kb, base, rem,
+             beckmann=False, stream="mixed"):
         assert stream == "mixed"
         assert lib.wave_path_launch(
             *kernels.scene_args(tabs, beckmann, state.device), seed, launch,
-            k, n_run, state.shape[1], *kb, state.data_ptr(), None) == 0
+            k, n_run, state.shape[1], base, rem, *kb, state.data_ptr(),
+            None) == 0
         return state
 
     def permute(state, perm):
@@ -381,15 +407,15 @@ def test_cuda_wave_code_matches_plain_version(wave_lib, monkeypatch, name,
     plain = WV.make_wave_fn(bn, cfg, "cpu", samples_per_wave=2)
     tabs, n_pad, kb = plain.tabs, plain.n_pad, plain.key_bounds
     s_h = genesis(tabs, plain.pxf, plain.pyf, plain.n_real, 21, 1, 0)
-    s_p, _ = plain.init_state(21, 2)
+    s_p = plain.init_state(21, 2)
     assert torch.equal(s_h[WV.WROW_ALIVE:], s_p[WV.WROW_ALIVE:])
     torch.testing.assert_close(s_h, s_p, rtol=0, atol=1e-6)
     perm = torch.from_numpy(
         np.random.default_rng(1).permutation(n_pad // WV.W_SLICE)
         .astype(np.int32))
     assert torch.equal(permute(s_p, perm), WV.permute_ref(s_p, perm))
-    o_h = path(tabs, s_p.clone(), 21, 1, 2, n_pad, kb)
-    o_p = WV.wave_step_ref(tabs, s_p.clone(), 21, 1, 2, n_pad, kb)
+    o_h = path(tabs, s_p.clone(), 21, 1, 2, n_pad, kb, 1, 0)
+    o_p = WV.wave_step_ref(tabs, s_p.clone(), 21, 1, 2, n_pad, kb, 1, 0)
     ok = ((o_h - o_p).abs() <= checks.RAD_ATOL
           + checks.RAD_RTOL * o_p.abs()).all(0)
     ok &= o_h[WV.WROW_KEY].view(torch.int32) == o_p[WV.WROW_KEY].view(
@@ -441,11 +467,11 @@ def test_cuda_volpath_wave_code_matches_plain_version(wave_vol_lib,
     tabs, n_pad, kb = plain.tabs, plain.n_pad, plain.key_bounds
     assert tabs["volpath"]
     s_h = genesis(tabs, plain.pxf, plain.pyf, plain.n_real, 21, 1, 0)
-    s_p, _ = plain.init_state(21, 2)
+    s_p = plain.init_state(21, 2)
     assert torch.equal(s_h[WV.WROW_ALIVE:], s_p[WV.WROW_ALIVE:])
     assert not s_h[WV.WROW_MED].any()
-    o_h = path(tabs, s_p.clone(), 21, 1, 2, n_pad, kb)
-    o_p = WV.wave_step_ref(tabs, s_p.clone(), 21, 1, 2, n_pad, kb)
+    o_h = path(tabs, s_p.clone(), 21, 1, 2, n_pad, kb, 1, 0)
+    o_p = WV.wave_step_ref(tabs, s_p.clone(), 21, 1, 2, n_pad, kb, 1, 0)
     assert o_p[WV.WROW_MED].any()
     ok = ((o_h - o_p).abs() <= checks.RAD_ATOL
           + checks.RAD_RTOL * o_p.abs()).all(0)
@@ -468,6 +494,144 @@ def test_cuda_volpath_wave_code_matches_plain_version(wave_vol_lib,
         assert a["aov_frac"] >= 0.995, (mode, a)
         assert a["mean_rel"] <= 1e-4, (mode, a)
         assert out["rays"] == ref["rays"], mode
+
+# -- the Sobol instances (K-sobol) --------------------------------------------
+def _sobol_buffers(name, directory, w, h):
+    """`Sampler "sobol"` forms of the inline scenes: the eight materials,
+    the mesh materials (the BVH walk, 32x32-block seeds), the env map
+    with an emitter (the upick pair), the fog scene and the small fog
+    mesh at maxdepth 8 (volpath)."""
+    src = {"materials": lambda: scenes.materials_scene(w, h),
+           "mesh_materials": lambda: scenes.mesh_materials_scene(w, h, 8, 6),
+           "env_emitter": lambda: scenes.textured("env_emitter", directory,
+                                                  w, h),
+           "fog": lambda: scenes.fog_scene(w, h),
+           "fog_mesh": lambda: scenes.fog_mesh_scene(w, h, maxdepth=8,
+                                                     small=True)}[name]()
+    return build_device_scene(create_scene(
+        parse_pbrt(scenes.with_sampler(src)), str(directory)))
+
+
+@pytest.mark.parametrize("name", ["materials", "mesh_materials",
+                                  "env_emitter", "fog", "fog_mesh"])
+def test_cuda_sobol_lane_code_matches_plain_version(host_lib, vol_lib,
+                                                    tmp_path, name):
+    """trace_lane<MESH, VOL, true> (the Sobol pairs of csrc/sobol.cuh, the
+    camera pair after the finished path is counted, the volpath bounce's
+    stream draws) against path_lanes_ref on Sobol tables at 64x32 x 4
+    spp, by the rule of the independent instances; the independent
+    instance of the same tables traces other paths."""
+    bn, cfg = _sobol_buffers(name, tmp_path, 64, 32)
+    tabs = M.device_tables(P.pack_tables(bn, cfg), "cpu")
+    assert tabs["sobol"] and tabs["volpath"] == name.startswith("fog")
+    lib = vol_lib if tabs["volpath"] else host_lib
+    seed, spp = 99, 4
+    out = torch.empty((P.OUT_ROWS, 64 * 32), dtype=torch.float32)
+    assert lib.mega_path_launch(*kernels.launch_args(tabs, seed, spp, False,
+                                                     out), None) == 0
+    ref = M.path_lanes_ref(tabs, seed, spp).numpy()
+    out = out.numpy()
+    a = checks.agreement(out, ref)
+    assert a["rad_frac"] >= 0.995, a
+    assert a["aov_frac"] >= 0.995, a
+    assert a["mean_rel"] <= 1e-4, a
+    assert out[9].sum() == ref[9].sum()
+    ind = torch.empty((P.OUT_ROWS, 64 * 32), dtype=torch.float32)
+    assert lib.mega_path_launch(*kernels.launch_args(
+        dict(tabs, sobol=False), seed, spp, False, ind), None) == 0
+    assert checks.agreement(ind.numpy(), ref)["rad_frac"] < 0.9
+
+
+@pytest.mark.parametrize("name", ["materials", "mesh_materials", "fog"])
+def test_cuda_sobol_wave_code_matches_plain_version(wave_lib, wave_vol_lib,
+                                                    monkeypatch, tmp_path,
+                                                    name):
+    """The Sobol instances of K3 and K2 (csrc/wave.cuh) against the plain
+    versions: K3 of a partial wave (3 samples of spw 4: base 0, rem 3) on
+    the lane rows bit for bit and the camera rays within 1e-6; one K2
+    launch of it lane by lane (>= 99.5% of lanes on every row, the key
+    row bit for bit); then whole 32x32 waves at spw 2 sorted by `gather`
+    and by `dma` through the g++ kernels against the plain runner."""
+    from rene_tpu_torch.integrators import wave as WV
+    bn, cfg = _sobol_buffers(name, tmp_path, 32, 32)
+    lib = wave_vol_lib if name == "fog" else wave_lib
+    genesis, path, permute = _host_wave_kernels(lib)
+    plain = WV.make_wave_fn(bn, cfg, "cpu", samples_per_wave=4)
+    tabs, n_pad, kb = plain.tabs, plain.n_pad, plain.key_bounds
+    assert tabs["sobol"]
+    s_h = genesis(tabs, plain.pxf, plain.pyf, plain.n_real, 21, 0, 3)
+    s_p = plain.init_state(21, 3)
+    assert torch.equal(s_h[WV.WROW_ALIVE:], s_p[WV.WROW_ALIVE:])
+    torch.testing.assert_close(s_h, s_p, rtol=0, atol=1e-6)
+    o_h = path(tabs, s_p.clone(), 21, 1, 2, n_pad, kb, 0, 3)
+    o_p = WV.wave_step_ref(tabs, s_p.clone(), 21, 1, 2, n_pad, kb, 0, 3)
+    ok = ((o_h - o_p).abs() <= checks.RAD_ATOL
+          + checks.RAD_RTOL * o_p.abs()).all(0)
+    ok &= o_h[WV.WROW_KEY].view(torch.int32) == o_p[WV.WROW_KEY].view(
+        torch.int32)
+    assert ok.double().mean() >= 0.995, ok.double().mean()
+
+    ref = WV.make_wave_fn(bn, cfg, "cpu", samples_per_wave=2)(21, 2)
+    for mode in ("gather", "dma"):
+        monkeypatch.setattr(kernels, "wave_genesis", genesis)
+        monkeypatch.setattr(kernels, "wave_path", path)
+        monkeypatch.setattr(kernels, "wave_permute", permute)
+        out = WV.make_wave_fn(bn, cfg, "cpu", samples_per_wave=2,
+                              sort_mode=mode)(21, 2)
+        monkeypatch.undo()
+        a = checks.agreement(*[np.concatenate(
+            [np.asarray(o[k]).T for k in ("radiance", "normal", "albedo")])
+            for o in (out, ref)])
+        assert a["rad_frac"] >= 0.995, (mode, a)
+        assert a["aov_frac"] >= 0.995, (mode, a)
+        assert a["mean_rel"] <= 1e-4, (mode, a)
+        assert out["rays"] == ref["rays"], mode
+
+
+@pytest.mark.parametrize("sobol", [False, True], ids=["independent",
+                                                      "sobol"])
+def test_cuda_k2_lanes_past_2_24_match_plain_version(wave_lib, sobol):
+    """K2 (csrc/wave.cuh, g++) on lanes 2^24 .. 2^24 + 2048 of a wave of
+    the 32x32 materials scene: the lane row's exact ids seed the streams
+    and, under Sobol, the sample indices (slot q = 16384); one launch of
+    two bounces lane by lane against wave_step_ref (>= 99.5% of lanes on
+    every row), and no two lanes trace the same path."""
+    from rene_tpu_torch.integrators import wave as WV
+    bn, cfg = _sobol_buffers("materials", "/tmp", 32, 32)
+    tabs = M.device_tables(P.pack_tables(bn, cfg), "cpu")
+    tabs["sobol"] = sobol
+    _, path, _ = _host_wave_kernels(wave_lib)
+    npix = 32 * 32
+    lanes = torch.arange(1 << 24, (1 << 24) + 2048)
+    pix = lanes % npix
+    pxf, pyf = (pix % 32).float(), (pix // 32).float()
+    state = WV.genesis_ref(tabs["cam_f"], pxf, pyf, 32, npix,
+                           (1 << 24) + 4096, 21, 1, 0, sobol=sobol,
+                           lanes=lanes)
+    assert torch.equal(WV.lane_ids(state), lanes)
+    kb = WV.key_bounds(*WV.scene_bounds(bn, cfg))
+    o_h = path(tabs, state.clone(), 21, 1, 2, 2048, kb, 1, 0)
+    o_p = WV.wave_step_ref(tabs, state.clone(), 21, 1, 2, 2048, kb, 1, 0)
+    ok = ((o_h - o_p).abs() <= checks.RAD_ATOL
+          + checks.RAD_RTOL * o_p.abs()).all(0)
+    assert ok.double().mean() >= 0.995, ok.double().mean()
+    # the two lanes of each pixel (q 16384 and 16385) draw other paths
+    d = o_p[WV.WROW_D:WV.WROW_D + 3]
+    assert ((d[:, :1024] - d[:, 1024:]).abs().amax(0) > 0).double().mean() \
+        > 0.9
+
+
+def test_cuda_sobol_probe_matches_plain_version(wave_lib):
+    """The Sobol probe (csrc/wave.cuh probe_lane) with g++ against
+    ops/sobol.py `probe_ref`, bit for bit, on 2^16 int32 words."""
+    from rene_tpu_torch.ops import sobol as SB
+    x = torch.from_numpy(np.random.default_rng(4).integers(
+        -2 ** 31, 2 ** 31, 1 << 16, dtype=np.int64).astype(np.int32))
+    out = torch.empty((7, x.numel()), dtype=torch.int32)
+    assert wave_lib.sobol_probe_launch(x.data_ptr(), x.numel(),
+                                       out.data_ptr(), None) == 0
+    assert torch.equal(out, SB.probe_ref(x))
+
 
 def test_launch_args_check_tables():
     bn, cfg = _buffers("cornell_box")

@@ -94,11 +94,11 @@ def test_kernels_on_card_match_plain_versions(name, tmp_path):
     checks.check_card(checks.agreement(out.cpu(), ref.cpu()),
                       f"{name} x 4 spp")
     run = WV.make_wave_fn(bn, cfg, "cuda", samples_per_wave=2)
-    s0, _ = run.init_state(5, 2)
+    s0 = run.init_state(5, 2)
     s_k = kernels.wave_path(run.tabs, s0.clone(), 5, 0, 2, run.n_pad,
-                            run.key_bounds)
+                            run.key_bounds, 1, 0)
     s_p = WV.wave_step_ref(run.tabs, s0.clone(), 5, 0, 2, run.n_pad,
-                           run.key_bounds)
+                           run.key_bounds, 1, 0)
     ok = ((s_k - s_p).abs() <= checks.RAD_ATOL
           + checks.RAD_RTOL * s_p.abs()).all(0)
     ok &= s_k[WV.WROW_KEY].view(torch.int32) == s_p[WV.WROW_KEY].view(

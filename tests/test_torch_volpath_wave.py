@@ -97,20 +97,20 @@ def test_sorted_volpath_waves_equal_unsorted(name):
 def test_medium_row_starts_in_vacuum_and_moves():
     """K3's plain version starts every lane in vacuum (row WROW_MED is
     0); after a launch some lanes are in the fog (medium 1); a `gather`
-    sort moves the row with its lane, and the lanes' int64 start
-    positions with them."""
+    sort moves the row with its lane, as it moves the lane ids."""
     bn, cfg = _buffers("fog")
     run = WV.make_wave_fn(bn, cfg, "cpu", samples_per_wave=2)
-    state, src = run.init_state(3, 2)
+    state = run.init_state(3, 2)
     assert not state[WV.WROW_MED].any()
-    run.kernel_step(2, state, 3, 0, run.n_pad // WV.W_TILE)
+    run.kernel_step(2, state, 3, 0, run.n_pad // WV.W_TILE, 2)
     med = state[WV.WROW_MED].clone()
     assert set(med.unique().tolist()) == {0.0, 1.0}
-    lane = state[WV.WROW_LANE].clone()
-    state, src = run.sort_prefix(state, src, run.n_pad)
-    moved = state[WV.WROW_LANE].long()
-    assert not torch.equal(moved, lane.long())
-    assert torch.equal(src, moved)
+    lane = WV.lane_ids(state)
+    assert torch.equal(lane, torch.arange(run.n_pad))
+    state = run.sort_prefix(state, run.n_pad)
+    moved = WV.lane_ids(state)
+    assert not torch.equal(moved, lane)
+    assert torch.equal(moved.sort().values, lane)
     assert torch.equal(state[WV.WROW_MED], med[moved])
 
 
@@ -126,11 +126,11 @@ def test_volpath_wave_kernels_on_card_match_plain_version(name):
     bn, cfg = _buffers(name)
     card = WV.make_wave_fn(bn, cfg, "cuda", samples_per_wave=4)
     plain = WV.make_wave_fn(bn, cfg, "cpu", samples_per_wave=4)
-    s_k, _ = card.init_state(11, 4)
-    s_p, _ = plain.init_state(11, 4)
+    s_k = card.init_state(11, 4)
+    s_p = plain.init_state(11, 4)
     before = dict(kernels.launches)
-    card.kernel_step(2, s_k, 11, 0, card.n_pad // WV.W_TILE)
-    plain.kernel_step(2, s_p, 11, 0, plain.n_pad // WV.W_TILE)
+    card.kernel_step(2, s_k, 11, 0, card.n_pad // WV.W_TILE, 4)
+    plain.kernel_step(2, s_p, 11, 0, plain.n_pad // WV.W_TILE, 4)
     torch.cuda.synchronize()
     variant = kernels.variant(card.tabs, "wave_path")
     assert variant.startswith("wave_volpath")

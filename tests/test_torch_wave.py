@@ -122,6 +122,21 @@ def _film(out):
                            for k in ("radiance", "normal", "albedo")])
 
 
+def _lane_row_as_jax(state):
+    """A port state with its lane-id row as the JAX kernels hold it, float
+    values (the port keeps the ids' int32 bits, exact past 2^24 lanes)."""
+    out = np.array(state, copy=True)
+    out[WV.WROW_LANE] = out[WV.WROW_LANE].view(np.int32).astype(np.float32)
+    return out
+
+
+def _lane_row_as_port(state):
+    """A JAX wave state with its lane-id row as the port holds it."""
+    out = np.array(state, copy=True)
+    out[WV.WROW_LANE] = out[WV.WROW_LANE].astype(np.int32).view(np.float32)
+    return out
+
+
 def test_state_layout_matches_jax():
     """The state rows of wave.py and csrc/layout.cuh are JAX's
     (pallas_path.py:148-181), so state rows compare one to one."""
@@ -167,8 +182,9 @@ def test_genesis_matches_jax(jax_wave, monkeypatch, name, spw, want):
     ref = np.asarray(jrun.init_state(jnp.int32(seed), jnp.int32(want))[0])
     port = _port(bn, cfg, spw, stream="jax")
     assert port.n_pad == jrun.n_pad
-    state, pix = port.init_state(seed, want)
-    state = state.numpy()
+    state = port.init_state(seed, want)
+    assert WV.lane_ids(state).tolist() == list(range(port.n_pad))
+    state = _lane_row_as_jax(state.numpy())
     assert state.shape == ref.shape == (WV.W_NROWS, port.n_pad)
     np.testing.assert_array_equal(state[INT_ROWS], ref[INT_ROWS])
     alive = ref[WV.WROW_ALIVE] > 0.5
@@ -182,7 +198,6 @@ def test_genesis_matches_jax(jax_wave, monkeypatch, name, spw, want):
     assert ((key != key_ref) & ~near0).sum() == 0
     assert (key_ref[~alive] == (WV.W_KEY_DEAD | WV.W_KEY_BIT)).all()
     assert not state[WV.W_SORT_ROWS:].any()
-    assert pix.tolist() == list(range(port.n_pad))
 
 
 @pytest.mark.parametrize("name", ["immediates", "materials"])
@@ -200,9 +215,11 @@ def test_wave_step_matches_jax(jax_wave, monkeypatch, name):
                                     jnp.int32(2))
     ref = np.asarray(ref)
     port = _port(bn, cfg, 2)
-    out = WV.wave_step_ref(port.tabs, torch.from_numpy(state0.copy()), seed,
-                           1, 2, port.n_pad, port.key_bounds,
-                           stream="jax").numpy()
+    out = WV.wave_step_ref(port.tabs,
+                           torch.from_numpy(_lane_row_as_port(state0)), seed,
+                           1, 2, port.n_pad, port.key_bounds, 1, 0,
+                           stream="jax")
+    out = _lane_row_as_jax(out.numpy())
     d = np.abs(out[FLOAT_ROWS].astype(np.float64) - ref[FLOAT_ROWS])
     lane_ok = (d <= checks.RAD_ATOL + checks.RAD_RTOL
                * np.abs(ref[FLOAT_ROWS])).all(0)
@@ -292,17 +309,22 @@ def test_partial_wave_and_run_dev():
 
 
 def test_gather_finish_order_is_exact_past_2_24_lanes():
-    """The `gather` finish puts each column back at the int64 lane
-    position the sorts carried with it (`unsort_lanes`), exact at any
-    wave size: past 2**24 lanes, where `auto_spw` can reach at 1280x720
-    and 19 spp, the float32 lane-id row rounds neighbouring ids to one
-    value and could not say where a lane started."""
+    """The `gather` finish puts each column back at the lane id that the
+    sorts carried with it in row WROW_LANE (`lane_ids`, `unsort_lanes`),
+    exact at any wave size: past 2**24 lanes, where `auto_spw` can reach
+    at 1280x720 and 19 spp, a float32 id would round neighbouring ids to
+    one value; the row's int32 bits do not."""
     n = (1 << 24) + 4 * WV.W_TILE
     src = torch.randperm(n, generator=torch.Generator().manual_seed(5))
     assert torch.unique(src.float()).numel() < n
+    state = torch.zeros((WV.WROW_LANE + 1, n))
+    state[WV.WROW_LANE] = src.int().view(torch.float32)
+    lane = WV.lane_ids(state)
+    assert torch.equal(lane, src)
     rows = torch.stack([src.int(), -src.int()])
     back = torch.arange(n, dtype=torch.int32)
-    assert torch.equal(WV.unsort_lanes(rows, src), torch.stack([back, -back]))
+    assert torch.equal(WV.unsort_lanes(rows, lane),
+                       torch.stack([back, -back]))
 
 
 def test_permute_ref_moves_slices():
@@ -329,7 +351,7 @@ def test_wrappers_run_plain_versions_on_cpu():
     bn, cfg = _buffers("immediates")
     port = _port(bn, cfg, 2)
     before = dict(kernels.launches)
-    s1, _ = port.init_state(4, 2)
+    s1 = port.init_state(4, 2)
     s2 = WV.genesis_ref(port.tabs["cam_f"], port.pxf, port.pyf,
                         cfg.film.xresolution,
                         cfg.film.xresolution * cfg.film.yresolution,
@@ -343,9 +365,9 @@ def test_wrappers_run_plain_versions_on_cpu():
     with pytest.raises(ValueError, match="stream"):
         _port(bn, cfg, 2, stream="philox")
     a = kernels.wave_path(port.tabs, s1.clone(), 4, 0, 1, port.n_pad,
-                          port.key_bounds)
+                          port.key_bounds, 1, 0)
     b = WV.wave_step_ref(port.tabs, s1.clone(), 4, 0, 1, port.n_pad,
-                         port.key_bounds)
+                         port.key_bounds, 1, 0)
     assert torch.equal(a, b)
     perm = torch.arange(port.n_pad // WV.W_SLICE, dtype=torch.int32)
     assert torch.equal(kernels.wave_permute(a, perm), a)
@@ -389,13 +411,13 @@ def test_wave_kernels_on_card_match_plain_version(name):
     bn, cfg = build_device_scene(create_scene(parse_pbrt(src), "/tmp"))
     card = WV.make_wave_fn(bn, cfg, "cuda", samples_per_wave=4)
     plain = WV.make_wave_fn(bn, cfg, "cpu", samples_per_wave=4)
-    s_k, _ = card.init_state(11, 4)
-    s_p, _ = plain.init_state(11, 4)
+    s_k = card.init_state(11, 4)
+    s_p = plain.init_state(11, 4)
     torch.testing.assert_close(s_k[INT_ROWS].cpu(), s_p[INT_ROWS])
     torch.testing.assert_close(s_k.cpu(), s_p, rtol=0, atol=1e-5)
     before = dict(kernels.launches)
-    card.kernel_step(1, s_k, 11, 0, card.n_pad // WV.W_TILE)
-    plain.kernel_step(1, s_p, 11, 0, plain.n_pad // WV.W_TILE)
+    card.kernel_step(1, s_k, 11, 0, card.n_pad // WV.W_TILE, 4)
+    plain.kernel_step(1, s_p, 11, 0, plain.n_pad // WV.W_TILE, 4)
     torch.cuda.synchronize()
     variant = kernels.variant(card.tabs, "wave_path")
     assert kernels.launches[variant] == before[variant] + 1
@@ -408,7 +430,7 @@ def test_wave_kernels_on_card_match_plain_version(name):
     # the JAX lane streams exist in the plain versions only
     with pytest.raises(ValueError, match="stream"):
         kernels.wave_path(card.tabs, s_k, 11, 1, 1, card.n_pad,
-                          card.key_bounds, stream="jax")
+                          card.key_bounds, 1, 0, stream="jax")
     with pytest.raises(ValueError, match="stream"):
         kernels.wave_genesis(card.tabs, card.pxf, card.pyf, card.n_real, 11,
                              1, 0, stream="jax")
