@@ -26,8 +26,9 @@ when either is missing or any check fails. Phases:
    at 1280x720 x 16 spp with normal and albedo AOVs;
 8. that path's launch shape against the plain version: one 1-spp chunk
    at 1280x720 with the CLI's chunk seed, the plain version on a strided
-   sample of ~131k of its lanes, both sides at maxdepth 6; then timing of the kernel (CUDA events)
-   over the whole film;
+   sample of ~131k of its lanes, both sides at maxdepth 6, in one plain
+   walk with those of its launches at pack 4 and 16 (phase 25); then
+   timing of the kernel (CUDA events) over the whole film;
 9. the wave kernels' registers and spills (ptxas, from the phase-2 build):
    K2 in both variants, K3 and K4;
 10. whole waves of the wave kernels (K3, K2 and, sorted by `dma`, K4)
@@ -85,9 +86,10 @@ when either is missing or any check fails. Phases:
 18. that path's 1-spp megakernel launch and its first volpath K2 launch,
     and the same two of `fog_scene`, over the whole film or state, timed
     at their scenes' depth and held against the plain version on a
-    strided sample of ~131k lanes, both sides cut to maxdepth 8; the real
-    ray casts per nominal ray of the main path, counted by the plain
-    version on that sample;
+    strided sample of ~131k lanes, both sides cut to maxdepth 8 (the fog
+    mesh's in one plain walk with those of its launch at pack 4, phase 25);
+    the real ray casts per nominal ray of the main path, counted by the
+    plain version on that sample;
 19. the Sobol probe (P-r3ac, `sobol_probe`): one launch on 2^22 int32
     inputs, its path, then bit for bit against its plain version, timed;
 20. the Sobol instances (`Sampler "sobol"`) against their plain versions on
@@ -106,7 +108,9 @@ when either is missing or any check fails. Phases:
     plain version on ~131k sampled lanes, and the first Sobol K2 launch of
     each of the four wave main paths through `k2_launch`; each timed
     against its independent instance on the same input, in turns, as are
-    the Sobol 1-spp launches of the big mesh, fog and fog mesh;
+    the Sobol 1-spp launches of the big mesh, fog and fog mesh, held to
+    plain on ~131k sampled lanes at maxdepth 6, 8 and 8 (the mesh scenes'
+    in one plain walk with those of their packed launches, phase 25);
 23. the sampler's worth: the reference's Sobol test scene at 256x256,
     Sobol at 32 spp against independent at 32 spp, mean absolute pixel
     error against a 4096-spp independent render (err_s < 0.85 err_i, the
@@ -116,10 +120,32 @@ when either is missing or any check fails. Phases:
     independent and Sobol; lanes 2^24 .. 2^24 + 4096 read back: the lane
     row equal to each lane's index, the initial streams pairwise distinct,
     the other integer rows (`want` among them) and the camera rays (which
-    follow the Sobol sample index) equal to the plain version's.
+    follow the Sobol sample index) equal to the plain version's;
+25. sample-in-tile packing (K1f): the big mesh's launches at 1280x720 and
+    one sample per lane at pack 4 and 16, independent and Sobol, held
+    against the plain version on ~131k sampled (pixel, slot) lanes of each
+    at maxdepth 6, the fog mesh's at pack 4, independent and Sobol, at
+    maxdepth 8 (in phases 8, 18 and 22, in the plain walk of the same
+    instance's pack-1 launch), each timed here at its scene's depth; the
+    packed main paths through the CLI with RENE_MEGA_PACK (the
+    big mesh at pack 16 and the fog mesh at pack 4, each independent and
+    with `--sampler sobol`, one launch for 16 spp and four), the big
+    mesh's image mean within 1e-2 relative of phase 7's pack-1 render and
+    its first-hit normals within 0.05 mean absolute difference (the
+    reference's checks, tests/test_pallas_cluster.py:603-630); then the
+    pack sweep of `rene_tpu_torch.probe.pack_sweep` on four films (the big
+    mesh at 1280x720 and 160x90, the fog mesh at 1280x720 and 320x180),
+    packs 1 / 4 / 16 at 16 spp, CUDA events and render() (`python -m
+    rene_tpu_torch.probe --pack-sweep` adds a film and 64 spp);
+26. the Mosaic probes: P-r3n (`rowslice_probe`) bit for bit for its three
+    modes, P-r3w (`mxu_probe` hi, def, vpu at 200 reps per launch) within
+    1e-5 of |B| |R| of their plain versions and bit for bit,
+    through `rene_tpu_torch.probes`' run; their plain versions timed; the
+    bounds at the card's TF32, BF16 and FP32 rates.
 
 The per-pixel rule and the card's limits are rene_tpu_torch.checks'. Each
-path run (phases 4, 7, 11, 14, 17, 19, 21 and the `dma` wave of 12) starts
+path run (phases 4, 7, 11, 14, 17, 19, 21, 25, 26 and the `dma` wave of 12)
+starts
 with every launch count set to 0 and reads them just after; comparison
 launches are not counted. The plain versions run on the card, for the
 waves of phases 10, 13, 16 and 20 through rene_tpu_torch.kernels'
@@ -148,7 +174,12 @@ phase 16 runs the small fog mesh at maxdepth 8 (through the megakernel
 at 2 spp), and phase 18 compares the fog mesh's launch at maxdepth 8,
 both sides, and times it at 64: the volpath bounces past depth 8 are
 held to the reference only by the CPU tests against the JAX kernels
-and, on the card, by the two engines' means of phase 17.
+and, on the card, by the two engines' means of phase 17; phase 22
+holds the Sobol big mesh's launch to plain at maxdepth 6 and the fog's
+and fog mesh's at 8, as phases 8 and 18 do. The sampled lanes of one
+instance's launches at several packs (phase 25's) go through the plain
+walk of its pack-1 launch, whose time goes with its bounces more than
+with its lanes.
 The seconds of every phase are logged.
 
 Outputs go to chiprun_out/smoke/ of the checkout, the textured scenes and
@@ -172,6 +203,8 @@ MAIN_SPP, MAIN_SEED = 64, 1
 MESH_SPP, MESH_W, MESH_H = 16, 1280, 720
 DEEP_DEPTH = 50
 HBM_BPS, FP32_OPS = 3.35e12, 67e12
+# tensor-core peaks (NVIDIA's H100 SXM data sheet, dense): TF32, BF16
+TF32_OPS, BF16_OPS = 495e12, 989e12
 # FP32 operations of one ray-cast test, counted in the CUDA code: the
 # immediate triangle's plane test (intersect.cuh trace_closest; its three
 # side tests run only where that passes), an immediate sphere
@@ -199,7 +232,8 @@ K2_ROWS = 49
 K2_VOL_ROWS = K2_ROWS + 2
 # the volpath main path: maxdepth of its plain comparisons (phases 16 and
 # 18), spp of the small volpath scenes (phase 16) and of the small fog
-# mesh's megakernel comparison, whose plain walk took 96.5 s at 4 spp
+# mesh's megakernel comparison, whose plain walk took 96.5 s at 4 spp and
+# 50.5 s at 2
 VOL_CHECK_DEPTH = 8
 VOL_SPP = 4
 VOL_MESH_SPP = 2
@@ -216,6 +250,13 @@ SOBOL_ERR_FACTOR = 0.85
 # pixel (5000 spp), and the lanes read back
 LANES24_SPW = 24
 LANES24 = ((1 << 24), (1 << 24) + 4096)
+# the packs beside 1 at which the mesh builds' launches are held to plain
+# (path, volpath): in the plain walk of their pack-1 launch (phases 8, 18
+# and 22), timed in phase 25
+PATH_PACKS, VOL_PACKS = (4, 16), (4,)
+# the films of phase 25's pack sweep (at 16 spp)
+SWEEP_FILMS = (("big_mesh", 1280, 720), ("big_mesh", 160, 90),
+               ("fog_mesh", 1280, 720), ("fog_mesh", 320, 180))
 
 
 def log(msg):
@@ -314,10 +355,10 @@ def cli_path(name, src, spp, size, what, engine="auto", seed=MAIN_SEED,
     return scene_path, launches, {"rate": rate, "mean": means[f"{tag}.png"]}
 
 
-def bound(n_bytes, ops):
+def bound(n_bytes, ops, rate=FP32_OPS):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    FP32 operations over the FP32 peak."""
-    t_b, t_o = n_bytes / HBM_BPS * 1e3, ops / FP32_OPS * 1e3
+    operations over their peak `rate` (by default FP32's)."""
+    t_b, t_o = n_bytes / HBM_BPS * 1e3, ops / rate * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
@@ -484,31 +525,73 @@ def main() -> int:
     log(f"build: {time.time() - t0:.1f} s -> "
         + ", ".join(os.path.relpath(so, ROOT) for so in sos.values()))
 
-    def compare(tabs, seed, spp, what, pix=None):
+    def compare(tabs, seed, spp, what, lanes=None):
         """The kernel and its plain version on the same tables and seed,
-        held to the card's limits; the plain version on the pixels `pix`
-        alone when given. Returns the agreement, with the plain version's
-        seconds and its ray-cast tests and texel fetches per ray."""
+        held to the card's limits; the plain version on the lane ids
+        `lanes` alone when given. Returns the
+        agreement, with the plain version's seconds and its ray-cast tests
+        and texel fetches per ray."""
         out_k = kernels.mega_path(tabs, seed, spp)
         torch.cuda.synchronize()
         reset_counts()
         t = time.time()
-        out_p = M.path_lanes_ref(tabs, seed, spp, pix=pix)
+        out_p = M.path_lanes_ref(tabs, seed, spp, lanes=lanes)
         torch.cuda.synchronize()
         plain_s = time.time() - t
         if not bool(torch.isfinite(out_k).all()):
             raise RuntimeError(f"{what}: kernel output is not finite")
-        if pix is not None:
-            out_k = out_k.index_select(1, pix)
+        if lanes is not None:
+            out_k = out_k.index_select(1, lanes)
         a = checks.agreement(out_k, out_p)
         log(f"kernel vs plain ({what}, seed {seed}, "
-            + (f"{pix.numel()} sampled lanes, " if pix is not None else "")
+            + (f"{lanes.numel()} sampled lanes, " if lanes is not None
+               else "")
             + f"plain {plain_s:.1f} s): " + json.dumps(a))
         checks.check_card(a, what)
         a["plain_s"] = plain_s
         # the plain side's counts per ray of its own
         a["tests"] = {k: v / a["rays_ref"] for k, v in plain_counts().items()}
         return a
+
+    def compare_packs(tabs, seed, what, packs):
+        """The kernel's one-sample launches at each of `packs` held to the
+        card's limits against the plain version on a strided sample of
+        ~SAMPLE_LANES (pixel, slot) lanes of each, the samples of all the
+        packs walked at once. Returns {pack: agreement}, each with the
+        walk's seconds and its ray-cast tests per ray."""
+        sets = []
+        for p in packs:
+            n_l = tabs["width"] * tabs["height"] * p
+            lanes = torch.arange(0, n_l, max(1, n_l // SAMPLE_LANES),
+                                 device=dev)
+            out = kernels.mega_path(tabs, seed, 1, pack=p)
+            if not bool(torch.isfinite(out).all()):
+                raise RuntimeError(f"{what}, pack {p}: kernel output is "
+                                   f"not finite")
+            sets.append((p, lanes, out.index_select(1, lanes)))
+            del out
+        torch.cuda.synchronize()
+        reset_counts()
+        t = time.time()
+        ref = M.path_lanes_ref(
+            tabs, seed, 1, lanes=torch.cat([l for _, l, _ in sets]),
+            pack=torch.cat([torch.full_like(l, p) for p, l, _ in sets]))
+        torch.cuda.synchronize()
+        plain_s = time.time() - t
+        per_ray = {k: v / float(ref[9].sum(dtype=torch.float64))
+                   for k, v in plain_counts().items()}
+        res, i = {}, 0
+        for p, lanes, out_k in sets:
+            a = checks.agreement(out_k, ref[:, i:i + lanes.numel()])
+            i += lanes.numel()
+            log(f"kernel vs plain ({what}, pack {p}, seed {seed}, "
+                f"{lanes.numel()} sampled lanes; one plain walk of "
+                f"{ref.shape[1]} lanes at packs {list(packs)}, {plain_s:.1f}"
+                f" s): " + json.dumps(a))
+            checks.check_card(a, f"{what}, pack {p}")
+            res[p] = dict(a, plain_s=plain_s, tests=per_ray,
+                          sampled=lanes.numel())
+        return res
 
     def time_ms(fn, reps):
         fn()
@@ -527,14 +610,15 @@ def main() -> int:
         return int(np.random.default_rng(seed).integers(
             0, 2 ** 31, dtype=np.int32))
 
-    def mega_bound(tabs, per_ray=None):
-        """Bound of one 1-spp megakernel launch over the film of `tabs`;
-        `per_ray` are the plain walk's tests and texels per ray, scaled
-        here by the rays of the launch."""
-        rays = float(kernels.mega_path(tabs, 11, 1)[9].sum())
+    def mega_bound(tabs, per_ray=None, pack=1):
+        """Bound of one megakernel launch of one sample per lane over the
+        film of `tabs` at `pack` slots per pixel; `per_ray` are the plain
+        walk's tests and texels per ray, scaled here by the rays of the
+        launch."""
+        rays = float(kernels.mega_path(tabs, 11, 1, pack=pack)[9].sum())
         tests = {k: v * rays for k, v in (per_ray or {}).items()}
-        n_pix = tabs["width"] * tabs["height"]
-        return bound(moved_bytes(tabs, tests) + 10 * 4 * n_pix,
+        n_lanes = tabs["width"] * tabs["height"] * pack
+        return bound(moved_bytes(tabs, tests) + 10 * 4 * n_lanes,
                      cast_ops(tabs, rays, tests))
 
     def k2_launch(run, seed, step, what):
@@ -654,15 +738,19 @@ def main() -> int:
         f"{tabs['bvh_depth']}")
     n_pix = MESH_W * MESH_H
     pix = torch.arange(0, n_pix, max(1, n_pix // SAMPLE_LANES), device=dev)
-    a_big = compare(dict(tabs, max_depth=BIG_MESH_CHECK_DEPTH),
-                    chunk_seed(), 1, f"big mesh {MESH_W}x{MESH_H} x 1 spp, "
-                    f"maxdepth {BIG_MESH_CHECK_DEPTH}", pix=pix)
+    # with the packed launches of phase 25, in one plain walk
+    k1f_checks = {"mega_path_mesh": compare_packs(
+        dict(tabs, max_depth=BIG_MESH_CHECK_DEPTH), chunk_seed(),
+        f"big mesh {MESH_W}x{MESH_H} x 1 sample per lane, maxdepth "
+        f"{BIG_MESH_CHECK_DEPTH}", (1,) + PATH_PACKS)}
+    a_big = k1f_checks["mega_path_mesh"].pop(1)
     mesh_ms = time_ms(lambda r=0: kernels.mega_path(tabs, 11 + r, 1), 10)
     mesh_plain_ms = a_big["plain_s"] * 1e3
     mesh_bound = mega_bound(tabs, a_big["tests"])
     log(f"timing (big mesh {MESH_W}x{MESH_H}, 1 spp): kernel {mesh_ms:.3f} "
         f"ms, plain {mesh_plain_ms:.1f} ms on {pix.numel()} sampled lanes "
-        f"at maxdepth {BIG_MESH_CHECK_DEPTH}, bound {mesh_bound[0]:.4f} ms "
+        f"and those of packs {list(PATH_PACKS)} at maxdepth "
+        f"{BIG_MESH_CHECK_DEPTH}, bound {mesh_bound[0]:.4f} ms "
         f"({mesh_bound[1]}; plain walk tests per ray "
         f"{json.dumps(a_big['tests'])}) "
         f"[{card}]")
@@ -937,7 +1025,8 @@ def main() -> int:
         f" MB), {tabs['mesh_uv'].shape[0]} uv rows, has_env "
         f"{tabs['has_env']}")
     a_texm = compare(tabs, chunk_seed(), 1,
-                     f"textured mesh {MESH_W}x{MESH_H} x 1 spp", pix=pix)
+                     f"textured mesh {MESH_W}x{MESH_H} x 1 spp",
+                     lanes=pix)
     texm_ms = time_ms(lambda r=0: kernels.mega_path(tabs, 11 + r, 1), 10)
     texm_bound = mega_bound(tabs, a_texm["tests"])
     log(f"timing (textured mesh {MESH_W}x{MESH_H}, 1 spp): kernel "
@@ -1068,9 +1157,15 @@ def main() -> int:
     # mesh and of the fog scene vs plain on sampled lanes, timed
     def vol_launch(path, what):
         tabs = tables_for(path, dev)
-        a = compare(dict(tabs, max_depth=VOL_CHECK_DEPTH), chunk_seed(), 1,
-                    f"{what} {MESH_W}x{MESH_H} x 1 spp, maxdepth "
-                    f"{VOL_CHECK_DEPTH}", pix=pix)
+        # a cluster-mode scene with the packed launches of phase 25
+        res = compare_packs(
+            dict(tabs, max_depth=VOL_CHECK_DEPTH), chunk_seed(),
+            f"{what} {MESH_W}x{MESH_H} x 1 sample per lane, maxdepth "
+            f"{VOL_CHECK_DEPTH}", (1,) + (VOL_PACKS if tabs["block_seed"]
+                                          else ()))
+        a = res.pop(1)
+        if res:
+            k1f_checks[kernels.variant(tabs)] = res
         ms = time_ms(lambda r=0: kernels.mega_path(tabs, 11 + r, 1), 10)
         rays = float(kernels.mega_path(tabs, 11, 1)[9].sum())
         bnd = mega_bound(tabs, a["tests"])
@@ -1079,8 +1174,9 @@ def main() -> int:
         log(f"timing ({what} {MESH_W}x{MESH_H}, 1 spp, maxdepth "
             f"{tabs['max_depth']}): kernel {ms:.3f} ms, {rays:.0f} nominal "
             f"rays, {ms * 1e6 / rays:.3f} ns per nominal ray; plain "
-            f"{a['plain_s'] * 1e3:.1f} ms on {pix.numel()} sampled lanes at "
-            f"maxdepth {VOL_CHECK_DEPTH}: real casts per nominal ray "
+            f"{a['plain_s'] * 1e3:.1f} ms on {pix.numel()} sampled lanes (and "
+            f"those of its packed launches) at maxdepth {VOL_CHECK_DEPTH}: "
+            f"real casts per nominal ray "
             f"{casts:.3f} ({json.dumps(a['tests'])}); bound {bnd[0]:.4f} ms "
             f"({bnd[1]}) [{card}]")
         return {"ms": ms, "plain_ms": a["plain_s"] * 1e3, "bound": bnd,
@@ -1239,7 +1335,8 @@ def main() -> int:
     # Cornell box, the big mesh, the fog and the fog mesh, and the first
     # Sobol K2 launch of each wave main path, held against the plain
     # versions on ~131k sampled lanes (the mesh and volpath megakernel
-    # launches at the maxdepth of phases 8 and 18) and timed against their
+    # launches at the maxdepth of phases 8 and 18, the mesh scenes' in
+    # phase 25) and timed against their
     # independent forms on the same inputs, in turns (independent, Sobol,
     # Sobol, independent)
     def turns(fn_ind, fn_sob, reps):
@@ -1251,7 +1348,7 @@ def main() -> int:
     n_c = 1024 * 1024
     pix_c = torch.arange(0, n_c, max(1, n_c // SAMPLE_LANES), device=dev)
     a_cs = compare(tabs_cs, chunk_seed(), 1, "sobol cornell 1024x1024 x 1 "
-                   "spp", pix=pix_c)
+                   "spp", lanes=pix_c)
     s_ms, i_ms = turns(lambda r=0: kernels.mega_path(tabs_c, 11 + r, 1),
                        lambda r=0: kernels.mega_path(tabs_cs, 11 + r, 1), 20)
     cs_plain_ms = time_ms(lambda r=0: M.path_lanes_ref(tabs_cs, 11 + r, 1), 2)
@@ -1298,26 +1395,36 @@ def main() -> int:
                                    f"{run.tabs['height']} x spw "
                                    f"{run.samples_per_wave}")
         if mega:
-            # the megakernel's 1-spp launch of the same tables
+            # the megakernel's 1-spp launch of the same tables, on a
+            # cluster-mode scene with the packed launches of phase 25 in
+            # one plain walk
             tabs = run.tabs
             tabs_i = dict(tabs, sobol=False)
-            depth = (VOL_CHECK_DEPTH if tabs["volpath"]
-                     else BIG_MESH_CHECK_DEPTH)
-            a_m = compare(dict(tabs, max_depth=depth), chunk_seed(), 1,
-                          f"sobol {name} {MESH_W}x{MESH_H} x 1 spp, maxdepth "
-                          f"{depth}", pix=pix)
+            depth = VOL_CHECK_DEPTH if tabs["volpath"] \
+                else BIG_MESH_CHECK_DEPTH
+            packs = (VOL_PACKS if tabs["volpath"] else PATH_PACKS) \
+                if tabs["block_seed"] else ()
+            minst = kernels.variant(tabs)
+            res = compare_packs(dict(tabs, max_depth=depth), chunk_seed(),
+                                f"sobol {name} {MESH_W}x{MESH_H} x 1 sample "
+                                f"per lane, maxdepth {depth}", (1,) + packs)
+            a_m = res.pop(1)
+            if res:
+                k1f_checks[minst] = res
             reps = 5 if tabs["volpath"] and tabs["has_accel"] else 10
             s_t, i_t = turns(
                 lambda r=0: kernels.mega_path(tabs_i, 11 + r, 1),
                 lambda r=0: kernels.mega_path(tabs, 11 + r, 1), reps)
-            minst = kernels.variant(tabs)
             mega_s[minst] = {"ms": s_t, "ind_ms": i_t,
                              "plain_ms": a_m["plain_s"] * 1e3,
                              "err": a_m["max_abs"],
                              "bound": mega_bound(tabs, a_m["tests"]),
                              "shape": f"{name} {MESH_W}x{MESH_H} x 1 spp",
                              "plain_at": f"{pix.numel()} sampled lanes at "
-                                         f"maxdepth {depth}"}
+                                         f"maxdepth {depth}"
+                                         + (f", in one walk with those of "
+                                            f"packs {list(packs)}" if packs
+                                            else "")}
             log(f"  1-spp megakernel launch ({minst}): {s_t:.3f} ms, "
                 f"independent {i_t:.3f} ms (x{s_t / i_t:.3f}) [{card}]")
         del run
@@ -1401,6 +1508,140 @@ def main() -> int:
         f"{k3_s['independent']['ms']:.3f} ms [{card}]")
     phase_done(24)
 
+    # 25. sample-in-tile packing (K1f): the mesh builds' packed launches,
+    # independent and Sobol, held to their plain versions in phases 8, 18
+    # and 22, timed; the packed main paths through the CLI with
+    # RENE_MEGA_PACK; the pack sweep (rene_tpu_torch.probe.pack_sweep)
+    from rene_tpu_torch import probe as PB
+    from rene_tpu_torch.utils.film import read_png
+    big_path = os.path.join(OUT_DIR, "big_mesh.pbrt")
+    tabs_b = tables_for(big_path, dev)
+    tabs_f = tables_for(fog_path, dev)
+    k1f = {}
+    for inst, res in k1f_checks.items():
+        t = dict(tabs_f if "volpath" in inst else tabs_b,
+                 sobol=inst.endswith(S_))
+        depth = VOL_CHECK_DEPTH if t["volpath"] else BIG_MESH_CHECK_DEPTH
+        for pack, a in res.items():
+            bnd = mega_bound(t, a["tests"], pack)
+            reps = 3 if t["volpath"] else 5
+            ms = time_ms(lambda r=0: kernels.mega_path(t, 11 + r, 1,
+                                                       pack=pack), reps)
+            k1f.setdefault(inst, []).append(
+                {"pack": pack, "ms": ms, "plain_ms": a["plain_s"] * 1e3,
+                 "bound": bnd, "err": a["max_abs"], "sampled": a["sampled"],
+                 "depth": depth, "packs": [1] + list(res)})
+            log(f"timing ({inst} pack {pack} at the scene's maxdepth "
+                f"{t['max_depth']}: {pack} spp delivered): kernel {ms:.3f} "
+                f"ms, plain {a['plain_s'] * 1e3:.1f} ms for its walk at "
+                f"maxdepth {depth} with pack 1, bound {bnd[0]:.4f} ms "
+                f"({bnd[1]}) [{card}]")
+    del tabs_b, tabs_f
+
+    big_src = scenes.big_mesh_scene(MESH_W, MESH_H)
+    l_pack = {}
+    for name, src, pack, sampler, inst in (
+            ("big_mesh_pack16", big_src, 16, "auto", "mega_path_mesh"),
+            ("big_mesh_pack16", None, 16, "sobol", "mega_path_mesh" + S_),
+            ("fog_mesh_pack4", fog_src, 4, "auto", "mega_volpath_mesh"),
+            ("fog_mesh_pack4", None, 4, "sobol", "mega_volpath_mesh" + S_)):
+        with PB.mega_pack(pack):
+            _, l_p, r_p = cli_path(
+                name, src, MESH_SPP, (MESH_W, MESH_H),
+                f"{name} {MESH_W}x{MESH_H}, RENE_MEGA_PACK={pack}",
+                engine="pallas", sampler=sampler)
+        # one launch: the chunk loop runs MESH_SPP // pack per-lane samples
+        if l_p[inst] != 1 or sum(l_p.values()) != 1:
+            raise RuntimeError(f"{name} ({sampler}) launched {l_p}, want one "
+                               f"of {inst}")
+        l_pack[inst] = l_p[inst]
+        if name.startswith("big_mesh") and sampler == "auto":
+            # the reference's statistical checks of a packed render
+            # (tests/test_pallas_cluster.py:603-630): the streams differ
+            # by design
+            n1, n16 = (read_png(os.path.join(OUT_DIR, f"{n}_pallas_"
+                                             f"{MAIN_SEED}_normal.png"))
+                       for n in ("big_mesh", name))
+            d_n = float(np.abs(n1.astype(np.float64) - n16).mean()) / 128.0
+            d_m = abs(r_p["mean"] - r_big["mean"]) / r_big["mean"]
+            log(f"packed vs pack-1 big mesh render: image mean "
+                f"{r_p['mean']:.4f} vs {r_big['mean']:.4f} (relative "
+                f"{d_m:.3e}, limit 1e-2), first-hit normal mean abs "
+                f"difference {d_n:.4f} (limit 0.05); Mrays/s {r_p['rate']:.1f}"
+                f" vs {r_big['rate']:.1f} [{card}]")
+            if not (d_m <= 1e-2 and d_n < 0.05):
+                raise RuntimeError("the packed render differs from pack 1")
+    sweep = PB.pack_sweep(dev, SWEEP_FILMS, PB.PACK_RUNS[:1])
+    for row in sweep:
+        log(f"pack sweep: {row['scene']} {row['film'][0]}x{row['film'][1]} "
+            f"{row['spp']} spp pack {row['pack']} ({row['resident_sets']:.2f}"
+            f" resident sets): kernel {row['kernel_ms']:.3f} ms, "
+            f"{row['kernel_mrays_s']:.1f} Mrays/s; "
+            + (f"render {row['render_mrays_s']:.1f} Mrays/s, "
+               f"{row['render_launches']} launches; "
+               if "render_mrays_s" in row else "")
+            + f"auto at this spp: pack "
+            f"{M.auto_pack(row['film'][0] * row['film'][1], row['spp'])} "
+            f"[{card}]")
+    with open(os.path.join(OUT_DIR, "pack_sweep.json"), "w") as f:
+        json.dump(sweep, f)
+    phase_done(25)
+
+    # 26. the Mosaic probes P-r3n and P-r3w: their path is
+    # rene_tpu_torch.probes' run; then each kernel's plain version timed,
+    # and the bounds
+    from rene_tpu_torch import probes as PRB
+    from rene_tpu_torch.ops import probes as PR
+    reset_launches()
+    r3n = PRB.r3n(dev)
+    r3w = PRB.r3w(dev)
+    torch.cuda.synchronize()
+    l_prb = dict(kernels.launches)
+    prb_names = ["rowslice_probe"] + ["mxu_probe_" + k
+                                      for k in kernels.MXU_KINDS]
+    if not all(l_prb[k] > 0 for k in prb_names) \
+            or sum(l_prb.values()) != sum(l_prb[k] for k in prb_names):
+        raise RuntimeError(f"the probes' path launched {l_prb}")
+    if not all(ok for ok, _ in r3n.values()) \
+            or not all(v["ok"] for v in r3w.values()):
+        raise RuntimeError("a probe disagrees with its plain version")
+    _, box, geom = PR.r3n_tables()
+    box, geom = box.to(dev), geom.to(dev)
+    r3n_plain_ms = PRB.launch_ms(lambda: PR.rowslice_ref(3, 3, box, geom))
+    r3n_bound = bound(4 + 2 * 8 * 128 * 4, 0)
+    b_, r_ = (x.to(dev) for x in PR.r3w_inputs())
+    prb_rows = {"rowslice_probe": {
+        "err": 0.0, "ms": max(ms for _, ms in r3n.values()),
+        "plain_ms": r3n_plain_ms, "bound": r3n_bound, "library_ms": None}}
+    b16, r16 = b_.bfloat16(), r_.bfloat16()
+    io_bytes = (b_.numel() + r_.numel() + b_.shape[0] * r_.shape[1]) * 4
+    for kind, rate, lib in (
+            ("hi", TF32_OPS, lambda: torch.matmul(b_, r_)),
+            ("def", BF16_OPS, lambda: torch.matmul(b16, r16)),
+            ("vpu", FP32_OPS, None)):
+        v = r3w[kind]
+        plain_ms = PRB.launch_ms(lambda: PR.mxu_ref(kind, b_, r_))
+        ops = PR.mxu_flops(kind, b_, r_) * PR.R3W_REPS
+        bnd = bound(io_bytes if kind != "vpu" else (16 + 2 * 1024) * 4, ops,
+                    rate)
+        want = PR.mxu_ref(kind, b_, r_)
+        err = float((v["out"] - want).abs().max())
+        prb_rows["mxu_probe_" + kind] = {
+            "err": err, "ms": v["ms"], "plain_ms": plain_ms, "bound": bnd,
+            "library_ms": PRB.launch_ms(lib) if lib else None}
+        log(f"mxu_probe {kind} ({PR.R3W_REPS} reps per launch): "
+            f"{v['us_per_rep']:.4f} us per rep, {v['ms']:.4f} ms per launch; "
+            f"plain {plain_ms:.3f} ms; bound {bnd[0]:.5f} ms ({bnd[1]}; "
+            f"{ops / 1e6:.2f} MFLOP); "
+            + (f"one torch.matmul "
+               f"{prb_rows['mxu_probe_' + kind]['library_ms']:.4f} ms; "
+               if lib else "")
+            + f"max abs {err:.3g} [{card}]")
+    log(f"rowslice_probe: bit for bit, {prb_rows['rowslice_probe']['ms']:.4f}"
+        f" ms per launch, plain {r3n_plain_ms:.4f} ms, bound "
+        f"{r3n_bound[0]:.6f} ms ({r3n_bound[1]}) [{card}]")
+    phase_done(26)
+
     if any(m.split(".")[0] in ("jax", "rene_tpu") for m in sys.modules):
         raise RuntimeError("jax or rene_tpu was imported")
     log(f"smoke: {time.time() - t_smoke:.1f} s")
@@ -1464,6 +1705,33 @@ def main() -> int:
         "k_rev :91, k_lk :106, k_sobol16 :117)", l_probe["sobol_probe"], 0.0,
         probe_ms, probe_plain_ms, probe_bound, None,
         f"{PROBE_N} int32 inputs, 7 words out each"))
+    k1f_rep = f"{pp_}:4307-4337 (slot layout, Sobol key), :5897-5938, " \
+              f":5976-5980, :6053"
+    k1f_entries = []
+    for inst, rows in k1f.items():
+        t = max(rows, key=lambda x: x["pack"])
+        k1f_entries.append(entry(
+            inst + ":pack", "rene_tpu_torch/csrc/mega_lane.cuh", k1f_rep,
+            l_pack[inst], max(x["err"] for x in rows), t["ms"],
+            t["plain_ms"], t["bound"], None,
+            f"{'fog' if 'vol' in inst else 'big'} mesh {MESH_W}x{MESH_H} at "
+            f"pack {t['pack']}, one sample per lane ({t['pack']} spp); plain "
+            f"on {t['sampled']} sampled lanes of it at maxdepth "
+            f"{t['depth']}, in the plain walk of its launches at packs "
+            f"{t['packs']}"))
+    prb_rep = {"rowslice_probe": "scripts/tpu_session_r3n.py:72 (k_p1 :46, "
+                                 "k_p2 :52, k_p3 :58)",
+               "mxu_probe_hi": "scripts/tpu_session_r3w.py:46 (k_mxu_hi :67)",
+               "mxu_probe_def": "scripts/tpu_session_r3w.py:46 "
+                                "(k_mxu_def :77)",
+               "mxu_probe_vpu": "scripts/tpu_session_r3w.py:46 (k_vpu :86)"}
+    prb_entries = [entry(
+        k, "rene_tpu_torch/csrc/probes.cu", prb_rep[k], l_prb[k], v["err"],
+        v["ms"], v["plain_ms"], v["bound"], v["library_ms"],
+        "(32,128), (8,2048) -> (8,128) f32, mode 3, group 3"
+        if k == "rowslice_probe" else
+        f"(384,8) @ (8,1024) f32, {PR.R3W_REPS} reps per launch")
+        for k, v in prb_rows.items()]
     log(json.dumps({"kernels": [
         entry("mega_path", "rene_tpu_torch/csrc/mega_path.cu",
               f"{pp_}:4266", l_k1a["mega_path"],
@@ -1475,7 +1743,8 @@ def main() -> int:
               max(a["max_abs"] for a in a_mesh + [a_big]), mesh_ms,
               mesh_plain_ms, mesh_bound, None,
               f"big mesh {MESH_W}x{MESH_H} x 1 spp; plain on {pix.numel()} "
-              f"sampled lanes of it at maxdepth {BIG_MESH_CHECK_DEPTH}"),
+              f"sampled lanes of it at maxdepth {BIG_MESH_CHECK_DEPTH}, in "
+              f"one walk with those of packs {list(PATH_PACKS)}"),
         entry("wave_path", "rene_tpu_torch/csrc/wave.cu",
               f"{pw_}:271 ({pp_}:5567)", l_cw["wave_path"],
               max([a_wave["materials"]["max_abs"], k2_mat["err"]]
@@ -1526,7 +1795,8 @@ def main() -> int:
               v_fog["plain_ms"], v_fog["bound"], None,
               f"fog mesh {MESH_W}x{MESH_H} x 1 spp, maxdepth 64; plain on "
               f"{pix.numel()} sampled lanes of it at maxdepth "
-              f"{VOL_CHECK_DEPTH}"),
+              f"{VOL_CHECK_DEPTH}, in one walk with those of packs "
+              f"{list(VOL_PACKS)}"),
         entry("wave_volpath", "rene_tpu_torch/csrc/wave.cuh",
               f"{pw_}:271 ({pp_}:5277 wave_bounce_vol)", l_fsw["wave_volpath"],
               max([k2_fs["err"]] + [w for acc, _, w in a_vol.values()
@@ -1549,7 +1819,7 @@ def main() -> int:
         entry("wave_permute", "rene_tpu_torch/csrc/wave.cu", f"{pw_}:386",
               l_dma["wave_permute"], 0.0, k4_ms, k4_plain_ms, k4_bound,
               k4_lib_ms, f"deep mesh {MESH_W}x{MESH_H} x spw {spw} state"),
-    ] + sobol_entries}))
+    ] + sobol_entries + k1f_entries + prb_entries}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

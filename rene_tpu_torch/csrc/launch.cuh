@@ -21,7 +21,7 @@ extern "C" int mega_path_launch(
     int world_root, int has_tri_emitter, int width, int n_pix, int max_depth,
     int use_rr, int beckmann, int has_accel, int block_seed, int has_tex,
     int has_env, int sobol, const float* media, int n_media, int seed,
-    int num_samples, float* out, void* stream) {
+    int num_samples, int pack, float* out, void* stream) {
   Params p;
   p.s = Scene{tris, sph, mats, eo, emit_tris, emit_sph, lights, light_dots,
               cam, n_tris, n_sph, n_eo, n_emit_tris, n_emit_sph, n_lights,
@@ -37,6 +37,9 @@ extern "C" int mega_path_launch(
   p.num_samples = num_samples;
   p.has_accel = has_accel;
   p.block_seed = block_seed;
+  p.block = 32;  // 32 / sqrt(pack)
+  for (int q = pack; q > 1; q /= 4) p.block /= 2;
+  p.n_lanes = n_pix * pack;
   p.sobol = sobol;
   p.seed = (uint32_t)seed;
   p.out = out;

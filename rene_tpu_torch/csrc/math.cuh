@@ -111,20 +111,21 @@ __device__ __forceinline__ V3 to_world(const Frame& f, V3 a) {
             a.x * f.u.z + a.y * f.v.z + a.z * f.n.z);
 }
 
-// xorshift32 lane stream (rene_tpu_torch/ops/rng.py): seeded per pixel
-// and per TPU grid step `tile` (rng.tile_of), drawn through the mantissa
-// bitcast
+// xorshift32 lane stream (rene_tpu_torch/ops/rng.py): seeded per lane id
+// (the pixel, or pix + slot * n_pix where a pixel has `pack` sample slots)
+// and per TPU grid step `tile` (rng.tile_of: the 8192-lane step, or the bs
+// x bs pixel block in cluster mode), drawn through the mantissa bitcast
 __device__ __forceinline__ uint32_t tile_of(uint32_t pix, uint32_t width,
-                                            bool blocks) {
+                                            bool blocks, uint32_t bs) {
   if (!blocks) return pix / 8192u;
-  uint32_t bw = (width + 31u) / 32u;
-  return (pix / width / 32u) * bw + (pix % width) / 32u;
+  uint32_t bw = (width + bs - 1u) / bs;
+  return (pix / width / bs) * bw + (pix % width) / bs;
 }
 
-__device__ __forceinline__ uint32_t seed_state(uint32_t pix, uint32_t seed,
+__device__ __forceinline__ uint32_t seed_state(uint32_t lane, uint32_t seed,
                                                uint32_t tile) {
   uint32_t seed_u = seed + tile * 65537u;
-  return ((pix * 2654435761u) ^ seed_u) | 1u;
+  return ((lane * 2654435761u) ^ seed_u) | 1u;
 }
 
 __device__ __forceinline__ float uniform(uint32_t& st) {

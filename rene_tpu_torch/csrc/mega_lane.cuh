@@ -17,7 +17,9 @@ struct Params {
   Scene s;
   int width, n_pix, max_depth, use_rr, beckmann, num_samples;
   int has_accel;   // launch the MESH variant
-  int block_seed;  // seed streams per 32x32 pixel block (rng.tile_of)
+  int block_seed;  // seed streams per pixel block (rng.tile_of)
+  int block;       // the block's edge, 32 / sqrt(pack) (rng.block_edge)
+  int n_lanes;     // n_pix * pack: `pack` sample slots per pixel (K1f)
   int sobol;       // launch the SOBOL instance
   uint32_t seed;
   float* __restrict__ out;
@@ -25,31 +27,53 @@ struct Params {
   int n_media;
 };
 
-// One lane's whole run: num_samples paths for pixel `lane`; writes the
-// ten per-lane sums to out[k * n_pix + lane]. MESH: the scene has
-// acceleration tables (mesh, instances or sphere table). VOL: each path
-// runs the volpath bounce and starts in vacuum. SOBOL: the draws of the
-// path body and the camera are Sobol pairs keyed by the pixel and the
-// grid-step seed; a volpath bounce keeps its medium draws on the stream.
+// Where lane `lane` starts (integrators/mega_path.py lane_start): its
+// pixel, lane % n_pix, at sample slot lane / n_pix; its xorshift32 state,
+// seeded by the lane id and its grid step (the 8192-lane step of the
+// pixel, or in cluster mode the pixel's bs x bs block); its Sobol key, of
+// the pixel and the step's seed mixed with the slot (pallas_path.py
+// :4307-4337)
+struct LaneStart {
+  uint32_t pix, st, key;
+};
+
+__device__ __forceinline__ LaneStart lane_start(uint32_t lane, uint32_t n_pix,
+                                                uint32_t width, bool blocks,
+                                                uint32_t bs, uint32_t seed) {
+  const uint32_t pix = lane % n_pix, slot = lane / n_pix;
+  const uint32_t tile = tile_of(pix, width, blocks, bs);
+  const uint32_t seed_u = seed + tile * 65537u;
+  return {pix, seed_state(lane, seed, tile),
+          sob_pixkey(pix, seed_u ^ (slot * 0x9E3779B1u))};
+}
+
+// One lane's whole run: num_samples paths for pixel lane % n_pix (sample
+// slot lane / n_pix); writes the ten per-lane sums to out[k * n_lanes +
+// lane]. MESH: the scene has acceleration tables (mesh, instances or
+// sphere table). VOL: each path runs the volpath bounce and starts in
+// vacuum. SOBOL: the draws of the path body and the camera are Sobol
+// pairs keyed by the pixel, the grid-step seed and the slot; a volpath
+// bounce keeps its medium draws on the stream.
 template <bool MESH, bool VOL, bool SOBOL>
 __device__ __forceinline__ void trace_lane(const Params& p, int lane) {
   const Scene& s = p.s;
   const bool beck = p.beckmann != 0;
   const int E = s.n_eo;
   const float ray_inc = 1.f + (float)s.n_lights + (E > 0 ? 1.f : 0.f);
-  const float pxf = (float)(lane % p.width);
-  const float pyf = (float)(lane / p.width);
+  const LaneStart ls =
+      lane_start((uint32_t)lane, (uint32_t)p.n_pix, (uint32_t)p.width,
+                 p.block_seed != 0, (uint32_t)p.block, p.seed);
+  const float pxf = (float)(ls.pix % (uint32_t)p.width);
+  const float pyf = (float)(ls.pix / (uint32_t)p.width);
   const V3 cam_o = v3(__ldg(s.cam + CAM_ORIGIN), __ldg(s.cam + CAM_ORIGIN + 1),
                       __ldg(s.cam + CAM_ORIGIN + 2));
   const int bg_kind = (int)__ldg(s.cam + CAM_BG_KIND);
 
-  const uint32_t tile =
-      tile_of((uint32_t)lane, (uint32_t)p.width, p.block_seed != 0);
-  uint32_t st = seed_state((uint32_t)lane, p.seed, tile);
+  uint32_t st = ls.st;
   float ju0, jv0;
   uint32_t pixkey = 0u;
   if constexpr (SOBOL) {
-    pixkey = sob_pixkey((uint32_t)lane, p.seed + tile * 65537u);
+    pixkey = ls.key;
     ld2(0u, pixkey, 0u, SLOT_CAM, ju0, jv0);
   } else {
     ju0 = uniform(st);
@@ -159,7 +183,7 @@ __device__ __forceinline__ void trace_lane(const Params& p, int lane) {
     }
   }
 
-  const size_t N = (size_t)p.n_pix;
+  const size_t N = (size_t)p.n_lanes;
   float* out = p.out + lane;
   out[0 * N] = rad[0];
   out[1 * N] = rad[1];

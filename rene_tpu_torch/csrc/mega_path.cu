@@ -6,8 +6,7 @@
 // and spheres, materials with solid, checker and imagemap slots, a
 // constant, checker or env-map background with env-map light sampling
 // (texture.cuh), distant lights (unrolled or from the light table), the
-// independent sampler, one sample slot per lane (pack = 1); and, past the
-// immediates budget, the big-mesh march
+// independent sampler; and, past the immediates budget, the big-mesh march
 // (`mesh_closest` :2255, `mesh_any` :2440) over the world mesh and
 // shared-BLAS instances and the sphere table (`sphere_closest` :2636,
 // `sphere_any` :2663), as a per-thread BVH walk (bvh.cuh). The plain
@@ -41,6 +40,20 @@
 // memory (csrc/layout.cuh) and one build serves every scene. Each thread
 // writes its own ten per-lane sums to a (10, N) array, the layout of the
 // JAX kernel's ten output planes, so no atomics are needed.
+//
+// Sample-in-tile packing (K1f; pallas_path.py:4307-4337, :5897-5938,
+// :5976-5980): on a cluster-mode scene a launch may run `pack` (1, 4, 16,
+// 64 or 256) sample slots per pixel, one thread each. Thread l traces
+// pixel l % n_pix at slot l / n_pix, its stream seeded per (32 /
+// sqrt(pack))-pixel block and by its lane id, its Sobol key mixed with the
+// slot (mega_lane.cuh lane_start), and writes its sums at row stride n_pix
+// * pack (size_t offsets); the caller sums the slots. A parameter, not a
+// build: pack 1 computes what it computed before. What it buys here: the
+// mesh builds keep 67,584 threads resident (four 128-thread blocks on each
+// of 132 SMs), so a smaller film leaves SMs idle at any spp; packing
+// multiplies its threads at the same delivered spp. The TPU's reason, a
+// tighter beam for its any-lane cluster cull, has no counterpart in a
+// per-thread BVH walk.
 //
 // What bounds it. The immediates tables are a few KB and stay in L1/L2; a
 // bounce costs ~25 flops per immediate triangle per ray plus divergent
@@ -91,14 +104,14 @@ template <bool MESH, bool SOBOL>
 __global__ void __launch_bounds__(128, PATH_MIN_BLOCKS)
 mega_volpath_kernel(const __grid_constant__ Params p) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane < p.n_pix) trace_lane<MESH, true, SOBOL>(p, lane);
+  if (lane < p.n_lanes) trace_lane<MESH, true, SOBOL>(p, lane);
 }
 #else
 template <bool MESH, bool SOBOL>
 __global__ void __launch_bounds__(128, PATH_MIN_BLOCKS)
 mega_path_kernel(const Params p) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane < p.n_pix) trace_lane<MESH, false, SOBOL>(p, lane);
+  if (lane < p.n_lanes) trace_lane<MESH, false, SOBOL>(p, lane);
 }
 #endif
 
@@ -109,7 +122,7 @@ static int run_lanes(const Params& p, void* stream) {
   if ((p.has_accel != 0) != (MEGA_MESH != 0))
     return (int)cudaErrorInvalidValue;
   const int threads = 128;
-  const int blocks = (p.n_pix + threads - 1) / threads;
+  const int blocks = (p.n_lanes + threads - 1) / threads;
   if (blocks > 0) {
     cudaStream_t st = (cudaStream_t)stream;
 #if MEGA_VOL

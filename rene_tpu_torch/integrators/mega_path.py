@@ -1,19 +1,28 @@
-"""The path megakernel on the port's main path (slices K1a-K1d).
+"""The path megakernel on the port's main path (slices K1a-K1d, K1f).
 
 Counterpart of rene_tpu/integrators/pallas_path.py `make_pallas_batch_fn`
-(:5819-6061) at pack = 1: the TPU kernel `_build_kernel` -> `kernel`
-(:4266) running its path `body` (:4346-4570) over every pixel lane, then
-`finish` (:5974) mapping lanes to pixels. Scenes past the immediates
-budget add the mesh BVHs, shared-BLAS instances and the sphere table
-(ops/bvh.py) to every ray cast and fold distant lights from a table; in
-the JAX kernel's cluster mode (a world mesh or instances) a lane's
-stream is seeded per 32x32 pixel block, the tile that mode gives it.
+(:5819-6061): the TPU kernel `_build_kernel` -> `kernel` (:4266) running
+its path `body` (:4346-4570) over every lane, then `finish` (:5974)
+mapping lanes to pixels. Scenes past the immediates budget add the mesh
+BVHs, shared-BLAS instances and the sphere table (ops/bvh.py) to every
+ray cast and fold distant lights from a table; in the JAX kernel's
+cluster mode (a world mesh or instances) a lane's stream is seeded per
+pixel block, the tile that mode gives it.
+
+Sample-in-tile packing (K1f, cluster mode only): `pack` in (1, 4, 16,
+64, 256) sample slots per pixel, each a lane of its own, so one call of
+`num_samples` per-lane samples delivers num_samples * pack per pixel.
+Lane l is pixel l % npix at slot l // npix (slot-major; the JAX kernel
+keeps the slots of a pixel inside its tile), its tile the (32 //
+sqrt(pack))-pixel block of the pixel, its stream seeded by the lane id
+pix + slot * npix and its Sobol key mixed with the slot (:4307-4337);
+`finish` sums the slots.
 Textured material slots are evaluated at the hit's uv, a textured
 background at the miss direction's spherical uv, and an env-map
 background joins the emitters as a light-sampling strategy (K1b,
 ops/texture.py).
 
-Each lane owns one pixel and streams `num_samples` paths back to back,
+Each lane owns one pixel slot and streams `num_samples` paths back to back,
 regenerating a camera ray when a path ends: camera ray, closest hit,
 emitter hit, distant-light NEE, BSDF sampling, the 50/50 emitter/BSDF
 MIS, Russian roulette from depth 12. Per iteration a lane draws, in this
@@ -280,30 +289,54 @@ def ray_increment(tabs) -> float:
                                           else 0.0)
 
 
+def lane_start(tabs, lanes: torch.Tensor, seed: int, pack=1):
+    """Where lane ids `lanes` start (csrc/mega_lane.cuh `lane_start`):
+    (pixel, grid step, xorshift32 state, Sobol pixel key) as int64. Lane
+    l is sample slot l // npix of pixel l % npix; its grid step the
+    pixel's 8192-lane step, or in cluster mode its block of edge
+    `rng.block_edge(pack)` (`pack` an int, or each lane's); its stream
+    seeded by the lane id, its Sobol key by the pixel and the step's seed
+    mixed with the slot."""
+    npix = tabs["width"] * tabs["height"]
+    lanes = lanes.to(torch.int64)
+    pix, slot = lanes % npix, lanes // npix
+    tile = rng.tile_of(pix, tabs["width"], tabs["block_seed"],
+                       rng.block_edge(pack))
+    seed_u = (int(seed) + tile * 65537) & rng.MASK
+    return (pix, tile, rng.seed_state(lanes, seed, tile),
+            SB.pixkey(pix, seed_u, slot))
+
+
 def path_lanes_ref(tabs, seed: int, num_samples: int,
-                   beckmann: bool = False, pix=None) -> torch.Tensor:
+                   beckmann: bool = False, lanes=None,
+                   pack=1) -> torch.Tensor:
     """Plain PyTorch path megakernel: (10, N) float32 per-lane sums of
-    radiance rgb, first-hit normal xyz, albedo rgb and the ray count; lane
-    i owns pixel i of the film, or pixel `pix[i]` when the int64 tensor
-    `pix` names the pixels to trace (a lane's result depends on its own
-    pixel only). Volpath tables run the volpath bounce
-    (integrators/volpath.py), each lane carrying its medium. Under Sobol
-    each pixel's key is ops/sobol.py `pixkey` of its grid-step seed (the
-    stream's `seed + tile * 65537`)."""
+    radiance rgb, first-hit normal xyz, albedo rgb and the ray count over
+    the npix * pack lanes of the film, lane l sample slot l // npix of
+    pixel l % npix (`lane_start`), or over the lane ids `lanes` (an int64
+    tensor; a lane's result depends on its own id only). `pack` > 1 only
+    for cluster-mode tables (`block_seed`); with `lanes`, it may be an
+    int64 tensor of each lane's pack, so that the lanes of launches at
+    several packs walk at once. Volpath tables run the
+    volpath bounce (integrators/volpath.py), each lane carrying its
+    medium. Under Sobol each lane's key is ops/sobol.py `pixkey` of its
+    pixel, its grid-step seed (the stream's `seed + tile * 65537`) and
+    its slot."""
     from .volpath import bounce_vol
     vol = tabs["volpath"]
     step = bounce_vol if vol else bounce
     W = tabs["width"]
     cam = tabs["cam_f"]
-    if pix is None:
-        pix = torch.arange(W * tabs["height"], device=tabs["tris"].device)
+    for p in (pack.unique().tolist() if torch.is_tensor(pack) else [pack]):
+        kernels.lane_count(tabs, p)
+    if lanes is None:
+        lanes = torch.arange(W * tabs["height"] * pack,
+                             device=tabs["tris"].device)
+    pix, _, st, pixkey = lane_start(tabs, lanes, seed, pack)
     pxf = (pix % W).float()
     pyf = (pix // W).float()
-    tile = rng.tile_of(pix, W, tabs["block_seed"])
-    st = rng.seed_state(pix, seed, tile)
     izero = torch.zeros_like(pix)
     if tabs["sobol"]:
-        pixkey = SB.pixkey(pix, (int(seed) + tile * 65537) & rng.MASK)
         ju0, jv0 = SB.ld2(izero, pixkey, izero, SB.SLOT_CAM)
     else:
         ju0, st = rng.uniform(st)
@@ -363,18 +396,82 @@ def path_lanes_ref(tabs, seed: int, num_samples: int,
                                        "aar", "aag", "aab", "rays")])
 
 
-def finish(out: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """(10, N) lane sums -> per-pixel dict (lane i owns pixel i)."""
+def finish(out: torch.Tensor, pack: int = 1) -> Dict[str, torch.Tensor]:
+    """(10, npix * pack) lane sums -> per-pixel dict: each pixel's sums
+    over its `pack` sample slots (lane l is pixel l % npix), the film
+    accumulation the JAX runner's `finish` does outside its kernel
+    (:5976-5980)."""
+    if pack != 1:
+        out = out.view(P.OUT_ROWS, pack, -1).sum(1)
     return {"radiance": out[0:3].T, "normal": out[3:6].T,
             "albedo": out[6:9].T,
             "rays": out[9].sum(dtype=torch.float64)}
 
 
-def make_mega_batch_fn(buffers_np, config, device):
+# the card's resident threads under the mesh builds' launch bounds: four
+# 128-thread blocks on each of the H100's 132 SMs (csrc/mega_path.cu)
+RESIDENT_LANES = 132 * 4 * 128
+# `auto` packs a cluster-mode film until its lanes fill this many
+# resident sets of threads. The pack sweep on an H100 (PERF.md section 6,
+# `python -m rene_tpu_torch.probe --pack-sweep`), Mrays/s against pack 1:
+# a 160x90 film (0.21 sets) 2.49x at pack 4, 4.14x at 16; 320x180 (0.85
+# sets) 1.16-1.30x at 4 (3.4 sets), 1.24-1.52x at 16 (13.6 sets); 1280x720
+# (13.6 sets) 0.95-1.01x at 4, 0.97-1.09x at 16
+AUTO_FILL = 8
+
+
+def auto_pack(npix: int, spp: int) -> int:
+    """The pack `auto` gives a cluster-mode film of `npix` pixels rendered
+    at `spp` samples per pixel on the card: among the packs that divide
+    `spp` (a call delivers pack samples per pixel, so the render runs
+    exactly `spp`), the smallest that brings its lanes to AUTO_FILL x
+    RESIDENT_LANES, else the largest. The JAX runner's `auto_pack`
+    (:5791) sized the pack against the TPU's runtime watchdog, which the
+    card does not have."""
+    best = 1
+    for p in rng.PACKS:
+        if p > max(spp, 1):
+            break
+        if spp % p:
+            continue
+        best = p
+        if npix * p >= AUTO_FILL * RESIDENT_LANES:
+            break
+    return best
+
+
+def choose_pack(tabs, pack: int, device, spp: int) -> int:
+    """The runner's pack: `pack`, or for 0 the environment's
+    RENE_MEGA_PACK (read once per runner, as the JAX runner does), whose
+    "auto" or absence means `auto_pack` on the card and 1 on the CPU (the
+    JAX runner's interpret mode). Checked by kernels.lane_count (a pack
+    in rng.PACKS, fewer than 2^31 lanes; ValueError); 1 on scenes outside
+    cluster mode (:5895-5896)."""
+    npix = tabs["width"] * tabs["height"]
+    if pack == 0:
+        env = os.environ.get("RENE_MEGA_PACK", "")
+        if env and env != "auto":
+            pack = int(env)
+        else:
+            pack = auto_pack(npix, spp) if torch.device(device).type \
+                == "cuda" and tabs["block_seed"] else 1
+    if not tabs["block_seed"]:
+        rng.block_edge(pack)    # a pack outside rng.PACKS raises all the same
+        return 1
+    kernels.lane_count(tabs, pack)
+    return pack
+
+
+def make_mega_batch_fn(buffers_np, config, device, pack: int = 0,
+                       spp_hint: int = 0):
     """Runner for the chunk loop: `run(seed, num_samples)` returns per-pixel
-    (N, 3) radiance/normal/albedo SUMS over the chunk's samples and the
-    ray count. Raises NotImplementedError for scenes the port does not
-    carry (`pack.slice_supported`).
+    (N, 3) radiance/normal/albedo SUMS over the chunk's num_samples *
+    run.spp_mult samples and the ray count. Raises NotImplementedError for
+    scenes the port does not carry (`pack.slice_supported`).
+
+    `pack` (`choose_pack`; 0: RENE_MEGA_PACK, else `auto` for a render of
+    `spp_hint` samples per pixel): sample slots per pixel on a cluster-mode
+    scene, run.spp_mult = pack.
 
     On a CUDA device every call launches csrc/mega_path.cu once (counted
     in `kernels.launches` under its variant: mega_volpath[_mesh] for
@@ -385,14 +482,15 @@ def make_mega_batch_fn(buffers_np, config, device):
     over."""
     device = torch.device(device)
     tabs = device_tables(P.pack_tables(buffers_np, config), device)
+    pack = choose_pack(tabs, pack, device, spp_hint)
     # the RENE_MF_DIST=beckmann diagnostic (pallas_path.py:3563), read once
     # per runner as the JAX kernel reads it once per build
     beckmann = os.environ.get("RENE_MF_DIST", "") == "beckmann"
 
     def run(seed: int, num_samples: int):
         return finish(kernels.mega_path(tabs, int(seed), int(num_samples),
-                                        beckmann))
+                                        beckmann, pack), pack)
 
     run.chunk_hint = 100
-    run.spp_mult = 1
+    run.spp_mult = pack
     return run

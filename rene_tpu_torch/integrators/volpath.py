@@ -206,10 +206,11 @@ def bounce_vol(tabs, c, active, beckmann: bool = False) -> Dict:
 
 
 def vol_lanes_ref(tabs, seed: int, num_samples: int, beckmann: bool = False,
-                  pix=None) -> torch.Tensor:
+                  lanes=None, pack: int = 1) -> torch.Tensor:
     """Plain PyTorch volpath megakernel: the (10, N) per-lane sums of
-    mega_path.path_lanes_ref, with the volpath bounce and each lane's
-    medium (vacuum on every camera ray)."""
+    mega_path.path_lanes_ref over the same lanes (`pack` sample slots per
+    pixel on cluster-mode tables), with the volpath bounce and each
+    lane's medium (vacuum on every camera ray)."""
     if not tabs["volpath"]:
         raise ValueError("vol_lanes_ref: the scene's integrator is path")
-    return path_lanes_ref(tabs, seed, num_samples, beckmann, pix)
+    return path_lanes_ref(tabs, seed, num_samples, beckmann, lanes, pack)

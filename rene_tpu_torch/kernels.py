@@ -1,17 +1,20 @@
 """Build and binding of the port's CUDA kernels.
 
-Two sources, each compiled with nvcc once per variant (the template
-parameter MESH, set by -DMEGA_MESH, and the integrator, set by
+Three sources, the first two compiled with nvcc once per variant (the
+template parameter MESH, set by -DMEGA_MESH, and the integrator, set by
 -DMEGA_VOL) into a shared library with a plain C interface, at first
 use, into build/rene_tpu_torch/ of the checkout (named by a hash of the
-sources and flags, so an edit rebuilds), all eight nvcc runs started
+sources and flags, so an edit rebuilds), all nine nvcc runs started
 together, and loaded with ctypes:
 
     csrc/mega_path.cu   the megakernel: the path body (K1a-K1d) and the
-                        volpath body (K1e)
+                        volpath body (K1e), with `pack` sample slots per
+                        pixel on cluster-mode scenes (K1f)
     csrc/wave.cu        the wave engine: K2 in the four variants, with K3,
                         K4 and the Sobol probe, which do not depend on the
                         variant, taken from the path immediates build
+    csrc/probes.cu      the Mosaic probes P-r3n (rowslice_probe) and P-r3w
+                        (mxu_probe), one build
 
 Every build of K1 and K2, and K3, holds two instances of its kernel, the
 independent sampler's and `Sampler "sobol"`'s (template parameter SOBOL,
@@ -41,6 +44,7 @@ from typing import Dict
 
 import torch
 
+from .ops.rng import block_edge
 from .scene import accel as A
 from .scene import pack as P
 from .scene.device import ENV_GH, ENV_GW
@@ -66,14 +70,19 @@ VARIANTS = {"mega_path": ("mega_path.cu", "-DMEGA_MESH=0", "-DMEGA_VOL=0"),
                                   "-DMEGA_VOL=1"),
             "wave_volpath": ("wave.cu", "-DMEGA_MESH=0", "-DMEGA_VOL=1"),
             "wave_volpath_mesh": ("wave.cu", "-DMEGA_MESH=1",
-                                  "-DMEGA_VOL=1")}
+                                  "-DMEGA_VOL=1"),
+            "probes": ("probes.cu",)}
 SOBOL = "_sobol"    # suffix of a Sobol instance's name
+MXU_KINDS = ("hi", "def", "vpu")   # mxu_probe's kinds, in the C order
+MAX_LANES = 1 << 31   # the megakernel's lane ids and count are C ints
 # launches of each kernel instance; wave_genesis, wave_permute and
-# sobol_probe live in the wave_path library
+# sobol_probe live in the wave_path library, rowslice_probe and the
+# mxu_probe kinds in the probes library
 launches = dict.fromkeys(
-    [v + s for v in VARIANTS for s in ("", SOBOL)]
+    [v + s for v in VARIANTS if v != "probes" for s in ("", SOBOL)]
     + ["wave_genesis", "wave_genesis" + SOBOL, "wave_permute",
-       "sobol_probe"], 0)
+       "sobol_probe", "rowslice_probe"]
+    + ["mxu_probe_" + k for k in MXU_KINDS], 0)
 
 _libs: Dict[str, ctypes.CDLL] = {}
 # ptxas's register and spill report of each library built with
@@ -161,20 +170,24 @@ SCENE_ARGTYPES = ([_P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _I, _P, _P, _I,
                   + [_P, _I, _P, _P, _P, _P]      # mesh_uv .. env_pdf
                   + [_I] * 12   # scalars, world_root .. sobol
                   + [_P, _I])   # media, n_media
-ARGTYPES = SCENE_ARGTYPES + [_I, _I, _P, _P]   # seed, num_samples, out,
-                                                # stream
+ARGTYPES = SCENE_ARGTYPES + [_I, _I, _I, _P, _P]   # seed, num_samples,
+                                                    # pack, out, stream
 WAVE_ARGTYPES = (SCENE_ARGTYPES + [_I] * 7   # seed, launch, k, n_run,
                                              # n_pad, base, rem
                  + [_F] * 6 + [_P, _P])      # key bounds, state, stream
 GENESIS_ARGTYPES = [_P, _P, _P] + [_I] * 8 + [_P, _P]
 PERMUTE_ARGTYPES = [_P, _P, _I, _P, _P]
 PROBE_ARGTYPES = [_P, _I, _P, _P]
+ROWSLICE_ARGTYPES = [_I, _I, _P, _I, _P, _I, _P, _P]
+MXU_ARGTYPES = [_I, _P, _P, _I, _I, _I, _P, _P]
 _ENTRY_POINTS = {
     "mega_path.cu": {"mega_path_launch": ARGTYPES},
     "wave.cu": {"wave_path_launch": WAVE_ARGTYPES,
                 "wave_genesis_launch": GENESIS_ARGTYPES,
                 "wave_permute_launch": PERMUTE_ARGTYPES,
-                "sobol_probe_launch": PROBE_ARGTYPES}}
+                "sobol_probe_launch": PROBE_ARGTYPES},
+    "probes.cu": {"rowslice_probe_launch": ROWSLICE_ARGTYPES,
+                  "mxu_probe_launch": MXU_ARGTYPES}}
 
 
 def bind(lib: ctypes.CDLL, source: str) -> ctypes.CDLL:
@@ -267,14 +280,27 @@ def scene_args(tabs, beckmann: bool, device) -> tuple:
             ptr("media"), tabs["media"].shape[0])
 
 
+def lane_count(tabs, pack: int) -> int:
+    """The megakernel's lanes at `pack` sample slots per pixel (rng.PACKS;
+    above 1 on cluster-mode tables only), checked against MAX_LANES."""
+    block_edge(pack)
+    n_lanes = tabs["width"] * tabs["height"] * pack
+    if pack != 1 and not tabs["block_seed"]:
+        raise ValueError(f"pack {pack}: only cluster-mode scenes pack")
+    if n_lanes >= MAX_LANES:
+        raise ValueError(f"pack {pack}: {n_lanes} lanes reach 2^31")
+    return n_lanes
+
+
 def launch_args(tabs, seed: int, num_samples: int, beckmann: bool,
-                out: torch.Tensor) -> tuple:
-    """Checked C arguments of mega_path_launch, all but the stream. Every
-    table must lie on out's device."""
-    _check(out, "out", torch.float32,
-           (P.OUT_ROWS, tabs["width"] * tabs["height"]), out.device)
+                out: torch.Tensor, pack: int = 1) -> tuple:
+    """Checked C arguments of mega_path_launch, all but the stream: `pack`
+    sample slots per pixel, one lane each (`lane_count`). Every table must
+    lie on out's device."""
+    _check(out, "out", torch.float32, (P.OUT_ROWS, lane_count(tabs, pack)),
+           out.device)
     return scene_args(tabs, beckmann, out.device) + (
-        int(seed), int(num_samples), out.data_ptr())
+        int(seed), int(num_samples), int(pack), out.data_ptr())
 
 
 def _stream(device) -> int:
@@ -303,23 +329,25 @@ def _cuda(device, what: str) -> bool:
 
 
 def mega_path(tabs, seed: int, num_samples: int,
-              beckmann: bool = False) -> torch.Tensor:
+              beckmann: bool = False, pack: int = 1) -> torch.Tensor:
     """Launch the megakernel (csrc/mega_path.cu) over every pixel of the
-    film, in the variant the scene needs (`variant`: the path or the
-    volpath body); returns the (10, N) float32 per-lane sums (radiance
-    rgb, first-hit normal xyz, albedo rgb, rays). `tabs` is
-    integrators.mega_path.device_tables. Tables on the CPU run the
-    kernel's plain version, `path_lanes_ref` (for volpath tables the
-    volpath bounce, `vol_lanes_ref`), and launch nothing."""
+    film, `pack` sample slots each (K1f; cluster-mode tables only), in
+    the variant the scene needs (`variant`: the path or the volpath
+    body); returns the (10, npix * pack) float32 per-lane sums (radiance
+    rgb, first-hit normal xyz, albedo rgb, rays), lane l pixel l % npix
+    at slot l // npix. `tabs` is integrators.mega_path.device_tables.
+    Tables on the CPU run the kernel's plain version, `path_lanes_ref`
+    (for volpath tables the volpath bounce, `vol_lanes_ref`), and launch
+    nothing."""
     device = tabs["tris"].device
     if not _cuda(device, "mega_path"):
         from .integrators.mega_path import path_lanes_ref
         from .integrators.volpath import vol_lanes_ref
         return (vol_lanes_ref if tabs["volpath"] else path_lanes_ref)(
-            tabs, seed, num_samples, beckmann)
-    out = torch.empty((P.OUT_ROWS, tabs["width"] * tabs["height"]),
+            tabs, seed, num_samples, beckmann, pack=pack)
+    out = torch.empty((P.OUT_ROWS, lane_count(tabs, pack)),
                       dtype=torch.float32, device=device)
-    args = launch_args(tabs, seed, num_samples, beckmann, out)
+    args = launch_args(tabs, seed, num_samples, beckmann, out, pack)
     name = variant(tabs)
     _launched(name, _load(library(name)).mega_path_launch(
         *args, _stream(device)))
@@ -420,4 +448,60 @@ def sobol_probe(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty((7, x.shape[0]), dtype=torch.int32, device=x.device)
     _launched("sobol_probe", _load("wave_path").sobol_probe_launch(
         x.data_ptr(), x.shape[0], out.data_ptr(), _stream(x.device)))
+    return out
+
+
+def rowslice_probe(mode: int, si: int, box: torch.Tensor,
+                   geom: torch.Tensor) -> torch.Tensor:
+    """P-r3n (csrc/probes.cu rowslice_kernel, the counterpart of
+    scripts/tpu_session_r3n.py's Mosaic probes k_p1 / k_p2 / k_p3): the
+    (8, 128) float32 block of `geom` (8, 128 j) at the group index that
+    probe `mode` (1, 2 or 3) reads from the (2 n, 128) `box` for group
+    `si`. CPU tensors run ops/probes.py `rowslice_ref`."""
+    from .ops.probes import R3N_MODES, rowslice_ref
+    device = box.device
+    if not _cuda(device, "rowslice_probe"):
+        return rowslice_ref(mode, si, box, geom)
+    if mode not in R3N_MODES:
+        raise ValueError(f"rowslice_probe: mode {mode}, one of {R3N_MODES}")
+    _check(box, "box", torch.float32, (None, 128), device)
+    _check(geom, "geom", torch.float32, (8, None), device)
+    if box.shape[0] < 2 or box.shape[0] % 2 or geom.shape[1] < 128 \
+            or geom.shape[1] % 128:
+        raise ValueError(f"rowslice_probe: box {tuple(box.shape)}, geom "
+                         f"{tuple(geom.shape)}")
+    out = torch.empty((8, 128), dtype=torch.float32, device=device)
+    _launched("rowslice_probe", _load("probes").rowslice_probe_launch(
+        int(mode), int(si), box.data_ptr(), box.shape[0], geom.data_ptr(),
+        geom.shape[1], out.data_ptr(), _stream(device)))
+    return out
+
+
+def mxu_probe(kind: str, b: torch.Tensor, r: torch.Tensor,
+              reps: int) -> torch.Tensor:
+    """P-r3w (csrc/probes.cu, the counterpart of
+    scripts/tpu_session_r3w.py's k_mxu_hi, k_mxu_def and k_vpu), `reps`
+    runs inside one launch: for "hi" and "def" the (m, n) float32 product
+    b (m, 8) @ r (8, n) on the tensor cores (3xTF32; one bf16 pass), for
+    "vpu" the (8, 128) values of the scalar chain over b's first two rows
+    (n >= 1024). Counted as mxu_probe_<kind>. CPU tensors run ops/probes.py
+    `mxu_ref`."""
+    from .ops.probes import mxu_ref
+    device = b.device
+    if not _cuda(device, "mxu_probe"):
+        return mxu_ref(kind, b, r, reps)
+    if kind not in MXU_KINDS or reps < 1:
+        raise ValueError(f"mxu_probe: kind {kind!r} (one of {MXU_KINDS}), "
+                         f"reps {reps}")
+    _check(b, "b", torch.float32, (None, 8), device)
+    _check(r, "r", torch.float32, (8, None), device)
+    m, n = b.shape[0], r.shape[1]
+    if m % 16 or n % 8 or (kind == "vpu" and n < 1024):
+        raise ValueError(f"mxu_probe: b {tuple(b.shape)}, r "
+                         f"{tuple(r.shape)}")
+    shape = (8, 128) if kind == "vpu" else (m, n)
+    out = torch.empty(shape, dtype=torch.float32, device=device)
+    _launched("mxu_probe_" + kind, _load("probes").mxu_probe_launch(
+        MXU_KINDS.index(kind), b.data_ptr(), r.data_ptr(), m, n, int(reps),
+        out.data_ptr(), _stream(device)))
     return out

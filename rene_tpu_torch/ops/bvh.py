@@ -12,11 +12,13 @@ their per-triangle test `_mt_test` (:2148-2164), box gate
 The CUDA kernel gives each thread its own stack and walks its tree near
 child first. Here all lanes take that walk in lock-step, as
 rene_tpu/ops/bvh.py:62-175 does: each step gathers the live lanes by
-index, tests a leaf's triangles one after another or both children's
-boxes, pushes the far child when both are entered, and pops when a lane
-is done with a subtree; lanes that finish drop out. Every lane visits
-its nodes in the kernel's order, so the two keep the same triangle on
-exact-t ties.
+index, tests all of a leaf's triangles or both children's boxes at once,
+pushes the far child when both are entered, and pops when a lane is done
+with a subtree; lanes that finish drop out. Every lane visits its nodes
+in the kernel's order and keeps the first of a leaf's least t, so the
+two keep the same triangle on exact-t ties. A step writes its lanes'
+updates through `torch.where` rather than boolean masks, so that on a
+card it waits on the device only where it must count lanes.
 
 The builder below (`build_bvh` and its median-split fallback) is
 rene_tpu/ops/bvh.py's host-side build, copied without its JAX traversal:
@@ -179,14 +181,14 @@ def inv_dir(dx, dy, dz):
 
 
 def box_enter(box, ox, oy, oz, ix, iy, iz, tmin, tfar):
-    """Slab test of (K, 8) boxes (min at 0..2, max at 4..6): (t near,
+    """Slab test of (..., 8) boxes (min at 0..2, max at 4..6): (t near,
     whether the ray enters within [tmin, tfar])."""
-    t0x = (box[:, 0] - ox) * ix
-    t1x = (box[:, 4] - ox) * ix
-    t0y = (box[:, 1] - oy) * iy
-    t1y = (box[:, 5] - oy) * iy
-    t0z = (box[:, 2] - oz) * iz
-    t1z = (box[:, 6] - oz) * iz
+    t0x = (box[..., 0] - ox) * ix
+    t1x = (box[..., 4] - ox) * ix
+    t0y = (box[..., 1] - oy) * iy
+    t1y = (box[..., 5] - oy) * iy
+    t0z = (box[..., 2] - oz) * iz
+    t1z = (box[..., 6] - oz) * iz
     tn = torch.maximum(torch.maximum(torch.minimum(t0x, t1x),
                                      torch.minimum(t0y, t1y)),
                        torch.minimum(t0z, t1z))
@@ -197,11 +199,11 @@ def box_enter(box, ox, oy, oz, ix, iy, iz, tmin, tfar):
 
 
 def mt_test(r, ox, oy, oz, dx, dy, dz):
-    """Möller-Trumbore of rays against (K, MESH_W) triangle rows: (t, u,
+    """Möller-Trumbore of rays against (..., MESH_W) triangle rows: (t, u,
     v, ok); the caller applies its t bounds."""
-    v0x, v0y, v0z = r[:, A.MESH_V0], r[:, A.MESH_V0 + 1], r[:, A.MESH_V0 + 2]
-    e1x, e1y, e1z = r[:, A.MESH_E1], r[:, A.MESH_E1 + 1], r[:, A.MESH_E1 + 2]
-    e2x, e2y, e2z = r[:, A.MESH_E2], r[:, A.MESH_E2 + 1], r[:, A.MESH_E2 + 2]
+    v0x, v0y, v0z = (r[..., A.MESH_V0 + c] for c in range(3))
+    e1x, e1y, e1z = (r[..., A.MESH_E1 + c] for c in range(3))
+    e2x, e2y, e2z = (r[..., A.MESH_E2 + c] for c in range(3))
     px_ = dy * e2z - dz * e2y
     py_ = dz * e2x - dx * e2z
     pz_ = dx * e2y - dy * e2x
@@ -228,8 +230,8 @@ def march(tabs, root, ray, tmin, tmax, best, done):
     any hit in [tmin, tmax] otherwise, returned as an (N,) mask."""
     nodes, mesh = tabs["nodes"], tabs["mesh"]
     ox, oy, oz, dx, dy, dz = ray
-    ix, iy, iz = inv_dir(dx, dy, dz)
-    ray = (ox, oy, oz, dx, dy, dz, ix, iy, iz)
+    # the rays and their inverse directions, one row per lane
+    rays = torch.stack((ox, oy, oz, dx, dy, dz) + inv_dir(dx, dy, dz), 1)
     hit = torch.zeros_like(ox, dtype=torch.bool)
 
     def tfar(ln):
@@ -237,7 +239,7 @@ def march(tabs, root, ray, tmin, tmax, best, done):
             else torch.full_like(ox[ln], tmax)
 
     def at(ln):
-        return [x[ln] for x in ray]
+        return rays[ln].unbind(1)
 
     lane = (~done).nonzero()[:, 0]
     tests["box"] += lane.numel()
@@ -258,57 +260,66 @@ def march(tabs, root, ray, tmin, tmax, best, done):
         pop = alive & is_leaf
 
         li = pop.nonzero()[:, 0]
-        start = rows[li, A.NODE_A].long()
-        count = (-rows[li, A.NODE_B]).long()
-        for j in range(tabs["max_leaf"]):
-            m = count > j
-            if not bool(m.any()):
-                break
-            sel = li[m]
-            ln = lane[sel]
-            tests["tri"] += ln.numel()
-            o = at(ln)
-            t, u, v, ok = mt_test(mesh[start[m] + j], *o[0:6])
+        if li.numel():
+            # a leaf's triangles j < count, all at once: the closest is
+            # the first of the least t below the lane's bound, as the
+            # kernel's loop over them keeps it
+            start = rows[li, A.NODE_A].long()
+            count = (-rows[li, A.NODE_B]).long()
+            n_leaf, n_tri = torch.stack((count.max(), count.sum())).tolist()
+            tests["tri"] += n_tri
+            j = torch.arange(n_leaf, device=dev)
+            m = count[:, None] > j
+            prim = torch.where(m, start[:, None] + j, start[:, None])
+            ln = lane[li]
+            t, u, v, ok = mt_test(mesh[prim],
+                                  *(x[:, None] for x in at(ln)[0:6]))
+            ok = m & ok & (t >= tmin)
             if best is None:
-                h = ok & (t >= tmin) & (t <= tmax)
-                hit[ln[h]] = True
-                alive[sel[h]] = False
+                h = (ok & (t <= tmax)).any(1)
+                hit[ln] |= h
+                alive[li] &= ~h
             else:
-                w = ok & (t >= tmin) & (t < best["t"][ln])
-                idx = ln[w]
-                best["t"][idx] = t[w]
-                best["prim"][idx] = (start[m] + j)[w]
-                best["u"][idx] = u[w]
-                best["v"][idx] = v[w]
+                ok &= t < best["t"][ln][:, None]
+                tb, jb = torch.where(ok, t, math.inf).min(1)
+                w = ok.any(1)
+                jb = jb[:, None]
+                for key, new in (("t", tb), ("prim", prim.gather(1, jb)[:, 0]),
+                                 ("u", u.gather(1, jb)[:, 0]),
+                                 ("v", v.gather(1, jb)[:, 0])):
+                    best[key][ln] = torch.where(w, new, best[key][ln])
 
         ii = (alive & ~is_leaf).nonzero()[:, 0]
         if ii.numel():
+            # both children's boxes at once; enter the nearer, push the
+            # other when both are entered, pop when neither is
             ln = lane[ii]
             tests["box"] += 2 * ln.numel()
             o = at(ln)
-            tf = tfar(ln)
-            lc = rows[ii, A.NODE_A].long()
-            rc = rows[ii, A.NODE_B].long()
-            tl, hl = box_enter(nodes[lc], *o[0:3], *o[6:9], tmin, tf)
-            tr, hr = box_enter(nodes[rc], *o[0:3], *o[6:9], tmin, tf)
+            kids = rows[ii][:, (A.NODE_A, A.NODE_B)].long()
+            tn, hk = box_enter(nodes[kids], *(x[:, None] for x in o[0:3]),
+                               *(x[:, None] for x in o[6:9]), tmin,
+                               tfar(ln)[:, None])
+            lc, rc = kids.unbind(1)
+            hl, hr = hk.unbind(1)
             both = hl & hr
-            lfirst = tl <= tr
+            lfirst = tn[:, 0] <= tn[:, 1]
             nxt = torch.where(both, torch.where(lfirst, lc, rc),
                               torch.where(hl, lc, rc))
             far = torch.where(lfirst, rc, lc)
-            b = ii[both]
-            stack[b, sp[b]] = far[both]
-            sp[b] += 1
+            top = sp[ii]
+            stack[ii, top] = torch.where(both, far, stack[ii, top])
+            sp[ii] = top + both
             go = hl | hr
-            node[ii[go]] = nxt[go]
-            pop[ii[~go]] = True
+            node[ii] = torch.where(go, nxt, node[ii])
+            pop[ii] |= ~go
 
         pi = (pop & alive).nonzero()[:, 0]
         can = sp[pi] > 0
-        pc = pi[can]
-        sp[pc] -= 1
-        node[pc] = stack[pc, sp[pc]]
-        alive[pi[~can]] = False
+        top = sp[pi] - can.long()
+        sp[pi] = top
+        node[pi] = torch.where(can, stack[pi, top], node[pi])
+        alive[pi] &= can
 
         n_alive = int(alive.sum())
         if n_alive < k // 2 or n_alive == 0:

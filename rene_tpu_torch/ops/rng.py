@@ -18,30 +18,48 @@ import torch
 MASK = 0xFFFFFFFF
 TILE_LANES = 8192   # TILE_SUB * 128 lanes per TPU grid step (:76-77)
 BLOCK = 32          # cluster mode: one grid step per 32x32 pixel block
+PACKS = (1, 4, 16, 64, 256)   # sample slots per pixel a tile may pack
 
 
-def tile_of(pix: torch.Tensor, width: int, blocks: bool) -> torch.Tensor:
+def block_edge(pack):
+    """The pixel block edge of a cluster-mode tile that packs `pack`
+    sample slots per pixel into its 1024 lanes: 32 // sqrt(pack)
+    (`make_pallas_batch_fn` :5904). `pack` is an int, or an int64 tensor
+    of each lane's pack."""
+    packs = pack.unique().tolist() if torch.is_tensor(pack) else [pack]
+    for p in packs:
+        if p not in PACKS:
+            raise ValueError(f"pack must be one of {PACKS}, got {p}")
+    if torch.is_tensor(pack):
+        return BLOCK // pack.double().sqrt().round().long()
+    return BLOCK >> (pack.bit_length() - 1) // 2
+
+
+def tile_of(pix: torch.Tensor, width: int, blocks: bool,
+            bs: int = BLOCK) -> torch.Tensor:
     """The TPU grid step that pixel `pix` = px + py * width fell in: the
     8192-lane step of its pixel index, or in cluster mode (`blocks`: a
-    scene with a world mesh or shared-BLAS instances) its 32x32 block,
-    blocks numbered row by row over ceil(width / 32) columns."""
+    scene with a world mesh or shared-BLAS instances) its bs x bs block
+    (`block_edge`), blocks numbered row by row over ceil(width / bs)
+    columns."""
     pix = pix.to(torch.int64)
     if not blocks:
         return pix // TILE_LANES
-    bw = -(-width // BLOCK)
-    return (pix // width // BLOCK) * bw + (pix % width) // BLOCK
+    bw = -(-width // bs)
+    return (pix // width // bs) * bw + (pix % width) // bs
 
 
-def seed_state(pix: torch.Tensor, seed: int, tile=None) -> torch.Tensor:
-    """Initial state of each lane: (pix * 2654435761 ^ (seed + tile *
+def seed_state(lane: torch.Tensor, seed: int, tile=None) -> torch.Tensor:
+    """Initial state of each lane: (lane * 2654435761 ^ (seed + tile *
     65537)) | 1, with `tile` its grid step (`tile_of`; by default the
-    8192-lane step). `pix` = px + py * W; returns int64 holding uint32
-    values."""
-    pix = pix.to(torch.int64)
+    8192-lane step). `lane` = pix + slot * npix is the id of sample slot
+    `slot` of pixel pix = px + py * W (the pixel itself where a lane owns
+    one pixel, :4307-4321); returns int64 holding uint32 values."""
+    lane = lane.to(torch.int64)
     if tile is None:
-        tile = pix // TILE_LANES
+        tile = lane // TILE_LANES
     seed_u = (int(seed) + tile * 65537) & MASK
-    return (((pix * 2654435761) & MASK) ^ seed_u) | 1
+    return (((lane * 2654435761) & MASK) ^ seed_u) | 1
 
 
 WAVE_STREAMS = ("mixed", "jax")

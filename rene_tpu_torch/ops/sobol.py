@@ -113,12 +113,16 @@ def ld2(idx, keyv, depth, slot: int):
     return bits_to_unit(ub), bits_to_unit(vb)
 
 
-def pixkey(pid, seed_u):
+def pixkey(pid, seed_u, slot=0):
     """A pixel's scrambling key (`sob_pixkey` :1718): hash_u32(pid ^
     seed_u * 0x85EBCA6B), with `pid` = px + py * W computed in integers
     (the reference computes it in float32, exact below 2^24 pixels) and
-    `seed_u` the chunk's (megakernel: per grid step) or the wave's seed."""
-    return hash_u32((pid & MASK) ^ _mul32(seed_u & MASK, 0x85EBCA6B))
+    `seed_u` the chunk's (megakernel: per grid step) or the wave's seed.
+    A packed megakernel lane mixes its sample slot into the seed, seed_u ^
+    slot * 0x9E3779B1 (:4333-4337), so that each slot draws its own
+    scrambled sequence."""
+    seed_u = (seed_u & MASK) ^ _mul32(slot, 0x9E3779B1)
+    return hash_u32((pid & MASK) ^ _mul32(seed_u, 0x85EBCA6B))
 
 
 def probe_ref(x: torch.Tensor) -> torch.Tensor:

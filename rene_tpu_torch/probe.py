@@ -3,6 +3,7 @@
     python -m rene_tpu_torch.probe [--scene cornell|big_mesh|textured_mesh|
                                             fog_mesh] [--out DIR]
     python -m rene_tpu_torch.probe --scene fog_mesh --scatter-share
+    python -m rene_tpu_torch.probe --pack-sweep
 
 Renders one of the main paths' inline scenes: the Cornell box
 (rene_tpu_torch.scenes.cornell_box, K1a variant, at 1024x1024), the big
@@ -37,6 +38,11 @@ and image files go to build/probe_scenes/) or the fog mesh
 
 Needs a CUDA device and nvcc; it builds the kernels on first use.
 
+`--pack-sweep` measures sample-in-tile packing (K1f) instead: the big
+mesh at 1280x720, 320x180 and 160x90 and the fog mesh at 1280x720 and
+320x180, each at pack 1, 4 and 16 delivering 16 spp, and at pack 1 and
+64 delivering 64 spp (`pack_sweep`).
+
 `--scatter-share` needs neither: it counts, with the plain volpath
 megakernel on the CPU at 1 spp and a 128x72 film of the scene, the share
 of camera paths that scatter in a medium at least once.
@@ -44,6 +50,7 @@ of camera paths that scatter in a medium at least once.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -74,6 +81,12 @@ SCENES = {
 }
 SHARE_FILM = (128, 72)
 SCENE_DIR = os.path.join("build", "probe_scenes")
+# the pack sweep: films, and per delivered spp the packs that run it
+PACK_FILMS = (("big_mesh", 1280, 720), ("big_mesh", 320, 180),
+              ("big_mesh", 160, 90), ("fog_mesh", 1280, 720),
+              ("fog_mesh", 320, 180))
+PACK_RUNS = ((16, (1, 4, 16)), (64, (1, 64)))
+PACK_ROUNDS = 3
 
 
 def emit(**kw):
@@ -102,11 +115,86 @@ def scatter_share(path: str, seed: int = 1) -> float:
     return float(ever.double().mean())
 
 
+def pack_sweep(dev, films=PACK_FILMS, runs=PACK_RUNS) -> list:
+    """Sample-in-tile packing on the card. For each (scene, w, h) of
+    `films` and each (spp, packs) of `runs`: the megakernel launch that
+    delivers spp samples per pixel at each pack (spp // pack per lane),
+    timed by CUDA events in PACK_ROUNDS rounds that take the packs in turn
+    (kernel_ms: the median), its rays and Mrays/s; at the first spp also
+    render() with RENE_MEGA_PACK set to the pack: Mrays/s and launches.
+    Returns the rows, each also printed."""
+    rows = []
+    rounds = PACK_ROUNDS
+    os.makedirs(SCENE_DIR, exist_ok=True)
+    for name, w, h in films:
+        path = os.path.join(SCENE_DIR, f"{name}_{w}x{h}.pbrt")
+        with open(path, "w") as f:
+            f.write(SCENES[name][0](SCENE_DIR, w, h))
+        scene = load_scene(path)
+        tabs = M.device_tables(P.pack_tables(*build_device_scene(scene)),
+                               dev)
+        for spp, packs in runs:
+            ms = {p: [] for p in packs}
+            rays = {p: [] for p in packs}
+            for p in packs:
+                kernels.mega_path(tabs, 5, spp // p, pack=p)   # warm-up
+            for r in range(rounds):
+                for p in packs:
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    o = kernels.mega_path(tabs, 7 + r, spp // p, pack=p)
+                    end.record()
+                    rays[p].append(o[9].sum(dtype=torch.float64))
+                    torch.cuda.synchronize(dev)
+                    ms[p].append(start.elapsed_time(end))
+                    del o
+            for p in packs:
+                row = {"scene": name, "film": [w, h], "spp": spp, "pack": p,
+                       "lanes": w * h * p,
+                       "resident_sets": w * h * p / M.RESIDENT_LANES,
+                       "kernel_ms": sorted(ms[p])[len(ms[p]) // 2],
+                       "kernel_ms_rounds": ms[p],
+                       "rays": float(sum(float(x) for x in rays[p])
+                                     / rounds)}
+                row["kernel_mrays_s"] = row["rays"] / row["kernel_ms"] / 1e3
+                if spp == runs[0][0]:
+                    row.update(render_row(scene, spp, p, dev))
+                emit(pack_sweep=row)
+                rows.append(row)
+        del tabs
+    return rows
+
+
+@contextlib.contextmanager
+def mega_pack(pack: int):
+    """RENE_MEGA_PACK set to `pack` inside the block, as it was after."""
+    before = os.environ.get("RENE_MEGA_PACK")
+    os.environ["RENE_MEGA_PACK"] = str(pack)
+    try:
+        yield
+    finally:
+        if before is None:
+            del os.environ["RENE_MEGA_PACK"]
+        else:
+            os.environ["RENE_MEGA_PACK"] = before
+
+
+def render_row(scene, spp, pack, dev) -> dict:
+    """render() of `scene` at `spp` with RENE_MEGA_PACK set to `pack`:
+    its Mrays/s and launches."""
+    with mega_pack(pack):
+        out = render(scene, spp=spp, seed=3, device=dev)
+    return {"render_mrays_s": out["total_rays"] / out["wall_time"] / 1e6,
+            "render_launches": out["launches"]}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="python -m rene_tpu_torch.probe")
     p.add_argument("--scene", choices=sorted(SCENES), default="cornell")
     p.add_argument("--out", default=os.path.join("chiprun_out", "probe"))
     p.add_argument("--scatter-share", action="store_true")
+    p.add_argument("--pack-sweep", action="store_true")
     args = p.parse_args(argv)
     make, (w, h), spps, chunks = SCENES[args.scene]
     if args.scatter_share:
@@ -127,6 +215,9 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,clocks.max.sm",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip())
+    if args.pack_sweep:
+        pack_sweep(torch.device("cuda", 0))
+        return 0
     os.makedirs(SCENE_DIR, exist_ok=True)
     path = os.path.join(SCENE_DIR, f"{args.scene}.pbrt")
     with open(path, "w") as f:

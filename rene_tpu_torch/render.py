@@ -64,7 +64,7 @@ def render(scene, spp: int = DEFAULT_SPP, seed: int = 0, device="cuda",
     if engine == "wave":
         run = make_wave_fn(buffers_np, config, device, spp_hint=spp)
     else:
-        run = make_mega_batch_fn(buffers_np, config, device)
+        run = make_mega_batch_fn(buffers_np, config, device, spp_hint=spp)
     dev_accum = getattr(run, "run_dev", None)
     acc = None
     w, h = config.film.xresolution, config.film.yresolution

@@ -55,7 +55,7 @@ static inline uint32_t __float_as_uint(float f) {
 #endif
 template <bool SOBOL>
 static void run_all(const Params& p) {
-  for (int lane = 0; lane < p.n_pix; ++lane) {
+  for (int lane = 0; lane < p.n_lanes; ++lane) {
     if (p.has_accel) trace_lane<true, LANE_VOL, SOBOL>(p, lane);
     else trace_lane<false, LANE_VOL, SOBOL>(p, lane);
   }
@@ -66,6 +66,19 @@ static int run_lanes(const Params& p, void*) {
   return 0;
 }
 #include "launch.cuh"
+// lane_start of n lane ids: (pixel, stream state, Sobol key) each
+extern "C" void lane_start_all(const int* lanes, int n, int n_pix,
+                               int width, int blocks, int bs, int seed,
+                               uint32_t* out) {
+  for (int i = 0; i < n; ++i) {
+    const LaneStart s = lane_start((uint32_t)lanes[i], (uint32_t)n_pix,
+                                   (uint32_t)width, blocks != 0,
+                                   (uint32_t)bs, (uint32_t)seed);
+    out[3 * i] = s.pix;
+    out[3 * i + 1] = s.st;
+    out[3 * i + 2] = s.key;
+  }
+}
 """
 
 
@@ -631,6 +644,70 @@ def test_cuda_sobol_probe_matches_plain_version(wave_lib):
     assert wave_lib.sobol_probe_launch(x.data_ptr(), x.numel(),
                                        out.data_ptr(), None) == 0
     assert torch.equal(out, SB.probe_ref(x))
+
+
+# -- sample-in-tile packing (K1f) ---------------------------------------------
+@pytest.mark.parametrize("width,height", [(72, 40), (1280, 720)])
+def test_cuda_lane_start_matches_plain_version(host_lib, width, height):
+    """mega_lane.cuh `lane_start` (g++) against mega_path.lane_start bit
+    for bit at every pack: the pixel and slot of a lane id, the block
+    edge's grid step (partial edge blocks at 72x40), the stream seeded by
+    the lane id and the slot-mixed Sobol key, on 4096 lane ids up to
+    npix * 256 (past 2^24) and the last lane."""
+    from rene_tpu_torch.ops import rng
+    npix = width * height
+    fn = host_lib.lane_start_all
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = None
+    g = np.random.default_rng(width)
+    for blocks in (True, False):
+        for pack in rng.PACKS:
+            n_lanes = npix * pack
+            lanes = np.append(g.integers(0, n_lanes, 4096), n_lanes - 1)
+            lanes = torch.from_numpy(lanes.astype(np.int32))
+            seed = int(g.integers(0, 2 ** 31))
+            out = torch.empty((lanes.numel(), 3), dtype=torch.int32)
+            fn(lanes.data_ptr(), lanes.numel(), npix, width, int(blocks),
+               rng.block_edge(pack), seed, out.data_ptr())
+            tabs = {"width": width, "height": height, "block_seed": blocks}
+            pix, _, st, key = M.lane_start(tabs, lanes, seed, pack)
+            want = torch.stack([pix, st, key], 1)
+            assert torch.equal(out.long() & rng.MASK, want), (blocks, pack)
+
+
+@pytest.mark.parametrize("name,pack", [("mesh_materials", 4),
+                                       ("instanced", 16), ("sobol", 4),
+                                       ("fog_mesh", 4), ("sobol_fog_mesh", 4)])
+def test_cuda_packed_lane_code_matches_plain_version(host_lib, vol_lib,
+                                                     tmp_path, name, pack):
+    """trace_lane over npix * pack lanes (g++), pixel lane % npix at slot
+    lane / npix, against path_lanes_ref at the same pack, lane by lane,
+    by the rule of the unpacked lanes; 32x32 x 2 spp (the small fog mesh
+    at maxdepth 8, 1 spp)."""
+    if name == "instanced":
+        bn, cfg = mesh_buffers(name, 32, 32)
+    else:
+        bn, cfg = _sobol_buffers({"sobol": "mesh_materials",
+                                  "sobol_fog_mesh": "fog_mesh"}.get(name, name),
+                                 tmp_path, 32, 32)
+    tabs = M.device_tables(P.pack_tables(bn, cfg), "cpu")
+    tabs["sobol"] = name.startswith("sobol")
+    assert tabs["block_seed"]
+    lib = vol_lib if tabs["volpath"] else host_lib
+    seed, spp = 99, 1 if tabs["volpath"] else 2
+    out = torch.empty((P.OUT_ROWS, 32 * 32 * pack), dtype=torch.float32)
+    assert lib.mega_path_launch(*kernels.launch_args(
+        tabs, seed, spp, False, out, pack), None) == 0
+    ref = M.path_lanes_ref(tabs, seed, spp, pack=pack).numpy()
+    out = out.numpy()
+    a = checks.agreement(out, ref)
+    assert a["rad_frac"] >= 0.995, a
+    assert a["aov_frac"] >= 0.995, a
+    assert a["mean_rel"] <= 1e-4, a
+    assert out[9].sum() == ref[9].sum()
+    # the slots of a pixel trace other paths
+    rad = ref[0].reshape(pack, -1)
+    assert (rad[0] != rad[1]).mean() > 0.5
 
 
 def test_launch_args_check_tables():
