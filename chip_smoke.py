@@ -1626,14 +1626,15 @@ def main() -> int:
                     rate)
         want = PR.mxu_ref(kind, b_, r_)
         err = float((v["out"] - want).abs().max())
+        # the library's time for a launch's work: R3W_REPS products
         prb_rows["mxu_probe_" + kind] = {
             "err": err, "ms": v["ms"], "plain_ms": plain_ms, "bound": bnd,
-            "library_ms": PRB.launch_ms(lib) if lib else None}
+            "library_ms": PRB.launch_ms(lib, PR.R3W_REPS) if lib else None}
         log(f"mxu_probe {kind} ({PR.R3W_REPS} reps per launch): "
             f"{v['us_per_rep']:.4f} us per rep, {v['ms']:.4f} ms per launch; "
             f"plain {plain_ms:.3f} ms; bound {bnd[0]:.5f} ms ({bnd[1]}; "
             f"{ops / 1e6:.2f} MFLOP); "
-            + (f"one torch.matmul "
+            + (f"{PR.R3W_REPS} torch.matmul calls "
                f"{prb_rows['mxu_probe_' + kind]['library_ms']:.4f} ms; "
                if lib else "")
             + f"max abs {err:.3g} [{card}]")
@@ -1780,14 +1781,14 @@ def main() -> int:
               k2_tex["plain_ms"], k2_tex["bound"], None,
               f"textured deep mesh {MESH_W}x{MESH_H} x spw {spw}, first "
               f"launch (k 1); plain on {k2_tex['sampled']} sampled lanes"),
-        entry("mega_volpath", "rene_tpu_torch/csrc/volpath.cuh",
+        entry("mega_volpath", "rene_tpu_torch/csrc/mega_lane.cuh",
               f"{pp_}:4572 (body_vol, with :3287-3430)", l_fs["mega_volpath"],
               max([v_fs["err"]] + [m for acc, m, _ in a_vol.values()
                                    if not acc]), v_fs["ms"],
               v_fs["plain_ms"], v_fs["bound"], None,
               f"fog {MESH_W}x{MESH_H} x 1 spp; plain on {pix.numel()} "
               f"sampled lanes of it at maxdepth {VOL_CHECK_DEPTH}"),
-        entry("mega_volpath_mesh", "rene_tpu_torch/csrc/volpath.cuh",
+        entry("mega_volpath_mesh", "rene_tpu_torch/csrc/mega_lane.cuh",
               f"{pp_}:4572 (body_vol, with :3287-3430)",
               l_fog["mega_volpath_mesh"],
               max([v_fog["err"]] + [m for acc, m, _ in a_vol.values()

@@ -2,9 +2,11 @@
 // (K1e). Mirrors rene_tpu_torch/ops/medium.py and ops/intersect.py
 // `tr_march`, which mirror the JAX megakernel's `med_consts`, `med_tr`,
 // `med_sample`, `med_phase`, `med_sample_p` (pallas_path.py:3287-3361)
-// and `tr_march` (:3363-3430). Plain C++ apart from the CUDA qualifiers
-// and intrinsics, so tests/test_torch_kernel_source.py compiles it with
-// g++ too.
+// and `tr_march` (:3363-3430): the march as segments of one closest hit
+// each (`march_seg`), which the megakernel's lane loop steps one at a
+// time and K2 runs back to back (`tr_march`). Plain C++ apart from the
+// CUDA qualifiers and intrinsics, so tests/test_torch_kernel_source.py
+// compiles it with g++ too.
 //
 // A lane's medium is a float index into the (K, MED_W) media table; 0,
 // an index the table does not hold and a vacuum row are vacuum. The
@@ -19,8 +21,8 @@
 #include "layout.cuh"
 #include "math.cuh"
 
-// real calls on the card (the march holds a full closest-hit walk and
-// runs from three places of a bounce), static functions for g++
+// K2's march is a real call on the card (a second full closest-hit walk
+// beside the bounce's own), a static function for g++
 #ifdef __CUDACC__
 #define VOL_CALL __device__ __noinline__
 #else
@@ -132,36 +134,68 @@ __device__ __forceinline__ float dot3_rn(V3 a, V3 b) {
   return add_rn(add_rn(mul_rn(a.x, b.x), mul_rn(a.y, b.y)), mul_rn(a.z, b.z));
 }
 
-// Transmittance rgb from o along d, starting in medium `med`: up to
-// MAX_TR_MARCH closest hits, passing through None surfaces into the
-// surface's exterior medium where d leaves it (d . n > 0), else its
-// interior. Without want_emit a miss gives the transmittance so far and
-// any other surface 0; with it, a front-facing emitter gives the
+// A transmittance march under way: its ray, the medium it is in, the
+// transmittance so far and the segments walked.
+struct March {
+  V3 o, d;
+  float med;
+  float tr[3];
+  int k;
+};
+
+__device__ __forceinline__ March march_start(V3 o, V3 d, float med) {
+  March m;
+  m.o = o;
+  m.d = d;
+  m.med = med;
+  m.tr[0] = m.tr[1] = m.tr[2] = 1.f;
+  m.k = 0;
+  return m;
+}
+
+// One segment of the transmittance march from m.o along m.d, given that
+// ray's closest hit h: up to MAX_TR_MARCH segments, passing through None
+// surfaces into the surface's exterior medium where d leaves it (d . n >
+// 0), else its interior. Returns true when the march ends, with its
+// result in `out`: without want_emit a miss gives the transmittance so
+// far and any other surface 0; with it, a front-facing emitter gives the
 // transmittance times its radiance and the march stops at any emitter.
+// Else m moves on to the surface's far side.
+__device__ __forceinline__ bool march_seg(const Scene& s, const Media& md,
+                                          March& m, const Hit& h,
+                                          bool want_emit, V3& out) {
+  out = v3(0.f, 0.f, 0.f);
+  if (!(h.t < BIG)) {  // a miss
+    if (!want_emit) out = v3(m.tr[0], m.tr[1], m.tr[2]);
+    return true;
+  }
+  const float* r = s.mats + h.mat * MAT_W;
+  const bool none = (int)__ldg(r + MAT_TYPE) == MAT_NONE;
+  if (want_emit && (h.e[0] != 0.f || h.e[1] != 0.f || h.e[2] != 0.f)) {
+    const V3 n = normalize3(h.n);
+    if (-(m.d.x * n.x + m.d.y * n.y + m.d.z * n.z) > 0.f)
+      out = v3(m.tr[0] * h.e[0], m.tr[1] * h.e[1], m.tr[2] * h.e[2]);
+    return true;
+  }
+  if (!none) return true;
+  const V3 seg = med_tr(med_consts(md, m.med), fminf(h.t, 1e20f));
+  m.tr[0] = m.tr[0] * seg.x;
+  m.tr[1] = m.tr[1] * seg.y;
+  m.tr[2] = m.tr[2] * seg.z;
+  m.med = dot3_rn(m.d, h.n) > 0.f ? __ldg(r + MAT_EMED) : __ldg(r + MAT_IMED);
+  m.o = v3(m.o.x + h.t * m.d.x, m.o.y + h.t * m.d.y, m.o.z + h.t * m.d.z);
+  return ++m.k == MAX_TR_MARCH;  // out stays 0
+}
+
+// Transmittance rgb from o along d, starting in medium `med`: the whole
+// march, its segments one after another (march_seg).
 template <bool MESH>
 VOL_CALL V3 tr_march(const Scene& s, Media md, V3 o, V3 d, float med,
                      bool want_emit) {
-  float tr[3] = {1.f, 1.f, 1.f};
-  for (int k = 0; k < MAX_TR_MARCH; ++k) {
-    Hit h = trace_closest<MESH>(s, o, d, TMIN);
-    if (!(h.t < BIG)) {  // a miss
-      return want_emit ? v3(0.f, 0.f, 0.f) : v3(tr[0], tr[1], tr[2]);
-    }
-    const float* r = s.mats + h.mat * MAT_W;
-    const bool none = (int)__ldg(r + MAT_TYPE) == MAT_NONE;
-    if (want_emit && (h.e[0] != 0.f || h.e[1] != 0.f || h.e[2] != 0.f)) {
-      V3 n = normalize3(h.n);
-      if (-(d.x * n.x + d.y * n.y + d.z * n.z) > 0.f)
-        return v3(tr[0] * h.e[0], tr[1] * h.e[1], tr[2] * h.e[2]);
-      return v3(0.f, 0.f, 0.f);
-    }
-    if (!none) return v3(0.f, 0.f, 0.f);
-    const V3 seg = med_tr(med_consts(md, med), fminf(h.t, 1e20f));
-    tr[0] = tr[0] * seg.x;
-    tr[1] = tr[1] * seg.y;
-    tr[2] = tr[2] * seg.z;
-    med = dot3_rn(d, h.n) > 0.f ? __ldg(r + MAT_EMED) : __ldg(r + MAT_IMED);
-    o = v3(o.x + h.t * d.x, o.y + h.t * d.y, o.z + h.t * d.z);
+  March m = march_start(o, d, med);
+  V3 out;
+  while (!march_seg(s, md, m, trace_closest<MESH>(s, m.o, m.d, TMIN),
+                    want_emit, out)) {
   }
-  return v3(0.f, 0.f, 0.f);
+  return out;
 }

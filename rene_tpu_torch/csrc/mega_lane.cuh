@@ -1,7 +1,7 @@
 // The megakernel's lane loop: one thread streams a pixel's paths back to
-// back through the path body (K1a-K1d, pallas_path.py `body` :4349) or,
-// where VOL, the volpath body (K1e, volpath.cuh vol_bounce, `body_vol`
-// :4572). Mirrors rene_tpu_torch/integrators/mega_path.py
+// back through the path body (K1a-K1d, pallas_path.py `body` :4349;
+// `path_lane`) or, where VOL, the volpath body (K1e, `body_vol` :4572;
+// `vol_lane`, a state machine over volpath.cuh's pieces). Mirrors rene_tpu_torch/integrators/mega_path.py
 // `path_lanes_ref` (and volpath.py `vol_lanes_ref`). Included by
 // mega_path.cu; plain C++ apart from the CUDA qualifiers and intrinsics.
 // SOBOL: the instance of `Sampler "sobol"` (K-sobol, csrc/sobol.cuh),
@@ -47,142 +47,45 @@ __device__ __forceinline__ LaneStart lane_start(uint32_t lane, uint32_t n_pix,
           sob_pixkey(pix, seed_u ^ (slot * 0x9E3779B1u))};
 }
 
-// One lane's whole run: num_samples paths for pixel lane % n_pix (sample
-// slot lane / n_pix); writes the ten per-lane sums to out[k * n_lanes +
-// lane]. MESH: the scene has acceleration tables (mesh, instances or
-// sphere table). VOL: each path runs the volpath bounce and starts in
-// vacuum. SOBOL: the draws of the path body and the camera are Sobol
-// pairs keyed by the pixel, the grid-step seed and the slot; a volpath
-// bounce keeps its medium draws on the stream.
-template <bool MESH, bool VOL, bool SOBOL>
-__device__ __forceinline__ void trace_lane(const Params& p, int lane) {
+// A lane's start: its pixel's coordinates, its stream, its Sobol key
+// (0 for the independent sampler) and its first camera ray, from the
+// camera origin `o`.
+struct Lane {
+  float pxf, pyf;
+  uint32_t st, pixkey;
+  V3 o, d;
+};
+
+template <bool SOBOL>
+__device__ __forceinline__ Lane lane_begin(const Params& p, int lane) {
   const Scene& s = p.s;
-  const bool beck = p.beckmann != 0;
-  const int E = s.n_eo;
-  const float ray_inc = 1.f + (float)s.n_lights + (E > 0 ? 1.f : 0.f);
   const LaneStart ls =
       lane_start((uint32_t)lane, (uint32_t)p.n_pix, (uint32_t)p.width,
                  p.block_seed != 0, (uint32_t)p.block, p.seed);
-  const float pxf = (float)(ls.pix % (uint32_t)p.width);
-  const float pyf = (float)(ls.pix / (uint32_t)p.width);
-  const V3 cam_o = v3(__ldg(s.cam + CAM_ORIGIN), __ldg(s.cam + CAM_ORIGIN + 1),
-                      __ldg(s.cam + CAM_ORIGIN + 2));
-  const int bg_kind = (int)__ldg(s.cam + CAM_BG_KIND);
-
-  uint32_t st = ls.st;
+  Lane l;
+  l.pxf = (float)(ls.pix % (uint32_t)p.width);
+  l.pyf = (float)(ls.pix / (uint32_t)p.width);
+  l.o = v3(__ldg(s.cam + CAM_ORIGIN), __ldg(s.cam + CAM_ORIGIN + 1),
+           __ldg(s.cam + CAM_ORIGIN + 2));
+  l.st = ls.st;
+  l.pixkey = 0u;
   float ju0, jv0;
-  uint32_t pixkey = 0u;
   if constexpr (SOBOL) {
-    pixkey = ls.key;
-    ld2(0u, pixkey, 0u, SLOT_CAM, ju0, jv0);
+    l.pixkey = ls.key;
+    ld2(0u, l.pixkey, 0u, SLOT_CAM, ju0, jv0);
   } else {
-    ju0 = uniform(st);
-    jv0 = uniform(st);
+    ju0 = uniform(l.st);
+    jv0 = uniform(l.st);
   }
-  V3 o = cam_o;
-  V3 d = camera_ray(s.cam, pxf, pyf, ju0, jv0);
-  float thr[3] = {1.f, 1.f, 1.f};
-  float rad[3] = {0.f, 0.f, 0.f}, aov_n[3] = {0.f, 0.f, 0.f};
-  float aov_a[3] = {0.f, 0.f, 0.f};
-  float rays = 0.f, med = 0.f;
-  int depth = 0, sample = 0;
+  l.d = camera_ray(s.cam, l.pxf, l.pyf, ju0, jv0);
+  return l;
+}
 
-  while (sample < p.num_samples) {
-    rays = rays + ray_inc;
-    bool alive;
-    V3 next_o = o, next_d = d;
-    float nthr[3] = {thr[0], thr[1], thr[2]};
-    float next_med = med, cj1, cj2;
-    const SobolAt at = {(uint32_t)sample, pixkey, (uint32_t)depth};
-    if constexpr (VOL) {
-      const VolStep b = vol_bounce<MESH, SOBOL>(
-          s, Media{p.media, p.n_media}, beck, o, d, thr, med, depth == 0, rad,
-          aov_n, aov_a, st, at);
-      alive = b.alive;
-      next_o = b.o;
-      next_d = b.d;
-      for (int c = 0; c < 3; ++c) nthr[c] = b.c[c];
-      next_med = b.med;
-      cj1 = b.cj1;
-      cj2 = b.cj2;
-    } else {
-      const Draws u = draw_bounce_as<SOBOL>(s, p.use_rr != 0, st, at);
-      cj1 = u.cj1;
-      cj2 = u.cj2;
-      Hit h = trace_closest<MESH>(s, o, d, TMIN);
-      alive = h.t < BIG;
-      if (!alive) {
-        float bg[3];
-        background(s.cam, s.atlas, bg_kind, d, bg);
-        for (int c = 0; c < 3; ++c) rad[c] = rad[c] + thr[c] * bg[c];
-      } else {
-        Mat m = hit_material(s, h);
-        V3 hp = v3(o.x + h.t * d.x, o.y + h.t * d.y, o.z + h.t * d.z);
-        V3 n = normalize3(h.n);
-        V3 wo = neg(d);
-        Frame f = onb_from_w(n);
-        // emitter hit (one-sided)
-        if ((h.e[0] != 0.f || h.e[1] != 0.f || h.e[2] != 0.f)
-            && dot3(wo, n) > 0.f)
-          for (int c = 0; c < 3; ++c) rad[c] = rad[c] + thr[c] * h.e[c];
-        // AOVs at depth 0
-        if (depth == 0) {
-          aov_n[0] = aov_n[0] + n.x;
-          aov_n[1] = aov_n[1] + n.y;
-          aov_n[2] = aov_n[2] + n.z;
-          for (int c = 0; c < 3; ++c) aov_a[c] = aov_a[c] + m.ab[c];
-        }
-        V3 lo = to_local(f, wo);
-        // distant lights: NEE with a shadow ray each
-        for (int li = 0; li < s.n_lights; ++li) {
-          const float* L = s.lights + li * LIGHT_W;
-          V3 ld = load3(L + LIGHT_DIR);
-          if (shadow_any<MESH>(s, li, hp, ld, TMIN, 1e5f)) continue;
-          BsdfVal fe = bsdf_eval(m, lo, to_local(f, ld), beck);
-          float cosl = fabsf(ld.x * n.x + ld.y * n.y + ld.z * n.z);
-          for (int c = 0; c < 3; ++c)
-            rad[c] = rad[c]
-                + thr[c] * fe.f[c] * cosl * __ldg(L + LIGHT_COLOR + c);
-        }
-        alive = bsdf_step(s, m, f, n, lo, hp, u, beck, thr, next_d, nthr);
-        // a throughput below the normal range counts as zero, as under
-        // the flush-to-zero arithmetic of XLA and the TPU
-        alive = alive
-            && maxn(nthr[0], maxn(nthr[1], nthr[2])) >= FLT_MIN_NORMAL;
-        if (p.use_rr) {
-          float p_cont = clampn(maxn(nthr[0], maxn(nthr[1], nthr[2])), 0.f,
-                                1.f);
-          bool do_rr = depth > RR_START;
-          alive = alive && (!do_rr || u.rrv <= p_cont);
-          if (do_rr && alive) {
-            float inv_p = 1.f / clamp_min(p_cont, 1e-20f);
-            for (int c = 0; c < 3; ++c) nthr[c] = nthr[c] * inv_p;
-          }
-        }
-        next_o = hp;
-      }
-    }
-    alive = alive && (depth + 1 < p.max_depth);
-    if (alive) {
-      o = next_o;
-      d = next_d;
-      for (int c = 0; c < 3; ++c) thr[c] = nthr[c];
-      med = next_med;
-      depth = depth + 1;
-    } else {
-      sample = sample + 1;
-      if (sample < p.num_samples) {  // regenerate a camera path
-        if constexpr (SOBOL)
-          ld2((uint32_t)sample, pixkey, 0u, SLOT_CAM, cj1, cj2);
-        o = cam_o;
-        d = camera_ray(s.cam, pxf, pyf, cj1, cj2);
-        thr[0] = thr[1] = thr[2] = 1.f;
-        med = 0.f;
-        depth = 0;
-      }
-    }
-  }
-
+// the ten per-lane sums, to out[k * n_lanes + lane]
+__device__ __forceinline__ void write_sums(const Params& p, int lane,
+                                           const float* rad,
+                                           const float* aov_n,
+                                           const float* aov_a, float rays) {
   const size_t N = (size_t)p.n_lanes;
   float* out = p.out + lane;
   out[0 * N] = rad[0];
@@ -195,4 +98,272 @@ __device__ __forceinline__ void trace_lane(const Params& p, int lane) {
   out[7 * N] = aov_a[1];
   out[8 * N] = aov_a[2];
   out[9 * N] = rays;
+}
+
+// One lane's whole run through the path body: num_samples paths for
+// pixel lane % n_pix (sample slot lane / n_pix). MESH: the scene has
+// acceleration tables (mesh, instances or sphere table). SOBOL: the draws
+// of the path body and the camera are Sobol pairs keyed by the pixel, the
+// grid-step seed and the slot.
+template <bool MESH, bool SOBOL>
+__device__ __forceinline__ void path_lane(const Params& p, int lane) {
+  const Scene& s = p.s;
+  const bool beck = p.beckmann != 0;
+  const int E = s.n_eo;
+  const float ray_inc = 1.f + (float)s.n_lights + (E > 0 ? 1.f : 0.f);
+  Lane l = lane_begin<SOBOL>(p, lane);
+  const float pxf = l.pxf, pyf = l.pyf;
+  const V3 cam_o = l.o;
+  const int bg_kind = (int)__ldg(s.cam + CAM_BG_KIND);
+  uint32_t st = l.st;
+  const uint32_t pixkey = l.pixkey;
+  V3 o = cam_o;
+  V3 d = l.d;
+  float thr[3] = {1.f, 1.f, 1.f};
+  float rad[3] = {0.f, 0.f, 0.f}, aov_n[3] = {0.f, 0.f, 0.f};
+  float aov_a[3] = {0.f, 0.f, 0.f};
+  float rays = 0.f;
+  int depth = 0, sample = 0;
+
+  while (sample < p.num_samples) {
+    rays = rays + ray_inc;
+    bool alive;
+    V3 next_o = o, next_d = d;
+    float nthr[3] = {thr[0], thr[1], thr[2]};
+    float cj1, cj2;
+    const SobolAt at = {(uint32_t)sample, pixkey, (uint32_t)depth};
+    const Draws u = draw_bounce_as<SOBOL>(s, p.use_rr != 0, st, at);
+    cj1 = u.cj1;
+    cj2 = u.cj2;
+    Hit h = trace_closest<MESH>(s, o, d, TMIN);
+    alive = h.t < BIG;
+    if (!alive) {
+      float bg[3];
+      background(s.cam, s.atlas, bg_kind, d, bg);
+      for (int c = 0; c < 3; ++c) rad[c] = rad[c] + thr[c] * bg[c];
+    } else {
+      Mat m = hit_material(s, h);
+      V3 hp = v3(o.x + h.t * d.x, o.y + h.t * d.y, o.z + h.t * d.z);
+      V3 n = normalize3(h.n);
+      V3 wo = neg(d);
+      Frame f = onb_from_w(n);
+      // emitter hit (one-sided)
+      if ((h.e[0] != 0.f || h.e[1] != 0.f || h.e[2] != 0.f)
+          && dot3(wo, n) > 0.f)
+        for (int c = 0; c < 3; ++c) rad[c] = rad[c] + thr[c] * h.e[c];
+      // AOVs at depth 0
+      if (depth == 0) {
+        aov_n[0] = aov_n[0] + n.x;
+        aov_n[1] = aov_n[1] + n.y;
+        aov_n[2] = aov_n[2] + n.z;
+        for (int c = 0; c < 3; ++c) aov_a[c] = aov_a[c] + m.ab[c];
+      }
+      V3 lo = to_local(f, wo);
+      // distant lights: NEE with a shadow ray each
+      for (int li = 0; li < s.n_lights; ++li) {
+        const float* L = s.lights + li * LIGHT_W;
+        V3 ld = load3(L + LIGHT_DIR);
+        if (shadow_any<MESH>(s, li, hp, ld, TMIN, 1e5f)) continue;
+        BsdfVal fe = bsdf_eval(m, lo, to_local(f, ld), beck);
+        float cosl = fabsf(ld.x * n.x + ld.y * n.y + ld.z * n.z);
+        for (int c = 0; c < 3; ++c)
+          rad[c] = rad[c]
+              + thr[c] * fe.f[c] * cosl * __ldg(L + LIGHT_COLOR + c);
+      }
+      alive = bsdf_step(s, m, f, n, lo, hp, u, beck, thr, next_d, nthr);
+      // a throughput below the normal range counts as zero, as under
+      // the flush-to-zero arithmetic of XLA and the TPU
+      alive = alive
+          && maxn(nthr[0], maxn(nthr[1], nthr[2])) >= FLT_MIN_NORMAL;
+      if (p.use_rr) {
+        float p_cont = clampn(maxn(nthr[0], maxn(nthr[1], nthr[2])), 0.f,
+                              1.f);
+        bool do_rr = depth > RR_START;
+        alive = alive && (!do_rr || u.rrv <= p_cont);
+        if (do_rr && alive) {
+          float inv_p = 1.f / clamp_min(p_cont, 1e-20f);
+          for (int c = 0; c < 3; ++c) nthr[c] = nthr[c] * inv_p;
+        }
+      }
+      next_o = hp;
+    }
+    alive = alive && (depth + 1 < p.max_depth);
+    if (alive) {
+      o = next_o;
+      d = next_d;
+      for (int c = 0; c < 3; ++c) thr[c] = nthr[c];
+      depth = depth + 1;
+    } else {
+      sample = sample + 1;
+      if (sample < p.num_samples) {  // regenerate a camera path
+        if constexpr (SOBOL)
+          ld2((uint32_t)sample, pixkey, 0u, SLOT_CAM, cj1, cj2);
+        o = cam_o;
+        d = camera_ray(s.cam, pxf, pyf, cj1, cj2);
+        thr[0] = thr[1] = thr[2] = 1.f;
+        depth = 0;
+      }
+    }
+  }
+
+  write_sums(p, lane, rad, aov_n, aov_a, rays);
+}
+
+// Counts of the volpath lane loop's steps, kept only by the -DMEGA_COUNT=1
+// build (`mega_volpath_mesh_count`, which `python -m rene_tpu_torch.probe
+// --scene fog_mesh` alone launches): at the cast site, each warp's leader
+// lane adds the lanes active there, __popc(__activemask()), and one warp
+// step; each lane counts its steps and those that were march segments.
+// The sums go to vol_counts at the lane's end: active lanes, warp steps,
+// lane steps, march steps, lanes.
+#define N_VOL_COUNTS 5
+#if defined(MEGA_COUNT) && MEGA_COUNT
+__device__ unsigned long long vol_counts[N_VOL_COUNTS];
+struct StepCounts {
+  uint32_t active = 0, warp_steps = 0, steps = 0, march = 0;
+  __device__ __forceinline__ void step(bool marching) {
+    const unsigned am = __activemask();
+    if ((threadIdx.x & 31u) == (unsigned)(__ffs(am) - 1)) {
+      active += (uint32_t)__popc(am);
+      warp_steps += 1u;
+    }
+    steps += 1u;
+    march += marching ? 1u : 0u;
+  }
+  __device__ __forceinline__ void flush() {
+    atomicAdd(&vol_counts[0], (unsigned long long)active);
+    atomicAdd(&vol_counts[1], (unsigned long long)warp_steps);
+    atomicAdd(&vol_counts[2], (unsigned long long)steps);
+    atomicAdd(&vol_counts[3], (unsigned long long)march);
+    atomicAdd(&vol_counts[4], 1ull);
+  }
+};
+#else
+struct StepCounts {
+  __device__ __forceinline__ void step(bool) {}
+  __device__ __forceinline__ void flush() {}
+};
+#endif
+
+// Whether a lane takes this step of vol_lane's loop, on the card: a lane
+// whose bounce is due waits while another lane of its warp marches, so
+// that the warp's lanes shade their bounces together ("march first").
+// Each lane makes the same draws, casts and sums in the same order
+// either way; only when it makes them moves. Against every lane stepping
+// freely, march first ran the fog mesh's 1280x720 launches 1.09-1.17x
+// and fog_scene's 1.36-1.38x faster (NVIDIA H100 80GB HBM3, 700 W; PERF.md
+// section 6): once the lanes drift apart nearly every free step carries
+// some lane's bounce shading, dearer than a march segment.
+__device__ __forceinline__ bool step_now(bool marching) {
+#ifdef __CUDACC__
+  const bool any = __any_sync(__activemask(), marching);  // every lane votes
+  return marching || !any;
+#else
+  (void)marching;
+  return true;
+#endif
+}
+
+// One lane's whole run through the volpath body (K1e): num_samples paths
+// for pixel lane % n_pix (sample slot lane / n_pix), each starting in
+// vacuum. A small state machine with one ray cast per step, from one
+// call site: the step casts the path ray (a bounce) or the current
+// segment of a transmittance march, and then either shades the hit
+// (volpath.cuh vol_shade, which queues the bounce's NEE marches) or
+// advances the march (medium.cuh march_seg), taking its sum when it ends
+// (nee_add) and starting the next queued one. When a bounce's last march
+// has ended, or it queued none, the depth cut decides between the next
+// bounce and a new camera path. So the lanes of a warp that need a walk,
+// for whatever reason, walk together; a lane whose bounce is due waits
+// for the warp's marches (step_now), so that the warp shades together.
+// The draws, casts and sums are those of vol_bounce, in its order. SOBOL:
+// the path body's and the camera's draws are Sobol pairs at (sample,
+// pixel key, depth); the medium's stay on the stream.
+template <bool MESH, bool SOBOL>
+__device__ __forceinline__ void vol_lane(const Params& p, int lane) {
+  const Scene& s = p.s;
+  const Media md = {p.media, p.n_media};
+  const bool beck = p.beckmann != 0;
+  const float ray_inc = 1.f + (float)s.n_lights + (s.n_eo > 0 ? 1.f : 0.f);
+  Lane l = lane_begin<SOBOL>(p, lane);
+  V3 o = l.o, d = l.d;
+  float thr[3] = {1.f, 1.f, 1.f};
+  float rad[3] = {0.f, 0.f, 0.f}, aov_n[3] = {0.f, 0.f, 0.f};
+  float aov_a[3] = {0.f, 0.f, 0.f};
+  float rays = 0.f, med = 0.f;
+  int depth = 0, sample = 0;
+  // the last bounce's march queue, the march under way (number q), and
+  // the bounce's verdict and camera draws, applied when its marches end
+  VolNee e;
+  e.n_march = 0;
+  March m = march_start(o, d, med);
+  int q = 0;
+  bool alive = false;
+  float cj1 = 0.f, cj2 = 0.f;
+  StepCounts cnt;
+
+  while (sample < p.num_samples) {
+    const bool marching = q < e.n_march;
+    if (!step_now(marching)) continue;
+    cnt.step(marching);
+    const Hit h = trace_closest<MESH>(s, marching ? m.o : o,
+                                      marching ? m.d : d, TMIN);
+    bool next;  // the queue's next march starts
+    if (marching) {
+      V3 tr;
+      if (!march_seg(s, md, m, h, q >= s.n_lights, tr)) continue;
+      nee_add(s, md, beck, e, q, tr, rad);
+      q = q + 1;
+      next = q < e.n_march;
+    } else {
+      rays = rays + ray_inc;
+      const SobolAt at = {(uint32_t)sample, l.pixkey, (uint32_t)depth};
+      const VolDraws v = draw_bounce_vol<SOBOL>(s, l.st, at);
+      const VolStep b = vol_shade<MESH>(s, md, beck, o, d, thr, med,
+                                        depth == 0, h, v, rad, aov_n, aov_a,
+                                        e);
+      // the next ray now; the march origin is its origin
+      alive = b.alive;
+      o = b.o;
+      d = b.d;
+      for (int c = 0; c < 3; ++c) thr[c] = b.c[c];
+      med = b.med;
+      cj1 = b.cj1;
+      cj2 = b.cj2;
+      q = 0;
+      next = e.n_march > 0;
+    }
+    if (next) {
+      m = march_start(o, nee_dir(s, e, q), e.med);
+      continue;
+    }
+    // the bounce and its marches are done
+    e.n_march = 0;
+    if (alive && depth + 1 < p.max_depth) {
+      depth = depth + 1;
+    } else {
+      sample = sample + 1;
+      if (sample < p.num_samples) {  // regenerate a camera path
+        if constexpr (SOBOL)
+          ld2((uint32_t)sample, l.pixkey, 0u, SLOT_CAM, cj1, cj2);
+        o = l.o;
+        d = camera_ray(s.cam, l.pxf, l.pyf, cj1, cj2);
+        thr[0] = thr[1] = thr[2] = 1.f;
+        med = 0.f;
+        depth = 0;
+      }
+    }
+  }
+  cnt.flush();
+  write_sums(p, lane, rad, aov_n, aov_a, rays);
+}
+
+// One lane's whole run: the path body or, where VOL, the volpath body;
+// writes the ten per-lane sums to out[k * n_lanes + lane].
+template <bool MESH, bool VOL, bool SOBOL>
+__device__ __forceinline__ void trace_lane(const Params& p, int lane) {
+  if constexpr (VOL)
+    vol_lane<MESH, SOBOL>(p, lane);
+  else
+    path_lane<MESH, SOBOL>(p, lane);
 }

@@ -20,15 +20,26 @@
 //
 // -DMEGA_VOL=1 builds the volpath megakernel instead (K1e, replacing
 // `body_vol` :4572-4841 with `med_*` :3287-3361 and `tr_march`
-// :3363-3430; plain version integrators/volpath.py): the same lane
-// loop and light sampling over csrc/volpath.cuh's bounce, with each
-// lane's medium, distance sampling, Henyey-Greenstein NEE and the
-// transmittance march (csrc/medium.cuh), a real call that walks up to
-// 32 closest hits through None surfaces. A separate build, not a
-// runtime branch, so the path variants compile from the code they had.
-// What bounds it: the casts, as in the path body, now with a march per
-// light at every scatter point and surface, and no Russian roulette, so
-// the lanes of a warp end their paths far apart.
+// :3363-3430; plain version integrators/volpath.py): csrc/volpath.cuh's
+// bounce, with each lane's medium, distance sampling, Henyey-Greenstein
+// NEE and the transmittance march (csrc/medium.cuh), which walks up to 32
+// closest hits through None surfaces. A separate build, not a runtime
+// branch, so the path variants compile from the code they had. What
+// bounds it: the casts, a march per light at every scatter point and
+// surface, and divergence between the lanes of a warp: without Russian
+// roulette they end their paths far apart, and a bounce casts from four
+// places (the closest hit, the marches of a scatter point's lights and
+// emitter, those of a surface's lights), each march a loop of walks.
+// Its design for this card (mega_lane.cuh vol_lane): the lane loop is a
+// state machine that casts once per step from one call site, the path
+// ray or a march's next segment, so that the lanes of a warp that need a
+// walk walk together and the march is no real call (no spills at a call
+// boundary, one inlined copy of the walk); a lane whose bounce is due
+// waits while a lane of its warp marches, so that the warp shades its
+// bounces together (mega_lane.cuh step_now). -DMEGA_COUNT=1 (with
+// MEGA_VOL and MEGA_MESH) builds the same loop with step counts
+// (mega_lane.cuh StepCounts) for `python -m rene_tpu_torch.probe --scene
+// fog_mesh`.
 //
 // Design. One thread owns one pixel and streams `num_samples` paths back
 // to back, regenerating a camera ray when a path ends: camera ray,
@@ -93,15 +104,22 @@
 // blocks of 128 threads that must fit an SM: five for the immediates
 // variant (at most 96 registers; its short table loops gain from the
 // occupancy), four for the mesh variant (128 registers; capped at 96 it
-// spills into its tree walk and gains nothing); the volpath variants
-// keep them
+// spills into its tree walk and gains nothing)
 #define PATH_MIN_BLOCKS (MEGA_MESH ? 4 : 5)
+// the volpath variants' floor, five blocks for the mesh variant (at most
+// 96 registers, 236 bytes of spill stores) and six for the immediates one
+// (80, 432 bytes): the fastest of 3/4/5 and 4/5/6, measured in turns on
+// the 1280x720 fog mesh (maxdepth 64) and fog scene launches, NVIDIA H100
+// 80GB HBM3 at 700 W (`python -m rene_tpu_torch.probe --compare`, PERF.md
+// section 6): the fog mesh at 1 / 16 spp 20.010 / 297.325 ms at three
+// blocks, 18.802 / 280.228 at four, 18.764 / 276.592 at five; the fog
+// scene 7.637 / 125.937 at four, 7.596 / 124.439 at five, 7.362 / 119.106
+// at six
+#define VOL_MIN_BLOCKS (MEGA_MESH ? 5 : 6)
 
 #if MEGA_VOL
-// the parameters stay in the constant bank: the march, a real call,
-// takes the scene by reference
 template <bool MESH, bool SOBOL>
-__global__ void __launch_bounds__(128, PATH_MIN_BLOCKS)
+__global__ void __launch_bounds__(128, VOL_MIN_BLOCKS)
 mega_volpath_kernel(const __grid_constant__ Params p) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane < p.n_lanes) trace_lane<MESH, true, SOBOL>(p, lane);
@@ -117,15 +135,21 @@ mega_path_kernel(const Params p) {
 
 // Launch this build's variant on `stream` (a cudaStream_t); returns
 // cudaGetLastError(), or cudaErrorInvalidValue for scene tables of the
-// other variant.
+// other variant. The counting build (-DMEGA_COUNT=1) holds the
+// independent instance alone and refuses Sobol tables.
 static int run_lanes(const Params& p, void* stream) {
   if ((p.has_accel != 0) != (MEGA_MESH != 0))
     return (int)cudaErrorInvalidValue;
+#if defined(MEGA_COUNT) && MEGA_COUNT
+  if (p.sobol) return (int)cudaErrorInvalidValue;
+#endif
   const int threads = 128;
   const int blocks = (p.n_lanes + threads - 1) / threads;
   if (blocks > 0) {
     cudaStream_t st = (cudaStream_t)stream;
-#if MEGA_VOL
+#if MEGA_VOL && defined(MEGA_COUNT) && MEGA_COUNT
+    mega_volpath_kernel<MEGA_MESH != 0, false><<<blocks, threads, 0, st>>>(p);
+#elif MEGA_VOL
     if (p.sobol)
       mega_volpath_kernel<MEGA_MESH != 0, true>
           <<<blocks, threads, 0, st>>>(p);
@@ -141,5 +165,22 @@ static int run_lanes(const Params& p, void* stream) {
   }
   return (int)cudaGetLastError();
 }
+
+#if defined(MEGA_COUNT) && MEGA_COUNT
+// The counting build's step counts (mega_lane.cuh StepCounts): copied to
+// the N_VOL_COUNTS uint64 words at `out` (device memory) on `stream`,
+// then zeroed where `reset`; returns cudaGetLastError().
+extern "C" int mega_counts(void* out, int reset, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaMemcpyFromSymbolAsync(out, vol_counts, sizeof(vol_counts), 0,
+                            cudaMemcpyDeviceToDevice, st);
+  if (reset) {
+    void* c = nullptr;
+    cudaGetSymbolAddress(&c, vol_counts);
+    cudaMemsetAsync(c, 0, sizeof(vol_counts), st);
+  }
+  return (int)cudaGetLastError();
+}
+#endif
 
 #include "launch.cuh"

@@ -16,6 +16,10 @@ together, and loaded with ctypes:
     csrc/probes.cu      the Mosaic probes P-r3n (rowslice_probe) and P-r3w
                         (mxu_probe), one build
 
+and one more build of mega_path.cu, the volpath mesh megakernel with
+step counts (-DMEGA_COUNT=1, `mega_volpath_counts`), which only the probe
+launches, built at its first launch and not with the variants.
+
 Every build of K1 and K2, and K3, holds two instances of its kernel, the
 independent sampler's and `Sampler "sobol"`'s (template parameter SOBOL,
 csrc/sobol.cuh), picked at launch by the scene's sampler: no more nvcc
@@ -72,6 +76,13 @@ VARIANTS = {"mega_path": ("mega_path.cu", "-DMEGA_MESH=0", "-DMEGA_VOL=0"),
             "wave_volpath_mesh": ("wave.cu", "-DMEGA_MESH=1",
                                   "-DMEGA_VOL=1"),
             "probes": ("probes.cu",)}
+COUNT = "mega_volpath_mesh_count"   # the counting build's library and kernel
+# every library `build` knows: the variants and the counting build
+BUILDS = dict(VARIANTS, **{COUNT: VARIANTS["mega_volpath_mesh"]
+                           + ("-DMEGA_COUNT=1",)})
+# what its counts hold (csrc/mega_lane.cuh StepCounts), in their C order
+COUNT_KEYS = ("active_lanes", "warp_steps", "lane_steps", "march_steps",
+              "lanes")
 SOBOL = "_sobol"    # suffix of a Sobol instance's name
 MXU_KINDS = ("hi", "def", "vpu")   # mxu_probe's kinds, in the C order
 MAX_LANES = 1 << 31   # the megakernel's lane ids and count are C ints
@@ -80,6 +91,7 @@ MAX_LANES = 1 << 31   # the megakernel's lane ids and count are C ints
 # mxu_probe kinds in the probes library
 launches = dict.fromkeys(
     [v + s for v in VARIANTS if v != "probes" for s in ("", SOBOL)]
+    + [COUNT]
     + ["wave_genesis", "wave_genesis" + SOBOL, "wave_permute",
        "sobol_probe", "rowslice_probe"]
     + ["mxu_probe_" + k for k in MXU_KINDS], 0)
@@ -117,21 +129,24 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME)")
 
 
-def library_path(name: str) -> Path:
-    """Where variant `name`'s library for the current sources lives
-    (built or not)."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS + list(VARIANTS[name])).encode())
-    for f in sorted(CSRC.glob("*.cu*")):
+def library_path(name: str, csrc: Path = CSRC) -> Path:
+    """Where library `name`'s build (BUILDS) for the sources in `csrc`
+    lives (built or not)."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + list(BUILDS[name])).encode())
+    for f in sorted(Path(csrc).glob("*.cu*")):
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(verbose: bool = False) -> Dict[str, Path]:
-    """Compile every variant whose library for these sources does not
-    exist yet, one nvcc each, all at once; returns {variant: library}.
-    `verbose` prints ptxas's register and spill report."""
-    sos = {name: library_path(name) for name in VARIANTS}
+def build(verbose: bool = False, csrc: Path = CSRC, names=None,
+          reports=None) -> Dict[str, Path]:
+    """Compile every variant (or the BUILDS in `names`) whose library for
+    the sources in `csrc` does not exist yet, one nvcc each, all at once;
+    returns {name: library}. `verbose` prints ptxas's register and
+    spill report (kept in `ptxas` for the sources of the package), or
+    puts it in the dict `reports` under (csrc, variant) where given."""
+    sos = {name: library_path(name, csrc) for name in names or VARIANTS}
     runs = {}
     for name, so in sos.items():
         if so.exists():
@@ -139,8 +154,9 @@ def build(verbose: bool = False) -> Dict[str, Path]:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        source, *flags = VARIANTS[name]
-        cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-o", tmp, str(CSRC / source)]
+        source, *flags = BUILDS[name]
+        cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-o", tmp,
+               str(Path(csrc) / source)]
         if verbose:
             cmd.insert(1, "-Xptxas=-v")
         runs[name] = (tmp, subprocess.Popen(
@@ -153,12 +169,23 @@ def build(verbose: bool = False) -> Dict[str, Path]:
             failed.append(f"{name}: nvcc failed ({proc.returncode}):\n{err}")
             continue
         if verbose and err:
-            ptxas[name] = err
-            print(f"{name}:\n{err}")
+            if Path(csrc) == CSRC:
+                ptxas[name] = err
+            if reports is None:
+                print(f"{name}:\n{err}")
+            else:
+                reports[str(csrc), name] = err
         os.replace(tmp, sos[name])
     if failed:
         raise RuntimeError("\n".join(failed))
     return sos
+
+
+def load_library(name: str, csrc: Path = CSRC) -> ctypes.CDLL:
+    """Library `name` (BUILDS) built from the sources in `csrc` (the
+    package's own by default, as `_load` does), bound and loaded."""
+    return bind(ctypes.CDLL(str(build(csrc=csrc, names=[name])[name])),
+                COUNT if name == COUNT else VARIANTS[name][0])
 
 
 # argument types of the C entry points (csrc/launch.cuh,
@@ -182,6 +209,7 @@ ROWSLICE_ARGTYPES = [_I, _I, _P, _I, _P, _I, _P, _P]
 MXU_ARGTYPES = [_I, _P, _P, _I, _I, _I, _P, _P]
 _ENTRY_POINTS = {
     "mega_path.cu": {"mega_path_launch": ARGTYPES},
+    COUNT: {"mega_path_launch": ARGTYPES, "mega_counts": [_P, _I, _P]},
     "wave.cu": {"wave_path_launch": WAVE_ARGTYPES,
                 "wave_genesis_launch": GENESIS_ARGTYPES,
                 "wave_permute_launch": PERMUTE_ARGTYPES,
@@ -191,7 +219,8 @@ _ENTRY_POINTS = {
 
 
 def bind(lib: ctypes.CDLL, source: str) -> ctypes.CDLL:
-    """Set the argument and return types of `source`'s entry points."""
+    """Set the argument and return types of the entry points of `source`
+    (a source, or the counting build's name)."""
     for fn, argtypes in _ENTRY_POINTS[source].items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ctypes.c_int
@@ -200,8 +229,9 @@ def bind(lib: ctypes.CDLL, source: str) -> ctypes.CDLL:
 
 def _load(name: str) -> ctypes.CDLL:
     if name not in _libs:
-        _libs[name] = bind(ctypes.CDLL(str(build()[name])),
-                           VARIANTS[name][0])
+        if name in VARIANTS:
+            build()   # every variant at once, at the first use of one
+        _libs[name] = load_library(name)
     return _libs[name]
 
 
@@ -352,6 +382,34 @@ def mega_path(tabs, seed: int, num_samples: int,
     _launched(name, _load(library(name)).mega_path_launch(
         *args, _stream(device)))
     return out
+
+
+def mega_volpath_counts(tabs, seed: int, num_samples: int,
+                        beckmann: bool = False, pack: int = 1):
+    """The volpath mesh megakernel's launch of `mega_path` (independent
+    sampler, CUDA tables only) through the counting build: returns its
+    (10, npix * pack) sums and {COUNT_KEYS: int}, the sums over the
+    launch of the active lanes that each warp's leader sees at the lane
+    loop's cast site and of its warp steps, of the lanes' steps and march
+    steps, and the lanes. For the probe; no render path launches it."""
+    device = tabs["tris"].device
+    if not _cuda(device, "mega_volpath_counts") \
+            or variant(tabs) != "mega_volpath_mesh":
+        raise ValueError("mega_volpath_counts: volpath mesh tables with the "
+                         "independent sampler on a CUDA device only")
+    out = torch.empty((P.OUT_ROWS, lane_count(tabs, pack)),
+                      dtype=torch.float32, device=device)
+    args = launch_args(tabs, seed, num_samples, beckmann, out, pack)
+    counts = torch.empty(len(COUNT_KEYS), dtype=torch.int64, device=device)
+    lib = _load(COUNT)
+    rc = lib.mega_counts(counts.data_ptr(), 1, _stream(device))
+    if rc == 0:
+        rc = lib.mega_path_launch(*args, _stream(device))
+    _launched(COUNT, rc)
+    rc = lib.mega_counts(counts.data_ptr(), 1, _stream(device))
+    if rc != 0:
+        raise RuntimeError(f"mega_counts failed: cudaError {rc}")
+    return out, dict(zip(COUNT_KEYS, counts.tolist()))
 
 
 def wave_path(tabs, state: torch.Tensor, seed: int, launch: int, k: int,

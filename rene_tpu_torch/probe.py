@@ -4,6 +4,8 @@
                                             fog_mesh] [--out DIR]
     python -m rene_tpu_torch.probe --scene fog_mesh --scatter-share
     python -m rene_tpu_torch.probe --pack-sweep
+    python -m rene_tpu_torch.probe --compare DIR [DIR ...]
+    python -m rene_tpu_torch.probe --main-launches
 
 Renders one of the main paths' inline scenes: the Cornell box
 (rene_tpu_torch.scenes.cornell_box, K1a variant, at 1024x1024), the big
@@ -29,6 +31,10 @@ and image files go to build/probe_scenes/) or the fog mesh
   env-map light sampling, the background's fetch): what each part costs.
   The switched-off launches trace other paths, so their rays are given
   beside their times;
+* for the fog mesh, the counting build's step counts (`step_counts`) at
+  1 and 16 spp: the lanes of a warp active at the volpath lane loop's
+  cast site, the steps per lane and the share of them that are march
+  segments;
 * for a volpath scene, a wave of the wave engine at the smallest render
   spp, its device time split into init (K3), K2 launches, sorts and
   finish;
@@ -42,6 +48,28 @@ Needs a CUDA device and nvcc; it builds the kernels on first use.
 mesh at 1280x720, 320x180 and 160x90 and the fog mesh at 1280x720 and
 320x180, each at pack 1, 4 and 16 delivering 16 spp, and at pack 1 and
 64 delivering 64 spp (`pack_sweep`).
+
+`--compare` times the same launches of kernel libraries built from other
+copies of csrc/ (for example the parent commit's, `git show` into a
+directory under build/, or copies with another block floor), each
+library swapped in for the package's own around its launches, in
+rounds that take the directories in turn and back (A, B, B, A): the
+ptxas registers and spill stores of each build, then per launch and
+directory the median milliseconds, the rays, and the per-pixel agreement
+with the first directory's output (rene_tpu_torch.checks); and, for
+each copy that has the counting build, its step counts on the fog mesh
+(`step_counts`). The launches (`COMPARE_LAUNCHES`): the volpath
+megakernel's at 1280x720 (the fog mesh at maxdepth 64 at 1 and 16 spp
+and at pack 4, the fog scene at 1 and 16 spp, the Sobol 1-spp launches
+of both), the first K2 launch of each volpath wave (independent and
+Sobol) and the 1-spp launches of the two path builds.
+
+`--main-launches` times what each kernel costs on its main path
+(`MAIN_PATHS`, the paths chip_smoke.py drives through the CLI): the
+megakernel's launch at the path's own spp and pack (CUDA events, the
+median of three), and for a wave path one wave at its spp with its device
+time split into init (K3), K2 launches, sorts (K4 under `dma`) and finish,
+with the launches of each kernel.
 
 `--scatter-share` needs neither: it counts, with the plain volpath
 megakernel on the CPU at 1 spp and a 128x72 film of the scene, the share
@@ -87,6 +115,50 @@ PACK_FILMS = (("big_mesh", 1280, 720), ("big_mesh", 320, 180),
               ("fog_mesh", 320, 180))
 PACK_RUNS = ((16, (1, 4, 16)), (64, (1, 64)))
 PACK_ROUNDS = 3
+# --compare: the libraries it builds and its launches, (label, scene, spp,
+# pack, sampler) at the scene's main film (`main_scene`); "k2" launches
+# are the first K2 launch of the scene's wave at 16 spp
+COMPARE_LIBS = ("mega_volpath", "mega_volpath_mesh", "wave_volpath",
+                "wave_volpath_mesh", "mega_path", "mega_path_mesh")
+COMPARE_LAUNCHES = (
+    ("fog_mesh 1 spp", "fog_mesh", 1, 1, "independent"),
+    ("fog_mesh 16 spp", "fog_mesh", 16, 1, "independent"),
+    ("fog_mesh pack 4", "fog_mesh", 1, 4, "independent"),
+    ("fog 1 spp", "fog", 1, 1, "independent"),
+    ("fog 16 spp", "fog", 16, 1, "independent"),
+    ("fog_mesh sobol 1 spp", "fog_mesh", 1, 1, "sobol"),
+    ("fog sobol 1 spp", "fog", 1, 1, "sobol"),
+    ("fog_mesh K2 first", "fog_mesh", "k2", 1, "independent"),
+    ("fog K2 first", "fog", "k2", 1, "independent"),
+    ("fog_mesh sobol K2 first", "fog_mesh", "k2", 1, "sobol"),
+    ("fog sobol K2 first", "fog", "k2", 1, "sobol"),
+    ("cornell 1 spp", "cornell", 1, 1, "independent"),
+    ("big_mesh 1 spp", "big_mesh", 1, 1, "independent"))
+# --main-launches: (label, scene, maxdepth (None: the scene's own),
+# sampler, engine ("mega", or the wave's sort mode), spp, pack)
+MAIN_PATHS = tuple(
+    (f"{label}{' sobol' if smp == 'sobol' else ''}", scene, depth, smp, eng,
+     spp, pack)
+    for label, scene, depth, eng, spp, pack, smps in (
+        ("cornell", "cornell", None, "mega", 64, 1, (0, 1)),
+        ("cornell wave", "cornell", None, "gather", 16, 1, (0, 1)),
+        ("big mesh", "big_mesh", None, "mega", 16, 1, (0, 1)),
+        ("big mesh pack 16", "big_mesh", None, "mega", 16, 16, (0, 1)),
+        ("big mesh wave", "big_mesh", None, "gather", 16, 1, (1,)),
+        ("deep mesh wave", "big_mesh", 50, "gather", 16, 1, (0,)),
+        ("deep mesh dma wave", "big_mesh", 50, "dma", 16, 1, (0,)),
+        ("textured mesh", "textured_mesh", None, "mega", 16, 1, (0,)),
+        ("textured deep mesh wave", "textured_mesh", 50, "gather", 16, 1,
+         (0,)),
+        ("fog mesh", "fog_mesh", None, "mega", 16, 1, (0, 1)),
+        ("fog mesh pack 4", "fog_mesh", None, "mega", 16, 4, (0, 1)),
+        ("fog mesh wave", "fog_mesh", None, "gather", 16, 1, (0, 1)),
+        ("fog", "fog", None, "mega", 16, 1, (0, 1)),
+        ("fog wave", "fog", None, "gather", 16, 1, (0, 1)))
+    for smp in (("independent", "sobol")[i] for i in smps))
+COMPARE_FILMS = {"cornell": (1024, 1024)}
+COMPARE_FILM = (1280, 720)
+COMPARE_ROUNDS = 2   # each a turn A, B, ..., B, A
 
 
 def emit(**kw):
@@ -140,14 +212,11 @@ def pack_sweep(dev, films=PACK_FILMS, runs=PACK_RUNS) -> list:
                 kernels.mega_path(tabs, 5, spp // p, pack=p)   # warm-up
             for r in range(rounds):
                 for p in packs:
-                    start = torch.cuda.Event(enable_timing=True)
-                    end = torch.cuda.Event(enable_timing=True)
-                    start.record()
-                    o = kernels.mega_path(tabs, 7 + r, spp // p, pack=p)
-                    end.record()
-                    rays[p].append(o[9].sum(dtype=torch.float64))
-                    torch.cuda.synchronize(dev)
-                    ms[p].append(start.elapsed_time(end))
+                    t, o = time_launches(
+                        lambda _, r=r, p=p: kernels.mega_path(
+                            tabs, 7 + r, spp // p, pack=p), 1, dev)
+                    ms[p].append(t)
+                    rays[p].append(float(o[9].sum(dtype=torch.float64)))
                     del o
             for p in packs:
                 row = {"scene": name, "film": [w, h], "spp": spp, "pack": p,
@@ -155,8 +224,7 @@ def pack_sweep(dev, films=PACK_FILMS, runs=PACK_RUNS) -> list:
                        "resident_sets": w * h * p / M.RESIDENT_LANES,
                        "kernel_ms": sorted(ms[p])[len(ms[p]) // 2],
                        "kernel_ms_rounds": ms[p],
-                       "rays": float(sum(float(x) for x in rays[p])
-                                     / rounds)}
+                       "rays": sum(rays[p]) / rounds}
                 row["kernel_mrays_s"] = row["rays"] / row["kernel_ms"] / 1e3
                 if spp == runs[0][0]:
                     row.update(render_row(scene, spp, p, dev))
@@ -164,6 +232,202 @@ def pack_sweep(dev, films=PACK_FILMS, runs=PACK_RUNS) -> list:
                 rows.append(row)
         del tabs
     return rows
+
+
+def step_counts(tabs, dev, spp: int = 1, seed: int = 5) -> dict:
+    """What divergence the volpath megakernel's lane loop leaves, from the
+    counting build (kernels.mega_volpath_counts) at `spp`: the mean lanes
+    of a warp active at the cast site (each warp's leader counts
+    __popc(__activemask()) once per step), the loop steps per lane, the
+    share of steps that are march segments; and the launch held to the
+    uncounted build's at the same seed (rene_tpu_torch.checks)."""
+    from . import checks
+    out, c = kernels.mega_volpath_counts(tabs, seed, spp)
+    ref = kernels.mega_path(tabs, seed, spp)
+    torch.cuda.synchronize(dev)
+    row = dict(c, spp=spp,
+               mean_active_lanes=c["active_lanes"] / max(c["warp_steps"], 1),
+               steps_per_lane=c["lane_steps"] / max(c["lanes"], 1),
+               march_share=c["march_steps"] / max(c["lane_steps"], 1),
+               agree_with_uncounted=checks.agreement(out, ref)["rad_frac"])
+    emit(step_counts=row)
+    return row
+
+
+def main_scene(scene: str, depth, sampler: str) -> str:
+    """Path of the pbrt file of a MAIN_PATHS scene at its main film."""
+    w, h = COMPARE_FILMS.get(scene, COMPARE_FILM)
+    if scene == "big_mesh":
+        src = scenes.big_mesh_scene(w, h, **({"maxdepth": depth} if depth
+                                              else {}))
+    elif scene == "textured_mesh":
+        src = scenes.textured_mesh_scene(SCENE_DIR, w, h, **(
+            {"maxdepth": depth} if depth else {}))
+    elif scene == "fog":
+        src = scenes.fog_scene(w, h)
+    else:
+        src = SCENES[scene][0](SCENE_DIR, w, h)
+    path = os.path.join(SCENE_DIR, f"main_{scene}_{depth}_{sampler}.pbrt")
+    with open(path, "w") as f:
+        f.write(scenes.with_sampler(src) if sampler == "sobol" else src)
+    return path
+
+
+def main_launches(dev, paths=MAIN_PATHS) -> list:
+    """Each kernel's time on its main path (see the module's doc); returns
+    the rows, each also printed."""
+    from .integrators import wave as WV
+    os.makedirs(SCENE_DIR, exist_ok=True)
+    rows = []
+    for label, scene, depth, sampler, eng, spp, pack in paths:
+        bn, cfg = build_device_scene(load_scene(main_scene(scene, depth,
+                                                           sampler)))
+        row = {"main": label, "spp": spp, "pack": pack}
+        if eng == "mega":
+            tabs = M.device_tables(P.pack_tables(bn, cfg), dev)
+            n = spp // pack
+            kernels.mega_path(tabs, 5, n, pack=pack)   # warm-up
+            ms = sorted(time_launches(
+                lambda r: kernels.mega_path(tabs, 7 + r, n, pack=pack), 1,
+                dev)[0] for _ in range(3))
+            row.update(kernel=kernels.variant(tabs), launches=1, ms=ms[1],
+                       ms_runs=ms)
+            del tabs
+        else:
+            run = WV.make_wave_fn(bn, cfg, dev, spp_hint=spp, sort_mode=eng)
+            run.run_dev(3, spp)   # warm-up
+            torch.cuda.synchronize(dev)
+            before = dict(kernels.launches)
+            split = {}
+            run.run_dev(5, spp, split=split)
+            row.update(samples_per_wave=run.samples_per_wave,
+                       device_ms=split, launches={
+                           k: v - before[k] for k, v in kernels.launches.items()
+                           if v != before[k]})
+            del run
+        emit(main_launch=row)
+        rows.append(row)
+    return rows
+
+
+def ptxas_lines(text: str) -> list:
+    """The register and spill lines of an nvcc -Xptxas=-v report."""
+    return [ln.strip() for ln in text.splitlines()
+            if "registers" in ln or "spill" in ln]
+
+
+def compare_builds(dirs, dev) -> dict:
+    """Time COMPARE_LAUNCHES with the libraries built from each csrc copy
+    in `dirs`, in COMPARE_ROUNDS rounds that run the
+    directories in turn and back (A, B, B, A); see the module's doc.
+    Returns {launch: {dir: row}}, each row also printed."""
+    from . import checks
+    from .integrators import wave as WV
+    from concurrent.futures import ThreadPoolExecutor
+    reports = {}
+    with ThreadPoolExecutor(len(dirs)) as ex:   # every build at once
+        list(ex.map(lambda d: kernels.build(
+            verbose=True, csrc=d, names=COMPARE_LIBS, reports=reports),
+            dirs))
+    for (d, name), text in sorted(reports.items()):
+        emit(build=d, library=name, ptxas=ptxas_lines(text))
+    libs = {d: {n: kernels.load_library(n, d) for n in COMPARE_LIBS}
+            for d in dirs}
+    # the counting build of the copies that have one (csrc/mega_lane.cuh
+    # StepCounts)
+    counting = [d for d in dirs if "StepCounts" in open(
+        os.path.join(d, "mega_lane.cuh")).read()]
+    for d in counting:
+        libs[d][kernels.COUNT] = kernels.load_library(kernels.COUNT, d)
+    os.makedirs(SCENE_DIR, exist_ok=True)
+    tabs_of, runs = {}, {}
+    for _, scene, spp, _, sampler in COMPARE_LAUNCHES:
+        key = (scene, sampler)
+        if key in tabs_of and (spp != "k2" or key in runs):
+            continue
+        bn, cfg = build_device_scene(load_scene(main_scene(scene, None,
+                                                           sampler)))
+        if key not in tabs_of:
+            tabs_of[key] = M.device_tables(P.pack_tables(bn, cfg), dev)
+        if spp == "k2":
+            runs[key] = WV.make_wave_fn(bn, cfg, dev, spp_hint=16)
+    res = {}
+    saved = dict(kernels._libs)
+    try:
+        for label, scene, spp, pack, sampler in COMPARE_LAUNCHES:
+            tabs = tabs_of[scene, sampler]
+            if spp == "k2":
+                run = runs[scene, sampler]
+                s0 = run.init_state(3, run.samples_per_wave)
+                n_run = -(-run.n_real // WV.W_TILE) * WV.W_TILE
+                lib = kernels.library(kernels.variant(tabs, "wave_path"))
+
+                def fn(r=0):
+                    return kernels.wave_path(tabs, s0.clone(), 3, 0,
+                                             WV.SCHEDULE[0], n_run,
+                                             run.key_bounds, 1, 0)
+                reps, rays_row = 5, WV.WROW_RAYS
+            else:
+                lib = kernels.library(kernels.variant(tabs))
+
+                def fn(r=0):
+                    return kernels.mega_path(tabs, 7 + r, spp, pack=pack)
+                reps, rays_row = (1 if spp > 4 else 3), 9
+            ms = {d: [] for d in dirs}
+            outs = {}
+            for d in dirs:   # warm-up, and each build's output at seed 7
+                kernels._libs[lib] = libs[d][lib]
+                outs[d] = fn()
+                torch.cuda.synchronize(dev)
+            clone_ms = 0.0
+            if spp == "k2":
+                clone_ms = time_launches(lambda r: s0.clone(), 5, dev)[0]
+            order = list(dirs) + list(reversed(dirs))
+            for _ in range(COMPARE_ROUNDS):
+                for d in order:
+                    kernels._libs[lib] = libs[d][lib]
+                    ms[d].append(time_launches(fn, reps, dev)[0] - clone_ms)
+            res[label] = {}
+            for d in dirs:
+                out = outs[d]
+                if spp == "k2":
+                    rays = float((out[rays_row] - s0[rays_row]).sum())
+                    agree = float((out == outs[dirs[0]]).all(0).double()
+                                  .mean())
+                else:
+                    rays = float(out[rays_row].sum(dtype=torch.float64))
+                    agree = checks.agreement(out, outs[dirs[0]])["rad_frac"]
+                row = {"launch": label, "dir": str(d), "library": lib,
+                       "ms": sorted(ms[d])[len(ms[d]) // 2],
+                       "ms_turns": ms[d], "rays": rays,
+                       "ns_per_ray": sorted(ms[d])[len(ms[d]) // 2] * 1e6
+                       / max(rays, 1.0),
+                       "agree_with_first": agree}
+                emit(compare=row)
+                res[label][str(d)] = row
+            del outs
+        tabs = tabs_of.get(("fog_mesh", "independent"))
+        for d in counting if tabs is not None else ():
+            kernels._libs.update(libs[d])
+            emit(step_counts_of=str(d))
+            res.setdefault("step_counts", {})[str(d)] = step_counts(tabs, dev)
+    finally:
+        kernels._libs.clear()
+        kernels._libs.update(saved)
+    return res
+
+
+def time_launches(fn, reps, dev):
+    """Milliseconds per call of fn(r), r = 0 .. reps - 1, by CUDA events,
+    and the last call's result."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for r in range(reps):
+        out = fn(r)
+    end.record()
+    torch.cuda.synchronize(dev)
+    return start.elapsed_time(end) / reps, out
 
 
 @contextlib.contextmanager
@@ -195,6 +459,8 @@ def main(argv=None) -> int:
     p.add_argument("--out", default=os.path.join("chiprun_out", "probe"))
     p.add_argument("--scatter-share", action="store_true")
     p.add_argument("--pack-sweep", action="store_true")
+    p.add_argument("--compare", nargs="+", metavar="DIR")
+    p.add_argument("--main-launches", action="store_true")
     args = p.parse_args(argv)
     make, (w, h), spps, chunks = SCENES[args.scene]
     if args.scatter_share:
@@ -217,6 +483,13 @@ def main(argv=None) -> int:
         check=True, timeout=60).stdout.strip())
     if args.pack_sweep:
         pack_sweep(torch.device("cuda", 0))
+        return 0
+    if args.main_launches:
+        main_launches(torch.device("cuda", 0))
+        return 0
+    if args.compare:
+        compare_builds([os.path.abspath(d) for d in args.compare],
+                       torch.device("cuda", 0))
         return 0
     os.makedirs(SCENE_DIR, exist_ok=True)
     path = os.path.join(SCENE_DIR, f"{args.scene}.pbrt")
@@ -251,14 +524,8 @@ def main(argv=None) -> int:
 
     def chunk(tabs, spp, **tag):
         timed(lambda: kernels.mega_path(tabs, 5, spp))
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for r in range(5):
-            o = kernels.mega_path(tabs, 7 + r, spp)
-        end.record()
-        torch.cuda.synchronize(dev)
-        ms = start.elapsed_time(end) / 5
+        ms, o = time_launches(lambda r: kernels.mega_path(tabs, 7 + r, spp),
+                              5, dev)
         rays = float(o[9].sum(dtype=torch.float64))
         emit(chunk_spp=spp, kernel_ms=ms, rays=rays,
              kernel_mrays_s=rays / ms / 1e3, ns_per_ray=ms * 1e6 / rays,
@@ -276,6 +543,10 @@ def main(argv=None) -> int:
                        ("background fetch", dict(tabs, cam=cam)),
                        ("all three", dict(no_env, has_tex=False, cam=cam))):
             chunk(t, 4, without=off)
+
+    if tabs["volpath"] and kernels.variant(tabs) == "mega_volpath_mesh":
+        for spp in (1, spps[0]):   # one path per lane, and the main path's
+            step_counts(tabs, dev, spp)
 
     if tabs["volpath"]:
         from .integrators.wave import make_wave_fn

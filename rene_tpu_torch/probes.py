@@ -38,18 +38,19 @@ LAUNCHES = 5
 QUEUE_AHEAD = 2_000_000
 
 
-def launch_ms(fn) -> float:
-    """Milliseconds of one launch of `fn` on the card: CUDA events over
-    LAUNCHES launches after a first, queued behind a spin kernel so that
-    the card runs them back to back (a probe's launch is as short as the
-    host's work to queue it)."""
+def launch_ms(fn, calls: int = 1) -> float:
+    """Milliseconds of one launch of `fn` on the card, or of `calls` calls
+    of it one after another: CUDA events over LAUNCHES such launches after
+    a first, queued behind a spin kernel (as long again for each call) so
+    that the card runs them back to back (a probe's launch is as short as
+    the host's work to queue it)."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(QUEUE_AHEAD)
+    torch.cuda._sleep(QUEUE_AHEAD * calls)
     start.record()
-    for _ in range(LAUNCHES):
+    for _ in range(LAUNCHES * calls):
         fn()
     end.record()
     torch.cuda.synchronize()

@@ -81,7 +81,11 @@ on both sides:
   (x, y in [-3.2, 3.2], z in [0.001, 3.6]); the camera, the emissive quad
   and the floor stay outside. `maxdepth 64` by default, the deep
   volumetric setting of the reference's TPU runs; `small=True` cuts the
-  vase to 1,152 and the ball to 600 triangles for the CPU tests.
+  vase to 1,152 and the ball to 600 triangles for the CPU tests;
+* `nested_fog_scene(w, h, maxdepth)`: three nested None boundaries
+  between four media around a matte sphere, two distant lights and an
+  emissive quad, so that a march passes three surfaces and a scatter
+  point queues three marches (the megakernel's march queue, K1e).
 
 The Sobol sampler: `with_sampler(src, sampler)` puts a `Sampler`
 directive (by default "sobol") at the head of any of these texts, in
@@ -888,6 +892,60 @@ AttributeBegin
   Material "glass" "float index" [ 1.5 ]
   Translate 1.3 -1.6 0.5
   Shape "sphere" "float radius" [ 0.5 ]
+AttributeEnd
+WorldEnd
+"""
+
+
+def nested_fog_scene(width: int = 16, height: int = 8,
+                     maxdepth: int = 16) -> str:
+    """Three nested closed boundaries of `Material "none"`, each a
+    288-triangle sphere mesh (so the scene runs in cluster mode), between
+    four media: vacuum outside, "fog", "haze", then "dense" around a matte
+    sphere at the centre. A march from the centre passes three surfaces
+    and switches medium at each; two distant lights and an emissive quad
+    above the spheres make a scatter point queue three marches, one of
+    them toward the emitter. A floor under it all."""
+    p, idx = uv_sphere(16, 10)
+    shells = "\n".join(f"""AttributeBegin
+  MediumInterface "{inner}" "{outer}"
+  Material "none"
+  Translate 0 0 1.5
+  Scale {r} {r} {r}
+  {_mesh(p, idx, p)}
+AttributeEnd""" for inner, outer, r in (("fog", "", 1.4), ("haze", "fog", 0.95),
+                                        ("dense", "haze", 0.55)))
+    return f"""
+LookAt 0.4 -6 2.4  0 0 1.4  0 0 1
+Camera "perspective" "float fov" [ 36 ]
+Film "image" "integer xresolution" [ {width} ]
+  "integer yresolution" [ {height} ] "string filename" "nested_fog.png"
+Integrator "volpath" "integer maxdepth" [ {maxdepth} ]
+WorldBegin
+LightSource "distant" "point from" [ -2 -3 5 ] "point to" [ 0 0 0 ]
+  "rgb L" [ 1.3 1.2 1.0 ]
+LightSource "distant" "point from" [ 3 -1 4 ] "point to" [ 0 0 0 ]
+  "rgb L" [ .5 .6 .8 ]
+{FOG}
+MakeNamedMedium "haze" "string type" "homogeneous"
+  "rgb sigma_a" [ .01 .01 .012 ] "rgb sigma_s" [ .3 .35 .4 ] "float g" [ -0.2 ]
+MakeNamedMedium "dense" "string type" "homogeneous"
+  "rgb sigma_a" [ .05 .04 .03 ] "rgb sigma_s" [ 1.2 1.1 1.0 ]
+  "float g" [ 0.6 ]
+AttributeBegin
+  Material "matte" "rgb Kd" [ 0 0 0 ]
+  AreaLightSource "diffuse" "rgb L" [ 5 5 6 ]
+  {_quad([[-1.0, -1.0, 3.6], [-1.0, 1.0, 3.6], [1.0, 1.0, 3.6],
+          [1.0, -1.0, 3.6]])}
+AttributeEnd
+Material "matte" "rgb Kd" [ .55 .55 .5 ]
+{_quad([[-8, -8, 0], [8, -8, 0], [8, 8, 0], [-8, 8, 0]])}
+{shells}
+AttributeBegin
+  MediumInterface "dense" "dense"
+  Material "matte" "rgb Kd" [ .7 .3 .2 ]
+  Translate 0 0 1.5
+  Shape "sphere" "float radius" [ 0.25 ]
 AttributeEnd
 WorldEnd
 """

@@ -299,6 +299,63 @@ def test_cuda_volpath_lane_code_matches_plain_version(vol_lib, tmp_path,
     assert a["mean_rel"] <= 1e-4, a
     assert out[9].sum() == ref[9].sum()
 
+# the lane loop at full depth: (scene, maxdepth, sampler, pack); the small
+# fog mesh at its own maxdepth 64, the nested boundaries at 16, 1 and 2
+# (each depth with both samplers and both packs)
+FULL_DEPTH = [("fog_mesh", 64, s, k) for s in ("independent", "sobol")
+              for k in (1, 4)] + [
+    ("nested", 16, "independent", 4), ("nested", 16, "sobol", 1),
+    ("nested", 1, "independent", 1), ("nested", 1, "sobol", 4),
+    ("nested", 2, "independent", 4), ("nested", 2, "sobol", 1)]
+
+
+@pytest.mark.parametrize("name,depth,sampler,pack", FULL_DEPTH)
+def test_cuda_volpath_lane_loop_matches_plain_version_at_full_depth(
+        vol_lib, tmp_path, name, depth, sampler, pack):
+    """trace_lane<MESH, true, SOBOL>, the volpath lane loop's one-cast
+    state machine, against vol_lanes_ref at 16x8 x 2 spp (at pack 4, four
+    slots of 1 sample): the small fog
+    mesh at its full maxdepth 64, and scenes.nested_fog_scene (three
+    nested None boundaries between four media, two distant lights and an
+    emitter, so a march passes three surfaces and a scatter point queues
+    three marches, the emitter's last) at maxdepth 16, 1 and 2, where the
+    last bounce's marches must still count. By the per-pixel rule of the
+    lanes above, ray totals within 0.1%."""
+    from rene_tpu_torch.integrators import volpath as V
+    from rene_tpu_torch.ops import intersect as X
+    w, h, spp = 16, 8, (2 if pack == 1 else 1)
+    src = (scenes.fog_mesh_scene(w, h, maxdepth=depth, small=True)
+           if name == "fog_mesh" else scenes.nested_fog_scene(w, h, depth))
+    if sampler == "sobol":
+        src = scenes.with_sampler(src)
+    bn, cfg = build_device_scene(create_scene(parse_pbrt(src), str(tmp_path)))
+    tabs = M.device_tables(P.pack_tables(bn, cfg), "cpu")
+    assert tabs["volpath"] and tabs["block_seed"]
+    assert tabs["max_depth"] == depth and tabs["sobol"] == (sampler == "sobol")
+    if name == "nested":
+        # from the centre, a march toward either light passes the three
+        # boundaries and misses: four casts per lane
+        assert tabs["lights"].shape[0] == 2 and tabs["n_emit"] > 0
+        for k in X.casts:
+            X.casts[k] = 0
+        o = torch.tensor([0.0, 0.0, 1.8])
+        for ldx, ldy, ldz, *_ in tabs["lights_f"]:
+            tr = X.tr_march(tabs, *o[:, None], *torch.tensor(
+                [[ldx], [ldy], [ldz]]), torch.tensor([3.0]), False)
+            assert 0.0 < float(tr[0][0]) < 1.0
+        assert X.casts["march"] == 8, X.casts
+    out = torch.empty((P.OUT_ROWS, w * h * pack), dtype=torch.float32)
+    assert vol_lib.mega_path_launch(*kernels.launch_args(
+        tabs, 99, spp, False, out, pack), None) == 0
+    ref = V.vol_lanes_ref(tabs, 99, spp, pack=pack).numpy()
+    out = out.numpy()
+    a = checks.agreement(out, ref)
+    assert a["rad_frac"] >= 0.995, a
+    assert a["aov_frac"] >= 0.995, a
+    assert a["mean_rel"] <= 1e-4, a
+    assert abs(out[9].sum() - ref[9].sum()) <= 1e-3 * ref[9].sum()
+
+
 WAVE_HARNESS = r"""
 #include <cmath>
 #include <cstring>

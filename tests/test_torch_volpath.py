@@ -7,7 +7,9 @@ interpret=True)`), per pixel, on the three fog scenes: `fog_scene`
 (immediates, 32x16), `fog_env_scene` (an env map with env-map light
 sampling and one emitter, 32x32) and the small `fog_mesh_scene` (a world
 mesh with three material slots, shared-BLAS instances, a fog box of
-None faces, 32x32), at 2 spp, with the JAX packer's cluster width cut to
+None faces, 32x32), and on `nested_fog_scene` (three nested None
+boundaries between four media, two distant lights and an emitter,
+16x8, maxdepth 16: medium switches and marches through them), at 2 spp, with the JAX packer's cluster width cut to
 16 as in test_torch_mesh.py. Both draw the same xorshift32 stream in the
 volpath body's order (med_sample, med_sample_p, the scatter point's
 emitter draws, the path body's draws without rrv, the camera's), so
@@ -17,7 +19,8 @@ agree (rene_tpu_torch.checks), image means within 1e-3 relative, ray
 totals within 0.1%, counted over the JAX runner's own lanes (its padding
 lanes repeat pixels, and the port's lane of a pixel traces what they
 trace). Measured: radiance >= 99.90%, AOV 100%, means within 5.3e-4,
-ray totals within 0.033%.
+ray totals within 0.033% (the nested scene: radiance and AOV 100%,
+means 3.2e-8 apart, ray totals equal).
 
 The render loop (`render(device="cpu")`) against `rene_tpu.render.
 render(engine="pallas")` on the fog scene, image for image.
@@ -48,6 +51,7 @@ SCENES = {
     "fog_env": ((32, 32), lambda w, h, d: scenes.fog_env_scene(d, w, h)),
     "fog_mesh": ((32, 32), lambda w, h, d: scenes.fog_mesh_scene(
         w, h, small=True)),
+    "nested": ((16, 8), lambda w, h, d: scenes.nested_fog_scene(w, h)),
 }
 
 
@@ -73,7 +77,7 @@ def scene_dir(tmp_path_factory):
 
 
 @pytest.mark.parametrize("name,seed", [("fog", 7), ("fog_env", 7),
-                                       ("fog_mesh", 7)])
+                                       ("fog_mesh", 7), ("nested", 7)])
 def test_plain_version_matches_interpret_megakernel(scene_dir, name, seed):
     with pytest.MonkeyPatch.context() as mp:
         pp = _jax_env(mp)
@@ -83,7 +87,7 @@ def test_plain_version_matches_interpret_megakernel(scene_dir, name, seed):
         res = run(seed, SPP)
     tabs = M.device_tables(P.pack_tables(bn, cfg), "cpu")
     assert tabs["volpath"] and not tabs["use_rr"]
-    assert tabs["has_accel"] == (name == "fog_mesh")
+    assert tabs["has_accel"] == (name in ("fog_mesh", "nested"))
     assert tabs["has_env"] == (name == "fog_env")
     for k in X.casts:
         X.casts[k] = 0
@@ -178,3 +182,54 @@ def test_kernel_on_card_matches_plain_version(tmp_path, name):
     assert kernels.launches[variant] == before[variant] + 1
     checks.check_card(checks.agreement(out.cpu(), ref.cpu()),
                       f"{name} 128x64 x 4 spp")
+
+
+def test_counting_build_takes_card_volpath_mesh_tables_only(scene_dir,
+                                                           tmp_path):
+    """The counting build (kernels.COUNT, -DMEGA_COUNT=1) is a library of
+    its own with its own launch count, which no render path's variant
+    names and the variants' build leaves out; its wrapper refuses CPU
+    tables and tables of another variant. A csrc copy with other contents
+    builds to another library, as the probe's --compare needs."""
+    assert "-DMEGA_COUNT=1" in kernels.BUILDS[kernels.COUNT]
+    assert kernels.COUNT not in kernels.VARIANTS
+    assert kernels.launches[kernels.COUNT] == 0
+    tabs = M.device_tables(P.pack_tables(*buffers("fog_mesh", scene_dir, 8,
+                                                  8)), "cpu")
+    assert kernels.variant(tabs) == "mega_volpath_mesh" != kernels.COUNT
+    for t in (tabs, dict(tabs, sobol=True)):
+        with pytest.raises(ValueError, match="mega_volpath_counts"):
+            kernels.mega_volpath_counts(t, 3, 1)
+    copy = tmp_path / "csrc"
+    copy.mkdir()
+    for f in kernels.CSRC.glob("*.cu*"):
+        (copy / f.name).write_bytes(f.read_bytes())
+    assert kernels.library_path("mega_volpath", copy) \
+        == kernels.library_path("mega_volpath")
+    (copy / "mega_path.cu").write_text(
+        (copy / "mega_path.cu").read_text() + "\n// another floor\n")
+    assert kernels.library_path("mega_volpath", copy) \
+        != kernels.library_path("mega_volpath")
+
+
+@pytest.mark.cuda
+def test_counting_build_on_card_counts_and_matches(tmp_path):
+    """On a CUDA card: the counting build's launch on the small fog mesh
+    at 128x64 x 2 spp traces what the volpath mesh build traces (the
+    card's limits), with one lane per pixel, at least one step per path,
+    march steps among them and at most 32 lanes active per warp step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    tabs = M.device_tables(P.pack_tables(*buffers("fog_mesh", tmp_path, 128,
+                                                  64)), "cuda")
+    before = kernels.launches[kernels.COUNT]
+    out, c = kernels.mega_volpath_counts(tabs, 7, 2)
+    ref = kernels.mega_path(tabs, 7, 2)
+    torch.cuda.synchronize()
+    assert kernels.launches[kernels.COUNT] == before + 1
+    checks.check_card(checks.agreement(out.cpu(), ref.cpu()),
+                      "counting build, fog mesh 128x64 x 2 spp")
+    assert c["lanes"] == 128 * 64
+    assert 2 * c["lanes"] <= c["lane_steps"] == c["active_lanes"]
+    assert 0 < c["march_steps"] < c["lane_steps"]
+    assert c["warp_steps"] <= c["active_lanes"] <= 32 * c["warp_steps"]
