@@ -89,7 +89,11 @@ when either is missing or any check fails. Phases:
     strided sample of ~131k lanes, both sides cut to maxdepth 8 (the fog
     mesh's in one plain walk with those of its launch at pack 4, phase 25);
     the real ray casts per nominal ray of the main path, counted by the
-    plain version on that sample;
+    plain version on that sample; the fifth K2 launch (k 4, after four
+    launches and sorts, lanes parking inside it) of the fog mesh's and
+    the fog scene's waves at maxdepth 8, independent and Sobol, over the
+    whole state, held against plain on ~131k sampled alive lanes as in
+    phase 12, and by the sample's radiance means;
 19. the Sobol probe (P-r3ac, `sobol_probe`): one launch on 2^22 int32
     inputs, its path, then bit for bit against its plain version, timed;
 20. the Sobol instances (`Sampler "sobol"`) against their plain versions on
@@ -156,10 +160,10 @@ read once, each output written once) and its FP32 operations over 67
 TFLOP/s (the H100 SXM's non-tensor FP32 peak, NVIDIA's data sheet). The
 operations are the ray-cast tests this run's inputs need, counted by the
 plain walk (rene_tpu_torch.ops.bvh.tests) or from the rays and the
-immediates, at the costs in OPS below; shading is not counted, so the
-bound is a lower one. A volpath bounce casts other rays than its
-nominal count (a march of closest hits per light): its immediates are
-tested once per cast the plain version counts
+immediates, at the costs in OPS of rene_tpu_torch/bounds.py; shading is
+not counted, so the bound is a lower one. A volpath bounce casts other
+rays than its nominal count (a march of closest hits per light): its
+immediates are tested once per cast the plain version counts
 (rene_tpu_torch.ops.intersect.casts). A textured launch reads of the
 atlas the texels its hits and misses fetch
 (rene_tpu_torch.ops.texture.counts: four 4-byte words per textured slot)
@@ -196,21 +200,19 @@ import subprocess
 import sys
 import time
 
+# the bounds (rene_tpu_torch/bounds.py): the card's rates, the operations
+# of a ray-cast test, the rows a K2 launch moves, the plain versions'
+# counts; without the package beside it, the smoke stops here
+from rene_tpu_torch.bounds import (BF16_OPS, FP32_OPS, K2_ROWS, K2_VOL_ROWS,
+                                   TF32_OPS, bound, cast_ops, moved_bytes,
+                                   plain_counts, reset_counts)
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out", "smoke")
 SCENE_DIR = os.path.join(ROOT, "build", "smoke_scenes")
 MAIN_SPP, MAIN_SEED = 64, 1
 MESH_SPP, MESH_W, MESH_H = 16, 1280, 720
 DEEP_DEPTH = 50
-HBM_BPS, FP32_OPS = 3.35e12, 67e12
-# tensor-core peaks (NVIDIA's H100 SXM data sheet, dense): TF32, BF16
-TF32_OPS, BF16_OPS = 495e12, 989e12
-# FP32 operations of one ray-cast test, counted in the CUDA code: the
-# immediate triangle's plane test (intersect.cuh trace_closest; its three
-# side tests run only where that passes), an immediate sphere
-# (sphere_local + sphere_t), a BVH or sphere-table box (box test of
-# bvh.cuh), a mesh triangle (Moeller-Trumbore) and a table sphere
-OPS = {"imm_tri": 12, "imm_sph": 40, "box": 25, "tri": 50, "sph": 20}
 # the wave and megakernel renders of the deep scene: image means (8-bit
 # PNG, 0-255) within this relative difference. The engines draw other
 # samples; two seeds of the megakernel read 1.0e-5 apart, and the wave
@@ -225,11 +227,6 @@ SAMPLE_LANES = 1 << 17
 # at which phase 8 compares the big mesh's launch
 SMALL_MESH_SPP = 2
 BIG_MESH_CHECK_DEPTH = 6
-# state rows a K2 launch moves per alive lane besides the alive row that
-# every lane of the launch reads: 26 read, 23 written (wave.cuh wave_lane),
-# and the medium row read and written in a volpath wave
-K2_ROWS = 49
-K2_VOL_ROWS = K2_ROWS + 2
 # the volpath main path: maxdepth of its plain comparisons (phases 16 and
 # 18), spp of the small volpath scenes (phase 16) and of the small fog
 # mesh's megakernel comparison, whose plain walk took 96.5 s at 4 spp and
@@ -353,67 +350,6 @@ def cli_path(name, src, spp, size, what, engine="auto", seed=MAIN_SEED,
         f"{render_s:.3f} s, {rate:.1f} Mrays/s, cli wall {wall:.3f} s, "
         f"png means {json.dumps(means)}")
     return scene_path, launches, {"rate": rate, "mean": means[f"{tag}.png"]}
-
-
-def bound(n_bytes, ops, rate=FP32_OPS):
-    """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over their peak `rate` (by default FP32's)."""
-    t_b, t_o = n_bytes / HBM_BPS * 1e3, ops / rate * 1e3
-    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
-
-
-def table_bytes(tabs):
-    import torch
-    return sum(v.numel() * v.element_size() for v in tabs.values()
-               if isinstance(v, torch.Tensor))
-
-
-def moved_bytes(tabs, tests):
-    """Bytes of the tables a launch must read: every table once, of the
-    atlas the texels `tests` counts, at most the whole atlas."""
-    atlas = tabs["atlas"].numel() * tabs["atlas"].element_size()
-    return (table_bytes(tabs) - atlas
-            + min(atlas, 4 * int(tests.get("texels", 0))))
-
-
-def reset_counts():
-    """Set the plain versions' ray-cast test, texel and volpath cast
-    counts to 0."""
-    from rene_tpu_torch.ops import bvh, intersect, texture
-    for k in bvh.tests:
-        bvh.tests[k] = 0
-    for k in intersect.casts:
-        intersect.casts[k] = 0
-    texture.counts["texels"] = 0
-
-
-def plain_counts():
-    """The plain versions' counts since reset_counts; the volpath casts
-    by kind where the volpath body ran."""
-    from rene_tpu_torch.ops import bvh, intersect, texture
-    out = dict(bvh.tests, texels=texture.counts["texels"])
-    if any(intersect.casts.values()):
-        out.update(intersect.casts)
-    return out
-
-
-def cast_ops(tabs, rays, tests):
-    """FP32 operations of `rays` ray casts against the immediates, plus
-    the plain walk's box, triangle and table-sphere `tests`. Where `tests`
-    holds the volpath casts, those replace `rays`: each closest hit and
-    march step tests every immediate, each emitter-pdf cast the emissive
-    ones."""
-    imm = (tabs["tris"].shape[0] * OPS["imm_tri"]
-           + tabs["spheres"].shape[0] * OPS["imm_sph"])
-    if "closest" in tests:
-        emit = (tabs["emit_tris"].shape[0] * OPS["imm_tri"]
-                + tabs["emit_spheres"].shape[0] * OPS["imm_sph"])
-        casts = ((tests["closest"] + tests["march"]) * imm
-                 + tests["emit_pdf"] * emit)
-    else:
-        casts = rays * imm
-    return casts + sum(OPS[k] * tests.get(k, 0)
-                       for k in ("box", "tri", "sph"))
 
 
 @contextlib.contextmanager
@@ -621,14 +557,15 @@ def main() -> int:
         return bound(moved_bytes(tabs, tests) + 10 * 4 * n_lanes,
                      cast_ops(tabs, rays, tests))
 
-    def k2_launch(run, seed, step, what):
+    def k2_launch(run, seed, step, what, mean=False):
         """K2 launch `step` of the main path's wave of `run` over the whole
         state, timed (CUDA events, the state's copy taken off), held
         against the plain version on a strided sample of the launch's
         alive lanes; its max_abs_err is that of the radiance rows (a lane
-        one side parks holds DEAD_ORIGIN in its origin rows). The bound's
-        ray-cast tests are the plain walk's on the sample, scaled by the
-        rays of the whole launch."""
+        one side parks holds DEAD_ORIGIN in its origin rows). `mean`: the
+        sample's radiance means are held within the card's limit too. The
+        bound's ray-cast tests are the plain walk's on the sample, scaled
+        by the rays of the whole launch."""
         k = WV.SCHEDULE[min(step, len(WV.SCHEDULE) - 1)]
         s0, n_run = wave_at(run, seed, run.samples_per_wave, step)
         alive = torch.nonzero(s0[WV.WROW_ALIVE, :n_run] > 0.5).squeeze(1)
@@ -647,6 +584,9 @@ def main() -> int:
         s_ks = s_k.index_select(1, idx)
         share, key_share = lane_agreement(s_ks, s_p)
         err = float((s_ks - s_p)[WV.WROW_R:WV.WROW_R + 3].abs().max())
+        m_k, m_p = (float(x[WV.WROW_R:WV.WROW_R + 3].double().mean())
+                    for x in (s_ks, s_p))
+        mean_rel = abs(m_k - m_p) / max(abs(m_p), 1e-12)
         ms = time_ms(lambda r=0: kernels.wave_path(
             run.tabs, s0.clone(), seed, step, k, n_run, run.key_bounds, 1,
             0), 5) \
@@ -661,11 +601,12 @@ def main() -> int:
         log(f"K2 launch {step} vs plain ({what}, k {k}, {n_run} lanes run, "
             f"{alive.numel()} alive, {idx.numel()} sampled): lanes agree "
             f"{share:.5f}, keys {key_share:.5f}, radiance max abs "
-            f"{err:.3g}; kernel "
+            f"{err:.3g}, means {m_k!r} / {m_p!r} ({mean_rel:.2e}); kernel "
             f"{ms:.3f} ms over the whole state, plain {plain_ms:.1f} ms on "
             f"the sample, bound {bnd[0]:.4f} ms ({bnd[1]}; {rays:.0f} rays, "
             f"plain walk tests and texels {json.dumps(tests)}) [{card}]")
-        if min(share, key_share) < checks.CARD_FRAC:
+        if min(share, key_share) < checks.CARD_FRAC \
+                or (mean and mean_rel > checks.CARD_MEAN_REL):
             raise RuntimeError(f"K2 launch {step} ({what}) disagrees with "
                                f"its plain version")
         return {"ms": ms, "plain_ms": plain_ms, "bound": bnd, "err": err,
@@ -1192,6 +1133,27 @@ def main() -> int:
     k2_fs = k2_launch(run, chunk_seed(), 0, f"fog {MESH_W}x{MESH_H} x spw "
                       f"{run.samples_per_wave}")
     del run
+    # the fifth K2 launch (k 4, after four launches and sorts, lanes
+    # parking inside it) of both volpath main paths' waves cut to maxdepth
+    # VOL_CHECK_DEPTH, both samplers, held against plain as phase 12 holds
+    # the deep mesh's, and by the sample's radiance means
+    k2_fifth = {}
+    for name, src in (("fog mesh", scenes.fog_mesh_scene(
+            MESH_W, MESH_H, maxdepth=VOL_CHECK_DEPTH)),
+            ("fog", scenes.fog_scene(MESH_W, MESH_H))):
+        for smp in ("independent", "sobol"):
+            bn_5, cfg_5 = buffers_for(write_scene(
+                f"{name.replace(' ', '_')}_{smp}_{VOL_CHECK_DEPTH}",
+                scenes.with_sampler(src) if smp == "sobol" else src,
+                SCENE_DIR))
+            run = WV.make_wave_fn(bn_5, cfg_5, dev, spp_hint=MESH_SPP)
+            if run.tabs["max_depth"] != VOL_CHECK_DEPTH:
+                raise RuntimeError(f"{name}: maxdepth {run.tabs['max_depth']}")
+            k2_fifth[name, smp] = k2_launch(
+                run, chunk_seed(), 4, f"{name} {MESH_W}x{MESH_H} x spw "
+                f"{run.samples_per_wave}, maxdepth {VOL_CHECK_DEPTH}, {smp}",
+                mean=True)
+            del run
     log(f"volpath main path: {r_fog['rate']:.1f} Mrays/s megakernel, "
         f"{r_fogw['rate']:.1f} wave (wave / megakernel "
         f"{r_fogw['rate'] / r_fog['rate']:.3f}); {v_fog['casts']:.3f} real "
@@ -1683,11 +1645,17 @@ def main() -> int:
             sob_launch[inst], m["err"], m["ms"], m["plain_ms"], m["bound"],
             None, f"{m['shape']}; independent instance {m['ind_ms']:.3f} ms "
             f"in turns; plain and max_abs_err on {m['plain_at']}"))
+    # the volpath instances' fifth launches (phase 18) count in their
+    # max_abs_err
+    fifth_err = {
+        "wave_volpath" + S_: k2_fifth["fog", "sobol"]["err"],
+        "wave_volpath_mesh" + S_: k2_fifth["fog mesh", "sobol"]["err"]}
     for inst, k in k2_s.items():
         base = inst[:-len(S_)]
         sobol_entries.append(entry(
             inst, sob_src["wave"], sob_rep[base.replace("_mesh", "")],
-            sob_wave_launch[inst][inst], k["err"], k["ms"], k["plain_ms"],
+            sob_wave_launch[inst][inst],
+            max(k["err"], fifth_err.get(inst, 0.0)), k["ms"], k["plain_ms"],
             k["bound"], None,
             f"{k['what']}, first launch (k 1); independent "
             f"instance {k['ind_ms']:.3f} ms in turns; plain on "
@@ -1800,16 +1768,18 @@ def main() -> int:
               f"{list(VOL_PACKS)}"),
         entry("wave_volpath", "rene_tpu_torch/csrc/wave.cuh",
               f"{pw_}:271 ({pp_}:5277 wave_bounce_vol)", l_fsw["wave_volpath"],
-              max([k2_fs["err"]] + [w for acc, _, w in a_vol.values()
-                                    if not acc]), k2_fs["ms"],
+              max([k2_fs["err"], k2_fifth["fog", "independent"]["err"]]
+                  + [w for acc, _, w in a_vol.values() if not acc]),
+              k2_fs["ms"],
               k2_fs["plain_ms"], k2_fs["bound"], None,
               f"fog {MESH_W}x{MESH_H} x spw 16, first launch (k 1); plain "
               f"on {k2_fs['sampled']} sampled lanes of it"),
         entry("wave_volpath_mesh", "rene_tpu_torch/csrc/wave.cuh",
               f"{pw_}:271 ({pp_}:5277 wave_bounce_vol)",
               l_fogw["wave_volpath_mesh"],
-              max([k2_fog["err"]] + [w for acc, _, w in a_vol.values()
-                                     if acc]), k2_fog["ms"],
+              max([k2_fog["err"], k2_fifth["fog mesh", "independent"]["err"]]
+                  + [w for acc, _, w in a_vol.values() if acc]),
+              k2_fog["ms"],
               k2_fog["plain_ms"], k2_fog["bound"], None,
               f"fog mesh {MESH_W}x{MESH_H} x spw 16, first launch (k 1); "
               f"plain on {k2_fog['sampled']} sampled lanes of it"),

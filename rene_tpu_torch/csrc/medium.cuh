@@ -3,8 +3,8 @@
 // `tr_march`, which mirror the JAX megakernel's `med_consts`, `med_tr`,
 // `med_sample`, `med_phase`, `med_sample_p` (pallas_path.py:3287-3361)
 // and `tr_march` (:3363-3430): the march as segments of one closest hit
-// each (`march_seg`), which the megakernel's lane loop steps one at a
-// time and K2 runs back to back (`tr_march`). Plain C++ apart from the
+// each (`march_seg`), which the lane loops of the megakernel and of K2
+// step one at a time (vol_loop.cuh). Plain C++ apart from the
 // CUDA qualifiers and intrinsics, so tests/test_torch_kernel_source.py
 // compiles it with g++ too.
 //
@@ -20,14 +20,6 @@
 #include "intersect.cuh"
 #include "layout.cuh"
 #include "math.cuh"
-
-// K2's march is a real call on the card (a second full closest-hit walk
-// beside the bounce's own), a static function for g++
-#ifdef __CUDACC__
-#define VOL_CALL __device__ __noinline__
-#else
-#define VOL_CALL static
-#endif
 
 #define MAX_TR_MARCH 32
 
@@ -185,17 +177,4 @@ __device__ __forceinline__ bool march_seg(const Scene& s, const Media& md,
   m.med = dot3_rn(m.d, h.n) > 0.f ? __ldg(r + MAT_EMED) : __ldg(r + MAT_IMED);
   m.o = v3(m.o.x + h.t * m.d.x, m.o.y + h.t * m.d.y, m.o.z + h.t * m.d.z);
   return ++m.k == MAX_TR_MARCH;  // out stays 0
-}
-
-// Transmittance rgb from o along d, starting in medium `med`: the whole
-// march, its segments one after another (march_seg).
-template <bool MESH>
-VOL_CALL V3 tr_march(const Scene& s, Media md, V3 o, V3 d, float med,
-                     bool want_emit) {
-  March m = march_start(o, d, med);
-  V3 out;
-  while (!march_seg(s, md, m, trace_closest<MESH>(s, m.o, m.d, TMIN),
-                    want_emit, out)) {
-  }
-  return out;
 }

@@ -1,9 +1,10 @@
 // The megakernel's lane loop: one thread streams a pixel's paths back to
 // back through the path body (K1a-K1d, pallas_path.py `body` :4349;
 // `path_lane`) or, where VOL, the volpath body (K1e, `body_vol` :4572;
-// `vol_lane`, a state machine over volpath.cuh's pieces). Mirrors rene_tpu_torch/integrators/mega_path.py
-// `path_lanes_ref` (and volpath.py `vol_lanes_ref`). Included by
-// mega_path.cu; plain C++ apart from the CUDA qualifiers and intrinsics.
+// `vol_lane`, the state machine of vol_loop.cuh). Mirrors
+// rene_tpu_torch/integrators/mega_path.py `path_lanes_ref` (and
+// volpath.py `vol_lanes_ref`). Included by mega_path.cu; plain C++ apart
+// from the CUDA qualifiers and intrinsics.
 // SOBOL: the instance of `Sampler "sobol"` (K-sobol, csrc/sobol.cuh),
 // whose bounce draws are Sobol pairs of the lane's sample index and depth
 // under its pixel's key (pallas_path.py:4328-4341, :4437-4542).
@@ -11,7 +12,7 @@
 #include <stdint.h>
 
 #include "path.cuh"
-#include "volpath.cuh"
+#include "vol_loop.cuh"
 
 struct Params {
   Scene s;
@@ -209,76 +210,13 @@ __device__ __forceinline__ void path_lane(const Params& p, int lane) {
   write_sums(p, lane, rad, aov_n, aov_a, rays);
 }
 
-// Counts of the volpath lane loop's steps, kept only by the -DMEGA_COUNT=1
-// build (`mega_volpath_mesh_count`, which `python -m rene_tpu_torch.probe
-// --scene fog_mesh` alone launches): at the cast site, each warp's leader
-// lane adds the lanes active there, __popc(__activemask()), and one warp
-// step; each lane counts its steps and those that were march segments.
-// The sums go to vol_counts at the lane's end: active lanes, warp steps,
-// lane steps, march steps, lanes.
-#define N_VOL_COUNTS 5
-#if defined(MEGA_COUNT) && MEGA_COUNT
-__device__ unsigned long long vol_counts[N_VOL_COUNTS];
-struct StepCounts {
-  uint32_t active = 0, warp_steps = 0, steps = 0, march = 0;
-  __device__ __forceinline__ void step(bool marching) {
-    const unsigned am = __activemask();
-    if ((threadIdx.x & 31u) == (unsigned)(__ffs(am) - 1)) {
-      active += (uint32_t)__popc(am);
-      warp_steps += 1u;
-    }
-    steps += 1u;
-    march += marching ? 1u : 0u;
-  }
-  __device__ __forceinline__ void flush() {
-    atomicAdd(&vol_counts[0], (unsigned long long)active);
-    atomicAdd(&vol_counts[1], (unsigned long long)warp_steps);
-    atomicAdd(&vol_counts[2], (unsigned long long)steps);
-    atomicAdd(&vol_counts[3], (unsigned long long)march);
-    atomicAdd(&vol_counts[4], 1ull);
-  }
-};
-#else
-struct StepCounts {
-  __device__ __forceinline__ void step(bool) {}
-  __device__ __forceinline__ void flush() {}
-};
-#endif
-
-// Whether a lane takes this step of vol_lane's loop, on the card: a lane
-// whose bounce is due waits while another lane of its warp marches, so
-// that the warp's lanes shade their bounces together ("march first").
-// Each lane makes the same draws, casts and sums in the same order
-// either way; only when it makes them moves. Against every lane stepping
-// freely, march first ran the fog mesh's 1280x720 launches 1.09-1.17x
-// and fog_scene's 1.36-1.38x faster (NVIDIA H100 80GB HBM3, 700 W; PERF.md
-// section 6): once the lanes drift apart nearly every free step carries
-// some lane's bounce shading, dearer than a march segment.
-__device__ __forceinline__ bool step_now(bool marching) {
-#ifdef __CUDACC__
-  const bool any = __any_sync(__activemask(), marching);  // every lane votes
-  return marching || !any;
-#else
-  (void)marching;
-  return true;
-#endif
-}
-
 // One lane's whole run through the volpath body (K1e): num_samples paths
 // for pixel lane % n_pix (sample slot lane / n_pix), each starting in
-// vacuum. A small state machine with one ray cast per step, from one
-// call site: the step casts the path ray (a bounce) or the current
-// segment of a transmittance march, and then either shades the hit
-// (volpath.cuh vol_shade, which queues the bounce's NEE marches) or
-// advances the march (medium.cuh march_seg), taking its sum when it ends
-// (nee_add) and starting the next queued one. When a bounce's last march
-// has ended, or it queued none, the depth cut decides between the next
-// bounce and a new camera path. So the lanes of a warp that need a walk,
-// for whatever reason, walk together; a lane whose bounce is due waits
-// for the warp's marches (step_now), so that the warp shades together.
-// The draws, casts and sums are those of vol_bounce, in its order. SOBOL:
-// the path body's and the camera's draws are Sobol pairs at (sample,
-// pixel key, depth); the medium's stay on the stream.
+// vacuum, one ray cast per step of vol_loop.cuh's state machine
+// (vol_step); when a bounce's last march has ended, or it queued none,
+// the depth cut decides between the next bounce and a new camera path.
+// SOBOL: the path body's and the camera's draws are Sobol pairs at
+// (sample, pixel key, depth); the medium's stay on the stream.
 template <bool MESH, bool SOBOL>
 __device__ __forceinline__ void vol_lane(const Params& p, int lane) {
   const Scene& s = p.s;
@@ -292,67 +230,37 @@ __device__ __forceinline__ void vol_lane(const Params& p, int lane) {
   float aov_a[3] = {0.f, 0.f, 0.f};
   float rays = 0.f, med = 0.f;
   int depth = 0, sample = 0;
-  // the last bounce's march queue, the march under way (number q), and
-  // the bounce's verdict and camera draws, applied when its marches end
-  VolNee e;
-  e.n_march = 0;
-  March m = march_start(o, d, med);
-  int q = 0;
-  bool alive = false;
-  float cj1 = 0.f, cj2 = 0.f;
+  VolLoop v;
+  vol_loop_start(v, o, d, med);
   StepCounts cnt;
+  cnt.lane();
 
   while (sample < p.num_samples) {
-    const bool marching = q < e.n_march;
+    const bool marching = vol_marching(v);
     if (!step_now(marching)) continue;
     cnt.step(marching);
-    const Hit h = trace_closest<MESH>(s, marching ? m.o : o,
-                                      marching ? m.d : d, TMIN);
-    bool next;  // the queue's next march starts
-    if (marching) {
-      V3 tr;
-      if (!march_seg(s, md, m, h, q >= s.n_lights, tr)) continue;
-      nee_add(s, md, beck, e, q, tr, rad);
-      q = q + 1;
-      next = q < e.n_march;
-    } else {
-      rays = rays + ray_inc;
-      const SobolAt at = {(uint32_t)sample, l.pixkey, (uint32_t)depth};
-      const VolDraws v = draw_bounce_vol<SOBOL>(s, l.st, at);
-      const VolStep b = vol_shade<MESH>(s, md, beck, o, d, thr, med,
-                                        depth == 0, h, v, rad, aov_n, aov_a,
-                                        e);
-      // the next ray now; the march origin is its origin
-      alive = b.alive;
-      o = b.o;
-      d = b.d;
-      for (int c = 0; c < 3; ++c) thr[c] = b.c[c];
-      med = b.med;
-      cj1 = b.cj1;
-      cj2 = b.cj2;
-      q = 0;
-      next = e.n_march > 0;
-    }
-    if (next) {
-      m = march_start(o, nee_dir(s, e, q), e.med);
-      continue;
-    }
-    // the bounce and its marches are done
-    e.n_march = 0;
-    if (alive && depth + 1 < p.max_depth) {
-      depth = depth + 1;
-    } else {
-      sample = sample + 1;
-      if (sample < p.num_samples) {  // regenerate a camera path
-        if constexpr (SOBOL)
-          ld2((uint32_t)sample, l.pixkey, 0u, SLOT_CAM, cj1, cj2);
-        o = l.o;
-        d = camera_ray(s.cam, l.pxf, l.pyf, cj1, cj2);
-        thr[0] = thr[1] = thr[2] = 1.f;
-        med = 0.f;
-        depth = 0;
-      }
-    }
+    vol_step<MESH, SOBOL>(
+        s, md, beck, v, marching, o, d, thr, med, rays, ray_inc, l.st,
+        [&] {
+          return SobolAt{(uint32_t)sample, l.pixkey, (uint32_t)depth};
+        },
+        rad, aov_n, aov_a, [&] {
+          if (v.alive && depth + 1 < p.max_depth) {
+            depth = depth + 1;
+          } else {
+            sample = sample + 1;
+            if (sample < p.num_samples) {  // regenerate a camera path
+              float cj1 = v.cj1, cj2 = v.cj2;
+              if constexpr (SOBOL)
+                ld2((uint32_t)sample, l.pixkey, 0u, SLOT_CAM, cj1, cj2);
+              o = l.o;
+              d = camera_ray(s.cam, l.pxf, l.pyf, cj1, cj2);
+              thr[0] = thr[1] = thr[2] = 1.f;
+              med = 0.f;
+              depth = 0;
+            }
+          }
+        });
   }
   cnt.flush();
   write_sums(p, lane, rad, aov_n, aov_a, rays);

@@ -30,16 +30,17 @@
 // roulette they end their paths far apart, and a bounce casts from four
 // places (the closest hit, the marches of a scatter point's lights and
 // emitter, those of a surface's lights), each march a loop of walks.
-// Its design for this card (mega_lane.cuh vol_lane): the lane loop is a
+// Its design for this card (mega_lane.cuh vol_lane over vol_loop.cuh
+// vol_step, which K2's volpath lanes share): the lane loop is a
 // state machine that casts once per step from one call site, the path
 // ray or a march's next segment, so that the lanes of a warp that need a
 // walk walk together and the march is no real call (no spills at a call
 // boundary, one inlined copy of the walk); a lane whose bounce is due
 // waits while a lane of its warp marches, so that the warp shades its
-// bounces together (mega_lane.cuh step_now). -DMEGA_COUNT=1 (with
+// bounces together (vol_loop.cuh step_now). -DMEGA_COUNT=1 (with
 // MEGA_VOL and MEGA_MESH) builds the same loop with step counts
-// (mega_lane.cuh StepCounts) for `python -m rene_tpu_torch.probe --scene
-// fog_mesh`.
+// (vol_loop.cuh StepCounts, read by its entry point step_counts) for
+// `python -m rene_tpu_torch.probe --scene fog_mesh`.
 //
 // Design. One thread owns one pixel and streams `num_samples` paths back
 // to back, regenerating a camera ray when a path ends: camera ray,
@@ -165,22 +166,5 @@ static int run_lanes(const Params& p, void* stream) {
   }
   return (int)cudaGetLastError();
 }
-
-#if defined(MEGA_COUNT) && MEGA_COUNT
-// The counting build's step counts (mega_lane.cuh StepCounts): copied to
-// the N_VOL_COUNTS uint64 words at `out` (device memory) on `stream`,
-// then zeroed where `reset`; returns cudaGetLastError().
-extern "C" int mega_counts(void* out, int reset, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaMemcpyFromSymbolAsync(out, vol_counts, sizeof(vol_counts), 0,
-                            cudaMemcpyDeviceToDevice, st);
-  if (reset) {
-    void* c = nullptr;
-    cudaGetSymbolAddress(&c, vol_counts);
-    cudaMemsetAsync(c, 0, sizeof(vol_counts), st);
-  }
-  return (int)cudaGetLastError();
-}
-#endif
 
 #include "launch.cuh"

@@ -16,9 +16,9 @@
 //
 // Written as pieces: `vol_shade` shades a hit and queues its NEE marches
 // (VolNee), `march_seg` (medium.cuh) advances a march by one closest hit,
-// `nee_add` takes a finished march's sum. K2 runs a bounce in one call
-// (`vol_bounce`: its marches back to back, tr_march); the megakernel's
-// lane loop (mega_lane.cuh vol_lane) steps them one ray cast at a time.
+// `nee_add` takes a finished march's sum. The lane loops of the
+// megakernel and of K2 step them one ray cast at a time (vol_loop.cuh
+// vol_step).
 #pragma once
 #include <stdint.h>
 
@@ -72,8 +72,8 @@ struct VolStep {
 // A bounce's NEE marches, queued, each from the bounce's next origin (the
 // scatter point or the surface hit): one per distant light, then, at a
 // scatter point with emitters, the emitter sample's where its pdf
-// exceeds 1e-5. The megakernel's lane loop runs them one segment a step,
-// K2 one after another. The rest is what their sums need at their ends.
+// exceeds 1e-5. The lane loop runs them one after another, one segment a
+// step. The rest is what their sums need at their ends.
 struct VolNee {
   float c[3];   // the throughput they weight: the medium's weight taken,
                 // the BSDF step not yet
@@ -249,30 +249,5 @@ __device__ __forceinline__ VolStep vol_shade(const Scene& s, const Media& md,
   // a throughput below the normal range counts as zero, as under the
   // flush-to-zero arithmetic of XLA and the TPU
   r.alive = r.alive && maxn(r.c[0], maxn(r.c[1], r.c[2])) >= FLT_MIN_NORMAL;
-  return r;
-}
-
-// One volpath bounce of K2, the ray (o, d) with throughput thr in medium
-// med: its draws, its closest hit, vol_shade, and its NEE marches one
-// after another (tr_march). SOBOL: the path body's draws are Sobol pairs
-// at `at`.
-template <bool MESH, bool SOBOL>
-__device__ __forceinline__ VolStep vol_bounce(const Scene& s,
-                                              const Media& md, bool beck,
-                                              V3 o, V3 d, const float* thr,
-                                              float med, bool first,
-                                              float* rad, float* an,
-                                              float* aa, uint32_t& st,
-                                              const SobolAt& at) {
-  const VolDraws v = draw_bounce_vol<SOBOL>(s, st, at);
-  const Hit h = trace_closest<MESH>(s, o, d, TMIN);
-  VolNee e;
-  const VolStep r = vol_shade<MESH>(s, md, beck, o, d, thr, med, first, h,
-                                    v, rad, an, aa, e);
-  for (int q = 0; q < e.n_march; ++q)
-    nee_add(s, md, beck, e, q,
-            tr_march<MESH>(s, md, r.o, nee_dir(s, e, q), e.med,
-                           q >= s.n_lights),
-            rad);
   return r;
 }

@@ -33,7 +33,17 @@
 // -DMEGA_VOL=1 builds K2 with the volpath bounce instead (`wave_bounce_vol`
 // :5277-5565; csrc/volpath.cuh, csrc/medium.cuh), the variants
 // wave_volpath and wave_volpath_mesh, which also read and write the
-// lane's medium row WROW_MED.
+// lane's medium row WROW_MED. Its design for this card (wave.cuh
+// wave_vol_lane): a lane runs the megakernel's lane loop (vol_loop.cuh
+// vol_step: one ray cast per step from one call site, the path ray or a
+// transmittance march's next segment, march first) for its k bounces,
+// so that a warp's lanes walk together whatever their bounce's marches,
+// one thread per lane. A grid of only the resident blocks, whose threads
+// take lanes from a counter as they finish theirs, ran the fog mesh's
+// wave 1.23x and the fog scene's 1.35x slower (PERF.md section 6): lanes
+// taken one by one scatter the sorted neighbours of a warp.
+// -DMEGA_COUNT=1 (with MEGA_VOL and MEGA_MESH) builds it with step counts
+// (vol_loop.cuh StepCounts) for `python -m rene_tpu_torch.probe`.
 //
 // K3: one thread per lane writes all W_NROWS rows of a fresh wave from
 // its pixel coordinates: 8 bytes read and 128 written per lane, bound by
@@ -69,20 +79,31 @@
 #define PATH_MIN_BLOCKS (MEGA_MESH ? 4 : 5)
 
 #if MEGA_VOL
-// the parameters stay in the constant bank: the march, a real call,
-// takes the scene by reference
+// the volpath builds' floor, seven blocks for the mesh variant (at most
+// 72 registers, 772 bytes of spill stores) and five for the immediates
+// one (96, 288): the fastest of 4-7 each, K2 summed over the 16-spp waves
+// of the 1280x720 fog mesh (maxdepth 64) and fog scene in turns, NVIDIA
+// H100 80GB HBM3 at 700 W (`python -m rene_tpu_torch.probe --compare`,
+// PERF.md section 6): the fog mesh at 4 / 5 / 6 / 7 blocks 129.731 /
+// 132.153 / 129.154 / 128.837 ms, Sobol 142.166 / 142.337 / 140.082 /
+// 136.978; the fog scene 50.558 / 50.109 / 50.945 / 50.863, Sobol 54.422
+// / 53.592 / 54.224 / 53.741
+#define WAVE_VOL_MIN_BLOCKS (MEGA_MESH ? 7 : 5)
+
+// the parameters stay in the constant bank: the lane loop takes the
+// scene by reference
 template <bool MESH, bool SOBOL>
-__global__ void __launch_bounds__(128, PATH_MIN_BLOCKS)
+__global__ void __launch_bounds__(128, WAVE_VOL_MIN_BLOCKS)
 wave_volpath_kernel(const __grid_constant__ WaveParams p) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane < p.n_run) wave_lane<MESH, true, SOBOL>(p, lane);
+  if (lane < p.n_run) wave_vol_lane<MESH, SOBOL>(p, lane);
 }
 #else
 template <bool MESH, bool SOBOL>
 __global__ void __launch_bounds__(128, PATH_MIN_BLOCKS)
 wave_path_kernel(const WaveParams p) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane < p.n_run) wave_lane<MESH, false, SOBOL>(p, lane);
+  if (lane < p.n_run) wave_lane<MESH, SOBOL>(p, lane);
 }
 #endif
 

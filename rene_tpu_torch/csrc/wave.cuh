@@ -22,7 +22,7 @@
 
 #include "layout.cuh"
 #include "path.cuh"
-#include "volpath.cuh"
+#include "vol_loop.cuh"
 
 struct WaveParams {
   Scene s;
@@ -174,138 +174,23 @@ __device__ __forceinline__ void genesis_lane(const GenesisParams& g,
   for (int row = W_SORT_ROWS; row < W_NROWS; ++row) S[row * N] = 0.f;
 }
 
-// the rows K2 reads and writes for one lane
+// the rows K2 reads and writes for one lane; `med`, the medium row, in
+// volpath waves only
 struct WaveLane {
   V3 o, d;
   float c[3], r[3], an[3], aa[3];
-  float alive, rays, px, py, smp, dep, want, key;
+  float alive, rays, px, py, smp, dep, want, key, med;
+  uint32_t id;
 };
 
-// One bounce of an alive lane (`wave_bounce`, or `wave_bounce_vol` where
-// VOL): the megakernel's bounce (mega_lane.cuh trace_lane's path body,
-// or volpath.cuh's vol_bounce in the lane's medium `med`), then
-// regeneration while smp < want (in vacuum), parking at DEAD_ORIGIN and
-// the next-launch key, 1<<23 | morton18 of the next origin (the surface
-// hit or the scatter point) under the new direction's octant. The draws
-// are the megakernel's; under SOBOL at sample index scum + smp of the
-// pixel keyed by `pixkey`, the camera's at the index after the finished
-// path is counted.
-template <bool MESH, bool VOL, bool SOBOL>
-__device__ __forceinline__ void wave_bounce(const WaveParams& p, WaveLane& L,
-                                            float& med, uint32_t& st,
-                                            uint32_t scum, uint32_t pixkey) {
-  const Scene& s = p.s;
-  const bool beck = p.beckmann != 0;
-  const int E = s.n_eo;
-  L.rays = L.rays + (1.f + (float)s.n_lights + (E > 0 ? 1.f : 0.f));
-  bool alive;
-  V3 hp = L.o, w_ = L.d;
-  float nthr[3] = {L.c[0], L.c[1], L.c[2]};
-  float next_med = med, cj1, cj2;
-  const SobolAt at = {scum + (uint32_t)L.smp, pixkey, (uint32_t)L.dep};
-  if constexpr (VOL) {
-    const VolStep b = vol_bounce<MESH, SOBOL>(
-        s, Media{p.media, p.n_media}, beck, L.o, L.d, L.c, med, L.dep == 0.f,
-        L.r, L.an, L.aa, st, at);
-    alive = b.alive;
-    hp = b.o;
-    w_ = b.d;
-    for (int c = 0; c < 3; ++c) nthr[c] = b.c[c];
-    next_med = b.med;
-    cj1 = b.cj1;
-    cj2 = b.cj2;
-  } else {
-    const Draws u = draw_bounce_as<SOBOL>(s, p.use_rr != 0, st, at);
-    cj1 = u.cj1;
-    cj2 = u.cj2;
-    Hit h = trace_closest<MESH>(s, L.o, L.d, TMIN);
-    alive = h.t < BIG;
-    if (!alive) {
-      float bg[3];
-      background(s.cam, s.atlas, (int)__ldg(s.cam + CAM_BG_KIND), L.d, bg);
-      for (int c = 0; c < 3; ++c) L.r[c] = L.r[c] + L.c[c] * bg[c];
-    } else {
-      Mat m = hit_material(s, h);
-      hp = v3(L.o.x + h.t * L.d.x, L.o.y + h.t * L.d.y, L.o.z + h.t * L.d.z);
-      V3 n = normalize3(h.n);
-      V3 wo = neg(L.d);
-      Frame f = onb_from_w(n);
-      if ((h.e[0] != 0.f || h.e[1] != 0.f || h.e[2] != 0.f)
-          && dot3(wo, n) > 0.f)
-        for (int c = 0; c < 3; ++c) L.r[c] = L.r[c] + L.c[c] * h.e[c];
-      if (L.dep == 0.f) {
-        L.an[0] = L.an[0] + n.x;
-        L.an[1] = L.an[1] + n.y;
-        L.an[2] = L.an[2] + n.z;
-        for (int c = 0; c < 3; ++c) L.aa[c] = L.aa[c] + m.ab[c];
-      }
-      V3 lo = to_local(f, wo);
-      for (int li = 0; li < s.n_lights; ++li) {
-        const float* Lt = s.lights + li * LIGHT_W;
-        V3 ld = load3(Lt + LIGHT_DIR);
-        if (shadow_any<MESH>(s, li, hp, ld, TMIN, 1e5f)) continue;
-        BsdfVal fe = bsdf_eval(m, lo, to_local(f, ld), beck);
-        float cosl = fabsf(ld.x * n.x + ld.y * n.y + ld.z * n.z);
-        for (int c = 0; c < 3; ++c)
-          L.r[c] = L.r[c]
-              + L.c[c] * fe.f[c] * cosl * __ldg(Lt + LIGHT_COLOR + c);
-      }
-      alive = bsdf_step(s, m, f, n, lo, hp, u, beck, L.c, w_, nthr);
-      // a throughput below the normal range counts as zero, as under the
-      // flush-to-zero arithmetic of XLA and the TPU
-      alive = alive
-          && maxn(nthr[0], maxn(nthr[1], nthr[2])) >= FLT_MIN_NORMAL;
-      if (p.use_rr) {
-        float p_cont = clampn(maxn(nthr[0], maxn(nthr[1], nthr[2])), 0.f,
-                              1.f);
-        bool do_rr = L.dep > (float)RR_START;
-        alive = alive && (!do_rr || u.rrv <= p_cont);
-        if (do_rr && alive) {
-          float inv_p = 1.f / clamp_min(p_cont, 1e-20f);
-          for (int c = 0; c < 3; ++c) nthr[c] = nthr[c] * inv_p;
-        }
-      }
-    }
-  }
-  alive = alive && (L.dep + 1.f < (float)p.max_depth);
-  if (alive) {
-    uint32_t morton = mpart6(q6(hp.x, p.klo[0], p.kscale[0]))
-        | (mpart6(q6(hp.y, p.klo[1], p.kscale[1])) << 1)
-        | (mpart6(q6(hp.z, p.klo[2], p.kscale[2])) << 2);
-    L.key = key_bits((oct_of(w_) << 24) | (1u << 23) | morton);
-    L.o = hp;
-    L.d = w_;
-    for (int c = 0; c < 3; ++c) L.c[c] = nthr[c];
-    med = next_med;
-    L.dep = L.dep + 1.f;
-    return;
-  }
-  L.smp = L.smp + 1.f;
-  if (L.smp < L.want) {  // regenerate a camera path of the lane's pixel
-    if constexpr (SOBOL)
-      ld2(scum + (uint32_t)L.smp, pixkey, 0u, SLOT_CAM, cj1, cj2);
-    L.d = camera_ray(s.cam, L.px, L.py, cj1, cj2);
-    L.o = load3(s.cam + CAM_ORIGIN);
-    L.c[0] = L.c[1] = L.c[2] = 1.f;
-    L.dep = 0.f;
-    med = 0.f;
-    L.key = key_bits(regen_key(L.px, L.py, L.d, p.width));
-  } else {  // park
-    L.o = v3(DEAD_ORIGIN, DEAD_ORIGIN, DEAD_ORIGIN);
-    L.alive = 0.f;
-    L.key = key_bits((uint32_t)W_KEY_DEAD);
-  }
-}
-
-// K2 for one lane: k bounces in place, of the path body or, where VOL,
-// of the volpath body with the lane's medium row. A parked lane returns
-// at once: its state, and its parked key, stay as they are.
-template <bool MESH, bool VOL, bool SOBOL>
-__device__ __forceinline__ void wave_lane(const WaveParams& p, int lane) {
+// Lane `lane`'s rows, where it is alive (else false: a parked lane keeps
+// its state and its parked key).
+template <bool VOL>
+__device__ __forceinline__ bool wave_load(const WaveParams& p, int lane,
+                                          WaveLane& L) {
   const size_t N = (size_t)p.n_pad;
-  float* S = p.state + lane;
-  if (!(S[WROW_ALIVE * N] > 0.5f)) return;
-  WaveLane L;
+  const float* S = p.state + lane;
+  if (!(S[WROW_ALIVE * N] > 0.5f)) return false;
   L.o = v3(S[WROW_O * N], S[(WROW_O + 1) * N], S[(WROW_O + 2) * N]);
   L.d = v3(S[WROW_D * N], S[(WROW_D + 1) * N], S[(WROW_D + 2) * N]);
   for (int c = 0; c < 3; ++c) {
@@ -322,26 +207,45 @@ __device__ __forceinline__ void wave_lane(const WaveParams& p, int lane) {
   L.dep = S[WROW_DEP * N];
   L.want = S[WROW_WANT * N];
   L.key = S[WROW_KEY * N];
-  const uint32_t id = __float_as_uint(S[WROW_LANE * N]);
-  uint32_t st = wave_state(id, p.seed, p.launch);
-  uint32_t scum = 0u, pixkey = 0u;
-  if constexpr (SOBOL) {
-    scum = sample_base(id / (uint32_t)p.npix, p.base, p.rem);
-    pixkey = wave_pixkey(L.px, L.py, p.width, p.seed);
-  }
-  float med = 0.f;
-  if constexpr (VOL) med = S[WROW_MED * N];
-  for (int b = 0; b < p.k && L.alive > 0.5f; ++b)
-    wave_bounce<MESH, VOL, SOBOL>(p, L, med, st, scum, pixkey);
-  if constexpr (VOL) S[WROW_MED * N] = med;
-  S[WROW_O * N] = L.o.x;
-  S[(WROW_O + 1) * N] = L.o.y;
-  S[(WROW_O + 2) * N] = L.o.z;
+  L.id = __float_as_uint(S[WROW_LANE * N]);
+  L.med = 0.f;
+  if constexpr (VOL) L.med = S[WROW_MED * N];
+  return true;
+}
+
+// the rows of the path ray that a parked volpath lane keeps: medium,
+// direction, throughput
+__device__ __forceinline__ void wave_store_ray(const WaveParams& p, int lane,
+                                               const WaveLane& L) {
+  const size_t N = (size_t)p.n_pad;
+  float* S = p.state + lane;
+  S[WROW_MED * N] = L.med;
   S[WROW_D * N] = L.d.x;
   S[(WROW_D + 1) * N] = L.d.y;
   S[(WROW_D + 2) * N] = L.d.z;
+  for (int c = 0; c < 3; ++c) S[(WROW_C + c) * N] = L.c[c];
+}
+
+// Lane `lane`'s rows; a parked volpath lane leaves those of
+// wave_store_ray, which its last bounce wrote before its shading
+template <bool VOL>
+__device__ __forceinline__ void wave_store(const WaveParams& p, int lane,
+                                           const WaveLane& L) {
+  const size_t N = (size_t)p.n_pad;
+  float* S = p.state + lane;
+  const bool ray = !VOL || L.alive > 0.5f;
+  if constexpr (VOL)
+    if (ray) S[WROW_MED * N] = L.med;
+  S[WROW_O * N] = L.o.x;
+  S[(WROW_O + 1) * N] = L.o.y;
+  S[(WROW_O + 2) * N] = L.o.z;
+  if (ray) {
+    S[WROW_D * N] = L.d.x;
+    S[(WROW_D + 1) * N] = L.d.y;
+    S[(WROW_D + 2) * N] = L.d.z;
+  }
   for (int c = 0; c < 3; ++c) {
-    S[(WROW_C + c) * N] = L.c[c];
+    if (ray) S[(WROW_C + c) * N] = L.c[c];
     S[(WROW_R + c) * N] = L.r[c];
     S[(WROW_AN + c) * N] = L.an[c];
     S[(WROW_AA + c) * N] = L.aa[c];
@@ -351,6 +255,193 @@ __device__ __forceinline__ void wave_lane(const WaveParams& p, int lane) {
   S[WROW_SMP * N] = L.smp;
   S[WROW_DEP * N] = L.dep;
   S[WROW_KEY * N] = L.key;
+}
+
+// A lane's stream of this launch and, under SOBOL, the first sample index
+// of its slot and its pixel's key
+struct WaveDraw {
+  uint32_t st, scum, pixkey;
+};
+
+template <bool SOBOL>
+__device__ __forceinline__ WaveDraw wave_draw(const WaveParams& p,
+                                              const WaveLane& L) {
+  WaveDraw w = {wave_state(L.id, p.seed, p.launch), 0u, 0u};
+  if constexpr (SOBOL) {
+    w.scum = sample_base(L.id / (uint32_t)p.npix, p.base, p.rem);
+    w.pixkey = wave_pixkey(L.px, L.py, p.width, p.seed);
+  }
+  return w;
+}
+
+// The end of a bounce of an alive lane, `alive` its verdict before the
+// depth cut: the depth cut, then the next-launch key, 1<<23 | morton18
+// of the next origin hp (the surface hit or the scatter point) under the
+// new direction w_'s octant, with the next throughput nthr and medium
+// next_med; else regeneration while smp < want (in vacuum, the camera
+// pair cj1, cj2, under SOBOL drawn at the sample index after the
+// finished path is counted) or parking at DEAD_ORIGIN, where the lane
+// keeps its direction, throughput and medium.
+template <bool SOBOL>
+__device__ __forceinline__ void wave_tail(const WaveParams& p, WaveLane& L,
+                                          bool alive, V3 hp, V3 w_,
+                                          const float* nthr, float next_med,
+                                          float cj1, float cj2,
+                                          const WaveDraw& w) {
+  const Scene& s = p.s;
+  alive = alive && (L.dep + 1.f < (float)p.max_depth);
+  if (alive) {
+    uint32_t morton = mpart6(q6(hp.x, p.klo[0], p.kscale[0]))
+        | (mpart6(q6(hp.y, p.klo[1], p.kscale[1])) << 1)
+        | (mpart6(q6(hp.z, p.klo[2], p.kscale[2])) << 2);
+    L.key = key_bits((oct_of(w_) << 24) | (1u << 23) | morton);
+    L.o = hp;
+    L.d = w_;
+    for (int c = 0; c < 3; ++c) L.c[c] = nthr[c];
+    L.med = next_med;
+    L.dep = L.dep + 1.f;
+    return;
+  }
+  L.smp = L.smp + 1.f;
+  if (L.smp < L.want) {  // regenerate a camera path of the lane's pixel
+    if constexpr (SOBOL)
+      ld2(w.scum + (uint32_t)L.smp, w.pixkey, 0u, SLOT_CAM, cj1, cj2);
+    L.d = camera_ray(s.cam, L.px, L.py, cj1, cj2);
+    L.o = load3(s.cam + CAM_ORIGIN);
+    L.c[0] = L.c[1] = L.c[2] = 1.f;
+    L.dep = 0.f;
+    L.med = 0.f;
+    L.key = key_bits(regen_key(L.px, L.py, L.d, p.width));
+  } else {  // park
+    L.o = v3(DEAD_ORIGIN, DEAD_ORIGIN, DEAD_ORIGIN);
+    L.alive = 0.f;
+    L.key = key_bits((uint32_t)W_KEY_DEAD);
+  }
+}
+
+// One bounce of an alive lane of a path wave (`wave_bounce`): the
+// megakernel's path body (mega_lane.cuh path_lane), then wave_tail. The
+// draws are the megakernel's; under SOBOL at sample index scum + smp of
+// the pixel keyed by `pixkey`.
+template <bool MESH, bool SOBOL>
+__device__ __forceinline__ void wave_bounce(const WaveParams& p, WaveLane& L,
+                                            WaveDraw& w) {
+  const Scene& s = p.s;
+  const bool beck = p.beckmann != 0;
+  const int E = s.n_eo;
+  L.rays = L.rays + (1.f + (float)s.n_lights + (E > 0 ? 1.f : 0.f));
+  V3 hp = L.o, w_ = L.d;
+  float nthr[3] = {L.c[0], L.c[1], L.c[2]};
+  const SobolAt at = {w.scum + (uint32_t)L.smp, w.pixkey, (uint32_t)L.dep};
+  const Draws u = draw_bounce_as<SOBOL>(s, p.use_rr != 0, w.st, at);
+  Hit h = trace_closest<MESH>(s, L.o, L.d, TMIN);
+  bool alive = h.t < BIG;
+  if (!alive) {
+    float bg[3];
+    background(s.cam, s.atlas, (int)__ldg(s.cam + CAM_BG_KIND), L.d, bg);
+    for (int c = 0; c < 3; ++c) L.r[c] = L.r[c] + L.c[c] * bg[c];
+  } else {
+    Mat m = hit_material(s, h);
+    hp = v3(L.o.x + h.t * L.d.x, L.o.y + h.t * L.d.y, L.o.z + h.t * L.d.z);
+    V3 n = normalize3(h.n);
+    V3 wo = neg(L.d);
+    Frame f = onb_from_w(n);
+    if ((h.e[0] != 0.f || h.e[1] != 0.f || h.e[2] != 0.f)
+        && dot3(wo, n) > 0.f)
+      for (int c = 0; c < 3; ++c) L.r[c] = L.r[c] + L.c[c] * h.e[c];
+    if (L.dep == 0.f) {
+      L.an[0] = L.an[0] + n.x;
+      L.an[1] = L.an[1] + n.y;
+      L.an[2] = L.an[2] + n.z;
+      for (int c = 0; c < 3; ++c) L.aa[c] = L.aa[c] + m.ab[c];
+    }
+    V3 lo = to_local(f, wo);
+    for (int li = 0; li < s.n_lights; ++li) {
+      const float* Lt = s.lights + li * LIGHT_W;
+      V3 ld = load3(Lt + LIGHT_DIR);
+      if (shadow_any<MESH>(s, li, hp, ld, TMIN, 1e5f)) continue;
+      BsdfVal fe = bsdf_eval(m, lo, to_local(f, ld), beck);
+      float cosl = fabsf(ld.x * n.x + ld.y * n.y + ld.z * n.z);
+      for (int c = 0; c < 3; ++c)
+        L.r[c] = L.r[c]
+            + L.c[c] * fe.f[c] * cosl * __ldg(Lt + LIGHT_COLOR + c);
+    }
+    alive = bsdf_step(s, m, f, n, lo, hp, u, beck, L.c, w_, nthr);
+    // a throughput below the normal range counts as zero, as under the
+    // flush-to-zero arithmetic of XLA and the TPU
+    alive = alive
+        && maxn(nthr[0], maxn(nthr[1], nthr[2])) >= FLT_MIN_NORMAL;
+    if (p.use_rr) {
+      float p_cont = clampn(maxn(nthr[0], maxn(nthr[1], nthr[2])), 0.f,
+                            1.f);
+      bool do_rr = L.dep > (float)RR_START;
+      alive = alive && (!do_rr || u.rrv <= p_cont);
+      if (do_rr && alive) {
+        float inv_p = 1.f / clamp_min(p_cont, 1e-20f);
+        for (int c = 0; c < 3; ++c) nthr[c] = nthr[c] * inv_p;
+      }
+    }
+  }
+  wave_tail<SOBOL>(p, L, alive, hp, w_, nthr, L.med, u.cj1, u.cj2, w);
+}
+
+// K2 of a path wave for one lane: k bounces in place. A parked lane
+// returns at once: its state, and its parked key, stay as they are.
+template <bool MESH, bool SOBOL>
+__device__ __forceinline__ void wave_lane(const WaveParams& p, int lane) {
+  WaveLane L;
+  if (!wave_load<false>(p, lane, L)) return;
+  WaveDraw w = wave_draw<SOBOL>(p, L);
+  for (int b = 0; b < p.k && L.alive > 0.5f; ++b)
+    wave_bounce<MESH, SOBOL>(p, L, w);
+  wave_store<false>(p, lane, L);
+}
+
+// K2 of a volpath wave for one lane (`wave_bounce_vol`): its rows, then
+// vol_loop.cuh's state machine in its medium, one ray cast per step as in
+// the megakernel's lane loop; when a bounce and all its marches are done,
+// wave_tail; after k bounces, or where it parks, its rows. The draws,
+// casts and sums are the bounce's (volpath.cuh vol_shade), in its order.
+// A parked lane keeps the direction, throughput and medium its last
+// bounce started with: where a bounce may end in parking (its path is the
+// lane's last), their rows are written at its shade step, before the
+// step replaces them, and the lane's store leaves them. A parked lane
+// returns at once.
+template <bool MESH, bool SOBOL>
+__device__ __forceinline__ void wave_vol_lane(const WaveParams& p,
+                                              int lane) {
+  const Scene& s = p.s;
+  const Media md = {p.media, p.n_media};
+  const bool beck = p.beckmann != 0;
+  const float ray_inc = 1.f + (float)s.n_lights + (s.n_eo > 0 ? 1.f : 0.f);
+  WaveLane L;
+  if (!wave_load<true>(p, lane, L)) return;
+  WaveDraw w = wave_draw<SOBOL>(p, L);
+  VolLoop v;
+  vol_loop_start(v, L.o, L.d, L.med);
+  StepCounts cnt;
+  cnt.lane();
+  for (int left = p.k; left > 0;) {
+    const bool marching = vol_marching(v);
+    if (!step_now(marching)) continue;
+    cnt.step(marching);
+    vol_step<MESH, SOBOL>(
+        s, md, beck, v, marching, L.o, L.d, L.c, L.med, L.rays, ray_inc,
+        w.st,
+        [&] {
+          if (L.smp + 1.f >= L.want) wave_store_ray(p, lane, L);
+          return SobolAt{w.scum + (uint32_t)L.smp, w.pixkey,
+                         (uint32_t)L.dep};
+        },
+        L.r, L.an, L.aa, [&] {
+          // the path ray is the next one already
+          wave_tail<SOBOL>(p, L, v.alive, L.o, L.d, L.c, L.med, v.cj1,
+                           v.cj2, w);
+          left = L.alive > 0.5f ? left - 1 : 0;
+        });
+  }
+  cnt.flush();
+  wave_store<true>(p, lane, L);
 }
 
 // K4 for lane t of slice j: rows [0, W_SORT_PAD) from slice perm[j], the

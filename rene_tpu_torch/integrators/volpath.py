@@ -33,9 +33,10 @@ emitter draws (:3315-3316, :3346-3347, :4635-4638). Its nominal ray count
 is the path body's, 1 + lights + (E > 0); `ops.intersect.casts` counts
 the casts it makes.
 
-`bounce_vol` is the plain PyTorch version of csrc/volpath.cuh's
-`vol_bounce`; mega_path.path_lanes_ref runs it for volpath tables
-(`vol_lanes_ref`), as wave.wave_step_ref does.
+`bounce_vol` is the plain PyTorch version of a bounce of
+csrc/vol_loop.cuh's lane loop (`vol_step` over csrc/volpath.cuh's
+`vol_shade` and its marches); mega_path.path_lanes_ref runs it for
+volpath tables (`vol_lanes_ref`), as wave.wave_step_ref does.
 """
 from __future__ import annotations
 

@@ -16,9 +16,10 @@ together, and loaded with ctypes:
     csrc/probes.cu      the Mosaic probes P-r3n (rowslice_probe) and P-r3w
                         (mxu_probe), one build
 
-and one more build of mega_path.cu, the volpath mesh megakernel with
-step counts (-DMEGA_COUNT=1, `mega_volpath_counts`), which only the probe
-launches, built at its first launch and not with the variants.
+and two more builds, the volpath mesh megakernel and the volpath mesh K2
+with step counts (-DMEGA_COUNT=1, `mega_volpath_counts`,
+`wave_volpath_counts`), which only the probe launches, each built at its
+first launch and not with the variants.
 
 Every build of K1 and K2, and K3, holds two instances of its kernel, the
 independent sampler's and `Sampler "sobol"`'s (template parameter SOBOL,
@@ -76,11 +77,13 @@ VARIANTS = {"mega_path": ("mega_path.cu", "-DMEGA_MESH=0", "-DMEGA_VOL=0"),
             "wave_volpath_mesh": ("wave.cu", "-DMEGA_MESH=1",
                                   "-DMEGA_VOL=1"),
             "probes": ("probes.cu",)}
-COUNT = "mega_volpath_mesh_count"   # the counting build's library and kernel
-# every library `build` knows: the variants and the counting build
-BUILDS = dict(VARIANTS, **{COUNT: VARIANTS["mega_volpath_mesh"]
-                           + ("-DMEGA_COUNT=1",)})
-# what its counts hold (csrc/mega_lane.cuh StepCounts), in their C order
+# the counting builds' libraries and kernels: the volpath mesh megakernel
+# and K2
+COUNT, WAVE_COUNT = "mega_volpath_mesh_count", "wave_volpath_mesh_count"
+# every library `build` knows: the variants and the counting builds
+BUILDS = dict(VARIANTS, **{c: VARIANTS[v] + ("-DMEGA_COUNT=1",) for c, v in (
+    (COUNT, "mega_volpath_mesh"), (WAVE_COUNT, "wave_volpath_mesh"))})
+# what their counts hold (csrc/vol_loop.cuh StepCounts), in their C order
 COUNT_KEYS = ("active_lanes", "warp_steps", "lane_steps", "march_steps",
               "lanes")
 SOBOL = "_sobol"    # suffix of a Sobol instance's name
@@ -91,7 +94,7 @@ MAX_LANES = 1 << 31   # the megakernel's lane ids and count are C ints
 # mxu_probe kinds in the probes library
 launches = dict.fromkeys(
     [v + s for v in VARIANTS if v != "probes" for s in ("", SOBOL)]
-    + [COUNT]
+    + [COUNT, WAVE_COUNT]
     + ["wave_genesis", "wave_genesis" + SOBOL, "wave_permute",
        "sobol_probe", "rowslice_probe"]
     + ["mxu_probe_" + k for k in MXU_KINDS], 0)
@@ -185,7 +188,7 @@ def load_library(name: str, csrc: Path = CSRC) -> ctypes.CDLL:
     """Library `name` (BUILDS) built from the sources in `csrc` (the
     package's own by default, as `_load` does), bound and loaded."""
     return bind(ctypes.CDLL(str(build(csrc=csrc, names=[name])[name])),
-                COUNT if name == COUNT else VARIANTS[name][0])
+                VARIANTS[name][0] if name in VARIANTS else name)
 
 
 # argument types of the C entry points (csrc/launch.cuh,
@@ -209,7 +212,9 @@ ROWSLICE_ARGTYPES = [_I, _I, _P, _I, _P, _I, _P, _P]
 MXU_ARGTYPES = [_I, _P, _P, _I, _I, _I, _P, _P]
 _ENTRY_POINTS = {
     "mega_path.cu": {"mega_path_launch": ARGTYPES},
-    COUNT: {"mega_path_launch": ARGTYPES, "mega_counts": [_P, _I, _P]},
+    COUNT: {"mega_path_launch": ARGTYPES, "step_counts": [_P, _I, _P]},
+    WAVE_COUNT: {"wave_path_launch": WAVE_ARGTYPES,
+                 "step_counts": [_P, _I, _P]},
     "wave.cu": {"wave_path_launch": WAVE_ARGTYPES,
                 "wave_genesis_launch": GENESIS_ARGTYPES,
                 "wave_permute_launch": PERMUTE_ARGTYPES,
@@ -220,7 +225,7 @@ _ENTRY_POINTS = {
 
 def bind(lib: ctypes.CDLL, source: str) -> ctypes.CDLL:
     """Set the argument and return types of the entry points of `source`
-    (a source, or the counting build's name)."""
+    (a source, or a counting build's name)."""
     for fn, argtypes in _ENTRY_POINTS[source].items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ctypes.c_int
@@ -400,16 +405,23 @@ def mega_volpath_counts(tabs, seed: int, num_samples: int,
     out = torch.empty((P.OUT_ROWS, lane_count(tabs, pack)),
                       dtype=torch.float32, device=device)
     args = launch_args(tabs, seed, num_samples, beckmann, out, pack)
+    return out, _counted(COUNT, lambda lib: lib.mega_path_launch(
+        *args, _stream(device)), device)
+
+
+def _counted(name: str, launch, device) -> dict:
+    """Run launch(lib) with the counting build `name` between two reads of
+    its counts that zero them: the launch's counts, {COUNT_KEYS: int}."""
     counts = torch.empty(len(COUNT_KEYS), dtype=torch.int64, device=device)
-    lib = _load(COUNT)
-    rc = lib.mega_counts(counts.data_ptr(), 1, _stream(device))
+    lib = _load(name)
+    rc = lib.step_counts(counts.data_ptr(), 1, _stream(device))
     if rc == 0:
-        rc = lib.mega_path_launch(*args, _stream(device))
-    _launched(COUNT, rc)
-    rc = lib.mega_counts(counts.data_ptr(), 1, _stream(device))
+        rc = launch(lib)
+    _launched(name, rc)
+    rc = lib.step_counts(counts.data_ptr(), 1, _stream(device))
     if rc != 0:
-        raise RuntimeError(f"mega_counts failed: cudaError {rc}")
-    return out, dict(zip(COUNT_KEYS, counts.tolist()))
+        raise RuntimeError(f"step_counts failed: cudaError {rc}")
+    return dict(zip(COUNT_KEYS, counts.tolist()))
 
 
 def wave_path(tabs, state: torch.Tensor, seed: int, launch: int, k: int,
@@ -428,6 +440,18 @@ def wave_path(tabs, state: torch.Tensor, seed: int, launch: int, k: int,
         return WV.wave_step_ref(tabs, state, seed, launch, k, n_run, kb,
                                 base, rem, beckmann, stream)
     _card_stream(stream, "wave_path")
+    name = variant(tabs, "wave_path")
+    _launched(name, _load(library(name)).wave_path_launch(
+        *_wave_args(tabs, state, seed, launch, k, n_run, kb, base, rem,
+                    beckmann), _stream(device)))
+    return state
+
+
+def _wave_args(tabs, state, seed, launch, k, n_run, kb, base, rem,
+               beckmann) -> tuple:
+    """Checked C arguments of wave_path_launch, all but the stream."""
+    from .integrators import wave as WV
+    device = state.device
     _check(state, "state", torch.float32, (WV.W_NROWS, None), device)
     n_pad = state.shape[1]
     if n_pad % WV.W_TILE or not 0 <= n_run <= n_pad or len(kb) != 6:
@@ -435,12 +459,28 @@ def wave_path(tabs, state: torch.Tensor, seed: int, launch: int, k: int,
                          f"{len(kb)} key bounds")
     if base < 0 or rem < 0:
         raise ValueError(f"wave_path: base {base}, rem {rem}")
-    name = variant(tabs, "wave_path")
-    _launched(name, _load(library(name)).wave_path_launch(
-        *scene_args(tabs, beckmann, device), int(seed), int(launch), int(k),
-        int(n_run), n_pad, int(base), int(rem), *kb, state.data_ptr(),
-        _stream(device)))
-    return state
+    return scene_args(tabs, beckmann, device) + (
+        int(seed), int(launch), int(k), int(n_run), n_pad, int(base),
+        int(rem), *kb, state.data_ptr())
+
+
+def wave_volpath_counts(tabs, state: torch.Tensor, seed: int, launch: int,
+                        k: int, n_run: int, kb, base: int, rem: int,
+                        beckmann: bool = False):
+    """The volpath mesh K2 launch of `wave_path` (independent sampler,
+    CUDA tables only) through the counting build: returns the state and
+    {COUNT_KEYS: int}, the sums over the launch of the active lanes that
+    each warp's leader sees at the lane loop's cast site and of its warp
+    steps, of the threads' steps and march steps, and the alive lanes
+    run. For the probe; no render path launches it."""
+    if not _cuda(state.device, "wave_volpath_counts") \
+            or variant(tabs, "wave_path") != "wave_volpath_mesh":
+        raise ValueError("wave_volpath_counts: volpath mesh tables with the "
+                         "independent sampler on a CUDA device only")
+    args = _wave_args(tabs, state, seed, launch, k, n_run, kb, base, rem,
+                      beckmann)
+    return state, _counted(WAVE_COUNT, lambda lib: lib.wave_path_launch(
+        *args, _stream(state.device)), state.device)
 
 
 def wave_genesis(tabs, pxf: torch.Tensor, pyf: torch.Tensor, n_real: int,

@@ -37,7 +37,8 @@ and image files go to build/probe_scenes/) or the fog mesh
   segments;
 * for a volpath scene, a wave of the wave engine at the smallest render
   spp, its device time split into init (K3), K2 launches, sorts and
-  finish;
+  finish; for the fog mesh the same wave through K2's counting build
+  (`k2_record`), its counts per launch;
 * a render at the smallest of those spp under torch.profiler: wall time
   and the operations with the most device time; the Chrome trace goes to
   DIR.
@@ -58,18 +59,26 @@ ptxas registers and spill stores of each build, then per launch and
 directory the median milliseconds, the rays, and the per-pixel agreement
 with the first directory's output (rene_tpu_torch.checks); and, for
 each copy that has the counting build, its step counts on the fog mesh
-(`step_counts`). The launches (`COMPARE_LAUNCHES`): the volpath
-megakernel's at 1280x720 (the fog mesh at maxdepth 64 at 1 and 16 spp
-and at pack 4, the fog scene at 1 and 16 spp, the Sobol 1-spp launches
-of both), the first K2 launch of each volpath wave (independent and
-Sobol) and the 1-spp launches of the two path builds.
+(`step_counts`) and its K2 counts per launch of the fog mesh's wave.
+The launches (`COMPARE_LAUNCHES`): the volpath megakernel's at 1280x720
+(the fog mesh at maxdepth 64 at 1 and 16 spp and at pack 4, the fog
+scene at 1 and 16 spp, the Sobol 1-spp launches of both), the first K2
+launch of each volpath wave (independent and Sobol), the 1-spp launches
+of the megakernel's two path builds and the first K2 launches of the
+Cornell box's and the big mesh's waves; then the whole 16-spp waves of
+the fog mesh and the fog scene, both samplers (`compare_waves`): their K2
+ms, summed and per launch, and the agreement of the finished films.
 
 `--main-launches` times what each kernel costs on its main path
 (`MAIN_PATHS`, the paths chip_smoke.py drives through the CLI): the
 megakernel's launch at the path's own spp and pack (CUDA events, the
 median of three), and for a wave path one wave at its spp with its device
 time split into init (K3), K2 launches, sorts (K4 under `dma`) and finish,
-with the launches of each kernel.
+with the launches of each kernel; then the same wave with each K2 launch
+timed alone (`k2_record`: k, lanes launched, alive at its start and end,
+lane-bounces, ms), and for a volpath wave once more with each launch's
+bound (rene_tpu_torch.bounds), from the plain version on a sample of its
+alive lanes.
 
 `--scatter-share` needs neither: it counts, with the plain volpath
 megakernel on the CPU at 1 spp and a 128x72 film of the scene, the share
@@ -119,7 +128,8 @@ PACK_ROUNDS = 3
 # pack, sampler) at the scene's main film (`main_scene`); "k2" launches
 # are the first K2 launch of the scene's wave at 16 spp
 COMPARE_LIBS = ("mega_volpath", "mega_volpath_mesh", "wave_volpath",
-                "wave_volpath_mesh", "mega_path", "mega_path_mesh")
+                "wave_volpath_mesh", "mega_path", "mega_path_mesh",
+                "wave_path", "wave_path_mesh")
 COMPARE_LAUNCHES = (
     ("fog_mesh 1 spp", "fog_mesh", 1, 1, "independent"),
     ("fog_mesh 16 spp", "fog_mesh", 16, 1, "independent"),
@@ -133,7 +143,9 @@ COMPARE_LAUNCHES = (
     ("fog_mesh sobol K2 first", "fog_mesh", "k2", 1, "sobol"),
     ("fog sobol K2 first", "fog", "k2", 1, "sobol"),
     ("cornell 1 spp", "cornell", 1, 1, "independent"),
-    ("big_mesh 1 spp", "big_mesh", 1, 1, "independent"))
+    ("big_mesh 1 spp", "big_mesh", 1, 1, "independent"),
+    ("cornell K2 first", "cornell", "k2", 1, "independent"),
+    ("big_mesh K2 first", "big_mesh", "k2", 1, "independent"))
 # --main-launches: (label, scene, maxdepth (None: the scene's own),
 # sampler, engine ("mega", or the wave's sort mode), spp, pack)
 MAIN_PATHS = tuple(
@@ -156,6 +168,13 @@ MAIN_PATHS = tuple(
         ("fog", "fog", None, "mega", 16, 1, (0, 1)),
         ("fog wave", "fog", None, "gather", 16, 1, (0, 1)))
     for smp in (("independent", "sobol")[i] for i in smps))
+# --compare's whole waves: (label, scene, sampler), one 16-spp wave each
+COMPARE_WAVES = tuple(
+    (f"{scene} wave{' sobol' if smp == 'sobol' else ''}", scene, smp)
+    for scene in ("fog_mesh", "fog") for smp in ("independent", "sobol"))
+# lanes of each K2 launch of a volpath main path that the plain version
+# runs for the launch's bound (--main-launches)
+PLAIN_LANES = 1 << 14
 COMPARE_FILMS = {"cornell": (1024, 1024)}
 COMPARE_FILM = (1280, 720)
 COMPARE_ROUNDS = 2   # each a turn A, B, ..., B, A
@@ -304,10 +323,98 @@ def main_launches(dev, paths=MAIN_PATHS) -> list:
                        device_ms=split, launches={
                            k: v - before[k] for k, v in kernels.launches.items()
                            if v != before[k]})
+            with k2_record([], dev) as per:   # the same wave once more
+                run.run_dev(5, spp)
+            row.update(k2_ms_sum=sum(r["ms"] for r in per), per_launch=per)
+            if run.tabs["volpath"]:   # and its bound, launch by launch
+                with k2_record([], dev, plain=PLAIN_LANES) as per:
+                    run.run_dev(5, spp)
+                row.update(k2_bound_ms=sum(r["bound_ms"] for r in per),
+                           per_launch_bound=[
+                               {k: r[k] for k in ("bound_ms", "bound_by",
+                                                  "sampled", "plain_tests")
+                                if k in r} for r in per])
             del run
         emit(main_launch=row)
         rows.append(row)
     return rows
+
+
+@contextlib.contextmanager
+def k2_record(rows: list, dev, counting: bool = False, plain: int = 0):
+    """kernels.wave_path wrapped inside the block, so that each K2 launch
+    of a wave adds to `rows` its k, the lanes launched (nt * W_TILE), the
+    lanes alive at its start and at its end, the lane-bounces done (the
+    launch's rays over the scene's rays per bounce), and its device ms
+    (CUDA events around the launch alone; the counts are taken outside
+    them). `counting`: the launches run the counting build
+    (kernels.wave_volpath_counts: volpath mesh tables, independent
+    sampler), whose counts join each row. `plain`: before each launch the
+    plain version (wave_step_ref) runs a strided sample of about `plain`
+    of its alive lanes, and the row gains the launch's bound
+    (rene_tpu_torch.bounds): the state rows its alive lanes read and
+    write, and the operations of the ray-cast tests and casts the sample
+    counts, scaled to the alive lanes."""
+    from . import bounds as B
+    from .integrators import wave as WV
+    inner, pending = kernels.wave_path, []
+
+    def plain_bound(tabs, state, seed, launch, k, n_run, kb, base, rem,
+                    beckmann, stream):
+        alive = torch.nonzero(state[WV.WROW_ALIVE, :n_run] > 0.5).squeeze(1)
+        if not alive.numel():
+            return {"bound_ms": 0.0}
+        idx = alive[::max(1, alive.numel() // plain)]
+        sub = state.index_select(1, idx)
+        rays0 = sub[WV.WROW_RAYS].double().sum()
+        B.reset_counts()
+        WV.wave_step_ref(tabs, sub, seed, launch, k, idx.numel(), kb, base,
+                         rem, beckmann, stream)
+        scale = alive.numel() / idx.numel()
+        tests = {key: v * scale for key, v in B.plain_counts().items()}
+        rows_moved = B.K2_VOL_ROWS if tabs["volpath"] else B.K2_ROWS
+        t, by = B.bound(n_run * 4 + alive.numel() * rows_moved * 4,
+                        B.cast_ops(tabs, float(sub[WV.WROW_RAYS].double()
+                                               .sum() - rays0) * scale,
+                                   tests))
+        return {"bound_ms": t, "bound_by": by, "sampled": idx.numel(),
+                "plain_tests": tests}
+
+    def alive_rays(state, n_run):
+        return ((state[WV.WROW_ALIVE, :n_run] > 0.5).sum(),
+                state[WV.WROW_RAYS, :n_run].double().sum())
+
+    def launch(tabs, state, seed, launch, k, n_run, kb, base, rem,
+               beckmann=False, stream="mixed"):
+        extra = plain_bound(tabs, state, seed, launch, k, n_run, kb, base,
+                            rem, beckmann, stream) if plain else {}
+        a0, r0 = alive_rays(state, n_run)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        counts = {}
+        if counting:
+            state, counts = kernels.wave_volpath_counts(
+                tabs, state, seed, launch, k, n_run, kb, base, rem, beckmann)
+        else:
+            inner(tabs, state, seed, launch, k, n_run, kb, base, rem,
+                  beckmann, stream)
+        e1.record()
+        a1, r1 = alive_rays(state, n_run)
+        pending.append((k, n_run, a0, a1, r1 - r0, M.ray_increment(tabs),
+                        e0, e1, dict(counts, **extra)))
+        return state
+
+    kernels.wave_path = launch
+    try:
+        yield rows
+    finally:
+        kernels.wave_path = inner
+        torch.cuda.synchronize(dev)
+        for k, n_run, a0, a1, rays, inc, e0, e1, counts in pending:
+            rows.append(dict(k=k, launched=n_run, alive_start=int(a0),
+                             alive_end=int(a1), bounces=float(rays) / inc,
+                             ms=e0.elapsed_time(e1), **counts))
 
 
 def ptxas_lines(text: str) -> list:
@@ -333,12 +440,13 @@ def compare_builds(dirs, dev) -> dict:
         emit(build=d, library=name, ptxas=ptxas_lines(text))
     libs = {d: {n: kernels.load_library(n, d) for n in COMPARE_LIBS}
             for d in dirs}
-    # the counting build of the copies that have one (csrc/mega_lane.cuh
+    # the counting builds of the copies that have them (csrc/vol_loop.cuh
     # StepCounts)
-    counting = [d for d in dirs if "StepCounts" in open(
-        os.path.join(d, "mega_lane.cuh")).read()]
+    counting = [d for d in dirs
+                if os.path.exists(os.path.join(d, "vol_loop.cuh"))]
     for d in counting:
-        libs[d][kernels.COUNT] = kernels.load_library(kernels.COUNT, d)
+        for n in (kernels.COUNT, kernels.WAVE_COUNT):
+            libs[d][n] = kernels.load_library(n, d)
     os.makedirs(SCENE_DIR, exist_ok=True)
     tabs_of, runs = {}, {}
     for _, scene, spp, _, sampler in COMPARE_LAUNCHES:
@@ -356,6 +464,7 @@ def compare_builds(dirs, dev) -> dict:
     try:
         for label, scene, spp, pack, sampler in COMPARE_LAUNCHES:
             tabs = tabs_of[scene, sampler]
+            states = []   # a K2 launch's inputs, copied before its timing
             if spp == "k2":
                 run = runs[scene, sampler]
                 s0 = run.init_state(3, run.samples_per_wave)
@@ -363,9 +472,9 @@ def compare_builds(dirs, dev) -> dict:
                 lib = kernels.library(kernels.variant(tabs, "wave_path"))
 
                 def fn(r=0):
-                    return kernels.wave_path(tabs, s0.clone(), 3, 0,
-                                             WV.SCHEDULE[0], n_run,
-                                             run.key_bounds, 1, 0)
+                    return kernels.wave_path(
+                        tabs, states[r] if states else s0.clone(), 3, 0,
+                        WV.SCHEDULE[0], n_run, run.key_bounds, 1, 0)
                 reps, rays_row = 5, WV.WROW_RAYS
             else:
                 lib = kernels.library(kernels.variant(tabs))
@@ -379,14 +488,14 @@ def compare_builds(dirs, dev) -> dict:
                 kernels._libs[lib] = libs[d][lib]
                 outs[d] = fn()
                 torch.cuda.synchronize(dev)
-            clone_ms = 0.0
-            if spp == "k2":
-                clone_ms = time_launches(lambda r: s0.clone(), 5, dev)[0]
             order = list(dirs) + list(reversed(dirs))
             for _ in range(COMPARE_ROUNDS):
                 for d in order:
                     kernels._libs[lib] = libs[d][lib]
-                    ms[d].append(time_launches(fn, reps, dev)[0] - clone_ms)
+                    if spp == "k2":
+                        states[:] = [s0.clone() for _ in range(reps)]
+                    ms[d].append(time_launches(fn, reps, dev)[0])
+                    states.clear()
             res[label] = {}
             for d in dirs:
                 out = outs[d]
@@ -406,6 +515,7 @@ def compare_builds(dirs, dev) -> dict:
                 emit(compare=row)
                 res[label][str(d)] = row
             del outs
+        res.update(compare_waves(dirs, libs, dev, counting))
         tabs = tabs_of.get(("fog_mesh", "independent"))
         for d in counting if tabs is not None else ():
             kernels._libs.update(libs[d])
@@ -414,6 +524,67 @@ def compare_builds(dirs, dev) -> dict:
     finally:
         kernels._libs.clear()
         kernels._libs.update(saved)
+    return res
+
+
+def compare_waves(dirs, libs, dev, counting=()) -> dict:
+    """compare_builds' whole waves (COMPARE_WAVES): each directory's K2
+    library swapped in for one 16-spp wave at seed 5, in COMPARE_ROUNDS
+    rounds that run the directories in turn and back, each wave's K2
+    launches timed one by one (k2_record); per directory the median of
+    the summed K2 ms, each launch's median, and the finished film's
+    per-pixel agreement with the first directory's (and whether it is
+    bit for bit the same). For the copies in `counting`, the fog mesh
+    wave once more through the counting build, its counts per launch.
+    Returns {label: {dir: row}}, each row also printed."""
+    from . import checks
+    from .integrators import wave as WV
+
+    def median(xs):
+        return sorted(xs)[len(xs) // 2]
+
+    res = {}
+    for label, scene, sampler in COMPARE_WAVES:
+        bn, cfg = build_device_scene(load_scene(main_scene(scene, None,
+                                                           sampler)))
+        run = WV.make_wave_fn(bn, cfg, dev, spp_hint=16)
+        lib = kernels.library(kernels.variant(run.tabs, "wave_path"))
+        films, turns = {}, {d: [] for d in dirs}
+        for d in dirs:   # warm-up, and each build's film
+            kernels._libs[lib] = libs[d][lib]
+            films[d] = run.run_dev(5, 16)
+        for _ in range(COMPARE_ROUNDS):
+            for d in list(dirs) + list(reversed(dirs)):
+                kernels._libs[lib] = libs[d][lib]
+                with k2_record([], dev) as rows:
+                    run.run_dev(5, 16)
+                turns[d].append(rows)
+        res[label] = {}
+        for d in dirs:
+            (sums, rays), (sums0, rays0) = films[d], films[dirs[0]]
+            a = checks.agreement(sums, sums0)
+            row = {"launch": label, "dir": str(d), "library": lib,
+                   "k2_ms": median([sum(r["ms"] for r in t)
+                                    for t in turns[d]]),
+                   "k2_ms_turns": [sum(r["ms"] for r in t)
+                                   for t in turns[d]],
+                   "k": [r["k"] for r in turns[d][0]],
+                   "launch_ms": [median(ms) for ms in zip(
+                       *[[r["ms"] for r in t] for t in turns[d]])],
+                   "agree_with_first": a["rad_frac"],
+                   "aov_agree_with_first": a["aov_frac"],
+                   "mean_rel": a["mean_rel"],
+                   "bit_equal": bool(torch.equal(sums, sums0))
+                   and float(rays) == float(rays0)}
+            emit(compare=row)
+            res[label][str(d)] = row
+        if label == "fog_mesh wave":
+            for d in counting:
+                kernels._libs[kernels.WAVE_COUNT] = libs[d][kernels.WAVE_COUNT]
+                with k2_record([], dev, counting=True) as rows:
+                    run.run_dev(5, 16)
+                emit(wave_counts_of=str(d), per_launch=rows)
+        del run, films
     return res
 
 
@@ -558,6 +729,10 @@ def main(argv=None) -> int:
         emit(wave_spp=spps[0], samples_per_wave=run.samples_per_wave,
              wall_s=time.perf_counter() - t, rays=out["rays"],
              device_ms=split)
+        if kernels.variant(tabs, "wave_path") == "wave_volpath_mesh":
+            with k2_record([], dev, counting=True) as rows:
+                run.run_dev(5, spps[0])
+            emit(wave_counts=rows)
 
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,

@@ -372,17 +372,26 @@ static inline uint32_t __float_as_uint(float f) {
   uint32_t u; memcpy(&u, &f, 4); return u;
 }
 #include "wave.cuh"
-// the lanes, and the slices, run one after another
-// the path bounce, or the volpath bounce where the includer defines
+// the lanes, and the slices, run one after another, K2's lanes in the
+// order that wave_lane_order set (0 .. n_run - 1 where it set none): the
+// path bounce, or the volpath lane loop where the includer defines
 // WAVE_VOL true; the Sobol instances where the parameters ask for them
 #ifndef WAVE_VOL
 #define WAVE_VOL false
 #endif
+static const int* lane_order = nullptr;
+extern "C" void wave_lane_order(const int* order) { lane_order = order; }
 template <bool SOBOL>
 static void run_all(const WaveParams& p) {
-  for (int lane = 0; lane < p.n_run; ++lane) {
-    if (p.has_accel) wave_lane<true, WAVE_VOL, SOBOL>(p, lane);
-    else wave_lane<false, WAVE_VOL, SOBOL>(p, lane);
+  for (int i = 0; i < p.n_run; ++i) {
+    const int lane = lane_order ? lane_order[i] : i;
+    if (WAVE_VOL) {
+      if (p.has_accel) wave_vol_lane<true, SOBOL>(p, lane);
+      else wave_vol_lane<false, SOBOL>(p, lane);
+    } else {
+      if (p.has_accel) wave_lane<true, SOBOL>(p, lane);
+      else wave_lane<false, SOBOL>(p, lane);
+    }
   }
 }
 static int run_wave(const WaveParams& p, void*) {
@@ -564,6 +573,93 @@ def test_cuda_volpath_wave_code_matches_plain_version(wave_vol_lib,
         assert a["aov_frac"] >= 0.995, (mode, a)
         assert a["mean_rel"] <= 1e-4, (mode, a)
         assert out["rays"] == ref["rays"], mode
+
+# K2's volpath lane loop at depth: (scene, maxdepth, sampler, k); the small
+# fog mesh at its own maxdepth 64 and the nested boundaries at 16, one
+# launch of k bounces from a fresh wave of two samples per lane (spw 2,
+# base 2), so that lanes end paths, regenerate and park inside it
+K2_LOOP = [(name, depth, s, k) for name, depth in (("fog_mesh", 64),
+                                                   ("nested", 16))
+           for s in ("independent", "sobol") for k in (1, 2, 4, 16)]
+
+
+def _k2_loop_wave(name, depth, sampler, directory):
+    """The plain runner of a 16x8 volpath wave at spw 2 of `name`."""
+    from rene_tpu_torch.integrators import wave as WV
+    src = (scenes.fog_mesh_scene(16, 8, maxdepth=depth, small=True)
+           if name == "fog_mesh" else scenes.nested_fog_scene(16, 8, depth))
+    if sampler == "sobol":
+        src = scenes.with_sampler(src)
+    bn, cfg = build_device_scene(create_scene(parse_pbrt(src),
+                                             str(directory)))
+    plain = WV.make_wave_fn(bn, cfg, "cpu", samples_per_wave=2)
+    assert plain.tabs["volpath"] and plain.tabs["max_depth"] == depth
+    assert plain.tabs["sobol"] == (sampler == "sobol")
+    return plain
+
+
+@pytest.mark.parametrize("name,depth,sampler,k", K2_LOOP)
+def test_cuda_volpath_wave_lane_loop_matches_plain_version(
+        wave_vol_lib, tmp_path, name, depth, sampler, k):
+    """K2's volpath lanes (csrc/wave.cuh wave_vol_lane: vol_loop.cuh's
+    one-cast state machine for k bounces, then wave_tail's depth cut,
+    key, regeneration or parking) with g++ against wave_step_ref: one
+    launch of k = 1, 2, 4 and 16 bounces over a fresh 16x8 wave of 4
+    samples per pixel at spw 2 (two paths per lane), the small fog mesh
+    at maxdepth 64 and scenes.nested_fog_scene at 16, both samplers.
+    Every state row by the per-pixel rule, the key and medium rows bit
+    for bit, on >= 99.5% of the lanes; the launch moves the medium row,
+    regenerates lanes (k >= 4) and parks some (k = 16)."""
+    from rene_tpu_torch.integrators import wave as WV
+    plain = _k2_loop_wave(name, depth, sampler, tmp_path)
+    _, path, _ = _host_wave_kernels(wave_vol_lib)
+    s0 = plain.init_state(21, 4)
+    kb, n_pad = plain.key_bounds, plain.n_pad
+    o_h = path(plain.tabs, s0.clone(), 21, 1, k, n_pad, kb, 2, 0)
+    o_p = WV.wave_step_ref(plain.tabs, s0.clone(), 21, 1, k, n_pad, kb, 2,
+                           0)
+    ok = ((o_h - o_p).abs() <= checks.RAD_ATOL
+          + checks.RAD_RTOL * o_p.abs()).all(0)
+    for row in (WV.WROW_KEY, WV.WROW_MED):
+        ok &= o_h[row].view(torch.int32) == o_p[row].view(torch.int32)
+    assert ok.double().mean() >= 0.995, ok.double().mean()
+    assert (o_p[WV.WROW_MED] != s0[WV.WROW_MED]).any()
+    if k >= 4:
+        assert (o_p[WV.WROW_SMP] > 0).any()   # regenerated
+    if k == 16:
+        alive = s0[WV.WROW_ALIVE] > 0.5
+        assert (alive & (o_p[WV.WROW_ALIVE] < 0.5)).any()   # parked
+
+
+@pytest.mark.parametrize("order", ["reversed", "shuffled"])
+@pytest.mark.parametrize("sampler", ["independent", "sobol"])
+def test_volpath_wave_lanes_in_any_order_are_bit_for_bit_the_same(
+        wave_vol_lib, tmp_path, order, sampler):
+    """A K2 launch's lanes run in reversed or shuffled order leave every
+    lane's rows bit for bit as in lane order: a lane's result depends on
+    its rows, its id, the wave seed and the launch index alone, so any
+    thread may run any lane, in any order. The small fog mesh at
+    maxdepth 64, a k = 4 launch after one launch and a sort, with parked
+    lanes in its range."""
+    from rene_tpu_torch.integrators import wave as WV
+    plain = _k2_loop_wave("fog_mesh", 64, sampler, tmp_path)
+    _, path, _ = _host_wave_kernels(wave_vol_lib)
+    kb, n_pad = plain.key_bounds, plain.n_pad
+    s0 = path(plain.tabs, plain.init_state(21, 2), 21, 0, 2, n_pad, kb, 1, 0)
+    s0 = plain.sort_prefix(s0, n_pad)
+    assert (s0[WV.WROW_ALIVE] < 0.5).any() and (s0[WV.WROW_ALIVE] > 0.5).any()
+    lanes = torch.arange(n_pad, dtype=torch.int32)
+    perm = (lanes.flip(0) if order == "reversed" else lanes[torch.from_numpy(
+        np.random.default_rng(5).permutation(n_pad))]).contiguous()
+    ref = path(plain.tabs, s0.clone(), 21, 1, 4, n_pad, kb, 1, 0)
+    wave_vol_lib.wave_lane_order(ctypes.c_void_p(perm.data_ptr()))
+    try:
+        out = path(plain.tabs, s0.clone(), 21, 1, 4, n_pad, kb, 1, 0)
+    finally:
+        wave_vol_lib.wave_lane_order(None)
+    assert not torch.equal(ref, s0)
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+
 
 # -- the Sobol instances (K-sobol) --------------------------------------------
 def _sobol_buffers(name, directory, w, h):

@@ -212,6 +212,58 @@ def test_counting_build_takes_card_volpath_mesh_tables_only(scene_dir,
         != kernels.library_path("mega_volpath")
 
 
+def test_wave_counting_build_takes_card_volpath_mesh_tables_only(scene_dir):
+    """K2's counting build (kernels.WAVE_COUNT: wave_volpath_mesh with
+    -DMEGA_COUNT=1) is a library of its own with its own launch count and
+    the counts' entry point, which the variants' build leaves out; its
+    wrapper refuses CPU states and the tables of another instance."""
+    from rene_tpu_torch.integrators import wave as WV
+    assert kernels.BUILDS[kernels.WAVE_COUNT] \
+        == kernels.VARIANTS["wave_volpath_mesh"] + ("-DMEGA_COUNT=1",)
+    assert kernels.WAVE_COUNT not in kernels.VARIANTS
+    assert kernels.launches[kernels.WAVE_COUNT] == 0
+    assert set(kernels._ENTRY_POINTS[kernels.WAVE_COUNT]) \
+        == {"wave_path_launch", "step_counts"}
+    bn, cfg = buffers("fog_mesh", scene_dir, 8, 8)
+    run = WV.make_wave_fn(bn, cfg, "cpu", samples_per_wave=2)
+    state = run.init_state(3, 2)
+    for t in (run.tabs, dict(run.tabs, sobol=True),
+              dict(run.tabs, has_accel=False)):
+        with pytest.raises(ValueError, match="wave_volpath_counts"):
+            kernels.wave_volpath_counts(t, state, 3, 0, 1, run.n_pad,
+                                        run.key_bounds, 1, 0)
+
+
+@pytest.mark.cuda
+def test_wave_counting_build_on_card_counts_and_matches(tmp_path):
+    """On a CUDA card: a K2 launch of k 2 through the counting build on
+    the small fog mesh at 128x64 x spw 2 leaves the state the volpath
+    mesh K2 leaves (the launch's lanes agree on every row), runs each
+    alive lane once, casts one path ray per lane-bounce and at most 32
+    lanes active per warp step."""
+    from rene_tpu_torch.integrators import wave as WV
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    bn, cfg = buffers("fog_mesh", tmp_path, 128, 64)
+    run = WV.make_wave_fn(bn, cfg, "cuda", samples_per_wave=2)
+    s0 = run.init_state(7, 2)
+    before = kernels.launches[kernels.WAVE_COUNT]
+    out, c = kernels.wave_volpath_counts(run.tabs, s0.clone(), 7, 0, 2,
+                                         run.n_pad, run.key_bounds, 1, 0)
+    ref = kernels.wave_path(run.tabs, s0.clone(), 7, 0, 2, run.n_pad,
+                            run.key_bounds, 1, 0)
+    torch.cuda.synchronize()
+    assert kernels.launches[kernels.WAVE_COUNT] == before + 1
+    ok = ((out - ref).abs() <= checks.RAD_ATOL
+          + checks.RAD_RTOL * ref.abs()).all(0)
+    assert ok.double().mean() >= checks.CARD_FRAC
+    assert c["lanes"] == run.n_real
+    bounces = float((ref[WV.WROW_RAYS] - s0[WV.WROW_RAYS]).sum()) \
+        / M.ray_increment(run.tabs)
+    assert c["lane_steps"] - c["march_steps"] == bounces
+    assert c["warp_steps"] <= c["active_lanes"] <= 32 * c["warp_steps"]
+
+
 @pytest.mark.cuda
 def test_counting_build_on_card_counts_and_matches(tmp_path):
     """On a CUDA card: the counting build's launch on the small fog mesh
