@@ -27,7 +27,9 @@ when either is missing or any check fails. Phases:
 8. that path's launch shape against the plain version: one 1-spp chunk
    at 1280x720 with the CLI's chunk seed, the plain version on a strided
    sample of ~131k of its lanes, both sides at maxdepth 6, in one plain
-   walk with those of its launches at pack 4 and 16 (phase 25); then
+   walk with those of its launches at pack 4 and 16 (phase 25); the mesh
+   walk alone, the ray-cast probe on the rays the plain version casts on
+   ~131k sampled pixels, against the plain walk; then
    timing of the kernel (CUDA events) over the whole film;
 9. the wave kernels' registers and spills (ptxas, from the phase-2 build):
    K2 in both variants, K3 and K4;
@@ -612,6 +614,46 @@ def main() -> int:
         return {"ms": ms, "plain_ms": plain_ms, "bound": bnd, "err": err,
                 "sampled": idx.numel(), "k": k}
 
+    def walk_check(tabs):
+        """The mesh walk alone (phase 8): the ray-cast probe of the mesh
+        build on the rays the plain version casts on ~SAMPLE_LANES
+        sampled pixels (1 spp, maxdepth 4: camera, bounce and shadow
+        rays), held to the plain walk on the card. Its g++ build meets
+        the plain walk bit for bit (tests/test_torch_walk.py); the card's
+        contracts the triangle test's sums into FMAs, so here it is held
+        by phase 8's rule: a ray agrees where part, row and hit flag are
+        equal and t within the radiance tolerance of rene_tpu_torch.checks
+        (RAD_ATOL + RAD_RTOL |t|), on >= CARD_FRAC of the rays."""
+        from rene_tpu_torch.ops.intersect import CAST_CLOSEST, cast_ref
+        from rene_tpu_torch.probe import walk_rays
+        t0 = time.time()
+        kinds = walk_rays(tabs, dev)
+        rays = torch.cat([kinds["closest"], kinds["shadow"]])
+        record_s = time.time() - t0
+        out_k = kernels.cast_probe(tabs, rays)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        ref = cast_ref(tabs, rays)
+        torch.cuda.synchronize()
+        plain_s = time.time() - t0
+        closest = rays[:, 8] == CAST_CLOSEST
+        ids = (out_k[:, 1:] == ref[:, 1:]).all(1)
+        hit = ids & closest & (ref[:, 3] > 0)
+        dt = (out_k[:, 0] - ref[:, 0]).abs()
+        same = (ids & (~hit | (dt <= checks.RAD_ATOL + checks.RAD_RTOL
+                                * ref[:, 0].abs()))).double().mean().item()
+        t_rel = (dt[hit] / ref[hit, 0].abs().clamp_min(1e-6)).max().item()
+        t_bits = (out_k[hit, 0] == ref[hit, 0]).double().mean().item()
+        ms = time_ms(lambda r=0: kernels.cast_probe(tabs, rays), 5)
+        log(f"walk vs plain (big mesh, {rays.shape[0]} rays: "
+            f"{int(closest.sum())} closest, {int((~closest).sum())} shadow; "
+            f"recorded in {record_s:.1f} s, plain {plain_s:.1f} s): rays "
+            f"agree {same:.6f}; of the hits with equal part and row, t bit "
+            f"for bit {t_bits:.6f}, max rel {t_rel:.2e}; probe {ms:.4f} ms, "
+            f"{rays.shape[0] / ms / 1e3:.1f} Mrays/s [{card}]")
+        if same < checks.CARD_FRAC:
+            raise RuntimeError("the mesh walk disagrees with the plain walk")
+
     phase_done("1-2")
 
     # 3. K1a kernel vs plain on the card
@@ -695,6 +737,7 @@ def main() -> int:
         f"({mesh_bound[1]}; plain walk tests per ray "
         f"{json.dumps(a_big['tests'])}) "
         f"[{card}]")
+    walk_check(tabs)
     del tabs
     phase_done(8)
 

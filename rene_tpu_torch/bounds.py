@@ -36,14 +36,20 @@ def bound(n_bytes, ops, rate=FP32_OPS):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
+# the tables that only the CUDA walk reads (scene/accel.py wide_tables):
+# the bound is that of the plain binary walk's work, whatever walks it
+WALK_ONLY = ("wnodes", "mesh_vt")
+
+
 def table_bytes(tabs):
-    return sum(v.numel() * v.element_size() for v in tabs.values()
-               if isinstance(v, torch.Tensor))
+    return sum(v.numel() * v.element_size() for k, v in tabs.items()
+               if isinstance(v, torch.Tensor) and k not in WALK_ONLY)
 
 
 def moved_bytes(tabs, tests):
-    """Bytes of the tables a launch must read: every table once, of the
-    atlas the texels `tests` counts, at most the whole atlas."""
+    """Bytes of the tables a launch must read: every table once (the
+    plain walk's: not WALK_ONLY), of the atlas the texels `tests` counts,
+    at most the whole atlas."""
     atlas = tabs["atlas"].numel() * tabs["atlas"].element_size()
     return (table_bytes(tabs) - atlas
             + min(atlas, 4 * int(tests.get("texels", 0))))

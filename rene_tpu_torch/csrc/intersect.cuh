@@ -2,9 +2,10 @@
 // rene_tpu_torch/ops/intersect.py (pallas_path.py:2775-3279): brute-force
 // loops over the immediate triangles and spheres, where the first
 // primitive with the smallest t wins (strict less), triangles before
-// spheres; then, in the MESH variant, the world mesh and each shared-BLAS
-// instance (bvh.cuh) from the immediates' closest t, replacing their hit
-// only where closer, and the sphere table last. Where the scene has a
+// spheres; then, in the MESH variant, one walk over the world mesh, the
+// shared-BLAS instances and the sphere table (bvh.cuh `walk`) from the
+// immediates' closest t, replacing their hit only where closer (at an
+// equal t the immediates keep it). Where the scene has a
 // textured material (Scene::has_tex) the closest hit also carries its
 // texture coordinates: interpolated from a triangle's vertices, spherical
 // on a sphere, none on a table sphere, whose material is solid.
@@ -16,36 +17,6 @@
 #include "math.cuh"
 #include "texture.cuh"
 
-struct Scene {
-  const float* __restrict__ tris;
-  const float* __restrict__ sph;
-  const float* __restrict__ mats;
-  const float* __restrict__ eo;
-  const int* __restrict__ emit_tris;
-  const int* __restrict__ emit_sph;
-  const float* __restrict__ lights;
-  const float* __restrict__ light_dots;
-  const float* __restrict__ cam;
-  int n_tris, n_sph, n_eo, n_emit_tris, n_emit_sph, n_lights;
-  int has_tri_emitter;
-  // acceleration tables (scene/accel.py), read by the MESH variant only
-  const float* __restrict__ nodes;
-  const float* __restrict__ mesh;
-  const float* __restrict__ insts;
-  const float* __restrict__ sph_tab;
-  const float* __restrict__ sph_box;
-  int world_root, n_inst, n_sph_blocks;
-  // textures (K1b): the uv rows of a textured mesh, the RGB9E5 atlas and
-  // the env-map sampling tables
-  const float* __restrict__ mesh_uv;
-  const uint32_t* __restrict__ atlas;
-  const float* __restrict__ env_mcdf;
-  const float* __restrict__ env_ccdf;
-  const float* __restrict__ env_pdf;
-  int n_mesh_uv;  // rows of mesh_uv: 0 for a mesh of solid materials
-  int has_tex;    // some material has a textured slot: hits carry uv
-  int has_env;    // the env map is a light-sampling strategy
-};
 
 // Plücker side values of the ray (moment w = o x d) against triangle row r
 __device__ __forceinline__ float tri_side(const float* __restrict__ r, int m,
@@ -112,6 +83,10 @@ struct Hit {
   float e[3];  // emitted radiance (0 unless an emitter)
   int mat;
   float u, v;  // texture coordinates, where Scene::has_tex
+  // what was hit: the part (bvh.cuh PART_IMM, PART_WORLD, PART_INST +
+  // instance, then the sphere table) and its row (immediate triangle,
+  // n_tris + immediate sphere, mesh row or table slot); -1 on a miss
+  int part, row;
 };
 
 template <bool MESH>
@@ -153,53 +128,46 @@ __device__ __forceinline__ Hit trace_closest(const Scene& s, V3 o, V3 d,
   h.e[0] = h.e[1] = h.e[2] = 0.f;
   h.mat = 0;
   h.u = h.v = 0.f;
-  if (MESH) {
-    // the mesh, from the immediates' t: world mesh, then each instance
-    MeshHit mh;
-    mh.t = t_best;
-    mh.u = mh.v = 0.f;
-    mh.prim = -1;
-    int inst = -1;
-    if (s.world_root >= 0)
-      bvh_march<false>(s.nodes, s.mesh, s.world_root, o, d, tmin, 0.f, mh);
-    for (int i = 0; i < s.n_inst; ++i) {
-      const float* m = s.insts + i * INST_W;
-      V3 lo, ld;
-      to_object(m, o, d, lo, ld);
-      float t0 = mh.t;
-      bvh_march<false>(s.nodes, s.mesh, (int)__ldg(m + INST_ROOT), lo, ld,
-                       tmin, 0.f, mh);
-      if (mh.t < t0) inst = i;
-    }
-    int slot = -1;
-    float t_sph = mh.t;
-    sphere_table<false>(s.sph_tab, s.sph_box, s.n_sph_blocks, o, d, tmin,
-                        0.f, t_sph, slot);
-    if (slot >= 0) {
+  h.part = best < 0 ? -1 : PART_IMM;
+  h.row = best;
+  if constexpr (MESH) {
+    // one walk over the mesh scene from the immediates' hit, which keeps
+    // an equal t
+    WalkHit wh;
+    wh.t = t_best;
+    wh.u = wh.v = 0.f;
+    wh.part = h.part;
+    wh.row = h.row;
+    WalkCounts cnt;
+    if (s.top >= 0) walk<false>(s, o, d, tmin, 0.f, wh, cnt);
+    cnt.flush(0);
+    if (wh.part == PART_INST + s.n_inst) {
       // table spheres: normal (hit - c) / r, never emissive
-      float4 c = load4(s.sph_tab + slot * SPHT_W + SPHT_C);
-      float invr = 1.f / (c.w > 0.f ? c.w : 1.f);
-      h.t = t_sph;
-      h.n = v3(sub_rn(add_rn(o.x, mul_rn(t_sph, d.x)), c.x) * invr,
-               sub_rn(add_rn(o.y, mul_rn(t_sph, d.y)), c.y) * invr,
-               sub_rn(add_rn(o.z, mul_rn(t_sph, d.z)), c.z) * invr);
-      h.mat = (int)__ldg(s.sph_tab + slot * SPHT_W + SPHT_MAT);
+      const float4 c = load4(s.sph_tab + wh.row * SPHT_W + SPHT_C);
+      const float invr = 1.f / (c.w > 0.f ? c.w : 1.f);
+      h.t = wh.t;
+      h.n = v3(sub_rn(add_rn(o.x, mul_rn(wh.t, d.x)), c.x) * invr,
+               sub_rn(add_rn(o.y, mul_rn(wh.t, d.y)), c.y) * invr,
+               sub_rn(add_rn(o.z, mul_rn(wh.t, d.z)), c.z) * invr);
+      h.mat = (int)__ldg(s.sph_tab + wh.row * SPHT_W + SPHT_MAT);
+      h.part = wh.part;
+      h.row = wh.row;
       return h;
     }
-    if (mh.prim >= 0) {
+    if (wh.part >= PART_WORLD) {
       // mesh triangles: normal n0 + u d1 + v d2, never emissive
-      const float* r = s.mesh + (size_t)mh.prim * MESH_W;
-      V3 n = v3(__ldg(r + MESH_N0) + mh.u * __ldg(r + MESH_D1)
-                    + mh.v * __ldg(r + MESH_D2),
-                __ldg(r + MESH_N0 + 1) + mh.u * __ldg(r + MESH_D1 + 1)
-                    + mh.v * __ldg(r + MESH_D2 + 1),
-                __ldg(r + MESH_N0 + 2) + mh.u * __ldg(r + MESH_D1 + 2)
-                    + mh.v * __ldg(r + MESH_D2 + 2));
-      h.t = mh.t;
+      const float* r = s.mesh + (size_t)wh.row * MESH_W;
+      V3 n = v3(__ldg(r + MESH_N0) + wh.u * __ldg(r + MESH_D1)
+                    + wh.v * __ldg(r + MESH_D2),
+                __ldg(r + MESH_N0 + 1) + wh.u * __ldg(r + MESH_D1 + 1)
+                    + wh.v * __ldg(r + MESH_D2 + 1),
+                __ldg(r + MESH_N0 + 2) + wh.u * __ldg(r + MESH_D1 + 2)
+                    + wh.v * __ldg(r + MESH_D2 + 2));
+      h.t = wh.t;
       h.mat = (int)__ldg(r + MESH_MAT);
-      if (inst >= 0) {
+      if (wh.part >= PART_INST) {
         // to world space as W2O^T n
-        const float* m = s.insts + inst * INST_W;
+        const float* m = s.insts + (wh.part - PART_INST) * INST_W;
         n = v3(__ldg(m + 0) * n.x + __ldg(m + 4) * n.y + __ldg(m + 8) * n.z,
                __ldg(m + 1) * n.x + __ldg(m + 5) * n.y + __ldg(m + 9) * n.z,
                __ldg(m + 2) * n.x + __ldg(m + 6) * n.y + __ldg(m + 10) * n.z);
@@ -207,10 +175,12 @@ __device__ __forceinline__ Hit trace_closest(const Scene& s, V3 o, V3 d,
       }
       h.n = n;
       if (s.has_tex && s.n_mesh_uv) {
-        const float* q = s.mesh_uv + (size_t)mh.prim * MESH_UV_W;
-        h.u = __ldg(q) + mh.u * __ldg(q + 2) + mh.v * __ldg(q + 4);
-        h.v = __ldg(q + 1) + mh.u * __ldg(q + 3) + mh.v * __ldg(q + 5);
+        const float* q = s.mesh_uv + (size_t)wh.row * MESH_UV_W;
+        h.u = __ldg(q) + wh.u * __ldg(q + 2) + wh.v * __ldg(q + 4);
+        h.v = __ldg(q + 1) + wh.u * __ldg(q + 3) + wh.v * __ldg(q + 5);
       }
+      h.part = wh.part;
+      h.row = wh.row;
       return h;
     }
   }
@@ -278,24 +248,13 @@ __device__ __forceinline__ bool shadow_any(const Scene& s, int li, V3 o, V3 d,
     sphere_local(s.sph + k * SPH_W, o, d, lo, ld);
     if (sphere_t(lo, ld, tmin) <= tmax) return true;
   }
-  if (MESH) {
-    MeshHit mh;
-    if (s.world_root >= 0 &&
-        bvh_march<true>(s.nodes, s.mesh, s.world_root, o, d, tmin, tmax, mh))
-      return true;
-    for (int i = 0; i < s.n_inst; ++i) {
-      const float* m = s.insts + i * INST_W;
-      V3 lo, ld;
-      to_object(m, o, d, lo, ld);
-      if (bvh_march<true>(s.nodes, s.mesh, (int)__ldg(m + INST_ROOT), lo, ld,
-                          tmin, tmax, mh))
-        return true;
-    }
-    float t_unused = 0.f;
-    int slot_unused = -1;
-    if (sphere_table<true>(s.sph_tab, s.sph_box, s.n_sph_blocks, o, d, tmin,
-                           tmax, t_unused, slot_unused))
-      return true;
+  if constexpr (MESH) {
+    WalkHit unused;
+    WalkCounts cnt;
+    const bool hit =
+        s.top >= 0 && walk<true>(s, o, d, tmin, tmax, unused, cnt);
+    cnt.flush(1);
+    if (hit) return true;
   }
   return false;
 }

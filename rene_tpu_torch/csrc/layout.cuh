@@ -136,8 +136,9 @@
 #define OUT_ROWS 10
 
 // acceleration tables (rene_tpu_torch/scene/accel.py)
-// BVH node: (min xyz, left child or first triangle),
-//           (max xyz, right child, or minus the triangle count of a leaf)
+// binary BVH node, which the plain walk reads and the kernel's wide nodes
+// are collapsed from: (min xyz, left child or first triangle),
+// (max xyz, right child, or minus the triangle count of a leaf)
 #define NODE_LO 0
 #define NODE_A 3
 #define NODE_HI 4
@@ -172,7 +173,36 @@
 #define BOX_HI 4
 #define BOX_W 8
 #define SPH_BLOCK 128
-#define BVH_STACK 64
+// the walk's tables (scene/accel.py wide_tables). A wide node: per child
+// box coordinate one float4 over the BVH_WIDTH children (lo x, hi x, lo y,
+// hi y, lo z, hi z), then the children's walk entries (int32 bits; -1 for
+// an unused slot) and four unused floats
+#define BVH_WIDTH 4
+#define NODE4_LX 0
+#define NODE4_HX 4
+#define NODE4_LY 8
+#define NODE4_HY 12
+#define NODE4_LZ 16
+#define NODE4_HZ 20
+#define NODE4_REF 24
+#define NODE4_W 32
+// mesh_vt rows: v0, e1, e2 of mesh row k, then three zeros
+#define VT_W 12
+// the wide root of an instance's BLAS, in its instance row
+#define INST_WROOT 14
+// a walk entry: tag << TAG_SHIFT | payload; a leaf's payload is its
+// first mesh row << LEAF_COUNT_BITS | its triangles
+#define TAG_SHIFT 29
+#define TAG_NODE 0
+#define TAG_LEAF 1
+#define TAG_INST 2
+#define TAG_BLOCK 3
+#define LEAF_COUNT_BITS 4
+#define TAG_PAYLOAD 536870911
+#define TAG_MARKER 1610612735
+#define TAG_EMPTY -1
+// entries of a thread's walk stack
+#define TRAVERSAL_STACK 64
 
 // the wave engine's state rows (rene_tpu_torch/integrators/wave.py): one
 // (W_NROWS, n_pad) float32 array, row r of lane l at r * n_pad + l

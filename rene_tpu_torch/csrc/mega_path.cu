@@ -9,7 +9,8 @@
 // independent sampler; and, past the immediates budget, the big-mesh march
 // (`mesh_closest` :2255, `mesh_any` :2440) over the world mesh and
 // shared-BLAS instances and the sphere table (`sphere_closest` :2636,
-// `sphere_any` :2663), as a per-thread BVH walk (bvh.cuh). The plain
+// `sphere_any` :2663), as one per-thread walk of 4-wide BVHs over the
+// world mesh, the instances and the sphere table (bvh.cuh). The plain
 // PyTorch version is rene_tpu_torch/integrators/mega_path.py:path_lanes_ref.
 //
 // Two variants, one template: mega_path_kernel<false> (K1a) reads the
@@ -71,8 +72,10 @@
 // bounce costs ~25 flops per immediate triangle per ray plus divergent
 // per-material control flow. The mesh variant adds a tree walk per ray
 // cast: dependent node loads (latency) and divergence between the
-// threads of a warp, not bytes. Later work: tables in shared or constant
-// memory, a wider BVH, and path-state regrouping against divergence.
+// threads of a warp, not bytes; in the big mesh's 16-spp launch the walk
+// was ~69% of the time before it went 4-wide (PERF.md section 6). Later
+// work: tables in shared or constant memory, and path-state regrouping
+// against divergence.
 //
 // `Sampler "sobol"` (K-sobol): every build holds a second instance of its
 // kernel, template parameter SOBOL, launched where the parameters ask for
@@ -130,7 +133,13 @@ template <bool MESH, bool SOBOL>
 __global__ void __launch_bounds__(128, PATH_MIN_BLOCKS)
 mega_path_kernel(const Params p) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+#if defined(WALK_COUNT) && WALK_COUNT
+  const long long t0 = walk_clock();
+#endif
   if (lane < p.n_lanes) trace_lane<MESH, false, SOBOL>(p, lane);
+#if defined(WALK_COUNT) && WALK_COUNT
+  walk_lane_cycles(t0);
+#endif
 }
 #endif
 
@@ -168,3 +177,25 @@ static int run_lanes(const Params& p, void* stream) {
 }
 
 #include "launch.cuh"
+
+#if MEGA_MESH
+#include "cast_launch.cuh"
+
+// the ray-cast probe (cast_launch.cuh): one thread per ray
+__global__ void __launch_bounds__(128)
+    cast_probe_kernel(const Scene s, const float* __restrict__ rays, int n,
+                      float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n)
+    cast_ray(s, rays + (size_t)i * RAY_W, out + (size_t)i * CAST_OUT_W);
+}
+
+static int run_casts(const Scene& s, const float* rays, int n, float* out,
+                     void* stream) {
+  const int blocks = (n + 127) / 128;
+  if (blocks > 0)
+    cast_probe_kernel<<<blocks, 128, 0, (cudaStream_t)stream>>>(s, rays, n,
+                                                                out);
+  return (int)cudaGetLastError();
+}
+#endif

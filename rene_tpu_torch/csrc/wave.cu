@@ -182,3 +182,25 @@ static int run_permute(const float* in, const int* perm, int n_pad,
 }
 
 #include "wave_launch.cuh"
+
+#if MEGA_MESH
+#include "cast_launch.cuh"
+
+// the ray-cast probe (cast_launch.cuh): one thread per ray
+__global__ void __launch_bounds__(128)
+    cast_probe_kernel(const Scene s, const float* __restrict__ rays, int n,
+                      float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n)
+    cast_ray(s, rays + (size_t)i * RAY_W, out + (size_t)i * CAST_OUT_W);
+}
+
+static int run_casts(const Scene& s, const float* rays, int n, float* out,
+                     void* stream) {
+  const int blocks = (n + 127) / 128;
+  if (blocks > 0)
+    cast_probe_kernel<<<blocks, 128, 0, (cudaStream_t)stream>>>(s, rays, n,
+                                                                out);
+  return (int)cudaGetLastError();
+}
+#endif

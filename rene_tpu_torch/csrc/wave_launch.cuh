@@ -18,11 +18,11 @@ extern "C" int wave_path_launch(
     const float* mats, const float* eo, int n_eo, const int* emit_tris,
     int n_emit_tris, const int* emit_sph, int n_emit_sph, const float* lights,
     const float* light_dots, int n_lights, const float* cam,
-    const float* nodes, const float* mesh, const float* insts, int n_inst,
-    const float* sph_tab, const float* sph_box, int n_sph_blocks,
+    const float* mesh, const float* insts, int n_inst,
+    const float* sph_tab, const float* wnodes, const float* mesh_vt, int top,
     const float* mesh_uv, int n_mesh_uv, const int* atlas,
     const float* env_mcdf, const float* env_ccdf, const float* env_pdf,
-    int world_root, int has_tri_emitter, int width, int n_pix, int max_depth,
+    int has_tri_emitter, int width, int n_pix, int max_depth,
     int use_rr, int beckmann, int has_accel, int block_seed, int has_tex,
     int has_env, int sobol, const float* media, int n_media, int seed,
     int launch, int k, int n_run, int n_pad, int base, int rem, float lo_x,
@@ -32,10 +32,9 @@ extern "C" int wave_path_launch(
   WaveParams p;
   p.s = Scene{tris, sph, mats, eo, emit_tris, emit_sph, lights, light_dots,
               cam, n_tris, n_sph, n_eo, n_emit_tris, n_emit_sph, n_lights,
-              has_tri_emitter, nodes, mesh, insts, sph_tab, sph_box,
-              world_root, n_inst, n_sph_blocks, mesh_uv,
+              has_tri_emitter, mesh, insts, sph_tab, n_inst, mesh_uv,
               (const uint32_t*)atlas, env_mcdf, env_ccdf, env_pdf, n_mesh_uv,
-              has_tex, has_env};
+              has_tex, has_env, wnodes, mesh_vt, top};
   p.width = width;
   p.npix = n_pix;
   p.max_depth = max_depth;

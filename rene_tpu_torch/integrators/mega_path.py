@@ -89,7 +89,7 @@ def device_tables(tables: P.SceneTables, device) -> Dict:
     tabs["volpath"] = tables.volpath
     tabs["n_emit"] = int(tables.emit_objects.shape[0])
     tabs["insts_f"] = tables.insts.tolist()
-    for k in ("world_root", "bvh_depth", "max_leaf", "has_accel",
+    for k in ("world_root", "bvh_depth", "max_leaf", "top", "has_accel",
               "block_seed", "has_tex", "bg_kind", "has_env", "sobol"):
         tabs[k] = getattr(tables, k)
     return tabs

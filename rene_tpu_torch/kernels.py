@@ -16,10 +16,13 @@ together, and loaded with ctypes:
     csrc/probes.cu      the Mosaic probes P-r3n (rowslice_probe) and P-r3w
                         (mxu_probe), one build
 
-and two more builds, the volpath mesh megakernel and the volpath mesh K2
-with step counts (-DMEGA_COUNT=1, `mega_volpath_counts`,
-`wave_volpath_counts`), which only the probe launches, each built at its
-first launch and not with the variants.
+and three more builds, the volpath mesh megakernel and the volpath mesh
+K2 with step counts (-DMEGA_COUNT=1, `mega_volpath_counts`,
+`wave_volpath_counts`) and the path mesh megakernel with walk counts
+(-DWALK_COUNT=1, `mega_path_walk_counts`), which only the probe
+launches, each built at its first launch and not with the variants.
+Every mesh build also holds the ray-cast probe (`cast_probe`): the mesh
+walk alone on given rays, on no render path.
 
 Every build of K1 and K2, and K3, holds two instances of its kernel, the
 independent sampler's and `Sampler "sobol"`'s (template parameter SOBOL,
@@ -78,14 +81,23 @@ VARIANTS = {"mega_path": ("mega_path.cu", "-DMEGA_MESH=0", "-DMEGA_VOL=0"),
                                   "-DMEGA_VOL=1"),
             "probes": ("probes.cu",)}
 # the counting builds' libraries and kernels: the volpath mesh megakernel
-# and K2
+# and K2 with step counts, the path mesh megakernel with walk counts
 COUNT, WAVE_COUNT = "mega_volpath_mesh_count", "wave_volpath_mesh_count"
+WALK_COUNT = "mega_path_mesh_count"
 # every library `build` knows: the variants and the counting builds
 BUILDS = dict(VARIANTS, **{c: VARIANTS[v] + ("-DMEGA_COUNT=1",) for c, v in (
-    (COUNT, "mega_volpath_mesh"), (WAVE_COUNT, "wave_volpath_mesh"))})
+    (COUNT, "mega_volpath_mesh"), (WAVE_COUNT, "wave_volpath_mesh"))},
+    **{WALK_COUNT: VARIANTS["mega_path_mesh"] + ("-DWALK_COUNT=1",)})
 # what their counts hold (csrc/vol_loop.cuh StepCounts), in their C order
 COUNT_KEYS = ("active_lanes", "warp_steps", "lane_steps", "march_steps",
               "lanes")
+# what the walk counts hold per cast kind (csrc/bvh.cuh WalkCounts), in
+# their C order, and the kinds
+WALK_KEYS = ("casts", "nodes", "boxes", "leaves", "tris", "insts", "blocks",
+             "active_lanes", "warp_steps", "cycles", "deepest_stack")
+CAST_KINDS = ("closest", "shadow")
+# the ray-cast probe's rows (csrc/cast_launch.cuh): rays in, results out
+RAY_W, CAST_OUT_W = 10, 4
 SOBOL = "_sobol"    # suffix of a Sobol instance's name
 MXU_KINDS = ("hi", "def", "vpu")   # mxu_probe's kinds, in the C order
 MAX_LANES = 1 << 31   # the megakernel's lane ids and count are C ints
@@ -94,9 +106,9 @@ MAX_LANES = 1 << 31   # the megakernel's lane ids and count are C ints
 # mxu_probe kinds in the probes library
 launches = dict.fromkeys(
     [v + s for v in VARIANTS if v != "probes" for s in ("", SOBOL)]
-    + [COUNT, WAVE_COUNT]
+    + [COUNT, WAVE_COUNT, WALK_COUNT]
     + ["wave_genesis", "wave_genesis" + SOBOL, "wave_permute",
-       "sobol_probe", "rowslice_probe"]
+       "sobol_probe", "rowslice_probe", "cast_probe"]
     + ["mxu_probe_" + k for k in MXU_KINDS], 0)
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -196,9 +208,10 @@ def load_library(name: str, csrc: Path = CSRC) -> ctypes.CDLL:
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SCENE_ARGTYPES = ([_P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _I, _P, _P, _I,
                    _P]
-                  + [_P, _P, _P, _I, _P, _P, _I]  # nodes .. n_sph_blocks
+                  + [_P, _P, _I, _P]  # mesh, insts, n_inst, sph_tab
+                  + [_P, _P, _I]  # wnodes, mesh_vt, top
                   + [_P, _I, _P, _P, _P, _P]      # mesh_uv .. env_pdf
-                  + [_I] * 12   # scalars, world_root .. sobol
+                  + [_I] * 11   # scalars, has_tri_emitter .. sobol
                   + [_P, _I])   # media, n_media
 ARGTYPES = SCENE_ARGTYPES + [_I, _I, _I, _P, _P]   # seed, num_samples,
                                                     # pack, out, stream
@@ -210,8 +223,14 @@ PERMUTE_ARGTYPES = [_P, _P, _I, _P, _P]
 PROBE_ARGTYPES = [_P, _I, _P, _P]
 ROWSLICE_ARGTYPES = [_I, _I, _P, _I, _P, _I, _P, _P]
 MXU_ARGTYPES = [_I, _P, _P, _I, _I, _I, _P, _P]
+# the ray-cast probe of the mesh builds: the scene's tables (the first 28
+# of SCENE_ARGTYPES), has_tri_emitter, has_tex, has_env; rays, n, out,
+# stream
+CAST_ARGTYPES = SCENE_ARGTYPES[:28] + [_I] * 3 + [_P, _I, _P, _P]
 _ENTRY_POINTS = {
     "mega_path.cu": {"mega_path_launch": ARGTYPES},
+    WALK_COUNT: {"mega_path_launch": ARGTYPES,
+                 "walk_counts_read": [_P, _I, _P]},
     COUNT: {"mega_path_launch": ARGTYPES, "step_counts": [_P, _I, _P]},
     WAVE_COUNT: {"wave_path_launch": WAVE_ARGTYPES,
                  "step_counts": [_P, _I, _P]},
@@ -226,7 +245,10 @@ _ENTRY_POINTS = {
 def bind(lib: ctypes.CDLL, source: str) -> ctypes.CDLL:
     """Set the argument and return types of the entry points of `source`
     (a source, or a counting build's name)."""
-    for fn, argtypes in _ENTRY_POINTS[source].items():
+    entries = dict(_ENTRY_POINTS[source])
+    if hasattr(lib, "cast_probe_launch"):   # the mesh builds
+        entries["cast_probe_launch"] = CAST_ARGTYPES
+    for fn, argtypes in entries.items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ctypes.c_int
     return lib
@@ -270,11 +292,12 @@ def scene_args(tabs, beckmann: bool, device) -> tuple:
             ("lights", f32, (None, P.LIGHT_W)),
             ("light_dots", f32, (n_light, n_tri, 4)),
             ("cam", f32, (P.CAM_W,)),
-            ("nodes", f32, (None, A.NODE_W)),
             ("mesh", f32, (None, A.MESH_W)),
             ("insts", f32, (None, A.INST_W)),
             ("sph_tab", f32, (n_blocks * A.SPH_BLOCK, A.SPHT_W)),
             ("sph_box", f32, (None, A.BOX_W)),
+            ("wnodes", f32, (None, A.NODE4_W)),
+            ("mesh_vt", f32, (tabs["mesh"].shape[0], A.VT_W)),
             ("mesh_uv", f32, (None, A.MESH_UV_W)),
             ("atlas", i32, (None,)),
             ("env_mcdf", f32, (None,)),
@@ -292,9 +315,10 @@ def scene_args(tabs, beckmann: bool, device) -> tuple:
     if not (tabs["env_mcdf"].shape[0] == tabs["env_ccdf"].shape[0]
             == tabs["env_pdf"].shape[0] == n_env):
         raise ValueError(f"env tables: expected {n_env} rows")
-    if (tabs["world_root"] >= 0 or tabs["insts"].shape[0]) \
-            and not tabs["nodes"].shape[0]:
-        raise ValueError("nodes: empty, but the scene has a mesh")
+    if tabs["has_accel"] != (tabs["top"] >= 0) \
+            or (tabs["top"] >= 0 and not tabs["wnodes"].shape[0]):
+        raise ValueError(f"top {tabs['top']}: {tabs['wnodes'].shape[0]} "
+                         f"wide nodes, has_accel {tabs['has_accel']}")
 
     def ptr(name):
         return tabs[name].data_ptr()
@@ -304,11 +328,11 @@ def scene_args(tabs, beckmann: bool, device) -> tuple:
             ptr("emit_tris"), tabs["emit_tris"].shape[0],
             ptr("emit_spheres"), tabs["emit_spheres"].shape[0],
             ptr("lights"), ptr("light_dots"), n_light, ptr("cam"),
-            ptr("nodes"), ptr("mesh"), ptr("insts"), tabs["insts"].shape[0],
-            ptr("sph_tab"), ptr("sph_box"), n_blocks,
+            ptr("mesh"), ptr("insts"), tabs["insts"].shape[0],
+            ptr("sph_tab"), ptr("wnodes"), ptr("mesh_vt"), int(tabs["top"]),
             ptr("mesh_uv"), n_uv, ptr("atlas"), ptr("env_mcdf"),
             ptr("env_ccdf"), ptr("env_pdf"),
-            int(tabs["world_root"]), int(tabs["has_tri_emitter"]),
+            int(tabs["has_tri_emitter"]),
             tabs["width"], n_pix, tabs["max_depth"], int(tabs["use_rr"]),
             int(beckmann), int(tabs["has_accel"]), int(tabs["block_seed"]),
             int(tabs["has_tex"]), int(tabs["has_env"]), int(tabs["sobol"]),
@@ -407,6 +431,91 @@ def mega_volpath_counts(tabs, seed: int, num_samples: int,
     args = launch_args(tabs, seed, num_samples, beckmann, out, pack)
     return out, _counted(COUNT, lambda lib: lib.mega_path_launch(
         *args, _stream(device)), device)
+
+
+def mega_path_walk_counts(tabs, seed: int, num_samples: int,
+                          beckmann: bool = False, pack: int = 1):
+    """The path mesh megakernel's launch of `mega_path` (independent
+    sampler, CUDA tables only) through the counting build WALK_COUNT:
+    returns its (10, npix * pack) sums and {kind: {WALK_KEYS: int}} for
+    the kinds CAST_KINDS, the walks' counts summed over the launch (the
+    deepest stack its maximum), and "lane_cycles", the threads' clock
+    cycles. For the probe; no render path launches it."""
+    device = tabs["tris"].device
+    if not _cuda(device, "mega_path_walk_counts") \
+            or variant(tabs) != "mega_path_mesh":
+        raise ValueError("mega_path_walk_counts: path mesh tables with the "
+                         "independent sampler on a CUDA device only")
+    out = torch.empty((P.OUT_ROWS, lane_count(tabs, pack)),
+                      dtype=torch.float32, device=device)
+    args = launch_args(tabs, seed, num_samples, beckmann, out, pack)
+    return out, _walk_counted(lambda lib: lib.mega_path_launch(
+        *args, _stream(device)), device)
+
+
+def _walk_counted(launch, device) -> dict:
+    """Run launch(lib) with the counting build WALK_COUNT between two
+    reads of its walk counts that zero them: the launch's counts."""
+    counts = torch.empty(len(CAST_KINDS) * len(WALK_KEYS) + 1,
+                         dtype=torch.int64, device=device)
+    lib = _load(WALK_COUNT)
+    rc = lib.walk_counts_read(counts.data_ptr(), 1, _stream(device))
+    if rc == 0:
+        rc = launch(lib)
+    _launched(WALK_COUNT, rc)
+    rc = lib.walk_counts_read(counts.data_ptr(), 1, _stream(device))
+    if rc != 0:
+        raise RuntimeError(f"walk_counts_read failed: cudaError {rc}")
+    c = counts.tolist()
+    n = len(WALK_KEYS)
+    out = {k: dict(zip(WALK_KEYS, c[i * n:(i + 1) * n]))
+           for i, k in enumerate(CAST_KINDS)}
+    out["lane_cycles"] = c[-1]
+    return out
+
+
+def cast_probe(tabs, rays: torch.Tensor, counting: bool = False):
+    """The ray-cast probe (csrc/cast_launch.cuh) of the scene's mesh
+    build: each (RAY_W,) row of `rays` (origin, direction, tmin, tmax,
+    kind 0 closest or 1 shadow, the shadow ray's distant light) cast
+    through the mesh walk alone; returns the (n, CAST_OUT_W) float32 rows
+    t, part, row, hit flag (ops.intersect.cast_ref). CPU tensors run
+    `cast_ref`. `counting`: through the counting build WALK_COUNT (path
+    mesh tables), and returns (rows, its walk counts) as
+    `mega_path_walk_counts` does. Counted as cast_probe; the probe lies
+    on no render path."""
+    from .ops.intersect import cast_ref
+    device = rays.device
+    if not _cuda(device, "cast_probe"):
+        if counting:
+            raise ValueError("cast_probe: counting on a CUDA device only")
+        return cast_ref(tabs, rays)
+    if not tabs["has_accel"]:
+        raise ValueError("cast_probe: the scene has no acceleration tables")
+    out = torch.empty((rays.shape[0], CAST_OUT_W), dtype=torch.float32,
+                      device=device)
+    args = cast_args(tabs, rays, out) + (_stream(device),)
+    if counting:
+        if variant(tabs) != "mega_path_mesh":
+            raise ValueError("cast_probe: counting takes path mesh tables")
+        return out, _walk_counted(lambda lib: lib.cast_probe_launch(*args),
+                                  device)
+    _launched("cast_probe", _load(library(variant(tabs))).cast_probe_launch(
+        *args))
+    return out
+
+
+def cast_args(tabs, rays: torch.Tensor, out: torch.Tensor) -> tuple:
+    """Checked C arguments of cast_probe_launch, all but the stream: the
+    (n, RAY_W) `rays` in, the (n, CAST_OUT_W) `out`, the tables on their
+    device."""
+    device = rays.device
+    _check(rays, "rays", torch.float32, (None, RAY_W), device)
+    _check(out, "out", torch.float32, (rays.shape[0], CAST_OUT_W), device)
+    sa = scene_args(tabs, False, device)
+    n_tab = len(SCENE_ARGTYPES) - 13   # the tables, before the scalars
+    return sa[:n_tab] + (sa[n_tab], sa[n_tab + 8], sa[n_tab + 9],
+                         rays.data_ptr(), rays.shape[0], out.data_ptr())
 
 
 def _counted(name: str, launch, device) -> dict:

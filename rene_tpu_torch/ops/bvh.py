@@ -9,16 +9,21 @@ their per-triangle test `_mt_test` (:2148-2164), box gate
 `_box_enter_row` (:2172) with `_inv_dir` (:2057), and sphere test
 `_sph_test` (:2620), each with the same operations in the same order.
 
-The CUDA kernel gives each thread its own stack and walks its tree near
-child first. Here all lanes take that walk in lock-step, as
-rene_tpu/ops/bvh.py:62-175 does: each step gathers the live lanes by
-index, tests all of a leaf's triangles or both children's boxes at once,
-pushes the far child when both are entered, and pops when a lane is done
-with a subtree; lanes that finish drop out. Every lane visits its nodes
-in the kernel's order and keeps the first of a leaf's least t, so the
-two keep the same triangle on exact-t ties. A step writes its lanes'
-updates through `torch.where` rather than boolean masks, so that on a
-card it waits on the device only where it must count lanes.
+The CUDA kernel walks the same trees in another form (scene/accel.py
+`wide_tables`: 4-wide nodes, one walk over the world mesh, the instances
+and the sphere table, in whatever order the boxes give). Here all lanes
+walk the binary tree in lock-step, as rene_tpu/ops/bvh.py:62-175 does:
+each step gathers the live lanes by index, tests all of a leaf's
+triangles or both children's boxes at once, pushes the far child when
+both are entered, and pops when a lane is done with a subtree; lanes
+that finish drop out. The bound (rene_tpu_torch/bounds.py) counts this
+walk's tests. So that both find the same hit whatever their order, the
+closest hit is fixed by (t, part, row): the least t; on an exact tie the
+lowest part (the immediates, the world mesh, the instances by row, the
+table spheres); within a part the lowest mesh row or table slot. A step
+writes its lanes' updates through `torch.where` rather than boolean
+masks, so that on a card it waits on the device only where it must
+count lanes.
 
 The builder below (`build_bvh` and its median-split fallback) is
 rene_tpu/ops/bvh.py's host-side build, copied without its JAX traversal:
@@ -35,6 +40,10 @@ import torch
 from ..scene import accel as A
 
 BIG = 3e38
+# the parts of a mesh scene, in the order that breaks an exact tie in t:
+# the immediates, the world mesh, then instance i as PART_INST + i and the
+# sphere table after the last instance (csrc/intersect.cuh)
+PART_IMM, PART_WORLD, PART_INST = 0, 1, 2
 # box, triangle and table-sphere tests of the walk's lanes so far (reset
 # by the caller): chip_smoke.py reads them for the kernels' operation
 # bounds
@@ -172,6 +181,13 @@ def _build_median(tri_p: np.ndarray) -> BVH:
 # -- lock-step walk -----------------------------------------------------------
 
 
+def sqrt_rn(x):
+    """The square root rounded once, as sqrtf on the card and in C: torch's
+    vectorized float32 sqrt on the CPU may miss by an ulp (a float64 root
+    rounded to float32 is the float32 root rounded once)."""
+    return torch.sqrt(x.double()).float()
+
+
 def inv_dir(dx, dy, dz):
     """1 / d with |d| held above 1e-20, sign kept (`_inv_dir` :2057)."""
     def inv(d):
@@ -222,12 +238,15 @@ def mt_test(r, ox, oy, oz, dx, dy, dz):
     return t, u, v, ok
 
 
-def march(tabs, root, ray, tmin, tmax, best, done):
+def march(tabs, root, ray, tmin, tmax, best, done, part=PART_WORLD):
     """Walk the BVH at node `root` for every lane not `done`, for rays
     `ray` = (ox, oy, oz, dx, dy, dz). Closest hit when `best` is a dict
-    of (N,) t, prim, u, v (updated in place: t is the running bound,
-    prim the mesh row of the closest triangle, (u, v) its barycentrics);
-    any hit in [tmin, tmax] otherwise, returned as an (N,) mask."""
+    of (N,) t, prim, u, v and optionally part (updated in place: t is the
+    running bound, prim the mesh row of the closest triangle, (u, v) its
+    barycentrics, part its part): a triangle of this walk's `part` takes
+    the lane's hit at a lesser t, or at an equal t from a higher row of
+    the same part (of any part where `best` has none); any hit in [tmin,
+    tmax] otherwise, returned as an (N,) mask."""
     nodes, mesh = tabs["nodes"], tabs["mesh"]
     ox, oy, oz, dx, dy, dz = ray
     # the rays and their inverse directions, one row per lane
@@ -280,14 +299,24 @@ def march(tabs, root, ray, tmin, tmax, best, done):
                 hit[ln] |= h
                 alive[li] &= ~h
             else:
-                ok &= t < best["t"][ln][:, None]
+                # the least t, then the lowest row: a leaf's rows rise
+                # with j, and min keeps the first of equal values
+                bt = best["t"][ln][:, None]
+                tie = (t == bt) & (prim < best["prim"][ln][:, None])
+                if "part" in best:
+                    tie &= best["part"][ln][:, None] == part
+                ok &= (t < bt) | tie
                 tb, jb = torch.where(ok, t, math.inf).min(1)
                 w = ok.any(1)
                 jb = jb[:, None]
-                for key, new in (("t", tb), ("prim", prim.gather(1, jb)[:, 0]),
-                                 ("u", u.gather(1, jb)[:, 0]),
-                                 ("v", v.gather(1, jb)[:, 0])):
-                    best[key][ln] = torch.where(w, new, best[key][ln])
+                new = [("t", tb), ("prim", prim.gather(1, jb)[:, 0]),
+                       ("u", u.gather(1, jb)[:, 0]),
+                       ("v", v.gather(1, jb)[:, 0])]
+                if "part" in best:
+                    new.append(("part", torch.full_like(tb, part,
+                                                        dtype=torch.long)))
+                for key, val in new:
+                    best[key][ln] = torch.where(w, val, best[key][ln])
 
         ii = (alive & ~is_leaf).nonzero()[:, 0]
         if ii.numel():
@@ -342,9 +371,13 @@ def _to_object(row, ox, oy, oz, dx, dy, dz):
             m[8] * dx + m[9] * dy + m[10] * dz)
 
 
-def mesh_closest(tabs, ox, oy, oz, dx, dy, dz, tmin, t, done=None):
+def mesh_closest(tabs, ox, oy, oz, dx, dy, dz, tmin, t, done=None,
+                 ids=None):
     """Closest mesh hit below `t` for the lanes not `done` (all when
-    None): the world mesh, then each instance.
+    None): the world mesh, then each instance, the hit fixed by (t,
+    part, row) (the module's doc); `t` is the immediates' (their part
+    wins an equal t). Where `ids` is a dict it receives the (N,) part
+    and mesh row of the hit, -1 where no mesh triangle is closer.
     Returns (t, nx, ny, nz, material id, u, v), t unchanged where no
     mesh triangle is closer; the normal is the interpolated shading
     normal n0 + b1 d1 + b2 d2 (not normalized), taken to world space as
@@ -352,17 +385,22 @@ def mesh_closest(tabs, ox, oy, oz, dx, dy, dz, tmin, t, done=None):
     the `mesh_uv` rows of a textured mesh, else zero."""
     ray = (ox, oy, oz, dx, dy, dz)
     best = {"t": t.clone(), "prim": torch.full_like(ox, -1, dtype=torch.long),
-            "u": torch.zeros_like(ox), "v": torch.zeros_like(ox)}
-    inst = torch.full_like(best["prim"], -1)
+            "u": torch.zeros_like(ox), "v": torch.zeros_like(ox),
+            "part": torch.full_like(ox, PART_IMM, dtype=torch.long)}
     if done is None:
         done = torch.zeros_like(ox, dtype=torch.bool)
     if tabs["world_root"] >= 0:
-        march(tabs, tabs["world_root"], ray, tmin, None, best, done)
+        march(tabs, tabs["world_root"], ray, tmin, None, best, done,
+              PART_WORLD)
     for i, row in enumerate(tabs["insts_f"]):
-        t0 = best["t"].clone()
         march(tabs, int(row[A.INST_ROOT]), _to_object(row, *ray), tmin,
-               None, best, done)
-        inst = torch.where(best["t"] < t0, i, inst)
+              None, best, done, PART_INST + i)
+    inst = torch.where(best["part"] >= PART_INST, best["part"] - PART_INST,
+                       -1)
+    if ids is not None:
+        on = best["prim"] >= 0
+        ids["part"] = torch.where(on, best["part"], -1)
+        ids["row"] = best["prim"]
 
     r = tabs["mesh"][best["prim"].clamp_min(0)]
     u, v = best["u"], best["v"]
@@ -409,18 +447,21 @@ def _sph_test(rows, ox, oy, oz, dx, dy, dz, tmin):
     hb = ocx * dx + ocy * dy + ocz * dz
     c2 = ocx * ocx + ocy * ocy + ocz * ocz - rr * rr
     disc = hb * hb - c2
-    sq = torch.sqrt(disc.clamp_min(0.0))
+    sq = sqrt_rn(disc.clamp_min(0.0))
     r0 = -hb - sq
     r1 = -hb + sq
     t = torch.where(r0 >= tmin, r0, torch.where(r1 >= tmin, r1, BIG))
     return t, (disc >= 0.0) & (rr > 0.0)
 
 
-def sphere_table_closest(tabs, ox, oy, oz, dx, dy, dz, tmin, t, done=None):
+def sphere_table_closest(tabs, ox, oy, oz, dx, dy, dz, tmin, t, done=None,
+                         ids=None):
     """Closest table sphere below `t` for the lanes not `done` (all when
     None), block by block behind each block's box: (t, nx, ny, nz,
     material id, 0, 0); the normal is (hit - c) / r, and a table sphere's
-    material is solid, so it has no (u, v)."""
+    material is solid, so it has no (u, v). The blocks in slot order and
+    strict less between them keep the lowest slot of an equal t. Where
+    `ids` is a dict it receives the (N,) slot, -1 where none is closer."""
     tab, box = tabs["sph_tab"], tabs["sph_box"]
     ray = (ox, oy, oz, dx, dy, dz)
     ix, iy, iz = inv_dir(dx, dy, dz)
@@ -442,6 +483,8 @@ def sphere_table_closest(tabs, ox, oy, oz, dx, dy, dz, tmin, t, done=None):
         idx = ln[w]
         t[idx] = tb[w]
         best[idx] = b * A.SPH_BLOCK + kb[w]
+    if ids is not None:
+        ids["row"] = best
     r = tab[best.clamp_min(0)]
     rr = r[:, A.SPHT_R]
     invr = 1.0 / torch.where(rr > 0.0, rr, 1.0)

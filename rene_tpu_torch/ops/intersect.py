@@ -38,6 +38,21 @@ MAX_TR_MARCH = 32   # pallas_path.py:3363
 # closest hit) and emitter-pdf casts; a lane counts where it needs the
 # cast, as a CUDA thread casts it
 casts = {"closest": 0, "march": 0, "emit_pdf": 0}
+# the rays of the casts, recorded where a list (set by the caller, for the
+# ray-cast probe, rene_tpu_torch.probe): each call of `closest` or
+# `shadow_any` appends its (N, RAY_W) rows of the lanes it walks, in the
+# layout of kernels.cast_probe
+ray_log = None
+RAY_W, CAST_CLOSEST, CAST_SHADOW = 10, 0, 1
+
+
+def _log_rays(kind, li, ox, oy, oz, dx, dy, dz, tmin, tmax, skip):
+    keep = (torch.ones_like(ox, dtype=torch.bool) if skip is None
+            else ~skip)
+    z = torch.zeros_like(ox)
+    rows = torch.stack((ox, oy, oz, dx, dy, dz, z + tmin, z + tmax,
+                        z + kind, z + li), 1)
+    ray_log.append(rows[keep])
 
 
 def _tri_sides(rows, ox, oy, oz, dx, dy, dz, wx, wy, wz):
@@ -85,7 +100,7 @@ def _sphere_t(lox, loy, loz, ldx, ldy, ldz, tmin):
     half_b = lox * ldx + loy * ldy + loz * ldz
     c = lox * lox + loy * loy + loz * loz - 1.0
     disc = half_b * half_b - a * c
-    sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+    sq = bvh.sqrt_rn(torch.clamp_min(disc, 0.0))
     inv_a = 1.0 / torch.clamp_min(a, 1e-20)
     r0 = (-half_b - sq) * inv_a
     r1 = (-half_b + sq) * inv_a
@@ -98,7 +113,7 @@ def _lanes(*xs):
     return tuple(x[:, None] for x in xs)
 
 
-def closest(tabs, ox, oy, oz, dx, dy, dz, tmin=TMIN, skip=None):
+def closest(tabs, ox, oy, oz, dx, dy, dz, tmin=TMIN, skip=None, ids=None):
     """(t, hit, nx, ny, nz, emit r, g, b, material id, u, v): t is BIG on
     a miss, the normal is the interpolated shading normal (not
     normalized). (u, v) are the hit's texture coordinates where the scene
@@ -106,7 +121,12 @@ def closest(tabs, ox, oy, oz, dx, dy, dz, tmin=TMIN, skip=None):
     from the vertices of a triangle, spherical on a sphere
     (`sphere_uv_of` of the object-space hit point), zero on a table
     sphere, whose material is solid. Lanes where `skip` walk neither the
-    mesh nor the sphere table (their result is not used)."""
+    mesh nor the sphere table (their result is not used). On an exact tie
+    in t the lowest part and row win (ops/bvh.py); where `ids` is a dict
+    it receives the (N,) part and row of the hit (csrc/intersect.cuh
+    Hit), -1 on a miss."""
+    if ray_log is not None:
+        _log_rays(CAST_CLOSEST, 0, ox, oy, oz, dx, dy, dz, tmin, BIG, skip)
     tris, sph = tabs["tris"], tabs["spheres"]
     n_tri, n_sph = tris.shape[0], sph.shape[0]
     wx = oy * dz - oz * dy
@@ -177,14 +197,22 @@ def closest(tabs, ox, oy, oz, dx, dy, dz, tmin=TMIN, skip=None):
             su, sv = sphere_uv_of(px_, py_, pz_)
             uu = torch.where(is_sph, su, uu)
             vv = torch.where(is_sph, sv, vv)
+    if ids is not None:
+        ids["part"] = torch.where(hit, bvh.PART_IMM, -1)
+        ids["row"] = torch.where(hit, idx, -1)
     for part, n_rows in ((bvh.mesh_closest, tabs["nodes"].shape[0]),
                          (bvh.sphere_table_closest,
                           tabs["sph_tab"].shape[0])):
         if not n_rows:
             continue
+        got = {}
         tp, pnx, pny, pnz, pmat, pu, pv = part(tabs, ox, oy, oz, dx, dy, dz,
-                                               tmin, t, skip)
+                                               tmin, t, skip, ids=got)
         win = tp < t
+        if ids is not None:
+            ids["part"] = torch.where(win, got.get(
+                "part", bvh.PART_INST + len(tabs["insts_f"])), ids["part"])
+            ids["row"] = torch.where(win, got["row"], ids["row"])
         t = torch.where(win, tp, t)
         nx = torch.where(win, pnx, nx)
         ny = torch.where(win, pny, ny)
@@ -205,6 +233,8 @@ def shadow_any(tabs, li, ox, oy, oz, dx, dy, dz, tmin, tmax, skip=None):
     the sphere table. The direction's dot products with each
     triangle's Plücker moments and plane normal come precomputed from the
     host (`light_dots`), as the JAX kernel folds them into constants."""
+    if ray_log is not None:
+        _log_rays(CAST_SHADOW, li, ox, oy, oz, dx, dy, dz, tmin, tmax, skip)
     tris, sph = tabs["tris"], tabs["spheres"]
     hit = torch.zeros_like(ox, dtype=torch.bool)
     lanes = _lanes(ox, oy, oz, dx, dy, dz)
@@ -350,3 +380,33 @@ def tr_march(tabs, ox, oy, oz, dx, dy, dz, med, want_emit: bool,
         tr, acc = [a[keep] for a in tr], [a[keep] for a in acc]
         m = m[keep]
     return tuple(out)
+
+
+def cast_ref(tabs, rays):
+    """Plain version of the ray-cast probe (kernels.cast_probe): the
+    (n, 4) float32 rows t, part, row, hit flag of the (n, RAY_W) `rays`,
+    closest rays by `closest`, shadow rays by `shadow_any` of their light
+    (t 0, part and row -1)."""
+    out = torch.zeros((rays.shape[0], 4), dtype=torch.float32,
+                      device=rays.device)
+    out[:, 1:3] = -1.0
+    kind = rays[:, 8].long()
+    sel = (kind == CAST_CLOSEST).nonzero()[:, 0]
+    if sel.numel():
+        r = rays[sel]
+        ids = {}
+        tmin = r[0, 6].item()
+        if not bool((r[:, 6] == tmin).all()):
+            raise ValueError("cast_ref: closest rays of several tmin")
+        t, hit = closest(tabs, *r[:, :6].unbind(1), tmin, ids=ids)[:2]
+        out[sel] = torch.stack((t, ids["part"].float(), ids["row"].float(),
+                                hit.float()), 1)
+    for li in rays[kind == CAST_SHADOW, 9].unique().long().tolist():
+        sel = ((kind == CAST_SHADOW) & (rays[:, 9] == li)).nonzero()[:, 0]
+        r = rays[sel]
+        tmin, tmax = r[0, 6].item(), r[0, 7].item()
+        if not bool(((r[:, 6] == tmin) & (r[:, 7] == tmax)).all()):
+            raise ValueError("cast_ref: shadow rays of several bounds")
+        out[sel, 3] = shadow_any(tabs, li, *r[:, :6].unbind(1), tmin,
+                                 tmax).float()
+    return out

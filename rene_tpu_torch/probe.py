@@ -4,7 +4,7 @@
                                             fog_mesh] [--out DIR]
     python -m rene_tpu_torch.probe --scene fog_mesh --scatter-share
     python -m rene_tpu_torch.probe --pack-sweep
-    python -m rene_tpu_torch.probe --compare DIR [DIR ...]
+    python -m rene_tpu_torch.probe --compare DIR [DIR ...] [--only LABEL ...]
     python -m rene_tpu_torch.probe --main-launches
 
 Renders one of the main paths' inline scenes: the Cornell box
@@ -31,6 +31,17 @@ and image files go to build/probe_scenes/) or the fog mesh
   env-map light sampling, the background's fetch): what each part costs.
   The switched-off launches trace other paths, so their rays are given
   beside their times;
+* for the big mesh, the mesh walk (K1c/K1d) alone (`walk_report`): the
+  rays of the plain version's casts on a strided sample of ~131k pixels
+  at 1 spp and maxdepth 4 (`walk_rays`: camera rays, bounce rays at
+  depths 1-3, shadow rays), cast by the ray-cast probe
+  (kernels.cast_probe) kind by kind, Mrays/s by CUDA events, and through
+  the counting build (kernels.WALK_COUNT) nodes, boxes, leaves,
+  triangles, instances and table blocks per cast, the active lanes of a
+  warp at the head of the walk loop and the deepest stack; the same
+  counts over the 1- and 16-spp launches (`mega_path_walk_counts`) with
+  the walks' share of the threads' clock cycles; and the host times of
+  the BVH tables (the binary builds, the wide tables);
 * for the fog mesh, the counting build's step counts (`step_counts`) at
   1 and 16 spp: the lanes of a warp active at the volpath lane loop's
   cast site, the steps per lane and the share of them that are march
@@ -57,7 +68,11 @@ library swapped in for the package's own around its launches, in
 rounds that take the directories in turn and back (A, B, B, A): the
 ptxas registers and spill stores of each build, then per launch and
 directory the median milliseconds, the rays, and the per-pixel agreement
-with the first directory's output (rene_tpu_torch.checks); and, for
+with the first directory's output (rene_tpu_torch.checks); the mesh walk
+alone, each kind of `walk_rays` through each build's ray-cast probe,
+Mrays/s and its results' agreement with the first directory's; for the
+copies whose bvh.cuh has walk counts, the big mesh's 16-spp launch
+through their counting build (`walk_counts`); and, for
 each copy that has the counting build, its step counts on the fog mesh
 (`step_counts`) and its K2 counts per launch of the fog mesh's wave.
 The launches (`COMPARE_LAUNCHES`): the volpath megakernel's at 1280x720
@@ -144,6 +159,10 @@ COMPARE_LAUNCHES = (
     ("fog sobol K2 first", "fog", "k2", 1, "sobol"),
     ("cornell 1 spp", "cornell", 1, 1, "independent"),
     ("big_mesh 1 spp", "big_mesh", 1, 1, "independent"),
+    ("big_mesh 16 spp", "big_mesh", 16, 1, "independent"),
+    ("big_mesh sobol 16 spp", "big_mesh", 16, 1, "sobol"),
+    ("big_mesh pack 16", "big_mesh", 1, 16, "independent"),
+    ("textured_mesh 16 spp", "textured_mesh", 16, 1, "independent"),
     ("cornell K2 first", "cornell", "k2", 1, "independent"),
     ("big_mesh K2 first", "big_mesh", "k2", 1, "independent"))
 # --main-launches: (label, scene, maxdepth (None: the scene's own),
@@ -171,7 +190,15 @@ MAIN_PATHS = tuple(
 # --compare's whole waves: (label, scene, sampler), one 16-spp wave each
 COMPARE_WAVES = tuple(
     (f"{scene} wave{' sobol' if smp == 'sobol' else ''}", scene, smp)
-    for scene in ("fog_mesh", "fog") for smp in ("independent", "sobol"))
+    for scene in ("fog_mesh", "fog") for smp in ("independent", "sobol")) \
+    + (("deep_mesh wave", "deep_mesh", "independent"),)
+# the mesh walk alone: pixels of the plain walk that records the rays,
+# its maxdepth, the kinds of rays (`walk_rays`)
+WALK_LANES = 1 << 17
+WALK_DEPTH = 4
+WALK_KINDS = ("camera", "bounce 1", "bounce 2", "bounce 3", "shadow")
+# rays of a timed ray-cast probe launch: a kind's rays repeated
+PROBE_MIN_RAYS = 1 << 22
 # lanes of each K2 launch of a volpath main path that the plain version
 # runs for the launch's bound (--main-launches)
 PLAIN_LANES = 1 << 14
@@ -273,9 +300,99 @@ def step_counts(tabs, dev, spp: int = 1, seed: int = 5) -> dict:
     return row
 
 
+def walk_rays(tabs, dev, lanes: int = WALK_LANES, depth: int = WALK_DEPTH,
+              seed: int = 5) -> dict:
+    """The rays of the plain version's casts (ops.intersect.ray_log) on a
+    strided sample of ~`lanes` pixels of the film at 1 spp, maxdepth
+    `depth`: {kind: (n, RAY_W) rows} for WALK_KINDS (one path per lane,
+    so the i-th closest cast of the walk is depth i) and "closest" (all
+    of them)."""
+    from .ops import intersect as X
+    n_pix = tabs["width"] * tabs["height"]
+    pix = torch.arange(0, n_pix, max(1, n_pix // lanes), device=dev)
+    X.ray_log = []
+    try:
+        M.path_lanes_ref(dict(tabs, max_depth=depth), seed, 1, lanes=pix)
+        log = X.ray_log
+    finally:
+        X.ray_log = None
+    closest = [r for r in log if int(r[0, 8]) == X.CAST_CLOSEST]
+    out = {k: closest[i].contiguous()
+           for i, k in enumerate(WALK_KINDS[:-1]) if i < len(closest)}
+    out["shadow"] = torch.cat([r for r in log
+                               if int(r[0, 8]) == X.CAST_SHADOW])
+    out["closest"] = torch.cat(closest)
+    return out
+
+
+def walk_stats(counts: dict) -> dict:
+    """Per-cast means of one kind's walk counts (kernels.WALK_KEYS)."""
+    n = max(counts["casts"], 1)
+    row = {k + "_per_cast": counts[k] / n
+           for k in ("nodes", "boxes", "leaves", "tris", "insts", "blocks")}
+    row.update(casts=counts["casts"], deepest_stack=counts["deepest_stack"],
+               active_lanes=counts["active_lanes"]
+               / max(counts["warp_steps"], 1),
+               walk_steps_per_cast=counts["warp_steps"] / n,
+               cycles_per_cast=counts["cycles"] / n)
+    return row
+
+
+def walk_share(counts: dict) -> float:
+    """The walks' share of a counting launch's thread clock cycles."""
+    return sum(counts[k]["cycles"] for k in kernels.CAST_KINDS) \
+        / max(counts["lane_cycles"], 1)
+
+
+def walk_report(tabs, dev, rays=None) -> dict:
+    """The mesh walk of the big mesh alone (see the module's doc): per
+    kind of `walk_rays` the probe's ms and Mrays/s and its counts; the
+    counting build's counts over the 1- and 16-spp launches and the
+    walks' share of the threads' clock cycles. Returns the rows, each
+    also printed."""
+    rays = rays or walk_rays(tabs, dev)
+    rows = {}
+    for kind, r in rays.items():
+        ms, n = probe_ms(tabs, r, dev)
+        _, c = kernels.cast_probe(tabs, r, counting=True)
+        c = c["shadow" if kind == "shadow" else "closest"]
+        row = dict(kind=kind, rays=r.shape[0], timed_rays=n, ms=ms,
+                   mrays_s=n / ms / 1e3, ns_per_ray=ms * 1e6 / n,
+                   **walk_stats(c))
+        emit(walk=row)
+        rows[kind] = row
+    for spp in (1, 16):
+        kernels.mega_path(tabs, 5, spp)   # warm-up
+        ms = sorted(time_launches(lambda r: kernels.mega_path(
+            tabs, 7 + r, spp), 1, dev)[0] for _ in range(3))[1]
+        _, c = kernels.mega_path_walk_counts(tabs, 7, spp)
+        row = {"launch_spp": spp, "launch_ms": ms,
+               "walk_cycle_share": walk_share(c),
+               **{k: walk_stats(c[k]) for k in kernels.CAST_KINDS}}
+        emit(walk_launch=row)
+        rows[f"launch {spp}"] = row
+    return rows
+
+
+def probe_ms(tabs, rays, dev, n_min: int = None):
+    """(ms, rays cast) of one ray-cast probe launch over `rays` repeated
+    up to at least `n_min` rows (PROBE_MIN_RAYS; so that the launch, not
+    the host's argument checks, sets the time), by CUDA events, the
+    median of three after a warm-up."""
+    n_min = n_min or PROBE_MIN_RAYS
+    big = rays.repeat(max(1, -(-n_min // rays.shape[0])), 1)
+    kernels.cast_probe(tabs, big)
+    ms = sorted(time_launches(lambda _: kernels.cast_probe(tabs, big), 1,
+                              dev)[0] for _ in range(3))[1]
+    return ms, big.shape[0]
+
+
 def main_scene(scene: str, depth, sampler: str) -> str:
-    """Path of the pbrt file of a MAIN_PATHS scene at its main film."""
+    """Path of the pbrt file of a MAIN_PATHS scene at its main film (the
+    deep mesh: the big mesh at maxdepth 50)."""
     w, h = COMPARE_FILMS.get(scene, COMPARE_FILM)
+    if scene == "deep_mesh":
+        scene, depth = "big_mesh", depth or 50
     if scene == "big_mesh":
         src = scenes.big_mesh_scene(w, h, **({"maxdepth": depth} if depth
                                               else {}))
@@ -418,17 +535,26 @@ def k2_record(rows: list, dev, counting: bool = False, plain: int = 0):
 
 
 def ptxas_lines(text: str) -> list:
-    """The register and spill lines of an nvcc -Xptxas=-v report."""
+    """The register and spill lines of an nvcc -Xptxas=-v report, each
+    function's after its name."""
     return [ln.strip() for ln in text.splitlines()
-            if "registers" in ln or "spill" in ln]
+            if "registers" in ln or "spill" in ln
+            or "Function properties" in ln]
 
 
-def compare_builds(dirs, dev) -> dict:
+def compare_builds(dirs, dev, only=None) -> dict:
     """Time COMPARE_LAUNCHES with the libraries built from each csrc copy
     in `dirs`, in COMPARE_ROUNDS rounds that run the
     directories in turn and back (A, B, B, A); see the module's doc.
-    Returns {launch: {dir: row}}, each row also printed."""
+    `only`: the launches and waves whose label holds one of these strings
+    (all where None). Returns {launch: {dir: row}}, each row also
+    printed."""
     from . import checks
+
+    def chosen(label):
+        return only is None or any(o in label for o in only)
+    launches = [c for c in COMPARE_LAUNCHES if chosen(c[0])]
+    waves = [w for w in COMPARE_WAVES if chosen(w[0])]
     from .integrators import wave as WV
     from concurrent.futures import ThreadPoolExecutor
     reports = {}
@@ -447,9 +573,16 @@ def compare_builds(dirs, dev) -> dict:
     for d in counting:
         for n in (kernels.COUNT, kernels.WAVE_COUNT):
             libs[d][n] = kernels.load_library(n, d)
+    # the walk-counting builds of the copies that have them (csrc/bvh.cuh
+    # WalkCounts)
+    walk_counting = [d for d in dirs if "WalkCounts" in open(
+        os.path.join(d, "bvh.cuh")).read()]
+    for d in walk_counting:
+        libs[d][kernels.WALK_COUNT] = kernels.load_library(
+            kernels.WALK_COUNT, d)
     os.makedirs(SCENE_DIR, exist_ok=True)
     tabs_of, runs = {}, {}
-    for _, scene, spp, _, sampler in COMPARE_LAUNCHES:
+    for _, scene, spp, _, sampler in launches:
         key = (scene, sampler)
         if key in tabs_of and (spp != "k2" or key in runs):
             continue
@@ -462,7 +595,7 @@ def compare_builds(dirs, dev) -> dict:
     res = {}
     saved = dict(kernels._libs)
     try:
-        for label, scene, spp, pack, sampler in COMPARE_LAUNCHES:
+        for label, scene, spp, pack, sampler in launches:
             tabs = tabs_of[scene, sampler]
             states = []   # a K2 launch's inputs, copied before its timing
             if spp == "k2":
@@ -515,7 +648,16 @@ def compare_builds(dirs, dev) -> dict:
                 emit(compare=row)
                 res[label][str(d)] = row
             del outs
-        res.update(compare_waves(dirs, libs, dev, counting))
+        res.update(compare_waves(dirs, libs, dev, counting, waves))
+        big = tabs_of.get(("big_mesh", "independent"))
+        if big is not None:
+            res.update(compare_walk(dirs, libs, big, dev))
+        for d in walk_counting if big is not None else ():
+            kernels._libs[kernels.WALK_COUNT] = libs[d][kernels.WALK_COUNT]
+            _, c = kernels.mega_path_walk_counts(big, 7, 16)
+            emit(walk_counts_of=str(d), launch="big_mesh 16 spp",
+                 walk_cycle_share=walk_share(c),
+                 **{k: walk_stats(c[k]) for k in kernels.CAST_KINDS})
         tabs = tabs_of.get(("fog_mesh", "independent"))
         for d in counting if tabs is not None else ():
             kernels._libs.update(libs[d])
@@ -527,7 +669,40 @@ def compare_builds(dirs, dev) -> dict:
     return res
 
 
-def compare_waves(dirs, libs, dev, counting=()) -> dict:
+def compare_walk(dirs, libs, tabs, dev) -> dict:
+    """compare_builds' mesh walk: each kind of `walk_rays` on the big mesh
+    `tabs` through each directory's ray-cast probe (its mega_path_mesh
+    library swapped in), in COMPARE_ROUNDS rounds that run the
+    directories in turn and back; per directory the median ms, Mrays/s
+    and the share of rays whose results equal the first directory's.
+    Returns {"walk <kind>": {dir: row}}, each row also printed."""
+    lib = "mega_path_mesh"
+    res = {}
+    for kind, rays in walk_rays(tabs, dev).items():
+        outs, ms = {}, {d: [] for d in dirs}
+        for d in dirs:
+            kernels._libs[lib] = libs[d][lib]
+            outs[d] = kernels.cast_probe(tabs, rays)
+        rays = rays.repeat(max(1, -(-PROBE_MIN_RAYS // rays.shape[0])), 1)
+        for _ in range(COMPARE_ROUNDS):
+            for d in list(dirs) + list(reversed(dirs)):
+                kernels._libs[lib] = libs[d][lib]
+                ms[d].append(time_launches(
+                    lambda _: kernels.cast_probe(tabs, rays), 1, dev)[0])
+        res["walk " + kind] = {}
+        for d in dirs:
+            m = sorted(ms[d])[len(ms[d]) // 2]
+            row = {"launch": "walk " + kind, "dir": str(d), "rays":
+                   rays.shape[0], "ms": m, "ms_turns": ms[d],
+                   "mrays_s": rays.shape[0] / m / 1e3,
+                   "agree_with_first": float((outs[d] == outs[dirs[0]])
+                                             .all(1).double().mean())}
+            emit(compare=row)
+            res["walk " + kind][str(d)] = row
+    return res
+
+
+def compare_waves(dirs, libs, dev, counting=(), waves=COMPARE_WAVES) -> dict:
     """compare_builds' whole waves (COMPARE_WAVES): each directory's K2
     library swapped in for one 16-spp wave at seed 5, in COMPARE_ROUNDS
     rounds that run the directories in turn and back, each wave's K2
@@ -544,7 +719,7 @@ def compare_waves(dirs, libs, dev, counting=()) -> dict:
         return sorted(xs)[len(xs) // 2]
 
     res = {}
-    for label, scene, sampler in COMPARE_WAVES:
+    for label, scene, sampler in waves:
         bn, cfg = build_device_scene(load_scene(main_scene(scene, None,
                                                            sampler)))
         run = WV.make_wave_fn(bn, cfg, dev, spp_hint=16)
@@ -631,6 +806,9 @@ def main(argv=None) -> int:
     p.add_argument("--scatter-share", action="store_true")
     p.add_argument("--pack-sweep", action="store_true")
     p.add_argument("--compare", nargs="+", metavar="DIR")
+    p.add_argument("--only", nargs="+", metavar="LABEL",
+                   help="--compare: only the launches and waves whose "
+                        "label holds one of these")
     p.add_argument("--main-launches", action="store_true")
     args = p.parse_args(argv)
     make, (w, h), spps, chunks = SCENES[args.scene]
@@ -660,7 +838,7 @@ def main(argv=None) -> int:
         return 0
     if args.compare:
         compare_builds([os.path.abspath(d) for d in args.compare],
-                       torch.device("cuda", 0))
+                       torch.device("cuda", 0), args.only)
         return 0
     os.makedirs(SCENE_DIR, exist_ok=True)
     path = os.path.join(SCENE_DIR, f"{args.scene}.pbrt")
@@ -680,8 +858,14 @@ def main(argv=None) -> int:
     (bn, cfg), t_bds = timed(lambda: build_device_scene(scene))
     tables, t_pack = timed(lambda: P.pack_tables(bn, cfg))
     tabs, t_up = timed(lambda: M.device_tables(tables, dev))
+    from .scene import accel
     emit(cuda_context_s=t_ctx, load_scene_s=t_load,
-         build_device_scene_s=t_bds, pack_tables_s=t_pack, upload_s=t_up)
+         build_device_scene_s=t_bds, pack_tables_s=t_pack, upload_s=t_up,
+         bvh_binary_s=accel.times["binary_s"],
+         bvh_wide_s=accel.times["wide_s"],
+         wide_nodes=int(tables.wnodes.shape[0]),
+         binary_nodes=int(tables.nodes.shape[0]),
+         walk_need=tables.walk_need)
 
     timed(lambda: kernels.mega_path(tabs, 1, 1))   # warm-up
     for spp in spps:
@@ -704,6 +888,8 @@ def main(argv=None) -> int:
 
     for spp in chunks:
         chunk(tabs, spp)
+    if args.scene == "big_mesh":
+        walk_report(tabs, dev)
     if tabs["has_tex"] or tabs["bg_kind"] != P.BG_CONST:
         no_env = dict(tabs, has_env=False, **{
             k: tabs[k][:0] for k in ("env_mcdf", "env_ccdf", "env_pdf")})

@@ -31,9 +31,32 @@ and the deltas uv1 - uv0, uv2 - uv0, `_pack_tris` :869-872) go to row k of
 a side table `mesh_uv`, 24 bytes per triangle, which only a textured hit
 reads, so the rows the walk strides over stay 80 bytes. Row layouts are
 shared with csrc/layout.cuh.
+
+The CUDA walk (csrc/bvh.cuh) reads the same BVHs in another form, built
+here from the binary ones (`wide_tables`), while the plain version
+(ops/bvh.py) and the bounds keep walking the binary nodes:
+
+* each binary BVH collapsed into a 4-wide one (`_collapse`): a wide row
+  holds the boxes of up to four children, each a binary node's own box
+  in float32, and their walk entries; its leaves are the binary leaves,
+  so a mesh row keeps its index;
+* `mesh_vt`: the first 12 floats of every mesh row (v0, e1, e2 and three
+  zeros), the 48 bytes the triangle test reads, so that a leaf strides
+  over no shading rows;
+* one small wide tree on top (`top`, by the surface-area heuristic, so
+  that the world BVH sits near its root) over the world BVH's root, each
+  instance (behind the world box of its BLAS root's box, padded so that
+  it holds every ray the object-space root box takes) and each
+  SPH_BLOCK-slot block of the sphere table behind its box.
+
+A walk entry is one int32, tag << TAG_SHIFT | payload: a wide node,
+a leaf (first mesh row << LEAF_COUNT_BITS | triangles), an instance or a
+table block; TAG_MARKER brings a walk back from an instance's object
+space. The deepest stack a walk may need is checked against TRAVERSAL_STACK.
 """
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -57,7 +80,29 @@ SPHT_W = 8
 BOX_LO, BOX_HI = 0, 4
 BOX_W = 8
 SPH_BLOCK = 128     # pallas_path.py:66
-BVH_STACK = 64      # traversal stack entries of a CUDA thread
+# the CUDA walk's tables (`wide_tables`): wide nodes of BVH_WIDTH children, per
+# child box coordinate one float4 (lo x, hi x, lo y, hi y, lo z, hi z),
+# then the four walk entries as int32 bits and four unused floats
+BVH_WIDTH = 4
+NODE4_LX, NODE4_HX, NODE4_LY, NODE4_HY, NODE4_LZ, NODE4_HZ = (
+    0, 4, 8, 12, 16, 20)
+NODE4_REF = 24
+NODE4_W = 32
+VT_W = 12           # mesh_vt rows: v0, e1, e2, 0, 0, 0
+INST_WROOT = 14     # the wide root of an instance's BLAS, in its row
+TAG_SHIFT = 29
+TAG_NODE, TAG_LEAF, TAG_INST, TAG_BLOCK = 0, 1, 2, 3
+LEAF_COUNT_BITS = 4
+TAG_PAYLOAD = (1 << TAG_SHIFT) - 1
+TAG_MARKER = (TAG_INST << TAG_SHIFT) | TAG_PAYLOAD
+TAG_EMPTY = -1     # an unused child slot
+TRAVERSAL_STACK = 64     # entries of a CUDA thread's walk stack
+# the padding of an instance's world box, relative to its size
+INST_BOX_PAD = 1e-5
+
+# seconds of the last pack_accel's binary BVH builds and of its wide
+# tables (the collapse and the top tree), for the probe
+times = {"binary_s": 0.0, "wide_s": 0.0}
 
 INST_MIN_SAVING = 4096     # pallas_path.py:958
 HBM_MIN_TRIS = 1 << 17     # pallas_path.py:99: a shared BLAS's size cap
@@ -169,9 +214,6 @@ class _Builder:
                                     bvh.left + self.n_nodes)
         nodes[:, NODE_B] = np.where(leaf, -count, bvh.right + self.n_nodes)
         depth = _bvh._tree_depth(bvh.left, bvh.right, leaf)
-        if depth >= BVH_STACK:
-            raise ValueError(f"BVH depth {depth} exceeds the traversal "
-                             f"stack ({BVH_STACK})")
         root = self.n_nodes
         self.nodes.append(nodes)
         self.rows.append(rows)
@@ -236,6 +278,237 @@ def _sphere_table(buffers_np, tbl_idx: np.ndarray, inst_slot: np.ndarray):
     return tab, box
 
 
+def _entry(tag: int, payload: int) -> int:
+    if not 0 <= payload <= TAG_PAYLOAD:
+        raise ValueError(f"walk entry payload {payload} out of range")
+    return (tag << TAG_SHIFT) | payload
+
+
+def _leaf_entry(start: int, count: int) -> int:
+    if not 1 <= count < 1 << LEAF_COUNT_BITS:
+        raise ValueError(f"a BVH leaf of {count} triangles")
+    return _entry(TAG_LEAF, (start << LEAF_COUNT_BITS) | count)
+
+
+class _Wide:
+    """Wide rows under construction: per row its children's (k, 6)
+    float32 boxes (lo xyz, hi xyz) and walk entries."""
+
+    def __init__(self):
+        self.boxes: List[np.ndarray] = []
+        self.ents: List[List[int]] = []
+
+    def reserve(self) -> int:
+        self.boxes.append(None)
+        self.ents.append(None)
+        return len(self.ents) - 1
+
+    def need(self, inst_root: Dict[int, int]) -> List[int]:
+        """The deepest stack a walk from each row may need: at a row whose
+        n children are all entered it pushes n - 1 and goes into one; an
+        instance pushes its marker, then walks its BLAS."""
+        need = [0] * len(self.ents)
+        # children come after their row; an instance's BLAS before the
+        # top tree, so a second pass sees the BLAS roots' needs
+        for w in [*range(len(self.ents) - 1, -1, -1)] * 2:
+            ents = self.ents[w]
+            below = 0
+            for e in ents:
+                tag, pay = e >> TAG_SHIFT, e & TAG_PAYLOAD
+                if tag == TAG_NODE:
+                    below = max(below, need[pay])
+                elif tag == TAG_INST:
+                    below = max(below, 1 + need[inst_root[pay]])
+            need[w] = len(ents) - 1 + below
+        return need
+
+    def rows(self) -> np.ndarray:
+        out = np.zeros((len(self.ents), NODE4_W), np.float32)
+        refs = out.view(np.int32)[:, NODE4_REF:NODE4_REF + BVH_WIDTH]
+        refs[:] = TAG_EMPTY
+        for w, (box, ents) in enumerate(zip(self.boxes, self.ents)):
+            k = len(ents)
+            for c, off in enumerate((NODE4_LX, NODE4_LY, NODE4_LZ)):
+                out[w, off:off + k] = box[:, c]
+            for c, off in enumerate((NODE4_HX, NODE4_HY, NODE4_HZ)):
+                out[w, off:off + k] = box[:, 3 + c]
+            refs[w, :k] = ents
+        return out
+
+
+def decode_boxes(wnodes: np.ndarray) -> np.ndarray:
+    """The (N, BVH_WIDTH, 6) float32 child boxes (lo xyz, hi xyz) of wide
+    rows, as the walk reads them."""
+    offs = (NODE4_LX, NODE4_LY, NODE4_LZ, NODE4_HX, NODE4_HY, NODE4_HZ)
+    return np.stack([wnodes[:, o:o + BVH_WIDTH] for o in offs], 2)
+
+
+def _collapse(wide: _Wide, nodes: np.ndarray, root: int,
+              leaf_entry=None) -> int:
+    """Collapse the binary BVH at node `root` of `nodes` (NODE_W rows,
+    absolute indices) into wide rows: a row's children are its binary
+    node's two, each interior one of the largest surface area replaced
+    by its two until there are BVH_WIDTH or only leaves; returns the wide
+    root, a row even where the binary root is a leaf. A binary leaf k
+    becomes the walk entry leaf_entry(k), by default the leaf of its
+    mesh rows."""
+    box = nodes[:, [NODE_LO, NODE_LO + 1, NODE_LO + 2, NODE_HI, NODE_HI + 1,
+                    NODE_HI + 2]].astype(np.float32)
+    ext = (box[:, 3:] - box[:, :3]).astype(np.float64)
+    area = (ext[:, 0] * ext[:, 1] + ext[:, 1] * ext[:, 2]
+            + ext[:, 2] * ext[:, 0]).tolist()
+    a = nodes[:, NODE_A].astype(np.int64).tolist()
+    b = nodes[:, NODE_B].astype(np.int64).tolist()
+    top = wide.reserve()
+    todo = [(root, top)]
+    while todo:
+        n, w = todo.pop()
+        kids = [n] if b[n] < 0 else [a[n], b[n]]
+        while len(kids) < BVH_WIDTH:
+            inner = [k for k in kids if b[k] >= 0]
+            if not inner:
+                break
+            k = max(inner, key=area.__getitem__)
+            i = kids.index(k)
+            kids[i:i + 1] = [a[k], b[k]]
+        ents = []
+        for k in kids:
+            if b[k] < 0:
+                ents.append(leaf_entry(k) if leaf_entry
+                            else _leaf_entry(a[k], -b[k]))
+            else:
+                kw = wide.reserve()
+                todo.append((k, kw))
+                ents.append(_entry(TAG_NODE, kw))
+        wide.boxes[w] = box[kids]
+        wide.ents[w] = ents
+    return top
+
+
+def _instance_box(w2o: np.ndarray, box: np.ndarray) -> np.ndarray:
+    """World box (lo xyz, hi xyz) of the object-space box `box` under the
+    inverse of the 3x4 affine `w2o`, padded by INST_BOX_PAD of its size
+    and place, rounded outward to float32."""
+    m = np.eye(4)
+    m[:3] = np.asarray(w2o, np.float64).reshape(3, 4)
+    o2w = np.linalg.inv(m)[:3]
+    corners = np.array([[box[i], box[1 + j], box[2 + k]]
+                        for i in (0, 3) for j in (0, 3) for k in (0, 3)],
+                       np.float64)
+    pts = corners @ o2w[:, :3].T + o2w[:, 3]
+    lo, hi = pts.min(0), pts.max(0)
+    pad = INST_BOX_PAD * (np.abs(hi - lo).max() + np.abs(pts).max())
+    return np.concatenate([
+        np.nextafter((lo - pad).astype(np.float32), np.float32(-np.inf)),
+        np.nextafter((hi + pad).astype(np.float32), np.float32(np.inf))])
+
+
+def _item_tree(boxes: np.ndarray) -> np.ndarray:
+    """A binary tree (NODE_W rows, root 0) over (N, 6) float32 item boxes
+    by the surface-area heuristic: each node split where the summed area
+    times items of its two sides is least, over the items' centres in
+    order along each axis; a leaf holds one item (NODE_A, NODE_B -1)."""
+    rows: List[np.ndarray] = []
+
+    def area(lo, hi):
+        e = np.maximum(hi.astype(np.float64) - lo, 0.0)
+        return e[..., 0] * e[..., 1] + e[..., 1] * e[..., 2] \
+            + e[..., 2] * e[..., 0]
+
+    def row(lo, hi, a, b):
+        r = np.zeros(NODE_W, np.float32)
+        r[NODE_LO:NODE_LO + 3], r[NODE_HI:NODE_HI + 3] = lo, hi
+        r[NODE_A], r[NODE_B] = a, b
+        return r
+
+    todo = [(np.arange(boxes.shape[0]), 0)]
+    rows.append(None)
+    while todo:
+        idx, n = todo.pop()
+        lo, hi = boxes[idx, :3].min(0), boxes[idx, 3:].max(0)
+        if idx.size == 1:
+            rows[n] = row(lo, hi, idx[0], -1)
+            continue
+        c = boxes[idx, :3].astype(np.float64) + boxes[idx, 3:]
+        best = None
+        for axis in range(3):
+            o = idx[np.argsort(c[:, axis], kind="stable")]
+            b = boxes[o]
+            left = area(np.minimum.accumulate(b[:, :3]),
+                        np.maximum.accumulate(b[:, 3:]))[:-1]
+            right = area(np.minimum.accumulate(b[::-1, :3])[::-1],
+                         np.maximum.accumulate(b[::-1, 3:])[::-1])[1:]
+            k = np.arange(1, idx.size)
+            cost = left * k + right * (idx.size - k)
+            i = int(np.argmin(cost))
+            if best is None or cost[i] < best[0]:
+                best = (cost[i], o[:i + 1], o[i + 1:])
+        kids = []
+        for part in best[1:]:
+            kids.append(len(rows))
+            rows.append(None)
+            todo.append((part, kids[-1]))
+        rows[n] = row(lo, hi, *kids)
+    return np.stack(rows)
+
+
+def _top_tree(wide: _Wide, items: List[Tuple[int, np.ndarray]]) -> int:
+    """A wide tree over `items`, (walk entry, (6,) float32 box) each: the
+    surface-area binary tree over them (`_item_tree`), collapsed as the
+    BVHs are, so that a large item (the world mesh among small
+    instances) sits near the root; returns its root row."""
+    tree = _item_tree(np.stack([b for _, b in items]).astype(np.float32))
+    return _collapse(wide, tree, 0,
+                     lambda k: items[int(tree[k, NODE_A])][0])
+
+
+def wide_tables(nodes: np.ndarray, mesh: np.ndarray, world_root: int,
+                insts: np.ndarray, sph_box: np.ndarray) -> Dict:
+    """The CUDA walk's tables (see the module's doc) from the binary
+    `nodes`, the `mesh` rows, the world root, the instance rows (their
+    INST_WROOT is filled in here) and the sphere table's block boxes:
+    {"wnodes", "mesh_vt", "top", "walk_need"}; `top` is -1 for a scene
+    without acceleration tables. The world BVH's wide rows come first,
+    its root at row 0, then each BLAS's, then the top tree's."""
+    wide = _Wide()
+    roots = {}
+    if world_root >= 0:
+        roots[world_root] = _collapse(wide, nodes, world_root)
+    for r in insts[:, INST_ROOT].astype(np.int64).tolist():
+        if r not in roots:
+            roots[r] = _collapse(wide, nodes, r)
+    inst_root = {}
+    items = []
+    if world_root >= 0:
+        items.append((_entry(TAG_NODE, roots[world_root]),
+                      nodes[world_root, [0, 1, 2, 4, 5, 6]].astype(
+                          np.float32)))
+    for i, row in enumerate(insts):
+        r = int(row[INST_ROOT])
+        row[INST_WROOT] = roots[r]
+        inst_root[i] = roots[r]
+        items.append((_entry(TAG_INST, i), _instance_box(
+            row[INST_W2O:INST_W2O + 12], nodes[r, [0, 1, 2, 4, 5, 6]])))
+    for k, bx in enumerate(sph_box):
+        items.append((_entry(TAG_BLOCK, k), bx[[0, 1, 2, 4, 5, 6]].astype(
+            np.float32)))
+    if not items:
+        top = -1
+    elif len(items) == 1 and world_root >= 0:
+        top = items[0][0]
+    else:
+        top = _entry(TAG_NODE, _top_tree(wide, items))
+    need = wide.need(inst_root)
+    walk_need = need[top & TAG_PAYLOAD] if top >= 0 else 0
+    if walk_need > TRAVERSAL_STACK:
+        raise ValueError(f"the wide BVH walk may need {walk_need} stack "
+                         f"entries (> {TRAVERSAL_STACK})")
+    vt = np.zeros((mesh.shape[0], VT_W), np.float32)
+    vt[:, :9] = mesh[:, MESH_V0:MESH_E2 + 3]
+    return {"wnodes": wide.rows(), "mesh_vt": vt, "top": int(top),
+            "walk_need": int(walk_need)}
+
+
 def pack_accel(buffers_np, rest_idx: np.ndarray, shared, tbl_idx,
                inst_slot: np.ndarray, needs_uv: bool = False) -> Dict:
     """The acceleration tables of SceneTables: the world mesh over the
@@ -243,6 +516,7 @@ def pack_accel(buffers_np, rest_idx: np.ndarray, shared, tbl_idx,
     `shared_split`) and the table spheres `tbl_idx`, each primitive with
     the material slot of its instance (`inst_slot`, pack.material_slots);
     `needs_uv`: with the `mesh_uv` rows."""
+    t0 = time.perf_counter()
     b = _Builder()
     world_root = -1
     if rest_idx.size:
@@ -270,8 +544,13 @@ def pack_accel(buffers_np, rest_idx: np.ndarray, shared, tbl_idx,
             np.concatenate(parts) if parts else np.zeros((0, width)),
             dtype=np.float32)
 
-    return {"nodes": cat(b.nodes, NODE_W), "mesh": cat(b.rows, MESH_W),
-            "mesh_uv": cat(b.uvs, MESH_UV_W),
-            "insts": cat(insts, INST_W), "sph_tab": sph_tab,
-            "sph_box": sph_box, "world_root": world_root,
-            "bvh_depth": b.depth, "max_leaf": b.max_leaf}
+    nodes, mesh, insts = (cat(b.nodes, NODE_W), cat(b.rows, MESH_W),
+                          cat(insts, INST_W))
+    t1 = time.perf_counter()
+    wide = wide_tables(nodes, mesh, world_root, insts, sph_box)
+    times.update(binary_s=t1 - t0, wide_s=time.perf_counter() - t1)
+    return dict(wide,
+                nodes=nodes, mesh=mesh, mesh_uv=cat(b.uvs, MESH_UV_W),
+                insts=insts, sph_tab=sph_tab, sph_box=sph_box,
+                world_root=world_root, bvh_depth=b.depth,
+                max_leaf=b.max_leaf)

@@ -681,6 +681,8 @@ class SceneTables:
     sph_tab: np.ndarray      # (B * SPH_BLOCK, SPHT_W) table spheres
     sph_box: np.ndarray      # (B, BOX_W) their 128-slot block boxes
     mesh_uv: np.ndarray      # (P, MESH_UV_W) uv of the mesh rows, or (0, 6)
+    wnodes: np.ndarray       # (W, WNODE_W) the CUDA walk's wide nodes
+    mesh_vt: np.ndarray      # (P, VT_W) v0, e1, e2 of the mesh rows
     atlas: np.ndarray        # uint32 RGB9E5 texels, the images back to back
     env_mcdf: np.ndarray     # (ENV_GH,) env-map sampling tables, or empty
     env_ccdf: np.ndarray     # (ENV_GH, ENV_GW)
@@ -693,6 +695,8 @@ class SceneTables:
     world_root: int          # root node of the world mesh, -1 if none
     bvh_depth: int           # deepest root-to-leaf path of any BVH
     max_leaf: int            # most triangles in one BVH leaf
+    top: int                 # the CUDA walk's first entry, -1 if none
+    walk_need: int           # the deepest stack that walk may need
 
     @property
     def has_tex(self) -> bool:
