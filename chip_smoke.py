@@ -437,6 +437,7 @@ def main() -> int:
     from rene_tpu_torch import checks, kernels, scenes
     from rene_tpu_torch.integrators import mega_path as M
     from rene_tpu_torch.integrators import wave as WV
+    from rene_tpu_torch.ops import texture as TX
     from rene_tpu_torch.scene import pack as P
 
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -457,11 +458,20 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()}")
 
-    # 2. build, every variant at once
+    # 2. build, every variant at once; per library its seconds and per
+    # kernel its registers, spills and static shared memory (the
+    # immediates' cast rows come on top as dynamic shared memory, up to
+    # kernels.IMM_SMEM_MAX)
     t0 = time.time()
     sos = kernels.build(verbose=True)
     log(f"build: {time.time() - t0:.1f} s -> "
         + ", ".join(os.path.relpath(so, ROOT) for so in sos.values()))
+    for name in sos:
+        log(f"ptxas {name} ({kernels.build_seconds.get(name, 0.0):.1f} s): "
+            + "; ".join(f"{fn} {r} registers, {ss} / {sl} bytes spill "
+                        f"stores / loads, {sm} bytes smem"
+                        for fn, r, ss, sl, sm in kernels.ptxas_summary(
+                            kernels.ptxas.get(name, ""))))
 
     def compare(tabs, seed, spp, what, lanes=None):
         """The kernel and its plain version on the same tables and seed,
@@ -653,6 +663,34 @@ def main() -> int:
             f"{rays.shape[0] / ms / 1e3:.1f} Mrays/s [{card}]")
         if same < checks.CARD_FRAC:
             raise RuntimeError("the mesh walk disagrees with the plain walk")
+
+    def tex_check(tabs, fetches):
+        """The texture fetch alone (phase 15): the texture-fetch probe of
+        the mesh build on the fetches the plain version made in phase 15's
+        walk (ops/texture.py fetch_log: material slots and the background),
+        held to the plain fetch on the card bit for bit: the fetch rounds
+        every product and sum on its own, as the plain version does."""
+        rows = fetches[:, :TX.TEXP_W].contiguous()
+        out_k = kernels.tex_probe(tabs, rows)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        ref = TX.fetch_rows_ref(tabs["atlas"], rows)
+        torch.cuda.synchronize()
+        plain_s = time.time() - t0
+        same = (out_k.view(torch.int32) == ref.view(torch.int32)).all(1)
+        share = same.double().mean().item()
+        kinds = torch.bincount(fetches[:, TX.TEXP_W].long(),
+                               minlength=P.N_TEX_CLASSES + 1).tolist()
+        big = rows.repeat(max(1, -(-(1 << 22) // rows.shape[0])), 1)
+        ms = time_ms(lambda r=0: kernels.tex_probe(tabs, big), 5)
+        log(f"fetch vs plain (textured mesh, {rows.shape[0]} fetches of "
+            f"phase 15's plain walk, by class {P.IMG_CLASSES} and the "
+            f"background: {kinds}; plain {plain_s:.2f} s): bit for bit "
+            f"{share:.6f}; probe {ms:.4f} ms for {big.shape[0]} fetches, "
+            f"{big.shape[0] / ms / 1e3:.1f} Mfetches/s [{card}]")
+        if share < 1.0:
+            raise RuntimeError("the texture fetch disagrees with the plain "
+                               "fetch")
 
     phase_done("1-2")
 
@@ -959,7 +997,8 @@ def main() -> int:
             # the env tables taken away: the light sampling falls back to
             # the emitters (or to none), and the image must change
             off = dict(tabs, has_env=False, **{
-                k: tabs[k][:0] for k in ("env_mcdf", "env_ccdf", "env_pdf")})
+                k: tabs[k][:0] for k in ("env_mcdf", "env_ccdf", "env_pdf",
+                                         "env_guide")})
             a_off = checks.agreement(kernels.mega_path(off, 1234567, 4),
                                      kernels.mega_path(tabs, 1234567, 4))
             log(f"env-map light sampling in use ({name}): has_env "
@@ -1008,9 +1047,15 @@ def main() -> int:
         f"{tabs['atlas'].numel()} texels ({tabs['atlas'].numel() * 4 / 1e6:.1f}"
         f" MB), {tabs['mesh_uv'].shape[0]} uv rows, has_env "
         f"{tabs['has_env']}")
-    a_texm = compare(tabs, chunk_seed(), 1,
-                     f"textured mesh {MESH_W}x{MESH_H} x 1 spp",
-                     lanes=pix)
+    TX.fetch_log = []   # the plain walk's fetches, for the probe below
+    try:
+        a_texm = compare(tabs, chunk_seed(), 1,
+                         f"textured mesh {MESH_W}x{MESH_H} x 1 spp",
+                         lanes=pix)
+        fetches = torch.cat(TX.fetch_log)
+    finally:
+        TX.fetch_log = None
+    tex_check(tabs, fetches)
     texm_ms = time_ms(lambda r=0: kernels.mega_path(tabs, 11 + r, 1), 10)
     texm_bound = mega_bound(tabs, a_texm["tests"])
     log(f"timing (textured mesh {MESH_W}x{MESH_H}, 1 spp): kernel "

@@ -15,9 +15,10 @@ import torch
 HBM_BPS, FP32_OPS = 3.35e12, 67e12
 # tensor-core peaks: TF32, BF16
 TF32_OPS, BF16_OPS = 495e12, 989e12
-# FP32 operations of one ray-cast test, counted in the CUDA code: the
-# immediate triangle's plane test (intersect.cuh trace_closest; its three
-# side tests run only where that passes), an immediate sphere
+# FP32 operations of one ray-cast test, counted in the plain version's
+# order: the immediate triangle's plane test (its three side tests run
+# only where that passes; the CUDA cast, which tests the sides first,
+# keeps this bound of the same work), an immediate sphere
 # (sphere_local + sphere_t), a BVH or sphere-table box (box test of
 # bvh.cuh), a mesh triangle (Moeller-Trumbore) and a table sphere
 OPS = {"imm_tri": 12, "imm_sph": 40, "box": 25, "tri": 50, "sph": 20}
@@ -36,19 +37,21 @@ def bound(n_bytes, ops, rate=FP32_OPS):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
-# the tables that only the CUDA walk reads (scene/accel.py wide_tables):
-# the bound is that of the plain binary walk's work, whatever walks it
-WALK_ONLY = ("wnodes", "mesh_vt")
+# the tables that only the CUDA kernels read: the walk's (scene/accel.py
+# wide_tables), the env-map guide tables and the immediates' cast rows
+# (scene/pack.py): the bound is that of the plain versions' work,
+# whatever does it
+KERNEL_ONLY = ("wnodes", "mesh_vt", "env_guide", "imm")
 
 
 def table_bytes(tabs):
     return sum(v.numel() * v.element_size() for k, v in tabs.items()
-               if isinstance(v, torch.Tensor) and k not in WALK_ONLY)
+               if isinstance(v, torch.Tensor) and k not in KERNEL_ONLY)
 
 
 def moved_bytes(tabs, tests):
     """Bytes of the tables a launch must read: every table once (the
-    plain walk's: not WALK_ONLY), of the atlas the texels `tests` counts,
+    plain versions': not KERNEL_ONLY), of the atlas the texels `tests` counts,
     at most the whole atlas."""
     atlas = tabs["atlas"].numel() * tabs["atlas"].element_size()
     return (table_bytes(tabs) - atlas

@@ -88,11 +88,19 @@ struct Scene {
   int n_mesh_uv;  // rows of mesh_uv: 0 for a mesh of solid materials
   int has_tex;    // some material has a textured slot: hits carry uv
   int has_env;    // the env map is a light-sampling strategy
+  // the scene runs texture code (textured materials, a textured
+  // background or env-map sampling): 0 launches each kernel's instance
+  // without it, which reads no background kind and holds no texture code
+  int tex;
   // the walk's tables (scene/accel.py wide_tables): wide nodes, the mesh
   // rows' v0, e1, e2, and the walk's first entry (-1: nothing to walk)
   const float* __restrict__ wnodes;
   const float* __restrict__ mesh_vt;
   int top;
+  // the kernels' own tables (scene/pack.py): the env-map cdfs' guide
+  // tables, the immediates' cast rows
+  const uint8_t* __restrict__ env_guide;
+  const float* __restrict__ imm;
 };
 
 // the sort key of a child the ray does not enter: above any entry t a

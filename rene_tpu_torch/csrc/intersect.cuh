@@ -9,6 +9,23 @@
 // textured material (Scene::has_tex) the closest hit also carries its
 // texture coordinates: interpolated from a triangle's vertices, spherical
 // on a sphere, none on a table sphere, whose material is solid.
+//
+// Design (K1a). The TPU kernel bakes the immediates into its program. A
+// CUDA thread loops over them, and every lane of a warp reads the same
+// row at the same step: so the fields a cast reads sit in 16-byte-aligned
+// cast rows (scene/pack.py imm_rows: per triangle the plane and the three
+// Plücker moment and edge pairs in six float4, per sphere its
+// world-to-object matrix in three), which each block copies into shared
+// memory at its start (stage_imm); a 16-byte read of a row is then one
+// broadcast, where the 55-float rows of `tris` took 22 scalar loads. The
+// shading fields stay in `tris`, read for the winning hit and the emitter
+// pdf only. Each triangle's three side tests come before its plane
+// distance, so the division runs only where the ray crosses the
+// triangle's lines: the same division of the same operands, so the same t
+// bit for bit, and the same winner (the first in loop order at the least
+// t). Measured on the card against the parent (PERF.md section 6): the
+// rows by 16-byte reads of global memory, and the plane test first, ran
+// slower.
 #pragma once
 #include <stdint.h>
 
@@ -18,11 +35,88 @@
 #include "texture.cuh"
 
 
-// Plücker side values of the ray (moment w = o x d) against triangle row r
-__device__ __forceinline__ float tri_side(const float* __restrict__ r, int m,
-                                          int e, V3 d, V3 w) {
-  return (d.x * __ldg(r + m) + d.y * __ldg(r + m + 1) + d.z * __ldg(r + m + 2))
-      + (w.x * __ldg(r + e) + w.y * __ldg(r + e + 1) + w.z * __ldg(r + e + 2));
+// The immediates' cast rows (scene/pack.py imm_rows): the fields a cast
+// reads, in 16-byte-aligned rows, which each kernel copies into shared
+// memory at its start (stage_imm). Every lane of a warp reads the same
+// row, so a 16-byte read of it is a broadcast. A host build reads the
+// table itself.
+#ifdef __CUDACC__
+extern __shared__ float4 imm_shared[];
+#endif
+
+__device__ __forceinline__ const float* imm_rows(const Scene& s) {
+#ifdef __CUDACC__
+  (void)s;
+  return reinterpret_cast<const float*>(imm_shared);
+#else
+  return s.imm;
+#endif
+}
+
+// a float4 of a cast row
+__device__ __forceinline__ float4 row4(const float* p) {
+#ifdef __CUDACC__
+  return *reinterpret_cast<const float4*>(p);
+#else
+  return load4(p);
+#endif
+}
+
+// bytes of shared memory the cast rows of a scene take
+#define IMM_BYTES(s) \
+  (((size_t)(s).n_tris * IMM_TRI_W + (size_t)(s).n_sph * IMM_SPH_W) \
+   * sizeof(float))
+
+// Copy the cast rows into shared memory; every thread of the block calls
+// it, first thing in the kernel.
+__device__ __forceinline__ void stage_imm(const Scene& s) {
+#ifdef __CUDACC__
+  const int n = (int)(IMM_BYTES(s) / sizeof(float4));
+  const float4* src = reinterpret_cast<const float4*>(s.imm);
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    imm_shared[i] = __ldg(src + i);
+  __syncthreads();
+#else
+  (void)s;
+#endif
+}
+
+#ifdef __CUDACC__
+// kernel<<<blocks, 128 threads, the scene's cast rows, stream>>>(args),
+// the kernel first allowed that much shared memory where the rows pass
+// the default 48 KB (at most 52 KB, at the immediates caps)
+template <typename... A>
+static void launch_staged(void (*kernel)(A...), const Scene& s, int blocks,
+                          cudaStream_t st, const A&... args) {
+  const size_t smem = IMM_BYTES(s);
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+  kernel<<<blocks, 128, smem, st>>>(args...);
+}
+#endif
+
+// Plücker side value of the ray (moment w = o x d) against moment m and
+// edge e
+__device__ __forceinline__ float tri_side(V3 m, V3 e, V3 d, V3 w) {
+  return (d.x * m.x + d.y * m.y + d.z * m.z)
+      + (w.x * e.x + w.y * e.y + w.z * e.z);
+}
+
+// the moments and edges of cast row r: five float4 from IMM_M0
+struct ImmSides {
+  float4 a, b, c, e, f;
+  __device__ __forceinline__ V3 m0() const { return v3(a.x, a.y, a.z); }
+  __device__ __forceinline__ V3 e0() const { return v3(a.w, b.x, b.y); }
+  __device__ __forceinline__ V3 m1() const { return v3(b.z, b.w, c.x); }
+  __device__ __forceinline__ V3 e1() const { return v3(c.y, c.z, c.w); }
+  __device__ __forceinline__ V3 m2() const { return v3(e.x, e.y, e.z); }
+  __device__ __forceinline__ V3 e2() const { return v3(e.w, f.x, f.y); }
+};
+
+__device__ __forceinline__ ImmSides imm_sides(const float* r) {
+  return {row4(r + IMM_M0), row4(r + IMM_M0 + 4), row4(r + IMM_M0 + 8),
+          row4(r + IMM_M0 + 12), row4(r + IMM_M0 + 16)};
 }
 
 __device__ __forceinline__ bool side_ok(float s0, float s1, float s2,
@@ -31,30 +125,23 @@ __device__ __forceinline__ bool side_ok(float s0, float s1, float s2,
   return side && fabsf(dn) > 1e-12f;
 }
 
-__device__ __forceinline__ float plane_t(const float* __restrict__ r, V3 o,
-                                         float dn) {
-  return (__ldg(r + TRI_PK) - (o.x * __ldg(r + TRI_PN)
-                               + o.y * __ldg(r + TRI_PN + 1)
-                               + o.z * __ldg(r + TRI_PN + 2)))
+// the distance to the plane pl = (pn, pk) along a ray with d . pn = dn
+__device__ __forceinline__ float plane_t(float4 pl, V3 o, float dn) {
+  return (pl.w - (o.x * pl.x + o.y * pl.y + o.z * pl.z))
       / (fabsf(dn) > 1e-12f ? dn : 1e-12f);
 }
 
-__device__ __forceinline__ float w2o(const float* __restrict__ r, int i, int k) {
-  return __ldg(r + SPH_W2O + 4 * i + k);
-}
-
-// ray in a sphere's object space
-__device__ __forceinline__ void sphere_local(const float* __restrict__ r,
-                                             V3 o, V3 d, V3& lo, V3& ld) {
-  lo = v3(w2o(r, 0, 0) * o.x + w2o(r, 0, 1) * o.y + w2o(r, 0, 2) * o.z
-              + w2o(r, 0, 3),
-          w2o(r, 1, 0) * o.x + w2o(r, 1, 1) * o.y + w2o(r, 1, 2) * o.z
-              + w2o(r, 1, 3),
-          w2o(r, 2, 0) * o.x + w2o(r, 2, 1) * o.y + w2o(r, 2, 2) * o.z
-              + w2o(r, 2, 3));
-  ld = v3(w2o(r, 0, 0) * d.x + w2o(r, 0, 1) * d.y + w2o(r, 0, 2) * d.z,
-          w2o(r, 1, 0) * d.x + w2o(r, 1, 1) * d.y + w2o(r, 1, 2) * d.z,
-          w2o(r, 2, 0) * d.x + w2o(r, 2, 1) * d.y + w2o(r, 2, 2) * d.z);
+// ray in the object space of the sphere whose world-to-object rows are
+// the three float4 at r
+__device__ __forceinline__ void sphere_local(const float* r, V3 o, V3 d,
+                                             V3& lo, V3& ld) {
+  const float4 m0 = row4(r), m1 = row4(r + 4), m2 = row4(r + 8);
+  lo = v3(m0.x * o.x + m0.y * o.y + m0.z * o.z + m0.w,
+          m1.x * o.x + m1.y * o.y + m1.z * o.z + m1.w,
+          m2.x * o.x + m2.y * o.y + m2.z * o.z + m2.w);
+  ld = v3(m0.x * d.x + m0.y * d.y + m0.z * d.z,
+          m1.x * d.x + m1.y * d.y + m1.z * d.z,
+          m2.x * d.x + m2.y * d.y + m2.z * d.z);
 }
 
 // nearest root >= tmin of the unit sphere, BIG where none; the
@@ -96,16 +183,18 @@ __device__ __forceinline__ Hit trace_closest(const Scene& s, V3 o, V3 d,
   float t_best = BIG;
   int best = -1;
   float b0 = 0.f, b1 = 0.f, b2 = 0.f;
+  const float* rows = imm_rows(s);
   for (int i = 0; i < s.n_tris; ++i) {
-    const float* r = s.tris + i * TRI_W;
-    float dn = d.x * __ldg(r + TRI_PN) + d.y * __ldg(r + TRI_PN + 1)
-        + d.z * __ldg(r + TRI_PN + 2);
-    float t = plane_t(r, o, dn);
-    if (!(t >= tmin && t < t_best)) continue;
-    float s0 = tri_side(r, TRI_M0, TRI_E0, d, w);
-    float s1 = tri_side(r, TRI_M1, TRI_E1, d, w);
-    float s2 = tri_side(r, TRI_M2, TRI_E2, d, w);
-    if (side_ok(s0, s1, s2, dn)) {
+    const float* r = rows + i * IMM_TRI_W;
+    const float4 pl = row4(r + IMM_PN);
+    float dn = d.x * pl.x + d.y * pl.y + d.z * pl.z;
+    const ImmSides q = imm_sides(r);
+    float s0 = tri_side(q.m0(), q.e0(), d, w);
+    float s1 = tri_side(q.m1(), q.e1(), d, w);
+    float s2 = tri_side(q.m2(), q.e2(), d, w);
+    if (!side_ok(s0, s1, s2, dn)) continue;
+    float t = plane_t(pl, o, dn);
+    if (t >= tmin && t < t_best) {
       t_best = t;
       best = i;
       b0 = s0;
@@ -113,9 +202,10 @@ __device__ __forceinline__ Hit trace_closest(const Scene& s, V3 o, V3 d,
       b2 = s2;
     }
   }
+  const float* srows = rows + s.n_tris * IMM_TRI_W;
   for (int k = 0; k < s.n_sph; ++k) {
     V3 lo, ld;
-    sphere_local(s.sph + k * SPH_W, o, d, lo, ld);
+    sphere_local(srows + k * IMM_SPH_W, o, d, lo, ld);
     float t = sphere_t(lo, ld, tmin);
     if (t < t_best) {
       t_best = t;
@@ -207,13 +297,15 @@ __device__ __forceinline__ Hit trace_closest(const Scene& s, V3 o, V3 d,
     }
   } else {
     const float* r = s.sph + (best - s.n_tris) * SPH_W;
+    const float* c = srows + (best - s.n_tris) * IMM_SPH_W;
     V3 lo, ld;
-    sphere_local(r, o, d, lo, ld);
+    sphere_local(c, o, d, lo, ld);
     V3 p = v3(lo.x + t_best * ld.x, lo.y + t_best * ld.y, lo.z + t_best * ld.z);
     // world normal = W2O^T p
-    h.n = v3(w2o(r, 0, 0) * p.x + w2o(r, 1, 0) * p.y + w2o(r, 2, 0) * p.z,
-             w2o(r, 0, 1) * p.x + w2o(r, 1, 1) * p.y + w2o(r, 2, 1) * p.z,
-             w2o(r, 0, 2) * p.x + w2o(r, 1, 2) * p.y + w2o(r, 2, 2) * p.z);
+    const float4 m0 = row4(c), m1 = row4(c + 4), m2 = row4(c + 8);
+    h.n = v3(m0.x * p.x + m1.x * p.y + m2.x * p.z,
+             m0.y * p.x + m1.y * p.y + m2.y * p.z,
+             m0.z * p.x + m1.z * p.y + m2.z * p.z);
     for (int c = 0; c < 3; ++c) h.e[c] = __ldg(r + SPH_EMIT + c);
     h.mat = (int)__ldg(r + SPH_MAT);
     if (s.has_tex) sphere_uv_of(p, h.u, h.v);
@@ -229,23 +321,24 @@ __device__ __forceinline__ bool shadow_any(const Scene& s, int li, V3 o, V3 d,
                                            float tmin, float tmax) {
   V3 w = v3(o.y * d.z - o.z * d.y, o.z * d.x - o.x * d.z, o.x * d.y - o.y * d.x);
   const float* dots = s.light_dots + (size_t)li * s.n_tris * 4;
+  const float* rows = imm_rows(s);
   for (int i = 0; i < s.n_tris; ++i) {
-    const float* r = s.tris + i * TRI_W;
-    const float* q = dots + 4 * i;
-    float dn = __ldg(q + 3);
-    float t = plane_t(r, o, dn);
-    if (!(t >= tmin && t <= tmax)) continue;
-    float s0 = __ldg(q) + (w.x * __ldg(r + TRI_E0) + w.y * __ldg(r + TRI_E0 + 1)
-                           + w.z * __ldg(r + TRI_E0 + 2));
-    float s1 = __ldg(q + 1) + (w.x * __ldg(r + TRI_E1) + w.y * __ldg(r + TRI_E1 + 1)
-                               + w.z * __ldg(r + TRI_E1 + 2));
-    float s2 = __ldg(q + 2) + (w.x * __ldg(r + TRI_E2) + w.y * __ldg(r + TRI_E2 + 1)
-                               + w.z * __ldg(r + TRI_E2 + 2));
-    if (side_ok(s0, s1, s2, dn)) return true;
+    const float* r = rows + i * IMM_TRI_W;
+    const float4 dq = load4(dots + 4 * i);
+    float dn = dq.w;
+    const ImmSides q = imm_sides(r);
+    const V3 e0 = q.e0(), e1 = q.e1(), e2 = q.e2();
+    float s0 = dq.x + (w.x * e0.x + w.y * e0.y + w.z * e0.z);
+    float s1 = dq.y + (w.x * e1.x + w.y * e1.y + w.z * e1.z);
+    float s2 = dq.z + (w.x * e2.x + w.y * e2.y + w.z * e2.z);
+    if (!side_ok(s0, s1, s2, dn)) continue;
+    float t = plane_t(row4(r + IMM_PN), o, dn);
+    if (t >= tmin && t <= tmax) return true;
   }
+  const float* srows = rows + s.n_tris * IMM_TRI_W;
   for (int k = 0; k < s.n_sph; ++k) {
     V3 lo, ld;
-    sphere_local(s.sph + k * SPH_W, o, d, lo, ld);
+    sphere_local(srows + k * IMM_SPH_W, o, d, lo, ld);
     if (sphere_t(lo, ld, tmin) <= tmax) return true;
   }
   if constexpr (MESH) {
@@ -265,16 +358,20 @@ __device__ __forceinline__ float trace_emit_pdf(const Scene& s, V3 o, V3 d) {
   V3 w = v3(o.y * d.z - o.z * d.y, o.z * d.x - o.x * d.z, o.x * d.y - o.y * d.x);
   V3 nd = normalize3(d);
   float t_best = BIG, pdf = 0.f;
+  const float* rows = imm_rows(s);
   for (int j = 0; j < s.n_emit_tris; ++j) {
-    const float* r = s.tris + __ldg(s.emit_tris + j) * TRI_W;
-    float dn = d.x * __ldg(r + TRI_PN) + d.y * __ldg(r + TRI_PN + 1)
-        + d.z * __ldg(r + TRI_PN + 2);
-    float t = plane_t(r, o, dn);
-    if (!(t >= TMIN && t < t_best)) continue;
-    float s0 = tri_side(r, TRI_M0, TRI_E0, d, w);
-    float s1 = tri_side(r, TRI_M1, TRI_E1, d, w);
-    float s2 = tri_side(r, TRI_M2, TRI_E2, d, w);
+    const int i = __ldg(s.emit_tris + j);
+    const float* c = rows + i * IMM_TRI_W;
+    const float4 pl = row4(c + IMM_PN);
+    float dn = d.x * pl.x + d.y * pl.y + d.z * pl.z;
+    const ImmSides q = imm_sides(c);
+    float s0 = tri_side(q.m0(), q.e0(), d, w);
+    float s1 = tri_side(q.m1(), q.e1(), d, w);
+    float s2 = tri_side(q.m2(), q.e2(), d, w);
     if (!side_ok(s0, s1, s2, dn)) continue;
+    float t = plane_t(pl, o, dn);
+    if (!(t >= TMIN && t < t_best)) continue;
+    const float* r = s.tris + i * TRI_W;
     t_best = t;
     float dist2 = t * t * (d.x * d.x + d.y * d.y + d.z * d.z);
     float cosine = fabsf(nd.x * __ldg(r + TRI_GN) + nd.y * __ldg(r + TRI_GN + 1)
@@ -282,10 +379,12 @@ __device__ __forceinline__ float trace_emit_pdf(const Scene& s, V3 o, V3 d) {
     pdf = dist2 / clamp_min(cosine * __ldg(r + TRI_AREA), 1e-20f)
         / __ldg(r + TRI_PRIMS);
   }
+  const float* srows = rows + s.n_tris * IMM_TRI_W;
   for (int j = 0; j < s.n_emit_sph; ++j) {
-    const float* r = s.sph + __ldg(s.emit_sph + j) * SPH_W;
+    const int k = __ldg(s.emit_sph + j);
+    const float* r = s.sph + k * SPH_W;
     V3 lo, ld;
-    sphere_local(r, o, d, lo, ld);
+    sphere_local(srows + k * IMM_SPH_W, o, d, lo, ld);
     float t = sphere_t(lo, ld, TMIN);
     if (!(t < t_best)) continue;
     t_best = t;

@@ -18,16 +18,18 @@ extern "C" int mega_path_launch(
     const float* sph_tab, const float* wnodes, const float* mesh_vt, int top,
     const float* mesh_uv, int n_mesh_uv, const int* atlas,
     const float* env_mcdf, const float* env_ccdf, const float* env_pdf,
+    const unsigned char* env_guide, const float* imm,
     int has_tri_emitter, int width, int n_pix, int max_depth,
     int use_rr, int beckmann, int has_accel, int block_seed, int has_tex,
-    int has_env, int sobol, const float* media, int n_media, int seed,
+    int has_env, int tex, int sobol, const float* media, int n_media, int seed,
     int num_samples, int pack, float* out, void* stream) {
   Params p;
   p.s = Scene{tris, sph, mats, eo, emit_tris, emit_sph, lights, light_dots,
               cam, n_tris, n_sph, n_eo, n_emit_tris, n_emit_sph, n_lights,
               has_tri_emitter, mesh, insts, sph_tab, n_inst, mesh_uv,
               (const uint32_t*)atlas, env_mcdf, env_ccdf, env_pdf, n_mesh_uv,
-              has_tex, has_env, wnodes, mesh_vt, top};
+              has_tex, has_env, tex, wnodes, mesh_vt, top,
+              env_guide, imm};
   p.width = width;
   p.n_pix = n_pix;
   p.max_depth = max_depth;

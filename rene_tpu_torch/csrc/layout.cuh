@@ -27,6 +27,20 @@
 #define TRI_UV1 51
 #define TRI_UV2 53
 #define TRI_W 55
+// the immediates' cast rows (scene/pack.py imm_rows), which the kernels
+// copy into shared memory: per triangle the plane (pn, pk) and the
+// Plücker moment and edge of each side in six float4, then per sphere its
+// world-to-object matrix in three float4
+#define IMM_PN 0
+#define IMM_PK 3
+#define IMM_M0 4
+#define IMM_E0 7
+#define IMM_M1 10
+#define IMM_E1 13
+#define IMM_M2 16
+#define IMM_E2 19
+#define IMM_TRI_W 24
+#define IMM_SPH_W 12
 
 // spheres: 3x4 row-major world-to-object and object-to-world matrices
 #define SPH_W2O 0
@@ -50,7 +64,8 @@
 // textured slots: the count of classes that are not solid, the per-hit
 // roughness remap flag, then one TEXD_W-wide descriptor per class (kd, ks,
 // ru, rv, op, kr, kt): its kind and (uscale, vscale, even rgb, odd rgb) of
-// a checker or (texel offset, w, h) of an image
+// a checker or (texel offset, w, h, same image as the previous image
+// class) of an image
 #define MAT_NTEX 25
 #define MAT_RRM 26
 #define MAT_TEX 27
@@ -62,6 +77,7 @@
 #define TEXD_OFF 1
 #define TEXD_IW 2
 #define TEXD_IH 3
+#define TEXD_SAME 4
 #define TEXD_W 9
 #define TEXK_SOLID 0
 #define TEXK_CHECKER 1
@@ -114,9 +130,11 @@
 #define BG_CONST 0
 #define BG_IMAGE 1
 #define BG_CHECKER 2
-// the env-map sampling grid (scene/device.py)
+// the env-map sampling grid (scene/device.py) and the entries of each
+// cdf's guide table (scene/pack.py env_guides)
 #define ENV_GH 64
 #define ENV_GW 128
+#define ENV_GUIDE 256
 
 // material types (rene_tpu/scene/types.py)
 #define MAT_NONE 0

@@ -115,7 +115,7 @@ __device__ __forceinline__ void path_lane(const Params& p, int lane) {
   Lane l = lane_begin<SOBOL>(p, lane);
   const float pxf = l.pxf, pyf = l.pyf;
   const V3 cam_o = l.o;
-  const int bg_kind = (int)__ldg(s.cam + CAM_BG_KIND);
+  const int bgk = bg_kind(s);
   uint32_t st = l.st;
   const uint32_t pixkey = l.pixkey;
   V3 o = cam_o;
@@ -133,14 +133,19 @@ __device__ __forceinline__ void path_lane(const Params& p, int lane) {
     float nthr[3] = {thr[0], thr[1], thr[2]};
     float cj1, cj2;
     const SobolAt at = {(uint32_t)sample, pixkey, (uint32_t)depth};
+    path_bounce();
+    long long t0 = path_clock();
     const Draws u = draw_bounce_as<SOBOL>(s, p.use_rr != 0, st, at);
+    path_add(PH_DRAW, t0);
     cj1 = u.cj1;
     cj2 = u.cj2;
+    t0 = path_clock();
     Hit h = trace_closest<MESH>(s, o, d, TMIN);
+    path_add(PH_TRACE, t0);
     alive = h.t < BIG;
     if (!alive) {
       float bg[3];
-      background(s.cam, s.atlas, bg_kind, d, bg);
+      background(s.cam, s.atlas, bgk, d, bg);
       for (int c = 0; c < 3; ++c) rad[c] = rad[c] + thr[c] * bg[c];
     } else {
       Mat m = hit_material(s, h);
@@ -171,7 +176,9 @@ __device__ __forceinline__ void path_lane(const Params& p, int lane) {
           rad[c] = rad[c]
               + thr[c] * fe.f[c] * cosl * __ldg(L + LIGHT_COLOR + c);
       }
+      t0 = path_clock();
       alive = bsdf_step(s, m, f, n, lo, hp, u, beck, thr, next_d, nthr);
+      path_add(PH_BSDF, t0);
       // a throughput below the normal range counts as zero, as under
       // the flush-to-zero arithmetic of XLA and the TPU
       alive = alive

@@ -68,14 +68,18 @@
 // tighter beam for its any-lane cluster cull, has no counterpart in a
 // per-thread BVH walk.
 //
-// What bounds it. The immediates tables are a few KB and stay in L1/L2; a
-// bounce costs ~25 flops per immediate triangle per ray plus divergent
-// per-material control flow. The mesh variant adds a tree walk per ray
-// cast: dependent node loads (latency) and divergence between the
-// threads of a warp, not bytes; in the big mesh's 16-spp launch the walk
-// was ~69% of the time before it went 4-wide (PERF.md section 6). Later
-// work: tables in shared or constant memory, and path-state regrouping
-// against divergence.
+// What bounds it. The immediates' cast rows are a few KB in each block's
+// shared memory (intersect.cuh stage_imm); a bounce costs ~25 flops per
+// immediate triangle per ray plus divergent per-material control flow:
+// in the Cornell box's 64-spp launch the closest-hit casts hold 61% of
+// the threads' clock cycles (the counting build -DPATH_COUNT=1,
+// `mega_path_count`, PERF.md section 6). The mesh variant adds a tree
+// walk per ray cast: dependent node loads (latency) and divergence
+// between the threads of a warp, not bytes; in the big mesh's 16-spp
+// launch the walks hold 48% of the threads' clock cycles with the binary
+// walk and 49.7% with the 4-wide one (the counting build -DWALK_COUNT=1,
+// PERF.md section 6). Later work: path-state regrouping against
+// divergence.
 //
 // `Sampler "sobol"` (K-sobol): every build holds a second instance of its
 // kernel, template parameter SOBOL, launched where the parameters ask for
@@ -92,8 +96,10 @@
 // scene has emitters or an env-map strategy, then upick when it has both;
 // rrv when Russian roulette is on; cj1, cj2. Which of these a scene draws
 // comes from flags in the parameter struct, the same for every thread of
-// a launch, as do the texture and background branches: a scene without
-// textures runs the code it ran before them.
+// a launch, as do the texture and background branches. Every build holds
+// each kernel twice more, template parameter TEX: a scene that runs no
+// texture code (Scene::tex 0: no textured material or background, no
+// env-map sampling) launches the instance that holds none.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -105,48 +111,91 @@
 #ifndef MEGA_VOL
 #define MEGA_VOL 0
 #endif
-// blocks of 128 threads that must fit an SM: five for the immediates
-// variant (at most 96 registers; its short table loops gain from the
-// occupancy), four for the mesh variant (128 registers; capped at 96 it
-// spills into its tree walk and gains nothing)
-#define PATH_MIN_BLOCKS (MEGA_MESH ? 4 : 5)
-// the volpath variants' floor, five blocks for the mesh variant (at most
-// 96 registers, 236 bytes of spill stores) and six for the immediates one
-// (80, 432 bytes): the fastest of 3/4/5 and 4/5/6, measured in turns on
-// the 1280x720 fog mesh (maxdepth 64) and fog scene launches, NVIDIA H100
-// 80GB HBM3 at 700 W (`python -m rene_tpu_torch.probe --compare`, PERF.md
-// section 6): the fog mesh at 1 / 16 spp 20.010 / 297.325 ms at three
-// blocks, 18.802 / 280.228 at four, 18.764 / 276.592 at five; the fog
-// scene 7.637 / 125.937 at four, 7.596 / 124.439 at five, 7.362 / 119.106
-// at six
-#define VOL_MIN_BLOCKS (MEGA_MESH ? 5 : 6)
+// Blocks of 128 threads that must fit an SM (ptxas caps the registers to
+// fit them): nine for the immediates variant (56 registers, 368-496 bytes
+// of spill stores across its four instances) and twelve for the mesh
+// variant (40 registers, 960-1300 bytes). More resident warps hide the
+// loads and divergence of a lane loop better than registers do: swept in
+// turns on an NVIDIA H100 80GB HBM3 at 700.00 W (`python -m
+// rene_tpu_torch.probe --compare`, PERF.md section 6), the Cornell box's
+// 64-spp launch at 4 / 5 / 6 / 7 / 8 / 9 / 10 blocks
+// 31.195 / 28.351 / 27.204 / 26.523 / 25.934 / 25.313 / 27.076 ms (each
+// step against its neighbour in one run), the big mesh's 16-spp launch
+// at 4 / 5 / 7 / 8 / 10 / 12 / 16 52.629 / 52.221 / 51.751 / 51.293 /
+// 50.346 / 48.769 / 49.539 and the textured mesh's at 10 / 12 / 16
+// 39.531 / 37.721 / 37.899
+#define PATH_MIN_BLOCKS (MEGA_MESH ? 12 : 9)
+// the volpath variants' floor: ten blocks for the mesh variant (48
+// registers, 1124-1760 bytes of spill stores) and sixteen, the most an SM
+// holds, for the immediates one (32, 1532-2364), swept as above: the fog
+// mesh's 16-spp launch at 4 / 5 / 6 / 7 / 10 / 12 / 16
+// blocks 248.701 / 249.568 / 248.485 / 237.085 / 235.810 / 235.715 /
+// 283.031 ms, the fog scene's at 6 / 7 / 8 / 9 / 12 / 16 108.848 /
+// 103.063 / 99.375 / 95.108 / 92.959 / 91.310
+#define VOL_MIN_BLOCKS (MEGA_MESH ? 10 : 16)
 
+// TEX: the instance for scenes that run texture code (Scene::tex); the
+// other holds none (path.cuh without_tex)
 #if MEGA_VOL
-template <bool MESH, bool SOBOL>
+template <bool MESH, bool SOBOL, bool TEX>
 __global__ void __launch_bounds__(128, VOL_MIN_BLOCKS)
 mega_volpath_kernel(const __grid_constant__ Params p) {
+  stage_imm(p.s);
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane < p.n_lanes) trace_lane<MESH, true, SOBOL>(p, lane);
+  if (lane < p.n_lanes) {
+    if constexpr (TEX)
+      trace_lane<MESH, true, SOBOL>(p, lane);
+    else
+      trace_lane<MESH, true, SOBOL>(without_tex(p), lane);
+  }
 }
 #else
-template <bool MESH, bool SOBOL>
+template <bool MESH, bool SOBOL, bool TEX>
 __global__ void __launch_bounds__(128, PATH_MIN_BLOCKS)
 mega_path_kernel(const Params p) {
+  stage_imm(p.s);
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
 #if defined(WALK_COUNT) && WALK_COUNT
   const long long t0 = walk_clock();
+#elif defined(TEX_COUNT) && TEX_COUNT
+  const long long t0 = tex_clock();
+#elif defined(PATH_COUNT) && PATH_COUNT
+  path_begin();
+  const long long t0 = path_clock();
 #endif
-  if (lane < p.n_lanes) trace_lane<MESH, false, SOBOL>(p, lane);
+  if (lane < p.n_lanes) {
+    if constexpr (TEX)
+      trace_lane<MESH, false, SOBOL>(p, lane);
+    else
+      trace_lane<MESH, false, SOBOL>(without_tex(p), lane);
+  }
 #if defined(WALK_COUNT) && WALK_COUNT
   walk_lane_cycles(t0);
+#elif defined(TEX_COUNT) && TEX_COUNT
+  tex_lane_cycles(t0);
+#elif defined(PATH_COUNT) && PATH_COUNT
+  path_flush(t0, lane < p.n_lanes);
 #endif
 }
 #endif
 
-// Launch this build's variant on `stream` (a cudaStream_t); returns
+// this build's kernel instance (SOBOL, TEX) over `blocks` blocks
+template <bool SOBOL, bool TEX>
+static void launch_lanes(const Params& p, int blocks, cudaStream_t st) {
+#if MEGA_VOL
+  launch_staged(mega_volpath_kernel<MEGA_MESH != 0, SOBOL, TEX>, p.s, blocks,
+                st, p);
+#else
+  launch_staged(mega_path_kernel<MEGA_MESH != 0, SOBOL, TEX>, p.s, blocks, st,
+                p);
+#endif
+}
+
+// Launch this build's variant on `stream` (a cudaStream_t), the instance
+// of the scene's sampler and of its texture code; returns
 // cudaGetLastError(), or cudaErrorInvalidValue for scene tables of the
 // other variant. The counting build (-DMEGA_COUNT=1) holds the
-// independent instance alone and refuses Sobol tables.
+// independent instances alone and refuses Sobol tables.
 static int run_lanes(const Params& p, void* stream) {
   if ((p.has_accel != 0) != (MEGA_MESH != 0))
     return (int)cudaErrorInvalidValue;
@@ -157,45 +206,65 @@ static int run_lanes(const Params& p, void* stream) {
   const int blocks = (p.n_lanes + threads - 1) / threads;
   if (blocks > 0) {
     cudaStream_t st = (cudaStream_t)stream;
-#if MEGA_VOL && defined(MEGA_COUNT) && MEGA_COUNT
-    mega_volpath_kernel<MEGA_MESH != 0, false><<<blocks, threads, 0, st>>>(p);
-#elif MEGA_VOL
-    if (p.sobol)
-      mega_volpath_kernel<MEGA_MESH != 0, true>
-          <<<blocks, threads, 0, st>>>(p);
+#if !(defined(MEGA_COUNT) && MEGA_COUNT)
+    if (p.sobol && p.s.tex)
+      launch_lanes<true, true>(p, blocks, st);
+    else if (p.sobol)
+      launch_lanes<true, false>(p, blocks, st);
     else
-      mega_volpath_kernel<MEGA_MESH != 0, false>
-          <<<blocks, threads, 0, st>>>(p);
-#else
-    if (p.sobol)
-      mega_path_kernel<MEGA_MESH != 0, true><<<blocks, threads, 0, st>>>(p);
-    else
-      mega_path_kernel<MEGA_MESH != 0, false><<<blocks, threads, 0, st>>>(p);
 #endif
+    if (p.s.tex)
+      launch_lanes<false, true>(p, blocks, st);
+    else
+      launch_lanes<false, false>(p, blocks, st);
   }
   return (int)cudaGetLastError();
 }
 
 #include "launch.cuh"
 
-#if MEGA_MESH
+// the ray-cast and texture-fetch probes, in the mesh builds and the path
+// immediates build
+#if MEGA_MESH || !MEGA_VOL
 #include "cast_launch.cuh"
+#include "tex_launch.cuh"
 
 // the ray-cast probe (cast_launch.cuh): one thread per ray
 __global__ void __launch_bounds__(128)
     cast_probe_kernel(const Scene s, const float* __restrict__ rays, int n,
                       float* __restrict__ out) {
+  stage_imm(s);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n)
-    cast_ray(s, rays + (size_t)i * RAY_W, out + (size_t)i * CAST_OUT_W);
+    cast_ray<MEGA_MESH != 0>(s, rays + (size_t)i * RAY_W,
+                             out + (size_t)i * CAST_OUT_W);
 }
 
 static int run_casts(const Scene& s, const float* rays, int n, float* out,
                      void* stream) {
   const int blocks = (n + 127) / 128;
   if (blocks > 0)
-    cast_probe_kernel<<<blocks, 128, 0, (cudaStream_t)stream>>>(s, rays, n,
-                                                                out);
+    launch_staged(cast_probe_kernel, s, blocks, (cudaStream_t)stream, s, rays,
+                  n, out);
+  return (int)cudaGetLastError();
+}
+
+// the texture-fetch probe (tex_launch.cuh): one thread per fetch
+__global__ void __launch_bounds__(128)
+    tex_probe_kernel(const uint32_t* __restrict__ atlas,
+                     const float* __restrict__ rows, int n,
+                     float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n)
+    fetch_row(atlas, rows + (size_t)i * TEXP_W, out + (size_t)i * TEXP_OUT_W);
+}
+
+static int run_fetches(const uint32_t* atlas, const float* rows, int n,
+                       float* out, void* stream) {
+  const int blocks = (n + 127) / 128;
+  if (blocks > 0)
+    tex_probe_kernel<<<blocks, 128, 0, (cudaStream_t)stream>>>(atlas, rows,
+                                                               n, out);
   return (int)cudaGetLastError();
 }
 #endif

@@ -17,6 +17,75 @@
 
 #define FLT_MIN_NORMAL 1.17549435e-38f  // the least normal float32
 
+// Where a path lane's clock cycles go, kept only by the -DPATH_COUNT=1
+// build of the immediates megakernel (`mega_path_count`, which `python -m
+// rene_tpu_torch.probe --scene cornell` alone launches): per thread, in a
+// slot of shared memory, the cycles of its closest-hit casts
+// (trace_closest), its emitter-pdf casts (trace_emit_pdf), its BSDF steps
+// (bsdf_step: sample_light and the BSDF calls, the emitter-pdf casts
+// inside them), its draws and its bounces; at its end the kernel adds
+// them, the thread's cycles, and per warp the lane-bounces and 32 x the
+// bounces of its busiest lane to path_counts (PATH_KEYS in
+// rene_tpu_torch/kernels.py).
+#define PH_TRACE 0
+#define PH_EMIT 1
+#define PH_BSDF 2
+#define PH_DRAW 3
+#define N_PHASES 4
+#define N_PATH_COUNTS (N_PHASES + 4)
+#if defined(PATH_COUNT) && PATH_COUNT
+__device__ unsigned long long path_counts[N_PATH_COUNTS];
+__shared__ long long path_cyc[N_PHASES][128];
+__shared__ uint32_t path_bounces[128];
+__device__ __forceinline__ long long path_clock() { return clock64(); }
+__device__ __forceinline__ void path_add(int ph, long long t0) {
+  path_cyc[ph][threadIdx.x] += clock64() - t0;
+}
+__device__ __forceinline__ void path_bounce() {
+  path_bounces[threadIdx.x] += 1u;
+}
+__device__ __forceinline__ void path_begin() {
+  for (int ph = 0; ph < N_PHASES; ++ph) path_cyc[ph][threadIdx.x] = 0;
+  path_bounces[threadIdx.x] = 0u;
+}
+// every thread of the warp calls it; `ran` where it traced a lane
+__device__ __forceinline__ void path_flush(long long t0, bool ran) {
+  const long long total = clock64() - t0;
+  const uint32_t b = ran ? path_bounces[threadIdx.x] : 0u;
+  const uint32_t sum = __reduce_add_sync(0xffffffffu, b);
+  const uint32_t mx = __reduce_max_sync(0xffffffffu, b);
+  if (ran) {
+    for (int ph = 0; ph < N_PHASES; ++ph)
+      atomicAdd(path_counts + ph,
+                (unsigned long long)path_cyc[ph][threadIdx.x]);
+    atomicAdd(path_counts + N_PHASES, (unsigned long long)total);
+    atomicAdd(path_counts + N_PHASES + 3, 1ull);
+  }
+  if ((threadIdx.x & 31u) == 0u) {
+    atomicAdd(path_counts + N_PHASES + 1, (unsigned long long)sum);
+    atomicAdd(path_counts + N_PHASES + 2, 32ull * mx);
+  }
+}
+// The counting build's counts: copied to the N_PATH_COUNTS uint64 words
+// at `out` (device memory) on `stream`, then zeroed where `reset`;
+// returns cudaGetLastError().
+extern "C" int path_counts_read(void* out, int reset, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaMemcpyFromSymbolAsync(out, path_counts, sizeof(path_counts), 0,
+                            cudaMemcpyDeviceToDevice, st);
+  if (reset) {
+    void* c = nullptr;
+    cudaGetSymbolAddress(&c, path_counts);
+    cudaMemsetAsync(c, 0, sizeof(path_counts), st);
+  }
+  return (int)cudaGetLastError();
+}
+#else
+__device__ __forceinline__ long long path_clock() { return 0; }
+__device__ __forceinline__ void path_add(int, long long) {}
+__device__ __forceinline__ void path_bounce() {}
+#endif
+
 __device__ __forceinline__ float fjit(float u, float radius) {
   if (radius == 0.f) return u;
   float half = fminf(u, 1.f - u);
@@ -94,6 +163,22 @@ __device__ __forceinline__ V3 sample_emit(const Scene& s, V3 p, float u_obj,
   V3 td = normalize3(v3(q.x - p.x, q.y - p.y, q.z - p.z));
   bool is_dir = dir.x != 0.f || dir.y != 0.f || dir.z != 0.f;
   return is_dir ? dir : td;
+}
+
+// The launch parameters `q` with a scene that runs no texture code: a
+// kernel's instance without texture code (template parameter TEX false)
+// traces through them, so that the compiler sees the scene's texture
+// flags constant and leaves that code out.
+template <typename Q>
+__device__ __forceinline__ Q without_tex(Q q) {
+  q.s.has_tex = q.s.has_env = q.s.tex = 0;
+  return q;
+}
+
+// the kind of the scene's background (texture.cuh background): its own
+// where the scene runs texture code, else the constant
+__device__ __forceinline__ int bg_kind(const Scene& s) {
+  return s.tex ? (int)__ldg(s.cam + CAM_BG_KIND) : BG_CONST;
 }
 
 // the hit's material, its textured slots evaluated at the hit's uv
@@ -184,15 +269,17 @@ __device__ __forceinline__ V3 sample_light(const Scene& s, V3 p,
                                            const Draws& u) {
   const int E = s.n_eo;
   if (s.has_env && (E == 0 || mul_rn(u.upick, (float)(E + 1)) < 1.f))
-    return env_strategy(s.cam, s.env_mcdf, s.env_ccdf, u.ue1, u.ue2, u.ue3,
-                        u.ue4);
+    return env_strategy(s.cam, s.env_mcdf, s.env_ccdf, s.env_guide, u.ue1,
+                        u.ue2, u.ue3, u.ue4);
   return sample_emit(s, p, u.ue1, u.ue2, u.ue3, u.ue4);
 }
 
 // solid-angle pdf of sample_light for direction w
 __device__ __forceinline__ float light_pdf(const Scene& s, V3 p, V3 w) {
   const int E = s.n_eo;
+  const long long t0 = path_clock();
   float lp = E > 0 ? trace_emit_pdf(s, p, w) : 0.f;
+  path_add(PH_EMIT, t0);
   if (s.has_env) lp = lp + env_pdf_dir(s.cam, s.env_pdf, w);
   return lp / (float)(E + (s.has_env ? 1 : 0));
 }

@@ -12,17 +12,26 @@
 // memory, the images back to back, and a thread reads its four texels
 // through the read-only cache and decodes them with integer shifts. No
 // texture object: the hardware's bilinear filter weighs with 8 fractional
-// bits and would not agree with the plain version. A material's slots are
-// walked class by class in a loop that is not unrolled, so that the fetch
-// code exists once; only materials that have a textured slot enter it.
-// The entry points a bounce calls (apply_textures, textured_background,
-// env_strategy, env_pdf_dir) are real calls (TEX_CALL), not inlined: the
-// body of a bounce, which every scene runs, stays the code it was, and a
-// scene without textures never makes the calls.
-// What bounds it: four dependent 4-byte loads per fetch, scattered for
-// incoherent bounces. The products that decide which texel or which
-// checker square a lane reads are rounded on their own (mul_rn, sub_rn),
-// as the plain version rounds them: nvcc would contract them into FMAs.
+// bits and would not agree with the plain version. Every product and sum
+// that decides which texel, checker square or env cell a lane reads, and
+// the blend of the four texels, is rounded on its own (mul_rn, sub_rn,
+// add_rn), as the plain version rounds it (nvcc would contract them into
+// FMAs): a fetch is bit for bit the plain version's. A material's slots
+// are walked class by class in a loop that is not unrolled; a class whose
+// image is the previous image class's (TEXD_SAME, set by the host: a
+// roughness map bound to both uroughness and vroughness) takes that
+// fetch's value. The env-map searches start from each cdf's guide table
+// (guided_search): one or two loads where a binary search took six or
+// seven dependent ones. The entry points are inlined where a bounce calls
+// them: as real calls they cost their callers spills and registers in
+// every build, textured or not (PERF.md section 6). Each kernel holds an
+// instance without texture code (template parameter TEX, path.cuh
+// without_tex), which scenes that run none launch.
+// Measured and left out (PERF.md section 6): the atlas in 4 x 4-texel
+// tiles, whose bilinear footprint touches fewer sectors, ran the
+// textured mesh's 16-spp launch 8.5% slower than the flat atlas with the
+// same blend, reuse and searches; the 34.6 MB atlas fits the card's L2
+// either way.
 #pragma once
 #include <stdint.h>
 
@@ -30,10 +39,76 @@
 #include "layout.cuh"
 #include "math.cuh"
 
-#ifdef __CUDACC__
-#define TEX_CALL __device__ __noinline__
+// What the texture calls of a launch did, kept only by the -DTEX_COUNT=1
+// build (`mega_path_mesh_texcount`, which `python -m rene_tpu_torch.probe
+// --scene textured_mesh` alone launches), summed over the launch into
+// tex_counts (TEX_KEYS in rene_tpu_torch/kernels.py): image fetches by
+// slot class and of the background, fetches of the image a row's
+// previous image class fetched at the same uv, checker evaluations, env
+// strategy draws and env_pdf_dir calls; per entry point (apply_textures,
+// textured_background, env_strategy, env_pdf_dir) the lanes of a warp
+// active at its entry (its leader adds __popc(__activemask())) and the
+// warp entries; the clock cycles inside the calls, and the threads'
+// cycles (the kernel adds them). Each event is summed over the lanes of
+// its warp that meet it together, so one atomic per warp.
+#define N_TEX_COUNTS 22
+#define TEXC_FETCH 0   // + slot class; the background's at + 7
+#define TEXC_REPEAT 8
+#define TEXC_CHECKER 9
+#define TEXC_ENV_DRAW 10
+#define TEXC_ENV_PDF 11
+#define TEXC_ENTRY 12  // + 2 * entry point: lanes, then warps
+#define TEXC_CYCLES 20
+#define TEXC_LANE_CYCLES 21
+#define TEX_APPLY 0
+#define TEX_BG 1
+#define TEX_DRAW 2
+#define TEX_PDF 3
+#if defined(TEX_COUNT) && TEX_COUNT
+__device__ unsigned long long tex_counts[N_TEX_COUNTS];
+__device__ __forceinline__ long long tex_clock() { return clock64(); }
+// v summed over the warp's active lanes, added by its leader
+__device__ __forceinline__ void tex_count(int i, uint32_t v = 1u) {
+  const unsigned am = __activemask();
+  const uint32_t s = __reduce_add_sync(am, v);
+  if ((threadIdx.x & 31u) == (unsigned)(__ffs(am) - 1))
+    atomicAdd(tex_counts + i, (unsigned long long)s);
+}
+// at a call's entry: its active lanes and one warp entry; its clock
+__device__ __forceinline__ long long tex_enter(int entry) {
+  const unsigned am = __activemask();
+  if ((threadIdx.x & 31u) == (unsigned)(__ffs(am) - 1)) {
+    atomicAdd(tex_counts + TEXC_ENTRY + 2 * entry,
+              (unsigned long long)__popc(am));
+    atomicAdd(tex_counts + TEXC_ENTRY + 2 * entry + 1, 1ull);
+  }
+  return tex_clock();
+}
+__device__ __forceinline__ void tex_leave(long long t0) {
+  tex_count(TEXC_CYCLES, (uint32_t)(tex_clock() - t0));
+}
+__device__ __forceinline__ void tex_lane_cycles(long long t0) {
+  atomicAdd(tex_counts + TEXC_LANE_CYCLES,
+            (unsigned long long)(tex_clock() - t0));
+}
+// The counting build's counts: copied to the N_TEX_COUNTS uint64 words at
+// `out` (device memory) on `stream`, then zeroed where `reset`; returns
+// cudaGetLastError().
+extern "C" int tex_counts_read(void* out, int reset, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaMemcpyFromSymbolAsync(out, tex_counts, sizeof(tex_counts), 0,
+                            cudaMemcpyDeviceToDevice, st);
+  if (reset) {
+    void* c = nullptr;
+    cudaGetSymbolAddress(&c, tex_counts);
+    cudaMemsetAsync(c, 0, sizeof(tex_counts), st);
+  }
+  return (int)cudaGetLastError();
+}
 #else
-#define TEX_CALL static
+__device__ __forceinline__ void tex_count(int, uint32_t = 1u) {}
+__device__ __forceinline__ long long tex_enter(int) { return 0; }
+__device__ __forceinline__ void tex_leave(long long) {}
 #endif
 
 // r, g, b of an RGB9E5 word: m * 2^(e - 24) per channel, exact
@@ -52,7 +127,9 @@ __device__ __forceinline__ float wrap_texel(float a, float m) {
 
 // Bilinear REPEAT fetch at (u, v), v flipped, from the image of wf x hf
 // texels whose first texel is word `off` of the atlas. The texel index is
-// computed in float32 as yy * wf + xx, as the reference computes it.
+// computed in float32 as yy * wf + xx, as the reference computes it; a
+// uv that is not finite reads the image's first texel, as the plain
+// version reads it.
 __device__ __forceinline__ void fetch_image(const uint32_t* __restrict__ atlas,
                                             float off, float wf, float hf,
                                             float u, float v, float* rgb) {
@@ -69,15 +146,17 @@ __device__ __forceinline__ void fetch_image(const uint32_t* __restrict__ atlas,
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     float flat = ys[j >> 1] * wf + xs[j & 1];
-    // a uv that is not finite reads a texel of its own image
     int idx = (flat >= 0.f && flat <= (float)last) ? (int)flat : 0;
     rgb9e5_decode(__ldg(img + idx), c[j]);
   }
+  // the weights' products and sums rounded one by one, as the plain
+  // version rounds them: the fetch gives its value bit for bit
+  const float gx = sub_rn(1.f, fx), gy = sub_rn(1.f, fy);
 #pragma unroll
   for (int ch = 0; ch < 3; ++ch) {
-    float top = c[0][ch] * (1.f - fx) + c[1][ch] * fx;
-    float bot = c[2][ch] * (1.f - fx) + c[3][ch] * fx;
-    rgb[ch] = top * (1.f - fy) + bot * fy;
+    float top = add_rn(mul_rn(c[0][ch], gx), mul_rn(c[1][ch], fx));
+    float bot = add_rn(mul_rn(c[2][ch], gx), mul_rn(c[3][ch], fx));
+    rgb[ch] = add_rn(mul_rn(top, gy), mul_rn(bot, fy));
   }
 }
 
@@ -171,30 +250,40 @@ __device__ __forceinline__ void set_slot(Mat& m, int cls, const float* val,
 
 // Evaluate the textured slots of material row `r` at (u, v) into m: every
 // checker first, the opacity's last (`_apply_rec_texs`), then every image
-// in class order (`apply_images`).
-TEX_CALL void apply_textures(const float* __restrict__ r,
-                             const uint32_t* __restrict__ atlas, Mat& m,
-                             float u, float v) {
+// in class order (`apply_images`). A class whose image is the previous
+// image class's (TEXD_SAME, set by the host) takes that fetch's value,
+// the same value at the same uv, without fetching.
+__device__ __forceinline__ void apply_textures(
+    const float* __restrict__ r, const uint32_t* __restrict__ atlas, Mat& m,
+    float u, float v) {
+  const long long t0 = tex_enter(TEX_APPLY);
   const bool rrm = __ldg(r + MAT_RRM) > 0.5f;
 #pragma unroll 1
   for (int i = 0; i < N_TEX_CLASSES; ++i) {
     int cls = i < 4 ? i : (i < 6 ? i + 1 : 4);
     const float* d = r + MAT_TEX + cls * TEXD_W;
     if ((int)__ldg(d + TEXD_KIND) != TEXK_CHECKER) continue;
+    tex_count(TEXC_CHECKER);
     bool even = checker_even(u, v, __ldg(d + TEXD_US), __ldg(d + TEXD_VS));
     const float* q = d + (even ? TEXD_EVEN : TEXD_ODD);
     float val[3] = {__ldg(q), __ldg(q + 1), __ldg(q + 2)};
     set_slot(m, cls, val, false, false);
   }
+  float val[3] = {0.f, 0.f, 0.f};   // the last image fetched
 #pragma unroll 1
   for (int cls = 0; cls < N_TEX_CLASSES; ++cls) {
     const float* d = r + MAT_TEX + cls * TEXD_W;
     if ((int)__ldg(d + TEXD_KIND) != TEXK_IMAGE) continue;
-    float val[3];
-    fetch_image(atlas, __ldg(d + TEXD_OFF), __ldg(d + TEXD_IW),
-                __ldg(d + TEXD_IH), u, v, val);
+    if (__ldg(d + TEXD_SAME) > 0.5f) {
+      tex_count(TEXC_REPEAT);
+    } else {
+      tex_count(TEXC_FETCH + cls);
+      fetch_image(atlas, __ldg(d + TEXD_OFF), __ldg(d + TEXD_IW),
+                  __ldg(d + TEXD_IH), u, v, val);
+    }
     set_slot(m, cls, val, true, rrm);
   }
+  tex_leave(t0);
 }
 
 // a vector through the row-major 3x3 at m
@@ -205,12 +294,14 @@ __device__ __forceinline__ V3 rot3(const float* __restrict__ m, V3 a) {
 }
 
 // the env image or the checker at the spherical uv of background_matrix d
-TEX_CALL void textured_background(const float* __restrict__ cam,
-                                  const uint32_t* __restrict__ atlas,
-                                  int kind, V3 d, float* val) {
+__device__ __forceinline__ void textured_background(
+    const float* __restrict__ cam, const uint32_t* __restrict__ atlas,
+    int kind, V3 d, float* val) {
+  const long long t0 = tex_enter(TEX_BG);
   float u, v;
   sphere_uv_of(rot3(cam + CAM_BG_MAT, d), u, v);
   if (kind == BG_IMAGE) {
+    tex_count(TEXC_FETCH + N_TEX_CLASSES);
     fetch_image(atlas, __ldg(cam + CAM_BG_IMG), __ldg(cam + CAM_BG_IMG + 1),
                 __ldg(cam + CAM_BG_IMG + 2), u, v, val);
   } else {
@@ -218,6 +309,7 @@ TEX_CALL void textured_background(const float* __restrict__ cam,
     bool even = checker_even(u, v, __ldg(q), __ldg(q + 1));
     for (int c = 0; c < 3; ++c) val[c] = __ldg(q + (even ? 2 : 5) + c);
   }
+  tex_leave(t0);
 }
 
 // miss radiance along d: the constant CAM_BG, times the textured
@@ -233,36 +325,53 @@ __device__ __forceinline__ void background(const float* __restrict__ cam,
 }
 
 // ---- env-map importance sampling ------------------------------------------
-// index of the first of the n (a power of two) entries at cdf that is
-// >= x, capped at n - 1: the reference's probes, lo + step - 1 for
-// step = n / 2 .. 1
-__device__ __forceinline__ int lower_bound(const float* __restrict__ cdf,
-                                           int n, float x) {
-  int lo = 0;
-  for (int step = n >> 1; step; step >>= 1)
-    if (__ldg(cdf + lo + step - 1) < x) lo += step;
-  return lo < n - 1 ? lo : n - 1;
+// index of the first of the n entries at cdf that is >= x, capped at n -
+// 1 (the reference's lower-bound search), through the cdf's guide table:
+// its entry b, the first index whose value is >= b / ENV_GUIDE, is at or
+// before the answer for every x >= b / ENV_GUIDE (b = floor(x ENV_GUIDE),
+// exact in float32), so a scan from it finds the answer, over the cells
+// whose cdf values fall in the guide's bucket: one or two loads where the
+// distribution has mass. A negative or NaN x starts at entry 0, whose
+// first index has a value >= 0 and is the answer.
+__device__ __forceinline__ int guided_search(const float* __restrict__ cdf,
+                                             int n,
+                                             const uint8_t* __restrict__ guide,
+                                             float x) {
+  const int b = x >= 0.f
+      ? (int)fminf(x * (float)ENV_GUIDE, (float)(ENV_GUIDE - 1)) : 0;
+  int i = __ldg(guide + b);
+  while (i < n - 1 && __ldg(cdf + i) < x) ++i;
+  return i;
 }
 
 // a world direction drawn from the env grid distribution: the cell from
 // (x1, x2), a uniform point in it from (x3, x4), then through the inverse
 // background matrix
-TEX_CALL V3 env_strategy(const float* __restrict__ cam,
-                         const float* __restrict__ mcdf,
-                         const float* __restrict__ ccdf, float x1, float x2,
-                         float x3, float x4) {
-  int r = lower_bound(mcdf, ENV_GH, x1);
-  int cc = lower_bound(ccdf + r * ENV_GW, ENV_GW, x2);
+__device__ __forceinline__ V3 env_strategy(
+    const float* __restrict__ cam, const float* __restrict__ mcdf,
+    const float* __restrict__ ccdf, const uint8_t* __restrict__ guide,
+    float x1, float x2, float x3, float x4) {
+  const long long t0 = tex_enter(TEX_DRAW);
+  tex_count(TEXC_ENV_DRAW);
+  int r = guided_search(mcdf, ENV_GH, guide, x1);
+  int cc = guided_search(ccdf + r * ENV_GW, ENV_GW,
+                         guide + (1 + r) * ENV_GUIDE, x2);
   float theta = mul_rn(add_rn((float)r, x3), (float)(PI_D / ENV_GH));
   float phi = mul_rn(add_rn((float)cc, x4), (float)(2.0 * PI_D / ENV_GW));
   float stn = sinf(theta);
-  return normalize3(rot3(cam + CAM_BG_INV,
-                         v3(stn * cosf(phi), stn * sinf(phi), cosf(theta))));
+  const V3 w = normalize3(rot3(cam + CAM_BG_INV, v3(stn * cosf(phi),
+                                                    stn * sinf(phi),
+                                                    cosf(theta))));
+  tex_leave(t0);
+  return w;
 }
 
 // solid-angle pdf with which env_strategy draws direction w
-TEX_CALL float env_pdf_dir(const float* __restrict__ cam,
-                           const float* __restrict__ pdf, V3 w) {
+__device__ __forceinline__ float env_pdf_dir(const float* __restrict__ cam,
+                                             const float* __restrict__ pdf,
+                                             V3 w) {
+  const long long t0 = tex_enter(TEX_PDF);
+  tex_count(TEXC_ENV_PDF);
   V3 dl = normalize3(rot3(cam + CAM_BG_MAT, w));
   float theta = atan2_approx(
       sqrtf(clamp_min(sub_rn(1.f, mul_rn(dl.z, dl.z)), 0.f)), dl.z);
@@ -272,5 +381,7 @@ TEX_CALL float env_pdf_dir(const float* __restrict__ cam,
   int cc = (int)mul_rn(phi, (float)(ENV_GW / (2.0 * PI_D)));
   r = r < 0 ? 0 : (r > ENV_GH - 1 ? ENV_GH - 1 : r);
   cc = cc < 0 ? 0 : (cc > ENV_GW - 1 ? ENV_GW - 1 : cc);
-  return __ldg(pdf + r * ENV_GW + cc);
+  const float pd = __ldg(pdf + r * ENV_GW + cc);
+  tex_leave(t0);
+  return pd;
 }

@@ -187,7 +187,7 @@ __device__ __forceinline__ VolStep vol_shade(const Scene& s, const Media& md,
   e.u = e.v = 0.f;
   if (!(h.t < BIG)) {
     float bg[3];
-    background(s.cam, s.atlas, (int)__ldg(s.cam + CAM_BG_KIND), d, bg);
+    background(s.cam, s.atlas, bg_kind(s), d, bg);
     for (int c = 0; c < 3; ++c) rad[c] = rad[c] + thr[c] * bg[c];
     for (int c = 0; c < 3; ++c) r.c[c] = e.c[c] = thr[c];
     return r;

@@ -72,38 +72,54 @@
 #ifndef MEGA_VOL
 #define MEGA_VOL 0
 #endif
-// blocks of 128 threads that must fit an SM: five for the immediates
-// variant (at most 96 registers; its short table loops gain from the
-// occupancy), four for the mesh variant (128 registers; capped at 96 it
-// spills into its tree walk and gains nothing)
-#define PATH_MIN_BLOCKS (MEGA_MESH ? 4 : 5)
+// blocks of 128 threads that must fit an SM: six for the immediates
+// variant (at most 80 registers, 196-240 bytes of spill stores across its
+// four instances), four for the mesh variant (128 registers, 64-68
+// bytes). Swept in turns on an NVIDIA H100 80GB HBM3 at 700.00 W (`python
+// -m rene_tpu_torch.probe --compare`, each step against its neighbour in
+// one run, PERF.md section 6): the Cornell wave's first K2 launch 2.544 /
+// 2.279 / 2.247 ms at four / five / six blocks and 2.252 / 2.347 at six /
+// seven; the big mesh's 7.265 / 6.750 / 6.856 at three / four / five, the
+// deep mesh wave 27.795 / 26.524 / 26.283
+#define PATH_MIN_BLOCKS (MEGA_MESH ? 4 : 6)
 
 #if MEGA_VOL
-// the volpath builds' floor, seven blocks for the mesh variant (at most
-// 72 registers, 772 bytes of spill stores) and five for the immediates
-// one (96, 288): the fastest of 4-7 each, K2 summed over the 16-spp waves
-// of the 1280x720 fog mesh (maxdepth 64) and fog scene in turns, NVIDIA
-// H100 80GB HBM3 at 700 W (`python -m rene_tpu_torch.probe --compare`,
-// PERF.md section 6): the fog mesh at 4 / 5 / 6 / 7 blocks 129.731 /
-// 132.153 / 129.154 / 128.837 ms, Sobol 142.166 / 142.337 / 140.082 /
-// 136.978; the fog scene 50.558 / 50.109 / 50.945 / 50.863, Sobol 54.422
-// / 53.592 / 54.224 / 53.741
-#define WAVE_VOL_MIN_BLOCKS (MEGA_MESH ? 7 : 5)
+// the volpath builds' floor, seven blocks for both variants: the mesh one
+// at most 72 registers and 676-740 bytes of spill stores, the immediates
+// one 72 and 392-528. Swept as above, K2 summed over the 16-spp waves:
+// the fog mesh at 6 / 7 / 8 blocks 112.520 / 109.289 / 109.502 ms; the
+// fog scene at 4 / 5 / 6 47.184 / 43.980 / 43.179, at 6 / 7 43.410 /
+// 42.579, at 7 / 8 42.467 / 42.908, Sobol 45.176 / 45.950
+#define WAVE_VOL_MIN_BLOCKS (MEGA_MESH ? 7 : 7)
 
 // the parameters stay in the constant bank: the lane loop takes the
 // scene by reference
-template <bool MESH, bool SOBOL>
+// TEX: the instance for scenes that run texture code (Scene::tex); the
+// other holds none (path.cuh without_tex)
+template <bool MESH, bool SOBOL, bool TEX>
 __global__ void __launch_bounds__(128, WAVE_VOL_MIN_BLOCKS)
 wave_volpath_kernel(const __grid_constant__ WaveParams p) {
+  stage_imm(p.s);
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane < p.n_run) wave_vol_lane<MESH, SOBOL>(p, lane);
+  if (lane < p.n_run) {
+    if constexpr (TEX)
+      wave_vol_lane<MESH, SOBOL>(p, lane);
+    else
+      wave_vol_lane<MESH, SOBOL>(without_tex(p), lane);
+  }
 }
 #else
-template <bool MESH, bool SOBOL>
+template <bool MESH, bool SOBOL, bool TEX>
 __global__ void __launch_bounds__(128, PATH_MIN_BLOCKS)
 wave_path_kernel(const WaveParams p) {
+  stage_imm(p.s);
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane < p.n_run) wave_lane<MESH, SOBOL>(p, lane);
+  if (lane < p.n_run) {
+    if constexpr (TEX)
+      wave_lane<MESH, SOBOL>(p, lane);
+    else
+      wave_lane<MESH, SOBOL>(without_tex(p), lane);
+  }
 }
 #endif
 
@@ -128,25 +144,35 @@ __global__ void __launch_bounds__(W_SLICE)
   permute_lane(in, perm, (size_t)n_pad, blockIdx.x, threadIdx.x, out);
 }
 
-// Launch this build's variant; cudaErrorInvalidValue for scene tables of
-// the other variant.
+// this build's K2 instance (SOBOL, TEX) over `blocks` blocks
+template <bool SOBOL, bool TEX>
+static void launch_wave(const WaveParams& p, int blocks, cudaStream_t st) {
+#if MEGA_VOL
+  launch_staged(wave_volpath_kernel<MEGA_MESH != 0, SOBOL, TEX>, p.s, blocks,
+                st, p);
+#else
+  launch_staged(wave_path_kernel<MEGA_MESH != 0, SOBOL, TEX>, p.s, blocks, st,
+                p);
+#endif
+}
+
+// Launch this build's variant, the instance of the scene's sampler and of
+// its texture code; cudaErrorInvalidValue for scene tables of the other
+// variant.
 static int run_wave(const WaveParams& p, void* stream) {
   if ((p.has_accel != 0) != (MEGA_MESH != 0))
     return (int)cudaErrorInvalidValue;
   const int blocks = (p.n_run + 127) / 128;
   if (blocks > 0 && p.k > 0) {
     cudaStream_t st = (cudaStream_t)stream;
-#if MEGA_VOL
-    if (p.sobol)
-      wave_volpath_kernel<MEGA_MESH != 0, true><<<blocks, 128, 0, st>>>(p);
+    if (p.sobol && p.s.tex)
+      launch_wave<true, true>(p, blocks, st);
+    else if (p.sobol)
+      launch_wave<true, false>(p, blocks, st);
+    else if (p.s.tex)
+      launch_wave<false, true>(p, blocks, st);
     else
-      wave_volpath_kernel<MEGA_MESH != 0, false><<<blocks, 128, 0, st>>>(p);
-#else
-    if (p.sobol)
-      wave_path_kernel<MEGA_MESH != 0, true><<<blocks, 128, 0, st>>>(p);
-    else
-      wave_path_kernel<MEGA_MESH != 0, false><<<blocks, 128, 0, st>>>(p);
-#endif
+      launch_wave<false, false>(p, blocks, st);
   }
   return (int)cudaGetLastError();
 }
@@ -190,6 +216,7 @@ static int run_permute(const float* in, const int* perm, int n_pad,
 __global__ void __launch_bounds__(128)
     cast_probe_kernel(const Scene s, const float* __restrict__ rays, int n,
                       float* __restrict__ out) {
+  stage_imm(s);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n)
     cast_ray(s, rays + (size_t)i * RAY_W, out + (size_t)i * CAST_OUT_W);
@@ -199,8 +226,8 @@ static int run_casts(const Scene& s, const float* rays, int n, float* out,
                      void* stream) {
   const int blocks = (n + 127) / 128;
   if (blocks > 0)
-    cast_probe_kernel<<<blocks, 128, 0, (cudaStream_t)stream>>>(s, rays, n,
-                                                                out);
+    launch_staged(cast_probe_kernel, s, blocks, (cudaStream_t)stream, s, rays,
+                  n, out);
   return (int)cudaGetLastError();
 }
 #endif

@@ -338,7 +338,7 @@ __device__ __forceinline__ void wave_bounce(const WaveParams& p, WaveLane& L,
   bool alive = h.t < BIG;
   if (!alive) {
     float bg[3];
-    background(s.cam, s.atlas, (int)__ldg(s.cam + CAM_BG_KIND), L.d, bg);
+    background(s.cam, s.atlas, bg_kind(s), L.d, bg);
     for (int c = 0; c < 3; ++c) L.r[c] = L.r[c] + L.c[c] * bg[c];
   } else {
     Mat m = hit_material(s, h);

@@ -408,8 +408,10 @@ def finish(out: torch.Tensor, pack: int = 1) -> Dict[str, torch.Tensor]:
             "rays": out[9].sum(dtype=torch.float64)}
 
 
-# the card's resident threads under the mesh builds' launch bounds: four
-# 128-thread blocks on each of the H100's 132 SMs (csrc/mega_path.cu)
+# a set of threads as the pack sweep counted them: four 128-thread blocks
+# on each of the H100's 132 SMs, the mesh builds' floor when it ran
+# (csrc/mega_path.cu PATH_MIN_BLOCKS has since been raised; the rule below
+# is the sweep's reading, in these units)
 RESIDENT_LANES = 132 * 4 * 128
 # `auto` packs a cluster-mode film until its lanes fill this many
 # resident sets of threads. The pack sweep on an H100 (PERF.md section 6,

@@ -16,13 +16,22 @@ together, and loaded with ctypes:
     csrc/probes.cu      the Mosaic probes P-r3n (rowslice_probe) and P-r3w
                         (mxu_probe), one build
 
-and three more builds, the volpath mesh megakernel and the volpath mesh
-K2 with step counts (-DMEGA_COUNT=1, `mega_volpath_counts`,
-`wave_volpath_counts`) and the path mesh megakernel with walk counts
-(-DWALK_COUNT=1, `mega_path_walk_counts`), which only the probe
-launches, each built at its first launch and not with the variants.
-Every mesh build also holds the ray-cast probe (`cast_probe`): the mesh
-walk alone on given rays, on no render path.
+and five more builds, which only the probe launches, each built at its
+first launch and not with the variants: the volpath mesh megakernel and
+the volpath mesh K2 with step counts (-DMEGA_COUNT=1,
+`mega_volpath_counts`, `wave_volpath_counts`), the path mesh megakernel
+with walk counts (-DWALK_COUNT=1, `mega_path_walk_counts`) and with
+texture counts (-DTEX_COUNT=1, `mega_path_tex_counts`), and the path
+immediates megakernel with its phases' cycles (-DPATH_COUNT=1,
+`mega_path_counts`). Every mesh build and the path immediates build also
+hold the ray-cast probe (`cast_probe`: the mesh walk, or the immediates
+cast, alone on given rays) and the texture-fetch probe (`tex_probe`: the
+fetch alone on given images and uvs), on no render path.
+
+Besides the scene tables of the plain versions, the kernels read two of
+their own (scene/pack.py): the env-map cdfs' guide tables (`env_guide`)
+and the immediates' cast rows (`imm`), which each kernel copies into
+shared memory at its start.
 
 Every build of K1 and K2, and K3, holds two instances of its kernel, the
 independent sampler's and `Sampler "sobol"`'s (template parameter SOBOL,
@@ -44,9 +53,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict
 
@@ -81,13 +93,36 @@ VARIANTS = {"mega_path": ("mega_path.cu", "-DMEGA_MESH=0", "-DMEGA_VOL=0"),
                                   "-DMEGA_VOL=1"),
             "probes": ("probes.cu",)}
 # the counting builds' libraries and kernels: the volpath mesh megakernel
-# and K2 with step counts, the path mesh megakernel with walk counts
+# and K2 with step counts, the path mesh megakernel with walk counts and
+# with texture counts, the path immediates megakernel with its phases'
+# cycles
 COUNT, WAVE_COUNT = "mega_volpath_mesh_count", "wave_volpath_mesh_count"
 WALK_COUNT = "mega_path_mesh_count"
+TEX_COUNT, PATH_COUNT = "mega_path_mesh_texcount", "mega_path_count"
 # every library `build` knows: the variants and the counting builds
 BUILDS = dict(VARIANTS, **{c: VARIANTS[v] + ("-DMEGA_COUNT=1",) for c, v in (
     (COUNT, "mega_volpath_mesh"), (WAVE_COUNT, "wave_volpath_mesh"))},
-    **{WALK_COUNT: VARIANTS["mega_path_mesh"] + ("-DWALK_COUNT=1",)})
+    **{WALK_COUNT: VARIANTS["mega_path_mesh"] + ("-DWALK_COUNT=1",),
+       TEX_COUNT: VARIANTS["mega_path_mesh"] + ("-DTEX_COUNT=1",),
+       PATH_COUNT: VARIANTS["mega_path"] + ("-DPATH_COUNT=1",)})
+# what the texture counts hold (csrc/texture.cuh TEXC_*), in their C
+# order: fetches by slot class (P.IMG_CLASSES) and of the background,
+# fetches that repeat the previous image class's image at the same uv,
+# checker evaluations, env strategy draws, env_pdf_dir calls; per entry
+# point the active lanes at its entry and its warp entries; the cycles
+# inside the calls and the threads' cycles
+TEX_ENTRIES = ("apply", "background", "env_draw", "env_pdf")
+TEX_KEYS = tuple(f"fetch_{c}" for c in P.IMG_CLASSES) + (
+    "fetch_bg", "fetch_repeat", "checkers", "env_draws", "env_pdfs") + tuple(
+    f"{e}_{k}" for e in TEX_ENTRIES for k in ("lanes", "warps")) + (
+    "tex_cycles", "lane_cycles")
+# what the path counts hold (csrc/path.cuh path_counts), in their C order:
+# the cycles of the closest-hit casts, the emitter-pdf casts, the BSDF
+# steps (which hold the emitter-pdf casts) and the draws; the threads'
+# cycles; the lane-bounces, 32 x each warp's busiest lane's bounces, the
+# lanes
+PATH_KEYS = ("trace_cycles", "emit_pdf_cycles", "bsdf_cycles", "draw_cycles",
+             "lane_cycles", "lane_bounces", "warp_bounce_slots", "lanes")
 # what their counts hold (csrc/vol_loop.cuh StepCounts), in their C order
 COUNT_KEYS = ("active_lanes", "warp_steps", "lane_steps", "march_steps",
               "lanes")
@@ -101,20 +136,52 @@ RAY_W, CAST_OUT_W = 10, 4
 SOBOL = "_sobol"    # suffix of a Sobol instance's name
 MXU_KINDS = ("hi", "def", "vpu")   # mxu_probe's kinds, in the C order
 MAX_LANES = 1 << 31   # the megakernel's lane ids and count are C ints
+# the shared memory of the immediates' cast rows, which every kernel copies
+# in at its start (csrc/intersect.cuh stage_imm): at most the rows of the
+# immediates caps, 52 KB, which leaves four 128-thread blocks on an SM of
+# the card's 228 KB (227 KB a block at most)
+IMM_SMEM_MAX = (P.MAX_TRIS * P.IMM_TRI_W + P.MAX_SPHERES * P.IMM_SPH_W) * 4
+SMEM_PER_BLOCK = 227 * 1024
 # launches of each kernel instance; wave_genesis, wave_permute and
 # sobol_probe live in the wave_path library, rowslice_probe and the
 # mxu_probe kinds in the probes library
 launches = dict.fromkeys(
     [v + s for v in VARIANTS if v != "probes" for s in ("", SOBOL)]
-    + [COUNT, WAVE_COUNT, WALK_COUNT]
+    + [COUNT, WAVE_COUNT, WALK_COUNT, TEX_COUNT, PATH_COUNT]
     + ["wave_genesis", "wave_genesis" + SOBOL, "wave_permute",
-       "sobol_probe", "rowslice_probe", "cast_probe"]
+       "sobol_probe", "rowslice_probe", "cast_probe", "tex_probe"]
     + ["mxu_probe_" + k for k in MXU_KINDS], 0)
 
 _libs: Dict[str, ctypes.CDLL] = {}
 # ptxas's register and spill report of each library built with
-# build(verbose=True)
+# build(verbose=True), and the seconds from the start of the build that
+# each library's nvcc took to end
 ptxas: Dict[str, str] = {}
+build_seconds: Dict[str, float] = {}
+
+
+def ptxas_summary(report: str) -> list:
+    """Per kernel function of an nvcc -Xptxas=-v report (its kernels,
+    not the device functions that real calls keep): (name, registers,
+    spill store bytes, spill load bytes, static shared memory bytes)."""
+    spills, used, entry, props = {}, {}, None, None
+    for ln in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"Function properties for (\w+)", ln)
+        if m:
+            props = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and props:
+            spills[props] = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and entry:
+            smem = re.search(r"(\d+) bytes smem", ln)
+            used[entry] = (int(m.group(1)), int(smem.group(1)) if smem else 0)
+            entry = None
+    return [(n, r, *spills.get(n, (0, 0)), sm) for n, (r, sm) in used.items()]
 
 
 def variant(tabs, kernel: str = "mega_path") -> str:
@@ -177,8 +244,17 @@ def build(verbose: bool = False, csrc: Path = CSRC, names=None,
         runs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     failed = []
+    t0 = time.perf_counter()
+
+    def wait(item):   # each nvcc's output, and when it ended
+        name, (_, proc) = item
+        out = proc.communicate()
+        build_seconds[name] = time.perf_counter() - t0
+        return out
+    with ThreadPoolExecutor(max(1, len(runs))) as ex:
+        errs = dict(zip(runs, (e for _, e in ex.map(wait, runs.items()))))
     for name, (tmp, proc) in runs.items():
-        _, err = proc.communicate()
+        err = errs[name]
         if proc.returncode != 0:
             os.unlink(tmp)
             failed.append(f"{name}: nvcc failed ({proc.returncode}):\n{err}")
@@ -211,7 +287,8 @@ SCENE_ARGTYPES = ([_P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _I, _P, _P, _I,
                   + [_P, _P, _I, _P]  # mesh, insts, n_inst, sph_tab
                   + [_P, _P, _I]  # wnodes, mesh_vt, top
                   + [_P, _I, _P, _P, _P, _P]      # mesh_uv .. env_pdf
-                  + [_I] * 11   # scalars, has_tri_emitter .. sobol
+                  + [_P, _P]   # env_guide, imm
+                  + [_I] * 12   # scalars, has_tri_emitter .. sobol
                   + [_P, _I])   # media, n_media
 ARGTYPES = SCENE_ARGTYPES + [_I, _I, _I, _P, _P]   # seed, num_samples,
                                                     # pack, out, stream
@@ -223,14 +300,20 @@ PERMUTE_ARGTYPES = [_P, _P, _I, _P, _P]
 PROBE_ARGTYPES = [_P, _I, _P, _P]
 ROWSLICE_ARGTYPES = [_I, _I, _P, _I, _P, _I, _P, _P]
 MXU_ARGTYPES = [_I, _P, _P, _I, _I, _I, _P, _P]
-# the ray-cast probe of the mesh builds: the scene's tables (the first 28
-# of SCENE_ARGTYPES), has_tri_emitter, has_tex, has_env; rays, n, out,
-# stream
-CAST_ARGTYPES = SCENE_ARGTYPES[:28] + [_I] * 3 + [_P, _I, _P, _P]
+# the ray-cast probe: the scene's tables (the first 31 of SCENE_ARGTYPES),
+# has_tri_emitter, has_tex, has_env; rays, n, out, stream
+CAST_TABLES = 30
+CAST_ARGTYPES = SCENE_ARGTYPES[:CAST_TABLES] + [_I] * 3 + [_P, _I, _P, _P]
+# the texture-fetch probe: atlas, rows, n, out, stream
+TEX_PROBE_ARGTYPES = [_P, _P, _I, _P, _P]
 _ENTRY_POINTS = {
     "mega_path.cu": {"mega_path_launch": ARGTYPES},
     WALK_COUNT: {"mega_path_launch": ARGTYPES,
                  "walk_counts_read": [_P, _I, _P]},
+    TEX_COUNT: {"mega_path_launch": ARGTYPES,
+                "tex_counts_read": [_P, _I, _P]},
+    PATH_COUNT: {"mega_path_launch": ARGTYPES,
+                 "path_counts_read": [_P, _I, _P]},
     COUNT: {"mega_path_launch": ARGTYPES, "step_counts": [_P, _I, _P]},
     WAVE_COUNT: {"wave_path_launch": WAVE_ARGTYPES,
                  "step_counts": [_P, _I, _P]},
@@ -246,8 +329,10 @@ def bind(lib: ctypes.CDLL, source: str) -> ctypes.CDLL:
     """Set the argument and return types of the entry points of `source`
     (a source, or a counting build's name)."""
     entries = dict(_ENTRY_POINTS[source])
-    if hasattr(lib, "cast_probe_launch"):   # the mesh builds
+    if hasattr(lib, "cast_probe_launch"):   # the mesh and path builds
         entries["cast_probe_launch"] = CAST_ARGTYPES
+    if hasattr(lib, "tex_probe_launch"):
+        entries["tex_probe_launch"] = TEX_PROBE_ARGTYPES
     for fn, argtypes in entries.items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ctypes.c_int
@@ -300,11 +385,21 @@ def scene_args(tabs, beckmann: bool, device) -> tuple:
             ("mesh_vt", f32, (tabs["mesh"].shape[0], A.VT_W)),
             ("mesh_uv", f32, (None, A.MESH_UV_W)),
             ("atlas", i32, (None,)),
+            ("imm", f32, (n_tri * P.IMM_TRI_W
+                          + tabs["spheres"].shape[0] * P.IMM_SPH_W,)),
+            ("env_guide", torch.uint8, (None, P.ENV_GUIDE)),
             ("env_mcdf", f32, (None,)),
             ("env_ccdf", f32, (None, ENV_GW)),
             ("env_pdf", f32, (None, ENV_GW)),
             ("media", f32, (None, P.MED_W))):
         _check(tabs[name], name, dtype, shape, device)
+    n_imm = tabs["imm"].numel() * 4
+    if n_imm > IMM_SMEM_MAX:
+        raise ValueError(
+            f"imm: {n_tri} triangles and {tabs['spheres'].shape[0]} spheres "
+            f"take {n_imm} bytes of shared memory, past the {IMM_SMEM_MAX} "
+            f"of the immediates caps ({P.MAX_TRIS} triangles, "
+            f"{P.MAX_SPHERES} spheres)")
     n_uv = tabs["mesh_uv"].shape[0]
     if n_uv not in (0, tabs["mesh"].shape[0]):
         raise ValueError(f"mesh_uv: {n_uv} rows for "
@@ -313,7 +408,8 @@ def scene_args(tabs, beckmann: bool, device) -> tuple:
         raise ValueError("atlas: empty")
     n_env = ENV_GH if tabs["has_env"] else 0
     if not (tabs["env_mcdf"].shape[0] == tabs["env_ccdf"].shape[0]
-            == tabs["env_pdf"].shape[0] == n_env):
+            == tabs["env_pdf"].shape[0] == n_env) \
+            or tabs["env_guide"].shape[0] != (n_env and n_env + 1):
         raise ValueError(f"env tables: expected {n_env} rows")
     if tabs["has_accel"] != (tabs["top"] >= 0) \
             or (tabs["top"] >= 0 and not tabs["wnodes"].shape[0]):
@@ -331,12 +427,21 @@ def scene_args(tabs, beckmann: bool, device) -> tuple:
             ptr("mesh"), ptr("insts"), tabs["insts"].shape[0],
             ptr("sph_tab"), ptr("wnodes"), ptr("mesh_vt"), int(tabs["top"]),
             ptr("mesh_uv"), n_uv, ptr("atlas"), ptr("env_mcdf"),
-            ptr("env_ccdf"), ptr("env_pdf"),
+            ptr("env_ccdf"), ptr("env_pdf"), ptr("env_guide"), ptr("imm"),
             int(tabs["has_tri_emitter"]),
             tabs["width"], n_pix, tabs["max_depth"], int(tabs["use_rr"]),
             int(beckmann), int(tabs["has_accel"]), int(tabs["block_seed"]),
-            int(tabs["has_tex"]), int(tabs["has_env"]), int(tabs["sobol"]),
+            int(tabs["has_tex"]), int(tabs["has_env"]), int(runs_tex(tabs)),
+            int(tabs["sobol"]),
             ptr("media"), tabs["media"].shape[0])
+
+
+def runs_tex(tabs) -> bool:
+    """The scene runs texture code (textured materials, a textured
+    background or env-map sampling): the kernels launch their instance
+    with it (template parameter TEX); the other holds none."""
+    return bool(tabs["has_tex"] or tabs["has_env"]
+                or tabs["bg_kind"] != P.BG_CONST)
 
 
 def lane_count(tabs, pack: int) -> int:
@@ -429,8 +534,9 @@ def mega_volpath_counts(tabs, seed: int, num_samples: int,
     out = torch.empty((P.OUT_ROWS, lane_count(tabs, pack)),
                       dtype=torch.float32, device=device)
     args = launch_args(tabs, seed, num_samples, beckmann, out, pack)
-    return out, _counted(COUNT, lambda lib: lib.mega_path_launch(
-        *args, _stream(device)), device)
+    return out, _read_counted(COUNT, "step_counts", COUNT_KEYS,
+                              lambda lib: lib.mega_path_launch(
+                                  *args, _stream(device)), device)
 
 
 def mega_path_walk_counts(tabs, seed: int, num_samples: int,
@@ -455,30 +561,106 @@ def mega_path_walk_counts(tabs, seed: int, num_samples: int,
 
 def _walk_counted(launch, device) -> dict:
     """Run launch(lib) with the counting build WALK_COUNT between two
-    reads of its walk counts that zero them: the launch's counts."""
-    counts = torch.empty(len(CAST_KINDS) * len(WALK_KEYS) + 1,
-                         dtype=torch.int64, device=device)
-    lib = _load(WALK_COUNT)
-    rc = lib.walk_counts_read(counts.data_ptr(), 1, _stream(device))
+    reads of its walk counts that zero them: the launch's counts by cast
+    kind, and the threads' cycles."""
+    keys = [f"{k} {w}" for k in CAST_KINDS for w in WALK_KEYS]
+    c = _read_counted(WALK_COUNT, "walk_counts_read", keys + ["lane_cycles"],
+                      launch, device)
+    out = {k: {w: c[f"{k} {w}"] for w in WALK_KEYS} for k in CAST_KINDS}
+    out["lane_cycles"] = c["lane_cycles"]
+    return out
+
+
+def mega_path_tex_counts(tabs, seed: int, num_samples: int,
+                         beckmann: bool = False, pack: int = 1):
+    """The path mesh megakernel's launch of `mega_path` (independent
+    sampler, CUDA tables only) through the counting build TEX_COUNT:
+    returns its (10, npix * pack) sums and {TEX_KEYS: int}, the texture
+    calls' counts summed over the launch. For the probe; no render path
+    launches it."""
+    device = tabs["tris"].device
+    if not _cuda(device, "mega_path_tex_counts") \
+            or variant(tabs) != "mega_path_mesh":
+        raise ValueError("mega_path_tex_counts: path mesh tables with the "
+                         "independent sampler on a CUDA device only")
+    out = torch.empty((P.OUT_ROWS, lane_count(tabs, pack)),
+                      dtype=torch.float32, device=device)
+    args = launch_args(tabs, seed, num_samples, beckmann, out, pack)
+    return out, _read_counted(TEX_COUNT, "tex_counts_read", TEX_KEYS,
+                              lambda lib: lib.mega_path_launch(
+                                  *args, _stream(device)), device)
+
+
+def mega_path_counts(tabs, seed: int, num_samples: int,
+                     beckmann: bool = False):
+    """The path immediates megakernel's launch of `mega_path`
+    (independent sampler, CUDA tables only) through the counting build
+    PATH_COUNT: returns its (10, npix) sums and {PATH_KEYS: int}, the
+    lanes' cycles by phase and the lane loop's bounces summed over the
+    launch. For the probe; no render path launches it."""
+    device = tabs["tris"].device
+    if not _cuda(device, "mega_path_counts") \
+            or variant(tabs) != "mega_path":
+        raise ValueError("mega_path_counts: path immediates tables with the "
+                         "independent sampler on a CUDA device only")
+    out = torch.empty((P.OUT_ROWS, lane_count(tabs, 1)),
+                      dtype=torch.float32, device=device)
+    args = launch_args(tabs, seed, num_samples, beckmann, out)
+    return out, _read_counted(PATH_COUNT, "path_counts_read", PATH_KEYS,
+                              lambda lib: lib.mega_path_launch(
+                                  *args, _stream(device)), device)
+
+
+def _read_counted(name: str, reader: str, keys, launch, device) -> dict:
+    """Run launch(lib) with the counting build `name` between two calls of
+    its entry point `reader` that read and zero its counts: the launch's
+    counts, {keys: int}."""
+    counts = torch.empty(len(keys), dtype=torch.int64, device=device)
+    lib = _load(name)
+    rc = getattr(lib, reader)(counts.data_ptr(), 1, _stream(device))
     if rc == 0:
         rc = launch(lib)
-    _launched(WALK_COUNT, rc)
-    rc = lib.walk_counts_read(counts.data_ptr(), 1, _stream(device))
+    _launched(name, rc)
+    rc = getattr(lib, reader)(counts.data_ptr(), 1, _stream(device))
     if rc != 0:
-        raise RuntimeError(f"walk_counts_read failed: cudaError {rc}")
-    c = counts.tolist()
-    n = len(WALK_KEYS)
-    out = {k: dict(zip(WALK_KEYS, c[i * n:(i + 1) * n]))
-           for i, k in enumerate(CAST_KINDS)}
-    out["lane_cycles"] = c[-1]
+        raise RuntimeError(f"{reader} failed: cudaError {rc}")
+    return dict(zip(keys, counts.tolist()))
+
+
+def probe_library(tabs) -> str:
+    """The library whose ray-cast and texture-fetch probes serve the
+    scene `tabs`: its mesh build, or the path immediates build."""
+    if not tabs["has_accel"]:
+        return "mega_path"
+    return library(variant(tabs))
+
+
+def tex_probe(tabs, rows: torch.Tensor) -> torch.Tensor:
+    """The texture-fetch probe (csrc/tex_launch.cuh) of the scene's path
+    build: each (TEXP_W,) row of `rows` (the image's texel offset, width
+    and height, u, v; ops/texture.py fetch_log records them) fetched
+    through the kernels' fetch alone; returns the (n, 3) float32 rgb. CPU
+    tensors run ops/texture.py `fetch_rows_ref`. Counted as tex_probe; the
+    probe lies on no render path."""
+    from .ops.texture import TEXP_W, fetch_rows_ref
+    device = rows.device
+    if not _cuda(device, "tex_probe"):
+        return fetch_rows_ref(tabs["atlas"], rows)
+    _check(rows, "rows", torch.float32, (None, TEXP_W), device)
+    _check(tabs["atlas"], "atlas", torch.int32, (None,), device)
+    out = torch.empty((rows.shape[0], 3), dtype=torch.float32, device=device)
+    _launched("tex_probe", _load(probe_library(tabs)).tex_probe_launch(
+        tabs["atlas"].data_ptr(), rows.data_ptr(), rows.shape[0],
+        out.data_ptr(), _stream(device)))
     return out
 
 
 def cast_probe(tabs, rays: torch.Tensor, counting: bool = False):
     """The ray-cast probe (csrc/cast_launch.cuh) of the scene's mesh
-    build: each (RAY_W,) row of `rays` (origin, direction, tmin, tmax,
-    kind 0 closest or 1 shadow, the shadow ray's distant light) cast
-    through the mesh walk alone; returns the (n, CAST_OUT_W) float32 rows
+    build, or for a scene without acceleration tables of the path
+    immediates build: each (RAY_W,) row of `rays` (origin, direction,
+    tmin, tmax, kind 0 closest or 1 shadow, the shadow ray's distant
+    light) cast alone; returns the (n, CAST_OUT_W) float32 rows
     t, part, row, hit flag (ops.intersect.cast_ref). CPU tensors run
     `cast_ref`. `counting`: through the counting build WALK_COUNT (path
     mesh tables), and returns (rows, its walk counts) as
@@ -490,8 +672,6 @@ def cast_probe(tabs, rays: torch.Tensor, counting: bool = False):
         if counting:
             raise ValueError("cast_probe: counting on a CUDA device only")
         return cast_ref(tabs, rays)
-    if not tabs["has_accel"]:
-        raise ValueError("cast_probe: the scene has no acceleration tables")
     out = torch.empty((rays.shape[0], CAST_OUT_W), dtype=torch.float32,
                       device=device)
     args = cast_args(tabs, rays, out) + (_stream(device),)
@@ -500,7 +680,7 @@ def cast_probe(tabs, rays: torch.Tensor, counting: bool = False):
             raise ValueError("cast_probe: counting takes path mesh tables")
         return out, _walk_counted(lambda lib: lib.cast_probe_launch(*args),
                                   device)
-    _launched("cast_probe", _load(library(variant(tabs))).cast_probe_launch(
+    _launched("cast_probe", _load(probe_library(tabs)).cast_probe_launch(
         *args))
     return out
 
@@ -513,24 +693,9 @@ def cast_args(tabs, rays: torch.Tensor, out: torch.Tensor) -> tuple:
     _check(rays, "rays", torch.float32, (None, RAY_W), device)
     _check(out, "out", torch.float32, (rays.shape[0], CAST_OUT_W), device)
     sa = scene_args(tabs, False, device)
-    n_tab = len(SCENE_ARGTYPES) - 13   # the tables, before the scalars
+    n_tab = CAST_TABLES   # the tables, then has_tri_emitter .. has_env
     return sa[:n_tab] + (sa[n_tab], sa[n_tab + 8], sa[n_tab + 9],
                          rays.data_ptr(), rays.shape[0], out.data_ptr())
-
-
-def _counted(name: str, launch, device) -> dict:
-    """Run launch(lib) with the counting build `name` between two reads of
-    its counts that zero them: the launch's counts, {COUNT_KEYS: int}."""
-    counts = torch.empty(len(COUNT_KEYS), dtype=torch.int64, device=device)
-    lib = _load(name)
-    rc = lib.step_counts(counts.data_ptr(), 1, _stream(device))
-    if rc == 0:
-        rc = launch(lib)
-    _launched(name, rc)
-    rc = lib.step_counts(counts.data_ptr(), 1, _stream(device))
-    if rc != 0:
-        raise RuntimeError(f"step_counts failed: cudaError {rc}")
-    return dict(zip(COUNT_KEYS, counts.tolist()))
 
 
 def wave_path(tabs, state: torch.Tensor, seed: int, launch: int, k: int,
@@ -588,8 +753,10 @@ def wave_volpath_counts(tabs, state: torch.Tensor, seed: int, launch: int,
                          "independent sampler on a CUDA device only")
     args = _wave_args(tabs, state, seed, launch, k, n_run, kb, base, rem,
                       beckmann)
-    return state, _counted(WAVE_COUNT, lambda lib: lib.wave_path_launch(
-        *args, _stream(state.device)), state.device)
+    return state, _read_counted(WAVE_COUNT, "step_counts", COUNT_KEYS,
+                                lambda lib: lib.wave_path_launch(
+                                    *args, _stream(state.device)),
+                                state.device)
 
 
 def wave_genesis(tabs, pxf: torch.Tensor, pyf: torch.Tensor, n_real: int,

@@ -307,7 +307,7 @@ def emit_pdf(tabs, ox, oy, oz, dx, dy, dz):
         ez = rows[:, P.SPH_O2W + 11] - o[2]
         d2 = ex * ex + ey * ey + ez * ez
         r2 = rows[:, P.SPH_R2]
-        cos_max = torch.sqrt(torch.clamp_min(
+        cos_max = bvh.sqrt_rn(torch.clamp_min(
             1.0 - r2 / torch.clamp_min(d2, 1e-20), 0.0))
         p = torch.where(d2 <= r2, 1.0 / (2.0 * TWO_PI),
                         1.0 / torch.clamp_min(TWO_PI * (1.0 - cos_max),

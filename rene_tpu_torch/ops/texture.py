@@ -34,6 +34,28 @@ TWO_PI = 2.0 * math.pi
 # texels fetched so far (four per active lane and fetch; reset by the
 # caller): chip_smoke.py reads it for the kernels' byte bounds
 counts = {"texels": 0}
+# the fetches of apply_textures and background, recorded where a list
+# (set by the caller, for the texture-fetch probe, rene_tpu_torch.probe):
+# each fetch appends the (N, TEXP_W + 1) rows of its active lanes, the
+# image's texel offset, width and height, u, v (the probe's rows,
+# kernels.tex_probe), then the fetch's kind: its slot class
+# (P.IMG_CLASSES order) or N_TEX_CLASSES for the background
+fetch_log = None
+TEXP_W = 5
+
+
+def _log_fetches(kind, off, w, h, u, v, active):
+    z = torch.zeros_like(u)
+    rows = torch.stack((z + off, z + w, z + h, u, v, z + kind), 1)
+    fetch_log.append(rows[active])
+
+
+def fetch_rows_ref(atlas: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """Plain version of the texture-fetch probe (kernels.tex_probe): the
+    (n, 3) float32 rgb of each (n, TEXP_W) row's fetch (`fetch_image` of
+    the flat `atlas`)."""
+    r = rows.unbind(1)
+    return torch.stack(fetch_image(atlas, *r), 1)
 
 
 def rgb9e5_decode(words: torch.Tensor):
@@ -190,6 +212,9 @@ def apply_textures(tabs, attr, mat_id, hit, u, v):
         sel = hit & (kind == float(P.TEXK_IMAGE))
         if not bool(sel.any()):
             continue
+        if fetch_log is not None:
+            _log_fetches(P.IMG_CLASSES.index(cls), d[:, P.TEXD_OFF],
+                         d[:, P.TEXD_IW], d[:, P.TEXD_IH], u, v, sel)
         iv = fetch_image(tabs["atlas"], d[:, P.TEXD_OFF], d[:, P.TEXD_IW],
                          d[:, P.TEXD_IH], u, v, sel)
         if cls == "op":
@@ -227,6 +252,8 @@ def background(tabs, dx, dy, dz, miss):
                                 dx, dy, dz))
     if kind == P.BG_IMAGE:
         off, w, h = cam[P.CAM_BG_IMG:P.CAM_BG_IMG + 3]
+        if fetch_log is not None:
+            _log_fetches(P.N_TEX_CLASSES, off, w, h, bu, bv, miss)
         val = fetch_image(tabs["atlas"], off, w, h, bu, bv, miss)
     else:
         c = cam[P.CAM_BG_CHK:P.CAM_BG_CHK + 8]

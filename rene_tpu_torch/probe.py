@@ -164,7 +164,17 @@ COMPARE_LAUNCHES = (
     ("big_mesh pack 16", "big_mesh", 1, 16, "independent"),
     ("textured_mesh 16 spp", "textured_mesh", 16, 1, "independent"),
     ("cornell K2 first", "cornell", "k2", 1, "independent"),
-    ("big_mesh K2 first", "big_mesh", "k2", 1, "independent"))
+    ("big_mesh K2 first", "big_mesh", "k2", 1, "independent"),
+    ("cornell 64 spp", "cornell", 64, 1, "independent"),
+    ("cornell sobol 64 spp", "cornell", 64, 1, "sobol"),
+    ("textured_mesh 1 spp", "textured_mesh", 1, 1, "independent"),
+    ("textured_deep K2 first", "textured_deep", "k2", 1, "independent"))
+# the libraries of each scene's megakernel and K2 (kernels.variant)
+SCENE_LIBS = {"cornell": ("mega_path", "wave_path"),
+              "fog": ("mega_volpath", "wave_volpath"),
+              "fog_mesh": ("mega_volpath_mesh", "wave_volpath_mesh")}
+SCENE_LIBS.update({k: ("mega_path_mesh", "wave_path_mesh") for k in (
+    "big_mesh", "deep_mesh", "textured_mesh", "textured_deep")})
 # --main-launches: (label, scene, maxdepth (None: the scene's own),
 # sampler, engine ("mega", or the wave's sort mode), spp, pack)
 MAIN_PATHS = tuple(
@@ -319,8 +329,9 @@ def walk_rays(tabs, dev, lanes: int = WALK_LANES, depth: int = WALK_DEPTH,
     closest = [r for r in log if int(r[0, 8]) == X.CAST_CLOSEST]
     out = {k: closest[i].contiguous()
            for i, k in enumerate(WALK_KINDS[:-1]) if i < len(closest)}
-    out["shadow"] = torch.cat([r for r in log
-                               if int(r[0, 8]) == X.CAST_SHADOW])
+    shadow = [r for r in log if int(r[0, 8]) == X.CAST_SHADOW]
+    if shadow:
+        out["shadow"] = torch.cat(shadow)
     out["closest"] = torch.cat(closest)
     return out
 
@@ -387,12 +398,144 @@ def probe_ms(tabs, rays, dev, n_min: int = None):
     return ms, big.shape[0]
 
 
+def tex_rows(tabs, dev, lanes: int = WALK_LANES, depth: int = WALK_DEPTH,
+             seed: int = 5) -> dict:
+    """The fetches of the plain version (ops.texture.fetch_log) on a
+    strided sample of ~`lanes` pixels of the film at 1 spp, maxdepth
+    `depth` (camera hits and bounces 1-3, and the misses' background):
+    {kind: (n, TEXP_W) rows} for each slot class (P.IMG_CLASSES) and the
+    background ("bg") that fetched, and "all"."""
+    from .ops import texture as TX
+    n_pix = tabs["width"] * tabs["height"]
+    pix = torch.arange(0, n_pix, max(1, n_pix // lanes), device=dev)
+    TX.fetch_log = []
+    try:
+        M.path_lanes_ref(dict(tabs, max_depth=depth), seed, 1, lanes=pix)
+        rows = torch.cat(TX.fetch_log)
+    finally:
+        TX.fetch_log = None
+    out = {}
+    for k, name in enumerate(P.IMG_CLASSES + ("bg",)):
+        sel = rows[:, TX.TEXP_W] == k
+        if bool(sel.any()):
+            out[name] = rows[sel, :TX.TEXP_W].contiguous()
+    out["all"] = rows[:, :TX.TEXP_W].contiguous()
+    return out
+
+
+def tex_report(tabs, dev) -> dict:
+    """The texture fetch alone (kernels.tex_probe) on `tex_rows`, kind by
+    kind: the share of fetches bit for bit equal to the plain fetch on the
+    card, and Mfetches/s with the rows repeated to PROBE_MIN_RAYS per
+    launch (CUDA events, median of three); then the counting build's
+    texture counts over the 1- and 16-spp launches (`tex_stats`)."""
+    from .ops import texture as TX
+    res = {}
+    for kind, rows in tex_rows(tabs, dev).items():
+        got = kernels.tex_probe(tabs, rows)
+        ref = TX.fetch_rows_ref(tabs["atlas"], rows)
+        same = float((got.view(torch.int32) == ref.view(torch.int32))
+                     .all(1).double().mean())
+        big = rows.repeat(max(1, -(-PROBE_MIN_RAYS // rows.shape[0])), 1)
+        kernels.tex_probe(tabs, big)
+        ms = sorted(time_launches(lambda _: kernels.tex_probe(tabs, big), 1,
+                                  dev)[0] for _ in range(3))[1]
+        res[kind] = dict(fetches=rows.shape[0], timed=big.shape[0], ms=ms,
+                         mfetches_s=big.shape[0] / ms / 1e3,
+                         bit_equal=same)
+        emit(tex_probe=kind, **res[kind])
+    for spp in (1, 16):
+        _, c = kernels.mega_path_tex_counts(tabs, 7, spp)
+        res[f"counts {spp} spp"] = c
+        emit(tex_counts_spp=spp, **tex_stats(c), counts=c)
+    return res
+
+
+def tex_stats(c: dict) -> dict:
+    """Fetches per textured hit, the share of them that repeat the
+    previous image class's, lanes active at each texture entry point, and
+    the texture calls' share of the threads' cycles."""
+    fetches = sum(c[f"fetch_{k}"] for k in P.IMG_CLASSES)
+    hits = max(c["apply_lanes"], 1)
+    return dict(
+        fetches_per_hit=fetches / hits, repeat_share=c["fetch_repeat"]
+        / max(fetches, 1), checkers_per_hit=c["checkers"] / hits,
+        active_lanes={e: c[f"{e}_lanes"] / max(c[f"{e}_warps"], 1)
+                      for e in kernels.TEX_ENTRIES},
+        tex_cycle_share=c["tex_cycles"] / max(c["lane_cycles"], 1))
+
+
+def path_stats(c: dict) -> dict:
+    """The path immediates megakernel's phases as shares of the threads'
+    cycles (the BSDF steps without their emitter-pdf casts; the rest is
+    shading, the background, NEE and the lane loop) and the lane loop's
+    warp efficiency: lane-bounces over 32 x each warp's busiest lane's."""
+    lane = max(c["lane_cycles"], 1)
+    share = {"trace_closest": c["trace_cycles"] / lane,
+             "trace_emit_pdf": c["emit_pdf_cycles"] / lane,
+             "sample_light_and_bsdf": (c["bsdf_cycles"]
+                                       - c["emit_pdf_cycles"]) / lane,
+             "draws": c["draw_cycles"] / lane}
+    share["rest"] = 1.0 - sum(share.values())
+    return dict(cycle_share=share,
+                cycles_per_bounce=lane / max(c["lane_bounces"], 1),
+                warp_efficiency=c["lane_bounces"]
+                / max(c["warp_bounce_slots"], 1),
+                bounces_per_lane=c["lane_bounces"] / max(c["lanes"], 1))
+
+
+def sass_loops(lib_path, function: str = "cast_probe_kernel") -> list:
+    """The loops of `function` in the SASS of the library (cuobjdump
+    next to nvcc): per backward branch, the instructions from its target
+    to it, counted by kind (global, shared and other loads, FP32 add / mul
+    / fma, MUFU, calls, branches, the rest). A count of instructions, not
+    a timing."""
+    import re
+    tool = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    loops = []
+    for sec in text.split("Function : ")[1:]:
+        if function not in sec.split("\n", 1)[0]:
+            continue
+        ins = []
+        for line in sec.splitlines():
+            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                         r"([A-Z][A-Z0-9_.]*)(.*?);", line)
+            if m:
+                ins.append((int(m.group(1), 16), m.group(2), m.group(3)))
+        for addr, op, rest in ins:
+            t = re.search(r"0x([0-9a-f]+)", rest)
+            if op.startswith("BRA") and t and int(t.group(1), 16) <= addr:
+                body = [o for a, o, _ in ins
+                        if int(t.group(1), 16) <= a <= addr]
+                kinds = {"LDG": 0, "LDS": 0, "LD_other": 0, "FP32": 0,
+                         "MUFU": 0, "CALL": 0, "BRA": 0, "other": 0}
+                for o in body:
+                    k = ("LDG" if o.startswith("LDG") else "LDS"
+                         if o.startswith("LDS") else "LD_other"
+                         if o.startswith(("LD", "ULDC")) else "FP32"
+                         if o.split(".")[0] in ("FADD", "FMUL", "FFMA")
+                         else "MUFU" if o.startswith("MUFU") else "CALL"
+                         if o.startswith("CALL") else "BRA"
+                         if o.startswith(("BRA", "BSSY", "BSYNC"))
+                         else "other")
+                    kinds[k] += 1
+                loops.append(dict(function=sec.split("\n", 1)[0].strip(),
+                                  start=hex(int(t.group(1), 16)),
+                                  end=hex(addr), instructions=len(body),
+                                  **kinds))
+    return loops
+
+
 def main_scene(scene: str, depth, sampler: str) -> str:
     """Path of the pbrt file of a MAIN_PATHS scene at its main film (the
     deep mesh: the big mesh at maxdepth 50)."""
     w, h = COMPARE_FILMS.get(scene, COMPARE_FILM)
     if scene == "deep_mesh":
         scene, depth = "big_mesh", depth or 50
+    if scene == "textured_deep":
+        scene, depth = "textured_mesh", depth or 50
     if scene == "big_mesh":
         src = scenes.big_mesh_scene(w, h, **({"maxdepth": depth} if depth
                                               else {}))
@@ -557,29 +700,34 @@ def compare_builds(dirs, dev, only=None) -> dict:
     waves = [w for w in COMPARE_WAVES if chosen(w[0])]
     from .integrators import wave as WV
     from concurrent.futures import ThreadPoolExecutor
-    reports = {}
+    # the libraries those launches and waves run, and the counting builds
+    # of the copies that have them (csrc/vol_loop.cuh StepCounts, for the
+    # fog mesh; csrc/bvh.cuh WalkCounts, for the big mesh)
+    names = sorted({SCENE_LIBS[sc][spp == "k2"]
+                    for _, sc, spp, _, _ in launches}
+                   | {SCENE_LIBS[sc][1] for _, sc, _ in waves})
+    scenes_run = {c[1] for c in launches} | {w[1] for w in waves}
+    counting = [d for d in dirs if "fog_mesh" in scenes_run
+                and os.path.exists(os.path.join(d, "vol_loop.cuh"))]
+    walk_counting = [d for d in dirs if "big_mesh" in scenes_run
+                     and "WalkCounts" in open(os.path.join(
+                         d, "bvh.cuh")).read()]
+    jobs = [(d, names + [kernels.COUNT, kernels.WAVE_COUNT] * (d in counting)
+             + [kernels.WALK_COUNT] * (d in walk_counting)) for d in dirs]
+    reports, seconds = {}, {}
+
+    def build(job):
+        t = time.perf_counter()
+        kernels.build(verbose=True, csrc=job[0], names=job[1],
+                      reports=reports)
+        seconds[job[0]] = time.perf_counter() - t
     with ThreadPoolExecutor(len(dirs)) as ex:   # every build at once
-        list(ex.map(lambda d: kernels.build(
-            verbose=True, csrc=d, names=COMPARE_LIBS, reports=reports),
-            dirs))
+        list(ex.map(build, jobs))
+    for d, _ in jobs:
+        emit(build=d, libraries=len(_), build_s=seconds[d])
     for (d, name), text in sorted(reports.items()):
         emit(build=d, library=name, ptxas=ptxas_lines(text))
-    libs = {d: {n: kernels.load_library(n, d) for n in COMPARE_LIBS}
-            for d in dirs}
-    # the counting builds of the copies that have them (csrc/vol_loop.cuh
-    # StepCounts)
-    counting = [d for d in dirs
-                if os.path.exists(os.path.join(d, "vol_loop.cuh"))]
-    for d in counting:
-        for n in (kernels.COUNT, kernels.WAVE_COUNT):
-            libs[d][n] = kernels.load_library(n, d)
-    # the walk-counting builds of the copies that have them (csrc/bvh.cuh
-    # WalkCounts)
-    walk_counting = [d for d in dirs if "WalkCounts" in open(
-        os.path.join(d, "bvh.cuh")).read()]
-    for d in walk_counting:
-        libs[d][kernels.WALK_COUNT] = kernels.load_library(
-            kernels.WALK_COUNT, d)
+    libs = {d: {n: kernels.load_library(n, d) for n in ns} for d, ns in jobs}
     os.makedirs(SCENE_DIR, exist_ok=True)
     tabs_of, runs = {}, {}
     for _, scene, spp, _, sampler in launches:
@@ -890,9 +1038,21 @@ def main(argv=None) -> int:
         chunk(tabs, spp)
     if args.scene == "big_mesh":
         walk_report(tabs, dev)
+    if args.scene == "textured_mesh":
+        tex_report(tabs, dev)
+    if args.scene == "cornell":
+        for spp in (1, 64):   # one path per lane, and the main path's
+            _, c = kernels.mega_path_counts(tabs, 7, spp)
+            emit(path_counts_spp=spp, **path_stats(c), counts=c)
+        rays = walk_rays(tabs, dev)["closest"]
+        ms, n = probe_ms(tabs, rays, dev)
+        emit(imm_cast_probe="closest", rays=n, ms=ms, mrays_s=n / ms / 1e3)
+        for loop in sass_loops(kernels.library_path("mega_path")):
+            emit(sass_loop=loop)
     if tabs["has_tex"] or tabs["bg_kind"] != P.BG_CONST:
         no_env = dict(tabs, has_env=False, **{
-            k: tabs[k][:0] for k in ("env_mcdf", "env_ccdf", "env_pdf")})
+            k: tabs[k][:0] for k in ("env_mcdf", "env_ccdf", "env_pdf",
+                                     "env_guide")})
         cam = tabs["cam"].clone()
         cam[P.CAM_BG_KIND] = P.BG_CONST
         for off, t in (("material textures", dict(tabs, has_tex=False)),

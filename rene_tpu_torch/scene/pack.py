@@ -97,6 +97,9 @@ MAT_NTEX, MAT_RRM, MAT_TEX = 25, 26, 27
 TEXD_KIND = 0
 TEXD_US, TEXD_VS, TEXD_EVEN, TEXD_ODD = 1, 2, 3, 6
 TEXD_OFF, TEXD_IW, TEXD_IH = 1, 2, 3
+# 1 where an image class's image is the previous image class's of the
+# row: the kernel reuses that fetch, at the same uv
+TEXD_SAME = 4
 TEXD_W = 9
 TEXK_SOLID, TEXK_CHECKER, TEXK_IMAGE = 0, 1, 2
 N_TEX_CLASSES = 7
@@ -132,6 +135,17 @@ CAM_BG_MAT, CAM_BG_INV = 45, 54
 CAM_W = 63
 BG_CONST, BG_IMAGE, BG_CHECKER = 0, 1, 2
 MAX_ATLAS_TEXELS = 1 << 24
+# the env-map searches' guide tables (`env_guides`): per cdf (the
+# marginal, then each conditional row) ENV_GUIDE uint8 entries, entry b
+# the first index whose cdf value is >= b / ENV_GUIDE
+ENV_GUIDE = 256
+# The immediates' cast rows (`imm_rows`), which the kernels copy into
+# shared memory: per triangle IMM_TRI_W floats, the plane (pn, pk) and
+# the Plücker moment and edge of each side, padded to six float4; per
+# sphere its 3x4 world-to-object matrix, three float4
+IMM_PN, IMM_PK, IMM_M0, IMM_E0, IMM_M1, IMM_E1, IMM_M2, IMM_E2 = (
+    0, 3, 4, 7, 10, 13, 16, 19)
+IMM_TRI_W, IMM_SPH_W = 24, 12
 
 
 def _mat_tex_indices(buffers_np, mat_idx: int) -> List[int]:
@@ -588,6 +602,37 @@ def pack_atlas(buffers_np):
     return np.ascontiguousarray(atlas, dtype=np.uint32), offsets
 
 
+def env_guides(mcdf: np.ndarray, ccdf: np.ndarray) -> np.ndarray:
+    """The (1 + rows, ENV_GUIDE) uint8 guide tables of the env-map cdfs:
+    row 0 the marginal's, row 1 + r conditional row r's. Entry b is the
+    first index whose float32 cdf value is >= b / ENV_GUIDE, capped at
+    the last index: where x >= b / ENV_GUIDE the first cdf value >= x
+    lies at or after it (csrc/texture.cuh guided_search)."""
+    out = np.zeros((1 + ccdf.shape[0], ENV_GUIDE), np.uint8)
+    keys = (np.arange(ENV_GUIDE) / ENV_GUIDE).astype(np.float32)
+    for i, cdf in enumerate([mcdf] + list(ccdf)):
+        cdf = np.asarray(cdf, np.float32)
+        out[i] = np.minimum(np.searchsorted(cdf, keys, "left"),
+                            cdf.shape[0] - 1)
+    return out
+
+
+def imm_rows(tris: np.ndarray, spheres: np.ndarray) -> np.ndarray:
+    """The immediates' cast rows, flat float32: per triangle row of
+    `tris` (TRI_W wide) the IMM_TRI_W floats of its plane and sides, then
+    per sphere of `spheres` its IMM_SPH_W-float world-to-object matrix;
+    copies of the table's values."""
+    t = np.zeros((tris.shape[0], IMM_TRI_W), np.float32)
+    for dst, src, n in ((IMM_PN, TRI_PN, 3), (IMM_PK, TRI_PK, 1),
+                        (IMM_M0, TRI_M0, 3), (IMM_E0, TRI_E0, 3),
+                        (IMM_M1, TRI_M1, 3), (IMM_E1, TRI_E1, 3),
+                        (IMM_M2, TRI_M2, 3), (IMM_E2, TRI_E2, 3)):
+        t[:, dst:dst + n] = tris[:, src:src + n]
+    s = np.ascontiguousarray(spheres[:, SPH_W2O:SPH_W2O + IMM_SPH_W],
+                             np.float32)
+    return np.concatenate([t.reshape(-1), s.reshape(-1)])
+
+
 def mat_row(rec: dict, offsets, buffers_np) -> np.ndarray:
     """A material record as its MAT_W-wide table row (float64)."""
     row = np.zeros(MAT_W, np.float64)
@@ -600,7 +645,9 @@ def mat_row(rec: dict, offsets, buffers_np) -> np.ndarray:
     row[MAT_IR] = rec["ir"]
     row[MAT_NTEX] = len(rec["texs"])
     row[MAT_RRM] = rec["rrm"]
-    for cls, d in rec["texs"].items():
+    prev = None   # the image of the previous image class
+    for cls, d in sorted(rec["texs"].items(),
+                         key=lambda kv: IMG_CLASSES.index(kv[0])):
         o = MAT_TEX + IMG_CLASSES.index(cls) * TEXD_W
         if d[0] == "checker":
             row[o + TEXD_KIND] = TEXK_CHECKER
@@ -613,6 +660,8 @@ def mat_row(rec: dict, offsets, buffers_np) -> np.ndarray:
             row[o + TEXD_OFF] = offsets[ii]
             row[o + TEXD_IW] = int(buffers_np["img_width"][ii])
             row[o + TEXD_IH] = int(buffers_np["img_height"][ii])
+            row[o + TEXD_SAME] = float(prev == ii)
+            prev = ii
     return row
 
 
@@ -684,6 +733,8 @@ class SceneTables:
     wnodes: np.ndarray       # (W, WNODE_W) the CUDA walk's wide nodes
     mesh_vt: np.ndarray      # (P, VT_W) v0, e1, e2 of the mesh rows
     atlas: np.ndarray        # uint32 RGB9E5 texels, the images back to back
+    imm: np.ndarray          # the immediates' cast rows (`imm_rows`)
+    env_guide: np.ndarray    # (1 + ENV_GH, ENV_GUIDE) uint8, or empty
     env_mcdf: np.ndarray     # (ENV_GH,) env-map sampling tables, or empty
     env_ccdf: np.ndarray     # (ENV_GH, ENV_GW)
     env_pdf: np.ndarray      # (ENV_GH, ENV_GW)
@@ -849,8 +900,13 @@ def pack_tables(buffers_np, config: RenderConfig) -> SceneTables:
     def f32(a):
         return np.ascontiguousarray(a, dtype=np.float32)
 
+    mcdf = f32(buffers_np["env_mcdf"] if env else np.zeros(0))
+    ccdf = f32(buffers_np["env_ccdf"] if env else np.zeros((0, ENV_GW)))
     return SceneTables(
         tris=f32(tt), spheres=f32(st), mats=f32(mats),
+        imm=imm_rows(f32(tt), f32(st)),
+        env_guide=(env_guides(mcdf, ccdf) if env
+                   else np.zeros((0, ENV_GUIDE), np.uint8)),
         media=f32(media_table(buffers_np)),
         emit_objects=f32(eo),
         emit_tris=np.asarray([i for i, r in enumerate(tris) if r["emissive"]],
@@ -858,9 +914,7 @@ def pack_tables(buffers_np, config: RenderConfig) -> SceneTables:
         emit_spheres=np.asarray(
             [s for s, r in enumerate(spheres) if r["emissive"]], np.int32),
         lights=f32(lt), light_dots=f32(dots), cam=f32(cam), atlas=atlas,
-        env_mcdf=f32(buffers_np["env_mcdf"] if env else np.zeros(0)),
-        env_ccdf=f32(buffers_np["env_ccdf"] if env
-                     else np.zeros((0, ENV_GW))),
+        env_mcdf=mcdf, env_ccdf=ccdf,
         env_pdf=f32(buffers_np["env_pdf"] if env else np.zeros((0, ENV_GW))),
         width=w, height=h, max_depth=max_depth_for(config),
         volpath=config.integrator == "volpath",
