@@ -32,7 +32,8 @@ when either is missing or any check fails. Phases:
    ~131k sampled pixels, against the plain walk; then
    timing of the kernel (CUDA events) over the whole film;
 9. the wave kernels' registers and spills (ptxas, from the phase-2 build):
-   K2 in both variants, K3 and K4;
+   K2 in both variants, K3 and K4, and K2's path block floors
+   (`PATH_MIN_BLOCKS` of csrc/wave.cu);
 10. whole waves of the wave kernels (K3, K2 and, sorted by `dma`, K4)
     against the same waves of their plain versions on the card, 128x64
     x spw 4: the materials, mesh-materials and instanced scenes; one K2
@@ -46,7 +47,8 @@ when either is missing or any check fails. Phases:
     immediates variant);
 12. full-shape checks and timing on the deep scene: K3 at 1280x720 x spw
     16 against plain; K4 on that state against plain and against
-    `index_select`; K2 at the main path's own launches, the first (k 1,
+    `index_select` (its time over `index_select`'s logged); K2 at the main
+    path's own launches, the first (k 1,
     every lane alive) and the fifth (k 4, after four steps and sorts),
     each run over the whole state, timed, and its output held against
     the plain version on a strided sample of ~131k of the launch's alive
@@ -71,7 +73,10 @@ when either is missing or any check fails. Phases:
     `--engine wave`, the launch counts set to 0 before each;
 15. that path's 1-spp megakernel launch and its first K2 launch over the
     whole film or state, timed, each held against the plain version on a
-    strided sample of ~131k lanes;
+    strided sample of ~131k lanes; the textured deep wave's fifth K2
+    launch (k 4, after four launches and sorts) over the whole state, held
+    against plain on ~131k sampled alive lanes as in phase 12 (the path
+    lane loop with texture code at k > 1);
 16. the volpath body (K1e) in its four variants against the plain
     versions on the card: `fog_scene`, `fog_env_scene` and the small
     `fog_mesh_scene` (cut to maxdepth 8) at 128x64 x 4 spp through the
@@ -198,6 +203,7 @@ import dataclasses
 import json
 import logging
 import os
+import re
 import subprocess
 import sys
 import time
@@ -779,11 +785,15 @@ def main() -> int:
     del tabs
     phase_done(8)
 
-    # 9. the wave kernels' registers and spills
+    # 9. the wave kernels' registers and spills, and K2's path floors
     for name in ("wave_path", "wave_path_mesh"):
         lines = [ln.strip() for ln in kernels.ptxas.get(name, "").splitlines()
                  if "registers" in ln or "spill" in ln or "Compiling" in ln]
         log(f"ptxas {name}: " + " | ".join(lines))
+    floors = re.search(r"#define PATH_MIN_BLOCKS \(MEGA_MESH \? (\d+) : "
+                       r"(\d+)\)", (kernels.CSRC / "wave.cu").read_text())
+    log(f"K2 path floors (blocks of 128 threads per SM): wave_path_mesh "
+        f"{floors.group(1)}, wave_path {floors.group(2)}")
 
     # 10. whole waves of the kernels vs their plain versions, 128x64 x spw 4
     a_wave = {}
@@ -903,7 +913,9 @@ def main() -> int:
     log(f"timing ({MESH_W}x{MESH_H} x spw {spw}): K3 {k3_ms:.3f} ms vs "
         f"plain {k3_plain_ms:.3f}, bound {k3_bound[0]:.3f}; K4 "
         f"{k4_ms:.3f} ms vs plain {k4_plain_ms:.3f}, index_select "
-        f"{k4_lib_ms:.3f}, bound {k4_bound[0]:.3f} [{card}]")
+        f"{k4_lib_ms:.3f} (K4 / index_select {k4_ms / k4_lib_ms:.3f}; "
+        f"index_select moves the 24 rows K4 permutes, K4 all 32), bound "
+        f"{k4_bound[0]:.3f} [{card}]")
     del s_k, rows3
 
     # K2 at the main path's first and fifth launches, on the deep mesh
@@ -1072,6 +1084,11 @@ def main() -> int:
                        f"{run.samples_per_wave}")
     log(f"K2 first launch: textured {k2_tex['ms']:.3f} ms (untextured deep "
         f"mesh, phase 12: {k2_deep[0]['ms']:.3f}) [{card}]")
+    # the fifth launch (k 4, after four launches and sorts): the path lane
+    # loop with texture code over several bounces
+    k2_tex5 = k2_launch(run, chunk_seed(), 4,
+                        f"textured deep mesh {MESH_W}x{MESH_H} x spw "
+                        f"{run.samples_per_wave}")
     del run
     phase_done(15)
 
@@ -1832,8 +1849,9 @@ def main() -> int:
               "rene_tpu_torch/csrc/texture.cuh",
               f"{pp_}:5140-5181 (wave_bounce) with :1797 :4171",
               l_texw["wave_path_mesh"],
-              max([k2_tex["err"]] + [w for acc, _, w in a_tex.values()
-                                     if acc]), k2_tex["ms"],
+              max([k2_tex["err"], k2_tex5["err"]]
+                  + [w for acc, _, w in a_tex.values() if acc]),
+              k2_tex["ms"],
               k2_tex["plain_ms"], k2_tex["bound"], None,
               f"textured deep mesh {MESH_W}x{MESH_H} x spw {spw}, first "
               f"launch (k 1); plain on {k2_tex['sampled']} sampled lanes"),

@@ -41,7 +41,10 @@
 //   marker brings back the world ray. So the nearest parts are walked
 //   first and cut off the farther ones, and one loop, templated on
 //   closest or any hit, is the whole cast: trace_closest and shadow_any
-//   call it once each.
+//   call it once each. K2's path lane loop casts both kinds from one call
+//   site (path_loop.cuh), through the closest-hit loop that ends at its
+//   first hit where the caller asks (template parameter EITHER), so that
+//   its build holds one walk.
 //
 // The hit does not depend on the order of the walk: the least t wins; on
 // an exact tie the lowest part (the immediates, the world mesh, the
@@ -353,11 +356,16 @@ struct WalkStack {
 
 // The walk of one cast from the scene's first entry, the ray (o, d) in
 // world space. ANY: true at the first hit in [tmin, tmax]. Otherwise the
-// closest hit with t >= tmin that is `closer` than h goes to h.
-template <bool ANY>
+// closest hit with t >= tmin that is `closer` than h goes to h; where
+// EITHER and `first`, the walk returns true at the first hit it takes: an
+// any-hit walk in [tmin, tmax] where the caller set h.t to tmax and
+// h.part and h.row above every part and row (the same hits, visited
+// nearest first).
+template <bool ANY, bool EITHER = false>
 __device__ __forceinline__ bool walk(const Scene& s, const V3 o_w,
                                      const V3 d_w, float tmin, float tmax,
-                                     WalkHit& h, WalkCounts& cnt) {
+                                     WalkHit& h, WalkCounts& cnt,
+                                     bool first = false) {
   V3 o = o_w, d = d_w, inv = inv3(d_w);
   int part = PART_WORLD;  // of the triangles under the walk now
   WalkStack st;
@@ -416,6 +424,8 @@ __device__ __forceinline__ bool walk(const Scene& s, const V3 o_w,
           h.v = v;
           h.part = part;
           h.row = k;
+          if constexpr (EITHER)
+            if (first) return true;
         }
       }
     } else if (tag == TAG_INST) {
@@ -443,6 +453,8 @@ __device__ __forceinline__ bool walk(const Scene& s, const V3 o_w,
           h.t = t;
           h.part = tpart;
           h.row = k;
+          if constexpr (EITHER)
+            if (first) return true;
         }
       }
     }

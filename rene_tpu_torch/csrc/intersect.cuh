@@ -176,24 +176,60 @@ struct Hit {
   int part, row;
 };
 
-template <bool MESH>
-__device__ __forceinline__ Hit trace_closest(const Scene& s, V3 o, V3 d,
-                                             float tmin) {
+// the result of an any-hit cast through cast_ray: t 0 where it met
+// something, else BIG
+__device__ __forceinline__ Hit shadow_hit(bool hit) {
+  Hit h;
+  h.t = hit ? 0.f : BIG;
+  h.n = v3(0.f, 0.f, 0.f);
+  h.e[0] = h.e[1] = h.e[2] = 0.f;
+  h.mat = 0;
+  h.u = h.v = 0.f;
+  h.part = h.row = -1;
+  return h;
+}
+
+// The closest hit of the ray (o, d) from tmin (trace_closest). Where
+// EITHER and li >= 0, instead distant light li's shadow ray (shadow_any):
+// whether the ray meets anything in [tmin, tmax], the result's t 0 where
+// it does (shadow_hit); its immediates tested in shadow_any's arithmetic
+// (the light's dots from the host), its walk the closest-hit one that
+// ends at its first hit. So K2's path lane loop (path_loop.cuh) casts
+// both kinds of ray from one call site, and its build holds one walk.
+template <bool MESH, bool EITHER>
+__device__ __forceinline__ Hit cast_ray(const Scene& s, V3 o, V3 d,
+                                        float tmin, int li, float tmax) {
+  const bool any = EITHER && li >= 0;
   V3 w = v3(o.y * d.z - o.z * d.y, o.z * d.x - o.x * d.z, o.x * d.y - o.y * d.x);
   float t_best = BIG;
   int best = -1;
   float b0 = 0.f, b1 = 0.f, b2 = 0.f;
   const float* rows = imm_rows(s);
+  const float* dots = s.light_dots + (size_t)(any ? li : 0) * s.n_tris * 4;
   for (int i = 0; i < s.n_tris; ++i) {
     const float* r = rows + i * IMM_TRI_W;
     const float4 pl = row4(r + IMM_PN);
-    float dn = d.x * pl.x + d.y * pl.y + d.z * pl.z;
+    float dn, s0, s1, s2;
     const ImmSides q = imm_sides(r);
-    float s0 = tri_side(q.m0(), q.e0(), d, w);
-    float s1 = tri_side(q.m1(), q.e1(), d, w);
-    float s2 = tri_side(q.m2(), q.e2(), d, w);
+    if (any) {
+      const float4 dq = load4(dots + 4 * i);
+      const V3 e0 = q.e0(), e1 = q.e1(), e2 = q.e2();
+      dn = dq.w;
+      s0 = dq.x + (w.x * e0.x + w.y * e0.y + w.z * e0.z);
+      s1 = dq.y + (w.x * e1.x + w.y * e1.y + w.z * e1.z);
+      s2 = dq.z + (w.x * e2.x + w.y * e2.y + w.z * e2.z);
+    } else {
+      dn = d.x * pl.x + d.y * pl.y + d.z * pl.z;
+      s0 = tri_side(q.m0(), q.e0(), d, w);
+      s1 = tri_side(q.m1(), q.e1(), d, w);
+      s2 = tri_side(q.m2(), q.e2(), d, w);
+    }
     if (!side_ok(s0, s1, s2, dn)) continue;
     float t = plane_t(pl, o, dn);
+    if (any) {
+      if (t >= tmin && t <= tmax) return shadow_hit(true);
+      continue;
+    }
     if (t >= tmin && t < t_best) {
       t_best = t;
       best = i;
@@ -207,6 +243,10 @@ __device__ __forceinline__ Hit trace_closest(const Scene& s, V3 o, V3 d,
     V3 lo, ld;
     sphere_local(srows + k * IMM_SPH_W, o, d, lo, ld);
     float t = sphere_t(lo, ld, tmin);
+    if (any) {
+      if (t <= tmax) return shadow_hit(true);
+      continue;
+    }
     if (t < t_best) {
       t_best = t;
       best = s.n_tris + k;
@@ -224,13 +264,15 @@ __device__ __forceinline__ Hit trace_closest(const Scene& s, V3 o, V3 d,
     // one walk over the mesh scene from the immediates' hit, which keeps
     // an equal t
     WalkHit wh;
-    wh.t = t_best;
+    wh.t = any ? tmax : t_best;
     wh.u = wh.v = 0.f;
-    wh.part = h.part;
-    wh.row = h.row;
+    wh.part = any ? 0x7FFFFFFF : h.part;
+    wh.row = any ? 0x7FFFFFFF : h.row;
     WalkCounts cnt;
-    if (s.top >= 0) walk<false>(s, o, d, tmin, 0.f, wh, cnt);
-    cnt.flush(0);
+    bool hit = false;
+    if (s.top >= 0) hit = walk<false, EITHER>(s, o, d, tmin, 0.f, wh, cnt, any);
+    cnt.flush(any ? 1 : 0);
+    if (any) return shadow_hit(hit);
     if (wh.part == PART_INST + s.n_inst) {
       // table spheres: normal (hit - c) / r, never emissive
       const float4 c = load4(s.sph_tab + wh.row * SPHT_W + SPHT_C);
@@ -311,6 +353,12 @@ __device__ __forceinline__ Hit trace_closest(const Scene& s, V3 o, V3 d,
     if (s.has_tex) sphere_uv_of(p, h.u, h.v);
   }
   return h;
+}
+
+template <bool MESH>
+__device__ __forceinline__ Hit trace_closest(const Scene& s, V3 o, V3 d,
+                                             float tmin) {
+  return cast_ray<MESH, false>(s, o, d, tmin, -1, 0.f);
 }
 
 // any hit in [tmin, tmax] along distant light li; the light direction's

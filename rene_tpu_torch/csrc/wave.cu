@@ -28,7 +28,18 @@
 // down the BVH), as in the megakernel; the state rows it moves, ~200
 // bytes per alive lane, are a small share. The TPU kernel ran whole
 // 1024-lane tiles in lock-step and skipped tiles past the alive prefix;
-// a CUDA thread skips its own lane.
+// a CUDA thread skips its own lane. Its design for this card (wave.cuh
+// wave_lane): in the mesh variant a lane runs path_loop.cuh's state
+// machine for its k bounces, one ray cast per step from one call site,
+// the path ray or the next queued shadow ray (shadows first, by a warp
+// vote), so that a warp's lanes walk together whichever ray each needs
+// and the build holds one walk; a light whose contribution is zero casts
+// no shadow ray. The immediates variant keeps one bounce after another,
+// a closest cast and a shadow cast per light: on the Cornell box (no
+// distant light) the state machine ran its wave 5-7% slower.
+// -DMEGA_COUNT=1 (with MEGA_MESH, without MEGA_VOL) builds it with the
+// loop's counts (path_loop.cuh PathCounts) for `python -m
+// rene_tpu_torch.probe`.
 //
 // -DMEGA_VOL=1 builds K2 with the volpath bounce instead (`wave_bounce_vol`
 // :5277-5565; csrc/volpath.cuh, csrc/medium.cuh), the variants
@@ -47,9 +58,10 @@
 //
 // K3: one thread per lane writes all W_NROWS rows of a fresh wave from
 // its pixel coordinates: 8 bytes read and 128 written per lane, bound by
-// bytes. K4: one 128-thread block per 128-lane slice copies rows
-// [0, W_SORT_PAD) from slice perm[j] and the AOV rows in place: a
-// coalesced 512-byte row per load and store, bound by bytes. The TPU
+// bytes. K4: one warp per 128-lane slice copies rows [0, W_SORT_PAD) from
+// slice perm[j], which it reads once, and the AOV rows in place, each
+// 512-byte slice-row as 32 16-byte words, PERM_ROWS rows of loads in
+// flight per thread, PERM_WARPS slices a block: bound by bytes. The TPU
 // version queued one DMA per slice.
 //
 // `Sampler "sobol"` (K-sobol): K2 and K3 each have a second instance,
@@ -74,14 +86,19 @@
 #endif
 // blocks of 128 threads that must fit an SM: six for the immediates
 // variant (at most 80 registers, 196-240 bytes of spill stores across its
-// four instances), four for the mesh variant (128 registers, 64-68
+// four instances), five for the mesh variant (96 registers, 212-220
 // bytes). Swept in turns on an NVIDIA H100 80GB HBM3 at 700.00 W (`python
-// -m rene_tpu_torch.probe --compare`, each step against its neighbour in
-// one run, PERF.md section 6): the Cornell wave's first K2 launch 2.544 /
-// 2.279 / 2.247 ms at four / five / six blocks and 2.252 / 2.347 at six /
-// seven; the big mesh's 7.265 / 6.750 / 6.856 at three / four / five, the
-// deep mesh wave 27.795 / 26.524 / 26.283
-#define PATH_MIN_BLOCKS (MEGA_MESH ? 4 : 6)
+// -m rene_tpu_torch.probe --compare`, PERF.md section 6): the Cornell
+// wave's first K2 launch 2.544 / 2.279 / 2.247 ms at four / five / six
+// blocks and 2.252 / 2.347 at six / seven (the bounce it keeps). The mesh
+// variant's state machine, K2 summed over the deep mesh's / the textured
+// deep mesh's / the big mesh's Sobol 16-spp wave at 4 / 5 / 6 / 8 / 10 /
+// 12 blocks: 20.754 / 20.780 / 21.063 / 21.318 / 22.809 / 24.770 ms;
+// 18.256 / 17.998 / 18.545 / 18.290 / 19.323 / 20.175; 21.121 / 20.507 /
+// 20.581 / 20.905 / 22.421 / 24.031; its first launch on the big mesh
+// 5.677 / 5.691 / 5.848 / 6.264 / 7.398 / 8.860 (121 registers and no
+// spills at four, 96 and 184-228 bytes at five, 40 and 1296-1448 at 12)
+#define PATH_MIN_BLOCKS (MEGA_MESH ? 5 : 6)
 
 #if MEGA_VOL
 // the volpath builds' floor, seven blocks for both variants: the mesh one
@@ -137,11 +154,18 @@ __global__ void __launch_bounds__(128)
   if (i < n) probe_lane(in, n, i, out);
 }
 
-__global__ void __launch_bounds__(W_SLICE)
+// K4's warps per block: one block per slice, each warp W_NROWS /
+// PERM_WARPS of its rows
+#define PERM_WARPS 4
+
+__global__ void __launch_bounds__(32 * PERM_WARPS)
     wave_permute_kernel(const float* __restrict__ in,
                         const int* __restrict__ perm, int n_pad,
                         float* __restrict__ out) {
-  permute_lane(in, perm, (size_t)n_pad, blockIdx.x, threadIdx.x, out);
+  const int r0 = (int)(threadIdx.x >> 5) * (W_NROWS / PERM_WARPS);
+  permute_slice(in, __ldg(perm + blockIdx.x), (size_t)n_pad, blockIdx.x,
+                (int)(threadIdx.x & 31u), r0, r0 + W_NROWS / PERM_WARPS,
+                out);
 }
 
 // this build's K2 instance (SOBOL, TEX) over `blocks` blocks
@@ -202,8 +226,8 @@ static int run_permute(const float* in, const int* perm, int n_pad,
   if (n_pad % W_SLICE) return (int)cudaErrorInvalidValue;
   const int blocks = n_pad / W_SLICE;
   if (blocks > 0)
-    wave_permute_kernel<<<blocks, W_SLICE, 0, (cudaStream_t)stream>>>(
-        in, perm, n_pad, out);
+    wave_permute_kernel<<<blocks, 32 * PERM_WARPS, 0,
+                          (cudaStream_t)stream>>>(in, perm, n_pad, out);
   return (int)cudaGetLastError();
 }
 

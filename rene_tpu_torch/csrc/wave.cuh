@@ -1,6 +1,6 @@
 // Per-lane code of the wavefront engine: the genesis of a wave (K3), k
-// bounces of one lane of a wave (K2), path or volpath, and the 128-lane
-// slice copy of the slice permutation (K4). Mirrors
+// bounces of one lane of a wave (K2), path or volpath, and one warp's
+// copy of a 128-lane slice of the slice permutation (K4). Mirrors
 // rene_tpu_torch/integrators/wave.py (`genesis_ref`, `wave_bounce`,
 // `wave_step_ref`, `permute_ref`), which mirror pallas_path.py:4970-5048
 // (genesis_kernel), :5052-5275 (wave_bounce), :5277-5565
@@ -22,6 +22,7 @@
 
 #include "layout.cuh"
 #include "path.cuh"
+#include "path_loop.cuh"
 #include "vol_loop.cuh"
 
 struct WaveParams {
@@ -319,11 +320,12 @@ __device__ __forceinline__ void wave_tail(const WaveParams& p, WaveLane& L,
   }
 }
 
-// One bounce of an alive lane of a path wave (`wave_bounce`): the
-// megakernel's path body (mega_lane.cuh path_lane), then wave_tail. The
-// draws are the megakernel's; under SOBOL at sample index scum + smp of
-// the pixel keyed by `pixkey`.
-template <bool MESH, bool SOBOL>
+// One bounce of an alive lane of a path wave in the immediates variant
+// (`wave_bounce`): the megakernel's path body (mega_lane.cuh path_lane),
+// its closest cast and then a shadow cast per distant light, then
+// wave_tail. The draws are the megakernel's; under SOBOL at sample index
+// scum + smp of the pixel keyed by `pixkey`.
+template <bool SOBOL>
 __device__ __forceinline__ void wave_bounce(const WaveParams& p, WaveLane& L,
                                             WaveDraw& w) {
   const Scene& s = p.s;
@@ -334,7 +336,7 @@ __device__ __forceinline__ void wave_bounce(const WaveParams& p, WaveLane& L,
   float nthr[3] = {L.c[0], L.c[1], L.c[2]};
   const SobolAt at = {w.scum + (uint32_t)L.smp, w.pixkey, (uint32_t)L.dep};
   const Draws u = draw_bounce_as<SOBOL>(s, p.use_rr != 0, w.st, at);
-  Hit h = trace_closest<MESH>(s, L.o, L.d, TMIN);
+  Hit h = trace_closest<false>(s, L.o, L.d, TMIN);
   bool alive = h.t < BIG;
   if (!alive) {
     float bg[3];
@@ -359,7 +361,7 @@ __device__ __forceinline__ void wave_bounce(const WaveParams& p, WaveLane& L,
     for (int li = 0; li < s.n_lights; ++li) {
       const float* Lt = s.lights + li * LIGHT_W;
       V3 ld = load3(Lt + LIGHT_DIR);
-      if (shadow_any<MESH>(s, li, hp, ld, TMIN, 1e5f)) continue;
+      if (shadow_any<false>(s, li, hp, ld, TMIN, 1e5f)) continue;
       BsdfVal fe = bsdf_eval(m, lo, to_local(f, ld), beck);
       float cosl = fabsf(ld.x * n.x + ld.y * n.y + ld.z * n.z);
       for (int c = 0; c < 3; ++c)
@@ -385,15 +387,52 @@ __device__ __forceinline__ void wave_bounce(const WaveParams& p, WaveLane& L,
   wave_tail<SOBOL>(p, L, alive, hp, w_, nthr, L.med, u.cj1, u.cj2, w);
 }
 
-// K2 of a path wave for one lane: k bounces in place. A parked lane
-// returns at once: its state, and its parked key, stay as they are.
+// K2 of a path wave for one lane: its rows, k bounces, its rows. The mesh
+// variant runs path_loop.cuh's state machine, one ray cast per step from
+// one call site, the path ray or the next queued shadow ray, so that a
+// warp's lanes walk together whichever ray each needs and the build holds
+// one walk; after each bounce and its shadow rays, wave_tail. The
+// immediates variant keeps the bounce above, its casts two brute-force
+// loops (on its main path, the Cornell box without a distant light, the
+// state machine measured 5-7% slower: PERF.md section 6). Both make the
+// megakernel's path body's draws, casts and sums, in its order; a parked
+// lane returns at once: its state, and its parked key, stay as they are.
 template <bool MESH, bool SOBOL>
 __device__ __forceinline__ void wave_lane(const WaveParams& p, int lane) {
   WaveLane L;
   if (!wave_load<false>(p, lane, L)) return;
   WaveDraw w = wave_draw<SOBOL>(p, L);
-  for (int b = 0; b < p.k && L.alive > 0.5f; ++b)
-    wave_bounce<MESH, SOBOL>(p, L, w);
+  if constexpr (!MESH) {
+    for (int b = 0; b < p.k && L.alive > 0.5f; ++b)
+      wave_bounce<SOBOL>(p, L, w);
+  } else {
+    const Scene& s = p.s;
+    const bool beck = p.beckmann != 0;
+    const float ray_inc =
+        1.f + (float)s.n_lights + (s.n_eo > 0 ? 1.f : 0.f);
+    PathLoop v;
+    float sh[PATH_SH_W];
+    path_loop_start(s, v);
+    PathCounts cnt;
+    for (int left = p.k; left > 0;) {
+      const bool shadow = path_shadowing(s, v);
+      if (!step_now(shadow)) continue;
+      path_step<SOBOL>(
+          s, beck, p.use_rr != 0, v, sh, shadow, L.o, L.d, L.c, L.rays,
+          ray_inc, w.st,
+          [&] {
+            return SobolAt{w.scum + (uint32_t)L.smp, w.pixkey,
+                           (uint32_t)L.dep};
+          },
+          L.r, L.an, L.aa, cnt, [&] {
+            wave_tail<SOBOL>(p, L, v.alive, v.hp, v.w, v.nthr, L.med,
+                             v.cj1, v.cj2, w);
+            left = L.alive > 0.5f ? left - 1 : 0;
+          });
+    }
+    if (L.alive < 0.5f) cnt.park();
+    cnt.flush();
+  }
   wave_store<false>(p, lane, L);
 }
 
@@ -444,18 +483,54 @@ __device__ __forceinline__ void wave_vol_lane(const WaveParams& p,
   wave_store<true>(p, lane, L);
 }
 
-// K4 for lane t of slice j: rows [0, W_SORT_PAD) from slice perm[j], the
-// AOV rows from slice j
-__device__ __forceinline__ void permute_lane(const float* __restrict__ in,
-                                             const int* __restrict__ perm,
-                                             size_t n_pad, int j, int t,
-                                             float* __restrict__ out) {
-  const size_t dst = (size_t)j * W_SLICE + t;
-  const size_t src = (size_t)__ldg(perm + j) * W_SLICE + t;
-  for (int row = 0; row < W_SORT_PAD; ++row)
-    out[row * n_pad + dst] = __ldg(in + row * n_pad + src);
-  for (int row = W_SORT_PAD; row < W_NROWS; ++row)
-    out[row * n_pad + dst] = __ldg(in + row * n_pad + dst);
+// K4's slice-rows per group: each thread of K4 holds this many
+// independent 16-byte loads in flight
+#define PERM_ROWS 8
+
+// 16 bytes from and to 16-byte aligned addresses: one vector load and
+// store on the card, both streaming (evict-first: the state is read and
+// written once)
+__device__ __forceinline__ float4 perm_load(const float* __restrict__ p) {
+#ifdef __CUDACC__
+  return __ldcs(reinterpret_cast<const float4*>(p));
+#else
+  return load4(p);
+#endif
+}
+
+__device__ __forceinline__ void perm_store(float* __restrict__ p, float4 v) {
+#ifdef __CUDACC__
+  __stcs(reinterpret_cast<float4*>(p), v);
+#else
+  p[0] = v.x;
+  p[1] = v.y;
+  p[2] = v.z;
+  p[3] = v.w;
+#endif
+}
+
+// K4 for lane t (0..31) of the warp that moves rows [r0, r1) of slice j:
+// of each slice-row (128 lanes, 512 bytes) the 16 bytes at lanes 4t ..
+// 4t + 3; rows [0, W_SORT_PAD) from slice `src` (perm[j]), the AOV rows
+// from slice j. The rows go PERM_ROWS at a time, all of a group's loads
+// before its stores.
+__device__ __forceinline__ void permute_slice(const float* __restrict__ in,
+                                              int src, size_t n_pad, int j,
+                                              int t, int r0, int r1,
+                                              float* __restrict__ out) {
+  const size_t dst = (size_t)j * W_SLICE + 4 * t;
+  const size_t from = (size_t)src * W_SLICE + 4 * t;
+  for (int g = r0; g < r1; g += PERM_ROWS) {
+    float4 v[PERM_ROWS];
+#pragma unroll
+    for (int i = 0; i < PERM_ROWS; ++i) {
+      const int row = g + i;
+      v[i] = perm_load(in + row * n_pad + (row < W_SORT_PAD ? from : dst));
+    }
+#pragma unroll
+    for (int i = 0; i < PERM_ROWS; ++i)
+      perm_store(out + (g + i) * n_pad + dst, v[i]);
+  }
 }
 
 // The Sobol probe for lane i of n (the P-r3ac counterpart,

@@ -16,10 +16,12 @@ together, and loaded with ctypes:
     csrc/probes.cu      the Mosaic probes P-r3n (rowslice_probe) and P-r3w
                         (mxu_probe), one build
 
-and five more builds, which only the probe launches, each built at its
+and six more builds, which only the probe launches, each built at its
 first launch and not with the variants: the volpath mesh megakernel and
 the volpath mesh K2 with step counts (-DMEGA_COUNT=1,
-`mega_volpath_counts`, `wave_volpath_counts`), the path mesh megakernel
+`mega_volpath_counts`, `wave_volpath_counts`), the path mesh K2 with its
+lane loop's counts (-DMEGA_COUNT=1, `wave_path_counts`), the path mesh
+megakernel
 with walk counts (-DWALK_COUNT=1, `mega_path_walk_counts`) and with
 texture counts (-DTEX_COUNT=1, `mega_path_tex_counts`), and the path
 immediates megakernel with its phases' cycles (-DPATH_COUNT=1,
@@ -97,11 +99,13 @@ VARIANTS = {"mega_path": ("mega_path.cu", "-DMEGA_MESH=0", "-DMEGA_VOL=0"),
 # with texture counts, the path immediates megakernel with its phases'
 # cycles
 COUNT, WAVE_COUNT = "mega_volpath_mesh_count", "wave_volpath_mesh_count"
+PATH_WAVE_COUNT = "wave_path_mesh_count"
 WALK_COUNT = "mega_path_mesh_count"
 TEX_COUNT, PATH_COUNT = "mega_path_mesh_texcount", "mega_path_count"
 # every library `build` knows: the variants and the counting builds
 BUILDS = dict(VARIANTS, **{c: VARIANTS[v] + ("-DMEGA_COUNT=1",) for c, v in (
-    (COUNT, "mega_volpath_mesh"), (WAVE_COUNT, "wave_volpath_mesh"))},
+    (COUNT, "mega_volpath_mesh"), (WAVE_COUNT, "wave_volpath_mesh"),
+    (PATH_WAVE_COUNT, "wave_path_mesh"))},
     **{WALK_COUNT: VARIANTS["mega_path_mesh"] + ("-DWALK_COUNT=1",),
        TEX_COUNT: VARIANTS["mega_path_mesh"] + ("-DTEX_COUNT=1",),
        PATH_COUNT: VARIANTS["mega_path"] + ("-DPATH_COUNT=1",)})
@@ -126,6 +130,15 @@ PATH_KEYS = ("trace_cycles", "emit_pdf_cycles", "bsdf_cycles", "draw_cycles",
 # what their counts hold (csrc/vol_loop.cuh StepCounts), in their C order
 COUNT_KEYS = ("active_lanes", "warp_steps", "lane_steps", "march_steps",
               "lanes")
+# what K2's path lane loop counts hold (csrc/path_loop.cuh PathCounts), in
+# their C order: the lanes active at the cast site summed over each warp's
+# casts, the warp casts, the lanes' closest and shadow casts, the distant
+# lights whose shadow ray a bounce did not need, the bounces, the lanes
+# run, the lanes parked inside the launch, the cycles inside the casts and
+# the threads' cycles
+LOOP_KEYS = ("active_lanes", "warp_casts", "closest_casts", "shadow_casts",
+             "shadows_skipped", "lane_bounces", "lanes", "parked", "cast_cycles",
+             "lane_cycles")
 # what the walk counts hold per cast kind (csrc/bvh.cuh WalkCounts), in
 # their C order, and the kinds
 WALK_KEYS = ("casts", "nodes", "boxes", "leaves", "tris", "insts", "blocks",
@@ -147,7 +160,7 @@ SMEM_PER_BLOCK = 227 * 1024
 # mxu_probe kinds in the probes library
 launches = dict.fromkeys(
     [v + s for v in VARIANTS if v != "probes" for s in ("", SOBOL)]
-    + [COUNT, WAVE_COUNT, WALK_COUNT, TEX_COUNT, PATH_COUNT]
+    + [COUNT, WAVE_COUNT, PATH_WAVE_COUNT, WALK_COUNT, TEX_COUNT, PATH_COUNT]
     + ["wave_genesis", "wave_genesis" + SOBOL, "wave_permute",
        "sobol_probe", "rowslice_probe", "cast_probe", "tex_probe"]
     + ["mxu_probe_" + k for k in MXU_KINDS], 0)
@@ -317,6 +330,8 @@ _ENTRY_POINTS = {
     COUNT: {"mega_path_launch": ARGTYPES, "step_counts": [_P, _I, _P]},
     WAVE_COUNT: {"wave_path_launch": WAVE_ARGTYPES,
                  "step_counts": [_P, _I, _P]},
+    PATH_WAVE_COUNT: {"wave_path_launch": WAVE_ARGTYPES,
+                      "loop_counts_read": [_P, _I, _P]},
     "wave.cu": {"wave_path_launch": WAVE_ARGTYPES,
                 "wave_genesis_launch": GENESIS_ARGTYPES,
                 "wave_permute_launch": PERMUTE_ARGTYPES,
@@ -755,6 +770,29 @@ def wave_volpath_counts(tabs, state: torch.Tensor, seed: int, launch: int,
                       beckmann)
     return state, _read_counted(WAVE_COUNT, "step_counts", COUNT_KEYS,
                                 lambda lib: lib.wave_path_launch(
+                                    *args, _stream(state.device)),
+                                state.device)
+
+
+def wave_path_counts(tabs, state: torch.Tensor, seed: int, launch: int,
+                     k: int, n_run: int, kb, base: int, rem: int,
+                     beckmann: bool = False):
+    """The path mesh K2 launch of `wave_path` (either sampler, CUDA tables
+    only) through the counting build: returns the state and
+    {LOOP_KEYS: int}, the sums over the launch of the active lanes that
+    each warp's leader sees at the lane loop's cast site and of its warp
+    casts, of the lanes' closest and shadow casts, the shadow rays their
+    bounces did not need, their bounces, the alive lanes run, those that
+    parked, the cycles inside the casts and the threads' cycles. For the
+    probe; no render path launches it."""
+    if not _cuda(state.device, "wave_path_counts") or library(
+            variant(tabs, "wave_path")) != "wave_path_mesh":
+        raise ValueError("wave_path_counts: path mesh tables on a CUDA "
+                         "device only")
+    args = _wave_args(tabs, state, seed, launch, k, n_run, kb, base, rem,
+                      beckmann)
+    return state, _read_counted(PATH_WAVE_COUNT, "loop_counts_read",
+                                LOOP_KEYS, lambda lib: lib.wave_path_launch(
                                     *args, _stream(state.device)),
                                 state.device)
 

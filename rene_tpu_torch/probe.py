@@ -201,7 +201,18 @@ MAIN_PATHS = tuple(
 COMPARE_WAVES = tuple(
     (f"{scene} wave{' sobol' if smp == 'sobol' else ''}", scene, smp)
     for scene in ("fog_mesh", "fog") for smp in ("independent", "sobol")) \
-    + (("deep_mesh wave", "deep_mesh", "independent"),)
+    + (("deep_mesh wave", "deep_mesh", "independent"),
+       ("textured_deep wave", "textured_deep", "independent"),
+       ("big_mesh wave sobol", "big_mesh", "sobol"),
+       ("cornell wave", "cornell", "independent"))
+# the path mesh waves of COMPARE_WAVES that copies with the path lane
+# loop's counts (csrc/path_loop.cuh PathCounts) also run through their
+# counting build
+PATH_COUNTED = ("deep_mesh wave", "textured_deep wave")
+# --compare's K4 launch: the slice permutation of the deep mesh's
+# 1280x720 x spw 16 state (label "K4 permute"), in turns with
+# index_select over the 24 rows it permutes and over all 32 rows
+K4_LABEL = "K4 permute"
 # the mesh walk alone: pixels of the plain walk that records the rays,
 # its maxdepth, the kinds of rays (`walk_rays`)
 WALK_LANES = 1 << 17
@@ -552,13 +563,16 @@ def main_scene(scene: str, depth, sampler: str) -> str:
     return path
 
 
-def main_launches(dev, paths=MAIN_PATHS) -> list:
-    """Each kernel's time on its main path (see the module's doc); returns
-    the rows, each also printed."""
+def main_launches(dev, paths=MAIN_PATHS, only=None) -> list:
+    """Each kernel's time on its main path (see the module's doc), or on
+    those whose label holds one of the strings in `only`; returns the
+    rows, each also printed."""
     from .integrators import wave as WV
     os.makedirs(SCENE_DIR, exist_ok=True)
     rows = []
     for label, scene, depth, sampler, eng, spp, pack in paths:
+        if only is not None and not any(o in label for o in only):
+            continue
         bn, cfg = build_device_scene(load_scene(main_scene(scene, depth,
                                                            sampler)))
         row = {"main": label, "spp": spp, "pack": pack}
@@ -586,14 +600,22 @@ def main_launches(dev, paths=MAIN_PATHS) -> list:
             with k2_record([], dev) as per:   # the same wave once more
                 run.run_dev(5, spp)
             row.update(k2_ms_sum=sum(r["ms"] for r in per), per_launch=per)
-            if run.tabs["volpath"]:   # and its bound, launch by launch
-                with k2_record([], dev, plain=PLAIN_LANES) as per:
+            # its bound, launch by launch
+            with k2_record([], dev, plain=PLAIN_LANES) as per:
+                run.run_dev(5, spp)
+            row.update(k2_bound_ms=sum(r["bound_ms"] for r in per),
+                       per_launch_bound=[
+                           {k: r[k] for k in ("bound_ms", "bound_by",
+                                              "sampled", "plain_tests")
+                            if k in r} for r in per])
+            if eng == "gather" and kernels.library(kernels.variant(
+                    run.tabs, "wave_path")) == "wave_path_mesh":
+                # and the path lane loop's counts, launch by launch
+                with k2_record([], dev, counting=True) as per:
                     run.run_dev(5, spp)
-                row.update(k2_bound_ms=sum(r["bound_ms"] for r in per),
-                           per_launch_bound=[
-                               {k: r[k] for k in ("bound_ms", "bound_by",
-                                                  "sampled", "plain_tests")
-                                if k in r} for r in per])
+                row.update(per_launch_counts=[
+                    dict(loop_stats(r), k=r["k"], ms_counting=r["ms"])
+                    for r in per])
             del run
         emit(main_launch=row)
         rows.append(row)
@@ -609,7 +631,8 @@ def k2_record(rows: list, dev, counting: bool = False, plain: int = 0):
     (CUDA events around the launch alone; the counts are taken outside
     them). `counting`: the launches run the counting build
     (kernels.wave_volpath_counts: volpath mesh tables, independent
-    sampler), whose counts join each row. `plain`: before each launch the
+    sampler; kernels.wave_path_counts: path mesh tables), whose counts
+    join each row. `plain`: before each launch the
     plain version (wave_step_ref) runs a strided sample of about `plain`
     of its alive lanes, and the row gains the launch's bound
     (rene_tpu_torch.bounds): the state rows its alive lanes read and
@@ -654,7 +677,8 @@ def k2_record(rows: list, dev, counting: bool = False, plain: int = 0):
         e0.record()
         counts = {}
         if counting:
-            state, counts = kernels.wave_volpath_counts(
+            state, counts = (kernels.wave_volpath_counts if tabs["volpath"]
+                             else kernels.wave_path_counts)(
                 tabs, state, seed, launch, k, n_run, kb, base, rem, beckmann)
         else:
             inner(tabs, state, seed, launch, k, n_run, kb, base, rem,
@@ -675,6 +699,27 @@ def k2_record(rows: list, dev, counting: bool = False, plain: int = 0):
             rows.append(dict(k=k, launched=n_run, alive_start=int(a0),
                              alive_end=int(a1), bounces=float(rays) / inc,
                              ms=e0.elapsed_time(e1), **counts))
+
+
+def loop_stats(c: dict) -> dict:
+    """What a K2 launch's path lane loop counts (kernels.LOOP_KEYS) say:
+    the counts, the mean lanes of a warp active at the cast site, casts,
+    bounces and parked lanes per lane run, the share of the bounces' distant
+    lights that needed no shadow ray, and the casts' share of the threads'
+    cycles."""
+    lanes = max(c.get("lanes", 0), 1)
+    lights = c.get("shadow_casts", 0) + c.get("shadows_skipped", 0)
+    return dict({k: c[k] for k in kernels.LOOP_KEYS if k in c},
+                mean_active_lanes=c.get("active_lanes", 0)
+                / max(c.get("warp_casts", 0), 1),
+                closest_per_lane=c.get("closest_casts", 0) / lanes,
+                shadow_per_lane=c.get("shadow_casts", 0) / lanes,
+                bounces_per_lane=c.get("lane_bounces", 0) / lanes,
+                parked_share=c.get("parked", 0) / lanes,
+                shadow_skip_share=c.get("shadows_skipped", 0)
+                / max(lights, 1),
+                cast_cycle_share=c.get("cast_cycles", 0)
+                / max(c.get("lane_cycles", 0), 1))
 
 
 def ptxas_lines(text: str) -> list:
@@ -712,7 +757,15 @@ def compare_builds(dirs, dev, only=None) -> dict:
     walk_counting = [d for d in dirs if "big_mesh" in scenes_run
                      and "WalkCounts" in open(os.path.join(
                          d, "bvh.cuh")).read()]
+    # csrc/path_loop.cuh PathCounts, for the deep and textured deep waves
+    path_counting = [d for d in dirs
+                     if any(w[0] in PATH_COUNTED for w in waves)
+                     and os.path.exists(os.path.join(d, "path_loop.cuh"))]
+    k4 = chosen(K4_LABEL)
+    if k4:
+        names = sorted(set(names) | {"wave_path"})
     jobs = [(d, names + [kernels.COUNT, kernels.WAVE_COUNT] * (d in counting)
+             + [kernels.PATH_WAVE_COUNT] * (d in path_counting)
              + [kernels.WALK_COUNT] * (d in walk_counting)) for d in dirs]
     reports, seconds = {}, {}
 
@@ -796,11 +849,15 @@ def compare_builds(dirs, dev, only=None) -> dict:
                 emit(compare=row)
                 res[label][str(d)] = row
             del outs
-        res.update(compare_waves(dirs, libs, dev, counting, waves))
+        res.update(compare_waves(dirs, libs, dev, counting, waves,
+                                 path_counting))
+        if k4:
+            res.update(compare_permute(dirs, libs, dev))
         big = tabs_of.get(("big_mesh", "independent"))
-        if big is not None:
+        if big is not None and "mega_path_mesh" in libs[dirs[0]]:
             res.update(compare_walk(dirs, libs, big, dev))
-        for d in walk_counting if big is not None else ():
+        for d in walk_counting if big is not None \
+                and "mega_path_mesh" in libs[dirs[0]] else ():
             kernels._libs[kernels.WALK_COUNT] = libs[d][kernels.WALK_COUNT]
             _, c = kernels.mega_path_walk_counts(big, 7, 16)
             emit(walk_counts_of=str(d), launch="big_mesh 16 spp",
@@ -850,7 +907,63 @@ def compare_walk(dirs, libs, tabs, dev) -> dict:
     return res
 
 
-def compare_waves(dirs, libs, dev, counting=(), waves=COMPARE_WAVES) -> dict:
+def compare_permute(dirs, libs, dev) -> dict:
+    """compare_builds' K4: each directory's wave_permute (its wave_path
+    library swapped in) on the deep mesh's 1280x720 x spw 16 state and a
+    random slice permutation, in COMPARE_ROUNDS rounds that run the
+    directories in turn and back, each turn followed by torch's
+    index_select over the 24 rows K4 permutes (the PyTorch call of
+    chip_smoke.py's library_ms) and over all 32 rows of the state (the
+    bytes K4 moves; its AOV rows then move too); 10 launches a turn, CUDA
+    events. Per directory the median ms, whether its output equals
+    permute_ref bit for bit, and the bound; returns {K4_LABEL: {dir or
+    call: row}}, each row also printed."""
+    from . import bounds as B
+    from .integrators import wave as WV
+    bn, cfg = build_device_scene(load_scene(main_scene("deep_mesh", None,
+                                                       "independent")))
+    run = WV.make_wave_fn(bn, cfg, dev, spp_hint=16)
+    state = run.init_state(3, run.samples_per_wave)
+    ns = run.n_pad // WV.W_SLICE
+    g = torch.Generator(device=dev)
+    g.manual_seed(12)
+    perm = torch.randperm(ns, device=dev, generator=g).to(torch.int32)
+    ref = WV.permute_ref(state, perm)
+    p64 = perm.long()
+    rows24 = state[:WV.W_SORT_PAD].view(WV.W_SORT_PAD, ns, WV.W_SLICE)
+    rows32 = state.view(WV.W_NROWS, ns, WV.W_SLICE)
+    calls = {"index_select 24 rows": lambda r: torch.index_select(
+        rows24, 1, p64), "index_select 32 rows": lambda r: torch.index_select(
+        rows32, 1, p64)}
+    bnd = B.bound(2 * WV.W_NROWS * 4 * run.n_pad + 4 * ns, 0)
+    ms = {k: [] for k in list(dirs) + list(calls)}
+    equal = {}
+    for d in dirs:   # warm-up, and each build's output
+        kernels._libs["wave_path"] = libs[d]["wave_path"]
+        equal[d] = bool(torch.equal(kernels.wave_permute(state, perm), ref))
+    del ref
+    for _ in range(COMPARE_ROUNDS):
+        for d in list(dirs) + list(reversed(dirs)):
+            kernels._libs["wave_path"] = libs[d]["wave_path"]
+            ms[d].append(time_launches(
+                lambda r: kernels.wave_permute(state, perm), 10, dev)[0])
+            for k, fn in calls.items():
+                ms[k].append(time_launches(fn, 10, dev)[0])
+    res = {}
+    for k, turns in ms.items():
+        m = sorted(turns)[len(turns) // 2]
+        row = {"launch": K4_LABEL, "dir": str(k), "lanes": run.n_pad,
+               "ms": m, "ms_turns": turns, "bound_ms": bnd[0],
+               "bound_share": bnd[0] / m}
+        if k in equal:
+            row["equal_to_plain"] = equal[k]
+        emit(compare=row)
+        res[str(k)] = row
+    return {K4_LABEL: res}
+
+
+def compare_waves(dirs, libs, dev, counting=(), waves=COMPARE_WAVES,
+                  path_counting=()) -> dict:
     """compare_builds' whole waves (COMPARE_WAVES): each directory's K2
     library swapped in for one 16-spp wave at seed 5, in COMPARE_ROUNDS
     rounds that run the directories in turn and back, each wave's K2
@@ -858,7 +971,8 @@ def compare_waves(dirs, libs, dev, counting=(), waves=COMPARE_WAVES) -> dict:
     the summed K2 ms, each launch's median, and the finished film's
     per-pixel agreement with the first directory's (and whether it is
     bit for bit the same). For the copies in `counting`, the fog mesh
-    wave once more through the counting build, its counts per launch.
+    wave once more through the counting build, its counts per launch; for
+    those in `path_counting`, the PATH_COUNTED waves through theirs.
     Returns {label: {dir: row}}, each row also printed."""
     from . import checks
     from .integrators import wave as WV
@@ -907,6 +1021,15 @@ def compare_waves(dirs, libs, dev, counting=(), waves=COMPARE_WAVES) -> dict:
                 with k2_record([], dev, counting=True) as rows:
                     run.run_dev(5, 16)
                 emit(wave_counts_of=str(d), per_launch=rows)
+        if label in PATH_COUNTED:
+            for d in path_counting:
+                kernels._libs[kernels.PATH_WAVE_COUNT] = \
+                    libs[d][kernels.PATH_WAVE_COUNT]
+                with k2_record([], dev, counting=True) as rows:
+                    run.run_dev(5, 16)
+                emit(wave_counts_of=str(d), wave=label, per_launch=[
+                    dict(loop_stats(r), k=r["k"], ms_counting=r["ms"])
+                    for r in rows])
         del run, films
     return res
 
@@ -955,8 +1078,9 @@ def main(argv=None) -> int:
     p.add_argument("--pack-sweep", action="store_true")
     p.add_argument("--compare", nargs="+", metavar="DIR")
     p.add_argument("--only", nargs="+", metavar="LABEL",
-                   help="--compare: only the launches and waves whose "
-                        "label holds one of these")
+                   help="--compare, --main-launches: only the launches, "
+                        "waves and main paths whose label holds one of "
+                        "these")
     p.add_argument("--main-launches", action="store_true")
     args = p.parse_args(argv)
     make, (w, h), spps, chunks = SCENES[args.scene]
@@ -982,7 +1106,7 @@ def main(argv=None) -> int:
         pack_sweep(torch.device("cuda", 0))
         return 0
     if args.main_launches:
-        main_launches(torch.device("cuda", 0))
+        main_launches(torch.device("cuda", 0), only=args.only)
         return 0
     if args.compare:
         compare_builds([os.path.abspath(d) for d in args.compare],

@@ -413,8 +413,8 @@ static int run_probe(const int* in, int n, int* out, void*) {
 static int run_permute(const float* in, const int* perm, int n_pad,
                        float* out, void*) {
   for (int j = 0; j < n_pad / W_SLICE; ++j)
-    for (int t = 0; t < W_SLICE; ++t)
-      permute_lane(in, perm, (size_t)n_pad, j, t, out);
+    for (int t = 0; t < 32; ++t)
+      permute_slice(in, perm[j], (size_t)n_pad, j, t, 0, W_NROWS, out);
   return 0;
 }
 #include "wave_launch.cuh"

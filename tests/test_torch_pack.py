@@ -36,6 +36,14 @@ from .test_torch_mesh import _jax_env
 
 torch.set_num_threads(2)
 
+
+@pytest.fixture(autouse=True)
+def _no_beckmann_switch(monkeypatch):
+    """tests/test_scene.py leaves RENE_MF_DIST=beckmann in os.environ; the
+    runners read it where the plain calls here pass beckmann=False, so
+    every test of this file runs without it."""
+    monkeypatch.delenv("RENE_MF_DIST", raising=False)
+
 SCENES = {
     "mesh_materials": lambda w, h: scenes.mesh_materials_scene(w, h, 8, 6),
     "instanced": lambda w, h: scenes.instanced_scene(w, h),
