@@ -1656,7 +1656,7 @@ def main() -> int:
 
     # 26. the Mosaic probes P-r3n and P-r3w: their path is
     # rene_tpu_torch.probes' run; then each kernel's plain version timed,
-    # and the bounds
+    # the bounds, the chain floors, the reps guard and M4
     from rene_tpu_torch import probes as PRB
     from rene_tpu_torch.ops import probes as PR
     reset_launches()
@@ -1670,8 +1670,17 @@ def main() -> int:
             or sum(l_prb.values()) != sum(l_prb[k] for k in prb_names):
         raise RuntimeError(f"the probes' path launched {l_prb}")
     if not all(ok for ok, _ in r3n.values()) \
-            or not all(v["ok"] for v in r3w.values()):
+            or not all(r3w[k]["ok"] for k in kernels.MXU_KINDS):
         raise RuntimeError("a probe disagrees with its plain version")
+    # a kernel whose reps were hoisted takes as long at 100 reps as at 200
+    if not all(r3w[k]["ratio"] >= PRB.RATIO_MIN for k in kernels.MXU_KINDS):
+        raise RuntimeError(
+            f"a probe's 200 reps took less than {PRB.RATIO_MIN}x its 100 "
+            f"(each less one rep's launch): "
+            f"{[r3w[k]['ratio'] for k in kernels.MXU_KINDS]}")
+    if not PRB.m4_agrees(r3w["m4"]):
+        raise RuntimeError("M4 on the card is not the CPU's")
+    fl = PRB.floors(dev, verbose=False)
     _, box, geom = PR.r3n_tables()
     box, geom = box.to(dev), geom.to(dev)
     r3n_plain_ms = PRB.launch_ms(lambda: PR.rowslice_ref(3, 3, box, geom))
@@ -1679,7 +1688,8 @@ def main() -> int:
     b_, r_ = (x.to(dev) for x in PR.r3w_inputs())
     prb_rows = {"rowslice_probe": {
         "err": 0.0, "ms": max(ms for _, ms in r3n.values()),
-        "plain_ms": r3n_plain_ms, "bound": r3n_bound, "library_ms": None}}
+        "plain_ms": r3n_plain_ms, "bound": r3n_bound, "library_ms": None,
+        "floor_ms": fl["floor_ms"]["rowslice_probe"]}}
     b16, r16 = b_.bfloat16(), r_.bfloat16()
     io_bytes = (b_.numel() + r_.numel() + b_.shape[0] * r_.shape[1]) * 4
     for kind, rate, lib in (
@@ -1696,18 +1706,28 @@ def main() -> int:
         # the library's time for a launch's work: R3W_REPS products
         prb_rows["mxu_probe_" + kind] = {
             "err": err, "ms": v["ms"], "plain_ms": plain_ms, "bound": bnd,
-            "library_ms": PRB.launch_ms(lib, PR.R3W_REPS) if lib else None}
-        log(f"mxu_probe {kind} ({PR.R3W_REPS} reps per launch): "
-            f"{v['us_per_rep']:.4f} us per rep, {v['ms']:.4f} ms per launch; "
-            f"plain {plain_ms:.3f} ms; bound {bnd[0]:.5f} ms ({bnd[1]}; "
-            f"{ops / 1e6:.2f} MFLOP); "
+            "library_ms": PRB.launch_ms(lib, PR.R3W_REPS) if lib else None,
+            "floor_ms": fl["floor_ms"][kind]}
+        log(f"mxu_probe {kind} ({PRB.R3W_NAMES[kind]}, {PR.R3W_REPS} reps "
+            f"per launch): "
+            f"{v['us_per_rep']:.4f} us per rep, {v['ms']:.5f} ms per launch "
+            f"(parent {PRB.PARENT_MS[kind]:.5f}); chain floor "
+            f"{fl['floor_ms'][kind]:.5f} ms; bound {bnd[0]:.5f} ms "
+            f"({bnd[1]}; {ops / 1e6:.2f} MFLOP); {PR.R3W_REPS} reps / "
+            f"{PRB.HALF_REPS}, less one rep's launch: {v['ratio']:.3f}; "
+            f"plain {plain_ms:.3f} ms; "
             + (f"{PR.R3W_REPS} torch.matmul calls "
                f"{prb_rows['mxu_probe_' + kind]['library_ms']:.4f} ms; "
                if lib else "")
             + f"max abs {err:.3g} [{card}]")
-    log(f"rowslice_probe: bit for bit, {prb_rows['rowslice_probe']['ms']:.4f}"
-        f" ms per launch, plain {r3n_plain_ms:.4f} ms, bound "
-        f"{r3n_bound[0]:.6f} ms ({r3n_bound[1]}) [{card}]")
+    log(f"rowslice_probe: bit for bit, {prb_rows['rowslice_probe']['ms']:.5f}"
+        f" ms per launch (parent {PRB.PARENT_MS['rowslice_probe']:.5f}), "
+        f"floor (an empty launch) {fl['empty_ms']:.5f} ms, plain "
+        f"{r3n_plain_ms:.4f} ms, bound {r3n_bound[0]:.7f} ms ({r3n_bound[1]})"
+        f" [{card}]")
+    log(f"M4 sign-test agreement: card {r3w['m4'] * 100:.2f}%, the CPU "
+        f"{PRB.m4(torch.device('cpu')) * 100:.2f}% of {PRB.M4_PAIRS} pairs; "
+        f"SM clock {fl['ghz']:.4f} GHz [{card}]")
     phase_done(26)
 
     if any(m.split(".")[0] in ("jax", "rene_tpu") for m in sys.modules):
@@ -1799,13 +1819,13 @@ def main() -> int:
                "mxu_probe_def": "scripts/tpu_session_r3w.py:46 "
                                 "(k_mxu_def :77)",
                "mxu_probe_vpu": "scripts/tpu_session_r3w.py:46 (k_vpu :86)"}
-    prb_entries = [entry(
+    prb_entries = [dict(entry(
         k, "rene_tpu_torch/csrc/probes.cu", prb_rep[k], l_prb[k], v["err"],
         v["ms"], v["plain_ms"], v["bound"], v["library_ms"],
         "(32,128), (8,2048) -> (8,128) f32, mode 3, group 3"
         if k == "rowslice_probe" else
-        f"(384,8) @ (8,1024) f32, {PR.R3W_REPS} reps per launch")
-        for k, v in prb_rows.items()]
+        f"(384,8) @ (8,1024) f32, {PR.R3W_REPS} reps per launch"),
+        chain_floor_ms=v["floor_ms"]) for k, v in prb_rows.items()]
     log(json.dumps({"kernels": [
         entry("mega_path", "rene_tpu_torch/csrc/mega_path.cu",
               f"{pp_}:4266", l_k1a["mega_path"],

@@ -162,7 +162,8 @@ launches = dict.fromkeys(
     [v + s for v in VARIANTS if v != "probes" for s in ("", SOBOL)]
     + [COUNT, WAVE_COUNT, PATH_WAVE_COUNT, WALK_COUNT, TEX_COUNT, PATH_COUNT]
     + ["wave_genesis", "wave_genesis" + SOBOL, "wave_permute",
-       "sobol_probe", "rowslice_probe", "cast_probe", "tex_probe"]
+       "sobol_probe", "rowslice_probe", "cast_probe", "tex_probe",
+       "floor_probe", "empty_probe"]
     + ["mxu_probe_" + k for k in MXU_KINDS], 0)
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -337,7 +338,9 @@ _ENTRY_POINTS = {
                 "wave_permute_launch": PERMUTE_ARGTYPES,
                 "sobol_probe_launch": PROBE_ARGTYPES},
     "probes.cu": {"rowslice_probe_launch": ROWSLICE_ARGTYPES,
-                  "mxu_probe_launch": MXU_ARGTYPES}}
+                  "mxu_probe_launch": MXU_ARGTYPES,
+                  "floor_probe_launch": [_I, _I, _P, _P, _P],
+                  "empty_probe_launch": [_P]}}
 
 
 def bind(lib: ctypes.CDLL, source: str) -> ctypes.CDLL:
@@ -357,7 +360,9 @@ def bind(lib: ctypes.CDLL, source: str) -> ctypes.CDLL:
 def _load(name: str) -> ctypes.CDLL:
     if name not in _libs:
         if name in VARIANTS:
-            build()   # every variant at once, at the first use of one
+            # every variant at once, at the first use of one; the probes,
+            # which share no code with the others, alone
+            build(names=["probes"] if name == "probes" else None)
         _libs[name] = load_library(name)
     return _libs[name]
 
@@ -894,10 +899,10 @@ def mxu_probe(kind: str, b: torch.Tensor, r: torch.Tensor,
     """P-r3w (csrc/probes.cu, the counterpart of
     scripts/tpu_session_r3w.py's k_mxu_hi, k_mxu_def and k_vpu), `reps`
     runs inside one launch: for "hi" and "def" the (m, n) float32 product
-    b (m, 8) @ r (8, n) on the tensor cores (3xTF32; one bf16 pass), for
-    "vpu" the (8, 128) values of the scalar chain over b's first two rows
-    (n >= 1024). Counted as mxu_probe_<kind>. CPU tensors run ops/probes.py
-    `mxu_ref`."""
+    b (m, 8) @ r (8, n) on the tensor cores (3xTF32 on wgmma; one bf16
+    pass on mma.sync), for "vpu" the (8, 128) values of the scalar chain
+    over b's first two rows (n >= 1024). Counted as mxu_probe_<kind>. CPU
+    tensors run ops/probes.py `mxu_ref`."""
     from .ops.probes import mxu_ref
     device = b.device
     if not _cuda(device, "mxu_probe"):
@@ -908,7 +913,10 @@ def mxu_probe(kind: str, b: torch.Tensor, r: torch.Tensor,
     _check(b, "b", torch.float32, (None, 8), device)
     _check(r, "r", torch.float32, (8, None), device)
     m, n = b.shape[0], r.shape[1]
-    if m % 16 or n % 8 or (kind == "vpu" and n < 1024):
+    # the tiles (probes.cuh): hi 24 rows of b by 64 columns of r a
+    # warpgroup (R3W_WG_ROWS), def 16 by 8 x 2 a warp (R3W_MMA_TILES)
+    rows, cols = {"hi": (24, 64), "def": (16, 16)}.get(kind, (1, 1))
+    if m % rows or n % cols or (kind == "vpu" and n < 1024):
         raise ValueError(f"mxu_probe: b {tuple(b.shape)}, r "
                          f"{tuple(r.shape)}")
     shape = (8, 128) if kind == "vpu" else (m, n)
@@ -917,3 +925,31 @@ def mxu_probe(kind: str, b: torch.Tensor, r: torch.Tensor,
         MXU_KINDS.index(kind), b.data_ptr(), r.data_ptr(), m, n, int(reps),
         out.data_ptr(), _stream(device)))
     return out
+
+
+def floor_probe(kind: int, iters: int, device) -> int:
+    """SM cycles (clock64) of `iters` links (a multiple of 8) of the
+    dependent chain `kind` (csrc/probes.cu floor_kernel, FLOOR_*; names in
+    rene_tpu_torch/probes.py FLOOR_KINDS): one block of one warpgroup, on
+    the card only. A measurement of latency for the probes' chain floors;
+    no path launches it."""
+    if not _cuda(device, "floor_probe"):
+        raise ValueError("floor_probe: a latency of the card, CUDA only")
+    if iters < 8 or iters % 8:
+        raise ValueError(f"floor_probe: iters {iters}, a multiple of 8")
+    cycles = torch.zeros(1, dtype=torch.int64, device=device)
+    sink = torch.empty(128, dtype=torch.float32, device=device)
+    _launched("floor_probe", _load("probes").floor_probe_launch(
+        int(kind), int(iters), cycles.data_ptr(), sink.data_ptr(),
+        _stream(device)))
+    return int(cycles.item())
+
+
+def empty_probe(device) -> None:
+    """One launch of an empty kernel (csrc/probes.cu empty_kernel): the
+    least time a launch takes, the floor of a probe whose work is a few
+    loads. CUDA only; no path launches it."""
+    if not _cuda(device, "empty_probe"):
+        raise ValueError("empty_probe: a launch on the card, CUDA only")
+    _launched("empty_probe", _load("probes").empty_probe_launch(
+        _stream(device)))

@@ -69,6 +69,46 @@ def r3w_inputs():
     return torch.from_numpy(b), torch.from_numpy(r)
 
 
+def m4_inputs():
+    """(tri, o, d) of tpu_session_r3w.py's M4 (:111-115): 40 triangles
+    and 16 rays drawn from default_rng(0) after B and R."""
+    g = np.random.default_rng(0)
+    g.standard_normal((384, 8))
+    g.standard_normal((8, 1024))
+    tri = g.standard_normal((40, 3, 3)).astype(np.float32)
+    o = g.standard_normal((16, 3)).astype(np.float32) * 0.1
+    d = g.standard_normal((16, 3)).astype(np.float32)
+    return tri, o, d
+
+
+def m4_hits(sides: np.ndarray, padded: int, ntri: int) -> np.ndarray:
+    """(ntri, N) hits from the (3 padded, N) side values: all three of
+    the same sign (tpu_session_r3w.py :120-124)."""
+    s0 = sides[:padded][:ntri]
+    s1 = sides[padded:2 * padded][:ntri]
+    s2 = sides[2 * padded:][:ntri]
+    return (((s0 >= 0) & (s1 >= 0) & (s2 >= 0))
+            | ((s0 <= 0) & (s1 <= 0) & (s2 <= 0)))
+
+
+def m4_mt_hits(tri: np.ndarray, o: np.ndarray, d: np.ndarray) -> np.ndarray:
+    """(ntri, N) hits of the script's float32 numpy Möller–Trumbore loop
+    (:125-137; no tmin or tmax)."""
+    hit = np.zeros((tri.shape[0], o.shape[0]), bool)
+    for ti in range(tri.shape[0]):
+        v0, v1, v2 = tri[ti]
+        e1, e2 = v1 - v0, v2 - v0
+        p = np.cross(d, np.broadcast_to(e2, d.shape))
+        det = (e1 * p).sum(1)
+        tv = o - v0
+        u = (tv * p).sum(1) / det
+        q = np.cross(tv, np.broadcast_to(e1, d.shape))
+        v = (d * q).sum(1) / det
+        hit[ti] = (np.abs(det) > 1e-12) & (u >= -1e-5) & (v >= -1e-5) & \
+            (u + v <= 1 + 1e-5)
+    return hit
+
+
 def bf16(x: torch.Tensor) -> torch.Tensor:
     """x rounded to bfloat16 (to nearest even), back in float32."""
     return x.to(torch.bfloat16).to(torch.float32)
