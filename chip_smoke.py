@@ -152,11 +152,25 @@ when either is missing or any check fails. Phases:
     modes, P-r3w (`mxu_probe` hi, def, vpu at 200 reps per launch) within
     1e-5 of |B| |R| of their plain versions and bit for bit,
     through `rene_tpu_torch.probes`' run; their plain versions timed; the
-    bounds at the card's TF32, BF16 and FP32 rates.
+    bounds at the card's TF32, BF16 and FP32 rates;
+27. resumable renders and the denoisers: the big mesh (megakernel) and
+    the deep mesh (`--engine wave`) at 1280x720 x 32 spp with want_var
+    (two chunks of 16) through `render`, unbroken, with a checkpoint and
+    stopped by `progress` at the second chunk (the checkpoint then holds
+    the first), and resumed: the resumed films and varmean equal the
+    unbroken ones bit for bit; then the CLI from a copy of each
+    checkpoint with `--resume --denoiser cnn --unet-weights` (rene_tpu's
+    unet.msgpack, read as a user's file); a-trous and the U-Net on the
+    card against the port's CPU run on the big mesh's film (the CPU
+    tests' tolerances), and the U-Net on cuDNN's TF32 for the record;
+    the denoisers' times by CUDA events at 1280x720 and 1024x1024, one
+    `save_checkpoint` of a 1280x720 film, the big mesh's render loop at
+    one chunk of 32 against two of 16 (want_var), in turns; `--warm-cache`
+    on both engines, naming the libraries.
 
 The per-pixel rule and the card's limits are rene_tpu_torch.checks'. Each
-path run (phases 4, 7, 11, 14, 17, 19, 21, 25, 26 and the `dma` wave of 12)
-starts
+path run (phases 4, 7, 11, 14, 17, 19, 21, 25, 26, 27 and the `dma` wave
+of 12) starts
 with every launch count set to 0 and reads them just after; comparison
 launches are not counted. The plain versions run on the card, for the
 waves of phases 10, 13, 16 and 20 through rene_tpu_torch.kernels'
@@ -262,6 +276,14 @@ PATH_PACKS, VOL_PACKS = (4, 16), (4,)
 # the films of phase 25's pack sweep (at 16 spp)
 SWEEP_FILMS = (("big_mesh", 1280, 720), ("big_mesh", 160, 90),
                ("fog_mesh", 1280, 720), ("fog_mesh", 320, 180))
+# phase 27: spp of the resumable renders (want_var: two chunks of 16), the
+# U-Net's weights as a user passes them, the denoisers' tolerances on the
+# card against the CPU (tests/test_torch_denoise.py's against rene_tpu)
+# and the second film they are timed on
+RESUME_SPP = 32
+UNET_WEIGHTS = os.path.join("rene_tpu", "models", "weights", "unet.msgpack")
+ATROUS_TOL, UNET_TOL = (1e-6, 1e-5), (1e-5, 1e-4)
+DENOISE_SQUARE = 1024
 
 
 def log(msg):
@@ -301,20 +323,21 @@ def reset_launches():
 
 
 def cli_path(name, src, spp, size, what, engine="auto", seed=MAIN_SEED,
-             directory=None, sampler="auto"):
+             directory=None, sampler="auto", extra=(), suffix=""):
     """Render `src` through cli.main on the card with every launch count
     set to 0 just before; check the PNG shapes and a non-black image.
     The scene file goes to `directory` (where its image files lie), by
     default the output directory; `src` None renders the file written
-    there before. `sampler`: the CLI's --sampler. Returns (scene path,
-    launch counts, {rate, mean})."""
+    there before. `sampler`: the CLI's --sampler; `extra`: more flags;
+    `suffix`: added to the PNGs' names. Returns (scene path, launch
+    counts, {rate, mean, records: the CLI's log messages})."""
     import torch
     from rene_tpu_torch import cli, kernels
     from rene_tpu_torch.utils.film import read_png
     scene_path = (write_scene(name, src, directory) if src is not None
                   else os.path.join(directory or OUT_DIR, name + ".pbrt"))
     tag = f"{name}_{engine}_{seed}" + ("" if sampler == "auto"
-                                       else "_" + sampler)
+                                       else "_" + sampler) + suffix
     paths = [os.path.join(OUT_DIR, f"{tag}{k}.png")
              for k in ("", "_normal", "_albedo")]
     for p in paths:
@@ -333,7 +356,7 @@ def cli_path(name, src, spp, size, what, engine="auto", seed=MAIN_SEED,
     rc = cli.main([scene_path, "--spp", str(spp), "--seed", str(seed),
                    "--output", paths[0], "--aov-normal", paths[1],
                    "--aov-albedo", paths[2], "--device", "cuda",
-                   "--engine", engine, "--sampler", sampler])
+                   "--engine", engine, "--sampler", sampler, *extra])
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = dict(kernels.launches)
@@ -357,7 +380,9 @@ def cli_path(name, src, spp, size, what, engine="auto", seed=MAIN_SEED,
         f"launches {json.dumps(launches)}, {mrays:.1f} Mrays, render "
         f"{render_s:.3f} s, {rate:.1f} Mrays/s, cli wall {wall:.3f} s, "
         f"png means {json.dumps(means)}")
-    return scene_path, launches, {"rate": rate, "mean": means[f"{tag}.png"]}
+    return scene_path, launches, {"rate": rate, "mean": means[f"{tag}.png"],
+                                  "records": [r.getMessage()
+                                              for r in records]}
 
 
 @contextlib.contextmanager
@@ -432,6 +457,234 @@ def film_rel(a, b):
     import numpy as np
     fa, fb = film(a), film(b)
     return float((np.abs(fa - fb) / np.maximum(np.abs(fb), 1.0)).max())
+
+
+class StopRender(Exception):
+    """Raised by phase 27's progress callback to stop a render."""
+
+
+def events_ms(fn, reps=3):
+    """CUDA-event milliseconds of each of `reps` calls of `fn`, after one
+    call that is not timed."""
+    import torch
+    fn()
+    out = []
+    for _ in range(reps):
+        e0, e1 = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        out.append(e0.elapsed_time(e1))
+    return out
+
+
+def within(a, b, tol):
+    """Largest |a - b| and whether every element is within atol + rtol
+    |b|."""
+    import numpy as np
+    d = np.abs(a - b)
+    return float(d.max()), bool((d <= tol[0] + tol[1] * np.abs(b)).all())
+
+
+def resume_and_denoise(dev, card, paths):
+    """Phase 27: the big mesh (`--engine auto`, the megakernel) and the
+    deep mesh (`--engine wave`) at 1280x720 x RESUME_SPP with want_var,
+    each rendered unbroken, stopped by `progress` at its second chunk (the
+    checkpoint then holds the first), resumed, all through `render` and
+    held bit for bit; then the CLI from a copy of the checkpoint with
+    `--resume --denoiser cnn --unet-weights`; the denoisers on the card
+    against the CPU on the big mesh's film; `--warm-cache`; the times."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from rene_tpu_torch import cli, kernels
+    from rene_tpu_torch import render as RD
+    from rene_tpu_torch.models import denoise as DN
+    from rene_tpu_torch.scene import load_scene
+    from rene_tpu_torch.utils import checkpoint as CK
+    weights = os.path.join(ROOT, UNET_WEIGHTS)
+    shape = (MESH_H, MESH_W, 3)
+    for name, engine, main_kernel, first_kernel in (
+            ("big_mesh", "auto", "mega_path_mesh", "mega_path_mesh"),
+            ("deep_mesh", "wave", "wave_path_mesh", "wave_genesis")):
+        t0 = time.time()
+        scene = load_scene(paths[name])
+        kw = dict(spp=RESUME_SPP, seed=MAIN_SEED, device="cuda",
+                  engine=engine, want_var=True)
+        ck = os.path.join(SCENE_DIR, f"{name}_resume.npz")
+        if os.path.exists(ck):
+            os.unlink(ck)
+        runs, launches = {}, {}
+        reset_launches()
+        runs["unbroken"] = RD.render(scene, **kw)
+        launches["unbroken"] = dict(kernels.launches)
+        stops = []
+
+        def progress(done, spp, ms):
+            stops.append(done)
+            if len(stops) == 2:
+                raise StopRender
+
+        reset_launches()
+        try:
+            RD.render(scene, checkpoint=ck, progress=progress, **kw)
+            raise RuntimeError(f"{name}: the render did not stop")
+        except StopRender:
+            pass
+        launches["stopped"] = dict(kernels.launches)
+        with np.load(ck) as z:
+            held = (int(z["samples_done"]), int(z["seeds"]))
+        if held != (RESUME_SPP // 2, 1):
+            raise RuntimeError(f"{name}: the checkpoint holds {held}")
+        copy = os.path.join(SCENE_DIR, f"{name}_resume_copy.npz")
+        shutil.copy(ck, copy)
+        reset_launches()
+        runs["resumed"] = RD.render(scene, checkpoint=ck, resume=True, **kw)
+        launches["resumed"] = dict(kernels.launches)
+        for label, out in runs.items():
+            for k in ("color", "normal", "albedo", "varmean"):
+                if out[k].shape != shape or not np.isfinite(out[k]).all():
+                    raise RuntimeError(f"{name} {label}: {k} is not finite "
+                                       f"of shape {shape}")
+        same = {k: bool(np.array_equal(runs["unbroken"][k],
+                                       runs["resumed"][k]))
+                for k in ("color", "normal", "albedo", "varmean")}
+        if not all(same.values()):
+            raise RuntimeError(f"{name}: the resumed render is not the "
+                               f"unbroken one: {same}")
+        # two chunks unbroken, the first again in the stopped render, the
+        # second alone in the resumed one
+        firsts = [launches[k][first_kernel]
+                  for k in ("unbroken", "stopped", "resumed")]
+        if firsts != [2, 2, 1] or not all(
+                launches[k][main_kernel] > 0 for k in launches):
+            raise RuntimeError(f"{name}: launches {launches}")
+        log(f"resume ({name}, engine {engine}, {MESH_W}x{MESH_H} x "
+            f"{RESUME_SPP} spp, want_var, chunks of {RESUME_SPP // 2}): "
+            f"the resumed film and varmean equal the unbroken ones bit for "
+            f"bit; {first_kernel} launches {firsts}; render loop "
+            f"{runs['unbroken']['wall_time']:.3f} s unbroken, "
+            f"{runs['resumed']['wall_time']:.3f} s resumed; varmean mean "
+            f"{float(runs['unbroken']['varmean'].mean()):.6g}")
+        _, l_cli, r_cli = cli_path(
+            name, None, RESUME_SPP, (MESH_W, MESH_H),
+            f"{name}, resumed, cnn", engine=engine,
+            extra=["--checkpoint", copy, "--resume", "--denoiser", "cnn",
+                   "--unet-weights", weights], suffix="_resumed_cnn")
+        if l_cli[first_kernel] != 1 or not any(
+                m.startswith("resumed from") for m in r_cli["records"]):
+            raise RuntimeError(f"{name}: the CLI did not resume: {l_cli}")
+        if name == "big_mesh":
+            big = runs["unbroken"]
+        log(f"phase 27 {name}: {time.time() - t0:.1f} s")
+
+    # the denoisers on the card against the port's own CPU run on the
+    # big mesh's film
+    c, n, a = (np.ascontiguousarray(big[k])
+               for k in ("color", "normal", "albedo"))
+    t0 = time.time()
+    base_cpu = DN.atrous_denoise(c, n, a, device="cpu")
+    cpu_atrous_s = time.time() - t0
+    base_card = DN.atrous_denoise(c, n, a, device=dev)
+    err_a, ok_a = within(base_card.cpu().numpy(), base_cpu.numpy(),
+                         ATROUS_TOL)
+    net_cpu = DN.UNetDenoiser.load(weights, device="cpu")
+    net_card = DN.UNetDenoiser.load(weights, device=dev)
+    t0 = time.time()
+    unet_cpu = net_cpu(c, n, a, base=base_cpu).numpy()
+    cpu_unet_s = time.time() - t0
+    unet_card = net_card(c, n, a, base=base_cpu).cpu().numpy()
+    err_u, ok_u = within(unet_card, unet_cpu, UNET_TOL)
+    if not torch.backends.cudnn.allow_tf32:
+        raise RuntimeError("the U-Net left cuDNN's TF32 setting off")
+    # the same net with cuDNN's default TF32 convolutions, for the record
+    x = torch.cat([torch.as_tensor(v, device=dev) for v in
+                   (c, base_cpu.numpy(), n, a)], -1).permute(2, 0, 1)[None]
+    with torch.no_grad():
+        tf32 = (base_cpu.to(dev) + net_card.net(x.contiguous())[0]
+                .permute(1, 2, 0)).cpu().numpy()
+    err_tf32, ok_tf32 = within(tf32, unet_cpu, UNET_TOL)
+    log(f"denoisers on the card vs the CPU ({MESH_W}x{MESH_H} big mesh "
+        f"film): atrous max abs {err_a:.3g} (atol {ATROUS_TOL[0]}, rtol "
+        f"{ATROUS_TOL[1]}: {ok_a}), U-Net max abs {err_u:.3g} (atol "
+        f"{UNET_TOL[0]}, rtol {UNET_TOL[1]}: {ok_u}); the U-Net on TF32 "
+        f"max abs {err_tf32:.3g} (within: {ok_tf32}); CPU seconds atrous "
+        f"{cpu_atrous_s:.2f}, U-Net {cpu_unet_s:.2f}")
+    if not (ok_a and ok_u):
+        raise RuntimeError("a denoiser on the card disagrees with the CPU")
+
+    # their times by CUDA events at 1280x720 and 1024x1024
+    g = np.random.default_rng(MAIN_SEED)
+    sq = [g.random((DENOISE_SQUARE, DENOISE_SQUARE, 3)).astype(np.float32)
+          for _ in range(3)]
+    for label, (fc, fn, fa) in ((f"{MESH_W}x{MESH_H}", (c, n, a)),
+                                (f"{DENOISE_SQUARE}x{DENOISE_SQUARE}", sq)):
+        tc, tn, ta = (torch.as_tensor(v, device=dev) for v in (fc, fn, fa))
+        base = DN.atrous_denoise(tc, tn, ta, device=dev)
+        at_ms = events_ms(lambda: DN.atrous_denoise(tc, tn, ta, device=dev))
+        un_ms = events_ms(lambda: net_card(tc, tn, ta, base=base))
+        log(f"denoiser times ({label}, CUDA events, 3 calls after one): "
+            f"atrous {', '.join(f'{t:.3f}' for t in at_ms)} ms; U-Net "
+            f"(16 features, 3 levels) {', '.join(f'{t:.3f}' for t in un_ms)}"
+            f" ms [{card}]")
+
+    # one save_checkpoint of a 1280x720 film (three sums and sq_sum), and
+    # the reference's compressed write of the same arrays, in turns
+    with np.load(os.path.join(SCENE_DIR, "big_mesh_resume.npz")) as z:
+        accum = {k: z[k] for k in CK.SUMS}
+        sq_sum = z["sq_sum"]
+    timing = os.path.join(SCENE_DIR, "save_timing.npz")
+    save_s = {"save_checkpoint": [], "savez_compressed": []}
+    for kind in ("save_checkpoint", "savez_compressed") * 2:
+        t0 = time.perf_counter()
+        if kind == "save_checkpoint":
+            CK.save_checkpoint(timing, accum, RESUME_SPP, "timing", 2, sq_sum)
+        else:
+            np.savez_compressed(timing, sq_sum=sq_sum, **accum)
+        save_s[kind].append(time.perf_counter() - t0)
+    log(f"checkpoint write ({MESH_W}x{MESH_H}, three sums and sq_sum, "
+        f"{os.path.getsize(timing) / 1e6:.1f} MB compressed): "
+        + "; ".join(f"{k} {', '.join(f'{t:.3f}' for t in v)} s"
+                    for k, v in save_s.items()) + f" [{card}]")
+    os.unlink(timing)
+
+    # want_var's extra chunk on the big mesh: one chunk of 32 against two
+    # of 16, render-loop seconds, in turns
+    scene = load_scene(paths["big_mesh"])
+    loop_s = {False: [], True: []}
+    for want_var in (False, True, True, False):
+        out = RD.render(scene, spp=RESUME_SPP, seed=MAIN_SEED, device="cuda",
+                        want_var=want_var)
+        loop_s[want_var].append(out["wall_time"])
+    log(f"big mesh {MESH_W}x{MESH_H} x {RESUME_SPP} spp render loop: one "
+        f"chunk of {RESUME_SPP} {loop_s[False][0]:.3f} / "
+        f"{loop_s[False][1]:.3f} s, two of {RESUME_SPP // 2} with want_var "
+        f"{loop_s[True][0]:.3f} / {loop_s[True][1]:.3f} s [{card}]")
+
+    # --warm-cache: the libraries the runners launch, nothing rendered
+    for engine in ("auto", "wave"):
+        records = []
+
+        class Grab(logging.Handler):
+            def emit(self, record):
+                records.append(record.getMessage())
+
+        grab = Grab()
+        logging.getLogger("rene_tpu_torch").addHandler(grab)
+        reset_launches()
+        try:
+            rc = cli.main([paths["big_mesh"], "--warm-cache", "--engine",
+                           engine, "--device", "cuda"])
+        finally:
+            logging.getLogger("rene_tpu_torch").removeHandler(grab)
+        libs = [m for m in records if m.startswith("library ")]
+        if rc != 0 or not libs or any(kernels.launches.values()):
+            raise RuntimeError(f"--warm-cache ({engine}): rc {rc}, {records}")
+        log(f"--warm-cache (big mesh, engine {engine}): rc 0, "
+            f"{'; '.join(libs)}")
 
 
 def main() -> int:
@@ -1729,6 +1982,11 @@ def main() -> int:
         f"{PRB.m4(torch.device('cpu')) * 100:.2f}% of {PRB.M4_PAIRS} pairs; "
         f"SM clock {fl['ghz']:.4f} GHz [{card}]")
     phase_done(26)
+
+    # 27. resumable renders, the denoisers and --warm-cache
+    resume_and_denoise(dev, card, {"big_mesh": big_path,
+                                   "deep_mesh": deep_path})
+    phase_done(27)
 
     if any(m.split(".")[0] in ("jax", "rene_tpu") for m in sys.modules):
         raise RuntimeError("jax or rene_tpu was imported")

@@ -359,9 +359,10 @@ def bind(lib: ctypes.CDLL, source: str) -> ctypes.CDLL:
 
 def _load(name: str) -> ctypes.CDLL:
     if name not in _libs:
-        if name in VARIANTS:
-            # every variant at once, at the first use of one; the probes,
-            # which share no code with the others, alone
+        if name in VARIANTS and not library_path(name).exists():
+            # every variant at once, at the first use of one that is not
+            # built (a warmed cache builds none); the probes, which share
+            # no code with the others, alone
             build(names=["probes"] if name == "probes" else None)
         _libs[name] = load_library(name)
     return _libs[name]

@@ -1,7 +1,7 @@
-"""Render loop of the port: chunk loop, film average, y-flip.
+"""Render loop of the port: chunk loop, film average, y-flip, checkpoints.
 
 Counterpart of rene_tpu/render.py `render` (:131) with `_render_pallas`
-(:316-408), for two engines under JAX's names:
+(:316-408) and `warm_cache` (:85), for two engines under JAX's names:
 
 Both engines take the scene's sampler, `Sampler "sobol"` (the kernels'
 Sobol draws) or the independent one.
@@ -22,13 +22,20 @@ Sobol draws) or the independent one.
 rests on TPU timings (ROADMAP). A failed wave render raises; the JAX
 fallback from the wave engine to the megakernel (:193-208) is not
 carried over. "xla" (the JAX package's XLA integrator) is not ported.
-Checkpoint/resume, `want_var`, denoising and multi-device runs are not
-in the port yet.
+
+The film's sums stay on the device. A `checkpoint` or `want_var` render
+runs chunk by chunk (the wave's on-device sum across waves is off, as at
+:358-360): utils/checkpoint.py snapshots the sums on the host after every
+chunk, and `want_var` keeps the per-chunk sums of squares that `varmean`
+is made from. A resumed render adds, in the
+same float32 order, exactly what an unbroken one adds. Multi-device runs
+are not in the port yet.
 """
 from __future__ import annotations
 
 import logging
 import time
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -37,6 +44,9 @@ from . import kernels
 from .integrators.mega_path import make_mega_batch_fn
 from .integrators.wave import make_wave_fn
 from .scene import build_device_scene
+from .scene import pack as P
+from .utils.checkpoint import (SUMS, load_checkpoint, save_checkpoint,
+                               scene_fingerprint)
 from .utils.film import rays_to_image
 
 log = logging.getLogger("rene_tpu_torch.render")
@@ -46,54 +56,151 @@ LOG_EVERY = 100     # rene_tpu/render.py:30
 ENGINES = ("auto", "pallas", "wave", "xla")
 
 
-def render(scene, spp: int = DEFAULT_SPP, seed: int = 0, device="cuda",
-           engine: str = "auto"):
-    """Render a FlatScene on `device` with `engine` (ENGINES); returns a
-    dict of (H, W, 3) float32 images (color, normal, albedo, all
-    averaged), `total_rays`, `wall_time` (seconds, ending in a device
-    synchronize), `launches` (kernel launches, 0 on the CPU) and
-    `engine`."""
+def _runner(engine: str) -> str:
+    """The runner an engine resolves to: `wave` or `megakernel`."""
     if engine not in ENGINES:
         raise ValueError(f"engine {engine!r}: one of {ENGINES}")
     if engine == "xla":
         raise NotImplementedError(
             "the XLA integrator is not in the port (ROADMAP Queue 1 item "
             "4: the XLA engine)")
+    return "wave" if engine == "wave" else "megakernel"
+
+
+def runner_libraries(buffers_np, config, engine: str = "auto"):
+    """The libraries (kernels.VARIANTS) that the scene's runner launches:
+    the megakernel's instance, or K2's and K3's (K4 lives in K3's)."""
+    tables = P.pack_tables(buffers_np, config)
+    flags = {"volpath": tables.volpath, "has_accel": tables.has_accel,
+             "sobol": tables.sobol}
+    if _runner(engine) == "wave":
+        return sorted({kernels.library(kernels.variant(flags, "wave_path")),
+                       "wave_path"})
+    return [kernels.library(kernels.variant(flags))]
+
+
+def warm_cache(scene, engine: str = "auto", device="cuda") -> int:
+    """Build with nvcc the libraries that the scene's runner launches,
+    rendering nothing; returns their count (0 on the CPU, which runs the
+    plain versions). A later render finds them built."""
+    buffers_np, config = build_device_scene(scene)
+    names = runner_libraries(buffers_np, config, engine)
+    if torch.device(device).type != "cuda":
+        return 0
+    for name, so in kernels.build(names=names).items():
+        log.info("library %s: %s", name, so)
+    return len(names)
+
+
+def render(scene, spp: int = DEFAULT_SPP, seed: int = 0, device="cuda",
+           engine: str = "auto", checkpoint: Optional[str] = None,
+           resume: bool = False,
+           progress: Optional[Callable[[int, int, float], None]] = None,
+           want_var: bool = False):
+    """Render a FlatScene on `device` with `engine` (ENGINES); returns a
+    dict of (H, W, 3) float32 images (color, normal, albedo, all
+    averaged; with `want_var` also `varmean`, the per-pixel variance of
+    the color mean from the spread of the per-chunk means), `total_rays`
+    (of the chunks this call ran), `wall_time` (seconds, ending in a
+    device synchronize), `launches` (kernel launches, 0 on the CPU) and
+    `engine`.
+
+    `checkpoint`: a snapshot file written after every chunk (after
+    `progress(done, spp, ms)` is called); `resume` starts from it where
+    its fingerprint matches, and from 0 with a warning where not."""
+    runner = _runner(engine)
     device = torch.device(device)
     buffers_np, config = build_device_scene(scene)
-    if engine == "wave":
+    if runner == "wave":
         run = make_wave_fn(buffers_np, config, device, spp_hint=spp)
     else:
         run = make_mega_batch_fn(buffers_np, config, device, spp_hint=spp)
-    dev_accum = getattr(run, "run_dev", None)
-    acc = None
+    fingerprint = (scene_fingerprint(buffers_np, config, seed, runner,
+                                     want_var) if checkpoint else "")
+    log.info("engine: %s", runner)
+    launches_before = sum(kernels.launches.values())
+    out = render_loop(run, config, spp, seed, device, checkpoint, resume,
+                      progress, fingerprint, want_var)
+    out["launches"] = sum(kernels.launches.values()) - launches_before
+    out["engine"] = "wave" if runner == "wave" else "pallas"
+    return out
+
+
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def render_loop(run, config, spp, seed, device, checkpoint=None,
+                resume=False, progress=None, fingerprint="", want_var=False):
+    """The chunk loop over a runner (`run(seed, chunk)` -> per-pixel sums
+    over chunk * run.spp_mult samples and `rays`; `run.chunk_hint`,
+    `run.spp_mult`, and for a wave `run.run_dev` / `run.read_back`), as
+    rene_tpu/render.py:316 `_render_pallas` drives one: the same chunk
+    seeds and sizes, the same film and `varmean`."""
+    device = torch.device(device)
     w, h = config.film.xresolution, config.film.yresolution
     max_chunk = min(LOG_EVERY, run.chunk_hint)
     mult = run.spp_mult
-    host_rng = np.random.default_rng(seed)
+    if want_var:    # two chunks at least, so that their means spread
+        max_chunk = max(1, min(max_chunk, spp // (2 * mult)))
     accum = {k: torch.zeros((w * h, 3), dtype=torch.float32, device=device)
-             for k in ("radiance", "normal", "albedo")}
+             for k in SUMS}
+    sq_sum = (torch.zeros((w * h, 3), dtype=torch.float32, device=device)
+              if want_var else None)
+    done = seeds = 0
+    if checkpoint and resume:
+        snap = load_checkpoint(checkpoint, fingerprint)
+        if snap is not None:
+            accum = {k: torch.from_numpy(v).to(device)
+                     for k, v in snap["accum"].items()}
+            if want_var:
+                sq_sum = torch.from_numpy(snap["sq_sum"]).to(device)
+            done, seeds = snap["samples_done"], snap["seeds"]
+            log.info("resumed from %s at sample %d (%d chunks)", checkpoint,
+                     done, seeds)
+    host_rng = np.random.default_rng(seed)
+    for _ in range(seeds):      # the seeds of the chunks already summed
+        host_rng.integers(0, 2 ** 31, dtype=np.int32)
+    # a wave's on-device sum across waves gives no per-chunk sums, which a
+    # checkpoint and the sums of squares need
+    dev_accum = (None if checkpoint or want_var
+                 else getattr(run, "run_dev", None))
+    acc = None
     total_rays = 0.0
-    launches_before = sum(kernels.launches.values())
-    t_start = time.time()
-    t_batch = time.time()
-    done = 0
+    t_start = t_batch = time.time()
     while done < spp:
+        # a packed runner may overshoot spp by < mult; the average divides
+        # by the samples delivered
         chunk = min(max_chunk, -(-(spp - done) // mult))
         chunk_seed = int(host_rng.integers(0, 2 ** 31, dtype=np.int32))
+        seeds += 1
         if dev_accum is not None:
             acc = dev_accum(chunk_seed, chunk, acc)
             float(acc[1])   # a sync per wave keeps the chunk times honest
         else:
-            out = run(chunk_seed, chunk)
-            for k in accum:
-                accum[k] += out[k]
+            out = run(chunk_seed, chunk)    # a wave's sums come as numpy
+            sums = {k: torch.as_tensor(out[k], device=device) for k in SUMS}
+            for k in SUMS:
+                accum[k] += sums[k]
+            if sq_sum is not None:
+                # a divisor on the device: torch divides a CUDA tensor by a
+                # host scalar as a product with its reciprocal, which may
+                # round off numpy's quotient by one ulp
+                n = torch.tensor(float(chunk * mult), device=device)
+                xm = sums["radiance"] / n
+                sq_sum += n * xm * xm
             total_rays += float(out["rays"])
         done += chunk * mult
         dt = (time.time() - t_batch) * 1000.0
         log.info("Samples: %d/%d (%.0f ms)", done, spp, dt)
         t_batch = time.time()
-    host = {k: v.cpu().numpy() for k, v in accum.items()}
+        if progress:
+            progress(done, spp, dt)
+        if checkpoint:
+            save_checkpoint(
+                checkpoint, {k: _host(v) for k, v in accum.items()}, done,
+                fingerprint, seeds, None if sq_sum is None else _host(sq_sum))
+    host = {k: _host(v) for k, v in accum.items()}
     if acc is not None:
         out = run.read_back(acc)
         for k in host:
@@ -101,13 +208,27 @@ def render(scene, spp: int = DEFAULT_SPP, seed: int = 0, device="cuda",
         total_rays += out["rays"]
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    return {
-        "color": rays_to_image(host["radiance"] / max(done, 1), w, h),
-        "normal": rays_to_image(host["normal"] / max(done, 1), w, h),
-        "albedo": rays_to_image(host["albedo"] / max(done, 1), w, h),
-        "config": config,
-        "total_rays": total_rays,
-        "wall_time": time.time() - t_start,
-        "launches": sum(kernels.launches.values()) - launches_before,
-        "engine": "wave" if engine == "wave" else "pallas",
-    }
+    n = max(done, 1)
+    result = {k: rays_to_image(host[s] / n, w, h)
+              for k, s in (("color", "radiance"), ("normal", "normal"),
+                           ("albedo", "albedo"))}
+    result.update(config=config, total_rays=total_rays,
+                  wall_time=time.time() - t_start)
+    if sq_sum is not None:
+        result["varmean"] = rays_to_image(
+            _var_of_mean(host["radiance"], _host(sq_sum), done, seeds), w, h)
+    return result
+
+
+def _var_of_mean(sum_x, sq_sum, n_total, n_chunks):
+    """Per-pixel variance of the color mean from the per-chunk means
+    (rene_tpu/render.py:301), in float32: sum_x the per-sample radiance
+    sum, sq_sum the sum over chunks of n_i * mean_i^2; Var[mean] ~=
+    (sq_sum - n mean^2) / ((k - 1) n). One chunk gives no estimate: +inf,
+    which the blend reads as "take the denoiser"."""
+    n_total = max(n_total, 1)
+    mean = sum_x / n_total
+    if n_chunks < 2:
+        return np.full_like(sum_x, np.inf)
+    spread = np.maximum(sq_sum - n_total * mean * mean, 0.0)
+    return spread / ((n_chunks - 1) * n_total)

@@ -1,1 +1,1 @@
-"""Host utilities of the port (film output)."""
+"""Host utilities of the port: film output, checkpoints, SSIM."""
