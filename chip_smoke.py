@@ -166,11 +166,27 @@ when either is missing or any check fails. Phases:
     the denoisers' times by CUDA events at 1280x720 and 1024x1024, one
     `save_checkpoint` of a 1280x720 film, the big mesh's render loop at
     one chunk of 32 against two of 16 (want_var), in turns; `--warm-cache`
-    on both engines, naming the libraries.
+    on both engines, naming the libraries;
+28. the XLA engine (plain PyTorch on the card, no kernel of its own):
+    its path and volpath loops on the card against the same engine on the
+    CPU, per pixel by the card's limits and by their ray totals, on the
+    same uint32 seed at 64x64 x 2 spp: the Cornell box (the matrix-product
+    intersector), the mesh-materials scene with the BVH walk forced, and
+    two scenes the kernels refuse, the checker-metal scene and the fog
+    scene with 65 stretched spheres; then through the CLI the Cornell box
+    at 1280x720 x 4 spp with `--engine xla`, its linear image mean within
+    rtol 0.1 of the megakernel's at the same spp (the reference's own
+    engine check), the checker-metal scene at 1280x720 x 4 spp through
+    `auto`, the forced-BVH mesh (`--bvh on`) at 256x128 x 1 spp with the
+    port's BVH tile cap (2^18 lanes) and once more with the reference's
+    (2^14), the two films held to each other, and the refused fog scene at
+    320x180 x 2 spp through `auto`; the CUDA kernels torch launches per
+    XLA render and per loop iteration (torch.profiler, a 64x64 Cornell box
+    at 1 spp).
 
 The per-pixel rule and the card's limits are rene_tpu_torch.checks'. Each
-path run (phases 4, 7, 11, 14, 17, 19, 21, 25, 26, 27 and the `dma` wave
-of 12) starts
+path run (phases 4, 7, 11, 14, 17, 19, 21, 25, 26, 27, 28 and the `dma`
+wave of 12) starts
 with every launch count set to 0 and reads them just after; comparison
 launches are not counted. The plain versions run on the card, for the
 waves of phases 10, 13, 16 and 20 through rene_tpu_torch.kernels'
@@ -284,6 +300,18 @@ RESUME_SPP = 32
 UNET_WEIGHTS = os.path.join("rene_tpu", "models", "weights", "unet.msgpack")
 ATROUS_TOL, UNET_TOL = (1e-6, 1e-5), (1e-5, 1e-4)
 DENOISE_SQUARE = 1024
+# phase 28, the XLA engine: the card against the CPU (film, spp, a uint32
+# seed past 2^31), the full-width renders' spp and the reference's rtol
+# between the engines' means, the forced-BVH mesh's and the refused fog
+# scene's films and spp, and the profiled render's film
+XLA_CHECK_W, XLA_CHECK_H, XLA_CHECK_SPP, XLA_SEED = 64, 64, 2, 3000000001
+XLA_SPP, XLA_MEGA_RTOL = 4, 0.1
+XLA_BVH_W, XLA_BVH_H, XLA_BVH_SPP = 256, 128, 1
+# the reference's BVH tile cap (rene_tpu/render.py:218), timed beside the
+# port's
+XLA_REF_BVH_TILE = 1 << 14
+XLA_FOG_W, XLA_FOG_H, XLA_FOG_SPP = 320, 180, 2
+XLA_PROFILE_W = 64
 
 
 def log(msg):
@@ -685,6 +713,192 @@ def resume_and_denoise(dev, card, paths):
             raise RuntimeError(f"--warm-cache ({engine}): rc {rc}, {records}")
         log(f"--warm-cache (big mesh, engine {engine}): rc 0, "
             f"{'; '.join(libs)}")
+
+
+@contextlib.contextmanager
+def captured_renders():
+    """rene_tpu_torch.render.render wrapped so that the result of every
+    render inside the block (the CLI's among them) is kept in the list
+    yielded."""
+    from rene_tpu_torch import render as RD
+    got, inner = [], RD.render
+
+    def keep(*a, **k):
+        got.append(inner(*a, **k))
+        return got[-1]
+
+    RD.render = keep
+    try:
+        yield got
+    finally:
+        RD.render = inner
+
+
+def xla_engine(dev, card):
+    """Phase 28: the XLA engine on the card against the CPU, through the
+    CLI at full width against the megakernel, on the scenes the kernels
+    refuse, with the BVH forced, and its launches per render."""
+    import numpy as np
+    import torch
+    from rene_tpu_torch import checks, scenes
+    from rene_tpu_torch import render as RD
+    from rene_tpu_torch.integrators import path, volpath
+    from rene_tpu_torch.ops.accel import make_accel
+    from rene_tpu_torch.scene import load_scene
+    from rene_tpu_torch.scene.device import to_torch
+    from rene_tpu_torch.utils.checkpoint import SUMS
+
+    # the card against the CPU, per pixel, on the same seed
+    w, h = XLA_CHECK_W, XLA_CHECK_H
+    pix = torch.arange(w * h)
+    for name, src, force in (
+            ("cornell", scenes.cornell_box(w, h), None),
+            ("mesh_bvh", scenes.mesh_materials_scene(w, h), "bvh"),
+            ("checker_metal", scenes.checker_metal_scene(SCENE_DIR, w, h),
+             None),
+            ("fog_spheres", scenes.fog_spheres_scene(w, h), None)):
+        t0 = time.time()
+        bn, cfg = buffers_for(write_scene(f"xla_{name}", src, SCENE_DIR))
+        batch = (volpath.render_batch if cfg.integrator == "volpath"
+                 else path.render_batch)
+        res = {}
+        for d in (dev, torch.device("cpu")):
+            t = time.time()
+            o = batch(to_torch(bn, d), cfg, (pix % w).to(d),
+                      (pix // w).to(d), XLA_SEED, XLA_CHECK_SPP,
+                      accel=make_accel(bn, cfg, d, force=force))
+            rows = torch.cat([o[k].T for k in SUMS]).cpu()
+            res[d.type] = (rows, float(o["rays"]), time.time() - t,
+                           o["iterations"])
+        card_rows, card_rays, card_s, iters = res["cuda"]
+        if not bool(torch.isfinite(card_rows).all()):
+            raise RuntimeError(f"XLA engine {name}: not finite on the card")
+        a = checks.agreement(card_rows, res["cpu"][0])
+        log(f"XLA engine card vs CPU ({name}, {w}x{h} x {XLA_CHECK_SPP} "
+            f"spp, seed {XLA_SEED}, {iters} loop iterations; card "
+            f"{card_s:.1f} s, CPU {res['cpu'][2]:.1f} s): rays "
+            f"{card_rays:.0f} / {res['cpu'][1]:.0f}; " + json.dumps(a))
+        checks.check_card(a, f"XLA engine {name}, card vs CPU")
+        if abs(card_rays - res["cpu"][1]) > 1e-3 * res["cpu"][1]:
+            raise RuntimeError(f"XLA engine {name}: ray totals differ")
+        log(f"phase 28 {name} card vs CPU: {time.time() - t0:.1f} s")
+
+    # full width through the CLI: the Cornell box on both engines, the
+    # refused checker-metal scene through auto
+    t0 = time.time()
+    means = {}
+    for engine in ("xla", "pallas"):
+        with captured_renders() as got:
+            _, l_c, r_c = cli_path(
+                "xla_cornell", scenes.cornell_box(MESH_W, MESH_H)
+                if engine == "xla" else None, XLA_SPP, (MESH_W, MESH_H),
+                f"cornell {MESH_W}x{MESH_H}", engine=engine)
+        out = got[-1]
+        if out["engine"] != engine or (engine == "xla") != (
+                sum(l_c.values()) == 0):
+            raise RuntimeError(f"cornell {engine}: engine {out['engine']}, "
+                               f"launches {l_c}")
+        means[engine] = out["color"].astype(np.float64).mean(axis=(0, 1))
+        log(f"cornell {MESH_W}x{MESH_H} x {XLA_SPP} spp, engine {engine}: "
+            f"{out['total_rays'] / 1e6:.3f} Mrays in {out['wall_time']:.3f}"
+            f" s, {out['total_rays'] / out['wall_time'] / 1e6:.2f} Mrays/s"
+            + (f", {out['iterations']} loop iterations"
+               if engine == "xla" else "")
+            + f", linear mean {means[engine].tolist()} [{card}]")
+    if not np.allclose(means["xla"], means["pallas"], rtol=XLA_MEGA_RTOL):
+        raise RuntimeError(f"cornell: the XLA engine's mean "
+                           f"{means['xla']} is not the megakernel's "
+                           f"{means['pallas']} within rtol {XLA_MEGA_RTOL}")
+    log(f"phase 28 cornell, both engines: {time.time() - t0:.1f} s")
+
+    def refused(name, src, size, spp, extra=()):
+        t0 = time.time()
+        with captured_renders() as got:
+            _, l_r, r_r = cli_path(name, src, spp, size,
+                                   f"{name} {size[0]}x{size[1]}",
+                                   engine="auto", directory=SCENE_DIR,
+                                   extra=extra)
+        out = got[-1]
+        if out["engine"] != "xla" or sum(l_r.values()) or not any(
+                "the kernels refuse" in m for m in r_r["records"]):
+            raise RuntimeError(f"{name}: auto did not take the XLA engine: "
+                               f"{out['engine']}, {l_r}")
+        log(f"{name} {size[0]}x{size[1]} x {spp} spp through auto: "
+            f"{out['total_rays'] / 1e6:.3f} Mrays in {out['wall_time']:.3f}"
+            f" s, {out['total_rays'] / out['wall_time'] / 1e6:.2f} Mrays/s,"
+            f" {out['iterations']} loop iterations [{card}]")
+        log(f"phase 28 {name}: {time.time() - t0:.1f} s")
+
+    refused("xla_checker_metal_full",
+            scenes.checker_metal_scene(SCENE_DIR, MESH_W, MESH_H),
+            (MESH_W, MESH_H), XLA_SPP)
+
+    # the forced-BVH mesh through the CLI, then with the reference's BVH
+    # tile cap: the cap does not change the image, its time is read
+    t0 = time.time()
+    size = (XLA_BVH_W, XLA_BVH_H)
+    runs = {}
+    with captured_renders() as got:
+        bvh_path, l_b, _ = cli_path(
+            "xla_mesh_bvh", scenes.mesh_materials_scene(*size), XLA_BVH_SPP,
+            size, f"mesh materials {size[0]}x{size[1]}, BVH forced",
+            engine="xla", extra=["--bvh", "on"])
+    cap = RD.XLA_BVH_TILE
+    runs[cap] = got[-1]
+    try:
+        RD.XLA_BVH_TILE = XLA_REF_BVH_TILE
+        runs[XLA_REF_BVH_TILE] = RD.render(
+            load_scene(bvh_path), spp=XLA_BVH_SPP, seed=MAIN_SEED,
+            device="cuda", engine="xla", use_bvh=True)
+    finally:
+        RD.XLA_BVH_TILE = cap
+    a, b = runs[cap], runs[XLA_REF_BVH_TILE]
+
+    def rows(out):
+        return np.concatenate([out[k].reshape(-1, 3).T * XLA_BVH_SPP
+                               for k in ("color", "normal", "albedo")])
+    agree = checks.agreement(rows(a), rows(b))
+    for tile, out in runs.items():
+        log(f"mesh materials {size[0]}x{size[1]} x {XLA_BVH_SPP} spp, BVH "
+            f"forced, tiles of {min(tile, size[0] * size[1])} lanes: "
+            f"{out['total_rays'] / 1e6:.3f} Mrays in {out['wall_time']:.3f}"
+            f" s, {out['total_rays'] / out['wall_time'] / 1e6:.3f} Mrays/s,"
+            f" {out['iterations']} loop iterations [{card}]")
+    log(f"the BVH tile cap, the port's vs the reference's: rays "
+        f"{a['total_rays']:.0f} / "
+        f"{b['total_rays']:.0f}; " + json.dumps(agree))
+    checks.check_card(agree, "the BVH tile cap")
+    log(f"phase 28 BVH mesh: {time.time() - t0:.1f} s")
+
+    refused("xla_fog_spheres", scenes.fog_spheres_scene(XLA_FOG_W,
+                                                        XLA_FOG_H),
+            (XLA_FOG_W, XLA_FOG_H), XLA_FOG_SPP)
+
+    # the CUDA kernels torch launches per XLA render (torch.profiler)
+    t0 = time.time()
+    from torch.profiler import ProfilerActivity, profile
+    scene = load_scene(write_scene(
+        "xla_profile", scenes.cornell_box(XLA_PROFILE_W, XLA_PROFILE_W),
+        SCENE_DIR))
+    RD.render(scene, spp=1, seed=MAIN_SEED, device="cuda", engine="xla")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = RD.render(scene, spp=1, seed=MAIN_SEED, device="cuda",
+                        engine="xla")
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(getattr(e, "device_time", None)
+                  or getattr(e, "cuda_time", 0.0) for e in kern)
+    if kern:
+        log(f"XLA render launches (cornell {XLA_PROFILE_W}x{XLA_PROFILE_W}"
+            f" x 1 spp, {out['iterations']} loop iterations): {len(kern)} "
+            f"CUDA kernels, {len(kern) / max(out['iterations'], 1):.0f} per"
+            f" iteration, device busy {busy_us / 1e3:.3f} ms of a "
+            f"{out['wall_time'] * 1e3:.3f} ms render (profiled) [{card}]")
+    else:
+        log("XLA render launches: not measured (the profiler saw no CUDA "
+            "kernel)")
+    log(f"phase 28 profile: {time.time() - t0:.1f} s")
 
 
 def main() -> int:
@@ -1987,6 +2201,10 @@ def main() -> int:
     resume_and_denoise(dev, card, {"big_mesh": big_path,
                                    "deep_mesh": deep_path})
     phase_done(27)
+
+    # 28. the XLA engine
+    xla_engine(dev, card)
+    phase_done(28)
 
     if any(m.split(".")[0] in ("jax", "rene_tpu") for m in sys.modules):
         raise RuntimeError("jax or rene_tpu was imported")

@@ -2,21 +2,25 @@
 
     python -m rene_tpu_torch.cli scene.pbrt --spp N --seed S \
         --output out.png [--aov-normal P] [--aov-albedo P] [--device cuda|cpu]
-        [--engine auto|pallas|wave] [--sampler auto|sobol|independent]
+        [--engine auto|pallas|wave|xla] [--bvh auto|on|off]
+        [--tile-rays N] [--sampler auto|sobol|independent]
         [--denoiser none|atrous|cnn [--unet-weights W]]
         [--checkpoint C [--resume]] [--color-space linear|srgb|srgb-lights]
         [--scene-overrides F] [--tungsten-compat] [--mf-dist D]
         [--warm-cache]
 
 Counterpart of rene_tpu/cli.py:101 `main` for the slice the port carries
-(the path and volpath integrators under the independent or the Sobol
-sampler; the megakernel and wave engines). The
+(the path and volpath integrators; the megakernel and wave engines under
+the independent or the Sobol sampler, and the XLA engine, which renders
+the scenes the kernels refuse and which `auto` picks for them). The
 default device is `cuda`; the CPU runs the kernels' plain PyTorch
-versions and must be asked for. `--mf-dist` and an override file's
-`mf_dist` set RENE_MF_DIST for the render, as the reference does; `main`
-gives the variable back its value from before the call when it returns.
-Not carried over: `--tile-rays` and `--bvh` (the XLA engine), `--devices`
-and `--multichip-mode`, `--dump-module`.
+versions and must be asked for. `--bvh` and `--tile-rays` are the XLA
+engine's: `on` forces the BVH walk as its main accelerator, and the film
+goes through it in tiles of that many lanes. `--mf-dist` and an override
+file's `mf_dist` set RENE_MF_DIST for the render, as the reference does;
+`main` gives the variable back its value from before the call when it
+returns. Not carried over: `--devices` and `--multichip-mode`,
+`--dump-module`.
 """
 from __future__ import annotations
 
@@ -58,7 +62,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--engine", choices=["auto", "pallas", "wave", "xla"],
                    default="auto",
                    help="pallas: the megakernel; wave: the wavefront "
-                        "engine; auto: the megakernel (xla is not ported)")
+                        "engine; xla: the XLA engine (plain PyTorch on "
+                        "the device); auto: the megakernel, or the XLA "
+                        "engine for a scene the kernels refuse")
+    p.add_argument("--bvh", choices=["auto", "on", "off"], default="auto",
+                   help="the XLA engine's accelerator: on forces the BVH "
+                        "walk; auto and off take the matrix-product "
+                        "intersector up to 4096 triangles")
+    p.add_argument("--tile-rays", type=int, default=1 << 18,
+                   help="lanes per call of the XLA engine (at most "
+                        "262144 with a BVH)")
     p.add_argument("--sampler", choices=["auto", "sobol", "independent"],
                    default="auto",
                    help="override the scene's Sampler directive (auto "
@@ -164,9 +177,11 @@ def _main(args) -> int:
     from .render import DEFAULT_SPP, render
     from .utils.film import save_png, to_aov8, to_aov_normal8, to_rgb8
     spp = args.spp if args.spp is not None else DEFAULT_SPP
+    use_bvh = {"auto": None, "on": True, "off": False}[args.bvh]
     out = render(scene, spp=spp, seed=args.seed, device=args.device,
                  engine=args.engine, checkpoint=args.checkpoint,
-                 resume=args.resume, want_var=args.denoiser != "none")
+                 resume=args.resume, want_var=args.denoiser != "none",
+                 use_bvh=use_bvh, tile_rays=args.tile_rays)
     color = out["color"]
     if args.denoiser != "none":
         from .models.denoise import UNetDenoiser, denoise

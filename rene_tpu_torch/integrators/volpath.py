@@ -37,6 +37,16 @@ the casts it makes.
 csrc/vol_loop.cuh's lane loop (`vol_step` over csrc/volpath.cuh's
 `vol_shade` and its marches); mega_path.path_lanes_ref runs it for
 volpath tables (`vol_lanes_ref`), as wave.wave_step_ref does.
+
+`render_batch` is the XLA engine's volpath (rene_tpu/integrators/
+volpath.py: `_tr_march`, `render_batch`, `render_sample`), with the loop,
+the regeneration and the draw discipline of integrators/path.py and the
+media of ops/medium_xla.py. Per bounce: the closest hit, distance
+sampling along it, then a medium interaction (phase-function NEE to the
+distant lights through `_tr_march`, emitter NEE, a Henyey-Greenstein
+scatter) or a surface one (the path body's, with transmittance-weighted
+NEE; a `None` surface passes the ray through and switches its medium);
+no Russian roulette (lib.rs:787-799); maxdepth 80 by default.
 """
 from __future__ import annotations
 
@@ -52,7 +62,15 @@ from ..ops.texture import apply_textures, background
 from ..ops.vec3 import dot3, normalize3, onb_from_w, to_local
 from ..scene import pack as P
 from ..scene import types as T
-from .common import sample_emit
+from ..ops import bsdf as B
+from ..ops import medium_xla as MD
+from ..ops import vec3 as v3
+from ..ops.gather import at
+from ..ops.vec3 import V3
+from .camera import generate_rays
+from .common import background_radiance, sample_emit, sample_emit_object
+from .path import (TMAX, any_normal, gather3, light_rows, pixel_states,
+                   rays_per_lane)
 from .mega_path import (FLT_MIN_NORMAL, camera_draws, path_lanes_ref,
                         scatter)
 
@@ -215,3 +233,217 @@ def vol_lanes_ref(tabs, seed: int, num_samples: int, beckmann: bool = False,
     if not tabs["volpath"]:
         raise ValueError("vol_lanes_ref: the scene's integrator is path")
     return path_lanes_ref(tabs, seed, num_samples, beckmann, lanes, pack)
+
+
+# -- the XLA engine's volpath (rene_tpu/integrators/volpath.py) ------------
+
+def max_depth_for(config) -> int:
+    if config.max_depth_hint is not None:
+        return max(int(config.max_depth_hint), 1)
+    return 80  # reference lib.rs:499
+
+
+def _tr_march(buffers, config, org: V3, direction: V3, med_idx, accel=None,
+              want_emit=False):
+    """tr / tr_emit (lib.rs:359-468): the transmittance through `None`
+    boundaries toward a light, or (want_emit) the emitter's radiance so
+    transmitted; at most MAX_TR_MARCH casts, while any lane marches."""
+    n = org.x.shape[0]
+    dev = org.x.device
+    tr = V3.ones((n,), dev)
+    out = V3.zeros((n,), dev)
+    live = torch.ones((n,), dtype=torch.bool, device=dev)
+    med = med_idx
+    for _ in range(X.MAX_TR_MARCH):
+        if not bool(live.any()):
+            break
+        hit = X.trace(buffers, config, org, direction, X.TMIN, TMAX,
+                      accel=accel)
+        inst = hit["inst"]
+        mat_none = at(buffers["mat_type"], at(buffers["inst_material"],
+                                              inst)) == T.MAT_NONE
+        al_idx = at(buffers["inst_area_light"], inst)
+        is_emitter = at(buffers["area_type"], al_idx) != T.AREA_NULL
+        if want_emit:
+            wo = -direction.normalized()
+            nrm = hit["normal"].normalized()
+            emit = v3.where(wo.dot(nrm) > 0.0,
+                            gather3(buffers["area_color"], al_idx), 0.0)
+            take = live & hit["hit"] & is_emitter
+            out = out + v3.where(take, tr * emit, 0.0)
+            stop = ~hit["hit"] | is_emitter | (~is_emitter & ~mat_none)
+        else:
+            take = live & ~hit["hit"]
+            out = out + v3.where(take, tr, 0.0)
+            stop = ~hit["hit"] | ~mat_none
+        seg_tr = MD.med_tr(buffers, med, direction, hit["t"])
+        cont = live & ~stop
+        tr = v3.where(cont, tr * seg_tr, tr)
+        crossing_out = direction.dot(hit["normal"]) > 0.0
+        med = torch.where(cont, torch.where(
+            crossing_out, at(buffers["inst_exterior"], inst),
+            at(buffers["inst_interior"], inst)).long(), med)
+        org = v3.where(cont, hit["position"], org)
+        live = cont
+    return out
+
+
+def render_batch(buffers, config, px, py, seed, num_samples, accel=None):
+    """volpath with path regeneration: `num_samples` samples of each
+    pixel (px, py); returns the summed radiance, normal and albedo as
+    (N, 3) tensors, the traced-ray count (a float32 0-d tensor) and the
+    loop's `iterations`."""
+    n = px.shape[0]
+    dev = px.device
+    state = pixel_states(config, px, py, seed)
+    org, direction, state = generate_rays(buffers, config, px, py, state)
+
+    max_depth = max_depth_for(config)
+    num_emit = config.num_emit_objects
+    lights = light_rows(buffers, config, n, dev)
+
+    color = V3.ones((n,), dev)
+    depth = torch.zeros((n,), dtype=torch.int64, device=dev)
+    sample = torch.zeros((n,), dtype=torch.int64, device=dev)
+    radiance = V3.zeros((n,), dev)
+    med = torch.zeros((n,), dtype=torch.int64, device=dev)
+    aov_normal = V3.zeros((n,), dev)
+    aov_albedo = V3.zeros((n,), dev)
+    rays = torch.zeros((), dtype=torch.float32, device=dev)
+    iterations = 0
+
+    while bool((sample < num_samples).any()):
+        iterations += 1
+        active = sample < num_samples
+        color0 = color
+        rays = rays + active.to(torch.float32).sum() * rays_per_lane(config)
+
+        hit = X.trace(buffers, config, org, direction, X.TMIN, TMAX,
+                      accel=accel)
+        bg = background_radiance(buffers, direction, config)
+        miss = active & ~hit["hit"]
+        radiance = radiance + v3.where(miss, color * bg, 0.0)
+        alive = active & hit["hit"]
+
+        wo = -direction.normalized()
+        normal = hit["normal"].normalized()
+        position = hit["position"]
+        uv = hit["uv"]
+        inst = hit["inst"]
+        mat_idx = at(buffers["inst_material"], inst)
+        al_idx = at(buffers["inst_area_light"], inst)
+        mat_none = at(buffers["mat_type"], mat_idx) == T.MAT_NONE
+
+        # distance sampling along the segment (lib.rs:561-565)
+        sampled, mpos, mtr, state = MD.med_sample(
+            buffers, med, org, direction, hit["t"], state)
+        sampled = sampled & alive
+        color = v3.where(alive, color * mtr, color)
+
+        # a medium interaction
+        for wi_l, lc in lights:
+            trv = _tr_march(buffers, config, mpos, wi_l, med, accel=accel)
+            phase = MD.med_phase(buffers, med, wo, wi_l)
+            radiance = radiance + v3.where(
+                sampled, color * trv * phase * lc, 0.0)
+
+        m_dir, state = MD.med_sample_p(buffers, med, wo, state)
+        if num_emit > 0:
+            ls_wi, state = sample_emit_object(buffers, config, mpos, state)
+            epdf = X.trace_emissive_pdf(buffers, config, mpos, ls_wi,
+                                        X.TMIN, TMAX, accel=accel) / num_emit
+            tr_e = _tr_march(buffers, config, mpos, ls_wi, med,
+                             accel=accel, want_emit=True)
+            phase_e = MD.med_phase(buffers, med, wo, ls_wi)
+            radiance = radiance + v3.where(
+                sampled & (epdf > 1e-5),
+                color * tr_e * (phase_e / torch.clamp_min(epdf, 1e-5)), 0.0)
+
+        # a surface interaction
+        surf = alive & ~sampled
+        onb = v3.Onb.from_w(normal)
+        lobes = B.compute_bsdf(buffers, mat_idx, uv, config)
+
+        al_color = gather3(buffers["area_color"], al_idx)
+        al_on = ((at(buffers["area_type"], al_idx) != T.AREA_NULL)
+                 & (wo.dot(normal) > 0.0))
+        radiance = radiance + v3.where(surf & al_on, color * al_color, 0.0)
+
+        first = surf & (depth == 0)
+        albedo = B.material_albedo(buffers, mat_idx, uv, config)
+        aov_normal = aov_normal + v3.where(first, normal, 0.0)
+        aov_albedo = aov_albedo + v3.where(first, albedo, 0.0)
+
+        surf_scatter = surf & ~mat_none
+        for wi_l, lc in lights:
+            trv = _tr_march(buffers, config, position, wi_l, med,
+                            accel=accel)
+            f_l = B.bsdf_f(lobes, onb, normal, wo, wi_l, config)
+            radiance = radiance + v3.where(
+                surf_scatter,
+                color * trv * f_l * torch.abs(wi_l.dot(normal)) * lc, 0.0)
+
+        swi, sf, spdf, state = B.bsdf_sample_f(lobes, onb, wo, state, config)
+        if num_emit > 0:
+            coin, state = rng.next_f32(state)
+            ls_wi, state = sample_emit_object(buffers, config, position,
+                                              state)
+            take_light = coin > 0.5
+            use_mis = B.bsdf_contains(lobes, T.KIND_DIFFUSE)
+            sel_l = use_mis & take_light
+            wi_s = v3.where(sel_l, ls_wi, swi)
+            f_s = v3.where(sel_l,
+                           B.bsdf_f(lobes, onb, normal, wo, ls_wi, config),
+                           sf)
+            pdf_b = torch.where(sel_l,
+                                B.bsdf_pdf(lobes, onb, wo, ls_wi, config),
+                                spdf)
+            light_pdf = X.trace_emissive_pdf(
+                buffers, config, position, wi_s, X.TMIN, TMAX,
+                accel=accel) / num_emit
+            pdf_s = torch.where(use_mis, 0.5 * pdf_b + 0.5 * light_pdf, spdf)
+            f_s = v3.where(use_mis, f_s, sf)
+            wi_s = v3.where(use_mis, wi_s, swi)
+        else:
+            wi_s, f_s, pdf_s = swi, sf, spdf
+
+        surf_color = color * f_s * (torch.abs(normal.dot(wi_s))
+                                    / torch.clamp_min(pdf_s, 1e-20))
+
+        # the next ray, by the lane's kind of interaction
+        new_org = v3.where(sampled, mpos, v3.where(surf, position, org))
+        new_dir = v3.where(sampled, m_dir,
+                           v3.where(surf_scatter, wi_s, direction))
+        color = v3.where(surf_scatter, surf_color, color)
+        alive = alive & (sampled | (surf & (mat_none | (pdf_s >= 1e-5))))
+
+        # the medium across a surface (lib.rs:775-779)
+        crossing_out = wo.dot(normal) < 0.0
+        new_med = torch.where(surf, torch.where(
+            crossing_out, at(buffers["inst_exterior"], inst),
+            at(buffers["inst_interior"], inst)).long(), med)
+
+        alive = alive & any_normal(color)
+        new_depth = depth + 1
+        alive = alive & (new_depth < max_depth)
+
+        # regeneration
+        finished = active & ~alive
+        sample = sample + finished.long()
+        regen = finished & (sample < num_samples)
+        cam_org, cam_dir, state = generate_rays(buffers, config, px, py,
+                                                state)
+        org = v3.where(regen, cam_org, v3.where(alive, new_org, org))
+        direction = v3.where(regen, cam_dir,
+                             v3.where(alive, new_dir, direction))
+        color = v3.where(regen, 1.0, v3.where(alive, color, color0))
+        depth = torch.where(regen, 0, torch.where(alive, new_depth, depth))
+        med = torch.where(regen, 0, torch.where(alive, new_med, med))
+
+    return {"radiance": radiance.to_array(), "normal": aov_normal.to_array(),
+            "albedo": aov_albedo.to_array(), "rays": rays,
+            "iterations": iterations}
+
+
+def render_sample(buffers, config, px, py, seed, accel=None):
+    return render_batch(buffers, config, px, py, seed, 1, accel=accel)

@@ -26,9 +26,15 @@ masks, so that on a card it waits on the device only where it must
 count lanes.
 
 The builder below (`build_bvh` and its median-split fallback) is
-rene_tpu/ops/bvh.py's host-side build, copied without its JAX traversal:
-binned SAH through the native C++ builder (ops/native.py), median splits
-where that is missing or too deep.
+rene_tpu/ops/bvh.py's host-side build: binned SAH through the native C++
+builder (ops/native.py), median splits where that is missing or too
+deep. `BVH.to_device` and `BVH.intersect` are that file's traversal, the
+XLA engine's walk: every lane carries a stack of MAX_DEPTH_STACK nodes,
+internal nodes test both child boxes and descend into the nearer one
+(the left on a tie in t_near), pushing the other, leaves test LEAF_SIZE
+slots; the loop runs while any lane is live. It keeps its own visiting
+order and its strict-less update of the closest hit (the first triangle
+found at the least t wins), unlike `march` above.
 """
 from __future__ import annotations
 
@@ -68,6 +74,106 @@ class BVH:
     @property
     def num_nodes(self):
         return self.left.shape[0]
+
+    def to_device(self, device):
+        """The tree's arrays as tensors on `device`."""
+        self.device = torch.device(device)
+        self._device = {
+            k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+            for k, v in (("aabb_min", self.aabb_min),
+                         ("aabb_max", self.aabb_max),
+                         ("left", self.left.astype(np.int64)),
+                         ("right", self.right.astype(np.int64)),
+                         ("is_leaf", self.is_leaf),
+                         ("order", self.order.astype(np.int64)),
+                         ("tri_p", self.tri_p_sorted))}
+        return self
+
+    def intersect(self, org, direction, tmin, tmax):
+        """The closest hit of the (N, 3) rays in [tmin, tmax]: (t,
+        original triangle id), t = BIG_T and id 0 on a miss."""
+        from .gather import at
+        from .intersect import BIG_T, moller_trumbore
+
+        d = self._device
+        n = org.shape[0]
+        dev = org.device
+        inv_d = 1.0 / torch.where(
+            torch.abs(direction) > 1e-20, direction,
+            torch.where(direction >= 0, 1e-20, -1e-20))
+
+        def slab(node_idx, t_best):
+            t0 = (at(d["aabb_min"], node_idx) - org) * inv_d
+            t1 = (at(d["aabb_max"], node_idx) - org) * inv_d
+            tn = torch.minimum(t0, t1)
+            tf = torch.maximum(t0, t1)
+            t_near = torch.maximum(tn.max(dim=-1).values, tmin)
+            t_far = torch.minimum(tf.min(dim=-1).values,
+                                  torch.minimum(t_best, tmax))
+            return t_near, t_near <= t_far
+
+        stack = torch.zeros((n, MAX_DEPTH_STACK), dtype=torch.int64,
+                            device=dev)
+        sp = torch.zeros((n,), dtype=torch.int64, device=dev)
+        node = torch.zeros((n,), dtype=torch.int64, device=dev)
+        t_best = torch.clamp_max(tmax + 0.0 * tmax, BIG_T)
+        prim_best = torch.full((n,), -1, dtype=torch.int64, device=dev)
+        _, live = slab(node, t_best)            # the root's cull
+        slots = torch.arange(MAX_DEPTH_STACK, device=dev)[None, :]
+        last = d["tri_p"].shape[0] - 1
+        while bool(live.any()):
+            is_leaf = at(d["is_leaf"], node)
+            leaf = is_leaf & live
+            internal = ~is_leaf & live
+
+            # an internal node: test both children
+            lchild = at(d["left"], node)
+            rchild = at(d["right"], node)
+            lt, lhit = slab(lchild, t_best)
+            rt, rhit = slab(rchild, t_best)
+            lhit = lhit & internal
+            rhit = rhit & internal
+            both = lhit & rhit
+            near_is_l = lt <= rt
+            near = torch.where(near_is_l, lchild, rchild)
+            far = torch.where(near_is_l, rchild, lchild)
+            next_node = torch.where(both, near,
+                                    torch.where(lhit, lchild, rchild))
+            stack = torch.where(
+                (both & (sp < MAX_DEPTH_STACK))[:, None]
+                & (slots == sp[:, None]), far[:, None], stack)
+            sp = torch.where(both, torch.clamp_max(sp + 1, MAX_DEPTH_STACK),
+                             sp)
+            descend = both | (lhit ^ rhit)
+
+            # a leaf: LEAF_SIZE triangle slots
+            start = lchild
+            count = rchild
+            for k in range(LEAF_SIZE):
+                slot = torch.clamp(start + k, 0, last)
+                p = at(d["tri_p"], slot)
+                tk, _, _, hitk = moller_trumbore(
+                    org, direction, p[:, None, 0], p[:, None, 1],
+                    p[:, None, 2], tmin, torch.minimum(t_best, tmax))
+                hitk = hitk[:, 0] & leaf & (k < count)
+                tk = tk[:, 0]
+                closer = hitk & (tk < t_best)
+                t_best = torch.where(closer, tk, t_best)
+                prim_best = torch.where(closer, at(d["order"], slot),
+                                        prim_best)
+
+            # leaves and dead-end internal nodes pop
+            need_pop = leaf | (internal & ~descend)
+            can_pop = sp > 0
+            popped = torch.gather(stack, 1,
+                                  torch.clamp_min(sp - 1, 0)[:, None])[:, 0]
+            new_node = torch.where(need_pop, popped, next_node)
+            sp = torch.where(need_pop & can_pop, sp - 1, sp)
+            node = torch.where(live, new_node, node)
+            live = live & ~(need_pop & ~can_pop)
+        miss = prim_best < 0
+        return (torch.where(miss, BIG_T, t_best),
+                torch.where(miss, 0, prim_best))
 
 
 def _tree_depth(left, right, is_leaf) -> int:

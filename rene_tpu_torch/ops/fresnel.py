@@ -1,11 +1,17 @@
 """Fresnel terms of the megakernel (pallas_path.py:3528-3555).
 
 The same formulas as rene_tpu/ops/fresnel.py `fr_dielectric` and
-`_fr_conductor_channel`.
+`_fr_conductor_channel`. The XLA engine takes `fr_dielectric` as it is,
+and its V3 forms `fr_conductor` and `evaluate` (EnumFresnel::evaluate)
+follow below.
 """
 from __future__ import annotations
 
 import torch
+
+from ..scene import types as T
+from . import vec3 as v3
+from .vec3 import V3
 
 
 def fr_dielectric(cos_i, eta_i, eta_t):
@@ -39,3 +45,33 @@ def fr_conductor_ch(c2, s2, eta, etk, c):
     t4 = t2 * s2
     rp = rs * (t3 - t4) / torch.clamp_min(t3 + t4, 1e-20)
     return 0.5 * (rp + rs)
+
+
+# -- the XLA engine's forms (rene_tpu/ops/fresnel.py) -----------------------
+
+def fr_conductor(cos_theta_i, eta_i: V3, eta_t: V3, k: V3) -> V3:
+    """The conductor Fresnel term per channel (fresnel.rs:78-102)."""
+    c = torch.clamp(cos_theta_i, -1.0, 1.0)
+    c2 = c * c
+    s2 = 1.0 - c2
+    eta = eta_t / eta_i.map(lambda v: torch.clamp_min(v, 1e-20))
+    eta_k = k / eta_i.map(lambda v: torch.clamp_min(v, 1e-20))
+    return V3(fr_conductor_ch(c2, s2, eta.x, eta_k.x, c),
+              fr_conductor_ch(c2, s2, eta.y, eta_k.y, c),
+              fr_conductor_ch(c2, s2, eta.z, eta_k.z, c))
+
+
+def evaluate(fr_type, eta_i: V3, eta_t: V3, k: V3, cos_i,
+             types_present=(T.FRESNEL_CONDUCTOR, T.FRESNEL_NOOP,
+                            T.FRESNEL_DIELECTRIC)) -> V3:
+    """EnumFresnel::evaluate (fresnel.rs:161-171) for the Fresnel types
+    the scene holds."""
+    out = V3.ones(cos_i.shape, cos_i.device)
+    if T.FRESNEL_CONDUCTOR in types_present:
+        cond = fr_conductor(torch.abs(cos_i), eta_i, eta_t, k)
+        out = v3.where(fr_type == T.FRESNEL_CONDUCTOR, cond, out)
+    if T.FRESNEL_DIELECTRIC in types_present:
+        diel = fr_dielectric(cos_i, eta_i.x, eta_t.x)
+        out = v3.where(fr_type == T.FRESNEL_DIELECTRIC,
+                       V3(diel, diel, diel), out)
+    return out

@@ -16,6 +16,12 @@ with `t < t_best` selects. Here all primitives are tested at once as an
 t, which is the same primitive the sequential strict-less chain keeps
 (triangles first, then spheres). Its attributes are then recomputed for
 that primitive alone, with the same arithmetic.
+
+The XLA engine's casts follow at the end (rene_tpu/ops/intersect.py):
+`trace`, `occluded` and `trace_emissive_pdf` over V3 rays, through the
+scene's accelerator (ops/accel.py: the matrix-product intersector, or the
+BVH's per-lane stack walk) or by brute force (`intersect_triangles`),
+with the spheres tested one after another.
 """
 from __future__ import annotations
 
@@ -26,9 +32,11 @@ import torch
 from ..scene import pack as P
 from ..scene import types as T
 from . import bvh
+from . import vec3 as v3
 from .bvh import BIG
+from .gather import at, host_values, take
 from .texture import sphere_uv_of
-from .vec3 import normalize3
+from .vec3 import V3, normalize3
 
 TMIN = 1e-3
 TWO_PI = 2.0 * math.pi
@@ -410,3 +418,310 @@ def cast_ref(tabs, rays):
         out[sel, 3] = shadow_any(tabs, li, *r[:, :6].unbind(1), tmin,
                                  tmax).float()
     return out
+
+
+# -- the XLA engine's casts (rene_tpu/ops/intersect.py) ---------------------
+# Hit records are dicts: t (N,), hit (N,) bool, inst, kind and prim (N,)
+# int64, position and normal V3, uv a (u, v) pair.
+
+BIG_T = 1e30
+TRI_CHUNK = 512
+
+
+def _dot(a, b):
+    return torch.sum(a * b, dim=-1)
+
+
+def moller_trumbore(org, direction, p0, p1, p2, tmin, tmax):
+    """The ray/triangle test on (..., 3) tensors, rays (N, 3) against
+    triangles (N or 1, C, 3); returns (t, u, v, hit), the barycentric
+    weights (1-u-v, u, v) of the Vulkan hit attribute (lib.rs:926)."""
+    e1 = p1 - p0
+    e2 = p2 - p0
+    d = direction[..., None, :]
+    o = org[..., None, :]
+    pvec = torch.linalg.cross(d, e2)
+    det = _dot(e1, pvec)
+    inv_det = torch.where(torch.abs(det) > 1e-12, 1.0 / det, 0.0)
+    tvec = o - p0
+    u = _dot(tvec, pvec) * inv_det
+    qvec = torch.linalg.cross(tvec, e1)
+    v = _dot(d, qvec) * inv_det
+    t = _dot(e2, qvec) * inv_det
+    hit = ((torch.abs(det) > 1e-12) & (u >= 0.0) & (v >= 0.0)
+           & (u + v <= 1.0) & (t >= tmin[..., None])
+           & (t <= tmax[..., None]))
+    return t, u, v, hit
+
+
+def intersect_triangles(org, direction, tmin, tmax, tri_p, chunk=TRI_CHUNK):
+    """The closest of the (T, 3, 3) triangles by brute force, in chunks
+    of `chunk`, each chunk's tmax cut to the best t so far. org/direction
+    (N, 3); returns (t, prim id), t = BIG_T and id -1 on a miss."""
+    ntri = tri_p.shape[0]
+    chunk = min(chunk, max(int(ntri), 1))
+    n = org.shape[0]
+    dev = org.device
+    best_t = torch.full((n,), BIG_T, dtype=torch.float32, device=dev)
+    best_id = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    base_ids = torch.arange(chunk, device=dev)
+    for lo in range(0, max(ntri, 1), chunk):
+        tc = tri_p[lo:lo + chunk]
+        if tc.shape[0] < chunk:
+            tc = torch.cat([tc, tc.new_zeros((chunk - tc.shape[0], 3, 3))])
+        t, _, _, hit = moller_trumbore(
+            org, direction, tc[None, :, 0], tc[None, :, 1], tc[None, :, 2],
+            tmin, torch.minimum(tmax, best_t))
+        ids = lo + base_ids
+        valid = hit & (ids[None, :] < ntri)
+        t = torch.where(valid, t, BIG_T)
+        arg = torch.argmin(t, dim=-1)
+        tbest = torch.gather(t, 1, arg[:, None])[:, 0]
+        closer = tbest < best_t
+        best_id = torch.where(closer, ids[arg], best_id)
+        best_t = torch.where(closer, tbest, best_t)
+    return best_t, best_id
+
+
+def _sphere_roots(m, org: V3, direction: V3, tmin, tmax):
+    """The nearer root in [tmin, tmax] of the ray against the unit sphere
+    seen through the world-to-object map `m` (lib.rs:805-839), BIG_T
+    where none."""
+    o = v3.affine_point(m, org)
+    d = v3.affine_vector(m, direction)
+    a = d.dot(d)
+    half_b = o.dot(d)
+    c = o.dot(o) - 1.0
+    disc = half_b * half_b - a * c
+    sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+    inv_a = 1.0 / torch.clamp_min(a, 1e-20)
+    root0 = (-half_b - sq) * inv_a
+    root1 = (-half_b + sq) * inv_a
+    ok = disc >= 0.0
+    r0ok = ok & (root0 >= tmin) & (root0 <= tmax)
+    r1ok = ok & (root1 >= tmin) & (root1 <= tmax)
+    return torch.where(r0ok, root0, torch.where(r1ok, root1, BIG_T))
+
+
+def intersect_spheres_v3(buffers, config, org: V3, direction: V3, tmin,
+                         tmax):
+    """The closest unit-sphere hit over the scene's spheres, tested one
+    after another with a strict-less update, as the reference's scan."""
+    n = org.x.shape[0]
+    best_t = torch.full((n,), BIG_T, dtype=torch.float32,
+                        device=org.x.device)
+    best_id = torch.zeros((n,), dtype=torch.int64, device=org.x.device)
+    w2o = host_values(buffers["sph_w2o"])[:config.num_spheres]
+    for s, m in enumerate(w2o):
+        t = _sphere_roots(m, org, direction, tmin, tmax)
+        closer = t < best_t
+        best_t = torch.where(closer, t, best_t)
+        best_id = torch.where(closer, s, best_id)
+    return best_t, best_id
+
+
+def _main_tri_intersect(buffers, config, org: V3, direction: V3, tminv,
+                        tmaxv, accel, want_bary=False):
+    """The closest triangle through the scene's accelerator."""
+    from .mxu_intersect import MXUIntersector
+    n = org.x.shape[0]
+    main = getattr(accel, "main", None)
+    bu = bv = None
+    if config.num_triangles <= 0:
+        return (torch.full((n,), BIG_T, device=org.x.device),
+                torch.zeros((n,), dtype=torch.int64, device=org.x.device),
+                bu, bv)
+    oarr = org.to_array()
+    darr = direction.to_array()
+    if isinstance(main, MXUIntersector):
+        out = main.intersect(oarr, darr, tminv, tmaxv, want_bary=want_bary)
+        tri_t, tri_id = out[0], out[1].long()
+        if want_bary:
+            bu, bv = out[2], out[3]
+    elif main is not None:  # BVH
+        tri_t, tri_id = main.intersect(oarr, darr, tminv, tmaxv)
+    else:
+        tri_t, tri_id = intersect_triangles(oarr, darr, tminv, tmaxv,
+                                            buffers["tri_p"])
+    return tri_t, tri_id, bu, bv
+
+
+def _gather9(table, idx):
+    """(9, T) table -> three V3s of (N,) components."""
+    g = take(table, idx, dim=1)
+    return (V3(g[0], g[1], g[2]), V3(g[3], g[4], g[5]), V3(g[6], g[7], g[8]))
+
+
+def _lane_bounds(tmin, tmax, n, device):
+    return (torch.broadcast_to(torch.as_tensor(tmin, dtype=torch.float32,
+                                               device=device), (n,)),
+            torch.broadcast_to(torch.as_tensor(tmax, dtype=torch.float32,
+                                               device=device), (n,)))
+
+
+def trace(buffers, config, org: V3, direction: V3, tmin, tmax, accel=None):
+    """The closest hit with its shading attributes: tlas_main.trace_ray
+    with the closest-hit shaders (lib.rs:852-952)."""
+    n = org.x.shape[0]
+    dev = org.x.device
+    tminv, tmaxv = _lane_bounds(tmin, tmax, n, dev)
+
+    tri_t, tri_id, bu, bv = _main_tri_intersect(
+        buffers, config, org, direction, tminv, tmaxv, accel,
+        want_bary=True)
+
+    if config.num_spheres > 0:
+        sph_t, sph_id = intersect_spheres_v3(buffers, config, org, direction,
+                                             tminv, tmaxv)
+    else:
+        sph_t = torch.full((n,), BIG_T, device=dev)
+        sph_id = torch.zeros((n,), dtype=torch.int64, device=dev)
+
+    is_sphere = sph_t < tri_t
+    t = torch.minimum(tri_t, sph_t)
+    hit = t < BIG_T
+
+    # the triangle's shading attributes
+    tid = torch.clamp(tri_id, 0, max(config.num_triangles - 1, 0))
+    p0, p1, p2 = _gather9(buffers["tri_pT"], tid)
+    n0, n1, n2 = _gather9(buffers["tri_nT"], tid)
+    guv = take(buffers["tri_uvT"], tid, dim=1)
+    if bu is None:
+        tp = torch.stack([p0.to_array(), p1.to_array(), p2.to_array()],
+                         dim=1)
+        _, u_, v_, _ = moller_trumbore(
+            org.to_array(), direction.to_array(), tp[:, None, 0],
+            tp[:, None, 1], tp[:, None, 2], tminv,
+            torch.full_like(tminv, 1e30))
+        bu = u_[:, 0]
+        bv = v_[:, 0]
+    bu = torch.clamp(bu, 0.0, 1.0)
+    bv = torch.clamp(bv, 0.0, 1.0)
+    w0 = 1.0 - bu - bv
+    tri_pos = p0 * w0 + p1 * bu + p2 * bv
+    tri_nrm = n0 * w0 + n1 * bu + n2 * bv
+    tri_u = guv[0] * w0 + guv[2] * bu + guv[4] * bv
+    tri_v = guv[1] * w0 + guv[3] * bu + guv[5] * bv
+    tri_inst = at(buffers["tri_inst"], tid)
+
+    # the sphere's shading attributes
+    sid = torch.clamp(sph_id, 0, max(config.num_spheres - 1, 0))
+    g = take(buffers["sph_w2oT"], sid, dim=1)       # (12, N) rows of w2o
+    sph_pos = org + direction * sph_t
+    obj = V3(g[0] * sph_pos.x + g[1] * sph_pos.y + g[2] * sph_pos.z + g[3],
+             g[4] * sph_pos.x + g[5] * sph_pos.y + g[6] * sph_pos.z + g[7],
+             g[8] * sph_pos.x + g[9] * sph_pos.y + g[10] * sph_pos.z
+             + g[11])
+    # normal = W2O^T @ obj (lib.rs:874-878)
+    sph_nrm = V3(g[0] * obj.x + g[4] * obj.y + g[8] * obj.z,
+                 g[1] * obj.x + g[5] * obj.y + g[9] * obj.z,
+                 g[2] * obj.x + g[6] * obj.y + g[10] * obj.z)
+    phi = torch.atan2(obj.y, obj.x)
+    phi = torch.where(phi < 0.0, phi + 2.0 * math.pi, phi)
+    theta = torch.arccos(torch.clamp(obj.z, -1.0, 1.0))
+    sph_u = phi * (0.5 / math.pi)
+    sph_v = (theta - math.pi) * (-1.0 / math.pi)
+    sph_inst = at(buffers["sph_inst"], sid)
+
+    return {
+        "t": t,
+        "hit": hit,
+        "kind": torch.where(is_sphere, T.KIND_SPHERE, T.KIND_TRIANGLE),
+        "prim": torch.where(is_sphere, sph_id, tri_id),
+        "inst": torch.where(is_sphere, sph_inst, tri_inst).long(),
+        "position": v3.where(is_sphere, sph_pos, tri_pos),
+        "normal": v3.where(is_sphere, sph_nrm, tri_nrm),
+        "uv": (torch.where(is_sphere, sph_u, tri_u),
+               torch.where(is_sphere, sph_v, tri_v)),
+    }
+
+
+def occluded(buffers, config, org: V3, direction: V3, tmin, tmax,
+             accel=None):
+    """The shadow test: any hit in [tmin, tmax] (lib.rs:244-260)."""
+    n = org.x.shape[0]
+    tminv, tmaxv = _lane_bounds(tmin, tmax, n, org.x.device)
+    t = torch.full((n,), BIG_T, device=org.x.device)
+    if config.num_triangles > 0:
+        tri_t, _, _, _ = _main_tri_intersect(
+            buffers, config, org, direction, tminv, tmaxv, accel)
+        t = torch.minimum(t, tri_t)
+    if config.num_spheres > 0:
+        sph_t, _ = intersect_spheres_v3(buffers, config, org, direction,
+                                        tminv, tmaxv)
+        t = torch.minimum(t, sph_t)
+    return t < BIG_T
+
+
+def trace_emissive_pdf(buffers, config, org: V3, direction: V3, tmin, tmax,
+                       accel=None):
+    """The solid-angle pdf of the closest emissive hit, 0 on a miss, not
+    yet divided by the emitter count: the tlas_emit trace with
+    triangle_closest_hit_pdf / sphere_closest_hit_pdf (lib.rs:964-1066)."""
+    n = org.x.shape[0]
+    dev = org.x.device
+    tminv, tmaxv = _lane_bounds(tmin, tmax, n, dev)
+
+    tri_t = torch.full((n,), BIG_T, device=dev)
+    tri_pdf = torch.zeros((n,), device=dev)
+    if config.num_emit_triangles > 0:
+        etri = buffers["emit_tri_ids"]
+        emit_accel = getattr(accel, "emit", None)
+        if emit_accel is not None:
+            tt, eid = emit_accel.intersect(org.to_array(),
+                                           direction.to_array(), tminv,
+                                           tmaxv)
+        else:
+            tt, eid = intersect_triangles(
+                org.to_array(), direction.to_array(), tminv, tmaxv,
+                at(buffers["tri_p"], etri))
+        eid = torch.clamp(eid.long(), 0, config.num_emit_triangles - 1)
+        gid = at(etri, eid)
+        p0, p1, p2 = _gather9(buffers["tri_pT"], gid)
+        cr = (p1 - p0).cross(p2 - p0)
+        cr_len = cr.length()
+        gn = cr * (1.0 / torch.clamp_min(cr_len, 1e-20))
+        area = 0.5 * cr_len
+        hit_pos = org + direction * tt
+        dist2 = (org - hit_pos).length_squared()
+        cosine = torch.abs(direction.normalized().dot(gn))
+        prim_count = at(buffers["inst_prim_count"],
+                        at(buffers["tri_inst"], gid)).to(torch.float32)
+        tri_pdf = dist2 / torch.clamp_min(cosine * area, 1e-20) / prim_count
+        tri_t = tt
+
+    sph_t = torch.full((n,), BIG_T, device=dev)
+    sph_pdf = torch.zeros((n,), device=dev)
+    if config.num_emit_spheres > 0:
+        best_t = torch.full((n,), BIG_T, device=dev)
+        best_k = torch.zeros((n,), dtype=torch.int64, device=dev)
+        w2o = host_values(buffers["sph_w2o"])
+        for k, sidx in enumerate(
+                host_values(buffers["emit_sph_ids"])
+                [:config.num_emit_spheres]):
+            m = w2o[sidx]
+            t = _sphere_roots(m, org, direction, tminv, tmaxv)
+            closer = t < best_t
+            best_t = torch.where(closer, t, best_t)
+            best_k = torch.where(closer, k, best_k)
+        # the cone pdf (lib.rs:1047-1066), the radius from the o2w column
+        # norms, and the uniform-sphere pdf from inside the emitter
+        sel = at(buffers["emit_sph_ids"], best_k)
+        g = take(buffers["sph_o2wT"], sel, dim=1)
+        radius = (torch.sqrt(g[0] ** 2 + g[4] ** 2 + g[8] ** 2)
+                  + torch.sqrt(g[1] ** 2 + g[5] ** 2 + g[9] ** 2)
+                  + torch.sqrt(g[2] ** 2 + g[6] ** 2 + g[10] ** 2)) / 3.0
+        center = V3(g[3], g[7], g[11])
+        d2 = (center - org).length_squared()
+        cos_max = torch.sqrt(torch.clamp_min(
+            1.0 - radius * radius / torch.clamp_min(d2, 1e-20), 0.0))
+        inside = d2 <= radius * radius
+        solid_angle = torch.where(inside, 4.0 * math.pi,
+                                  2.0 * math.pi * (1.0 - cos_max))
+        sph_t = best_t
+        sph_pdf = 1.0 / torch.clamp_min(solid_angle, 1e-20)
+
+    use_sph = sph_t < tri_t
+    t = torch.minimum(tri_t, sph_t)
+    pdf = torch.where(use_sph, sph_pdf, tri_pdf)
+    return torch.where(t < BIG_T, pdf, 0.0)

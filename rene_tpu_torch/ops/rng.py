@@ -114,3 +114,46 @@ def uniform(st: torch.Tensor):
     st = st ^ ((st << 5) & MASK)
     bits = ((st >> 9) | 0x3F800000).to(torch.int32)
     return bits.view(torch.float32) - 1.0, st
+
+
+# -- PCG32si, the XLA engine's per-pixel stream (rene_tpu/ops/rng.py) ------
+# 32-bit state, RXS-M-XS output; every draw returns (value, new state).
+# States are int64 tensors holding uint32 values: every product below is
+# under 2^62, so int64 holds it before the mask.
+
+_PCG_MULT = 747796405
+_PCG_INC = 2891336453
+_PCG_OUT_MULT = 277803737
+
+
+def _pcg_step(state):
+    return (state * _PCG_MULT + _PCG_INC) & MASK
+
+
+def _pcg_output(state):
+    shift = (state >> 28) + 4
+    word = (((state >> shift) ^ state) * _PCG_OUT_MULT) & MASK
+    return (word >> 22) ^ word
+
+
+def pcg_init(seed):
+    """PCG32si::new: step, add the seed, step. `seed` is an int64 tensor
+    (or an int) of uint32 values."""
+    seed = torch.as_tensor(seed, dtype=torch.int64) & MASK
+    state = _pcg_step(seed)
+    return _pcg_step((state + seed) & MASK)
+
+
+def next_u32(state):
+    return _pcg_output(state), _pcg_step(state)
+
+
+def next_f32(state):
+    """A 24-bit-mantissa uniform in [0, 1)."""
+    u, state = next_u32(state)
+    return (u >> 8).to(torch.float32) * (1.0 / (1 << 24)), state
+
+
+def next_f32_range(state, lo, hi):
+    u, state = next_f32(state)
+    return lo + (hi - lo) * u, state

@@ -19,6 +19,12 @@ clamps.
 
 torch's CPU uint32 has no shifts, so the packed words travel as int32
 bit patterns and are decoded in int64 masked to 32 bits.
+
+The XLA engine's texture table follows at the end (rene_tpu/ops/
+texture.py: `sample_image`, `tex_color` with its one level of non-
+recursive dispatch): it reads the float atlas `img_atlasT` and the
+texture table as they come from build_device_scene, and takes every
+texture class, a checker of image maps included.
 """
 from __future__ import annotations
 
@@ -27,8 +33,11 @@ import math
 import torch
 
 from ..scene import pack as P
+from ..scene import types as T
 from ..scene.device import ENV_GH, ENV_GW
-from .vec3 import normalize3
+from . import vec3 as v3
+from .gather import at, take
+from .vec3 import V3, normalize3
 
 TWO_PI = 2.0 * math.pi
 # texels fetched so far (four per active lane and fetch; reset by the
@@ -316,3 +325,102 @@ def env_pdf_dir(tabs, wx, wy, wz):
     """Solid-angle pdf with which `env_strategy` draws direction w."""
     r, cc = env_dir_cell(tabs, wx, wy, wz)
     return tabs["env_pdf"].reshape(-1)[r * ENV_GW + cc]
+
+
+# -- the XLA engine's texture table (rene_tpu/ops/texture.py) ---------------
+
+def _fract(x):
+    return x - torch.floor(x)
+
+
+def to_i32(x: torch.Tensor) -> torch.Tensor:
+    """x.astype(int32) as XLA converts: toward zero, NaN to 0, saturated
+    at the int32 range; an int64 tensor."""
+    return x.double().nan_to_num(0.0).clamp(-2 ** 31, 2 ** 31 - 1).long()
+
+
+def sample_image(buffers, img_idx, u, v) -> V3:
+    """The bilinear, REPEAT-addressed fetch of image `img_idx` at (u, v),
+    v flipped (texture.rs:124), from the (4, texels) atlas."""
+    w = at(buffers["img_width"], img_idx).long()
+    h = at(buffers["img_height"], img_idx).long()
+    off = at(buffers["img_offset"], img_idx).long()
+    atlas = buffers["img_atlasT"]
+    x = u * w.to(torch.float32) - 0.5
+    y = (1.0 - v) * h.to(torch.float32) - 0.5
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = x - x0
+    fy = y - y0
+
+    def texel(xi, yi) -> V3:
+        xi = torch.remainder(to_i32(xi), torch.clamp_min(w, 1))
+        yi = torch.remainder(to_i32(yi), torch.clamp_min(h, 1))
+        px = take(atlas, off + yi * w + xi, dim=1)
+        return V3(px[0], px[1], px[2])
+
+    c00 = texel(x0, y0)
+    c10 = texel(x0 + 1, y0)
+    c01 = texel(x0, y0 + 1)
+    c11 = texel(x0 + 1, y0 + 1)
+    top = c00 * (1 - fx) + c10 * fx
+    bot = c01 * (1 - fx) + c11 * fx
+    return top * (1 - fy) + bot * fy
+
+
+def _tex_types(config):
+    if config is None:
+        return (T.TEX_SOLID, T.TEX_CHECKER, T.TEX_IMAGEMAP, T.TEX_SCALE)
+    return config.tex_types
+
+
+def _solid(buffers, idx) -> V3:
+    tv = buffers["tex_v0T"]
+    return V3(take(tv[0], idx), take(tv[1], idx), take(tv[2], idx))
+
+
+def _color_non_recursive(buffers, idx, u, v, tex_types) -> V3:
+    """A solid or an image map; a checker or a scale reads white
+    (texture.rs:176-190)."""
+    ttype = at(buffers["tex_type"], idx)
+    out = v3.where(ttype == T.TEX_SOLID, _solid(buffers, idx), 1.0)
+    if T.TEX_IMAGEMAP in tex_types:
+        img = sample_image(buffers, at(buffers["tex_u0"], idx)[:, 0], u, v)
+        out = v3.where(ttype == T.TEX_IMAGEMAP, img, out)
+    return out
+
+
+def tex_color(buffers, idx, uv, config=None) -> V3:
+    """The full one-level texture dispatch (texture.rs:192-211) over the
+    texture classes the scene holds. idx: (N,) table indices; uv: a (u,
+    v) pair of (N,) tensors or an (N, 2) tensor."""
+    if not isinstance(uv, tuple):
+        uv = (uv[..., 0], uv[..., 1])
+    u, v = uv
+    tex_types = _tex_types(config)
+    out = _solid(buffers, idx)
+    if tex_types == (T.TEX_SOLID,):
+        return out
+    ttype = at(buffers["tex_type"], idx)
+    sub = at(buffers["tex_u0"], idx)
+
+    if T.TEX_IMAGEMAP in tex_types:
+        img = sample_image(buffers, sub[:, 0], u, v)
+        out = v3.where(ttype == T.TEX_IMAGEMAP, img, out)
+
+    if T.TEX_CHECKER in tex_types:  # texture.rs:96-119
+        tv = buffers["tex_v0T"]
+        xs = u * take(tv[0], idx)
+        ys = v * take(tv[1], idx)
+        even = ((to_i32(xs) % 2 == 0) == (to_i32(ys) % 2 == 0))
+        sub_idx = torch.where(even, sub[:, 0], sub[:, 1])
+        checker_c = _color_non_recursive(buffers, sub_idx, _fract(xs),
+                                         _fract(ys), tex_types)
+        out = v3.where(ttype == T.TEX_CHECKER, checker_c, out)
+
+    if T.TEX_SCALE in tex_types:
+        scale = (_color_non_recursive(buffers, sub[:, 0], u, v, tex_types)
+                 * _color_non_recursive(buffers, sub[:, 1], u, v,
+                                        tex_types))
+        out = v3.where(ttype == T.TEX_SCALE, scale, out)
+    return out

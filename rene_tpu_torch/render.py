@@ -1,14 +1,11 @@
 """Render loop of the port: chunk loop, film average, y-flip, checkpoints.
 
 Counterpart of rene_tpu/render.py `render` (:131) with `_render_pallas`
-(:316-408) and `warm_cache` (:85), for two engines under JAX's names:
+(:316-408), its XLA branch (:210-299) and `warm_cache` (:85), for three
+engines under JAX's names, all driven by the one `render_loop`:
 
-Both engines take the scene's sampler, `Sampler "sobol"` (the kernels'
-Sobol draws) or the independent one.
-
-* "pallas" (and "auto"): the megakernel (integrators/mega_path.py), its
-  path body or, for `Integrator "volpath"`, its volpath body
-  (integrators/volpath.py).
+* "pallas": the megakernel (integrators/mega_path.py), its path body or,
+  for `Integrator "volpath"`, its volpath body (integrators/volpath.py).
   Chunk seeds come from the same `np.random.default_rng(seed).integers(
   0, 2**31, dtype=np.int32)` sequence with the same chunk sizes, so a
   render here is draw for draw the JAX `render(engine="pallas")` run with
@@ -16,19 +13,36 @@ Sobol draws) or the independent one.
 * "wave": the wavefront engine (integrators/wave.py), path or volpath,
   one wave of spw samples per chunk, the film summed on the device across
   waves and read back once, as the JAX wave runner's `run_dev` does.
+* "xla": the XLA engine (`make_xla_fn`: integrators/path.py and the XLA
+  half of integrators/volpath.py, plain PyTorch on the device), which
+  renders every scene the reference's XLA engine renders. It goes over
+  the film in tiles of `tile_rays` lanes (at most XLA_BVH_TILE where the
+  main accelerator is a BVH), chunks of LOG_EVERY samples (4 with a BVH,
+  as the reference's, whose chunk seeds they keep),
+  and draws its chunk seeds as `integers(0, 2**32, dtype=np.uint32)`, as
+  the reference does. It takes no `Sampler "sobol"`: the reference's
+  XLA integrators draw from the independent PCG32si stream alone.
 
-"auto" stays on the megakernel, for volpath too: the reference's policy
-(`_wave_default` :33, deep scenes past 512 triangles to the wave engine)
-rests on TPU timings (ROADMAP). A failed wave render raises; the JAX
-fallback from the wave engine to the megakernel (:193-208) is not
-carried over. "xla" (the JAX package's XLA integrator) is not ported.
+The two kernel engines take the scene's sampler, `Sampler "sobol"` (the
+kernels' Sobol draws) or the independent one.
+
+"auto" takes the megakernel where `pack.slice_supported` accepts the
+scene, for volpath too, and the XLA engine where it refuses it (the
+reason is logged at INFO), as the reference's auto falls back to its XLA
+engine. The reference's policy of sending deep scenes past 512
+triangles to the wave engine (`_wave_default` :33) rests on TPU timings
+and is not carried over (ROADMAP). "pallas" and "wave" raise on a scene
+the kernels refuse, as the reference's do. A failed wave render raises;
+the JAX fallback from the wave engine to the megakernel (:193-208) is
+not carried over.
 
 The film's sums stay on the device. A `checkpoint` or `want_var` render
 runs chunk by chunk (the wave's on-device sum across waves is off, as at
 :358-360): utils/checkpoint.py snapshots the sums on the host after every
 chunk, and `want_var` keeps the per-chunk sums of squares that `varmean`
 is made from. A resumed render adds, in the
-same float32 order, exactly what an unbroken one adds. Multi-device runs
+same float32 order, exactly what an unbroken one adds, whatever the
+runner: the loop counts the chunk seeds it has drawn. Multi-device runs
 are not in the port yet.
 """
 from __future__ import annotations
@@ -44,6 +58,7 @@ from . import kernels
 from .integrators.mega_path import make_mega_batch_fn
 from .integrators.wave import make_wave_fn
 from .scene import build_device_scene
+from .scene.device import to_torch
 from .scene import pack as P
 from .utils.checkpoint import (SUMS, load_checkpoint, save_checkpoint,
                                scene_fingerprint)
@@ -56,24 +71,45 @@ LOG_EVERY = 100     # rene_tpu/render.py:30
 ENGINES = ("auto", "pallas", "wave", "xla")
 
 
-def _runner(engine: str) -> str:
-    """The runner an engine resolves to: `wave` or `megakernel`."""
+# the XLA engine's largest tile of lanes where the main accelerator is a
+# BVH, which bounds the walk's per-lane stacks (MAX_DEPTH_STACK int64 a
+# lane: 84 MB at 2^18). The reference caps it at 2^14 (:218) to keep a
+# TPU call under its watchdog, which a card does not have; the tile does
+# not change the image (each pixel's stream is its own, whatever its
+# tile), and on the card 2^14 ran the forced-BVH mesh of chip_smoke.py
+# phase 28 1.58x slower than one tile of 32768 lanes (PERF.md section 5)
+XLA_BVH_TILE = 1 << 18
+
+
+def _runner(engine: str, buffers_np=None, config=None) -> str:
+    """The runner an engine resolves to: `megakernel`, `wave` or `xla`.
+    "auto" resolves to `xla` for a scene (given) that the kernels refuse
+    (`pack.slice_supported`), logging the refusal."""
     if engine not in ENGINES:
         raise ValueError(f"engine {engine!r}: one of {ENGINES}")
-    if engine == "xla":
-        raise NotImplementedError(
-            "the XLA integrator is not in the port (ROADMAP Queue 1 item "
-            "4: the XLA engine)")
-    return "wave" if engine == "wave" else "megakernel"
+    if engine in ("wave", "xla"):
+        return engine
+    if engine == "auto" and buffers_np is not None:
+        try:
+            P.slice_supported(buffers_np, config)
+        except NotImplementedError as e:
+            log.info("engine auto: the kernels refuse the scene (%s); the "
+                     "XLA engine renders it", e)
+            return "xla"
+    return "megakernel"
 
 
 def runner_libraries(buffers_np, config, engine: str = "auto"):
     """The libraries (kernels.VARIANTS) that the scene's runner launches:
-    the megakernel's instance, or K2's and K3's (K4 lives in K3's)."""
+    the megakernel's instance, or K2's and K3's (K4 lives in K3's); none
+    for the XLA engine."""
+    runner = _runner(engine, buffers_np, config)
+    if runner == "xla":
+        return []
     tables = P.pack_tables(buffers_np, config)
     flags = {"volpath": tables.volpath, "has_accel": tables.has_accel,
              "sobol": tables.sobol}
-    if _runner(engine) == "wave":
+    if runner == "wave":
         return sorted({kernels.library(kernels.variant(flags, "wave_path")),
                        "wave_path"})
     return [kernels.library(kernels.variant(flags))]
@@ -82,37 +118,89 @@ def runner_libraries(buffers_np, config, engine: str = "auto"):
 def warm_cache(scene, engine: str = "auto", device="cuda") -> int:
     """Build with nvcc the libraries that the scene's runner launches,
     rendering nothing; returns their count (0 on the CPU, which runs the
-    plain versions). A later render finds them built."""
+    plain versions, and for the XLA engine, which has none). A later
+    render finds them built."""
     buffers_np, config = build_device_scene(scene)
     names = runner_libraries(buffers_np, config, engine)
-    if torch.device(device).type != "cuda":
+    if torch.device(device).type != "cuda" or not names:
         return 0
     for name, so in kernels.build(names=names).items():
         log.info("library %s: %s", name, so)
     return len(names)
 
 
+def make_xla_fn(buffers_np, config, device, use_bvh: Optional[bool] = None,
+                tile_rays: int = 1 << 18):
+    """The XLA engine's runner for `render_loop` (rene_tpu/render.py:
+    210-299): `run(seed, chunk)` renders `chunk` samples of every pixel
+    through path.render_batch (volpath.render_batch for `Integrator
+    "volpath"`) in tiles of `tile_rays` lanes, and returns the per-pixel
+    (N, 3) sums on `device` and the ray count. `use_bvh` True forces the
+    BVH walk as the main accelerator (ops/accel.py; None and False leave
+    the choice to the triangle count). run.chunk_hint is LOG_EVERY, or 4
+    with a BVH; its chunk seeds are uint32 (`run.seed_dtype`)."""
+    from .integrators import path, volpath
+    from .ops.accel import make_accel
+    from .ops.bvh import BVH
+
+    device = torch.device(device)
+    accel = make_accel(buffers_np, config, device,
+                       force="bvh" if use_bvh else None)
+    batch = (volpath.render_batch if config.integrator == "volpath"
+             else path.render_batch)
+    bvh = isinstance(accel.main, BVH)
+    if bvh:
+        tile_rays = min(tile_rays, XLA_BVH_TILE)
+    buffers = to_torch(buffers_np, device)
+    w, h = config.film.xresolution, config.film.yresolution
+    pix = torch.arange(w * h, device=device)
+    px, py = pix % w, pix // w
+    tiles = [(lo, min(lo + tile_rays, w * h))
+             for lo in range(0, w * h, tile_rays)]
+
+    def run(seed: int, chunk: int):
+        outs = [batch(buffers, config, px[lo:hi], py[lo:hi], seed, chunk,
+                      accel=accel) for lo, hi in tiles]
+        sums = {k: torch.cat([o[k] for o in outs]) for k in SUMS}
+        sums["rays"] = sum(float(o["rays"]) for o in outs)
+        run.iterations += sum(o["iterations"] for o in outs)
+        return sums
+
+    run.chunk_hint = 4 if bvh else LOG_EVERY
+    run.spp_mult = 1
+    run.seed_dtype = np.uint32
+    run.tiles = len(tiles)
+    run.iterations = 0      # bounce-loop iterations over all tiles so far
+    return run
+
+
 def render(scene, spp: int = DEFAULT_SPP, seed: int = 0, device="cuda",
            engine: str = "auto", checkpoint: Optional[str] = None,
            resume: bool = False,
            progress: Optional[Callable[[int, int, float], None]] = None,
-           want_var: bool = False):
+           want_var: bool = False, use_bvh: Optional[bool] = None,
+           tile_rays: int = 1 << 18):
     """Render a FlatScene on `device` with `engine` (ENGINES); returns a
     dict of (H, W, 3) float32 images (color, normal, albedo, all
     averaged; with `want_var` also `varmean`, the per-pixel variance of
     the color mean from the spread of the per-chunk means), `total_rays`
     (of the chunks this call ran), `wall_time` (seconds, ending in a
-    device synchronize), `launches` (kernel launches, 0 on the CPU) and
-    `engine`.
+    device synchronize), `launches` (CUDA kernel launches of the kernel
+    engines, 0 on the CPU and for the XLA engine), `engine` (`pallas`,
+    `wave` or `xla`) and for the XLA engine `iterations` (its bounce
+    loop's, summed over tiles and chunks).
 
     `checkpoint`: a snapshot file written after every chunk (after
     `progress(done, spp, ms)` is called); `resume` starts from it where
-    its fingerprint matches, and from 0 with a warning where not."""
-    runner = _runner(engine)
+    its fingerprint matches, and from 0 with a warning where not.
+    `use_bvh` and `tile_rays` are the XLA engine's (`make_xla_fn`)."""
     device = torch.device(device)
     buffers_np, config = build_device_scene(scene)
+    runner = _runner(engine, buffers_np, config)
     if runner == "wave":
         run = make_wave_fn(buffers_np, config, device, spp_hint=spp)
+    elif runner == "xla":
+        run = make_xla_fn(buffers_np, config, device, use_bvh, tile_rays)
     else:
         run = make_mega_batch_fn(buffers_np, config, device, spp_hint=spp)
     fingerprint = (scene_fingerprint(buffers_np, config, seed, runner,
@@ -122,7 +210,11 @@ def render(scene, spp: int = DEFAULT_SPP, seed: int = 0, device="cuda",
     out = render_loop(run, config, spp, seed, device, checkpoint, resume,
                       progress, fingerprint, want_var)
     out["launches"] = sum(kernels.launches.values()) - launches_before
-    out["engine"] = "wave" if runner == "wave" else "pallas"
+    out["engine"] = {"wave": "wave", "xla": "xla"}.get(runner, "pallas")
+    if runner == "xla":
+        out["iterations"] = run.iterations
+        log.info("xla engine: %d loop iterations over %d tile(s) a chunk, "
+                 "%.3f s", run.iterations, run.tiles, out["wall_time"])
     return out
 
 
@@ -134,7 +226,8 @@ def render_loop(run, config, spp, seed, device, checkpoint=None,
                 resume=False, progress=None, fingerprint="", want_var=False):
     """The chunk loop over a runner (`run(seed, chunk)` -> per-pixel sums
     over chunk * run.spp_mult samples and `rays`; `run.chunk_hint`,
-    `run.spp_mult`, and for a wave `run.run_dev` / `run.read_back`), as
+    `run.spp_mult`, optionally `run.seed_dtype` (int32 by default), and
+    for a wave `run.run_dev` / `run.read_back`), as
     rene_tpu/render.py:316 `_render_pallas` drives one: the same chunk
     seeds and sizes, the same film and `varmean`."""
     device = torch.device(device)
@@ -158,9 +251,13 @@ def render_loop(run, config, spp, seed, device, checkpoint=None,
             done, seeds = snap["samples_done"], snap["seeds"]
             log.info("resumed from %s at sample %d (%d chunks)", checkpoint,
                      done, seeds)
+    # the chunk seeds: int32 below 2^31 for the kernels, uint32 for the
+    # XLA engine (run.seed_dtype), as the reference's two runners draw them
+    seed_dtype = np.dtype(getattr(run, "seed_dtype", np.int32))
+    seed_end = int(np.iinfo(seed_dtype).max) + 1
     host_rng = np.random.default_rng(seed)
     for _ in range(seeds):      # the seeds of the chunks already summed
-        host_rng.integers(0, 2 ** 31, dtype=np.int32)
+        host_rng.integers(0, seed_end, dtype=seed_dtype)
     # a wave's on-device sum across waves gives no per-chunk sums, which a
     # checkpoint and the sums of squares need
     dev_accum = (None if checkpoint or want_var
@@ -172,7 +269,7 @@ def render_loop(run, config, spp, seed, device, checkpoint=None,
         # a packed runner may overshoot spp by < mult; the average divides
         # by the samples delivered
         chunk = min(max_chunk, -(-(spp - done) // mult))
-        chunk_seed = int(host_rng.integers(0, 2 ** 31, dtype=np.int32))
+        chunk_seed = int(host_rng.integers(0, seed_end, dtype=seed_dtype))
         seeds += 1
         if dev_accum is not None:
             acc = dev_accum(chunk_seed, chunk, acc)

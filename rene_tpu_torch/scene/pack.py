@@ -323,14 +323,14 @@ def slice_supported(buffers_np, config: RenderConfig) -> None:
     kernels carry (slices K1a-K1e and the Sobol sampler): the tests are
     `pallas_eligible`'s (:504-570) without its VMEM texel caps: path and
     volpath scenes, with or without media (the path body ignores them),
-    under either sampler. The reference renders what its kernels refuse
-    through its XLA integrator, which the port has not yet (ROADMAP
-    Queue 1 item 4)."""
+    under either sampler. What the kernels refuse, the XLA engine renders
+    (ROADMAP Queue 1 item 4): `engine="auto"` picks it for such a scene,
+    `engine="xla"` (`--engine xla`) for any."""
     def never(what):
         raise NotImplementedError(
-            f"{what}: the path kernels do not take it (the reference "
-            f"renders it through its XLA integrator, ROADMAP Queue 1 "
-            f"item 4)")
+            f"{what}: the path kernels do not take it; engine auto or "
+            f"--engine xla renders the scene through the XLA engine "
+            f"(ROADMAP Queue 1 item 4)")
 
     if config.integrator not in ("path", "volpath"):
         never(f"integrator {config.integrator!r}")

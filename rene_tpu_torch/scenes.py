@@ -1001,3 +1001,226 @@ Material "matte" "rgb Kd" [.5 .5 .5]
 Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
   "point P" [-6 6 -1.2  -6 -6 -1.2  6 -6 -1.2  6 6 -1.2]
 WorldEnd"""
+
+
+# -- scenes the path kernels refuse, which the XLA engine renders ------------
+# (scene/pack.py `slice_supported`; `render(engine="auto")` sends them to
+# the XLA engine)
+
+def checker_metal_scene(directory, width: int = 128, height: int = 64,
+                        seed: int = 8) -> str:
+    """A metal whose eta is a checker of two image maps (a checker of
+    image maps, and a textured metal eta: outside K1b's classes), on a
+    floor whose Kd is a checker of two image maps; its images are written
+    to `directory`."""
+    rng = np.random.default_rng(seed)
+    for name, (h, w), kw in (("c_eta_a.pfm", (8, 8), {"lo": 0.2, "hi": 0.6}),
+                             ("c_eta_b.pfm", (8, 16), {"lo": 1.0,
+                                                       "hi": 2.4}),
+                             ("c_floor_a.pfm", (16, 16), {}),
+                             ("c_floor_b.pfm", (8, 8), {"lo": 0.02,
+                                                      "hi": 0.3})):
+        _save(directory, name, _image(rng, h, w, **kw))
+    return f"""
+LookAt 0 -7 2.4  0 0 0.7  0 0 1
+Camera "perspective" "float fov" [ 42 ]
+Film "image" "integer xresolution" [ {width} ]
+  "integer yresolution" [ {height} ] "string filename" "checker_metal.png"
+Integrator "path" "integer maxdepth" [ 8 ]
+WorldBegin
+LightSource "infinite" "rgb L" [ .1 .11 .14 ]
+LightSource "distant" "point from" [ -2 -3 5 ] "point to" [ 0 0 0 ]
+  "rgb L" [ 1.4 1.3 1.2 ]
+Texture "eta_a" "spectrum" "imagemap" "string filename" "c_eta_a.pfm"
+Texture "eta_b" "spectrum" "imagemap" "string filename" "c_eta_b.pfm"
+Texture "eta" "spectrum" "checkerboard" "float uscale" [ 6 ]
+  "float vscale" [ 3 ] "texture tex1" "eta_a" "texture tex2" "eta_b"
+Texture "floor_a" "spectrum" "imagemap" "string filename" "c_floor_a.pfm"
+Texture "floor_b" "spectrum" "imagemap" "string filename" "c_floor_b.pfm"
+Texture "floor" "spectrum" "checkerboard" "float uscale" [ 8 ]
+  "float vscale" [ 8 ] "texture tex1" "floor_a" "texture tex2" "floor_b"
+Material "matte" "texture Kd" "floor"
+{_uv_quad([[-6, -6, 0], [6, -6, 0], [6, 6, 0], [-6, 6, 0]])}
+Material "matte" "rgb Kd" [ .3 .35 .5 ]
+{_quad([[-6, 3.5, 0], [6, 3.5, 0], [6, 3.5, 5], [-6, 3.5, 5]])}
+AttributeBegin
+  Translate -1.4 0.2 1.0
+  Material "metal" "texture eta" "eta" "rgb k" [ 3.9 2.4 2.2 ]
+    "float roughness" [ .08 ]
+  Shape "sphere" "float radius" [ 1.0 ]
+AttributeEnd
+AttributeBegin
+  Material "metal" "texture eta" "eta" "rgb k" [ 2.5 2.9 3.4 ]
+    "float roughness" [ .25 ]
+  {_uv_quad([[0.4, -0.4, 0.05], [2.6, -0.4, 0.05], [2.6, 0.8, 2.2],
+             [0.4, 0.8, 2.2]])}
+AttributeEnd
+AttributeBegin
+  Material "matte" "rgb Kd" [ 0 0 0 ]
+  AreaLightSource "diffuse" "rgb L" [ 6 6 7 ]
+  {_quad([[-1.0, 1.0, 4.0], [1.0, 1.0, 4.0], [1.0, -0.5, 4.0],
+          [-1.0, -0.5, 4.0]])}
+AttributeEnd
+WorldEnd
+"""
+
+
+def _grid_mesh(n: int, lo, hi, z: float) -> str:
+    """An n x n grid of 2 n^2 triangles spanning [lo, hi] in x and y at
+    height z, facing down."""
+    t = np.linspace(0.0, 1.0, n + 1)
+    gx, gy = np.meshgrid(lo[0] + (hi[0] - lo[0]) * t,
+                         lo[1] + (hi[1] - lo[1]) * t)
+    p = np.stack([gx.ravel(), gy.ravel(), np.full(gx.size, z)], 1)
+    idx = []
+    for j in range(n):
+        for i in range(n):
+            a = j * (n + 1) + i
+            idx += [a, a + n + 2, a + 1, a, a + n + 1, a + n + 2]
+    return _mesh(p, np.asarray(idx))
+
+
+def emissive_grid_scene(width: int = 128, height: int = 64,
+                        n: int = 17) -> str:
+    """materials_scene's room lit by an emissive n x n grid: 2 n^2
+    emissive triangles, 578 at n = 17 (past K1c's immediates, MAX_TRIS
+    512)."""
+    return f"""
+LookAt 0 -7 2.2  0 0 0.6  0 0 1
+Camera "perspective" "float fov" [ 42 ]
+Film "image" "integer xresolution" [ {width} ]
+  "integer yresolution" [ {height} ] "string filename" "grid.png"
+Integrator "path" "integer maxdepth" [ 8 ]
+WorldBegin
+Material "matte" "rgb Kd" [ .6 .6 .55 ]
+{_quad([[-8, -8, 0], [8, -8, 0], [8, 8, 0], [-8, 8, 0]])}
+Material "matte" "rgb Kd" [ .3 .35 .5 ]
+{_quad([[-8, 4, 0], [8, 4, 0], [8, 4, 6], [-8, 4, 6]])}
+AttributeBegin
+  Translate -1.2 0.2 0.7
+  Material "plastic" "rgb Kd" [ .1 .4 .2 ] "rgb Ks" [ .4 .4 .4 ]
+    "float roughness" [ .1 ]
+  Shape "sphere" "float radius" [ 0.7 ]
+AttributeEnd
+AttributeBegin
+  Translate 1.2 0.4 0.7
+  Material "metal" "float roughness" [ .2 ]
+  Shape "sphere" "float radius" [ 0.7 ]
+AttributeEnd
+AttributeBegin
+  Material "matte" "rgb Kd" [ 0 0 0 ]
+  AreaLightSource "diffuse" "rgb L" [ 4 3.8 3.4 ]
+  {_grid_mesh(n, (-1.5, -1.0), (1.5, 1.5), 3.5)}
+AttributeEnd
+WorldEnd
+"""
+
+
+def _stretched_spheres(n: int) -> str:
+    """n spheres of radius 0.5 scaled 1 x 2 x 1 in a 13-wide grid on the
+    floor, the nearest rows in view (non-uniformly scaled, so none goes to
+    K1d's sphere table)."""
+    mats = ('"matte" "rgb Kd" [ .7 .3 .2 ]',
+            '"plastic" "rgb Kd" [ .2 .3 .6 ] "rgb Ks" [ .3 .3 .3 ] '
+            '"float roughness" [ .1 ]',
+            '"matte" "rgb Kd" [ .3 .6 .3 ]')
+    out = []
+    for i in range(n):
+        x = -7.2 + 1.2 * (i % 13)
+        y = -1.5 + 2.3 * (i // 13)
+        out.append(f"""AttributeBegin
+  Translate {x:.2f} {y:.2f} 0.5
+  Scale 1 2 1
+  Material {mats[i % 3]}
+  Shape "sphere" "float radius" [ 0.5 ]
+AttributeEnd""")
+    return "\n".join(out)
+
+
+def many_spheres_scene(width: int = 128, height: int = 64,
+                       n: int = 65) -> str:
+    """n spheres scaled 1 x 2 x 1 under a distant light and an area
+    light: 65 is one past K1d's immediates (MAX_SPHERES 64)."""
+    return f"""
+LookAt 0 -7 2.2  0 0 0.6  0 0 1
+Camera "perspective" "float fov" [ 42 ]
+Film "image" "integer xresolution" [ {width} ]
+  "integer yresolution" [ {height} ] "string filename" "spheres.png"
+Integrator "path" "integer maxdepth" [ 8 ]
+WorldBegin
+LightSource "infinite" "rgb L" [ .08 .09 .12 ]
+LightSource "distant" "point from" [ -2 -3 5 ] "point to" [ 0 0 0 ]
+  "rgb L" [ 1.6 1.5 1.3 ]
+Material "matte" "rgb Kd" [ .6 .6 .55 ]
+{_quad([[-8, -8, 0], [8, -8, 0], [8, 8, 0], [-8, 8, 0]])}
+{_stretched_spheres(n)}
+AttributeBegin
+  Material "matte" "rgb Kd" [ 0 0 0 ]
+  AreaLightSource "diffuse" "rgb L" [ 5 5 6 ]
+  {_quad([[-1.0, 1.0, 3.0], [1.0, 1.0, 3.0], [1.0, -0.5, 3.0],
+          [-1.0, -0.5, 3.0]])}
+AttributeEnd
+WorldEnd
+"""
+
+
+def many_lights_scene(width: int = 128, height: int = 64, n: int = 1025,
+                      maxdepth: int = 8) -> str:
+    """n distant lights, 1025 by default (past K1d's light cap of 1024),
+    their directions spread over the upper hemisphere, over a floor, a
+    wall and two spheres."""
+    rng = np.random.default_rng(9)
+    z = rng.uniform(0.2, 1.0, n)
+    phi = rng.uniform(0.0, 2.0 * np.pi, n)
+    r = np.sqrt(1.0 - z * z)
+    lights = "\n".join(
+        f'LightSource "distant" "point from" [ {r[i] * np.cos(phi[i]):.4f} '
+        f'{r[i] * np.sin(phi[i]):.4f} {z[i]:.4f} ] "point to" [ 0 0 0 ] '
+        f'"rgb L" [ .004 .0038 .0034 ]' for i in range(n))
+    return f"""
+LookAt 0 -7 2.2  0 0 0.6  0 0 1
+Camera "perspective" "float fov" [ 42 ]
+Film "image" "integer xresolution" [ {width} ]
+  "integer yresolution" [ {height} ] "string filename" "lights.png"
+Integrator "path" "integer maxdepth" [ {maxdepth} ]
+WorldBegin
+{lights}
+Material "matte" "rgb Kd" [ .6 .6 .55 ]
+{_quad([[-8, -8, 0], [8, -8, 0], [8, 8, 0], [-8, 8, 0]])}
+Material "matte" "rgb Kd" [ .3 .35 .5 ]
+{_quad([[-8, 4, 0], [8, 4, 0], [8, 4, 6], [-8, 4, 6]])}
+AttributeBegin
+  Translate -1.0 0.2 0.8
+  Material "plastic" "rgb Kd" [ .5 .3 .1 ] "rgb Ks" [ .3 .3 .3 ]
+    "float roughness" [ .1 ]
+  Shape "sphere" "float radius" [ 0.8 ]
+AttributeEnd
+AttributeBegin
+  Translate 1.2 0.4 0.6
+  Material "matte" "rgb Kd" [ .2 .4 .6 ]
+  Shape "sphere" "float radius" [ 0.6 ]
+AttributeEnd
+WorldEnd
+"""
+
+
+def fog_spheres_scene(width: int = 128, height: int = 64,
+                      n: int = 65) -> str:
+    """fog_scene with `many_spheres_scene`'s n stretched spheres inside
+    its fog: a volpath scene past K1d's immediates."""
+    src = fog_scene(width, height).replace('"fog.png"',
+                                           '"fog_spheres.png"')
+    head, tail = src.rsplit("AttributeEnd\nAttributeEnd\nWorldEnd", 1)
+    return (head + "AttributeEnd\n" + _stretched_spheres(n)
+            + "\nAttributeEnd\nWorldEnd" + tail)
+
+
+# the refused scenes by name: (writer taking (directory, width, height),
+# whether it writes images). chip_smoke.py and the tests share them.
+REFUSED = {
+    "checker_metal": lambda d, w, h: checker_metal_scene(d, w, h),
+    "emissive_grid": lambda d, w, h: emissive_grid_scene(w, h),
+    "many_spheres": lambda d, w, h: many_spheres_scene(w, h),
+    "many_lights": lambda d, w, h: many_lights_scene(w, h),
+    "fog_spheres": lambda d, w, h: fog_spheres_scene(w, h),
+}

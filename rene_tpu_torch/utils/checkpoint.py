@@ -14,10 +14,10 @@ one adds:
   over the chunks run since the resume alone (the reference's
   rene_tpu/render.py:362-378).
 
-The fingerprint names the resolved runner (`megakernel` or `wave`) and
-`want_var` besides the scene buffers, the config and the seed, so that a
-wave snapshot is not offered to the megakernel, whose chunk streams
-differ, nor a plain snapshot to a `want_var` render.
+The fingerprint names the resolved runner (`megakernel`, `wave` or
+`xla`) and `want_var` besides the scene buffers, the config and the seed,
+so that a snapshot of one runner is not offered to another, whose chunk
+streams differ, nor a plain snapshot to a `want_var` render.
 """
 from __future__ import annotations
 

@@ -115,7 +115,7 @@ def test_warm_cache_renders_nothing(box, tmp_path, seen, caplog):
 
 def test_runner_libraries(box):
     """The libraries a runner launches: the megakernel's instance, or K2's
-    and the one of K3 and K4."""
+    and the one of K3 and K4; none for the XLA engine."""
     bn, cfg = build_device_scene(load_scene(str(box)))
     assert PR.runner_libraries(bn, cfg) == ["mega_path"]
     assert PR.runner_libraries(bn, cfg, "pallas") == ["mega_path"]
@@ -127,8 +127,7 @@ def test_runner_libraries(box):
     assert PR.runner_libraries(bn, cfg) == ["mega_volpath_mesh"]
     assert PR.runner_libraries(bn, cfg, "wave") == [
         "wave_path", "wave_volpath_mesh"]
-    with pytest.raises(NotImplementedError):
-        PR.runner_libraries(bn, cfg, "xla")
+    assert PR.runner_libraries(bn, cfg, "xla") == []
 
 
 @pytest.mark.parametrize("engine", ["pallas", "wave"])

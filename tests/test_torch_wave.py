@@ -380,7 +380,8 @@ def test_wrappers_run_plain_versions_on_cpu():
 
 def test_render_engines():
     """render(engine=...): "wave" is the wave runner's waves averaged,
-    "xla" is not ported, and "auto" stays on the megakernel."""
+    "xla" is the XLA engine, and "auto" stays on the megakernel for a
+    scene the kernels take."""
     from rene_tpu_torch.render import render
     scene = create_scene(parse_pbrt(_small_src()), "/tmp")
     out = render(scene, spp=3, seed=5, device="cpu", engine="wave")
@@ -393,8 +394,8 @@ def test_render_engines():
     img = direct["radiance"].reshape(16, 24, 3)[::-1] / 3
     np.testing.assert_allclose(out["color"], img, rtol=1e-6, atol=1e-7)
     assert render(scene, spp=1, device="cpu")["engine"] == "pallas"
-    with pytest.raises(NotImplementedError, match="XLA"):
-        render(scene, spp=1, device="cpu", engine="xla")
+    assert render(scene, spp=1, device="cpu", engine="xla")["engine"] \
+        == "xla"
 
 
 @pytest.mark.cuda
