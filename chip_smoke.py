@@ -184,9 +184,33 @@ when either is missing or any check fails. Phases:
     XLA render and per loop iteration (torch.profiler, a 64x64 Cornell box
     at 1 spp).
 
+29. renders over ranks of torch.distributed (parallel/shard.py), two
+    ranks on the one card over gloo: the Cornell box at 1024x1024 x 16
+    spp through the megakernel in tiles mode, its film the single-device
+    render's bit for bit, and in samples mode, its linear mean within
+    1e-3 of the single device's at the same spp and its film the host's
+    sum of the two ranks' launches at the shifted seeds by the card's
+    per-pixel rule; the big mesh at pack 16 in tiles mode against the
+    single device by the per-pixel rule; the deep mesh through the wave
+    engine in samples mode, its mean held; the XLA engine on a 64x64
+    Cornell box in both modes against the same render on CPU ranks; one
+    rank over NCCL (the single device's film) and two ranks on one card
+    over NCCL (the message NCCL refuses them with is logged); `--devices
+    2` through the CLI (exit 1 with the reference's message on one card)
+    and `--dump-module` (the PTX of the Cornell box's library); each
+    render's wall time beside the single device's: two ranks on one card
+    measure the process model's overhead, not a scaling;
+30. the denoiser's trainer on the card: `render_pairs` of the Cornell box
+    at 256x256 (noisy 4 and 32 spp, clean 512) and 64 synthetic pairs,
+    200 steps of `train` at 16 features, the loss under 0.75x of its first
+    ten steps' mean (the reference's slow check), the step-0 gradients
+    against the CPU's (each leaf within 1e-4 of its largest |g|), ms a
+    step (CUDA events), and the saved weights through the CLI with
+    `--denoiser cnn --unet-weights`.
+
 The per-pixel rule and the card's limits are rene_tpu_torch.checks'. Each
-path run (phases 4, 7, 11, 14, 17, 19, 21, 25, 26, 27, 28 and the `dma`
-wave of 12) starts
+path run (phases 4, 7, 11, 14, 17, 19, 21, 25, 26, 27, 28, 30 and the
+`dma` wave of 12) starts
 with every launch count set to 0 and reads them just after; comparison
 launches are not counted. The plain versions run on the card, for the
 waves of phases 10, 13, 16 and 20 through rene_tpu_torch.kernels'
@@ -312,6 +336,20 @@ XLA_BVH_W, XLA_BVH_H, XLA_BVH_SPP = 256, 128, 1
 XLA_REF_BVH_TILE = 1 << 14
 XLA_FOG_W, XLA_FOG_H, XLA_FOG_SPP = 320, 180, 2
 XLA_PROFILE_W = 64
+# phase 29, ranks on the one card: the Cornell box's film and spp, the
+# big mesh's pack, the linear means' limit between a render over ranks
+# and one device's at the same spp, the XLA engine's film and spp, how
+# long the two NCCL ranks on one card may take to be refused
+MC_SIZE, MC_SPP, MC_PACK, MC_MEAN_REL = 1024, 16, 16, 1e-3
+MC_XLA_SIZE, MC_XLA_SPP = 64, 2
+MC_NCCL_TIMEOUT_S = 120
+# phase 30, the trainer: render pairs of the Cornell box (res, noisy spp,
+# clean spp), synthetic patches, steps, features, seed, the reference's
+# slow check (the last ten steps' mean loss under this share of the first
+# ten's) and the gradients' limit (tests/test_torch_train_denoiser.py's)
+TRAIN_RES, TRAIN_NOISY, TRAIN_CLEAN = 256, (4, 32), 512
+TRAIN_SYNTHETIC, TRAIN_STEPS, TRAIN_FEATURES, TRAIN_SEED = 64, 200, 16, 0
+TRAIN_FALL, TRAIN_GRAD_TOL = 0.75, 1e-4
 
 
 def log(msg):
@@ -899,6 +937,346 @@ def xla_engine(dev, card):
         log("XLA render launches: not measured (the profiler saw no CUDA "
             "kernel)")
     log(f"phase 28 profile: {time.time() - t0:.1f} s")
+
+
+def _rows(out, n):
+    """(9, N) per-pixel sums of a render's images averaged over n
+    samples."""
+    import numpy as np
+    return np.concatenate([(np.asarray(out[k]).reshape(-1, 3) * n).T
+                           for k in ("color", "normal", "albedo")])
+
+
+def _same(a, b):
+    """The images of two renders equal bit for bit."""
+    import numpy as np
+    return all(np.array_equal(a[k], b[k]) for k in ("color", "normal",
+                                                    "albedo"))
+
+
+def _refused_nccl():
+    """Start two ranks on one card over NCCL, in a process group of its
+    own (NCCL_DEBUG=WARN, so that NCCL says why it refuses them); returns
+    a function that waits for them, killing the group whole after
+    MC_NCCL_TIMEOUT_S, and gives the exit code and the lines of NCCL's
+    message, or what happened instead. The mesh is built by hand:
+    `make_mesh` gives ranks that share a card gloo."""
+    import signal
+    code = ("import sys; sys.path.insert(0, %r)\n"
+            "import torch\n"
+            "from rene_tpu_torch import scenes\n"
+            "from rene_tpu_torch.parallel import shard as S\n"
+            "from rene_tpu_torch.pbrt import parse_pbrt\n"
+            "from rene_tpu_torch.scene import create_scene\n"
+            "if __name__ == '__main__':\n"
+            "    sc = create_scene(parse_pbrt(scenes.cornell_box(64, 64)),"
+            " '.')\n"
+            "    S.render_multichip(sc, 1, mesh=S.Mesh("
+            "(torch.device('cuda', 0),) * 2, 'nccl'), mode='tiles')\n"
+            % ROOT)
+    proc = subprocess.Popen([sys.executable, "-c", code],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, start_new_session=True,
+                            env=dict(os.environ, NCCL_DEBUG="WARN"))
+    t0 = time.time()
+
+    def wait():
+        try:
+            out, _ = proc.communicate(
+                timeout=max(1.0, MC_NCCL_TIMEOUT_S - (time.time() - t0)))
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+            return None, [f"no answer within {MC_NCCL_TIMEOUT_S} s (killed)"]
+        lines = [ln.strip() for ln in out.splitlines()
+                 if "Duplicate GPU" in ln or "NCCL error" in ln]
+        return proc.returncode, (lines[:2] if lines
+                                 else out.strip().splitlines()[-1:])
+    return wait
+
+
+def multi_device(dev, card, paths):
+    """Phase 29: renders over ranks of torch.distributed on the one card
+    (parallel/shard.py), each held against the single-device render."""
+    import io
+    import numpy as np
+    import torch
+    from rene_tpu_torch import checks, cli, scenes
+    from rene_tpu_torch import render as RD
+    from rene_tpu_torch.parallel import shard as S
+    from rene_tpu_torch.scene import build_device_scene, load_scene
+
+    two = S.make_mesh([dev, dev])
+    if two.backend != "gloo":
+        raise RuntimeError(f"two ranks on one card: backend {two.backend}")
+
+    def report(what, multi, single):
+        split = "; ".join(
+            f"rank {i}: start {r['start_s']:.3f}, setup {r['setup_s']:.3f}, "
+            f"render {r['render_s']:.3f}, reduce {r['reduce_s']:.3f}, exit "
+            f"{r['exit_s']:.3f}" for i, r in enumerate(multi["ranks"]))
+        log(f"{what}: {multi['effective_spp']} spp over "
+            f"{len(multi['rank_seconds'])} rank(s) ({multi['backend']}), "
+            f"wall {multi['wall_time']:.3f} s ({split} s), launches "
+            f"{json.dumps(multi['kernel_launches'])}; one device "
+            f"{single['wall_time']:.3f} s [{card}]")
+
+    # the Cornell box, megakernel tiles mode: the single device's film
+    t0 = time.time()
+    corn = load_scene(write_scene("mc_cornell", scenes.cornell_box(
+        MC_SIZE, MC_SIZE), SCENE_DIR))
+    single = RD.render(corn, spp=MC_SPP, seed=MAIN_SEED, device=dev)
+    tiles = S.render_multichip(corn, MC_SPP, seed=MAIN_SEED, mesh=two,
+                               mode="tiles", engine="pallas")
+    report(f"cornell {MC_SIZE}x{MC_SIZE}, megakernel tiles", tiles, single)
+    if not tiles["kernel_launches"].get("mega_path"):
+        raise RuntimeError(f"tiles: no mega_path launch in the ranks: "
+                           f"{tiles['kernel_launches']}")
+    if not _same(tiles, single) or tiles["total_rays"] != \
+            single["total_rays"]:
+        raise RuntimeError("cornell tiles: the film is not the single "
+                           "device's bit for bit")
+    log("cornell tiles: equal to the single-device render bit for bit, "
+        f"rays {tiles['total_rays']:.0f}")
+
+    # samples mode: the mean against the single device's at the same spp,
+    # the film against the host's sum of the two ranks' launches
+    samples = S.render_multichip(corn, MC_SPP, seed=MAIN_SEED, mesh=two,
+                                 mode="samples", engine="pallas")
+    report(f"cornell {MC_SIZE}x{MC_SIZE}, megakernel samples", samples,
+           single)
+    m_multi = float(samples["color"].astype(np.float64).mean())
+    m_single = float(single["color"].astype(np.float64).mean())
+    rel = abs(m_multi - m_single) / m_single
+    bn, cfg = build_device_scene(corn)
+    parts = [S.rank_chunks(bn, cfg, dev, "megakernel", MC_SPP, MAIN_SEED,
+                           "samples", r, 2)[0] for r in range(2)]
+    host = {k: sum(p.accum[k] for p in parts).cpu().numpy()
+            for k in parts[0].accum}
+    want = RD.film_result(cfg, host, None, sum(p.done for p in parts),
+                          sum(p.seeds for p in parts))
+    a = checks.agreement(_rows(samples, MC_SPP), _rows(want, MC_SPP))
+    log(f"cornell samples: linear mean {m_multi:.7f}, one device "
+        f"{m_single:.7f} (rel {rel:.3g}); against the host's sum of the "
+        f"ranks' launches at the shifted seeds (bit for bit: "
+        f"{_same(samples, want)}): " + json.dumps(a))
+    checks.check_card(a, "cornell samples vs the ranks' launches")
+    if rel > MC_MEAN_REL or samples["effective_spp"] != MC_SPP:
+        raise RuntimeError(f"cornell samples: mean rel {rel}, effective "
+                           f"spp {samples['effective_spp']}")
+    log(f"phase 29 cornell: {time.time() - t0:.1f} s")
+
+    # the big mesh packed 16 slots a pixel, tiles mode
+    t0 = time.time()
+    big = load_scene(paths["big_mesh"])
+    before = os.environ.get("RENE_MEGA_PACK")
+    os.environ["RENE_MEGA_PACK"] = str(MC_PACK)
+    try:
+        single = RD.render(big, spp=MESH_SPP, seed=MAIN_SEED, device=dev)
+        tiles = S.render_multichip(big, MESH_SPP, seed=MAIN_SEED, mesh=two,
+                                   mode="tiles", engine="pallas")
+    finally:
+        if before is None:
+            os.environ.pop("RENE_MEGA_PACK")
+        else:
+            os.environ["RENE_MEGA_PACK"] = before
+    report(f"big mesh {MESH_W}x{MESH_H} at pack {MC_PACK}, tiles", tiles,
+           single)
+    a = checks.agreement(_rows(tiles, MESH_SPP), _rows(single, MESH_SPP))
+    log(f"big mesh tiles at pack {MC_PACK} vs one device (bit for bit: "
+        f"{_same(tiles, single)}; rays {tiles['total_rays']:.0f} / "
+        f"{single['total_rays']:.0f}): " + json.dumps(a))
+    checks.check_card(a, "big mesh tiles")
+    if not tiles["kernel_launches"].get("mega_path_mesh"):
+        raise RuntimeError(f"big mesh tiles: {tiles['kernel_launches']}")
+    log(f"phase 29 big mesh: {time.time() - t0:.1f} s")
+
+    # the deep mesh through the wave engine, samples mode
+    t0 = time.time()
+    deep = load_scene(paths["deep_mesh"])
+    single = RD.render(deep, spp=MESH_SPP, seed=MAIN_SEED, device=dev,
+                       engine="wave")
+    waves = S.render_multichip(deep, MESH_SPP, seed=MAIN_SEED, mesh=two,
+                               mode="samples", engine="wave")
+    report(f"deep mesh {MESH_W}x{MESH_H}, wave samples", waves, single)
+    m_multi = float(waves["color"].astype(np.float64).mean())
+    m_single = float(single["color"].astype(np.float64).mean())
+    rel = abs(m_multi - m_single) / m_single
+    log(f"deep mesh waves: linear mean {m_multi:.7f}, one device "
+        f"{m_single:.7f} (rel {rel:.3g})")
+    if rel > MC_MEAN_REL or not waves["kernel_launches"].get(
+            "wave_path_mesh") or not waves["kernel_launches"].get(
+            "wave_genesis"):
+        raise RuntimeError(f"deep mesh waves: mean rel {rel}, launches "
+                           f"{waves['kernel_launches']}")
+    log(f"phase 29 deep mesh: {time.time() - t0:.1f} s")
+
+    # the XLA engine, both modes, on the card's ranks and on CPU ranks
+    t0 = time.time()
+    small = load_scene(write_scene("mc_xla", scenes.cornell_box(
+        MC_XLA_SIZE, MC_XLA_SIZE), SCENE_DIR))
+    cpu2 = S.make_mesh(["cpu", "cpu"])
+    # two NCCL ranks on the card, refused, beside these untimed renders
+    refused_nccl = _refused_nccl()
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(4) as ex:     # the four at once: not timed
+        runs = {(mode, m.devices[0].type): ex.submit(
+            S.render_multichip, small, MC_XLA_SPP, seed=XLA_SEED, mesh=m,
+            mode=mode, engine="xla")
+            for mode in ("samples", "tiles") for m in (two, cpu2)}
+        runs = {k: f.result() for k, f in runs.items()}
+    for mode in ("samples", "tiles"):
+        card_out, cpu_out = runs[mode, "cuda"], runs[mode, "cpu"]
+        a = checks.agreement(_rows(card_out, card_out["effective_spp"]),
+                             _rows(cpu_out, cpu_out["effective_spp"]))
+        log(f"XLA engine {mode}, cornell {MC_XLA_SIZE}x{MC_XLA_SIZE} x "
+            f"{MC_XLA_SPP} spp, card ranks vs CPU ranks, the four renders at "
+            f"once (wall {card_out['wall_time']:.3f} / "
+            f"{cpu_out['wall_time']:.3f} s; rays {card_out['total_rays']:.0f} / "
+            f"{cpu_out['total_rays']:.0f}): " + json.dumps(a))
+        checks.check_card(a, f"XLA engine {mode}, card vs CPU ranks")
+        if card_out["effective_spp"] != cpu_out["effective_spp"]:
+            raise RuntimeError(f"XLA {mode}: effective spp differ")
+    log(f"phase 29 XLA engine: {time.time() - t0:.1f} s")
+
+    # one rank over NCCL; two ranks on one card over NCCL
+    t0 = time.time()
+    one = S.make_mesh([dev])
+    corn_small = load_scene(os.path.join(SCENE_DIR, "mc_xla.pbrt"))
+    nccl = S.render_multichip(corn_small, MC_XLA_SPP, seed=MAIN_SEED,
+                              mesh=one, mode="tiles", engine="pallas")
+    single = RD.render(corn_small, spp=MC_XLA_SPP, seed=MAIN_SEED,
+                       device=dev)
+    report("cornell, one rank", nccl, single)
+    if nccl["backend"] != "nccl" or not _same(nccl, single):
+        raise RuntimeError("one NCCL rank: not the single device's film")
+    rc, msg = refused_nccl()
+    log(f"two ranks on one card over NCCL: exit {rc}, {msg!r}")
+    if not rc or not any("Duplicate GPU" in m or "NCCL error" in m
+                         for m in msg):
+        raise RuntimeError(f"two ranks on one card over NCCL: not refused "
+                           f"by NCCL (exit {rc}, {msg!r})")
+    log(f"phase 29 NCCL: {time.time() - t0:.1f} s")
+
+    # the CLI: --devices 2 on this one card; --dump-module
+    t0 = time.time()
+    records = []
+
+    class Grab(logging.Handler):
+        def emit(self, record):
+            records.append(record.getMessage())
+
+    grab = Grab()
+    logging.getLogger("rene_tpu_torch").addHandler(grab)
+    try:
+        scene_path = os.path.join(SCENE_DIR, "mc_xla.pbrt")
+        rc = cli.main([scene_path, "--devices", "2", "--spp", "1"])
+        n = torch.cuda.device_count()
+        want = f"--devices 2 requested but only {n} present"
+        if n < 2 and (rc != 1 or want not in records):
+            raise RuntimeError(f"--devices 2: exit {rc}, {records[-3:]}")
+        log(f"--devices 2 on {n} card(s): exit {rc}, {want!r}")
+        buf = io.StringIO()
+        t = time.time()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main([scene_path, "--dump-module"])
+        text = buf.getvalue()
+        entries = re.findall(r"^\.visible \.entry (\S+)\(", text, re.M)
+        if rc != 0 or ".target sm_90a" not in text or not entries:
+            raise RuntimeError(f"--dump-module: exit {rc}, "
+                               f"{len(text)} characters")
+        log(f"--dump-module (cornell, mega_path): {len(text)} characters of "
+            f"PTX, {len(entries)} entries, {time.time() - t:.1f} s")
+    finally:
+        logging.getLogger("rene_tpu_torch").removeHandler(grab)
+    log(f"phase 29 CLI: {time.time() - t0:.1f} s")
+
+
+def training(dev, card):
+    """Phase 30: the denoiser's trainer on the card (models/
+    train_denoiser.py), its step-0 gradients against the CPU's, and its
+    weights through the CLI."""
+    import numpy as np
+    import torch
+    from rene_tpu_torch import scenes
+    from rene_tpu_torch.models import denoise as D
+    from rene_tpu_torch.models import train_denoiser as T
+
+    t0 = time.time()
+    box = write_scene("train_cornell", scenes.cornell_box(16, 16),
+                      SCENE_DIR)
+    t = time.time()
+    rendered = T.render_pairs(box, TRAIN_NOISY, TRAIN_CLEAN, res=TRAIN_RES,
+                              device=dev)
+    render_s = time.time() - t
+    t = time.time()
+    syn = T.synthetic_pairs(TRAIN_SYNTHETIC, device=dev)
+    data = tuple(np.concatenate([a, b]) for a, b in zip(rendered, syn))
+    log(f"training data: {rendered[0].shape[0]} patches of the Cornell box "
+        f"at {TRAIN_RES}x{TRAIN_RES} (noisy {list(TRAIN_NOISY)} spp, clean "
+        f"{TRAIN_CLEAN}) in {render_s:.1f} s, {syn[0].shape[0]} synthetic "
+        f"in {time.time() - t:.1f} s")
+
+    # the step-0 gradients on the card against the CPU's, from the same
+    # weights (a drawn head, so that every leaf's gradient is nonzero)
+    cpu = D.UNetDenoiser(TRAIN_FEATURES, device="cpu").init(TRAIN_SEED)
+    with torch.no_grad():
+        g = torch.Generator().manual_seed(TRAIN_SEED)
+        cpu.net.head.weight.copy_(torch.randn(
+            cpu.net.head.weight.shape, generator=g) * 0.05)
+    on_card = D.UNetDenoiser(TRAIN_FEATURES, device=dev)
+    on_card.net.load_state_dict(cpu.net.state_dict())
+    idx = np.random.default_rng(TRAIN_SEED).integers(0, data[0].shape[0],
+                                                     size=8)
+    grads = {}
+    for net in (cpu, on_card):
+        d = net.device
+        batch = tuple(torch.from_numpy(a[idx]).to(d) for a in data)
+        with D._full_float32():
+            T.batch_loss(net, batch, torch.arange(8, device=d)).backward()
+        grads[d.type] = {n: p.grad.cpu() for n, p in
+                         net.net.named_parameters()}
+    worst = max(float((grads["cuda"][n] - g_).abs().max()
+                      / g_.abs().max()) for n, g_ in grads["cpu"].items())
+    log(f"step-0 gradients, card vs CPU: largest difference "
+        f"{worst:.3g} of a leaf's largest |g| (limit {TRAIN_GRAD_TOL})")
+    if not worst <= TRAIN_GRAD_TOL:
+        raise RuntimeError("step-0 gradients: the card is not the CPU")
+
+    # CUDA events at the start and after every half of the steps (the
+    # trainer's progress calls): the second half's ms a step leaves out
+    # the first steps' set-up (cuDNN's choice of algorithms)
+    events = [torch.cuda.Event(enable_timing=True)]
+    events[0].record()
+
+    def mark(msg):
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+    net, losses = T.train(data, steps=TRAIN_STEPS,
+                          features=TRAIN_FEATURES, seed=TRAIN_SEED,
+                          log_every=TRAIN_STEPS // 2, progress=mark,
+                          device=dev)
+    events[-1].synchronize()
+    ms = events[0].elapsed_time(events[-1]) / TRAIN_STEPS
+    ms_late = events[1].elapsed_time(events[2]) / (TRAIN_STEPS // 2)
+    first, last = np.mean(losses[:10]), np.mean(losses[-10:])
+    log(f"train: {TRAIN_STEPS} steps at {TRAIN_FEATURES} features, batch "
+        f"8, on {data[0].shape[0]} patches: {ms:.3f} ms a step (CUDA "
+        f"events), {ms_late:.3f} over the second half, loss {first:.5f} (first ten) -> {last:.5f} (last ten), "
+        f"{last / first:.3f}x [{card}]")
+    if not last < TRAIN_FALL * first or not np.isfinite(losses).all():
+        raise RuntimeError(f"train: the loss did not fall below "
+                           f"{TRAIN_FALL}x ({first} -> {last})")
+    weights = os.path.join(SCENE_DIR, "trained_unet.msgpack")
+    net.save(weights)
+    _, l_w, r_w = cli_path("train_cornell_denoised",
+                           scenes.cornell_box(TRAIN_RES, TRAIN_RES), 16,
+                           (TRAIN_RES, TRAIN_RES), "cornell, trained U-Net",
+                           extra=["--denoiser", "cnn", "--unet-weights",
+                                  weights])
+    if not any(m.startswith("denoise (cnn)") for m in r_w["records"]):
+        raise RuntimeError("the CLI did not run the trained U-Net")
+    log(f"phase 30, the trainer: {time.time() - t0:.1f} s")
 
 
 def main() -> int:
@@ -2205,6 +2583,14 @@ def main() -> int:
     # 28. the XLA engine
     xla_engine(dev, card)
     phase_done(28)
+
+    # 29. renders over ranks of torch.distributed
+    multi_device(dev, card, {"big_mesh": big_path, "deep_mesh": deep_path})
+    phase_done(29)
+
+    # 30. the denoiser's trainer
+    training(dev, card)
+    phase_done(30)
 
     if any(m.split(".")[0] in ("jax", "rene_tpu") for m in sys.modules):
         raise RuntimeError("jax or rene_tpu was imported")

@@ -7,20 +7,36 @@
         [--denoiser none|atrous|cnn [--unet-weights W]]
         [--checkpoint C [--resume]] [--color-space linear|srgb|srgb-lights]
         [--scene-overrides F] [--tungsten-compat] [--mf-dist D]
-        [--warm-cache]
+        [--devices N [--multichip-mode samples|tiles]]
+        [--warm-cache] [--dump-module]
 
-Counterpart of rene_tpu/cli.py:101 `main` for the slice the port carries
-(the path and volpath integrators; the megakernel and wave engines under
-the independent or the Sobol sampler, and the XLA engine, which renders
-the scenes the kernels refuse and which `auto` picks for them). The
-default device is `cuda`; the CPU runs the kernels' plain PyTorch
-versions and must be asked for. `--bvh` and `--tile-rays` are the XLA
-engine's: `on` forces the BVH walk as its main accelerator, and the film
-goes through it in tiles of that many lanes. `--mf-dist` and an override
-file's `mf_dist` set RENE_MF_DIST for the render, as the reference does;
-`main` gives the variable back its value from before the call when it
-returns. Not carried over: `--devices` and `--multichip-mode`,
-`--dump-module`.
+Counterpart of rene_tpu/cli.py:101 `main` (the path and volpath
+integrators; the megakernel and wave engines under the independent or the
+Sobol sampler, and the XLA engine, which renders the scenes the kernels
+refuse and which `auto` picks for them). The default device is `cuda`;
+the CPU runs the kernels' plain PyTorch versions and must be asked for.
+`--bvh` and `--tile-rays` are the XLA engine's: `on` forces the BVH walk
+as its main accelerator, and the film goes through it in tiles of that
+many lanes. `--mf-dist` and an override file's `mf_dist` set RENE_MF_DIST
+for the render, as the reference does; `main` gives the variable back its
+value from before the call when it returns.
+
+`--devices N` renders over N ranks (parallel/shard.py): N cards with
+`--device cuda` (exit 1 when fewer are visible), N CPU processes with
+`--device cpu`. `--multichip-mode samples` gives each rank its own
+samples of the whole film, `tiles` each rank a share of the pixels of
+the same samples. Unlike the reference's CLI, which drops some flags
+under `--devices > 1`, every flag is passed on or refused: `--bvh`,
+`--tile-rays`, `--denoiser` (with its variance over every rank's chunks),
+`--sampler`, `--mf-dist` and the override files reach the ranks;
+`--checkpoint` / `--resume` and `--engine wave --multichip-mode tiles`
+are refused with a message.
+
+`--dump-module` prints the PTX of the kernel libraries the scene's
+engine launches (`render.runner_libraries`), built by nvcc from the
+package's sources, as the reference prints its lowered module (and
+hatoo/rene its SPIR-V); it exits 1 for a scene that the XLA engine
+renders (plain PyTorch, no module of its own) and on the CPU.
 """
 from __future__ import annotations
 
@@ -95,9 +111,22 @@ def build_parser() -> argparse.ArgumentParser:
                    help="microfacet distribution for all rough "
                         "conductors/dielectrics (auto = ggx unless an "
                         "override file selects otherwise)")
+    p.add_argument("--devices", type=int, default=1, metavar="N",
+                   help="render over N ranks: N cards (--device cuda) or "
+                        "N CPU processes (--device cpu), the films summed "
+                        "with one all_reduce")
+    p.add_argument("--multichip-mode", choices=["samples", "tiles"],
+                   default="samples",
+                   help="samples: each rank traces the whole film at its "
+                        "own samples; tiles: the ranks split the film's "
+                        "pixels (the image equals one device's)")
     p.add_argument("--warm-cache", action="store_true",
                    help="build the scene's kernel libraries with nvcc and "
                         "exit without rendering")
+    p.add_argument("--dump-module", action="store_true",
+                   help="print the PTX of the scene's kernel libraries "
+                        "and exit (the reference dumps its lowered "
+                        "module)")
     p.add_argument("-v", "--verbose", action="store_true")
     return p
 
@@ -139,11 +168,52 @@ def _overrides_file(args, log):
     return ov_file
 
 
+def _refused(args):
+    """Why the flags cannot go together, or None."""
+    if args.devices < 1:
+        return f"--devices {args.devices}: at least 1"
+    if args.devices > 1 and (args.checkpoint or args.resume):
+        return ("--checkpoint / --resume: a render over --devices > 1 "
+                "keeps no checkpoint; render on one device to checkpoint")
+    if args.devices > 1 and args.engine == "wave" \
+            and args.multichip_mode == "tiles":
+        return ("--engine wave renders --multichip-mode samples only; "
+                "tiles mode is the megakernel's and the XLA engine's")
+    return None
+
+
+def _dump_module(scene, args, log) -> int:
+    """Print the PTX of the libraries the scene's engine launches."""
+    from . import kernels
+    from .render import runner_libraries
+    from .scene import build_device_scene
+    if args.device != "cuda":
+        log.error("--dump-module: on the CPU the kernels run as their plain "
+                  "PyTorch versions, which have no module; pass --device "
+                  "cuda")
+        return 1
+    buffers_np, config = build_device_scene(scene)
+    names = runner_libraries(buffers_np, config, args.engine)
+    if not names:
+        log.error("--dump-module: the XLA engine renders this scene in "
+                  "plain PyTorch, with no module of its own")
+        return 1
+    for name in names:
+        log.info("PTX of %s (%s)", name, kernels.BUILDS[name][0])
+        sys.stdout.write(kernels.ptx(name))
+    sys.stdout.flush()
+    return 0
+
+
 def _main(args) -> int:
     logging.basicConfig(
         level=logging.DEBUG if args.verbose else logging.INFO,
         format="%(levelname)s [%(name)s] %(message)s")
     log = logging.getLogger("rene_tpu_torch")
+    refused = _refused(args)
+    if refused:
+        log.error(refused)
+        return 1
 
     t0 = time.time()
     from .pbrt import ParseError
@@ -166,6 +236,9 @@ def _main(args) -> int:
         log.info("applied scene overrides from %s", ov_file)
     log.info("scene compiled in %.2fs", time.time() - t0)
 
+    if args.dump_module:
+        return _dump_module(scene, args, log)
+
     if args.warm_cache:
         from .render import warm_cache
         t = time.time()
@@ -178,10 +251,28 @@ def _main(args) -> int:
     from .utils.film import save_png, to_aov8, to_aov_normal8, to_rgb8
     spp = args.spp if args.spp is not None else DEFAULT_SPP
     use_bvh = {"auto": None, "on": True, "off": False}[args.bvh]
-    out = render(scene, spp=spp, seed=args.seed, device=args.device,
-                 engine=args.engine, checkpoint=args.checkpoint,
-                 resume=args.resume, want_var=args.denoiser != "none",
-                 use_bvh=use_bvh, tile_rays=args.tile_rays)
+    if args.devices > 1:
+        import torch
+        from .parallel.shard import make_mesh, render_multichip
+        if args.device == "cuda":
+            present = torch.cuda.device_count()
+            if present < args.devices:
+                log.error("--devices %d requested but only %d present",
+                          args.devices, present)
+                return 1
+            mesh = make_mesh([f"cuda:{i}" for i in range(args.devices)])
+        else:
+            mesh = make_mesh(["cpu"] * args.devices)
+        out = render_multichip(scene, spp=spp, seed=args.seed, mesh=mesh,
+                               tile_rays=args.tile_rays,
+                               mode=args.multichip_mode,
+                               engine=args.engine, use_bvh=use_bvh,
+                               want_var=args.denoiser != "none")
+    else:
+        out = render(scene, spp=spp, seed=args.seed, device=args.device,
+                     engine=args.engine, checkpoint=args.checkpoint,
+                     resume=args.resume, want_var=args.denoiser != "none",
+                     use_bvh=use_bvh, tile_rays=args.tile_rays)
     color = out["color"]
     if args.denoiser != "none":
         from .models.denoise import UNetDenoiser, denoise

@@ -22,7 +22,11 @@ extern "C" int mega_path_launch(
     int has_tri_emitter, int width, int n_pix, int max_depth,
     int use_rr, int beckmann, int has_accel, int block_seed, int has_tex,
     int has_env, int tex, int sobol, const float* media, int n_media, int seed,
-    int num_samples, int pack, float* out, void* stream) {
+    int num_samples, int pack, int pix0, int n_run, float* out,
+    void* stream) {
+  // the launch's pixels, [pix0, pix0 + n_run), at every slot
+  if (pix0 < 0 || n_run < 0 || pix0 > n_pix - n_run)
+    return 1;  // cudaErrorInvalidValue
   Params p;
   p.s = Scene{tris, sph, mats, eo, emit_tris, emit_sph, lights, light_dots,
               cam, n_tris, n_sph, n_eo, n_emit_tris, n_emit_sph, n_lights,
@@ -40,7 +44,9 @@ extern "C" int mega_path_launch(
   p.block_seed = block_seed;
   p.block = 32;  // 32 / sqrt(pack)
   for (int q = pack; q > 1; q /= 4) p.block /= 2;
-  p.n_lanes = n_pix * pack;
+  p.n_lanes = n_run * pack;
+  p.pix0 = pix0;
+  p.n_run = n_run;
   p.sobol = sobol;
   p.seed = (uint32_t)seed;
   p.out = out;

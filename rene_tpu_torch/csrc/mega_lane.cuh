@@ -20,7 +20,11 @@ struct Params {
   int has_accel;   // launch the MESH variant
   int block_seed;  // seed streams per pixel block (rng.tile_of)
   int block;       // the block's edge, 32 / sqrt(pack) (rng.block_edge)
-  int n_lanes;     // n_pix * pack: `pack` sample slots per pixel (K1f)
+  int n_lanes;     // the launch's lanes, n_run * pack: `pack` sample slots
+                   // per pixel (K1f)
+  int pix0, n_run;  // the launch's pixels, [pix0, pix0 + n_run): every
+                    // pixel of the film (0, n_pix) but in a tiles-mode
+                    // rank's launch (parallel/shard.py)
   int sobol;       // launch the SOBOL instance
   uint32_t seed;
   float* __restrict__ out;
@@ -82,13 +86,21 @@ __device__ __forceinline__ Lane lane_begin(const Params& p, int lane) {
   return l;
 }
 
-// the ten per-lane sums, to out[k * n_lanes + lane]
+// The lane id of the launch's i-th lane: slot i / n_run of pixel pix0 +
+// i % n_run, slot-major as over the whole film, where it is lane i
+__device__ __forceinline__ int lane_of(const Params& p, int i) {
+  return (i / p.n_run) * p.n_pix + p.pix0 + i % p.n_run;
+}
+
+// the ten per-lane sums of lane id `lane`, to out[k * n_lanes + i] where
+// i is its place in the launch (`lane_of`)
 __device__ __forceinline__ void write_sums(const Params& p, int lane,
                                            const float* rad,
                                            const float* aov_n,
                                            const float* aov_a, float rays) {
   const size_t N = (size_t)p.n_lanes;
-  float* out = p.out + lane;
+  float* out = p.out + (size_t)(lane / p.n_pix) * p.n_run
+               + (lane % p.n_pix - p.pix0);
   out[0 * N] = rad[0];
   out[1 * N] = rad[1];
   out[2 * N] = rad[2];
@@ -274,7 +286,7 @@ __device__ __forceinline__ void vol_lane(const Params& p, int lane) {
 }
 
 // One lane's whole run: the path body or, where VOL, the volpath body;
-// writes the ten per-lane sums to out[k * n_lanes + lane].
+// writes the ten per-lane sums (`write_sums`).
 template <bool MESH, bool VOL, bool SOBOL>
 __device__ __forceinline__ void trace_lane(const Params& p, int lane) {
   if constexpr (VOL)

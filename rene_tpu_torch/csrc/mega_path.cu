@@ -141,12 +141,12 @@ template <bool MESH, bool SOBOL, bool TEX>
 __global__ void __launch_bounds__(128, VOL_MIN_BLOCKS)
 mega_volpath_kernel(const __grid_constant__ Params p) {
   stage_imm(p.s);
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane < p.n_lanes) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < p.n_lanes) {
     if constexpr (TEX)
-      trace_lane<MESH, true, SOBOL>(p, lane);
+      trace_lane<MESH, true, SOBOL>(p, lane_of(p, i));
     else
-      trace_lane<MESH, true, SOBOL>(without_tex(p), lane);
+      trace_lane<MESH, true, SOBOL>(without_tex(p), lane_of(p, i));
   }
 }
 #else
@@ -154,7 +154,7 @@ template <bool MESH, bool SOBOL, bool TEX>
 __global__ void __launch_bounds__(128, PATH_MIN_BLOCKS)
 mega_path_kernel(const Params p) {
   stage_imm(p.s);
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
 #if defined(WALK_COUNT) && WALK_COUNT
   const long long t0 = walk_clock();
 #elif defined(TEX_COUNT) && TEX_COUNT
@@ -163,18 +163,18 @@ mega_path_kernel(const Params p) {
   path_begin();
   const long long t0 = path_clock();
 #endif
-  if (lane < p.n_lanes) {
+  if (i < p.n_lanes) {
     if constexpr (TEX)
-      trace_lane<MESH, false, SOBOL>(p, lane);
+      trace_lane<MESH, false, SOBOL>(p, lane_of(p, i));
     else
-      trace_lane<MESH, false, SOBOL>(without_tex(p), lane);
+      trace_lane<MESH, false, SOBOL>(without_tex(p), lane_of(p, i));
   }
 #if defined(WALK_COUNT) && WALK_COUNT
   walk_lane_cycles(t0);
 #elif defined(TEX_COUNT) && TEX_COUNT
   tex_lane_cycles(t0);
 #elif defined(PATH_COUNT) && PATH_COUNT
-  path_flush(t0, lane < p.n_lanes);
+  path_flush(t0, i < p.n_lanes);
 #endif
 }
 #endif

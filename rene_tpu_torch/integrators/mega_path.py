@@ -465,7 +465,7 @@ def choose_pack(tabs, pack: int, device, spp: int) -> int:
 
 
 def make_mega_batch_fn(buffers_np, config, device, pack: int = 0,
-                       spp_hint: int = 0):
+                       spp_hint: int = 0, pixels=None):
     """Runner for the chunk loop: `run(seed, num_samples)` returns per-pixel
     (N, 3) radiance/normal/albedo SUMS over the chunk's num_samples *
     run.spp_mult samples and the ray count. Raises NotImplementedError for
@@ -474,6 +474,11 @@ def make_mega_batch_fn(buffers_np, config, device, pack: int = 0,
     `pack` (`choose_pack`; 0: RENE_MEGA_PACK, else `auto` for a render of
     `spp_hint` samples per pixel): sample slots per pixel on a cluster-mode
     scene, run.spp_mult = pack.
+
+    `pixels` = (lo, hi), a tiles-mode rank's share of the film
+    (parallel/shard.py): every call launches those pixels' lanes alone
+    (`kernels.mega_path(..., pixels=)`) and returns their hi - lo rows;
+    `run.pixels` tells the chunk loop where they go.
 
     On a CUDA device every call launches csrc/mega_path.cu once (counted
     in `kernels.launches` under its variant: mega_volpath[_mesh] for
@@ -489,10 +494,14 @@ def make_mega_batch_fn(buffers_np, config, device, pack: int = 0,
     # per runner as the JAX kernel reads it once per build
     beckmann = os.environ.get("RENE_MF_DIST", "") == "beckmann"
 
+    lo, hi = pixels or (0, tabs["width"] * tabs["height"])
+
     def run(seed: int, num_samples: int):
         return finish(kernels.mega_path(tabs, int(seed), int(num_samples),
-                                        beckmann, pack), pack)
+                                        beckmann, pack, (lo, hi - lo)),
+                      pack)
 
     run.chunk_hint = 100
     run.spp_mult = pack
+    run.pixels = (lo, hi)
     return run

@@ -68,6 +68,7 @@ import torch
 from .. import kernels
 from ..ops import rng
 from ..scene import pack as P
+from ..utils.checkpoint import SUMS
 from .camera import camera_ray
 from ..ops import sobol as SB
 from .mega_path import bounce, device_tables, ray_increment, sobol_draws
@@ -136,6 +137,12 @@ def key_bounds(lo, ext) -> Tuple[float, ...]:
     64 / ext xyz, as the JAX kernel bakes them (`_q6` :4914)."""
     return tuple(float(np.float32(v)) for v in
                  (*lo, *(64.0 / e for e in ext)))
+
+
+def pixel_sums(sums) -> Dict:
+    """A wave's (9, npix) sums (`finish_wave`'s rows: radiance, normal,
+    albedo) as the film's per-pixel (npix, 3) sums, by SUMS' names."""
+    return {k: sums[3 * i:3 * i + 3].T for i, k in enumerate(SUMS)}
 
 
 def lane_layout(width: int, height: int, spw: int) -> Dict:
@@ -581,11 +588,10 @@ def make_wave_fn(buffers_np, config, device, samples_per_wave: int = 0,
         return sums, rays
 
     def read_back(acc) -> Dict:
-        sums = acc[0].cpu().numpy()
-        return {"radiance": np.ascontiguousarray(sums[0:3].T),
-                "normal": np.ascontiguousarray(sums[3:6].T),
-                "albedo": np.ascontiguousarray(sums[6:9].T),
-                "rays": float(acc[1])}
+        out = {k: np.ascontiguousarray(v.numpy())
+               for k, v in pixel_sums(acc[0].cpu()).items()}
+        out["rays"] = float(acc[1])
+        return out
 
     def run(seed: int, num_samples: int) -> Dict:
         return read_back(run_dev(seed, num_samples))

@@ -286,6 +286,24 @@ def build(verbose: bool = False, csrc: Path = CSRC, names=None,
     return sos
 
 
+def ptx(name: str, csrc: Path = CSRC) -> str:
+    """The PTX of library `name` (BUILDS) for the sources in `csrc`:
+    nvcc's virtual-architecture code for compute_90a, with the build's
+    own defines and optimisation (the CLI's --dump-module)."""
+    source, *flags = BUILDS[name]
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, name + ".ptx")
+        res = subprocess.run(
+            [_nvcc(), "-arch=compute_90a", "-std=c++17", "-O3", "-ptx",
+             *flags, "-o", out, str(Path(csrc) / source)],
+            capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"{name}: nvcc -ptx failed "
+                               f"({res.returncode}):\n{res.stderr}")
+        with open(out) as f:
+            return f.read()
+
+
 def load_library(name: str, csrc: Path = CSRC) -> ctypes.CDLL:
     """Library `name` (BUILDS) built from the sources in `csrc` (the
     package's own by default, as `_load` does), bound and loaded."""
@@ -304,8 +322,8 @@ SCENE_ARGTYPES = ([_P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _I, _P, _P, _I,
                   + [_P, _P]   # env_guide, imm
                   + [_I] * 12   # scalars, has_tri_emitter .. sobol
                   + [_P, _I])   # media, n_media
-ARGTYPES = SCENE_ARGTYPES + [_I, _I, _I, _P, _P]   # seed, num_samples,
-                                                    # pack, out, stream
+ARGTYPES = SCENE_ARGTYPES + [_I] * 5 + [_P, _P]  # seed, num_samples, pack,
+                                                # pix0, n_run; out, stream
 WAVE_ARGTYPES = (SCENE_ARGTYPES + [_I] * 7   # seed, launch, k, n_run,
                                              # n_pad, base, rem
                  + [_F] * 6 + [_P, _P])      # key bounds, state, stream
@@ -477,15 +495,38 @@ def lane_count(tabs, pack: int) -> int:
     return n_lanes
 
 
+def pixel_range(tabs, pixels=None) -> tuple:
+    """(pix0, n_run): the launch's pixels [pix0, pix0 + n_run), checked
+    against the film; `pixels` None is the whole film."""
+    npix = tabs["width"] * tabs["height"]
+    pix0, n_run = (0, npix) if pixels is None else map(int, pixels)
+    if pix0 < 0 or n_run < 0 or pix0 + n_run > npix:
+        raise ValueError(f"pixels ({pix0}, {n_run}): outside the film's "
+                         f"{npix}")
+    return pix0, n_run
+
+
+def range_lanes(tabs, pixels, pack: int, device) -> torch.Tensor:
+    """The lane ids a launch over `pixels` (`pixel_range`) runs, in the
+    order of its output: slot-major, slot s of pixel pix0 + j at s * n_run
+    + j (csrc/mega_lane.cuh `lane_of`)."""
+    pix0, n_run = pixel_range(tabs, pixels)
+    i = torch.arange(n_run * pack, device=device)
+    npix = tabs["width"] * tabs["height"]
+    return i // max(n_run, 1) * npix + pix0 + i % max(n_run, 1)
+
+
 def launch_args(tabs, seed: int, num_samples: int, beckmann: bool,
-                out: torch.Tensor, pack: int = 1) -> tuple:
+                out: torch.Tensor, pack: int = 1, pixels=None) -> tuple:
     """Checked C arguments of mega_path_launch, all but the stream: `pack`
-    sample slots per pixel, one lane each (`lane_count`). Every table must
+    sample slots per pixel, one lane each (`lane_count`), over the pixels
+    `pixels` (`pixel_range`; the whole film by default). Every table must
     lie on out's device."""
-    _check(out, "out", torch.float32, (P.OUT_ROWS, lane_count(tabs, pack)),
-           out.device)
+    lane_count(tabs, pack)
+    pix0, n_run = pixel_range(tabs, pixels)
+    _check(out, "out", torch.float32, (P.OUT_ROWS, n_run * pack), out.device)
     return scene_args(tabs, beckmann, out.device) + (
-        int(seed), int(num_samples), int(pack), out.data_ptr())
+        int(seed), int(num_samples), int(pack), pix0, n_run, out.data_ptr())
 
 
 def _stream(device) -> int:
@@ -514,13 +555,18 @@ def _cuda(device, what: str) -> bool:
 
 
 def mega_path(tabs, seed: int, num_samples: int,
-              beckmann: bool = False, pack: int = 1) -> torch.Tensor:
+              beckmann: bool = False, pack: int = 1,
+              pixels=None) -> torch.Tensor:
     """Launch the megakernel (csrc/mega_path.cu) over every pixel of the
-    film, `pack` sample slots each (K1f; cluster-mode tables only), in
-    the variant the scene needs (`variant`: the path or the volpath
-    body); returns the (10, npix * pack) float32 per-lane sums (radiance
-    rgb, first-hit normal xyz, albedo rgb, rays), lane l pixel l % npix
-    at slot l // npix. `tabs` is integrators.mega_path.device_tables.
+    film, or over the pixels `pixels` = (pix0, n_run) (a tiles-mode
+    rank's, `pixel_range`), `pack` sample slots each (K1f; cluster-mode
+    tables only), in the variant the scene needs (`variant`: the path or
+    the volpath body); returns the (10, n_run * pack) float32 per-lane
+    sums (radiance rgb, first-hit normal xyz, albedo rgb, rays), column
+    s * n_run + j slot s of pixel pix0 + j (lane id `range_lanes`; over
+    the whole film, lane l is pixel l % npix at slot l // npix). A lane's
+    sums depend on its id alone, so a range's columns are those of the
+    whole film's launch. `tabs` is integrators.mega_path.device_tables.
     Tables on the CPU run the kernel's plain version, `path_lanes_ref`
     (for volpath tables the volpath bounce, `vol_lanes_ref`), and launch
     nothing."""
@@ -528,11 +574,13 @@ def mega_path(tabs, seed: int, num_samples: int,
     if not _cuda(device, "mega_path"):
         from .integrators.mega_path import path_lanes_ref
         from .integrators.volpath import vol_lanes_ref
+        lanes = (None if pixels is None
+                 else range_lanes(tabs, pixels, pack, device))
         return (vol_lanes_ref if tabs["volpath"] else path_lanes_ref)(
-            tabs, seed, num_samples, beckmann, pack=pack)
-    out = torch.empty((P.OUT_ROWS, lane_count(tabs, pack)),
+            tabs, seed, num_samples, beckmann, lanes=lanes, pack=pack)
+    out = torch.empty((P.OUT_ROWS, pixel_range(tabs, pixels)[1] * pack),
                       dtype=torch.float32, device=device)
-    args = launch_args(tabs, seed, num_samples, beckmann, out, pack)
+    args = launch_args(tabs, seed, num_samples, beckmann, out, pack, pixels)
     name = variant(tabs)
     _launched(name, _load(library(name)).mega_path_launch(
         *args, _stream(device)))

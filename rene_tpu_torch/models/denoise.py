@@ -14,9 +14,14 @@ any Pallas kernel, and so does this module:
   workaround, :87-92), average pooling that floors odd sizes, a nearest
   upsample cropped and then edge-padded to the skip's size, SiLU, and a
   zero-initialised head: without trained weights the net gives the base.
-* `UNetDenoiser`: the net with its weights, read from the reference's
-  own files (`models/msgpack.py`); on the card its convolutions run in
-  full float32 (cuDNN would take TF32 by default).
+* `UNetDenoiser`: the net with its weights, read from and written to
+  the reference's own files (`models/msgpack.py`, `params_from_flax` and
+  its inverse `params_to_flax`); `init(seed)` draws the reference's
+  initialisation (LeCun normal, truncated at two deviations, zero
+  biases, a zero head) from an explicit torch.Generator, and
+  `train_step` is the reference's plain L1 step (:220). On the card its
+  convolutions run in full float32 (cuDNN would take TF32 by default).
+  The trainer is models/train_denoiser.py.
 * `denoise` (:239) and `convergence_blend` (:260), the blend in numpy
   float32 as in the reference, with w = 1 where the variance is +inf (a
   one-chunk render) without computing inf / inf.
@@ -34,7 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .msgpack import read_weights
+from .msgpack import read_weights, write_weights
 
 _TAPS = (1.0 / 16, 1.0 / 4, 3.0 / 8, 1.0 / 4, 1.0 / 16)
 _OFFSETS = (-2, -1, 0, 1, 2)
@@ -153,6 +158,33 @@ def params_from_flax(tree) -> dict:
     return sd
 
 
+def params_to_flax(state_dict, levels: int) -> dict:
+    """The reference's parameter tree (numpy float32 leaves, in flax's
+    order) from a state dict of `UNet` with `levels` levels, or from any
+    dict of tensors under its names (gradients, say): the inverse of
+    `params_from_flax`, each kernel OIHW -> HWIO."""
+    names = ([f"down.{i}" for i in range(levels)] + ["mid"]
+             + [f"up.{i}" for i in range(levels)])
+
+    def conv(prefix):
+        w = state_dict[prefix + ".weight"].detach().cpu().numpy()
+        return {"kernel": np.ascontiguousarray(
+                    w.astype(np.float32).transpose(2, 3, 1, 0)),
+                "bias": state_dict[prefix + ".bias"].detach().cpu().numpy()
+                .astype(np.float32)}
+
+    tree = {f"Block_{i}": {"Conv_0": conv(name + ".conv0"),
+                           "Conv_1": conv(name + ".conv1")}
+            for i, name in enumerate(names)}
+    tree["Conv_0"] = conv("head")
+    return tree
+
+
+# flax's lecun_normal: a normal truncated at two deviations, rescaled to
+# unit variance (flax/linen/initializers.py variance_scaling)
+_TRUNC_STD = 0.87962566103423978
+
+
 @contextlib.contextmanager
 def _full_float32():
     """cuDNN's convolutions in float32 inside (its default is TF32), the
@@ -185,6 +217,55 @@ class UNetDenoiser:
         den = cls(features, levels, device)
         den.net.load_state_dict(params_from_flax(tree))
         return den
+
+    def init(self, seed: int = 0) -> "UNetDenoiser":
+        """Fresh weights drawn as the reference's `init` draws them (:198):
+        each convolution's kernel LeCun normal over its 9 x cin inputs,
+        truncated at two deviations, from a torch.Generator seeded with
+        `seed` (not JAX's draws: the same distribution, other numbers),
+        its bias zero, and the head zero, so that the net gives the
+        à-trous base."""
+        g = torch.Generator().manual_seed(int(seed))
+        with torch.no_grad():
+            for m in self.net.modules():
+                if not isinstance(m, nn.Conv2d):
+                    continue
+                w = torch.empty(m.weight.shape, dtype=torch.float32)
+                if m is self.net.head:
+                    w.zero_()
+                else:
+                    std = (1.0 / (9 * m.in_channels)) ** 0.5 / _TRUNC_STD
+                    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std,
+                                          2.0 * std, generator=g)
+                m.weight.copy_(w)
+                m.bias.zero_()
+        return self
+
+    def save(self, path: str) -> None:
+        """The reference's weight file (:177): the header bytes (features,
+        levels), then the flax msgpack of the parameter tree, which
+        `rene_tpu.models.denoise.UNetDenoiser.load` and `load` read."""
+        write_weights(path, self.features, self.levels,
+                      params_to_flax(self.net.state_dict(), self.levels))
+
+    def train_step(self, optimizer, noisy, normal, albedo, clean,
+                   base) -> float:
+        """One step of `optimizer` (over `self.net.parameters()`) on the
+        reference's plain L1 loss (:220), mean |base + residual - clean|
+        over (B, H, W, 3) batches; returns the loss."""
+        noisy, normal, albedo, clean, base = (
+            _tensor(a, self.device)
+            for a in (noisy, normal, albedo, clean, base))
+        x = torch.cat([noisy, base, normal, albedo], -1).permute(0, 3, 1, 2)
+        self.net.train()
+        with _full_float32():
+            pred = base + self.net(x.contiguous()).permute(0, 2, 3, 1)
+            loss = (pred - clean).abs().mean()
+            optimizer.zero_grad()
+            loss.backward()
+            optimizer.step()
+        self.net.eval()
+        return loss.item()
 
     @classmethod
     def load(cls, path: str, device="cuda") -> "UNetDenoiser":

@@ -1,16 +1,19 @@
-"""Reader of the U-Net weight files that rene_tpu writes, with no package.
+"""Reader and writer of the U-Net weight files of rene_tpu, with no package.
 
 `UNetDenoiser.save` (rene_tpu/models/denoise.py:177-186) writes two header
 bytes (features, levels), then flax's msgpack of the parameter tree
 (`flax.serialization.to_bytes`): maps with str keys down to the leaves,
 each leaf an ndarray as msgpack ext type 1 whose data is itself the
-msgpack of (shape, dtype name, C-order bytes). This decoder covers the
+msgpack of (shape, dtype name, C-order bytes). The decoder covers the
 forms such a file uses (map, str, bin, array, unsigned int and ext, each
 in its fix/8/16/32 forms) and raises ValueError on any other type byte, so
-a file of another kind fails loudly.
+a file of another kind fails loudly. The encoder, `packb`, is its
+inverse: it writes the same objects in msgpack's shortest form of each,
+as flax's encoder does, and raises ValueError on any other object.
 """
 from __future__ import annotations
 
+import os
 from typing import Tuple
 
 import numpy as np
@@ -97,6 +100,71 @@ def _decode(data: bytes, pos: int):
     return _ndarray(raw), pos
 
 
+def _head(out: bytearray, n: int, fix, sized) -> None:
+    """A type byte with a length or value `n`: the fix form (its base and
+    its largest n) where n fits it, else the first of the sized forms
+    ((type byte, bytes of n), ...) that holds n."""
+    if fix is not None and n <= fix[1]:
+        out.append(fix[0] + n)
+        return
+    for t, size in sized:
+        if n < 1 << (8 * size):
+            out.append(t)
+            out += n.to_bytes(size, "big")
+            return
+    raise ValueError(f"msgpack: {n} is too large")
+
+
+def _ndarray_bytes(a: np.ndarray) -> bytes:
+    a = np.asarray(a)
+    if a.dtype.hasobject:
+        raise ValueError(f"msgpack: ndarray of {a.dtype}")
+    return packb([list(a.shape), a.dtype.name, a.tobytes("C")])
+
+
+def _encode(obj, out: bytearray) -> None:
+    if isinstance(obj, dict):
+        _head(out, len(obj), (0x80, 15), ((0xde, 2), (0xdf, 4)))
+        for k, v in obj.items():
+            _encode(k, out)
+            _encode(v, out)
+    elif isinstance(obj, str):
+        raw = obj.encode()
+        _head(out, len(raw), (0xa0, 31), ((0xd9, 1), (0xda, 2), (0xdb, 4)))
+        out += raw
+    elif isinstance(obj, (bytes, bytearray)):
+        _head(out, len(obj), None, ((0xc4, 1), (0xc5, 2), (0xc6, 4)))
+        out += obj
+    elif isinstance(obj, (list, tuple)):
+        _head(out, len(obj), (0x90, 15), ((0xdc, 2), (0xdd, 4)))
+        for v in obj:
+            _encode(v, out)
+    elif isinstance(obj, (int, np.integer)) and not isinstance(obj, bool) \
+            and obj >= 0:
+        _head(out, int(obj), (0x00, 0x7f),
+              ((0xcc, 1), (0xcd, 2), (0xce, 4), (0xcf, 8)))
+    elif isinstance(obj, np.ndarray):
+        raw = _ndarray_bytes(obj)
+        fixext = {v: k for k, v in _FIXEXT.items()}
+        if len(raw) in fixext:
+            out.append(fixext[len(raw)])
+        else:
+            _head(out, len(raw), None, ((0xc7, 1), (0xc8, 2), (0xc9, 4)))
+        out.append(EXT_NDARRAY)
+        out += raw
+    else:
+        raise ValueError(f"msgpack: {type(obj).__name__} is not one of the "
+                         "forms this writer covers")
+
+
+def packb(obj) -> bytes:
+    """The msgpack bytes of `obj`: dicts, str, bytes, lists and tuples,
+    unsigned ints and numpy ndarrays (ext type 1), as flax writes them."""
+    out = bytearray()
+    _encode(obj, out)
+    return bytes(out)
+
+
 def unpackb(data: bytes):
     """The object that `data` holds whole (ValueError on trailing bytes)."""
     obj, pos = _decode(bytes(data), 0)
@@ -113,4 +181,13 @@ def read_weights(path: str):
     if len(head) != 2:
         raise ValueError(f"{path}: no header")
     return head[0], head[1], unpackb(blob)
+
+
+def write_weights(path: str, features: int, levels: int, tree) -> None:
+    """A `UNetDenoiser.save` file: the header bytes, then `packb(tree)`."""
+    blob = packb(tree)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(bytes([features, levels]))
+        f.write(blob)
 

@@ -42,11 +42,17 @@ runs chunk by chunk (the wave's on-device sum across waves is off, as at
 chunk, and `want_var` keeps the per-chunk sums of squares that `varmean`
 is made from. A resumed render adds, in the
 same float32 order, exactly what an unbroken one adds, whatever the
-runner: the loop counts the chunk seeds it has drawn. Multi-device runs
-are not in the port yet.
+runner: the loop counts the chunk seeds it has drawn.
+
+Multi-device renders (parallel/shard.py) run the same loop in every rank
+(`run_chunks`, the loop up to the divide, on a seed-shifted runner or on
+one that renders a share of the pixels, `run.pixels`), reduce the sums
+and make the film with `film_result`, as a single-device render makes
+it.
 """
 from __future__ import annotations
 
+import dataclasses
 import logging
 import time
 from typing import Callable, Optional
@@ -56,7 +62,7 @@ import torch
 
 from . import kernels
 from .integrators.mega_path import make_mega_batch_fn
-from .integrators.wave import make_wave_fn
+from .integrators.wave import make_wave_fn, pixel_sums
 from .scene import build_device_scene
 from .scene.device import to_torch
 from .scene import pack as P
@@ -130,15 +136,18 @@ def warm_cache(scene, engine: str = "auto", device="cuda") -> int:
 
 
 def make_xla_fn(buffers_np, config, device, use_bvh: Optional[bool] = None,
-                tile_rays: int = 1 << 18):
+                tile_rays: int = 1 << 18, pixels=None):
     """The XLA engine's runner for `render_loop` (rene_tpu/render.py:
     210-299): `run(seed, chunk)` renders `chunk` samples of every pixel
-    through path.render_batch (volpath.render_batch for `Integrator
-    "volpath"`) in tiles of `tile_rays` lanes, and returns the per-pixel
-    (N, 3) sums on `device` and the ray count. `use_bvh` True forces the
-    BVH walk as the main accelerator (ops/accel.py; None and False leave
-    the choice to the triangle count). run.chunk_hint is LOG_EVERY, or 4
-    with a BVH; its chunk seeds are uint32 (`run.seed_dtype`)."""
+    (or of the pixels [lo, hi) of `pixels`, `run.pixels`, a tiles-mode
+    rank's share) through path.render_batch (volpath.render_batch for
+    `Integrator "volpath"`) in tiles of `tile_rays` lanes, and returns
+    the per-pixel (N, 3) sums on `device` and the ray count. A pixel's
+    samples depend on the pixel and the seed alone, whatever its tile.
+    `use_bvh` True forces the BVH walk as the main accelerator
+    (ops/accel.py; None and False leave the choice to the triangle
+    count). run.chunk_hint is LOG_EVERY, or 4 with a BVH; its chunk seeds
+    are uint32 (`run.seed_dtype`)."""
     from .integrators import path, volpath
     from .ops.accel import make_accel
     from .ops.bvh import BVH
@@ -153,10 +162,11 @@ def make_xla_fn(buffers_np, config, device, use_bvh: Optional[bool] = None,
         tile_rays = min(tile_rays, XLA_BVH_TILE)
     buffers = to_torch(buffers_np, device)
     w, h = config.film.xresolution, config.film.yresolution
-    pix = torch.arange(w * h, device=device)
+    p_lo, p_hi = pixels or (0, w * h)
+    pix = torch.arange(p_lo, p_hi, device=device)
     px, py = pix % w, pix // w
-    tiles = [(lo, min(lo + tile_rays, w * h))
-             for lo in range(0, w * h, tile_rays)]
+    tiles = [(lo, min(lo + tile_rays, pix.numel()))
+             for lo in range(0, pix.numel(), tile_rays)]
 
     def run(seed: int, chunk: int):
         outs = [batch(buffers, config, px[lo:hi], py[lo:hi], seed, chunk,
@@ -171,6 +181,8 @@ def make_xla_fn(buffers_np, config, device, use_bvh: Optional[bool] = None,
     run.seed_dtype = np.uint32
     run.tiles = len(tiles)
     run.iterations = 0      # bounce-loop iterations over all tiles so far
+    run.pixels = (p_lo, p_hi)
+    run.bvh = bvh
     return run
 
 
@@ -226,12 +238,47 @@ def render_loop(run, config, spp, seed, device, checkpoint=None,
                 resume=False, progress=None, fingerprint="", want_var=False):
     """The chunk loop over a runner (`run(seed, chunk)` -> per-pixel sums
     over chunk * run.spp_mult samples and `rays`; `run.chunk_hint`,
-    `run.spp_mult`, optionally `run.seed_dtype` (int32 by default), and
-    for a wave `run.run_dev` / `run.read_back`), as
+    `run.spp_mult`, optionally `run.seed_dtype` (int32 by default) and
+    `run.pixels`, and for a wave `run.run_dev`), as
     rene_tpu/render.py:316 `_render_pallas` drives one: the same chunk
     seeds and sizes, the same film and `varmean`."""
     device = torch.device(device)
+    c = run_chunks(run, config, spp, seed, device, checkpoint, resume,
+                   progress, fingerprint, want_var)
+    host = {k: _host(v) for k, v in c.accum.items()}
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    result = film_result(config, host,
+                         None if c.sq_sum is None else _host(c.sq_sum),
+                         c.done, c.seeds)
+    result.update(total_rays=c.total_rays, wall_time=time.time() - c.t_start)
+    return result
+
+
+@dataclasses.dataclass
+class Chunks:
+    """What `run_chunks` hands back before the divide: the per-pixel sums
+    on the device (`accum`, SUMS, (npix, 3) each), the sums of squares
+    of the per-chunk means (`sq_sum`, want_var only), the samples per
+    pixel done, the chunk seeds drawn, the rays of the chunks summed and
+    the loop's start time."""
+    accum: dict
+    sq_sum: Optional[torch.Tensor]
+    done: int
+    seeds: int
+    total_rays: float
+    t_start: float
+
+
+def run_chunks(run, config, spp, seed, device, checkpoint=None,
+               resume=False, progress=None, fingerprint="",
+               want_var=False) -> Chunks:
+    """The chunk loop of `render_loop`, up to the divide. A runner with
+    `run.pixels` = (lo, hi) renders those pixels alone: its sums go into
+    rows [lo, hi) of the film's, the others stay 0."""
+    device = torch.device(device)
     w, h = config.film.xresolution, config.film.yresolution
+    lo, hi = getattr(run, "pixels", None) or (0, w * h)
     max_chunk = min(LOG_EVERY, run.chunk_hint)
     mult = run.spp_mult
     if want_var:    # two chunks at least, so that their means spread
@@ -278,14 +325,14 @@ def render_loop(run, config, spp, seed, device, checkpoint=None,
             out = run(chunk_seed, chunk)    # a wave's sums come as numpy
             sums = {k: torch.as_tensor(out[k], device=device) for k in SUMS}
             for k in SUMS:
-                accum[k] += sums[k]
+                accum[k][lo:hi] += sums[k]
             if sq_sum is not None:
                 # a divisor on the device: torch divides a CUDA tensor by a
                 # host scalar as a product with its reciprocal, which may
                 # round off numpy's quotient by one ulp
                 n = torch.tensor(float(chunk * mult), device=device)
                 xm = sums["radiance"] / n
-                sq_sum += n * xm * xm
+                sq_sum[lo:hi] += n * xm * xm
             total_rays += float(out["rays"])
         done += chunk * mult
         dt = (time.time() - t_batch) * 1000.0
@@ -297,23 +344,27 @@ def render_loop(run, config, spp, seed, device, checkpoint=None,
             save_checkpoint(
                 checkpoint, {k: _host(v) for k, v in accum.items()}, done,
                 fingerprint, seeds, None if sq_sum is None else _host(sq_sum))
-    host = {k: _host(v) for k, v in accum.items()}
-    if acc is not None:
-        out = run.read_back(acc)
-        for k in host:
-            host[k] += out[k]
-        total_rays += out["rays"]
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    if acc is not None:     # a wave's device pair; the sums are 0 here
+        for k, v in pixel_sums(acc[0]).items():
+            accum[k][lo:hi] += v
+        total_rays += float(acc[1])
+    return Chunks(accum, sq_sum, done, seeds, total_rays, t_start)
+
+
+def film_result(config, host, sq_sum, done, chunks) -> dict:
+    """The film from per-pixel host sums (`host`, SUMS) over `done`
+    samples per pixel: the averaged, y-flipped (H, W, 3) color, normal
+    and albedo, and with `sq_sum` (the sums of squares of `chunks`
+    per-chunk means) the `varmean` image."""
+    w, h = config.film.xresolution, config.film.yresolution
     n = max(done, 1)
     result = {k: rays_to_image(host[s] / n, w, h)
               for k, s in (("color", "radiance"), ("normal", "normal"),
                            ("albedo", "albedo"))}
-    result.update(config=config, total_rays=total_rays,
-                  wall_time=time.time() - t_start)
+    result["config"] = config
     if sq_sum is not None:
         result["varmean"] = rays_to_image(
-            _var_of_mean(host["radiance"], _host(sq_sum), done, seeds), w, h)
+            _var_of_mean(host["radiance"], sq_sum, done, chunks), w, h)
     return result
 
 

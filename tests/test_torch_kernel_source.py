@@ -55,9 +55,9 @@ static inline uint32_t __float_as_uint(float f) {
 #endif
 template <bool SOBOL>
 static void run_all(const Params& p) {
-  for (int lane = 0; lane < p.n_lanes; ++lane) {
-    if (p.has_accel) trace_lane<true, LANE_VOL, SOBOL>(p, lane);
-    else trace_lane<false, LANE_VOL, SOBOL>(p, lane);
+  for (int i = 0; i < p.n_lanes; ++i) {
+    if (p.has_accel) trace_lane<true, LANE_VOL, SOBOL>(p, lane_of(p, i));
+    else trace_lane<false, LANE_VOL, SOBOL>(p, lane_of(p, i));
   }
 }
 static int run_lanes(const Params& p, void*) {
@@ -861,6 +861,45 @@ def test_cuda_packed_lane_code_matches_plain_version(host_lib, vol_lib,
     # the slots of a pixel trace other paths
     rad = ref[0].reshape(pack, -1)
     assert (rad[0] != rad[1]).mean() > 0.5
+
+
+@pytest.mark.parametrize("name,pack,pixels", [
+    ("cornell_box", 1, (0, 128 * 64)), ("cornell_box", 1, (1000, 3001)),
+    ("instanced", 4, (517, 300)), ("instanced", 4, (0, 0))],
+    ids=["cornell_whole", "cornell_range", "instanced_pack4", "empty"])
+def test_cuda_lane_range_is_the_whole_films_columns(host_lib, name, pack,
+                                                    pixels):
+    """A launch over the pixels [pix0, pix0 + n_run) (a tiles-mode rank's,
+    csrc/mega_lane.cuh `lane_of`) writes, bit for bit, the columns of
+    the whole film's launch that `kernels.range_lanes` names, slot-major;
+    the plain version over the same range gives its own whole-film
+    columns; a range past the film is refused."""
+    if name == "instanced":
+        tabs = M.device_tables(P.pack_tables(*mesh_buffers(name, 32, 32)),
+                               "cpu")
+    else:
+        tabs = M.device_tables(P.pack_tables(*_buffers(name)), "cpu")
+    npix = tabs["width"] * tabs["height"]
+    seed, spp = 7, 2
+    whole = torch.empty((P.OUT_ROWS, npix * pack), dtype=torch.float32)
+    assert host_lib.mega_path_launch(*kernels.launch_args(
+        tabs, seed, spp, False, whole, pack), None) == 0
+    part = torch.full((P.OUT_ROWS, pixels[1] * pack), np.nan)
+    assert host_lib.mega_path_launch(*kernels.launch_args(
+        tabs, seed, spp, False, part, pack, pixels), None) == 0
+    lanes = kernels.range_lanes(tabs, pixels, pack, "cpu")
+    assert torch.equal(part, whole.index_select(1, lanes))
+    if pixels[1] and pixels[1] < npix:
+        plain = kernels.mega_path(tabs, seed, 1, pack=pack, pixels=pixels)
+        full = kernels.mega_path(tabs, seed, 1, pack=pack)
+        assert torch.equal(plain, full.index_select(1, lanes))
+    args = list(kernels.launch_args(tabs, seed, spp, False, part, pack,
+                                    pixels))
+    args[-2] = npix - pixels[0] + 1     # n_run past the film's end
+    assert host_lib.mega_path_launch(*args, None) == 1
+    with pytest.raises(ValueError, match="outside the film"):
+        kernels.launch_args(tabs, seed, spp, False, part, pack,
+                            (npix - 1, 2))
 
 
 def test_launch_args_check_tables():
