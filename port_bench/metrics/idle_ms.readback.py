@@ -1,0 +1,9 @@
+"""idle_ms.readback (ms), layer chunk loop: the device's idle time per
+traced image while the host is in `rene.loop.readback` (the sums copied
+into host memory, the synchronize), from the program's spans
+(port_bench/spans.py); None where the program records none."""
+from port_bench import spans
+
+
+def read(ctx):
+    return spans.idle_ms_per_image(ctx, "readback")

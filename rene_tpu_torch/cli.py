@@ -8,7 +8,7 @@
         [--checkpoint C [--resume]] [--color-space linear|srgb|srgb-lights]
         [--scene-overrides F] [--tungsten-compat] [--mf-dist D]
         [--devices N [--multichip-mode samples|tiles]]
-        [--warm-cache] [--dump-module]
+        [--warm-cache] [--dump-module] [--trace PATH]
 
 Counterpart of rene_tpu/cli.py:101 `main` (the path and volpath
 integrators; the megakernel and wave engines under the independent or the
@@ -31,6 +31,13 @@ under `--devices > 1`, every flag is passed on or refused: `--bvh`,
 `--sampler`, `--mf-dist` and the override files reach the ranks;
 `--checkpoint` / `--resume` and `--engine wave --multichip-mode tiles`
 are refused with a message.
+
+`--trace PATH` writes the Chrome trace of the whole run, from the parse
+to the last PNG, through torch.profiler (trace.py `profiled`): the
+program's `rene.*` spans (frontend, tables, nvcc, the chunk loop, the
+launches, the wave's phases, the XLA engine's tiles, denoise, PNGs)
+beside the device's kernels and copies. It takes one device: with
+`--devices > 1` it exits 1 with a message.
 
 `--dump-module` prints the PTX of the kernel libraries the scene's
 engine launches (`render.runner_libraries`), built by nvcc from the
@@ -127,6 +134,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="print the PTX of the scene's kernel libraries "
                         "and exit (the reference dumps its lowered "
                         "module)")
+    p.add_argument("--trace", metavar="PATH",
+                   help="write a Chrome trace (torch.profiler) of the run, "
+                        "with the program's spans, to PATH")
     p.add_argument("-v", "--verbose", action="store_true")
     return p
 
@@ -175,6 +185,9 @@ def _refused(args):
     if args.devices > 1 and (args.checkpoint or args.resume):
         return ("--checkpoint / --resume: a render over --devices > 1 "
                 "keeps no checkpoint; render on one device to checkpoint")
+    if args.devices > 1 and args.trace:
+        return ("--trace: a render over --devices > 1 is not traced; "
+                "render on one device to trace")
     if args.devices > 1 and args.engine == "wave" \
             and args.multichip_mode == "tiles":
         return ("--engine wave renders --multichip-mode samples only; "
@@ -214,7 +227,16 @@ def _main(args) -> int:
     if refused:
         log.error(refused)
         return 1
+    if not args.trace:
+        return _run(args, log)
+    from .trace import profiled
+    with profiled(args.trace):
+        rc = _run(args, log)
+    log.info("wrote the trace %s", args.trace)
+    return rc
 
+
+def _run(args, log) -> int:
     t0 = time.time()
     from .pbrt import ParseError
     from .scene import load_scene
@@ -248,6 +270,7 @@ def _main(args) -> int:
         return 0
 
     from .render import DEFAULT_SPP, render
+    from .trace import span
     from .utils.film import save_png, to_aov8, to_aov_normal8, to_rgb8
     spp = args.spp if args.spp is not None else DEFAULT_SPP
     use_bvh = {"auto": None, "on": True, "off": False}[args.bvh]
@@ -284,16 +307,18 @@ def _main(args) -> int:
                         method=args.denoiser, unet=unet,
                         varmean=out["varmean"], device=args.device)
         log.info("denoise (%s) in %.2fs", args.denoiser, time.time() - t)
-    written = save_png(args.output or scene.film.filename, to_rgb8(color))
+    with span("rene.post.png"):
+        written = save_png(args.output or scene.film.filename,
+                           to_rgb8(color))
+        if args.aov_normal:
+            save_png(args.aov_normal, to_aov_normal8(out["normal"]))
+        if args.aov_albedo:
+            save_png(args.aov_albedo, to_aov8(out["albedo"]))
     log.info("wrote %s (%.1f Mrays in %.1fs, %.1f Mrays/s, %d launches, "
              "%s engine)", written, out["total_rays"] / 1e6,
              out["wall_time"],
              out["total_rays"] / max(out["wall_time"], 1e-9) / 1e6,
              out["launches"], out["engine"])
-    if args.aov_normal:
-        save_png(args.aov_normal, to_aov_normal8(out["normal"]))
-    if args.aov_albedo:
-        save_png(args.aov_albedo, to_aov8(out["albedo"]))
     return 0
 
 

@@ -54,7 +54,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from .. import kernels
+from .. import kernels, trace
 from ..ops import rng
 from ..ops import sobol as SB
 from ..ops.bsdf import bsdf_eval, bsdf_sample, gather_material, is_diffuse
@@ -71,13 +71,15 @@ FLT_MIN_NORMAL = 1.17549435e-38   # the least normal float32
 
 
 def device_tables(tables: P.SceneTables, device) -> Dict:
-    """The scene tables on `device`, plus the python constants the plain
-    version folds into its arithmetic."""
+    """The scene tables on `device` (the upload inside span
+    `rene.tables.upload`), plus the python constants the plain version
+    folds into its arithmetic."""
     arrays = tables.arrays()
     # torch's CPU uint32 has no indexing or shifts: the RGB9E5 words
     # travel as int32 bit patterns
     arrays["atlas"] = arrays["atlas"].view(np.int32)
-    tabs = to_torch(arrays, device)
+    with trace.span("rene.tables.upload"):
+        tabs = to_torch(arrays, device)
     tabs["cam_f"] = [float(x) for x in tables.cam]
     tabs["lights_f"] = [tuple(float(x) for x in row)
                         for row in tables.lights]

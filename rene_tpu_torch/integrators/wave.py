@@ -65,7 +65,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from .. import kernels
+from .. import kernels, trace
 from ..ops import rng
 from ..scene import pack as P
 from ..utils.checkpoint import SUMS
@@ -530,61 +530,53 @@ def make_wave_fn(buffers_np, config, device, samples_per_wave: int = 0,
 
     def run_dev(seed: int, num_samples: int, accum=None, split=None):
         """One wave of min(num_samples, spw) samples; returns the device
-        pair (sums, rays), added to `accum` when given. `split` (CUDA
-        only): a dict to which the device time in ms of the wave's init,
-        K2 launches, sorts and finish is added (CUDA events)."""
-        marks = []
-
-        def mark(label):
-            if split is not None:
-                ev = torch.cuda.Event(enable_timing=True)
-                ev.record()
-                marks.append((label, ev))
-
-        mark("start")
-        want = min(int(num_samples), spw)
-        state = init_state(seed, want)
-        mark("init")
-        prefix = last_alive = n_real
-        per_lane = -(-want // spw)
-        max_launches = -(-maxd * per_lane // min(schedule)) + 8
-        pending = None
-        for si in range(max_launches):
-            k = schedule[min(si, len(schedule) - 1)]
-            if sort_rays and si >= 1:
-                m = n_pad if sort_mode == "dma" else bucket(prefix)
-                state = sort_prefix(state, m)
-                nt = min(-(-last_alive // W_TILE), m // W_TILE)
-                prefix = nt * W_TILE
-                mark("sort")
-            else:
-                nt = -(-prefix // W_TILE)
-            state, n_alive = kernel_step(k, state, seed, si, nt, want)
-            mark("K2")
-            # the early exit reads the previous step's count while this
-            # step runs: counts never rise, so a one-step-stale count
-            # still bounds the alive prefix
-            if pending is not None:
+        pair (sums, rays), added to `accum` when given. Its phases are
+        spans `rene.wave.init`, `.sort`, `.step` (a K2 launch and the
+        wait for the previous step's count) and `.finish`; `split` (CUDA
+        only): a dict to which the device time in ms of each phase is
+        added under the same labels (CUDA events at the same
+        boundaries)."""
+        with trace.phases("rene.wave.", split) as phase:
+            phase("init")
+            want = min(int(num_samples), spw)
+            state = init_state(seed, want)
+            prefix = last_alive = n_real
+            per_lane = -(-want // spw)
+            max_launches = -(-maxd * per_lane // min(schedule)) + 8
+            pending = None
+            for si in range(max_launches):
+                k = schedule[min(si, len(schedule) - 1)]
+                if sort_rays and si >= 1:
+                    phase("sort")
+                    m = n_pad if sort_mode == "dma" else bucket(prefix)
+                    state = sort_prefix(state, m)
+                    nt = min(-(-last_alive // W_TILE), m // W_TILE)
+                    prefix = nt * W_TILE
+                else:
+                    nt = -(-prefix // W_TILE)
+                phase("step")
+                state, n_alive = kernel_step(k, state, seed, si, nt, want)
+                # the early exit reads the previous step's count while this
+                # step runs: counts never rise, so a one-step-stale count
+                # still bounds the alive prefix
+                if pending is not None:
+                    if cuda:
+                        with trace.span("rene.loop.wait"):
+                            pending.synchronize()
+                    last_alive = int(pinned)
+                    if last_alive == 0:
+                        break
+                pinned.copy_(n_alive, non_blocking=cuda)
                 if cuda:
-                    pending.synchronize()
-                last_alive = int(pinned)
-                if last_alive == 0:
-                    break
-            pinned.copy_(n_alive, non_blocking=cuda)
-            if cuda:
-                pending = torch.cuda.Event()
-                pending.record()
-            else:
-                pending = True
-        sums, rays = finish_wave(state)
-        mark("finish")
+                    pending = torch.cuda.Event()
+                    pending.record()
+                else:
+                    pending = True
+            phase("finish")
+            sums, rays = finish_wave(state)
         del state
         if accum is not None:
             sums, rays = accum[0] + sums, accum[1] + rays
-        if marks:
-            marks[-1][1].synchronize()
-            for (_, e0), (label, e1) in zip(marks, marks[1:]):
-                split[label] = split.get(label, 0.0) + e0.elapsed_time(e1)
         return sums, rays
 
     def read_back(acc) -> Dict:

@@ -46,9 +46,9 @@ import this module freely.
 
 Each wrapper runs its kernel's plain PyTorch version when its tensors lie
 on the CPU. On a CUDA device it checks its tensors, allocates its outputs
-with torch.empty, launches on the current stream without synchronising,
-raises if the launch was refused, and adds one to its kernel's count in
-`launches`.
+with torch.empty, launches on the current stream without synchronising
+(the enqueue inside span `rene.launch.<name>`, trace.py), raises if the
+launch was refused, and adds one to its kernel's count in `launches`.
 """
 from __future__ import annotations
 
@@ -66,6 +66,7 @@ from typing import Dict
 
 import torch
 
+from . import trace
 from .ops.rng import block_edge
 from .scene import accel as A
 from .scene import pack as P
@@ -265,7 +266,10 @@ def build(verbose: bool = False, csrc: Path = CSRC, names=None,
         out = proc.communicate()
         build_seconds[name] = time.perf_counter() - t0
         return out
-    with ThreadPoolExecutor(max(1, len(runs))) as ex:
+    # one span over the runs together: the waiting threads are not
+    # profiled
+    with (trace.span("rene.kernels.nvcc") if runs else trace.OFF), \
+            ThreadPoolExecutor(max(1, len(runs))) as ex:
         errs = dict(zip(runs, (e for _, e in ex.map(wait, runs.items()))))
     for name, (tmp, proc) in runs.items():
         err = errs[name]
@@ -533,7 +537,11 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _launched(name: str, rc: int) -> None:
+def _launched(name: str, launch, *args) -> None:
+    """Enqueue `launch(*args)` (a library's entry point) inside span
+    `rene.launch.<name>`, raise on its error code and count it."""
+    with trace.span("rene.launch." + name):
+        rc = launch(*args)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
     launches[name] += 1
@@ -582,8 +590,8 @@ def mega_path(tabs, seed: int, num_samples: int,
                       dtype=torch.float32, device=device)
     args = launch_args(tabs, seed, num_samples, beckmann, out, pack, pixels)
     name = variant(tabs)
-    _launched(name, _load(library(name)).mega_path_launch(
-        *args, _stream(device)))
+    _launched(name, _load(library(name)).mega_path_launch, *args,
+              _stream(device))
     return out
 
 
@@ -686,13 +694,14 @@ def _read_counted(name: str, reader: str, keys, launch, device) -> dict:
     counts, {keys: int}."""
     counts = torch.empty(len(keys), dtype=torch.int64, device=device)
     lib = _load(name)
-    rc = getattr(lib, reader)(counts.data_ptr(), 1, _stream(device))
-    if rc == 0:
-        rc = launch(lib)
-    _launched(name, rc)
-    rc = getattr(lib, reader)(counts.data_ptr(), 1, _stream(device))
-    if rc != 0:
-        raise RuntimeError(f"{reader} failed: cudaError {rc}")
+
+    def read():
+        rc = getattr(lib, reader)(counts.data_ptr(), 1, _stream(device))
+        if rc != 0:
+            raise RuntimeError(f"{reader} failed: cudaError {rc}")
+    read()
+    _launched(name, launch, lib)
+    read()
     return dict(zip(keys, counts.tolist()))
 
 
@@ -718,9 +727,9 @@ def tex_probe(tabs, rows: torch.Tensor) -> torch.Tensor:
     _check(rows, "rows", torch.float32, (None, TEXP_W), device)
     _check(tabs["atlas"], "atlas", torch.int32, (None,), device)
     out = torch.empty((rows.shape[0], 3), dtype=torch.float32, device=device)
-    _launched("tex_probe", _load(probe_library(tabs)).tex_probe_launch(
-        tabs["atlas"].data_ptr(), rows.data_ptr(), rows.shape[0],
-        out.data_ptr(), _stream(device)))
+    _launched("tex_probe", _load(probe_library(tabs)).tex_probe_launch,
+              tabs["atlas"].data_ptr(), rows.data_ptr(), rows.shape[0],
+              out.data_ptr(), _stream(device))
     return out
 
 
@@ -749,8 +758,8 @@ def cast_probe(tabs, rays: torch.Tensor, counting: bool = False):
             raise ValueError("cast_probe: counting takes path mesh tables")
         return out, _walk_counted(lambda lib: lib.cast_probe_launch(*args),
                                   device)
-    _launched("cast_probe", _load(probe_library(tabs)).cast_probe_launch(
-        *args))
+    _launched("cast_probe", _load(probe_library(tabs)).cast_probe_launch,
+              *args)
     return out
 
 
@@ -784,9 +793,9 @@ def wave_path(tabs, state: torch.Tensor, seed: int, launch: int, k: int,
                                 base, rem, beckmann, stream)
     _card_stream(stream, "wave_path")
     name = variant(tabs, "wave_path")
-    _launched(name, _load(library(name)).wave_path_launch(
-        *_wave_args(tabs, state, seed, launch, k, n_run, kb, base, rem,
-                    beckmann), _stream(device)))
+    _launched(name, _load(library(name)).wave_path_launch,
+              *_wave_args(tabs, state, seed, launch, k, n_run, kb, base,
+                          rem, beckmann), _stream(device))
     return state
 
 
@@ -875,10 +884,10 @@ def wave_genesis(tabs, pxf: torch.Tensor, pyf: torch.Tensor, n_real: int,
     state = torch.empty((WV.W_NROWS, n_pad), dtype=torch.float32,
                         device=device)
     name = "wave_genesis" + (SOBOL if tabs["sobol"] else "")
-    _launched(name, _load("wave_path").wave_genesis_launch(
-        tabs["cam"].data_ptr(), pxf.data_ptr(), pyf.data_ptr(), width, npix,
-        int(n_real), n_pad, int(seed), int(base), int(rem),
-        int(tabs["sobol"]), state.data_ptr(), _stream(device)))
+    _launched(name, _load("wave_path").wave_genesis_launch,
+              tabs["cam"].data_ptr(), pxf.data_ptr(), pyf.data_ptr(), width,
+              npix, int(n_real), n_pad, int(seed), int(base), int(rem),
+              int(tabs["sobol"]), state.data_ptr(), _stream(device))
     return state
 
 
@@ -896,9 +905,9 @@ def wave_permute(state: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"wave_permute: n_pad {n_pad}")
     _check(perm, "perm", torch.int32, (n_pad // WV.W_SLICE,), device)
     out = torch.empty_like(state)
-    _launched("wave_permute", _load("wave_path").wave_permute_launch(
-        state.data_ptr(), perm.data_ptr(), n_pad, out.data_ptr(),
-        _stream(device)))
+    _launched("wave_permute", _load("wave_path").wave_permute_launch,
+              state.data_ptr(), perm.data_ptr(), n_pad, out.data_ptr(),
+              _stream(device))
     return out
 
 
@@ -912,8 +921,8 @@ def sobol_probe(x: torch.Tensor) -> torch.Tensor:
         return probe_ref(x)
     _check(x, "x", torch.int32, (None,), x.device)
     out = torch.empty((7, x.shape[0]), dtype=torch.int32, device=x.device)
-    _launched("sobol_probe", _load("wave_path").sobol_probe_launch(
-        x.data_ptr(), x.shape[0], out.data_ptr(), _stream(x.device)))
+    _launched("sobol_probe", _load("wave_path").sobol_probe_launch,
+              x.data_ptr(), x.shape[0], out.data_ptr(), _stream(x.device))
     return out
 
 
@@ -937,9 +946,10 @@ def rowslice_probe(mode: int, si: int, box: torch.Tensor,
         raise ValueError(f"rowslice_probe: box {tuple(box.shape)}, geom "
                          f"{tuple(geom.shape)}")
     out = torch.empty((8, 128), dtype=torch.float32, device=device)
-    _launched("rowslice_probe", _load("probes").rowslice_probe_launch(
-        int(mode), int(si), box.data_ptr(), box.shape[0], geom.data_ptr(),
-        geom.shape[1], out.data_ptr(), _stream(device)))
+    _launched("rowslice_probe", _load("probes").rowslice_probe_launch,
+              int(mode), int(si), box.data_ptr(), box.shape[0],
+              geom.data_ptr(), geom.shape[1], out.data_ptr(),
+              _stream(device))
     return out
 
 
@@ -970,9 +980,9 @@ def mxu_probe(kind: str, b: torch.Tensor, r: torch.Tensor,
                          f"{tuple(r.shape)}")
     shape = (8, 128) if kind == "vpu" else (m, n)
     out = torch.empty(shape, dtype=torch.float32, device=device)
-    _launched("mxu_probe_" + kind, _load("probes").mxu_probe_launch(
-        MXU_KINDS.index(kind), b.data_ptr(), r.data_ptr(), m, n, int(reps),
-        out.data_ptr(), _stream(device)))
+    _launched("mxu_probe_" + kind, _load("probes").mxu_probe_launch,
+              MXU_KINDS.index(kind), b.data_ptr(), r.data_ptr(), m, n,
+              int(reps), out.data_ptr(), _stream(device))
     return out
 
 
@@ -988,9 +998,9 @@ def floor_probe(kind: int, iters: int, device) -> int:
         raise ValueError(f"floor_probe: iters {iters}, a multiple of 8")
     cycles = torch.zeros(1, dtype=torch.int64, device=device)
     sink = torch.empty(128, dtype=torch.float32, device=device)
-    _launched("floor_probe", _load("probes").floor_probe_launch(
-        int(kind), int(iters), cycles.data_ptr(), sink.data_ptr(),
-        _stream(device)))
+    _launched("floor_probe", _load("probes").floor_probe_launch,
+              int(kind), int(iters), cycles.data_ptr(), sink.data_ptr(),
+              _stream(device))
     return int(cycles.item())
 
 
@@ -1000,5 +1010,5 @@ def empty_probe(device) -> None:
     loads. CUDA only; no path launches it."""
     if not _cuda(device, "empty_probe"):
         raise ValueError("empty_probe: a launch on the card, CUDA only")
-    _launched("empty_probe", _load("probes").empty_probe_launch(
-        _stream(device)))
+    _launched("empty_probe", _load("probes").empty_probe_launch,
+              _stream(device))

@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import trace
 from .msgpack import read_weights, write_weights
 
 _TAPS = (1.0 / 16, 1.0 / 4, 3.0 / 8, 1.0 / 4, 1.0 / 16)
@@ -297,16 +298,18 @@ def denoise(color, normal, albedo, method: str = "atrous",
     the raw color, so that a converged render passes through."""
     if method in ("none", None):
         return color
-    if method == "atrous":
-        den = atrous_denoise(color, normal, albedo, device=device)
-    elif method == "cnn":
-        den = (unet or UNetDenoiser(device=device))(color, normal, albedo)
-    else:
+    if method not in ("atrous", "cnn"):
         raise ValueError(f"unknown denoiser {method}")
-    den = den.cpu().numpy()
-    if varmean is None:
-        return den
-    return convergence_blend(color, den, varmean)
+    with trace.span("rene.post.denoise"):
+        if method == "atrous":
+            den = atrous_denoise(color, normal, albedo, device=device)
+        else:
+            den = (unet or UNetDenoiser(device=device))(color, normal,
+                                                        albedo)
+        den = den.cpu().numpy()
+        if varmean is None:
+            return den
+        return convergence_blend(color, den, varmean)
 
 
 _LUMA = (0.299, 0.587, 0.114)

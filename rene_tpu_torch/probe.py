@@ -18,8 +18,9 @@ and image files go to build/probe_scenes/) or the fog mesh
 
 * the card (nvidia-smi name, power limit, SM clock and its maximum);
 * the creation of the CUDA context, then the host phases of one render:
-  scene load, `build_device_scene`, `pack_tables` (with the BVH builds),
-  the tables' upload;
+  scene load, `build_device_scene`, `pack_tables` (with the BVH builds,
+  whose binary and wide parts come from their spans `rene.tables.bvh`
+  and `rene.tables.wide` under a CPU profiler), the tables' upload;
 * renders through `render()` after a warm-up launch (64, 256 and 1024
   spp for the Cornell box; 16, 64 and 256 for the big mesh): rays, wall
   time, Mrays/s, launches;
@@ -47,12 +48,12 @@ and image files go to build/probe_scenes/) or the fog mesh
   cast site, the steps per lane and the share of them that are march
   segments;
 * for a volpath scene, a wave of the wave engine at the smallest render
-  spp, its device time split into init (K3), K2 launches, sorts and
-  finish; for the fog mesh the same wave through K2's counting build
+  spp, its device time split into init (K3), step (K2 launches), sort
+  and finish; for the fog mesh the same wave through K2's counting build
   (`k2_record`), its counts per launch;
-* a render at the smallest of those spp under torch.profiler: wall time
-  and the operations with the most device time; the Chrome trace goes to
-  DIR.
+* a render at the smallest of those spp under torch.profiler
+  (trace.py `profiled`): wall time and the operations with the most
+  device time; the Chrome trace, with the program's spans, goes to DIR.
 
 Needs a CUDA device and nvcc; it builds the kernels on first use.
 
@@ -111,7 +112,7 @@ import time
 
 import torch
 
-from . import kernels, scenes
+from . import kernels, scenes, trace
 from .integrators import mega_path as M
 from .render import render
 from .scene import build_device_scene, load_scene
@@ -1126,15 +1127,15 @@ def main(argv=None) -> int:
         return r, time.perf_counter() - t
 
     _, t_ctx = timed(lambda: torch.zeros(1, device=dev))
-    scene, t_load = timed(lambda: load_scene(path))
-    (bn, cfg), t_bds = timed(lambda: build_device_scene(scene))
-    tables, t_pack = timed(lambda: P.pack_tables(bn, cfg))
-    tabs, t_up = timed(lambda: M.device_tables(tables, dev))
-    from .scene import accel
+    with trace.profiled() as prof:    # the host phases' spans
+        scene, t_load = timed(lambda: load_scene(path))
+        (bn, cfg), t_bds = timed(lambda: build_device_scene(scene))
+        tables, t_pack = timed(lambda: P.pack_tables(bn, cfg))
+        tabs, t_up = timed(lambda: M.device_tables(tables, dev))
     emit(cuda_context_s=t_ctx, load_scene_s=t_load,
          build_device_scene_s=t_bds, pack_tables_s=t_pack, upload_s=t_up,
-         bvh_binary_s=accel.times["binary_s"],
-         bvh_wide_s=accel.times["wide_s"],
+         bvh_binary_s=trace.seconds(prof, "rene.tables.bvh"),
+         bvh_wide_s=trace.seconds(prof, "rene.tables.wide"),
          wide_nodes=int(tables.wnodes.shape[0]),
          binary_nodes=int(tables.nodes.shape[0]),
          walk_need=tables.walk_need)
@@ -1204,9 +1205,8 @@ def main(argv=None) -> int:
                 run.run_dev(5, spps[0])
             emit(wave_counts=rows)
 
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with trace.profiled(os.path.join(
+            args.out, f"{args.scene}_render{spps[0]}_trace.json")) as prof:
         _, wall = timed(lambda: render(scene, spp=spps[0], seed=9,
                                        device=dev))
     rows = []
@@ -1214,12 +1214,10 @@ def main(argv=None) -> int:
         dt = getattr(k, "device_time_total", None)
         if dt is None:
             dt = getattr(k, "cuda_time_total", 0)
-        if dt:
+        if dt and not k.key.startswith("rene."):   # operations, not spans
             rows.append({"op": k.key[:90], "device_us": dt, "n": k.count})
     rows.sort(key=lambda r: -r["device_us"])
     emit(profiled_spp=spps[0], wall_s=wall, top=rows[:12])
-    prof.export_chrome_trace(os.path.join(
-        args.out, f"{args.scene}_render{spps[0]}_trace.json"))
     return 0
 
 

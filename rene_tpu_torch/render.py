@@ -49,6 +49,14 @@ Multi-device renders (parallel/shard.py) run the same loop in every rank
 one that renders a share of the pixels, `run.pixels`), reduce the sums
 and make the film with `film_result`, as a single-device render makes
 it.
+
+Under torch.profiler the loop's steps are spans (trace.py):
+`rene.loop.image` around all of `render_loop`, in it one
+`rene.loop.chunk` per chunk (its seed draw, launch and sums; in it
+`rene.loop.wait`, where the host blocks on the device's ray count, and
+`rene.loop.checkpoint`), then `rene.loop.readback` (the sums copied to
+the host) and `rene.loop.film` (`film_result`); `rene.xla.tile` around
+each of the XLA engine's tiles.
 """
 from __future__ import annotations
 
@@ -60,7 +68,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from . import kernels
+from . import kernels, trace
 from .integrators.mega_path import make_mega_batch_fn
 from .integrators.wave import make_wave_fn, pixel_sums
 from .scene import build_device_scene
@@ -169,8 +177,11 @@ def make_xla_fn(buffers_np, config, device, use_bvh: Optional[bool] = None,
              for lo in range(0, pix.numel(), tile_rays)]
 
     def run(seed: int, chunk: int):
-        outs = [batch(buffers, config, px[lo:hi], py[lo:hi], seed, chunk,
-                      accel=accel) for lo, hi in tiles]
+        outs = []
+        for lo, hi in tiles:
+            with trace.span("rene.xla.tile"):
+                outs.append(batch(buffers, config, px[lo:hi], py[lo:hi],
+                                  seed, chunk, accel=accel))
         sums = {k: torch.cat([o[k] for o in outs]) for k in SUMS}
         sums["rays"] = sum(float(o["rays"]) for o in outs)
         run.iterations += sum(o["iterations"] for o in outs)
@@ -243,15 +254,17 @@ def render_loop(run, config, spp, seed, device, checkpoint=None,
     rene_tpu/render.py:316 `_render_pallas` drives one: the same chunk
     seeds and sizes, the same film and `varmean`."""
     device = torch.device(device)
-    c = run_chunks(run, config, spp, seed, device, checkpoint, resume,
-                   progress, fingerprint, want_var)
-    host = {k: _host(v) for k, v in c.accum.items()}
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    result = film_result(config, host,
-                         None if c.sq_sum is None else _host(c.sq_sum),
-                         c.done, c.seeds)
-    result.update(total_rays=c.total_rays, wall_time=time.time() - c.t_start)
+    with trace.span("rene.loop.image"):
+        c = run_chunks(run, config, spp, seed, device, checkpoint, resume,
+                       progress, fingerprint, want_var)
+        with trace.span("rene.loop.readback"):
+            host = {k: _host(v) for k, v in c.accum.items()}
+            sq_sum = None if c.sq_sum is None else _host(c.sq_sum)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+        result = film_result(config, host, sq_sum, c.done, c.seeds)
+        result.update(total_rays=c.total_rays,
+                      wall_time=time.time() - c.t_start)
     return result
 
 
@@ -313,37 +326,45 @@ def run_chunks(run, config, spp, seed, device, checkpoint=None,
     total_rays = 0.0
     t_start = t_batch = time.time()
     while done < spp:
-        # a packed runner may overshoot spp by < mult; the average divides
-        # by the samples delivered
-        chunk = min(max_chunk, -(-(spp - done) // mult))
-        chunk_seed = int(host_rng.integers(0, seed_end, dtype=seed_dtype))
-        seeds += 1
-        if dev_accum is not None:
-            acc = dev_accum(chunk_seed, chunk, acc)
-            float(acc[1])   # a sync per wave keeps the chunk times honest
-        else:
-            out = run(chunk_seed, chunk)    # a wave's sums come as numpy
-            sums = {k: torch.as_tensor(out[k], device=device) for k in SUMS}
-            for k in SUMS:
-                accum[k][lo:hi] += sums[k]
-            if sq_sum is not None:
-                # a divisor on the device: torch divides a CUDA tensor by a
-                # host scalar as a product with its reciprocal, which may
-                # round off numpy's quotient by one ulp
-                n = torch.tensor(float(chunk * mult), device=device)
-                xm = sums["radiance"] / n
-                sq_sum[lo:hi] += n * xm * xm
-            total_rays += float(out["rays"])
-        done += chunk * mult
-        dt = (time.time() - t_batch) * 1000.0
-        log.info("Samples: %d/%d (%.0f ms)", done, spp, dt)
-        t_batch = time.time()
-        if progress:
-            progress(done, spp, dt)
-        if checkpoint:
-            save_checkpoint(
-                checkpoint, {k: _host(v) for k, v in accum.items()}, done,
-                fingerprint, seeds, None if sq_sum is None else _host(sq_sum))
+        with trace.span("rene.loop.chunk"):
+            # a packed runner may overshoot spp by < mult; the average
+            # divides by the samples delivered
+            chunk = min(max_chunk, -(-(spp - done) // mult))
+            chunk_seed = int(host_rng.integers(0, seed_end,
+                                               dtype=seed_dtype))
+            seeds += 1
+            if dev_accum is not None:
+                acc = dev_accum(chunk_seed, chunk, acc)
+                # a sync per wave keeps the chunk times honest
+                with trace.span("rene.loop.wait"):
+                    float(acc[1])
+            else:
+                out = run(chunk_seed, chunk)  # a wave's sums come as numpy
+                sums = {k: torch.as_tensor(out[k], device=device)
+                        for k in SUMS}
+                for k in SUMS:
+                    accum[k][lo:hi] += sums[k]
+                if sq_sum is not None:
+                    # a divisor on the device: torch divides a CUDA tensor
+                    # by a host scalar as a product with its reciprocal,
+                    # which may round off numpy's quotient by one ulp
+                    n = torch.tensor(float(chunk * mult), device=device)
+                    xm = sums["radiance"] / n
+                    sq_sum[lo:hi] += n * xm * xm
+                with trace.span("rene.loop.wait"):
+                    total_rays += float(out["rays"])
+            done += chunk * mult
+            dt = (time.time() - t_batch) * 1000.0
+            log.info("Samples: %d/%d (%.0f ms)", done, spp, dt)
+            t_batch = time.time()
+            if progress:
+                progress(done, spp, dt)
+            if checkpoint:
+                with trace.span("rene.loop.checkpoint"):
+                    save_checkpoint(
+                        checkpoint, {k: _host(v) for k, v in accum.items()},
+                        done, fingerprint, seeds,
+                        None if sq_sum is None else _host(sq_sum))
     if acc is not None:     # a wave's device pair; the sums are 0 here
         for k, v in pixel_sums(acc[0]).items():
             accum[k][lo:hi] += v
@@ -358,13 +379,14 @@ def film_result(config, host, sq_sum, done, chunks) -> dict:
     per-chunk means) the `varmean` image."""
     w, h = config.film.xresolution, config.film.yresolution
     n = max(done, 1)
-    result = {k: rays_to_image(host[s] / n, w, h)
-              for k, s in (("color", "radiance"), ("normal", "normal"),
-                           ("albedo", "albedo"))}
-    result["config"] = config
-    if sq_sum is not None:
-        result["varmean"] = rays_to_image(
-            _var_of_mean(host["radiance"], sq_sum, done, chunks), w, h)
+    with trace.span("rene.loop.film"):
+        result = {k: rays_to_image(host[s] / n, w, h)
+                  for k, s in (("color", "radiance"), ("normal", "normal"),
+                               ("albedo", "albedo"))}
+        result["config"] = config
+        if sq_sum is not None:
+            result["varmean"] = rays_to_image(
+                _var_of_mean(host["radiance"], sq_sum, done, chunks), w, h)
     return result
 
 

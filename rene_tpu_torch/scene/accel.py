@@ -56,11 +56,11 @@ space. The deepest stack a walk may need is checked against TRAVERSAL_STACK.
 """
 from __future__ import annotations
 
-import time
 from typing import Dict, List, Tuple
 
 import numpy as np
 
+from .. import trace
 from ..ops import bvh as _bvh
 from . import types as T
 
@@ -99,10 +99,6 @@ TAG_EMPTY = -1     # an unused child slot
 TRAVERSAL_STACK = 64     # entries of a CUDA thread's walk stack
 # the padding of an instance's world box, relative to its size
 INST_BOX_PAD = 1e-5
-
-# seconds of the last pack_accel's binary BVH builds and of its wide
-# tables (the collapse and the top tree), for the probe
-times = {"binary_s": 0.0, "wide_s": 0.0}
 
 INST_MIN_SAVING = 4096     # pallas_path.py:958
 HBM_MIN_TRIS = 1 << 17     # pallas_path.py:99: a shared BLAS's size cap
@@ -516,39 +512,40 @@ def pack_accel(buffers_np, rest_idx: np.ndarray, shared, tbl_idx,
     `shared_split`) and the table spheres `tbl_idx`, each primitive with
     the material slot of its instance (`inst_slot`, pack.material_slots);
     `needs_uv`: with the `mesh_uv` rows."""
-    t0 = time.perf_counter()
-    b = _Builder()
-    world_root = -1
-    if rest_idx.size:
-        p = buffers_np["tri_p"][rest_idx].astype(np.float64)
-        n = buffers_np["tri_n"][rest_idx].astype(np.float64)
-        mat = inst_slot[buffers_np["tri_inst"][rest_idx]]
-        world_root = b.add(p, n, mat, buffers_np["tri_uv"][rest_idx].astype(
-            np.float64) if needs_uv else None)
-    insts = []
-    for blas_id, inst_ids in shared:
-        p, n, uv = _blas_tris(buffers_np, blas_id)
-        root = b.add(p, n, np.zeros(p.shape[0]), uv if needs_uv else None)
-        for i in inst_ids:
-            row = np.zeros(INST_W, np.float32)
-            row[INST_W2O:INST_W2O + 12] = \
-                buffers_np["inst_w2o"][i].reshape(-1)
-            row[INST_MAT] = inst_slot[i]
-            row[INST_ROOT] = root
-            insts.append(row[None])
-    sph_tab, sph_box = _sphere_table(buffers_np, np.asarray(tbl_idx),
-                                     inst_slot)
+    with trace.span("rene.tables.bvh"):
+        b = _Builder()
+        world_root = -1
+        if rest_idx.size:
+            p = buffers_np["tri_p"][rest_idx].astype(np.float64)
+            n = buffers_np["tri_n"][rest_idx].astype(np.float64)
+            mat = inst_slot[buffers_np["tri_inst"][rest_idx]]
+            uv = (buffers_np["tri_uv"][rest_idx].astype(np.float64)
+                  if needs_uv else None)
+            world_root = b.add(p, n, mat, uv)
+        insts = []
+        for blas_id, inst_ids in shared:
+            p, n, uv = _blas_tris(buffers_np, blas_id)
+            root = b.add(p, n, np.zeros(p.shape[0]),
+                         uv if needs_uv else None)
+            for i in inst_ids:
+                row = np.zeros(INST_W, np.float32)
+                row[INST_W2O:INST_W2O + 12] = \
+                    buffers_np["inst_w2o"][i].reshape(-1)
+                row[INST_MAT] = inst_slot[i]
+                row[INST_ROOT] = root
+                insts.append(row[None])
+        sph_tab, sph_box = _sphere_table(buffers_np, np.asarray(tbl_idx),
+                                         inst_slot)
 
-    def cat(parts, width):
-        return np.ascontiguousarray(
-            np.concatenate(parts) if parts else np.zeros((0, width)),
-            dtype=np.float32)
+        def cat(parts, width):
+            return np.ascontiguousarray(
+                np.concatenate(parts) if parts else np.zeros((0, width)),
+                dtype=np.float32)
 
-    nodes, mesh, insts = (cat(b.nodes, NODE_W), cat(b.rows, MESH_W),
-                          cat(insts, INST_W))
-    t1 = time.perf_counter()
-    wide = wide_tables(nodes, mesh, world_root, insts, sph_box)
-    times.update(binary_s=t1 - t0, wide_s=time.perf_counter() - t1)
+        nodes, mesh, insts = (cat(b.nodes, NODE_W), cat(b.rows, MESH_W),
+                              cat(insts, INST_W))
+    with trace.span("rene.tables.wide"):
+        wide = wide_tables(nodes, mesh, world_root, insts, sph_box)
     return dict(wide,
                 nodes=nodes, mesh=mesh, mesh_uv=cat(b.uvs, MESH_UV_W),
                 insts=insts, sph_tab=sph_tab, sph_box=sph_box,

@@ -48,6 +48,7 @@ import numpy as np
 from . import types as T
 from .device import ENV_GH, ENV_GW, RenderConfig
 
+from .. import trace
 from . import accel
 
 MAX_TRIS = 512       # pallas_path.py:53
@@ -788,6 +789,12 @@ class SceneTables:
 
 
 def pack_tables(buffers_np, config: RenderConfig) -> SceneTables:
+    """The kernels' tables of a scene, inside span `rene.tables.pack`."""
+    with trace.span("rene.tables.pack"):
+        return _pack_tables(buffers_np, config)
+
+
+def _pack_tables(buffers_np, config: RenderConfig) -> SceneTables:
     slice_supported(buffers_np, config)
     imm, rest, shared = split_triangles(buffers_np, config)
     # the triangles that leave the immediates, as `_mesh_needs_uv` sees
