@@ -36,13 +36,19 @@ the kernels refuse, as the reference's do. A failed wave render raises;
 the JAX fallback from the wave engine to the megakernel (:193-208) is
 not carried over.
 
-The film's sums stay on the device. A `checkpoint` or `want_var` render
-runs chunk by chunk (the wave's on-device sum across waves is off, as at
-:358-360): utils/checkpoint.py snapshots the sums on the host after every
-chunk, and `want_var` keeps the per-chunk sums of squares that `varmean`
-is made from. A resumed render adds, in the
-same float32 order, exactly what an unbroken one adds, whatever the
-runner: the loop counts the chunk seeds it has drawn.
+The film's sums stay on the device, and the host waits on it once an
+image: the loop enqueues every chunk's launch and sums without reading
+anything back, keeps each chunk's ray count as the runner gives it, and
+reads them after the last chunk. Only a caller that needs a chunk's end
+makes the loop wait at every chunk: `progress` is given the chunk's
+time, and `checkpoint` snapshots its sums. On a CUDA device the film is
+divided there and copied into page-locked memory (`read_back`). A
+`checkpoint` or `want_var` render runs chunk by chunk (the wave's
+on-device sum across waves is off, as at :358-360): utils/checkpoint.py
+snapshots the sums on the host after every chunk, and `want_var` keeps
+the per-chunk sums of squares that `varmean` is made from. A resumed
+render adds, in the same float32 order, exactly what an unbroken one
+adds, whatever the runner: the loop counts the chunk seeds it has drawn.
 
 Multi-device renders (parallel/shard.py) run the same loop in every rank
 (`run_chunks`, the loop up to the divide, on a seed-shifted runner or on
@@ -52,11 +58,13 @@ it.
 
 Under torch.profiler the loop's steps are spans (trace.py):
 `rene.loop.image` around all of `render_loop`, in it one
-`rene.loop.chunk` per chunk (its seed draw, launch and sums; in it
-`rene.loop.wait`, where the host blocks on the device's ray count, and
-`rene.loop.checkpoint`), then `rene.loop.readback` (the sums copied to
-the host) and `rene.loop.film` (`film_result`); `rene.xla.tile` around
-each of the XLA engine's tiles.
+`rene.loop.chunk` per chunk (its seed draw, launch and sums; in it, with
+`progress` or `checkpoint`, `rene.loop.wait`, where the host blocks on
+the chunk's ray count, and `rene.loop.checkpoint`), then
+`rene.loop.readback` (the divide, the copies to the host and, in
+`rene.loop.wait`, the image's one wait on the device without them) and
+`rene.loop.film` (`film_result`); `rene.xla.tile` around each of the
+XLA engine's tiles.
 """
 from __future__ import annotations
 
@@ -215,7 +223,9 @@ def render(scene, spp: int = DEFAULT_SPP, seed: int = 0, device="cuda",
 
     `checkpoint`: a snapshot file written after every chunk (after
     `progress(done, spp, ms)` is called); `resume` starts from it where
-    its fingerprint matches, and from 0 with a warning where not.
+    its fingerprint matches, and from 0 with a warning where not. Either
+    makes the loop wait on the device at every chunk; without them it
+    waits once, at the end.
     `use_bvh` and `tile_rays` are the XLA engine's (`make_xla_fn`)."""
     device = torch.device(device)
     buffers_np, config = build_device_scene(scene)
@@ -241,6 +251,10 @@ def render(scene, spp: int = DEFAULT_SPP, seed: int = 0, device="cuda",
     return out
 
 
+# the three films by name, each with the sums it is the mean of
+FILM = (("color", "radiance"), ("normal", "normal"), ("albedo", "albedo"))
+
+
 def _host(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
@@ -258,14 +272,21 @@ def render_loop(run, config, spp, seed, device, checkpoint=None,
         c = run_chunks(run, config, spp, seed, device, checkpoint, resume,
                        progress, fingerprint, want_var)
         with trace.span("rene.loop.readback"):
-            host = {k: _host(v) for k, v in c.accum.items()}
-            sq_sum = None if c.sq_sum is None else _host(c.sq_sum)
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-        result = film_result(config, host, sq_sum, c.done, c.seeds)
-        result.update(total_rays=c.total_rays,
+            means, host, sq_sum, total_rays = read_back(c)
+        result = film_result(config, host, sq_sum, c.done, c.seeds, means)
+        result.update(total_rays=total_rays,
                       wall_time=time.time() - c.t_start)
     return result
+
+
+def _in_order(counts) -> float:
+    """Ray counts added in chunk order as Python floats, as the loop adds
+    them when it reads each in its chunk (the builtin `sum` compensates,
+    and may round otherwise)."""
+    total = 0.0
+    for r in counts:
+        total += float(r)
+    return total
 
 
 @dataclasses.dataclass
@@ -273,22 +294,31 @@ class Chunks:
     """What `run_chunks` hands back before the divide: the per-pixel sums
     on the device (`accum`, SUMS, (npix, 3) each), the sums of squares
     of the per-chunk means (`sq_sum`, want_var only), the samples per
-    pixel done, the chunk seeds drawn, the rays of the chunks summed and
-    the loop's start time."""
+    pixel done, the chunk seeds drawn, each chunk's ray count as its
+    runner gave it or, where the loop waited on the chunk, as read
+    (`rays`), and the loop's start time."""
     accum: dict
     sq_sum: Optional[torch.Tensor]
     done: int
     seeds: int
-    total_rays: float
+    rays: list
     t_start: float
+
+    @property
+    def total_rays(self) -> float:
+        """The chunks' rays summed in chunk order; a count still on the
+        device is read here, which waits on it."""
+        return _in_order(self.rays)
 
 
 def run_chunks(run, config, spp, seed, device, checkpoint=None,
                resume=False, progress=None, fingerprint="",
                want_var=False) -> Chunks:
-    """The chunk loop of `render_loop`, up to the divide. A runner with
-    `run.pixels` = (lo, hi) renders those pixels alone: its sums go into
-    rows [lo, hi) of the film's, the others stay 0."""
+    """The chunk loop of `render_loop`, up to the divide: every chunk
+    enqueued on the device without a wait, unless `progress` or
+    `checkpoint` needs the chunk's end. A runner with `run.pixels` =
+    (lo, hi) renders those pixels alone: its sums go into rows [lo, hi)
+    of the film's, the others stay 0."""
     device = torch.device(device)
     w, h = config.film.xresolution, config.film.yresolution
     lo, hi = getattr(run, "pixels", None) or (0, w * h)
@@ -322,8 +352,10 @@ def run_chunks(run, config, spp, seed, device, checkpoint=None,
     # checkpoint and the sums of squares need
     dev_accum = (None if checkpoint or want_var
                  else getattr(run, "run_dev", None))
+    # the chunk's time for `progress`, its sums for the snapshot
+    wait = bool(progress or checkpoint)
     acc = None
-    total_rays = 0.0
+    rays = []
     t_start = t_batch = time.time()
     while done < spp:
         with trace.span("rene.loop.chunk"):
@@ -335,9 +367,9 @@ def run_chunks(run, config, spp, seed, device, checkpoint=None,
             seeds += 1
             if dev_accum is not None:
                 acc = dev_accum(chunk_seed, chunk, acc)
-                # a sync per wave keeps the chunk times honest
-                with trace.span("rene.loop.wait"):
-                    float(acc[1])
+                if wait:
+                    with trace.span("rene.loop.wait"):
+                        float(acc[1])
             else:
                 out = run(chunk_seed, chunk)  # a wave's sums come as numpy
                 sums = {k: torch.as_tensor(out[k], device=device)
@@ -345,18 +377,23 @@ def run_chunks(run, config, spp, seed, device, checkpoint=None,
                 for k in SUMS:
                     accum[k][lo:hi] += sums[k]
                 if sq_sum is not None:
-                    # a divisor on the device: torch divides a CUDA tensor
-                    # by a host scalar as a product with its reciprocal,
-                    # which may round off numpy's quotient by one ulp
-                    n = torch.tensor(float(chunk * mult), device=device)
+                    # a divisor on the device (`divide`), filled there
+                    n = torch.full((), float(chunk * mult),
+                                   dtype=torch.float32, device=device)
                     xm = sums["radiance"] / n
                     sq_sum[lo:hi] += n * xm * xm
-                with trace.span("rene.loop.wait"):
-                    total_rays += float(out["rays"])
+                if wait:
+                    with trace.span("rene.loop.wait"):
+                        rays.append(float(out["rays"]))
+                else:
+                    rays.append(out["rays"])
             done += chunk * mult
-            dt = (time.time() - t_batch) * 1000.0
-            log.info("Samples: %d/%d (%.0f ms)", done, spp, dt)
-            t_batch = time.time()
+            if wait:
+                dt = (time.time() - t_batch) * 1000.0
+                log.info("Samples: %d/%d (%.0f ms)", done, spp, dt)
+                t_batch = time.time()
+            else:
+                log.info("Samples: %d/%d (queued)", done, spp)
             if progress:
                 progress(done, spp, dt)
             if checkpoint:
@@ -368,21 +405,69 @@ def run_chunks(run, config, spp, seed, device, checkpoint=None,
     if acc is not None:     # a wave's device pair; the sums are 0 here
         for k, v in pixel_sums(acc[0]).items():
             accum[k][lo:hi] += v
-        total_rays += float(acc[1])
-    return Chunks(accum, sq_sum, done, seeds, total_rays, t_start)
+        rays.append(acc[1])
+    return Chunks(accum, sq_sum, done, seeds, rays, t_start)
 
 
-def film_result(config, host, sq_sum, done, chunks) -> dict:
+def divide(accum: dict, done: int) -> dict:
+    """The color, normal and albedo means (FILM) of the per-pixel sums
+    `accum` (SUMS) over `done` samples, on the sums' device. The divisor
+    is a float32 0-dim tensor there, so that every pixel is the IEEE
+    quotient that numpy's `host / done` gives: torch divides a CUDA
+    tensor by a host scalar as a product with its reciprocal, which may
+    round one ulp off that quotient. `torch.full` fills the divisor
+    without a copy from the host, which would wait on the device."""
+    n = torch.full((), float(max(done, 1)), dtype=torch.float32,
+                   device=accum["radiance"].device)
+    return {k: accum[s] / n for k, s in FILM}
+
+
+def read_back(c: Chunks):
+    """The image on the host, after one wait on the device (span
+    `rene.loop.wait`): (means, sums, sq_sum, total_rays) for
+    `film_result`. Sums on a CUDA device: the films divided there
+    (`divide`), with want_var the radiance sums and `sq_sum`, and the
+    chunks' ray counts left there, stacked, each copied without blocking
+    into page-locked memory from torch's caching host allocator; then
+    one synchronize. Each numpy array handed back holds its block, so a
+    film the caller keeps is not the next image's. Sums on the CPU:
+    their numpy views and no means (`film_result` divides)."""
+    radiance = c.accum["radiance"]
+    if not radiance.is_cuda:
+        host = {k: _host(v) for k, v in c.accum.items()}
+        sq_sum = None if c.sq_sum is None else _host(c.sq_sum)
+        with trace.span("rene.loop.wait"):
+            return None, host, sq_sum, c.total_rays
+    dev = divide(c.accum, c.done)
+    if c.sq_sum is not None:
+        dev.update(sums=radiance, sq_sum=c.sq_sum)
+    stacked = bool(c.rays) and all(torch.is_tensor(r) and r.is_cuda
+                                   for r in c.rays)
+    if stacked:
+        dev["rays"] = torch.stack(c.rays)
+    pinned = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+              .copy_(v, non_blocking=True) for k, v in dev.items()}
+    with trace.span("rene.loop.wait"):
+        torch.cuda.synchronize(radiance.device)
+    host = {k: v.numpy() for k, v in pinned.items()}
+    total_rays = _in_order(host.pop("rays").tolist() if stacked else c.rays)
+    sums = {"radiance": host.pop("sums")} if c.sq_sum is not None else {}
+    return host, sums, host.pop("sq_sum", None), total_rays
+
+
+def film_result(config, host, sq_sum, done, chunks, means=None) -> dict:
     """The film from per-pixel host sums (`host`, SUMS) over `done`
     samples per pixel: the averaged, y-flipped (H, W, 3) color, normal
     and albedo, and with `sq_sum` (the sums of squares of `chunks`
-    per-chunk means) the `varmean` image."""
+    per-chunk means) the `varmean` image. `means`: the three films
+    divided already ((npix, 3) host arrays by name, `read_back`); `host`
+    then needs only the radiance sums, for `varmean`."""
     w, h = config.film.xresolution, config.film.yresolution
     n = max(done, 1)
     with trace.span("rene.loop.film"):
-        result = {k: rays_to_image(host[s] / n, w, h)
-                  for k, s in (("color", "radiance"), ("normal", "normal"),
-                               ("albedo", "albedo"))}
+        if means is None:
+            means = {k: host[s] / n for k, s in FILM}
+        result = {k: rays_to_image(means[k], w, h) for k, _ in FILM}
         result["config"] = config
         if sq_sum is not None:
             result["varmean"] = rays_to_image(
