@@ -39,9 +39,9 @@
 // boundary, one inlined copy of the walk); a lane whose bounce is due
 // waits while a lane of its warp marches, so that the warp shades its
 // bounces together (vol_loop.cuh step_now). -DMEGA_COUNT=1 (with
-// MEGA_VOL and MEGA_MESH) builds the same loop with step counts
-// (vol_loop.cuh StepCounts, read by its entry point step_counts) for
-// `python -m rene_tpu_torch.probe --scene fog_mesh`.
+// MEGA_VOL) builds the same loop with step counts (vol_loop.cuh
+// StepCounts, read by its entry point step_counts) for the probe and the
+// benchmark's traced runs, on no render path.
 //
 // Design. One thread owns one pixel and streams `num_samples` paths back
 // to back, regenerating a camera ray when a path ends: camera ray,

@@ -22,8 +22,8 @@
 #include "volpath.cuh"
 
 // Counts of the volpath lane loop's steps, kept only by the -DMEGA_COUNT=1
-// builds (`mega_volpath_mesh_count`, `wave_volpath_mesh_count`, which
-// `python -m rene_tpu_torch.probe` alone launches): at the cast site, each
+// builds (`mega_volpath_mesh_count`, `mega_volpath_count`,
+// `wave_volpath_mesh_count`, on no render path): at the cast site, each
 // warp's leader lane adds the lanes active there, __popc(__activemask()),
 // and one warp step; each thread counts its steps, those that were march
 // segments, and the lanes it ran. The sums go to vol_counts at the

@@ -16,10 +16,11 @@ together, and loaded with ctypes:
     csrc/probes.cu      the Mosaic probes P-r3n (rowslice_probe) and P-r3w
                         (mxu_probe), one build
 
-and six more builds, which only the probe launches, each built at its
-first launch and not with the variants: the volpath mesh megakernel and
-the volpath mesh K2 with step counts (-DMEGA_COUNT=1,
-`mega_volpath_counts`, `wave_volpath_counts`), the path mesh K2 with its
+and seven more builds, which no render path launches, each built at
+its first launch and not with the variants: the volpath megakernel, mesh
+and immediates, and the volpath mesh K2 with step counts
+(-DMEGA_COUNT=1, `mega_volpath_counts`, `wave_volpath_counts`; the
+benchmark reads the immediates megakernel's), the path mesh K2 with its
 lane loop's counts (-DMEGA_COUNT=1, `wave_path_counts`), the path mesh
 megakernel
 with walk counts (-DWALK_COUNT=1, `mega_path_walk_counts`) and with
@@ -95,18 +96,19 @@ VARIANTS = {"mega_path": ("mega_path.cu", "-DMEGA_MESH=0", "-DMEGA_VOL=0"),
             "wave_volpath_mesh": ("wave.cu", "-DMEGA_MESH=1",
                                   "-DMEGA_VOL=1"),
             "probes": ("probes.cu",)}
-# the counting builds' libraries and kernels: the volpath mesh megakernel
-# and K2 with step counts, the path mesh megakernel with walk counts and
-# with texture counts, the path immediates megakernel with its phases'
-# cycles
+# the counting builds' libraries and kernels: the volpath mesh and
+# immediates megakernels and the volpath mesh K2 with step counts, the path
+# mesh megakernel with walk counts and with texture counts, the path
+# immediates megakernel with its phases' cycles
 COUNT, WAVE_COUNT = "mega_volpath_mesh_count", "wave_volpath_mesh_count"
+IMM_COUNT = "mega_volpath_count"
 PATH_WAVE_COUNT = "wave_path_mesh_count"
 WALK_COUNT = "mega_path_mesh_count"
 TEX_COUNT, PATH_COUNT = "mega_path_mesh_texcount", "mega_path_count"
 # every library `build` knows: the variants and the counting builds
 BUILDS = dict(VARIANTS, **{c: VARIANTS[v] + ("-DMEGA_COUNT=1",) for c, v in (
-    (COUNT, "mega_volpath_mesh"), (WAVE_COUNT, "wave_volpath_mesh"),
-    (PATH_WAVE_COUNT, "wave_path_mesh"))},
+    (COUNT, "mega_volpath_mesh"), (IMM_COUNT, "mega_volpath"),
+    (WAVE_COUNT, "wave_volpath_mesh"), (PATH_WAVE_COUNT, "wave_path_mesh"))},
     **{WALK_COUNT: VARIANTS["mega_path_mesh"] + ("-DWALK_COUNT=1",),
        TEX_COUNT: VARIANTS["mega_path_mesh"] + ("-DTEX_COUNT=1",),
        PATH_COUNT: VARIANTS["mega_path"] + ("-DPATH_COUNT=1",)})
@@ -161,7 +163,8 @@ SMEM_PER_BLOCK = 227 * 1024
 # mxu_probe kinds in the probes library
 launches = dict.fromkeys(
     [v + s for v in VARIANTS if v != "probes" for s in ("", SOBOL)]
-    + [COUNT, WAVE_COUNT, PATH_WAVE_COUNT, WALK_COUNT, TEX_COUNT, PATH_COUNT]
+    + [COUNT, IMM_COUNT, WAVE_COUNT, PATH_WAVE_COUNT, WALK_COUNT, TEX_COUNT,
+       PATH_COUNT]
     + ["wave_genesis", "wave_genesis" + SOBOL, "wave_permute",
        "sobol_probe", "rowslice_probe", "cast_probe", "tex_probe",
        "floor_probe", "empty_probe"]
@@ -351,6 +354,7 @@ _ENTRY_POINTS = {
     PATH_COUNT: {"mega_path_launch": ARGTYPES,
                  "path_counts_read": [_P, _I, _P]},
     COUNT: {"mega_path_launch": ARGTYPES, "step_counts": [_P, _I, _P]},
+    IMM_COUNT: {"mega_path_launch": ARGTYPES, "step_counts": [_P, _I, _P]},
     WAVE_COUNT: {"wave_path_launch": WAVE_ARGTYPES,
                  "step_counts": [_P, _I, _P]},
     PATH_WAVE_COUNT: {"wave_path_launch": WAVE_ARGTYPES,
@@ -597,21 +601,24 @@ def mega_path(tabs, seed: int, num_samples: int,
 
 def mega_volpath_counts(tabs, seed: int, num_samples: int,
                         beckmann: bool = False, pack: int = 1):
-    """The volpath mesh megakernel's launch of `mega_path` (independent
-    sampler, CUDA tables only) through the counting build: returns its
-    (10, npix * pack) sums and {COUNT_KEYS: int}, the sums over the
-    launch of the active lanes that each warp's leader sees at the lane
-    loop's cast site and of its warp steps, of the lanes' steps and march
-    steps, and the lanes. For the probe; no render path launches it."""
+    """The volpath megakernel's launch of `mega_path` (independent
+    sampler, CUDA tables only) through the counting build of the scene's
+    variant, COUNT (mesh) or IMM_COUNT (immediates): returns its (10,
+    npix * pack) sums and {COUNT_KEYS: int}, the sums over the launch of
+    the active lanes that each warp's leader sees at the lane loop's cast
+    site and of its warp steps, of the lanes' steps and march steps, and
+    the lanes. For the probe and the benchmark's traced runs; no render
+    path launches it."""
     device = tabs["tris"].device
     if not _cuda(device, "mega_volpath_counts") \
-            or variant(tabs) != "mega_volpath_mesh":
-        raise ValueError("mega_volpath_counts: volpath mesh tables with the "
+            or variant(tabs) not in ("mega_volpath", "mega_volpath_mesh"):
+        raise ValueError("mega_volpath_counts: volpath tables with the "
                          "independent sampler on a CUDA device only")
     out = torch.empty((P.OUT_ROWS, lane_count(tabs, pack)),
                       dtype=torch.float32, device=device)
     args = launch_args(tabs, seed, num_samples, beckmann, out, pack)
-    return out, _read_counted(COUNT, "step_counts", COUNT_KEYS,
+    name = COUNT if tabs["has_accel"] else IMM_COUNT
+    return out, _read_counted(name, "step_counts", COUNT_KEYS,
                               lambda lib: lib.mega_path_launch(
                                   *args, _stream(device)), device)
 

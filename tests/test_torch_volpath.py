@@ -9,8 +9,12 @@ sampling and one emitter, 32x32) and the small `fog_mesh_scene` (a world
 mesh with three material slots, shared-BLAS instances, a fog box of
 None faces, 32x32), and on `nested_fog_scene` (three nested None
 boundaries between four media, two distant lights and an emitter,
-16x8, maxdepth 16: medium switches and marches through them), at 2 spp, with the JAX packer's cluster width cut to
-16 as in test_torch_mesh.py. Both draw the same xorshift32 stream in the
+16x8, maxdepth 16: medium switches and marches through them), and on
+the benchmark's Cornell smoke scene (port_bench/scenes/cornell_smoke.py:
+media bounded by None triangles among the immediates, one absorbing and
+one scattering, depth 50, 16x16) at a hundredth of the book's size, at
+2 spp, with the JAX packer's cluster width cut to 16 as in
+test_torch_mesh.py. Both draw the same xorshift32 stream in the
 volpath body's order (med_sample, med_sample_p, the scatter point's
 emitter draws, the path body's draws without rrv, the camera's), so
 every lane traces the same path. Limits as in test_torch_mesh.py:
@@ -20,15 +24,23 @@ totals within 0.1%, counted over the JAX runner's own lanes (its padding
 lanes repeat pixels, and the port's lane of a pixel traces what they
 trace). Measured: radiance >= 99.90%, AOV 100%, means within 5.3e-4,
 ray totals within 0.033% (the nested scene: radiance and AOV 100%,
-means 3.2e-8 apart, ray totals equal).
+means 3.2e-8 apart, ray totals equal; the smoke scene: radiance and AOV
+100%, means 2.5e-8 apart, ray totals equal). At the book's own size
+(coordinates to 800) the two differ by rounding alone: the camera ray's
+world point less the camera's origin cancels digits, XLA contracts FMAs
+where torch does not, and ~1% of lanes end 0.1-0.4% apart on the same
+paths.
 
 The render loop (`render(device="cpu")`) against `rene_tpu.render.
 render(engine="pallas")` on the fog scene, image for image.
 """
+import re
+
 import numpy as np
 import pytest
 import torch
 
+from port_bench.scenes import cornell_smoke
 from rene_tpu.pbrt import parse_pbrt
 from rene_tpu.scene import create_scene
 from rene_tpu.scene.device import build_device_scene
@@ -45,6 +57,20 @@ SPP = 2
 JAX_ENV_OFF = ("RENE_MF_DIST", "RENE_MEGA_PACK", "RENE_MESH_TEST",
                "RENE_CONST_DIR", "RENE_SPH_ANY", "RENE_SUB_TRIS",
                "RENE_SUB_GATE", "RENE_CLUSTER_ORDER", "RENE_ENV_NEE")
+
+
+def smoke_scene(width, height):
+    """The Cornell smoke scene at a hundredth of the book's size: the
+    camera and the world scaled by 0.01, the media's density by 100, the
+    boxes' lift above the floor kept at 0.01."""
+    src = cornell_smoke.scene(width, height)
+    src = src.replace("LookAt 278 278 -800  278 278 0",
+                      "LookAt 2.78 2.78 -8  2.78 2.78 0")
+    src = src.replace("WorldBegin", "WorldBegin\nScale .01 .01 .01")
+    src = src.replace("[ 0.01 0.01 0.01 ]", "[ 1 1 1 ]")
+    return re.sub(r"Translate (\S+) 0\.01 (\S+)", r"Translate \1 1 \2", src)
+
+
 # (width, height, directory) -> pbrt text; a directory for the images
 SCENES = {
     "fog": ((32, 16), lambda w, h, d: scenes.fog_scene(w, h)),
@@ -52,6 +78,7 @@ SCENES = {
     "fog_mesh": ((32, 32), lambda w, h, d: scenes.fog_mesh_scene(
         w, h, small=True)),
     "nested": ((16, 8), lambda w, h, d: scenes.nested_fog_scene(w, h)),
+    "smoke": ((16, 16), lambda w, h, d: smoke_scene(w, h)),
 }
 
 
@@ -77,7 +104,8 @@ def scene_dir(tmp_path_factory):
 
 
 @pytest.mark.parametrize("name,seed", [("fog", 7), ("fog_env", 7),
-                                       ("fog_mesh", 7), ("nested", 7)])
+                                       ("fog_mesh", 7), ("nested", 7),
+                                       ("smoke", 7)])
 def test_plain_version_matches_interpret_megakernel(scene_dir, name, seed):
     with pytest.MonkeyPatch.context() as mp:
         pp = _jax_env(mp)
@@ -283,5 +311,59 @@ def test_counting_build_on_card_counts_and_matches(tmp_path):
                       "counting build, fog mesh 128x64 x 2 spp")
     assert c["lanes"] == 128 * 64
     assert 2 * c["lanes"] <= c["lane_steps"] == c["active_lanes"]
+    assert 0 < c["march_steps"] < c["lane_steps"]
+    assert c["warp_steps"] <= c["active_lanes"] <= 32 * c["warp_steps"]
+
+
+def test_immediates_counting_build_takes_card_volpath_tables_only(
+        scene_dir, monkeypatch):
+    """The immediates volpath megakernel's counting build
+    (kernels.IMM_COUNT: mega_volpath with -DMEGA_COUNT=1) is a library of
+    its own with its own launch count and the counts' entry point, which
+    the variants' build leaves out; `mega_volpath_counts` refuses CPU
+    tables, and on a card Sobol tables and path tables."""
+    assert kernels.IMM_COUNT == "mega_volpath_count"
+    assert kernels.BUILDS[kernels.IMM_COUNT] \
+        == kernels.VARIANTS["mega_volpath"] + ("-DMEGA_COUNT=1",)
+    assert kernels.IMM_COUNT not in kernels.VARIANTS
+    assert kernels.launches[kernels.IMM_COUNT] == 0
+    assert set(kernels._ENTRY_POINTS[kernels.IMM_COUNT]) \
+        == {"mega_path_launch", "step_counts"}
+    tabs = M.device_tables(P.pack_tables(*buffers("fog", scene_dir, 8, 8)),
+                           "cpu")
+    assert kernels.variant(tabs) == "mega_volpath"
+    with pytest.raises(ValueError, match="mega_volpath_counts"):
+        kernels.mega_volpath_counts(tabs, 3, 1)
+    # the variant's refusals, as on a card
+    monkeypatch.setattr(kernels, "_cuda", lambda device, what: True)
+    for t in (dict(tabs, sobol=True), dict(tabs, volpath=False)):
+        with pytest.raises(ValueError, match="mega_volpath_counts"):
+            kernels.mega_volpath_counts(t, 3, 1)
+    assert kernels.launches[kernels.IMM_COUNT] == 0
+
+
+@pytest.mark.cuda
+def test_immediates_counting_build_on_card_counts_and_matches(tmp_path):
+    """On a CUDA card: the immediates counting build's launch on the fog
+    scene at 128x64 x 2 spp traces what the immediates volpath build
+    traces (the card's limits), with one lane per pixel, at least one
+    step per path, march steps among them and at most 32 lanes active per
+    warp step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    tabs = M.device_tables(P.pack_tables(*buffers("fog", tmp_path, 128,
+                                                  64)), "cuda")
+    assert kernels.variant(tabs) == "mega_volpath"
+    before = dict(kernels.launches)
+    out, c = kernels.mega_volpath_counts(tabs, 7, 2)
+    ref = kernels.mega_path(tabs, 7, 2)
+    torch.cuda.synchronize()
+    assert kernels.launches[kernels.IMM_COUNT] \
+        == before[kernels.IMM_COUNT] + 1
+    assert kernels.launches[kernels.COUNT] == before[kernels.COUNT]
+    checks.check_card(checks.agreement(out.cpu(), ref.cpu()),
+                      "immediates counting build, fog 128x64 x 2 spp")
+    assert c["lanes"] == 128 * 64
+    assert 2 * c["lanes"] <= c["lane_steps"]
     assert 0 < c["march_steps"] < c["lane_steps"]
     assert c["warp_steps"] <= c["active_lanes"] <= 32 * c["warp_steps"]
