@@ -83,7 +83,12 @@ when either is missing or any check fails. Phases:
     megakernel (the small mesh at 2 spp) and as whole waves (spw 4,
     `gather`; the small mesh also sorted by `dma`); then
     `fog_scene` with its media table zeroed, which must change the image
-    (the medium is in use);
+    (the medium is in use); then the benchmark's Cornell smoke scene
+    (port_bench/scenes/cornell_smoke.py) at the book's 600x600, whose
+    tables select the immediates build's queued instance (its march
+    queue, csrc/vol_queue.cuh; its counting build's march steps all from
+    the queue), at 2 spp under both samplers against the plain version
+    on a strided sample of ~131k lanes;
 17. the volpath main path through the CLI: `fog_mesh_scene` (the big
     mesh's geometry in a fog box, maxdepth 64) at 1280x720 x 16 spp with
     `--engine auto` and `--engine wave`, and `fog_scene` at the same film
@@ -100,7 +105,9 @@ when either is missing or any check fails. Phases:
     launches and sorts, lanes parking inside it) of the fog mesh's and
     the fog scene's waves at maxdepth 8, independent and Sobol, over the
     whole state, held against plain on ~131k sampled alive lanes as in
-    phase 12, and by the sample's radiance means;
+    phase 12, and by the sample's radiance means; the Cornell smoke
+    scene's 100-spp launch at 600x600 (the benchmark's chunk), timed
+    beside its bound;
 19. the Sobol probe (P-r3ac, `sobol_probe`): one launch on 2^22 int32
     inputs, its path, then bit for bit against its plain version, timed;
 20. the Sobol instances (`Sampler "sobol"`) against their plain versions on
@@ -296,6 +303,12 @@ BIG_MESH_CHECK_DEPTH = 6
 VOL_CHECK_DEPTH = 8
 VOL_SPP = 4
 VOL_MESH_SPP = 2
+# the benchmark's Cornell smoke scene (phases 16 and 18): its film, the
+# spp of its launches held against the plain version, and of its timed
+# launch (the benchmark's chunk)
+SMOKE_SIZE = 600
+SMOKE_CHECK_SPP = 2
+SMOKE_SPP = 100
 # the Sobol sampler: the probe's inputs and its integer operations per
 # input (counted in csrc/wave.cuh probe_lane, at the FP32 rate of OPS);
 # the reference's own test of the sampler (tests/test_pallas.py:615-667)
@@ -544,6 +557,91 @@ def events_ms(fn, reps=3):
         e1.synchronize()
         out.append(e0.elapsed_time(e1))
     return out
+
+
+def cornell_smoke_check(dev):
+    """Phase 16's Cornell smoke scene (port_bench/scenes/cornell_smoke.py)
+    at the book's SMOKE_SIZE square: its tables select the immediates
+    volpath build's queued instance (every march step of its counting
+    build's launch comes from the block's queue); under both samplers the
+    megakernel's SMOKE_CHECK_SPP launch against the plain version on a
+    strided sample of ~SAMPLE_LANES lanes, at the card's limits. Returns
+    the independent tables, the largest max_abs and the plain walk's
+    tests per ray (the independent one's)."""
+    import torch
+    from port_bench.scenes import cornell_smoke
+    from rene_tpu_torch import checks, kernels, scenes
+    from rene_tpu_torch.integrators import mega_path as M
+    src = cornell_smoke.scene(SMOKE_SIZE, SMOKE_SIZE)
+    res = {"max_abs": 0.0}
+    for smp in ("independent", "sobol"):
+        tabs = tables_for(write_scene(
+            f"cornell_smoke_{smp}",
+            scenes.with_sampler(src) if smp == "sobol" else src,
+            SCENE_DIR), dev)
+        if kernels.variant(tabs) != "mega_volpath" + (
+                kernels.SOBOL if smp == "sobol" else "") \
+                or tabs["lights"].shape[0] != 0:
+            raise RuntimeError(f"Cornell smoke ({smp}): runs "
+                               f"{kernels.variant(tabs)}")
+        if smp == "independent":
+            _, c = kernels.mega_volpath_counts(tabs, 7, 1)
+            log(f"Cornell smoke {SMOKE_SIZE}x{SMOKE_SIZE} x 1 spp, counting "
+                f"build: {json.dumps(c)}")
+            if not 0 < c["queued_steps"] == c["march_steps"]:
+                raise RuntimeError("Cornell smoke: its marches do not run "
+                                   "from the block's queue")
+            res["tabs"] = tabs
+        n = SMOKE_SIZE * SMOKE_SIZE
+        lanes = torch.arange(0, n, max(1, n // SAMPLE_LANES), device=dev)
+        seed = 4100000123
+        out = kernels.mega_path(tabs, seed, SMOKE_CHECK_SPP)
+        if not bool(torch.isfinite(out).all()):
+            raise RuntimeError(f"Cornell smoke ({smp}): kernel output is "
+                               f"not finite")
+        out = out.index_select(1, lanes)
+        torch.cuda.synchronize()
+        reset_counts()
+        t = time.time()
+        ref = M.path_lanes_ref(tabs, seed, SMOKE_CHECK_SPP, lanes=lanes)
+        torch.cuda.synchronize()
+        plain_s = time.time() - t
+        a = checks.agreement(out, ref)
+        what = (f"Cornell smoke {SMOKE_SIZE}x{SMOKE_SIZE} x "
+                f"{SMOKE_CHECK_SPP} spp, {smp}")
+        log(f"kernel vs plain ({what}, seed {seed}, {lanes.numel()} sampled "
+            f"lanes, plain {plain_s:.1f} s): " + json.dumps(a))
+        checks.check_card(a, what)
+        res["max_abs"] = max(res["max_abs"], a["max_abs"])
+        if smp == "independent":
+            res["plain_ms"] = plain_s * 1e3
+            res["sampled"] = lanes.numel()
+            res["tests"] = {k: v / a["rays_ref"]
+                            for k, v in plain_counts().items()}
+    return res
+
+
+def cornell_smoke_timing(chk, card):
+    """Phase 18's Cornell smoke launch: the SMOKE_SPP launch over the
+    whole film of `chk` (cornell_smoke_check's), CUDA events, the median
+    of five, beside its bound from the plain walk's tests per ray scaled
+    by the launch's rays. Returns (ms, bound)."""
+    import numpy as np
+    from rene_tpu_torch import kernels
+    tabs = chk["tabs"]
+    ms = float(np.median(events_ms(
+        lambda: kernels.mega_path(tabs, 11, SMOKE_SPP), 5)))
+    rays = float(kernels.mega_path(tabs, 11, SMOKE_SPP)[9].sum())
+    tests = {k: v * rays for k, v in chk["tests"].items()}
+    bnd = bound(moved_bytes(tabs, tests) + 10 * 4 * SMOKE_SIZE * SMOKE_SIZE,
+                cast_ops(tabs, rays, tests))
+    log(f"timing (Cornell smoke {SMOKE_SIZE}x{SMOKE_SIZE}, {SMOKE_SPP} spp, "
+        f"maxdepth {tabs['max_depth']}, the queued instance): kernel "
+        f"{ms:.3f} ms, {rays:.0f} nominal rays, "
+        f"{SMOKE_SIZE * SMOKE_SIZE * SMOKE_SPP / ms / 1e3:.1f} Msamples/s; "
+        f"bound {bnd[0]:.4f} ms ({bnd[1]}; plain walk tests per ray "
+        f"{json.dumps(chk['tests'])}) [{card}]")
+    return ms, bnd
 
 
 def within(a, b, tol):
@@ -1987,6 +2085,7 @@ def main() -> int:
             if a_off["rad_frac"] > 0.9:
                 raise RuntimeError(f"{name}: the media change nothing")
         del tabs
+    smoke = cornell_smoke_check(dev)
 
     phase_done(16)
 
@@ -2109,6 +2208,7 @@ def main() -> int:
         f"{r_fogw['rate'] / r_fog['rate']:.3f}); {v_fog['casts']:.3f} real "
         f"casts per nominal ray; 1-spp launch {v_fog['ms']:.3f} ms, first "
         f"K2 launch {k2_fog['ms']:.3f} ms [{card}]")
+    smoke_ms, smoke_bound = cornell_smoke_timing(smoke, card)
     for name in ("mega_volpath", "mega_volpath_mesh", "wave_volpath",
                  "wave_volpath_mesh"):
         lines = [ln.strip() for ln in kernels.ptxas.get(name, "").splitlines()
@@ -2739,11 +2839,16 @@ def main() -> int:
               f"launch (k 1); plain on {k2_tex['sampled']} sampled lanes"),
         entry("mega_volpath", "rene_tpu_torch/csrc/mega_lane.cuh",
               f"{pp_}:4572 (body_vol, with :3287-3430)", l_fs["mega_volpath"],
-              max([v_fs["err"]] + [m for acc, m, _ in a_vol.values()
-                                   if not acc]), v_fs["ms"],
-              v_fs["plain_ms"], v_fs["bound"], None,
+              max([v_fs["err"], smoke["max_abs"]]
+                  + [m for acc, m, _ in a_vol.values() if not acc]),
+              v_fs["ms"], v_fs["plain_ms"], v_fs["bound"], None,
               f"fog {MESH_W}x{MESH_H} x 1 spp; plain on {pix.numel()} "
-              f"sampled lanes of it at maxdepth {VOL_CHECK_DEPTH}"),
+              f"sampled lanes of it at maxdepth {VOL_CHECK_DEPTH}; its "
+              f"queued instance on the Cornell smoke scene at "
+              f"{SMOKE_SIZE}x{SMOKE_SIZE} x {SMOKE_SPP} spp {smoke_ms:.3f} "
+              f"ms, bound {smoke_bound[0]:.4f} ms ({smoke_bound[1]}), plain "
+              f"on {smoke['sampled']} sampled lanes at {SMOKE_CHECK_SPP} "
+              f"spp"),
         entry("mega_volpath_mesh", "rene_tpu_torch/csrc/mega_lane.cuh",
               f"{pp_}:4572 (body_vol, with :3287-3430)",
               l_fog["mega_volpath_mesh"],

@@ -82,17 +82,26 @@ __device__ __forceinline__ void stage_imm(const Scene& s) {
 }
 
 #ifdef __CUDACC__
-// kernel<<<blocks, 128 threads, the scene's cast rows, stream>>>(args),
-// the kernel first allowed that much shared memory where the rows pass
-// the default 48 KB (at most 52 KB, at the immediates caps)
+// kernel<<<blocks, 128 threads, the scene's cast rows and `extra` bytes
+// after them, stream>>>(args), the kernel first allowed that much shared
+// memory where it passes the default 48 KB (the rows take at most 52 KB,
+// at the immediates caps)
 template <typename... A>
-static void launch_staged(void (*kernel)(A...), const Scene& s, int blocks,
-                          cudaStream_t st, const A&... args) {
-  const size_t smem = IMM_BYTES(s);
+static void launch_staged_with(size_t extra, void (*kernel)(A...),
+                               const Scene& s, int blocks, cudaStream_t st,
+                               const A&... args) {
+  const size_t smem = IMM_BYTES(s) + extra;
   if (smem > 48 * 1024)
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)smem);
   kernel<<<blocks, 128, smem, st>>>(args...);
+}
+
+// the same with the cast rows alone
+template <typename... A>
+static void launch_staged(void (*kernel)(A...), const Scene& s, int blocks,
+                          cudaStream_t st, const A&... args) {
+  launch_staged_with(0, kernel, s, blocks, st, args...);
 }
 #endif
 

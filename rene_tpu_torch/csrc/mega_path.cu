@@ -38,10 +38,17 @@
 // walk walk together and the march is no real call (no spills at a call
 // boundary, one inlined copy of the walk); a lane whose bounce is due
 // waits while a lane of its warp marches, so that the warp shades its
-// bounces together (vol_loop.cuh step_now). -DMEGA_COUNT=1 (with
-// MEGA_VOL) builds the same loop with step counts (vol_loop.cuh
-// StepCounts, read by its entry point step_counts) for the probe and the
-// benchmark's traced runs, on no render path.
+// bounces together (vol_loop.cuh step_now). On immediates with emitters
+// and without distant lights (mega_lane.cuh vol_queues) a bounce marches
+// only at a scatter point toward the emitters, so a march step carried a
+// few lanes of 32; there the immediates build launches its QUEUE instance: a lane
+// puts its marches in a queue in the block's shared memory
+// (vol_queue.cuh) and goes on with its path, and warps of the block run
+// queued marches 32 at a time (mega_lane.cuh vol_warp_step), the lane
+// adding their sums in its own order. -DMEGA_COUNT=1 (with MEGA_VOL)
+// builds the same loops with step counts (vol_loop.cuh StepCounts, read
+// by its entry point step_counts) for the probe and the benchmark's
+// traced runs, on no render path.
 //
 // Design. One thread owns one pixel and streams `num_samples` paths back
 // to back, regenerating a camera ray when a path ends: camera ray,
@@ -133,20 +140,45 @@
 // 283.031 ms, the fog scene's at 6 / 7 / 8 / 9 / 12 / 16 108.848 /
 // 103.063 / 99.375 / 95.108 / 92.959 / 91.310
 #define VOL_MIN_BLOCKS (MEGA_MESH ? 10 : 16)
+// the immediates volpath instance that marches through the block's queue
+// (vol_queue.cuh, 11,424 bytes of shared memory a block beside the cast
+// rows): six blocks (80 registers, 400-528 bytes of spill stores), where
+// the inline loop wanted every block an SM holds; its bookkeeping lives
+// across the cast, and fewer, fatter threads spill less. Swept in turns
+// on the Cornell smoke scene's 100-spp launch at 600x600 (NVIDIA H100
+// 80GB HBM3, 700.00 W, CUDA events, medians; PERF.md section 6) at two
+// queue slots a lane: 4 / 6 / 8 / 10 / 12 / 16 blocks 50.64 / 45.77 /
+// 49.14 / 61.47 / 60.98 / 78.11 ms (the inline loop at 16: 88.06)
+#define VOL_QUEUE_MIN_BLOCKS 6
 
 // TEX: the instance for scenes that run texture code (Scene::tex); the
 // other holds none (path.cuh without_tex)
 #if MEGA_VOL
-template <bool MESH, bool SOBOL, bool TEX>
-__global__ void __launch_bounds__(128, VOL_MIN_BLOCKS)
+// QUEUE: the instance that marches through the block's queue (every
+// thread of the block runs the queued loop, mega_lane.cuh vol_warp_step),
+// for the scenes of vol_queues; the other marches inline (vol_lane)
+template <bool MESH, bool SOBOL, bool TEX, bool QUEUE>
+__global__ void __launch_bounds__(128, QUEUE ? VOL_QUEUE_MIN_BLOCKS
+                                             : VOL_MIN_BLOCKS)
 mega_volpath_kernel(const __grid_constant__ Params p) {
-  stage_imm(p.s);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < p.n_lanes) {
+  if constexpr (QUEUE) {
+    MarchQueue& q = march_queue(p.s);
+    queue_init(q, threadIdx.x);
+    stage_imm(p.s);  // its barrier ends the queue's start too
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if constexpr (TEX)
-      trace_lane<MESH, true, SOBOL>(p, lane_of(p, i));
+      vol_queue_lane<MESH, SOBOL>(p, i, q);
     else
-      trace_lane<MESH, true, SOBOL>(without_tex(p), lane_of(p, i));
+      vol_queue_lane<MESH, SOBOL>(without_tex(p), i, q);
+  } else {
+    stage_imm(p.s);
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < p.n_lanes) {
+      if constexpr (TEX)
+        trace_lane<MESH, true, SOBOL>(p, lane_of(p, i));
+      else
+        trace_lane<MESH, true, SOBOL>(without_tex(p), lane_of(p, i));
+    }
   }
 }
 #else
@@ -179,11 +211,21 @@ mega_path_kernel(const Params p) {
 }
 #endif
 
-// this build's kernel instance (SOBOL, TEX) over `blocks` blocks
+// this build's kernel instance (SOBOL, TEX) over `blocks` blocks; in a
+// volpath build, the one that marches through the block's queue where
+// the scene's tables ask for it (mega_lane.cuh vol_queues)
 template <bool SOBOL, bool TEX>
 static void launch_lanes(const Params& p, int blocks, cudaStream_t st) {
-#if MEGA_VOL
-  launch_staged(mega_volpath_kernel<MEGA_MESH != 0, SOBOL, TEX>, p.s, blocks,
+#if MEGA_VOL && !MEGA_MESH
+  if (vol_queues<false>(p.s))
+    launch_staged_with(sizeof(MarchQueue),
+                       mega_volpath_kernel<false, SOBOL, TEX, true>, p.s,
+                       blocks, st, p);
+  else
+    launch_staged(mega_volpath_kernel<false, SOBOL, TEX, false>, p.s, blocks,
+                  st, p);
+#elif MEGA_VOL
+  launch_staged(mega_volpath_kernel<true, SOBOL, TEX, false>, p.s, blocks,
                 st, p);
 #else
   launch_staged(mega_path_kernel<MEGA_MESH != 0, SOBOL, TEX>, p.s, blocks, st,

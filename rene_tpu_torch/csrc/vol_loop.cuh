@@ -13,9 +13,11 @@
 // bounce is due waits for the warp's marches (step_now), so that the warp
 // shades together. The draws, casts and sums are a bounce's, in its
 // order: a cast draws nothing, so drawing at shade time, after the cast,
-// keeps the stream's sequence. Plain C++ apart from the CUDA qualifiers
-// and intrinsics, so tests/test_torch_kernel_source.py compiles it with
-// g++ too.
+// keeps the stream's sequence. The megakernel's queued loop
+// (mega_lane.cuh vol_warp_step) shades with a copy of the step's shade
+// half (vol_bounce). Plain C++ apart from the CUDA qualifiers and
+// intrinsics, so tests/test_torch_kernel_source.py compiles it with g++
+// too.
 #pragma once
 #include <stdint.h>
 
@@ -24,23 +26,33 @@
 // Counts of the volpath lane loop's steps, kept only by the -DMEGA_COUNT=1
 // builds (`mega_volpath_mesh_count`, `mega_volpath_count`,
 // `wave_volpath_mesh_count`, on no render path): at the cast site, each
-// warp's leader lane adds the lanes active there, __popc(__activemask()),
-// and one warp step; each thread counts its steps, those that were march
-// segments, and the lanes it ran. The sums go to vol_counts at the
-// thread's end: active lanes, warp steps, lane steps, march steps, lanes.
-#define N_VOL_COUNTS 5
+// warp's leader lane adds the lanes active there and one warp step; each
+// thread counts its steps, those that were march segments, those of them
+// it ran from the block's march queue (vol_queue.cuh), and the lanes it
+// ran. The sums go to vol_counts at the thread's end: active lanes, warp
+// steps, lane steps, march steps, lanes, queued steps (0 in the loops
+// that march inline).
+#define N_VOL_COUNTS 6
 #if defined(MEGA_COUNT) && MEGA_COUNT
 __device__ unsigned long long vol_counts[N_VOL_COUNTS];
 struct StepCounts {
-  uint32_t active = 0, warp_steps = 0, steps = 0, march = 0, lanes = 0;
+  uint32_t active = 0, warp_steps = 0, steps = 0, march = 0, lanes = 0,
+           queued = 0;
+  // a step of the inline loop, among the lanes active here
   __device__ __forceinline__ void step(bool marching) {
-    const unsigned am = __activemask();
-    if ((threadIdx.x & 31u) == (unsigned)(__ffs(am) - 1)) {
-      active += (uint32_t)__popc(am);
+    at(__activemask(), marching, false);
+  }
+  // a step of the lanes of the warp's ballot `act`; `queued`: a segment of
+  // a march from the block's queue
+  __device__ __forceinline__ void at(unsigned act, bool marching,
+                                     bool queued_) {
+    if ((threadIdx.x & 31u) == (unsigned)(__ffs(act) - 1)) {
+      active += (uint32_t)__popc(act);
       warp_steps += 1u;
     }
     steps += 1u;
     march += marching ? 1u : 0u;
+    queued += queued_ ? 1u : 0u;
   }
   __device__ __forceinline__ void lane() { lanes += 1u; }
   __device__ __forceinline__ void flush() {
@@ -49,6 +61,7 @@ struct StepCounts {
     atomicAdd(&vol_counts[2], (unsigned long long)steps);
     atomicAdd(&vol_counts[3], (unsigned long long)march);
     atomicAdd(&vol_counts[4], (unsigned long long)lanes);
+    atomicAdd(&vol_counts[5], (unsigned long long)queued);
   }
 };
 
@@ -69,6 +82,7 @@ extern "C" int step_counts(void* out, int reset, void* stream) {
 #else
 struct StepCounts {
   __device__ __forceinline__ void step(bool) {}
+  __device__ __forceinline__ void at(unsigned, bool, bool) {}
   __device__ __forceinline__ void lane() {}
   __device__ __forceinline__ void flush() {}
 };
@@ -118,6 +132,42 @@ __device__ __forceinline__ void vol_loop_start(VolLoop& v, V3 o, V3 d,
 // whether the loop's next step is a march segment
 __device__ __forceinline__ bool vol_marching(const VolLoop& v) {
   return v.q < v.e.n_march;
+}
+
+// The shade half of a bounce step of the megakernel's queued loop
+// (mega_lane.cuh vol_warp_step), after the cast of the path ray (o, d)
+// with throughput thr in medium med gave h: the bounce's draws (at(): the
+// Sobol pairs' sample index, pixel key and depth, taken here, after the
+// cast), vol_shade, which queues its NEE marches in v.e, and the next ray
+// in place of (o, d); rays grows by ray_inc, the sums rad, an, aa as the
+// bounce adds to them. v.alive is then the bounce's verdict before the
+// depth cut, v.cj1 and v.cj2 its camera draws, v.q 0. vol_step keeps its
+// own copy of these lines: called from there, this function changed the
+// SASS of the inline loop's builds (3,016 of the textured mesh instance's
+// 16,976 instructions; PERF.md section 6).
+template <bool MESH, bool SOBOL, class At>
+__device__ __forceinline__ void vol_bounce(const Scene& s, const Media& md,
+                                           bool beck, VolLoop& v,
+                                           const Hit& h, V3& o, V3& d,
+                                           float* thr, float& med,
+                                           float& rays, float ray_inc,
+                                           uint32_t& st, const At& at,
+                                           float* rad, float* an,
+                                           float* aa) {
+  rays = rays + ray_inc;
+  const SobolAt a = at();
+  const VolDraws u = draw_bounce_vol<SOBOL>(s, st, a);
+  const VolStep b = vol_shade<MESH>(s, md, beck, o, d, thr, med,
+                                    a.depth == 0u, h, u, rad, an, aa, v.e);
+  // the next ray now; the march origin is its origin
+  v.alive = b.alive;
+  o = b.o;
+  d = b.d;
+  for (int c = 0; c < 3; ++c) thr[c] = b.c[c];
+  med = b.med;
+  v.cj1 = b.cj1;
+  v.cj2 = b.cj2;
+  v.q = 0;
 }
 
 // One step of the loop: the one cast, of the march segment where

@@ -130,9 +130,11 @@ TEX_KEYS = tuple(f"fetch_{c}" for c in P.IMG_CLASSES) + (
 # lanes
 PATH_KEYS = ("trace_cycles", "emit_pdf_cycles", "bsdf_cycles", "draw_cycles",
              "lane_cycles", "lane_bounces", "warp_bounce_slots", "lanes")
-# what their counts hold (csrc/vol_loop.cuh StepCounts), in their C order
+# what their counts hold (csrc/vol_loop.cuh StepCounts), in their C order;
+# queued_steps: the march segments run from the block's march queue
+# (csrc/vol_queue.cuh), 0 in K2
 COUNT_KEYS = ("active_lanes", "warp_steps", "lane_steps", "march_steps",
-              "lanes")
+              "lanes", "queued_steps")
 # what K2's path lane loop counts hold (csrc/path_loop.cuh PathCounts), in
 # their C order: the lanes active at the cast site summed over each warp's
 # casts, the warp casts, the lanes' closest and shadow casts, the distant
@@ -155,7 +157,9 @@ MAX_LANES = 1 << 31   # the megakernel's lane ids and count are C ints
 # the shared memory of the immediates' cast rows, which every kernel copies
 # in at its start (csrc/intersect.cuh stage_imm): at most the rows of the
 # immediates caps, 52 KB, which leaves four 128-thread blocks on an SM of
-# the card's 228 KB (227 KB a block at most)
+# the card's 228 KB (227 KB a block at most); the immediates volpath
+# build's queued instance adds its march queue after them (11,424 bytes,
+# csrc/vol_queue.cuh)
 IMM_SMEM_MAX = (P.MAX_TRIS * P.IMM_TRI_W + P.MAX_SPHERES * P.IMM_SPH_W) * 4
 SMEM_PER_BLOCK = 227 * 1024
 # launches of each kernel instance; wave_genesis, wave_permute and

@@ -78,7 +78,9 @@ each copy that has the counting build, its step counts on the fog mesh
 (`step_counts`) and its K2 counts per launch of the fog mesh's wave.
 The launches (`COMPARE_LAUNCHES`): the volpath megakernel's at 1280x720
 (the fog mesh at maxdepth 64 at 1 and 16 spp and at pack 4, the fog
-scene at 1 and 16 spp, the Sobol 1-spp launches of both), the first K2
+scene at 1 and 16 spp, the Sobol 1-spp launches of both, the env-lit fog
+scene at 16 spp, which has no distant light and so marches through the
+immediates build's block queue), the first K2
 launch of each volpath wave (independent and Sobol), the 1-spp launches
 of the megakernel's two path builds and the first K2 launches of the
 Cornell box's and the big mesh's waves; then the whole 16-spp waves of
@@ -152,6 +154,7 @@ COMPARE_LAUNCHES = (
     ("fog_mesh pack 4", "fog_mesh", 1, 4, "independent"),
     ("fog 1 spp", "fog", 1, 1, "independent"),
     ("fog 16 spp", "fog", 16, 1, "independent"),
+    ("fog_env 16 spp", "fog_env", 16, 1, "independent"),
     ("fog_mesh sobol 1 spp", "fog_mesh", 1, 1, "sobol"),
     ("fog sobol 1 spp", "fog", 1, 1, "sobol"),
     ("fog_mesh K2 first", "fog_mesh", "k2", 1, "independent"),
@@ -173,6 +176,7 @@ COMPARE_LAUNCHES = (
 # the libraries of each scene's megakernel and K2 (kernels.variant)
 SCENE_LIBS = {"cornell": ("mega_path", "wave_path"),
               "fog": ("mega_volpath", "wave_volpath"),
+              "fog_env": ("mega_volpath", "wave_volpath"),
               "fog_mesh": ("mega_volpath_mesh", "wave_volpath_mesh")}
 SCENE_LIBS.update({k: ("mega_path_mesh", "wave_path_mesh") for k in (
     "big_mesh", "deep_mesh", "textured_mesh", "textured_deep")})
@@ -556,6 +560,8 @@ def main_scene(scene: str, depth, sampler: str) -> str:
             {"maxdepth": depth} if depth else {}))
     elif scene == "fog":
         src = scenes.fog_scene(w, h)
+    elif scene == "fog_env":
+        src = scenes.fog_env_scene(SCENE_DIR, w, h)
     else:
         src = SCENES[scene][0](SCENE_DIR, w, h)
     path = os.path.join(SCENE_DIR, f"main_{scene}_{depth}_{sampler}.pbrt")

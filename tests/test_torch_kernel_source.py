@@ -49,21 +49,93 @@ static inline uint32_t __float_as_uint(float f) {
 #include "mega_lane.cuh"
 // the lanes run one after another, the path body or, where the includer
 // defines LANE_VOL true, the volpath body; the Sobol instance where the
-// parameters ask for it
+// parameters ask for it. Where the kernel marches through the block's
+// queue (vol_queues), or `host_mode` 2 asks for it, the volpath lanes run
+// block by block, the four warps of a block stepped (vol_warp_step) in
+// the order `host_order` picks, each warp's 32 lanes one after another
+// (HostWarp); `host_mode` 1 runs vol_lane's inline loop everywhere.
 #ifndef LANE_VOL
 #define LANE_VOL false
 #endif
-template <bool SOBOL>
-static void run_all(const Params& p) {
-  for (int i = 0; i < p.n_lanes; ++i) {
-    if (p.has_accel) trace_lane<true, LANE_VOL, SOBOL>(p, lane_of(p, i));
-    else trace_lane<false, LANE_VOL, SOBOL>(p, lane_of(p, i));
+static int host_mode = 0, host_order = 0;  // order: 0 in turn, 1 reversed,
+                                           // 2 drawn
+extern "C" void host_loop(int mode, int order) {
+  host_mode = mode;
+  host_order = order;
+}
+struct HostWarp {
+  QLane* L;  // the warp's 32 lanes
+  int base;  // the first's threadIdx.x
+  int warp() const { return base / 32; }
+  template <class F> void each(const F& f) {
+    for (int k = 0; k < 32; ++k) f(L[k], base + k);
   }
+  template <class F> uint32_t ballot(const F& f) {
+    uint32_t m = 0u;
+    for (int k = 0; k < 32; ++k)
+      if (f(L[k], base + k)) m |= 1u << k;
+    return m;
+  }
+  template <class F> uint32_t once(const F& f) { return f(); }
+  void idle() {}
+};
+// a block's warp steps at most: past it, a march that never comes back
+// (the launch fails rather than spin)
+#define HOST_STEPS (1 << 20)
+template <bool MESH, bool SOBOL>
+static int run_queued(const Params& p) {
+  static MarchQueue q;
+  static QLane L[QUEUE_LANES];
+  for (int b0 = 0; b0 < p.n_lanes; b0 += QUEUE_LANES) {
+    for (int t = 0; t < QUEUE_LANES; ++t) {
+      queue_init(q, t);
+      qlane_begin<SOBOL>(p, b0 + t, L[t]);
+    }
+    const int nw = QUEUE_LANES / 32;  // the block's warps
+    HostWarp w[nw];
+    bool on[nw];
+    for (int k = 0; k < nw; ++k) {
+      w[k] = HostWarp{L + 32 * k, 32 * k};
+      on[k] = true;
+    }
+    uint32_t draw = 12345u + (uint32_t)b0;
+    int steps = 0;
+    for (int left = nw; left > 0;)
+      for (int k = 0; k < nw; ++k) {
+        if (++steps > HOST_STEPS) return 1;
+        int wk = host_order == 1 ? nw - 1 - k : k;
+        if (host_order == 2) {
+          draw = draw * 1664525u + 1013904223u;
+          wk = (int)((draw >> 16) % nw);
+        }
+        if (on[wk] && !vol_warp_step<MESH, SOBOL>(p, q, w[wk])) {
+          on[wk] = false;
+          --left;
+        }
+      }
+    for (int t = 0; t < QUEUE_LANES; ++t) {
+      float rad[3];
+      qlane_sums(L[t], rad);
+      if (L[t].live)
+        write_sums(p, lane_of(p, b0 + t), rad, L[t].an, L[t].aa,
+                   L[t].rays);
+    }
+  }
+  return 0;
+}
+template <bool MESH, bool SOBOL>
+static int run_all(const Params& p) {
+  if constexpr (LANE_VOL)
+    if (host_mode == 2 || (host_mode == 0 && vol_queues<MESH>(p.s)))
+      return run_queued<MESH, SOBOL>(p);
+  for (int i = 0; i < p.n_lanes; ++i)
+    trace_lane<MESH, LANE_VOL, SOBOL>(p, lane_of(p, i));
+  return 0;
 }
 static int run_lanes(const Params& p, void*) {
-  if (p.sobol) run_all<true>(p);
-  else run_all<false>(p);
-  return 0;
+  if (p.has_accel)
+    return p.sobol ? run_all<true, true>(p) : run_all<true, false>(p);
+  return p.sobol ? run_all<false, true>(p) : run_all<false, false>(p);
 }
 #include "launch.cuh"
 // lane_start of n lane ids: (pixel, stream state, Sobol key) each
@@ -271,6 +343,8 @@ def vol_lib(tmp_path_factory):
     lib = _gxx(tmp_path_factory, "host_volpath", VOL_HARNESS)
     lib.mega_path_launch.argtypes = kernels.ARGTYPES
     lib.mega_path_launch.restype = ctypes.c_int
+    lib.host_loop.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.host_loop.restype = None
     return lib
 
 
@@ -354,6 +428,69 @@ def test_cuda_volpath_lane_loop_matches_plain_version_at_full_depth(
     assert a["aov_frac"] >= 0.995, a
     assert a["mean_rel"] <= 1e-4, a
     assert abs(out[9].sum() - ref[9].sum()) <= 1e-3 * ref[9].sum()
+
+
+# the march queue's scenes: (name, width, height, sampler); the Cornell
+# smoke scene is one the kernel runs through the queue (mega_lane.cuh
+# vol_queues); the others run it here alone: the fog scene marches at
+# every bounce, the nested boundaries' scatter points queue three marches,
+# the emitter's last (the mesh walk; at maxdepth 4), and 16x9 leaves the
+# second block 16 lanes of 128. Under `Sampler "sobol"` the queued loop
+# takes a bounce's Sobol index after its marches went out and draws the
+# next camera ray after the last one's put
+QUEUED = [("smoke", 16, 8, "independent"), ("fog", 16, 8, "independent"),
+          ("nested", 16, 9, "independent"), ("smoke", 16, 8, "sobol"),
+          ("nested", 16, 9, "sobol")]
+
+
+@pytest.mark.parametrize("name,w,h,sampler", QUEUED)
+def test_cuda_volpath_march_queue_matches_plain_version(vol_lib, tmp_path,
+                                                        name, w, h, sampler):
+    """The queued volpath loop (csrc/mega_lane.cuh vol_warp_step over the
+    block's march queue, csrc/vol_queue.cuh) with g++ at w x h x 2 spp,
+    each block's four warps stepped in turn, in reverse and in a drawn
+    order (the harness's HostWarp): the same sums bit for bit whichever
+    warp runs a march and when it ends, since each lane adds its NEE sums
+    in its own order. Against vol_lanes_ref as tightly as the inline loop
+    (vol_lane), by the per-pixel rule of the lanes above, ray totals and
+    the normal and albedo sums (which no march touches) the inline loop's
+    bit for bit, the radiance within rounding; both samplers."""
+    from rene_tpu_torch.integrators import volpath as V
+    from .test_torch_volpath import SCENES as VOL_SCENES
+    src = (scenes.nested_fog_scene(w, h, 4) if name == "nested"
+           else VOL_SCENES[name][1](w, h, tmp_path))
+    if sampler == "sobol":
+        src = scenes.with_sampler(src)
+    bn, cfg = build_device_scene(create_scene(parse_pbrt(src),
+                                              str(tmp_path)))
+    tabs = M.device_tables(P.pack_tables(bn, cfg), "cpu")
+    assert tabs["volpath"] and tabs["has_accel"] == (name == "nested")
+    assert tabs["sobol"] == (sampler == "sobol")
+    assert (tabs["lights"].shape[0] == 0) == (name == "smoke")
+    outs = []
+    try:
+        for mode, order in ((1, 0), (2, 0), (2, 1), (2, 2), (0, 2)):
+            vol_lib.host_loop(mode, order)
+            out = torch.empty((P.OUT_ROWS, w * h), dtype=torch.float32)
+            assert vol_lib.mega_path_launch(*kernels.launch_args(
+                tabs, 99, 2, False, out), None) == 0
+            outs.append(out.numpy())
+    finally:
+        vol_lib.host_loop(0, 0)
+    inline, queued = outs[0], outs[1]
+    for out in outs[2:4]:
+        assert np.array_equal(out, queued)
+    # as the kernel runs it: the smoke scene through the queue
+    assert np.array_equal(outs[4], queued if name == "smoke" else inline)
+    assert np.array_equal(queued[3:], inline[3:])
+    ref = V.vol_lanes_ref(tabs, 99, 2).numpy()
+    for out in (inline, queued):
+        a = checks.agreement(out, ref)
+        assert a["rad_frac"] >= 0.995, a
+        assert a["aov_frac"] >= 0.995, a
+        assert a["mean_rel"] <= 1e-4, a
+        assert out[9].sum() == ref[9].sum()
+    np.testing.assert_allclose(queued[:3], inline[:3], rtol=1e-5, atol=1e-7)
 
 
 WAVE_HARNESS = r"""

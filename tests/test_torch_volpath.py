@@ -343,15 +343,18 @@ def test_immediates_counting_build_takes_card_volpath_tables_only(
 
 
 @pytest.mark.cuda
-def test_immediates_counting_build_on_card_counts_and_matches(tmp_path):
+@pytest.mark.parametrize("name", ["fog", "smoke"])
+def test_immediates_counting_build_on_card_counts_and_matches(tmp_path,
+                                                              name):
     """On a CUDA card: the immediates counting build's launch on the fog
-    scene at 128x64 x 2 spp traces what the immediates volpath build
-    traces (the card's limits), with one lane per pixel, at least one
-    step per path, march steps among them and at most 32 lanes active per
-    warp step."""
+    scene (its marches inline) and on the Cornell smoke scene (through the
+    block's march queue, csrc/vol_queue.cuh) at 128x64 x 2 spp traces what
+    the immediates volpath build traces (the card's limits), with one lane
+    per pixel, at least one step per path, march steps among them, at most
+    32 lanes active per warp step, and the march steps from the queue."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
-    tabs = M.device_tables(P.pack_tables(*buffers("fog", tmp_path, 128,
+    tabs = M.device_tables(P.pack_tables(*buffers(name, tmp_path, 128,
                                                   64)), "cuda")
     assert kernels.variant(tabs) == "mega_volpath"
     before = dict(kernels.launches)
@@ -362,8 +365,54 @@ def test_immediates_counting_build_on_card_counts_and_matches(tmp_path):
         == before[kernels.IMM_COUNT] + 1
     assert kernels.launches[kernels.COUNT] == before[kernels.COUNT]
     checks.check_card(checks.agreement(out.cpu(), ref.cpu()),
-                      "immediates counting build, fog 128x64 x 2 spp")
+                      f"immediates counting build, {name} 128x64 x 2 spp")
     assert c["lanes"] == 128 * 64
     assert 2 * c["lanes"] <= c["lane_steps"]
     assert 0 < c["march_steps"] < c["lane_steps"]
     assert c["warp_steps"] <= c["active_lanes"] <= 32 * c["warp_steps"]
+    if name == "smoke":
+        assert 0 < c["queued_steps"] <= c["march_steps"]
+    else:
+        assert c["queued_steps"] == 0
+
+
+@pytest.mark.cuda
+def test_queued_kernel_on_card_is_the_same_run_to_run(tmp_path):
+    """On a CUDA card: the immediates volpath megakernel on the Cornell
+    smoke scene, whose marches run from the block's queue
+    (csrc/vol_queue.cuh) on whichever warp takes them, gives the same sums
+    bit for bit in two launches of one seed at 128x64 x 4 spp."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    tabs = M.device_tables(P.pack_tables(*buffers("smoke", tmp_path, 128,
+                                                  64)), "cuda")
+    assert kernels.variant(tabs) == "mega_volpath"
+    assert tabs["lights"].shape[0] == 0
+    a = kernels.mega_path(tabs, 4100000123, 4)
+    b = kernels.mega_path(tabs, 4100000123, 4)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert float(a[9].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["smoke", "fog_env"])
+def test_queued_sobol_kernel_on_card_matches_plain_version(tmp_path, name):
+    """On a CUDA card: the Sobol instances of the immediates volpath
+    megakernel that march through the block's queue (the Cornell smoke
+    scene without texture code, the env-lit fog scene with it: neither
+    has a distant light) against their plain version at 128x64 x 4 spp,
+    at the card's limits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    (_, make) = SCENES[name]
+    src = scenes.with_sampler(make(128, 64, tmp_path))
+    tabs = M.device_tables(P.pack_tables(*build_device_scene(create_scene(
+        parse_pbrt(src), str(tmp_path)))), "cuda")
+    assert kernels.variant(tabs) == "mega_volpath" + kernels.SOBOL
+    assert tabs["lights"].shape[0] == 0
+    out = kernels.mega_path(tabs, 1234567, 4)
+    ref = V.vol_lanes_ref(dict(tabs), 1234567, 4)
+    torch.cuda.synchronize()
+    checks.check_card(checks.agreement(out.cpu(), ref.cpu()),
+                      f"{name} 128x64 x 4 spp, Sobol")
